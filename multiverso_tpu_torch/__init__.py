@@ -1,0 +1,28 @@
+"""multiverso_tpu_torch: the PyTorch/CUDA port of ``multiverso_tpu``.
+
+Parameter tables with server-side updaters on one ``torch.device``, the
+shared-parameter delta sync, and the transformer LM forward pass whose
+attention is a hand-written CUDA kernel (``csrc/flash_fwd.cu``).
+
+Entry points run on the card: ``init()`` resolves the device to ``cuda``
+and raises if there is none, unless the caller passes ``device="cpu"``.
+This package imports neither ``jax`` nor ``multiverso_tpu``.
+"""
+
+from multiverso_tpu_torch.api import (barrier, create_table, device, init,
+                                      is_master_worker, num_servers,
+                                      num_workers, rank, server_id, shutdown,
+                                      size, worker_id)
+from multiverso_tpu_torch.sharedvar import SharedPytree
+from multiverso_tpu_torch.tables import ArrayTable, ArrayTableOption
+from multiverso_tpu_torch.updaters import AddOption, get_updater, register_updater
+from multiverso_tpu_torch.utils import config, log
+from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
+
+__all__ = [
+    "AddOption", "ArrayTable", "ArrayTableOption", "Dashboard",
+    "SharedPytree", "barrier", "config", "create_table", "device",
+    "get_updater", "init", "is_master_worker", "log", "monitor",
+    "num_servers", "num_workers", "rank", "register_updater",
+    "server_id", "shutdown", "size", "worker_id",
+]

@@ -1,0 +1,159 @@
+"""Typed flag registry (port of ``multiverso_tpu/utils/config.py``).
+
+``define_*`` registers a typed flag with a default and help string,
+``parse_cmd_flags`` consumes ``-key=value`` argv entries (compacting argv,
+as the reference Multiverso does), and ``set_flag`` is the programmatic
+override used by ``api.init``. Types: bool, int, float, str.
+
+Only the flags the port reads are defined here; the rest of the JAX
+package's inventory arrives with the modules that read them.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+_TRUE_STRINGS = frozenset({"true", "1", "yes", "on"})
+_FALSE_STRINGS = frozenset({"false", "0", "no", "off"})
+
+
+@dataclass
+class _Flag:
+    name: str
+    value: Any
+    default: Any
+    type: type
+    help: str
+
+
+_registry: Dict[str, _Flag] = {}
+_lock = threading.RLock()
+
+
+class FlagError(KeyError):
+    """Raised for unknown flags or bad flag values."""
+
+
+def _define(name: str, default: Any, ftype: type, help: str) -> None:
+    with _lock:
+        if name in _registry and _registry[name].type is not ftype:
+            raise FlagError(
+                f"flag {name!r} redefined with different type "
+                f"({_registry[name].type.__name__} -> {ftype.__name__})"
+            )
+        _registry[name] = _Flag(name, default, default, ftype, help)
+
+
+def define_bool(name: str, default: bool, help: str = "") -> None:
+    _define(name, bool(default), bool, help)
+
+
+def define_int(name: str, default: int, help: str = "") -> None:
+    _define(name, int(default), int, help)
+
+
+def define_float(name: str, default: float, help: str = "") -> None:
+    _define(name, float(default), float, help)
+
+
+def define_string(name: str, default: str, help: str = "") -> None:
+    _define(name, str(default), str, help)
+
+
+def _coerce(flag: _Flag, value: Any) -> Any:
+    if flag.type is bool:
+        if isinstance(value, bool):
+            return value
+        s = str(value).strip().lower()
+        if s in _TRUE_STRINGS:
+            return True
+        if s in _FALSE_STRINGS:
+            return False
+        raise FlagError(f"bad boolean value {value!r} for flag {flag.name!r}")
+    try:
+        return flag.type(value)
+    except (TypeError, ValueError) as e:
+        raise FlagError(
+            f"bad {flag.type.__name__} value {value!r} for flag {flag.name!r}"
+        ) from e
+
+
+def get_flag(name: str) -> Any:
+    with _lock:
+        try:
+            return _registry[name].value
+        except KeyError:
+            raise FlagError(f"unknown flag {name!r}") from None
+
+
+def set_flag(name: str, value: Any) -> None:
+    """Programmatic override (ref SetCMDFlag)."""
+    with _lock:
+        try:
+            flag = _registry[name]
+        except KeyError:
+            raise FlagError(f"unknown flag {name!r}") from None
+        flag.value = _coerce(flag, value)
+
+
+def has_flag(name: str) -> bool:
+    with _lock:
+        return name in _registry
+
+
+def reset_flags() -> None:
+    """Reset every flag to its default (test isolation helper)."""
+    with _lock:
+        for flag in _registry.values():
+            flag.value = flag.default
+
+
+def flags() -> Dict[str, Any]:
+    """Snapshot of the current flag values."""
+    with _lock:
+        return {name: f.value for name, f in _registry.items()}
+
+
+def parse_cmd_flags(argv: Optional[List[str]] = None) -> List[str]:
+    """Consume ``-key=value`` entries from ``argv``; return the remainder.
+
+    Recognized flags are removed, everything else is kept in order.
+    Unknown ``-key=value`` entries are kept (the reference warns and keeps
+    them too).
+    """
+    if argv is None:
+        return []
+    remainder: List[str] = []
+    for arg in argv:
+        matched = False
+        if arg.startswith("-") and "=" in arg:
+            body = arg.lstrip("-")
+            key, _, value = body.partition("=")
+            with _lock:
+                if key in _registry:
+                    flag = _registry[key]
+                    flag.value = _coerce(flag, value)
+                    matched = True
+        if not matched:
+            remainder.append(arg)
+    return remainder
+
+
+# ---------------------------------------------------------------------------
+# Flags read by this package (names, types and defaults as in the JAX
+# package, plus ``device``).
+# ---------------------------------------------------------------------------
+define_string("updater_type", "default", "server-side updater: "
+              "default|sgd|momentum_sgd|adagrad|adam|ftrl")
+define_int("num_workers", 0, "logical workers; 0 = one per process")
+define_string("log_level", "info", "debug|info|error|fatal")
+define_string("log_file", "", "optional log file path ('' = stdout only)")
+define_bool("log_jsonl", False,
+            "write the log FILE as structured JSONL (ts/mono/level/rank/"
+            "name/msg); console output stays text")
+define_bool("dashboard", True, "collect Monitor timings and display at shutdown")
+define_string("device", "",
+              "torch device the tables and models live on: '' = cuda "
+              "(the card), or an explicit device such as 'cpu' or 'cuda:1'")
