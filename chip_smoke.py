@@ -5,16 +5,22 @@ Phases, every one on every run, in this order:
 
 1. build    compile every CUDA kernel from ``multiverso_tpu_torch/csrc``
             into ``build/torch_kernels/`` (one nvcc per source, in parallel)
-2. kernel   each kernel against its plain PyTorch version on the card, at
-            the main path's shape and at small edge shapes, plus CUDA-event
-            times of the kernel, the plain version and the library call
+2. kernel   each kernel (B1 forward, B2 dQ, B3 dK/dV) against its plain
+            PyTorch version on the card, at the main paths' shape and at
+            small edge shapes, plus CUDA-event times of the kernel, the
+            plain version and the library call
 3. ps       init() on the card, the 472M LM's parameters in one ArrayTable
             (SharedPytree), Get, one sync (Add of a delta, then Get) checked
             against numpy, and each updater timed on a 16M-element table
 4. request  the full-width LM built from the table's Get scores request
-            batches [2, 1024] with attn="flash" (the main path: launch
-            counts are zeroed just before and read just after), checked
-            against attn="local" on the same weights
+            batches [2, 1024] with attn="flash" under inference_mode (a
+            main path: launch counts are zeroed just before and read just
+            after), checked against attn="local" on the same weights
+5. train    the full-width LM built from the table's Get trains through
+            the PS (``train_ps``: SGD steps on one batch, a delta-sync
+            every few steps; the other main path, counted the same way),
+            each sync checked against numpy bit for bit, the gradients of
+            attn="flash" against attn="local", and one step profiled
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -45,17 +51,33 @@ PEAK_BF16_FLOPS = 989e12
 # plain version which skips p's rounding to bf16 before p@v lands outside it
 ATOL_OUT = {"float32": 2e-5, "bfloat16": 8e-3}
 ATOL_LSE = 1e-4   # f32 sums over up to 1024 keys in another order
+# B2/B3 (dq, dk, dv) against the plain backward, max abs error. f32: the
+# kernels sum delta and the products over up to 1024 keys or queries in
+# another order (largest error measured on an H100: 1.1e-6, so ~4x).
+# bf16: ~2x the largest measured error (1.95e-3, one bf16 ulp at |dk| in
+# [0.25, 0.5), where an f32 sum landed near a rounding boundary); the
+# kernel phase also checks that a plain backward which skips ds's
+# rounding to bf16 before ds@k lands outside it
+ATOL_BWD = {"float32": 4e-6, "bfloat16": 4e-3}
 # attn="flash" vs attn="local" on the bf16 model: p is rounded to bf16 at
 # another point (running vs final max) and the error passes 8 layers;
 # 0.25 is 8 bf16 ulps at the logits' magnitude (|logits| in [4, 8))
 ATOL_LOGITS = 0.25
 ATOL_LOSS = 1e-2
+# one step's gradients, attn="flash" vs attn="local" on the bf16 model:
+# ||g_flash - g_local|| / ||g_local|| over each parameter leaf. p is rounded
+# to bf16 at other points (against the lse vs the softmax output) and the
+# difference passes 8 layers; ~2.5x the largest measured (7.7e-3, embed)
+RTOL_GRAD = 2e-2
 
 # the "472M" LM of bench.py (vocab 32768, dim 2048, 16 heads, seq 1024)
 LM = dict(vocab_size=32768, dim=2048, num_heads=16, max_seq=1024)
 LAYERS = 8
 BATCH = 2
 BATCHES = 4        # request batches scored on the main path
+TRAIN_STEPS = 6    # SGD steps on the training path, as bench.py's step
+SYNC_EVERY = 3     # a delta-sync through the PS after every 3rd step
+LR = 1e-2
 
 
 def log(msg: str) -> None:
@@ -89,33 +111,58 @@ def phase_build() -> None:
     for name, (seconds, text) in results.items():
         log(f"build {name}: {seconds:.1f} s")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(t in line for t in ("entry function", "registers",
+                                         "spill")):
                 log(f"  ptxas: {line.strip()}")
     log(f"build total: {time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernel(dev) -> dict:
-    """B1 against its plain version; returns the B1 record, whose
-    ``launches`` the request phase fills in."""
+SLICE_SHAPE = (BATCH, LM["num_heads"], LM["max_seq"],
+               LM["dim"] // LM["num_heads"])
+# the edge shapes each kernel is held at: S = 40 is not a multiple of the
+# kernels' 64-row tile, (1,2,96,32) has several tiles at head dim 32
+EDGE_SHAPES = (((1, 4, 64, 64), 128), ((1, 4, 40, 64), 128),
+               ((1, 2, 96, 32), 32))
+
+
+def phase_kernel(dev) -> list:
+    """B1, B2 and B3 against their plain versions; returns their records,
+    whose ``launches`` the request and train phases fill in."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape, dtype, n):
+        return [torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32).to(dtype) for _ in range(n)]
+
+    return [kernel_fwd(randn)] + kernel_bwd(randn)
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time for the work: bytes over the memory rate, operations
+    over the bf16 tensor-core rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_fwd(randn) -> dict:
+    """B1 against its plain version, and its times."""
     import torch
     import torch.nn.functional as F
     from multiverso_tpu_torch.ops import attention_kernels as ak
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-
     def qkv(shape, dtype):
-        return [torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32).to(dtype) for _ in range(3)]
+        return randn(shape, dtype, 3)
 
-    slice_shape = (BATCH, LM["num_heads"], LM["max_seq"],
-                   LM["dim"] // LM["num_heads"])
+    slice_shape = SLICE_SHAPE
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for causal in (True, False):
             for lse in (False, True):
                 cases.append((slice_shape, dtype, causal, lse, 128))
-        for shape, blk in (((1, 4, 64, 64), 128), ((1, 4, 40, 64), 128),
-                           ((1, 2, 96, 32), 32)):
+        for shape, blk in EDGE_SHAPES:
             for causal in (True, False):
                 cases.append((shape, dtype, causal, True, blk))
     slice_err = None
@@ -166,20 +213,101 @@ def phase_kernel(dev) -> dict:
     b, h, s, d = slice_shape
     nbytes = 4 * b * h * s * d * q.element_size()       # q, k, v read, o written
     flops = 4 * d * b * h * s * (s + 1) // 2             # unmasked pairs only
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    lim = bound(nbytes, flops)
     log(f"kernel flash_fwd {slice_shape} bf16 causal: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP)")
+        f"{lim['bound_ms']:.4f} ms ({nbytes} B, {flops} FLOP)")
     return {
         "name": "flash_fwd", "route": "cuda",
         "source": "multiverso_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "multiverso_tpu/ops/attention_kernels.py:138",
         "launches": None, "max_abs_err": slice_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
+        "plain_ms": plain_ms, **lim, "library_ms": library_ms,
     }
+
+
+def kernel_bwd(randn) -> list:
+    """B2 (dQ) and B3 (dK/dV) against the plain backward, on the forward
+    kernel's out and lse, at the training path's shape and the edge
+    shapes; then their times at the training path's shape."""
+    import torch
+    import torch.nn.functional as F
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            cases.append((SLICE_SHAPE, dtype, causal, 128))
+        for shape, blk in EDGE_SHAPES:
+            for causal in (True, False):
+                cases.append((shape, dtype, causal, blk))
+    slice_err = {}
+    for shape, dtype, causal, blk in cases:
+        q, k, v, do = randn(shape, dtype, 4)
+        out, lse = ak.flash_attention_with_lse(q, k, v, causal, blk, blk)
+        dq = ak._flash_bwd_dq_cuda(q, k, v, out, lse, do, causal)
+        dk, dv = ak._flash_bwd_dkv_cuda(q, k, v, out, lse, do, causal)
+        ref = ak.flash_backward_plain(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        name = str(dtype).replace("torch.", "")
+        errs = [max_err(a, b) for a, b in zip((dq, dk, dv), ref)]
+        mags = [float(t.float().abs().max()) for t in ref]
+        log(f"kernel flash_bwd {tuple(shape)} {name} causal={causal}: "
+            f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}"
+            f" (max |dq| {mags[0]:.3f} |dk| {mags[1]:.3f} |dv| "
+            f"{mags[2]:.3f})")
+        if not all(torch.isfinite(t).all() for t in (dq, dk, dv)):
+            raise AssertionError("flash_bwd produced non-finite values")
+        if max(errs) > ATOL_BWD[name]:
+            raise AssertionError(f"flash_bwd disagrees with its plain version "
+                                 f"at {shape} {name} causal={causal}")
+        if (shape, dtype, causal) == (SLICE_SHAPE, torch.bfloat16, True):
+            slice_err = {"flash_bwd_dq": errs[0],
+                         "flash_bwd_dkv": max(errs[1:])}
+            # ds @ k with ds left in f32: the rounding the kernel must keep
+            slip = max_err(ak.flash_backward_plain(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                do.float(), causal)[0].to(dtype), ref[0])
+            log(f"kernel flash_bwd {tuple(shape)} bf16: ds unrounded before "
+                f"ds@k would err {slip:.3e} in dq (kernel {errs[0]:.3e}, "
+                f"tolerance {ATOL_BWD[name]:.0e})")
+            if slip <= ATOL_BWD[name]:
+                raise AssertionError("the bf16 tolerance does not tell ds's "
+                                     "rounding before ds@k")
+
+    q, k, v, do = randn(SLICE_SHAPE, torch.bfloat16, 4)
+    out, lse = ak.flash_attention_with_lse(q, k, v, True)
+    dq_ms = cuda_ms(lambda: ak._flash_bwd_dq_cuda(q, k, v, out, lse, do,
+                                                  True))
+    dkv_ms = cuda_ms(lambda: ak._flash_bwd_dkv_cuda(q, k, v, out, lse, do,
+                                                    True))
+    plain_ms = cuda_ms(lambda: ak.flash_backward_plain(q, k, v, out, lse, do,
+                                                       True), iters=5)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (qr, kr, vr), do, retain_graph=True))
+    b, h, s, d = SLICE_SHAPE
+    t = b * h * s * d * q.element_size()    # one [B*H, S, D] tensor
+    lse_b = b * h * s * 4
+    pairs = b * h * s * (s + 1) // 2         # unmasked pairs only
+    recs = []
+    for name, ms, nbytes, flops, line in (
+            ("flash_bwd_dq", dq_ms, 6 * t + lse_b, 6 * d * pairs, 262),
+            ("flash_bwd_dkv", dkv_ms, 7 * t + lse_b, 8 * d * pairs, 280)):
+        lim = bound(nbytes, flops)
+        log(f"kernel {name} {SLICE_SHAPE} bf16 causal: {ms:.4f} ms, plain "
+            f"backward (dq, dk, dv) {plain_ms:.4f} ms, sdpa backward (dq, dk,"
+            f" dv) {library_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+            f"({nbytes} B, {flops} FLOP, {lim['bound_by']})")
+        recs.append({
+            "name": name, "route": "cuda",
+            "source": "multiverso_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"multiverso_tpu/ops/attention_kernels.py:{line}",
+            "launches": None, "max_abs_err": slice_err[name], "ms": ms,
+            "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+        })
+    return recs
 
 
 def lm_config(layers: int):
@@ -274,7 +402,8 @@ def expected_leaf(flat: np.ndarray, tree: dict) -> np.ndarray:
 
 
 def phase_request(dev, shared, layers: int, batches: int) -> int:
-    """Score request batches with attn="flash"; returns flash_fwd launches."""
+    """Score request batches with attn="flash" under inference_mode;
+    returns flash_fwd launches."""
     import torch
     from multiverso_tpu_torch.models import transformer as tfm
     from multiverso_tpu_torch.ops import attention_kernels as ak
@@ -289,69 +418,186 @@ def phase_request(dev, shared, layers: int, batches: int) -> int:
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batches, BATCH, cfg.max_seq + 1))).to(dev)
-    # warm-up request (cuBLAS handles, allocator) outside the counted run
-    float(tfm._nll(tfm.forward(model, toks[0, :, :-1]), toks[0, :, 1:]))
+    with torch.inference_mode():
+        # warm-up request (cuBLAS handles, allocator) outside the counted run
+        float(tfm._nll(tfm.forward(model, toks[0, :, :-1]), toks[0, :, 1:]))
 
-    ak.reset_launch_counts()
-    lat, losses, first_logits, events = [], [], None, []
-    t_run = time.perf_counter()
-    for i in range(batches):
+        ak.reset_launch_counts()
+        lat, losses, first_logits, events = [], [], None, []
+        t_run = time.perf_counter()
+        for i in range(batches):
+            t0 = time.perf_counter()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            logits = tfm.forward(model, toks[i, :, :-1])
+            loss = tfm._nll(logits, toks[i, :, 1:])
+            ev[1].record()
+            losses.append(float(loss))   # host readback = end of the request
+            lat.append((time.perf_counter() - t0) * 1e3)
+            events.append(ev)
+            if i == 0:
+                first_logits = logits
+        run_s = time.perf_counter() - t_run
+        counts = ak.launch_counts()
+        launches = counts["flash_fwd"]
+        if counts != {"flash_fwd": layers * batches, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}:
+            raise AssertionError(f"request launches {counts}, expected "
+                                 f"{layers * batches} flash_fwd only")
+        tokens = batches * BATCH * cfg.max_seq
+        log(f"request scored {batches} batches [{BATCH}, {cfg.max_seq}]: "
+            f"losses {[round(l, 5) for l in losses]}, latency ms "
+            f"{[round(t, 3) for t in lat]}, p50 {float(np.median(lat)):.3f} "
+            f"ms; device span ms (CUDA events) "
+            f"{[round(a.elapsed_time(b), 3) for a, b in events]}; {tokens} "
+            f"tokens in {run_s * 1e3:.3f} ms = {tokens / run_s:.0f} tokens/s;"
+            f" flash_fwd launches {launches}")
+        if not (torch.isfinite(first_logits).all()
+                and np.isfinite(losses).all()):
+            raise AssertionError("non-finite logits or loss")
+        if first_logits.shape != (BATCH, cfg.max_seq, cfg.vocab_size):
+            raise AssertionError(f"logits shape {tuple(first_logits.shape)}")
+
+        ref_logits = tfm.forward(model, toks[0, :, :-1],
+                                 cfg._replace(attn="local"))
+        ref_loss = float(tfm._nll(ref_logits, toks[0, :, 1:]))
+        d_logits = max_err(first_logits, ref_logits)
+        d_loss = abs(losses[0] - ref_loss)
+        log(f"request flash vs local: max |logits diff| {d_logits:.4e} "
+            f"(logits max |x| {float(ref_logits.float().abs().max()):.3f}), "
+            f"|loss diff| {d_loss:.4e} (local loss {ref_loss:.5f})")
+        if not (d_logits <= ATOL_LOGITS and d_loss <= ATOL_LOSS):
+            raise AssertionError("attn='flash' disagrees with attn='local'")
+        tok, tgt = toks[0, :, :-1], toks[0, :, 1:]
+        profile("request", lambda: float(tfm._nll(tfm.forward(model, tok),
+                                                    tgt)))
+    return launches
+
+
+class CheckedSync:
+    """A SharedPytree whose ``sync`` is timed and checked: after each sync
+    the table (its Get, which ``sync`` keeps as ``_last``) must equal the
+    numpy ``last + (current - last)`` bit for bit."""
+
+    def __init__(self, shared):
+        self.shared = shared
+        self.ms = []
+
+    def sync(self, params):
+        import torch
+        from multiverso_tpu_torch.sharedvar import _flatten
+        last = self.shared._last
+        expected = last + (_flatten(params) - last)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = self.shared.sync(params)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(self.shared._last, expected):
+            raise AssertionError("train sync: table disagrees with numpy")
+        return merged
+
+
+def phase_train(dev, shared, layers: int) -> dict:
+    """Train the full-width LM through the PS with ``train_ps``; returns
+    the launch counts of the counted run."""
+    import torch
+    from multiverso_tpu_torch.examples.transformer_ps import train_ps
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+
+    cfg = lm_config(layers)
+    t0 = time.perf_counter()
+    model = tfm.params_from_jax(shared.get(), cfg, dev)
+    torch.cuda.synchronize()
+    log(f"train model from the table's Get: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, bf16, "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BATCH, cfg.max_seq + 1))).to(dev)
+    tok, tgt = toks[:, :-1], toks[:, 1:]
+
+    sgd = tfm.make_train_step(cfg, LR)
+    host_ms, spans = [], []
+
+    def timed_step(model, tok, tgt):
         t0 = time.perf_counter()
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        logits = tfm.forward(model, toks[i, :, :-1])
-        loss = tfm._nll(logits, toks[i, :, 1:])
+        loss = sgd(model, tok, tgt)
         ev[1].record()
-        losses.append(float(loss))   # host readback = end of the request
-        lat.append((time.perf_counter() - t0) * 1e3)
-        events.append(ev)
-        if i == 0:
-            first_logits = logits
+        float(loss)   # host readback = end of the step
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        spans.append(ev)
+        return loss
+
+    # warm-up step (cuBLAS handles, allocator) outside the counted run
+    float(sgd(model, tok, tgt))
+    checked = CheckedSync(shared)
+    ak.reset_launch_counts()
+    t_run = time.perf_counter()
+    losses = train_ps(model, checked, tok, tgt, TRAIN_STEPS, SYNC_EVERY, LR,
+                      step_fn=timed_step)
     run_s = time.perf_counter() - t_run
-    launches = ak.launch_counts()["flash_fwd"]
-    if launches != layers * batches:
-        raise AssertionError(f"flash_fwd launched {launches} times, expected "
-                             f"{layers * batches}")
-    tokens = batches * BATCH * cfg.max_seq
-    log(f"request scored {batches} batches [{BATCH}, {cfg.max_seq}]: losses "
-        f"{[round(l, 5) for l in losses]}, latency ms {[round(t, 3) for t in lat]}"
-        f", p50 {float(np.median(lat)):.3f} ms; device span ms (CUDA events) "
-        f"{[round(a.elapsed_time(b), 3) for a, b in events]}; {tokens} tokens "
-        f"in "
-        f"{run_s * 1e3:.3f} ms = {tokens / run_s:.0f} tokens/s; flash_fwd "
-        f"launches {launches}")
-    if not (torch.isfinite(first_logits).all() and np.isfinite(losses).all()):
-        raise AssertionError("non-finite logits or loss")
-    if first_logits.shape != (BATCH, cfg.max_seq, cfg.vocab_size):
-        raise AssertionError(f"logits shape {tuple(first_logits.shape)}")
+    counts = ak.launch_counts()
+    want = layers * TRAIN_STEPS
+    if counts != {"flash_fwd": want, "flash_bwd_dq": want,
+                  "flash_bwd_dkv": want}:
+        raise AssertionError(f"train launches {counts}, expected {want} of "
+                             f"each kernel")
+    dev_ms = [a.elapsed_time(b) for a, b in spans]
+    tokens = TRAIN_STEPS * BATCH * cfg.max_seq
+    log(f"train {TRAIN_STEPS} SGD steps (lr {LR}) on one batch [{BATCH}, "
+        f"{cfg.max_seq}], sync every {SYNC_EVERY}: losses "
+        f"{[round(l, 5) for l in losses]}")
+    log(f"train step ms (host, to the loss readback) "
+        f"{[round(t, 3) for t in host_ms]}, p50 "
+        f"{float(np.median(host_ms)):.3f}; device span ms (CUDA events) "
+        f"{[round(t, 3) for t in dev_ms]}, p50 {float(np.median(dev_ms)):.3f}"
+        f"; {tokens} tokens in {sum(host_ms):.3f} ms of steps = "
+        f"{tokens / sum(host_ms) * 1e3:.0f} tokens/s, in {run_s * 1e3:.3f} "
+        f"ms with the syncs = {tokens / run_s:.0f} tokens/s; sync ms "
+        f"{[round(t, 3) for t in checked.ms]}; launches {counts}")
+    log(f"train syncs match numpy bit for bit ({len(checked.ms)} syncs)")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite train loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
 
-    model.cfg = cfg._replace(attn="local")
-    ref_logits = tfm.forward(model, toks[0, :, :-1])
-    ref_loss = float(tfm._nll(ref_logits, toks[0, :, 1:]))
-    d_logits = max_err(first_logits, ref_logits)
-    d_loss = abs(losses[0] - ref_loss)
-    log(f"request flash vs local: max |logits diff| {d_logits:.4e} (logits "
-        f"max |x| {float(ref_logits.float().abs().max()):.3f}), |loss diff| "
-        f"{d_loss:.4e} (local loss {ref_loss:.5f})")
-    if not (d_logits <= ATOL_LOGITS and d_loss <= ATOL_LOSS):
-        raise AssertionError("attn='flash' disagrees with attn='local'")
-    model.cfg = cfg
-    profile_request(model, toks[0, :, :-1], toks[0, :, 1:])
-    return launches
+    # one step's gradients, attn="flash" against attn="local"
+    params = list(model.parameters())
+    grads = {}
+    for attn in ("flash", "local"):
+        loss = tfm.loss_fn(model, tok, tgt, cfg=cfg._replace(attn=attn))
+        grads[attn] = torch.autograd.grad(loss, params)
+    rel = {}
+    for (name, _), gf, gl in zip(model.named_parameters(), grads["flash"],
+                                 grads["local"]):
+        rel[name] = float((gf.float() - gl.float()).norm()
+                          / gl.float().norm())
+    del grads
+    log("train grads flash vs local, ||g_flash - g_local|| / ||g_local||: "
+        + ", ".join(f"{n} {r:.3e}" for n, r in rel.items()))
+    if not max(rel.values()) <= RTOL_GRAD:
+        raise AssertionError("attn='flash' gradients disagree with "
+                             "attn='local'")
+    profile("train step", lambda: float(sgd(model, tok, tgt)))
+    return counts
 
 
-def profile_request(model, tok, tgt, top: int = 6) -> None:
-    """Where one request's time goes: torch.profiler over one scored batch
-    (after the counted run), device time by kernel and the idle share."""
+def profile(label: str, fn, top: int = 8) -> None:
+    """Where one request's or step's time goes: torch.profiler over one
+    call of ``fn`` (after the counted run), device time by kernel and the
+    idle share."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from multiverso_tpu_torch.models import transformer as tfm
+    from torch.profiler import ProfilerActivity, profile as trace
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(tfm._nll(tfm.forward(model, tok), tgt))
+        fn()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, memcpy); the CPU ops that launched
     # them carry the same time again as their own device time
@@ -361,20 +607,22 @@ def profile_request(model, tok, tgt, top: int = 6) -> None:
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy = sum(ms for _, ms in rows)
     if busy == 0:
-        log(f"request profile: wall {wall:.3f} ms, device time not measured "
+        log(f"{label} profile: wall {wall:.3f} ms, device time not measured "
             f"(the profiler saw no device activity)")
         return
-    log(f"request profile (one batch, profiler on): wall {wall:.3f} ms, "
-        f"device busy {busy:.3f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+    log(f"{label} profile (profiler on): wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
     groups = {}
     for name, ms in rows:
         low = name.lower()
-        group = ("flash_fwd" if "flash_fwd" in low else
+        group = ("flash_bwd_dq" if "flash_bwd_dq" in low else
+                 "flash_bwd_dkv" if "flash_bwd_dkv" in low else
+                 "flash_fwd" if "flash_fwd" in low else
                  "matmul" if any(t in low for t in ("gemm", "nvjet", "cutlass",
                                                     "sm90_xmma")) else
                  "elementwise/reduce/copy")
         groups[group] = groups.get(group, 0.0) + ms
-    log("request profile by group: " + ", ".join(
+    log(f"{label} profile by group: " + ", ".join(
         f"{g} {ms:.3f} ms ({ms / busy:.1%})"
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
     for name, ms in rows[:top]:
@@ -404,14 +652,22 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     phase_build()
-    record = phase_kernel(torch.device("cuda", 0))
+    records = phase_kernel(torch.device("cuda", 0))
     mv.init()   # the card: no device argument
     dev = mv.device()
     shared = phase_ps(dev, LAYERS)
-    record["launches"] = phase_request(dev, shared, LAYERS, BATCHES)
+    paths = {"request": {"flash_fwd": phase_request(dev, shared, LAYERS,
+                                                    BATCHES)}}
+    torch.cuda.empty_cache()   # the request model is gone
+    paths["train"] = phase_train(dev, shared, LAYERS)
     mv.shutdown()
+    for rec in records:
+        by_path = {p: c[rec["name"]] for p, c in paths.items()
+                   if c.get(rec["name"])}
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,18 @@
-"""Decoder-only transformer LM, forward pass (port of the dense,
-single-device part of ``multiverso_tpu/models/transformer.py``).
+"""Decoder-only transformer LM, forward and training step (port of the
+dense, single-device part of ``multiverso_tpu/models/transformer.py``).
 
 The parameters keep the JAX package's layout: per-layer weights are
 stacked on a leading layer dimension (``layers.wqkv`` is [L, D, 3D], ...),
 so ``params_from_jax`` / ``params_to_numpy`` carry one package's
 ``init_params`` tree to the other unchanged, and ``SharedPytree`` flattens
 both into the same vector. ``attn="flash"`` runs the port's flash
-attention (the CUDA kernel on the card), ``attn="local"`` the plain
-``reference_attention``.
+attention (the CUDA kernels on the card, forward and backward),
+``attn="local"`` the plain ``reference_attention``.
 
-This slice scores requests: ``forward``, ``_lm_head``, ``_nll`` and
-``loss_fn`` run under ``torch.no_grad()``. Training, decoding, the
+``forward``, ``loss_fn`` and ``make_train_step`` are differentiable with
+autograd; a caller that only scores wraps them in ``torch.no_grad()`` or
+``torch.inference_mode()``. ``remat=True`` recomputes each layer in the
+backward (``torch.utils.checkpoint``). Decoding, the optax-style step, the
 parallel axes and MoE arrive with later slices.
 """
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multiverso_tpu_torch.ops.attention_kernels import flash_attention
 from multiverso_tpu_torch.parallel import ring
@@ -56,9 +59,6 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.moe_experts:
         raise NotImplementedError("MoE MLPs arrive with the parallel-layers "
                                   "slice")
-    if cfg.remat:
-        raise NotImplementedError("remat is a training option; training "
-                                  "arrives with the next slice")
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict[str, Any]:
@@ -90,8 +90,7 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict[str, Any]:
 
 
 def _param(shape, cfg: TransformerConfig, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device))
 
 
 class _Layers(nn.Module):
@@ -142,49 +141,59 @@ def _attention(cfg: TransformerConfig, q, k, v) -> torch.Tensor:
     return flash_attention(q, k, v, causal=True)
 
 
-def _layer(cfg: TransformerConfig, x: torch.Tensor, layers: _Layers,
-           i: int) -> torch.Tensor:
+def _layer(cfg: TransformerConfig, x: torch.Tensor, wqkv, wo, ln1, ln2, w1,
+           w2) -> torch.Tensor:
     b, s, d = x.shape
     h = cfg.num_heads
     hd = d // h
-    y = _rmsnorm(x, layers.ln1[i])
-    q, k, v = torch.matmul(y, layers.wqkv[i]).split(d, dim=-1)
+    y = _rmsnorm(x, ln1)
+    q, k, v = torch.matmul(y, wqkv).split(d, dim=-1)
     # [B, S, D] -> [B, H, S, hd]
     split = lambda t: t.reshape(b, s, h, hd).transpose(1, 2)
     o = _attention(cfg, split(q), split(k), split(v))
     o = o.transpose(1, 2).reshape(b, s, d)
-    x = x + torch.matmul(o, layers.wo[i])
-    y = _rmsnorm(x, layers.ln2[i])
+    x = x + torch.matmul(o, wo)
+    y = _rmsnorm(x, ln2)
     # jax.nn.gelu defaults to the tanh approximation
-    y = F.gelu(torch.matmul(y, layers.w1[i]), approximate="tanh")
-    return x + torch.matmul(y, layers.w2[i])
+    y = F.gelu(torch.matmul(y, w1), approximate="tanh")
+    return x + torch.matmul(y, w2)
 
 
-@torch.no_grad()
-def forward(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V]."""
-    cfg = params.cfg
+def forward(params: Transformer, tokens: torch.Tensor,
+            cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V]; ``cfg`` defaults to the model's
+    (it may differ in ``attn`` and ``remat``, not in shapes)."""
+    cfg = cfg or params.cfg
     s = tokens.shape[1]
     x = params.embed[tokens] + params.pos[:s][None]
-    for i in range(cfg.num_layers):
-        x = _layer(cfg, x, params.layers, i)
+    ls = params.layers
+    # one unbind per stacked leaf, as the JAX scan slices it: its backward
+    # stacks the layers' gradients once, where indexing [i] would add L
+    # full-size zero-padded gradients into each leaf
+    per_layer = zip(*(t.unbind(0) for t in (ls.wqkv, ls.wo, ls.ln1, ls.ln2,
+                                            ls.w1, ls.w2)))
+    for weights in per_layer:
+        if cfg.remat:
+            # recompute the layer in the backward (jax.checkpoint in JAX)
+            x = checkpoint(_layer, cfg, x, *weights, use_reentrant=False)
+        else:
+            x = _layer(cfg, x, *weights)
     return _lm_head(x, params.ln_f, params.embed)
 
 
-@torch.no_grad()
 def _lm_head(x: torch.Tensor, ln_f: torch.Tensor,
              embed: torch.Tensor) -> torch.Tensor:
     """Final norm + tied-embedding projection: [B, S, D] -> [B, S, V]."""
     return torch.matmul(_rmsnorm(x, ln_f), embed.t())
 
 
-@torch.no_grad()
 def _nll(logits: torch.Tensor, targets: torch.Tensor,
          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy in f32 (logsumexp - target logit);
-    ``mask`` weights positions."""
+    ``mask`` weights positions. The max shift is a constant offset of both
+    terms and carries no gradient (``stop_gradient`` in JAX)."""
     lg32 = logits.float()
-    m = torch.amax(lg32, -1, keepdim=True)
+    m = torch.amax(lg32, -1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(lg32 - m), -1)) + m[..., 0]
     tl = torch.gather(lg32, -1, targets[..., None].long())[..., 0]
     nll = lse - tl
@@ -194,12 +203,38 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor,
     return nll.mean()
 
 
-@torch.no_grad()
 def loss_fn(params: Transformer, tokens: torch.Tensor, targets: torch.Tensor,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mask: Optional[torch.Tensor] = None,
+            cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
     """Mean next-token cross-entropy (f32); ``targets`` is tokens shifted
     by one, ``mask`` zeroes padding positions."""
-    return _nll(forward(params, tokens), targets, mask)
+    return _nll(forward(params, tokens, cfg), targets, mask)
+
+
+def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-2):
+    """Plain-SGD step ``(model, tokens, targets) -> loss`` (port of the JAX
+    ``make_train_step``).
+
+    Autograd computes the gradients of ``loss_fn``; then, under
+    ``no_grad``, each parameter is updated in place as ``p -= lr * g`` with
+    ``lr`` first cast to the parameter's dtype, as
+    ``jnp.asarray(learning_rate, p.dtype)`` does (in bf16, 1e-2 becomes
+    0.010009765625). The in-place update stands in for the JAX step's
+    donation of ``params`` (``donate_argnums=(0,)``): the weights are
+    written where they lie, and the caller's model is the updated one.
+    """
+    def step(model: Transformer, tokens: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        params = list(model.parameters())
+        loss = loss_fn(model, tokens, targets, cfg=cfg)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                lr = torch.tensor(learning_rate, dtype=p.dtype).item()
+                p.sub_(g * lr)
+        return loss.detach()
+
+    return step
 
 
 def _paths(model: Transformer):
@@ -208,11 +243,9 @@ def _paths(model: Transformer):
 
 
 @torch.no_grad()
-def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
-                    device=None) -> Transformer:
-    """Build the port's model from the JAX ``init_params`` tree given as
-    numpy arrays (stacked [L, ...] layer leaves), cast to ``cfg.dtype``."""
-    model = Transformer(cfg, device)
+def load_params_(model: Transformer, tree: Dict[str, Any]) -> Transformer:
+    """Write the JAX-layout numpy tree ``tree`` (stacked [L, ...] layer
+    leaves) into ``model``'s parameters in place, cast to their dtype."""
     for path, p in _paths(model):
         leaf = tree
         for key in path:
@@ -225,6 +258,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                              f"{tuple(p.shape)}")
         p.copy_(torch.from_numpy(arr))
     return model
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
+                    device=None) -> Transformer:
+    """Build the port's model from the JAX ``init_params`` tree given as
+    numpy arrays (stacked [L, ...] layer leaves), cast to ``cfg.dtype``."""
+    return load_params_(Transformer(cfg, device), tree)
 
 
 @torch.no_grad()

@@ -38,6 +38,15 @@ _SIGNATURES = {
             ctypes.c_void_p]),
         "mv_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "flash_bwd": {
+        "mv_flash_bwd_dq": (ctypes.c_int, [ctypes.c_void_p] * 7 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
+        "mv_flash_bwd_dkv": (ctypes.c_int, [ctypes.c_void_p] * 8 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
+        "mv_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -30,6 +30,7 @@ def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import multiverso_tpu_torch as mv\n"
+        "import multiverso_tpu_torch.examples.transformer_ps\n"
         "import multiverso_tpu_torch.models.transformer\n"
         "import multiverso_tpu_torch.ops.attention_kernels\n"
         "import multiverso_tpu_torch.ops._build\n"

@@ -3,7 +3,8 @@ multiverso_tpu.models.transformer, at the examples/transformer_ps.py size
 (vocab 64, dim 32, 4 heads, 2 layers, max_seq 32).
 
 Weights come from the JAX ``init_params`` and are carried across with
-``params_from_jax``. Tolerance: logits and loss to atol 2e-5 (f32; the
+``params_from_jax``; the scoring tests run under ``torch.no_grad()``
+(training is tests/test_torch_train.py). Tolerance: logits and loss to atol 2e-5 (f32; the
 attention and the matmuls sum in another order), for attn="flash" (the
 JAX Pallas kernel in interpret mode) and attn="local"; the bf16 model of
 both packages to bf16 rounding (tolerances in that test). The slice end
@@ -60,6 +61,7 @@ def test_init_params_equal_jax():
 
 
 @pytest.mark.parametrize("attn", ["flash", "local"])
+@torch.no_grad()
 def test_logits_and_loss_match_jax(attn):
     params = _jax_params()
     tok, tgt = _tokens()
@@ -91,12 +93,12 @@ def test_params_round_trip_and_unsupported_configs():
     with pytest.raises(ValueError, match="shape"):
         ttfm.params_from_jax(params, ttfm.TransformerConfig(
             **{**DIMS, "dim": 64}), "cpu")
-    for bad in ({"attn": "ring"}, {"moe_experts": 4}, {"tp_axis": "tp"},
-                {"remat": True}):
+    for bad in ({"attn": "ring"}, {"moe_experts": 4}, {"tp_axis": "tp"}):
         with pytest.raises(NotImplementedError):
             ttfm.Transformer(ttfm.TransformerConfig(**{**DIMS, **bad}))
 
 
+@torch.no_grad()
 def test_bf16_model_tracks_f32():
     # bf16 rounding through 2 layers: logits within 5e-2 of the f32 model
     params = _jax_params()
@@ -111,6 +113,7 @@ def test_bf16_model_tracks_f32():
 
 
 @pytest.mark.parametrize("attn", ["flash", "local"])
+@torch.no_grad()
 def test_bf16_logits_and_loss_match_jax(attn):
     """The bf16 model of both packages on the same bf16-rounded weights.
 
@@ -140,6 +143,7 @@ def test_bf16_logits_and_loss_match_jax(attn):
     assert abs(tl - jl) <= 2e-4
 
 
+@torch.no_grad()
 def test_slice_end_to_end_matches_jax():
     """init -> SharedPytree -> Get -> forward, then one sync -> forward."""
     params = _jax_params(seed=1)
