@@ -4,11 +4,15 @@
 Phases, every one on every run, in this order:
 
 1. build    compile every CUDA kernel from ``multiverso_tpu_torch/csrc``
-            into ``build/torch_kernels/`` (one nvcc per source, in parallel)
+            into ``build/torch_kernels/`` (one nvcc per source, in
+            parallel), print ptxas's registers and spills, and check with
+            ``cuobjdump -sass`` that the bf16 B1 and B2 kernels hold wgmma
+            (HGMMA) and TMA-load (UTMALDG) instructions
 2. kernel   each kernel (B1 forward, B2 dQ, B3 dK/dV) against its plain
             PyTorch version on the card, at the main paths' shape and at
-            small edge shapes, plus CUDA-event times of the kernel, the
-            plain version and the library call
+            edge shapes, plus CUDA-event times: the kernel and its library
+            call in turns (median of 6 runs each), the kernel with a cold
+            L2, and the plain version
 3. ps       init() on the card, the 472M LM's parameters in one ArrayTable
             (SharedPytree), Get, one sync (Add of a delta, then Get) checked
             against numpy, and each updater timed on a 16M-element table
@@ -85,7 +89,8 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (warm
+    L2: the inputs stay in the 50 MB cache)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -100,11 +105,70 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(kernel, library, rounds: int = 3) -> tuple:
+    """(kernel ms, library ms): the medians of warm ``cuda_ms`` runs taken
+    in turns, kernel, library, library, kernel, over ``rounds`` rounds, so
+    a drift of the card's clocks falls on both alike."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(cuda_ms(kernel))
+        ls.append(cuda_ms(library))
+        ls.append(cuda_ms(library))
+        ks.append(cuda_ms(kernel))
+    return float(np.median(ks)), float(np.median(ls))
+
+
+def cold_ms(fn, iters: int = 10) -> float:
+    """Median device time of one call of ``fn`` with a cold L2: a 64 MB
+    write before each launch evicts the 50 MB cache, and each launch is
+    timed by its own pair of events."""
+    import torch
+    flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+# the kernels that must run on the tensor cores and be fed by TMA, by the
+# name of their (mangled) function in the SASS
+TENSOR_CORE_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma")
+
+
+def sass_counts(lib) -> dict:
+    """{function: (HGMMA, UTMALDG)}: the wgmma and TMA-load instructions
+    of each kernel in a built library, from ``cuobjdump -sass``."""
+    import os
+    from multiverso_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "UTMALDG" in line
+    return {f: tuple(c) for f, c in counts.items()}
+
+
 def phase_build() -> None:
+    """Build every kernel, print ptxas's registers and spills, and check in
+    the SASS that the bf16 B1 and B2 kernels use wgmma and TMA."""
     from multiverso_tpu_torch.ops import _build
     t0 = time.perf_counter()
     results = _build.build_all()
@@ -115,14 +179,33 @@ def phase_build() -> None:
                                          "spill")):
                 log(f"  ptxas: {line.strip()}")
     log(f"build total: {time.perf_counter() - t0:.1f} s")
+    found = {k: 0 for k in TENSOR_CORE_KERNELS}
+    for name in _build.KERNELS:
+        for fn, (hgmma, utmaldg) in sass_counts(
+                _build.library_path(name)).items():
+            log(f"  sass {name}: {fn}: HGMMA {hgmma}, UTMALDG {utmaldg}")
+            for k in TENSOR_CORE_KERNELS:
+                if k in fn:
+                    if not (hgmma and utmaldg):
+                        raise AssertionError(f"{fn} has no HGMMA or no "
+                                             f"UTMALDG instruction")
+                    found[k] += 1
+    if not all(found.values()):
+        raise AssertionError(f"tensor-core kernels missing from the SASS: "
+                             f"{found}")
 
 
 SLICE_SHAPE = (BATCH, LM["num_heads"], LM["max_seq"],
                LM["dim"] // LM["num_heads"])
-# the edge shapes each kernel is held at: S = 40 is not a multiple of the
-# kernels' 64-row tile, (1,2,96,32) has several tiles at head dim 32
+# the edge shapes each kernel is held at: S = 40 and S = 200 are not
+# multiples of the kernels' tiles (64 rows; the bf16 B1 and B2 take 128 q
+# rows, and 128 (B1) or 64 (B2) k rows), (2,3,200,128) has several heads,
+# so a tile read past the end of one head's S would take the next head's
+# rows; (1,2,96,32) has several tiles at head dim 32, (2,4,1024,64) is
+# head dim 64 at full S
 EDGE_SHAPES = (((1, 4, 64, 64), 128), ((1, 4, 40, 64), 128),
-               ((1, 2, 96, 32), 32))
+               ((2, 3, 200, 128), 200), ((1, 2, 96, 32), 32),
+               ((2, 4, 1024, 64), 128))
 
 
 def phase_kernel(dev) -> list:
@@ -205,24 +288,34 @@ def kernel_fwd(randn) -> dict:
         raise AssertionError("S=96 with 64-row blocks must raise ValueError")
 
     q, k, v = qkv(slice_shape, torch.bfloat16)
-    ms = cuda_ms(lambda: ak._flash_forward_cuda(q, k, v, True, False))
+
+    def kernel():
+        return ak._flash_forward_cuda(q, k, v, True, False)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    ms, library_ms = in_turns(kernel, library)
+    ms_cold = cold_ms(kernel)
     plain_ms = cuda_ms(lambda: ak.flash_forward_plain(q, k, v, True, False),
                        iters=5)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
     b, h, s, d = slice_shape
     nbytes = 4 * b * h * s * d * q.element_size()       # q, k, v read, o written
     flops = 4 * d * b * h * s * (s + 1) // 2             # unmasked pairs only
     lim = bound(nbytes, flops)
-    log(f"kernel flash_fwd {slice_shape} bf16 causal: {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{lim['bound_ms']:.4f} ms ({nbytes} B, {flops} FLOP)")
+    log(f"kernel flash_fwd {slice_shape} bf16 causal: {ms:.4f} ms (median "
+        f"in turns with sdpa; cold L2 {ms_cold:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, kernel/sdpa "
+        f"{ms / library_ms:.2f}, bound {lim['bound_ms']:.4f} ms ({nbytes} B, "
+        f"{flops} FLOP)")
     return {
         "name": "flash_fwd", "route": "cuda",
         "source": "multiverso_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "multiverso_tpu/ops/attention_kernels.py:138",
+        "design": {"bfloat16": "wgmma+tma", "float32": "fma"},
         "launches": None, "max_abs_err": slice_err, "ms": ms,
-        "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+        "ms_cold_l2": ms_cold, "plain_ms": plain_ms, **lim,
+        "library_ms": library_ms, "library_ratio": ms / library_ms,
     }
 
 
@@ -277,35 +370,43 @@ def kernel_bwd(randn) -> list:
 
     q, k, v, do = randn(SLICE_SHAPE, torch.bfloat16, 4)
     out, lse = ak.flash_attention_with_lse(q, k, v, True)
-    dq_ms = cuda_ms(lambda: ak._flash_bwd_dq_cuda(q, k, v, out, lse, do,
-                                                  True))
-    dkv_ms = cuda_ms(lambda: ak._flash_bwd_dkv_cuda(q, k, v, out, lse, do,
-                                                    True))
     plain_ms = cuda_ms(lambda: ak.flash_backward_plain(q, k, v, out, lse, do,
                                                        True), iters=5)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
     o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        o, (qr, kr, vr), do, retain_graph=True))
+
+    def library():
+        return torch.autograd.grad(o, (qr, kr, vr), do, retain_graph=True)
+
     b, h, s, d = SLICE_SHAPE
     t = b * h * s * d * q.element_size()    # one [B*H, S, D] tensor
     lse_b = b * h * s * 4
     pairs = b * h * s * (s + 1) // 2         # unmasked pairs only
     recs = []
-    for name, ms, nbytes, flops, line in (
-            ("flash_bwd_dq", dq_ms, 6 * t + lse_b, 6 * d * pairs, 262),
-            ("flash_bwd_dkv", dkv_ms, 7 * t + lse_b, 8 * d * pairs, 280)):
+    for name, kernel, nbytes, flops, line, design in (
+            ("flash_bwd_dq", lambda: ak._flash_bwd_dq_cuda(
+                q, k, v, out, lse, do, True), 6 * t + lse_b, 6 * d * pairs,
+             262, "wgmma+tma"),
+            ("flash_bwd_dkv", lambda: ak._flash_bwd_dkv_cuda(
+                q, k, v, out, lse, do, True), 7 * t + lse_b, 8 * d * pairs,
+             280, "fma")):
+        ms, library_ms = in_turns(kernel, library)
+        ms_cold = cold_ms(kernel)
         lim = bound(nbytes, flops)
-        log(f"kernel {name} {SLICE_SHAPE} bf16 causal: {ms:.4f} ms, plain "
-            f"backward (dq, dk, dv) {plain_ms:.4f} ms, sdpa backward (dq, dk,"
-            f" dv) {library_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+        log(f"kernel {name} {SLICE_SHAPE} bf16 causal: {ms:.4f} ms (median "
+            f"in turns with the sdpa backward; cold L2 {ms_cold:.4f} ms), "
+            f"plain backward (dq, dk, dv) {plain_ms:.4f} ms, sdpa backward "
+            f"(dq, dk, dv) {library_ms:.4f} ms, kernel/sdpa "
+            f"{ms / library_ms:.2f}, bound {lim['bound_ms']:.4f} ms "
             f"({nbytes} B, {flops} FLOP, {lim['bound_by']})")
         recs.append({
             "name": name, "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"multiverso_tpu/ops/attention_kernels.py:{line}",
+            "design": {"bfloat16": design, "float32": "fma"},
             "launches": None, "max_abs_err": slice_err[name], "ms": ms,
-            "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+            "ms_cold_l2": ms_cold, "plain_ms": plain_ms, **lim,
+            "library_ms": library_ms, "library_ratio": ms / library_ms,
         })
     return recs
 

@@ -4,8 +4,9 @@ first use and loads them with ctypes.
 Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes) under ``build/torch_kernels/`` beside the package.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. A failed
+The library's file name carries a hash of the source, the headers it may
+include from ``csrc/`` and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. A failed
 build raises; nothing falls back to another implementation.
 """
 
@@ -67,10 +68,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where kernel ``name``'s library lives: the name hashes its ``.cu``
+    source, every header under ``csrc/`` (the sources share them) and the
+    flags, so an edited source or header is rebuilt."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(p for p in CSRC.iterdir()
+                         if p.suffix in (".cuh", ".h")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Tuple[Path, float, str]:

@@ -28,8 +28,13 @@ ATOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # error measured on an H100
 BWD_ATOL = {"float32": 4e-6, "bfloat16": 4e-3}
 
+# (shape, block): S = 40 and S = 200 are not multiples of the kernels'
+# tiles (the bf16 B1 and B2 take 128 q rows, and 128 or 64 k rows), and with
+# several heads a tile read past the end of one head's S would take the
+# next head's rows; head dim 32 over several tiles; head dim 64 at S = 1024
 SHAPES = (((2, 4, 256, 128), 128), ((1, 4, 40, 64), 128),
-          ((1, 2, 96, 32), 32))
+          ((2, 3, 200, 128), 200), ((1, 2, 96, 32), 32),
+          ((2, 4, 1024, 64), 128))
 
 
 @pytest.fixture
