@@ -359,7 +359,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmQ,
       mbar_expect_tx(&q_bar, Q_BYTES);
       tma_load_tile<NB, BQ>(sQ, &tmQ, &q_bar, q0, bh);
       produce_kv<NB, BK, STAGES>(sK, sV, &tmK, &tmV, full_bar, empty_bar,
-                                 ntiles, bh);
+                                 ntiles, bh, 0);
     }
   } else {
     // consumers: warpgroup wgi owns q rows q0 + 64*wgi .. +63; this thread

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the bf16 flash-attention
-// kernels of flash_fwd.cu (B1) and flash_bwd.cu (B2): mbarriers, TMA tile
-// loads, wgmma descriptors and instructions, and the host-side encoding of
-// the tensor maps.
+// kernels of flash_fwd.cu (B1) and flash_bwd.cu (B2, B3): mbarriers, TMA
+// tile and bulk loads, wgmma descriptors and instructions, and the
+// host-side encoding of the tensor maps.
 //
 // Tile layout in shared memory. A tile of R rows of a [S, D] head is loaded
 // by TMA as D/64 boxes of 64 bf16 columns (128 bytes, one 128-byte swizzle
@@ -11,7 +11,8 @@
 // * K-major (D is the product's depth: q k^T, dO v^T): k16 step j starts at
 //   box j/4, byte 32*(j%4) inside the atom's row; 8-row groups lie 1024 B
 //   apart (SBO); LBO is unused by a swizzled K-major layout (set to 1).
-// * MN-major (the tile's rows are the depth: p v, ds k; the transpose bit):
+// * MN-major (the tile's rows are the depth: p v, ds k, p^T dO, ds^T q; the
+//   transpose bit):
 //   k16 step j starts at row 16*j, i.e. byte 2048*j of box 0; along N the
 //   next 64 columns are the next box, R*128 B on (LBO); the next 8 rows of
 //   the depth are 1024 B on (SBO).
@@ -81,6 +82,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into dst; completes on `bar` as transaction
+// bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // the barriers of a block with one producer thread and `consumers`
 // consumer threads: a `full` (1 arrival + TMA bytes) and an `empty`
 // (every consumer) barrier per ring stage, and one for the tiles loaded
@@ -111,26 +124,34 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
     tma_load_3d(dst + b * ROWS * 128, map, bar, 64 * b, row0, bh);
 }
 
-// The producer of a ring of STAGES k/v stages: k and v tiles 0 .. ntiles-1
-// of ROWS rows each, tile t into stage t % STAGES once the consumers have
-// released that stage's previous use, completing on the stage's `full`
-// barrier
-template <int NB, int ROWS, int STAGES>
+// The producer of a ring of STAGES stages, each holding a tile of ROWS rows
+// from each of two maps (k and v for B1 and B2, q and dO for B3) and, when
+// EXTRA > 0, EXTRA bytes more from `extra` (B3: the tile's lse and delta):
+// tiles first .. first+ntiles-1, the i-th into stage i % STAGES once the
+// consumers have released that stage's previous use, completing on the
+// stage's `full` barrier
+template <int NB, int ROWS, int STAGES, int EXTRA = 0>
 __device__ __forceinline__ void produce_kv(uint8_t* sK, uint8_t* sV,
                                            const CUtensorMap* tmK,
                                            const CUtensorMap* tmV,
                                            uint64_t* full_bar,
                                            uint64_t* empty_bar, int ntiles,
-                                           int bh) {
+                                           int bh, int first,
+                                           uint8_t* sExtra = nullptr,
+                                           const uint8_t* extra = nullptr) {
   constexpr int TILE_BYTES = NB * ROWS * 128;
-  for (int t = 0; t < ntiles; ++t) {
-    const int s = t % STAGES;
-    if (t >= STAGES) mbar_wait(&empty_bar[s], ((t / STAGES) - 1) & 1);
-    mbar_expect_tx(&full_bar[s], 2 * TILE_BYTES);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    const int t = first + i;
+    if (i >= STAGES) mbar_wait(&empty_bar[s], ((i / STAGES) - 1) & 1);
+    mbar_expect_tx(&full_bar[s], 2 * TILE_BYTES + EXTRA);
     tma_load_tile<NB, ROWS>(sK + s * TILE_BYTES, tmK, &full_bar[s], t * ROWS,
                             bh);
     tma_load_tile<NB, ROWS>(sV + s * TILE_BYTES, tmV, &full_bar[s], t * ROWS,
                             bh);
+    if constexpr (EXTRA > 0)
+      bulk_load(sExtra + s * EXTRA, extra + (size_t)t * EXTRA, EXTRA,
+                &full_bar[s]);
   }
 }
 

@@ -43,7 +43,7 @@ _SIGNATURES = {
         "mv_flash_bwd_dq": (ctypes.c_int, [ctypes.c_void_p] * 7 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
-        "mv_flash_bwd_dkv": (ctypes.c_int, [ctypes.c_void_p] * 8 + [
+        "mv_flash_bwd_dkv": (ctypes.c_int, [ctypes.c_void_p] * 9 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
         "mv_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),

@@ -9,18 +9,20 @@ together by a ``jax.custom_vjp``. Here each has two implementations:
 * CUDA C++ kernels for Hopper (sm_90a): ``csrc/flash_fwd.cu`` (forward)
   and ``csrc/flash_bwd.cu`` (dQ; dK and dV), launched for CUDA tensors
   through ``_flash_forward_cuda``, ``_flash_bwd_dq_cuda`` and
-  ``_flash_bwd_dkv_cuda``. They pick their own tile (64 x 64) and take
-  head dims 32, 64 and 128; a smaller head dim is zero-padded up to the
-  next of these on the way in and cut on the way out. A failed build or
-  launch raises.
+  ``_flash_bwd_dkv_cuda``. They pick their own tiles (bfloat16 runs
+  wgmma/TMA designs with 128-row blocks, float32 FMA designs with 64 x 64
+  tiles) and take head dims 32, 64 and 128; a smaller head dim is
+  zero-padded up to the next of these on the way in and cut on the way
+  out. A failed build or launch raises.
 * ``flash_forward_plain`` and ``flash_backward_plain``, plain PyTorch with
   the kernels' arithmetic (f32 scores; forward: ``p`` rounded to the input
   dtype before ``p @ v``, masked ``p = 0``, ``l == 0 -> 1``; backward:
   ``p = exp(s - lse)``, ``delta = rowsum(dO * out)`` in f32, ``ds`` rounded
   to the input dtype before ``ds @ k`` and ``ds^T @ q``, ``p`` rounded to
-  dO's dtype before ``p^T @ dO``). They are used for CPU tensors, which is
-  the caller's explicit choice of device, and as the kernels' reference in
-  tests and ``chip_smoke.py``.
+  dO's dtype before ``p^T @ dO``, dK and dV summed per q tile of 64
+  rows). They are used for CPU tensors, which is the caller's explicit
+  choice of device, and as the kernels' reference in tests and
+  ``chip_smoke.py``.
 
 ``flash_attention`` is differentiable: ``_FlashAttention``, a
 ``torch.autograd.Function``, takes the place of the ``custom_vjp``. When a
@@ -45,6 +47,12 @@ from multiverso_tpu_torch.ops import _build
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+# q rows over which the backward sums dK and dV in f32 before adding the
+# tile's sum to the total, tile by tile: the TPU kernel sums them per q block
+# into an f32 scratch, the bf16 dK/dV kernel per 64-row q tile. One f32
+# product over all of S rounds the small terms against the whole sum
+# instead, and at |dV| >= 1 that moves a bf16 result by an ulp (7.8e-3).
+_BWD_Q_TILE = 64
 
 # launches of each CUDA kernel, counted by its wrapper where it launches
 _launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
@@ -101,7 +109,7 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels: q, k, v, out, dO
     [B, H, S, D] and the forward's lse (B*H, S) f32 -> (dq, dk, dv) in the
-    input dtype."""
+    input dtype. dK and dV are summed per ``_BWD_Q_TILE`` q rows."""
     b, h, s, d = q.shape
     scale = 1.0 / (d ** 0.5)
     qf, kf, dof = q.float(), k.float(), do.float()
@@ -113,10 +121,15 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dp = torch.matmul(dof, v.float().transpose(-1, -2))
     ds = (p * (dp - delta) * scale).to(q.dtype).float()
     dq = torch.matmul(ds, kf).to(q.dtype)
-    dk = torch.matmul(ds.transpose(-1, -2), qf).to(k.dtype)
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
-                      dof).to(v.dtype)
-    return dq, dk, dv
+    p = p.to(do.dtype).float()
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(kf)
+    for t in range(0, s, _BWD_Q_TILE):
+        rows = slice(t, t + _BWD_Q_TILE)
+        dk += torch.matmul(ds[..., rows, :].transpose(-1, -2),
+                           qf[..., rows, :])
+        dv += torch.matmul(p[..., rows, :].transpose(-1, -2),
+                           dof[..., rows, :])
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _kernel_shape(q: torch.Tensor, **others: torch.Tensor
@@ -202,14 +215,20 @@ def _flash_bwd_dq_cuda(q, k, v, out, lse, do, causal: bool,
 def _flash_bwd_dkv_cuda(q, k, v, out, lse, do, causal: bool,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel (B3) of ``csrc/flash_bwd.cu``."""
+    """Launch the dK/dV kernel (B3) of ``csrc/flash_bwd.cu``. In bfloat16
+    its pre-pass first writes each q tile's lse and delta, one after the
+    other, into a scratch buffer, in the same call."""
     bh, s, d = _kernel_shape(q, k=k, v=v, out=out, do=do)
     _check_lse(lse, q, bh, s)
     lib = _build.load("flash_bwd")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stats = (torch.empty((bh, -(-s // _BWD_Q_TILE), 2 * _BWD_Q_TILE),
+                         dtype=torch.float32, device=q.device)
+             if q.dtype == torch.bfloat16 else None)
     _launch("flash_bwd_dkv", lib, lib.mv_flash_bwd_dkv, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr() if stats is not None else None,
             bh, s, d, _KERNEL_DTYPES[q.dtype], int(causal),
             scale or 1.0 / (d ** 0.5))
     return dk, dv

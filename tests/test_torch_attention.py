@@ -194,8 +194,21 @@ def test_backward_plain_matches_jax_flash_backward(dtype, causal):
     roundings, so only the summation order differs: f32 to the JAX
     test's 2e-3 / 3e-4, bf16 to 8e-3, one bf16 ulp at |grad| in [1, 2)
     (measured max |diff| 2.0e-3 with |grads| up to 3.9)."""
-    shape, blk = (1, 2, 64, 32), 32
-    (jq, jk, jv, jg), (tq, tk, tv, tg) = _grad_inputs(shape, dtype, 11)
+    _check_backward_plain((1, 2, 64, 32), 32, dtype, causal, 11)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_plain_sums_dkv_over_q_tiles(dtype, causal):
+    """S = 192: flash_backward_plain sums dK and dV over three q tiles of
+    64 rows, adding each tile's sum in turn, as the JAX kernel with 64-row
+    q blocks adds each block's product to its f32 scratch. The limits of
+    the one-tile test above."""
+    _check_backward_plain((1, 2, 192, 32), 64, dtype, causal, 12)
+
+
+def _check_backward_plain(shape, blk, dtype, causal, seed):
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _grad_inputs(shape, dtype, seed)
     jout, (_, _, _, _, jlse) = jak._fwd(jq, jk, jv, causal, blk, blk, None)
     with jax.default_matmul_precision("float32"):
         want = jak._flash_backward(jq, jk, jv, jout, jlse, jg, causal, blk,
