@@ -26,6 +26,18 @@ Phases, every one on every run, in this order:
             every few steps; the other main path, counted the same way),
             each sync checked against numpy bit for bit, the gradients of
             attn="flash" against attn="local", and one step profiled
+6. we       the WordEmbedding path (no kernel of its own: gathers, matrix
+            products and index_add_): the native data library built and
+            loaded, MatrixTable row Add/Get with duplicate ids on a
+            71,290 x 128 table against numpy bit for bit, ``train_fused``
+            on the real-text corpus (bench.py:220-221) and on the
+            synthetic one (bench.py:114-121), one warm and 3 timed epochs
+            each (words/s, device span, falling loss), the real-text
+            probe's nearest neighbours, a bf16 epoch against an f32 one
+            from the same start, the card's f32 epoch against the CPU's on
+            the same batches, one profiled epoch, and the app's command
+            line (``python -m multiverso_tpu_torch.apps.word_embedding``)
+            in its own process, its vectors read back
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -719,10 +731,307 @@ def phase_train(dev, shared, layers: int) -> dict:
     return counts
 
 
-def profile(label: str, fn, top: int = 8) -> None:
-    """Where one request's or step's time goes: torch.profiler over one
-    call of ``fn`` (after the counted run), device time by kernel and the
-    idle share."""
+# WordEmbedding (the we phase): the repo's two configurations of the fused
+# skip-gram path with a shared negative pool. Real text: bench.py:220-221
+# (size 128, batch 16384, 5 negatives, window 5, a pool of 256, min_count
+# 5, sample 1e-4 by default) on data/realtext.txt.gz. Synthetic:
+# bench.py:114-121 (400k zipf tokens, vocab 10,000, seed 7, the same
+# widths, epoch 1)
+WE_CFG = dict(size=128, min_count=5, batch_size=16384, negative=5, window=5,
+              shared_negatives=256)
+WE_SYNTH_CORPUS = dict(num_tokens=400_000, vocab=10_000, seed=7)
+WE_TIMED_EPOCHS = 3
+WE_PROBES = ("array", "matrix", "value", "data")   # bench.py:233
+# a MatrixTable of text8's vocabulary at min_count 5 by 128 columns
+TEXT8_VOCAB = 71_290
+# one epoch in bf16 against one in f32 from the same start, on the same
+# pairs and negatives: the products round to bf16 (8 significant bits, a
+# relative 2^-9 per rounding) and the tables take bf16-rounded deltas, so
+# the epoch's mean loss moves by a fraction of a percent; 1e-2 relative
+WE_BF16_LOSS_RTOL = 1e-2
+# the card's f32 epoch against the CPU's on the same inputs (the first
+# WE_REF_BATCHES batches of the real-text pairs): index_add_ adds duplicate
+# rows with atomics on the card, in an order that changes from run to run,
+# so the sums differ from the CPU's ordered ones by f32 rounding. The loss
+# to 1e-5 relative; the tables to 2e-5 of their largest magnitude (|x|
+# reaches ~4-6 after a few epochs, where one f32 ulp is 4.8e-7: ~40 ulps,
+# for rows that take up to some thousands of adds a batch)
+WE_REF_BATCHES = 8
+WE_REF_LOSS_RTOL = 1e-5
+WE_REF_TABLE_RTOL = 2e-5
+
+
+def we_group(name: str) -> str:
+    """The WordEmbedding epoch's kernel groups, by kernel name."""
+    low = name.lower()
+    return ("scatter-add" if any(t in low for t in ("indexfunc", "index_add",
+                                                    "scatter")) else
+            "gather" if any(t in low for t in ("indexselect", "index_select",
+                                               "gather", "index_elementwise"))
+            else "matmul" if any(t in low for t in ("gemm", "gemv", "nvjet",
+                                                    "cutlass", "sm90_xmma"))
+            else "elementwise/reduce/copy")
+
+
+def phase_we_table(dev) -> None:
+    """MatrixTable row Add/Get with duplicate ids on a 71,290 x 128 table on
+    the card, against numpy bit for bit: duplicates summed in float64 and
+    cast, then one f32 add per touched element."""
+    import torch
+    import multiverso_tpu_torch as mv
+
+    rng = np.random.default_rng(5)
+    table = mv.MatrixTable(TEXT8_VOCAB, 128, name="we_text8", seed=3,
+                           init_scale=0.5 / 128)
+    if table.raw().device != dev:
+        raise AssertionError(f"the table is on {table.raw().device}")
+    ref = table.get()
+    add_ms, get_ms = [], []
+    for _ in range(3):
+        # zipf ids: many duplicates among the frequent rows, as a batch of
+        # word2vec rows has
+        ids = (rng.zipf(1.2, 16384) - 1) % TEXT8_VOCAB
+        vals = rng.normal(0, 1e-2, (ids.size, 128)).astype(np.float32)
+        acc = np.zeros((TEXT8_VOCAB, 128), np.float64)
+        np.add.at(acc, ids, vals.astype(np.float64))
+        touched = np.unique(ids)
+        ref[touched] = ref[touched] + acc[touched].astype(np.float32)
+        t0 = time.perf_counter()
+        table.add_rows(ids, vals)
+        torch.cuda.synchronize()
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        rows = table.get_rows(ids)
+        get_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(rows, ref[ids]):
+            raise AssertionError("get_rows disagrees with numpy")
+        if not np.array_equal(table.get(), ref):
+            raise AssertionError("add_rows disagrees with numpy")
+        log(f"we table {TEXT8_VOCAB}x128: add_rows of {ids.size} ids "
+            f"({touched.size} distinct) {add_ms[-1]:.3f} ms, get_rows "
+            f"{get_ms[-1]:.3f} ms (host, blocking)")
+    for bad, err in (([TEXT8_VOCAB], IndexError), ([1.5], TypeError)):
+        try:
+            table.get_rows(bad)
+        except err:
+            pass
+        else:
+            raise AssertionError(f"get_rows({bad}) must raise {err.__name__}")
+    log("we table add_rows/get_rows with duplicate ids match numpy bit for "
+        "bit (3 rounds); out-of-range and float ids raise")
+
+
+def we_run(label: str, we, ids) -> dict:
+    """One warm epoch, then WE_TIMED_EPOCHS timed ones of ``train_fused``:
+    words/s by the host's clock (train_fused ends with the loss readback)
+    and the device span of each epoch by CUDA events."""
+    import torch
+    losses, wps, span_ms = [], [], []
+    stats = we.train_fused(ids, epochs=1)    # warm: pairs to the card
+    losses.append(stats["loss"])
+    log(f"we {label} warm epoch: {stats['seconds'] * 1e3:.3f} ms with the "
+        f"pair generation and upload, {stats['pairs']} pairs, loss "
+        f"{stats['loss']:.6f}")
+    for _ in range(WE_TIMED_EPOCHS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        stats = we.train_fused(ids, epochs=1)
+        ev[1].record()
+        ev[1].synchronize()
+        losses.append(stats["loss"])
+        wps.append(stats["words_per_sec"])
+        span_ms.append(ev[0].elapsed_time(ev[1]))
+    host_ms = [ids.size / w * 1e3 for w in wps]
+    log(f"we {label}: {ids.size} tokens, {stats['pairs']} pairs "
+        f"({stats['pairs'] // we.cfg.batch_size} batches of "
+        f"{we.cfg.batch_size}) an epoch; timed epochs host ms "
+        f"{[round(t, 3) for t in host_ms]}, words/s "
+        f"{[round(w) for w in wps]} (median {float(np.median(wps)):.0f}); "
+        f"device span ms (CUDA events) {[round(t, 3) for t in span_ms]}; "
+        f"loss per epoch (warm first) {[round(l, 6) for l in losses]}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite WordEmbedding loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the WordEmbedding loss did not fall: {losses}")
+    return {"losses": losses, "words_per_sec": wps, "span_ms": span_ms}
+
+
+def phase_we(dev) -> dict:
+    """The WordEmbedding path on the card: the host pipeline's library,
+    the MatrixTable checks, train_fused on real text and on the synthetic
+    corpus, bf16 against f32, the card's f32 epoch against the CPU's, and
+    one profiled epoch."""
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import native
+    from multiverso_tpu_torch.apps.word_embedding import (WEConfig,
+                                                          WordEmbedding,
+                                                          synthetic_corpus)
+    from multiverso_tpu_torch.data.dictionary import Dictionary
+    from multiverso_tpu_torch.io import realtext
+    from multiverso_tpu_torch.models import word2vec as w2v
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native data library did not build")
+    log(f"we native library {native.library_path().name}: "
+        f"{time.perf_counter() - t0:.1f} s (build and load)")
+    phase_we_table(dev)
+
+    t0 = time.perf_counter()
+    tokens = realtext.load_tokens()
+    cfg = WEConfig(**WE_CFG)
+    d = Dictionary.build(tokens, cfg.min_count)
+    we = WordEmbedding(cfg, d)
+    ids = we.prepare_ids(tokens)
+    log(f"we realtext ({realtext.provenance()}): {len(tokens)} tokens, "
+        f"vocab {len(d)} at min_count {cfg.min_count}, {ids.size} training "
+        f"tokens after subsampling ({time.perf_counter() - t0:.1f} s on the "
+        f"host); tables {we.table_in.raw().device}, compute dtype "
+        f"{we.compute_dtype()}")
+    if we.compute_dtype() != torch.bfloat16:
+        raise AssertionError("the card must compute in bf16")
+    real = we_run("realtext", we, ids)
+    vocab_real = len(d)
+    probe = next((w for w in WE_PROBES if w in d.word2id), None)
+    log(f"we realtext nearest neighbours of {probe!r}: "
+        f"{we.nearest(probe, 6)[1:] if probe else []}")
+    log(f"we realtext word_count {we.total_word_count()} "
+        f"(= {1 + WE_TIMED_EPOCHS} epochs x {ids.size})")
+    if we.total_word_count() != (1 + WE_TIMED_EPOCHS) * ids.size:
+        raise AssertionError("the word_count KVTable is off")
+
+    # bf16 against f32, one epoch each from the same tables, pairs and LCG
+    w2v_cfg = w2v.W2VConfig(len(d), cfg.size, cfg.negative, cfg.window,
+                            cfg.alpha, False, False, cfg.shared_negatives)
+    cbd, xbd, _ = we._device_pairs(ids)
+    start = (we.table_in.raw(), we.table_out.raw(), we._lcg)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        fn = w2v.make_fused_shared_epoch(w2v_cfg, we.unigram, compute_dtype=dt)
+        win, wout, loss, _ = fn(*(t.clone() for t in start[:2]), cbd, xbd,
+                                start[2].clone())
+        out[dt] = (float(loss), win)
+    (lb, wb), (lf, wf) = out[torch.bfloat16], out[torch.float32]
+    rel = abs(lb - lf) / abs(lf)
+    log(f"we bf16 vs f32, one epoch from the same start: loss {lb:.6f} vs "
+        f"{lf:.6f}, relative difference {rel:.3e} (bound "
+        f"{WE_BF16_LOSS_RTOL:.0e}); embed_in ||bf16 - f32|| / ||f32|| "
+        f"{float((wb - wf).norm() / wf.norm()):.3e}")
+    if not rel <= WE_BF16_LOSS_RTOL:
+        raise AssertionError("the bf16 epoch's loss is outside its bound")
+    del out, wb, wf
+
+    # the card's f32 epoch against the CPU's on the first batches
+    n = WE_REF_BATCHES
+    res = {}
+    for where in ("cuda", "cuda again", "cpu"):
+        d_ = dev if where != "cpu" else torch.device("cpu")
+        fn = w2v.make_fused_shared_epoch(w2v_cfg, we.unigram,
+                                         compute_dtype=torch.float32)
+        win, wout, loss, lcg = fn(*(t.to(d_, copy=True) for t in start[:2]),
+                                  cbd[:n].to(d_), xbd[:n].to(d_),
+                                  start[2].to(d_, copy=True))
+        res[where] = (float(loss), win.cpu(), wout.cpu(), lcg.cpu())
+    lc, winc, woutc, lcgc = res["cpu"]
+    scale = max(float(winc.abs().max()), float(woutc.abs().max()))
+    for where in ("cuda", "cuda again"):
+        lg, wing, woutg, lcgg = res[where]
+        derr = max(float((wing - winc).abs().max()),
+                   float((woutg - woutc).abs().max()))
+        lrel = abs(lg - lc) / abs(lc)
+        log(f"we f32 epoch of {n} batches, {where} vs the CPU: loss "
+            f"{lg:.8f} vs {lc:.8f} (relative {lrel:.3e}, bound "
+            f"{WE_REF_LOSS_RTOL:.0e}), tables max |diff| {derr:.3e} at max "
+            f"|x| {scale:.3f} (relative {derr / scale:.3e}, bound "
+            f"{WE_REF_TABLE_RTOL:.0e}), LCG state equal "
+            f"{torch.equal(lcgg, lcgc)}")
+        if not (lrel <= WE_REF_LOSS_RTOL and derr <= WE_REF_TABLE_RTOL * scale
+                and torch.equal(lcgg, lcgc)):
+            raise AssertionError("the card's epoch disagrees with the CPU's")
+    run_to_run = max(float((res["cuda"][1] - res["cuda again"][1]).abs()
+                           .max()),
+                     float((res["cuda"][2] - res["cuda again"][2]).abs()
+                           .max()))
+    log(f"we f32 card epoch run to run (index_add_ atomics): tables max "
+        f"|diff| {run_to_run:.3e}")
+    del res
+
+    prof = profile("we realtext epoch",
+                   lambda: we.train_fused(ids, epochs=1), top=12,
+                   group=we_group)
+    if prof["busy_ms"]:
+        span = float(np.median(real["span_ms"]))
+        log(f"we realtext epoch: device busy {prof['busy_ms']:.3f} ms "
+            f"(profiled) against a device span of {span:.3f} ms (median "
+            f"unprofiled epoch): idle share {max(0.0, 1 - prof['busy_ms'] / span):.3f}")
+
+    t0 = time.perf_counter()
+    tokens = synthetic_corpus(**WE_SYNTH_CORPUS)
+    cfg = WEConfig(epoch=1, **WE_CFG)
+    d = Dictionary.build(tokens, cfg.min_count)
+    we_s = WordEmbedding(cfg, d)
+    ids_s = we_s.prepare_ids(tokens)
+    log(f"we synthetic: {len(tokens)} tokens, vocab {len(d)}, {ids_s.size} "
+        f"training tokens ({time.perf_counter() - t0:.1f} s on the host)")
+    synth = we_run("synthetic", we_s, ids_s)
+    del we, we_s
+    mv.barrier()
+    phase_we_cli(vocab_real)
+    return {"realtext": real, "synthetic": synth}
+
+
+def phase_we_cli(vocab: int) -> None:
+    """The app's command line on the card, in its own process: one epoch
+    of the real-text corpus at the same config, binary vectors out, read
+    back and checked (``vocab`` rows of finite values)."""
+    import os
+    import tempfile
+    from multiverso_tpu_torch.apps.word_embedding import load_embeddings
+    from multiverso_tpu_torch.io import realtext
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "vec.bin")
+        argv = [sys.executable, "-m", "multiverso_tpu_torch.apps.word_embedding",
+                "-train_file", realtext.materialize(os.path.join(tmp, "rt.txt")),
+                "-output", out, "-binary", "1", "-epoch", "1"]
+        for key, value in WE_CFG.items():
+            argv += [f"-{key}", str(value)]
+        t0 = time.perf_counter()
+        res = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=300)
+        seconds = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"the WordEmbedding CLI failed "
+                                 f"({res.returncode}):\n{res.stdout[-2000:]}"
+                                 f"\n{res.stderr[-2000:]}")
+        trained = [l for l in res.stdout.splitlines() if "trained:" in l]
+        words, emb = load_embeddings(out)
+    log(f"we cli: {seconds:.1f} s for the process (start, corpus, one "
+        f"epoch, binary output); {trained[-1].split('] ')[-1] if trained else ''}"
+        f"; {len(words)} x {emb.shape[1]} vectors read back")
+    if emb.shape != (vocab, WE_CFG["size"]) or not np.isfinite(emb).all():
+        raise AssertionError(f"the CLI wrote {emb.shape} vectors, or "
+                             f"non-finite ones")
+
+
+def lm_group(name: str) -> str:
+    """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
+    low = name.lower()
+    return ("flash_bwd_dq" if "flash_bwd_dq" in low else
+            "flash_bwd_dkv" if "flash_bwd_dkv" in low else
+            "flash_fwd" if "flash_fwd" in low else
+            "matmul" if any(t in low for t in ("gemm", "nvjet", "cutlass",
+                                               "sm90_xmma")) else
+            "elementwise/reduce/copy")
+
+
+def profile(label: str, fn, top: int = 8, group=lm_group) -> dict:
+    """Where one call of ``fn`` spends its device time: torch.profiler over
+    it (after the counted run), device time by kernel and by ``group`` of
+    the kernel's name, and the idle share. Returns {"wall_ms", "busy_ms",
+    "groups"} (busy 0 when the profiler saw no device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as trace
 
@@ -741,24 +1050,19 @@ def profile(label: str, fn, top: int = 8) -> None:
     if busy == 0:
         log(f"{label} profile: wall {wall:.3f} ms, device time not measured "
             f"(the profiler saw no device activity)")
-        return
+        return {"wall_ms": wall, "busy_ms": 0.0, "groups": {}}
     log(f"{label} profile (profiler on): wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
     groups = {}
     for name, ms in rows:
-        low = name.lower()
-        group = ("flash_bwd_dq" if "flash_bwd_dq" in low else
-                 "flash_bwd_dkv" if "flash_bwd_dkv" in low else
-                 "flash_fwd" if "flash_fwd" in low else
-                 "matmul" if any(t in low for t in ("gemm", "nvjet", "cutlass",
-                                                    "sm90_xmma")) else
-                 "elementwise/reduce/copy")
-        groups[group] = groups.get(group, 0.0) + ms
+        g = group(name)
+        groups[g] = groups.get(g, 0.0) + ms
     log(f"{label} profile by group: " + ", ".join(
         f"{g} {ms:.3f} ms ({ms / busy:.1%})"
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
     for name, ms in rows[:top]:
         log(f"  {ms:9.3f} ms {ms / busy:6.1%}  {name[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy, "groups": groups}
 
 
 def main(argv=None) -> int:
@@ -778,7 +1082,7 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     log(f"card: {smi}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda}, numpy {np.__version__}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -792,6 +1096,17 @@ def main(argv=None) -> int:
                                                     BATCHES)}}
     torch.cuda.empty_cache()   # the request model is gone
     paths["train"] = phase_train(dev, shared, LAYERS)
+    del shared
+    torch.cuda.empty_cache()   # the LM is gone
+    # the WordEmbedding path, driven with the counts at 0: it runs no
+    # kernel of the port (gathers, GEMMs and index_add_ are PyTorch's)
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    ak.reset_launch_counts()
+    phase_we(dev)
+    paths["we"] = ak.launch_counts()
+    log(f"we launches {paths['we']}")
+    if any(paths["we"].values()):
+        raise AssertionError("the WordEmbedding path launched a flash kernel")
     mv.shutdown()
     for rec in records:
         by_path = {p: c[rec["name"]] for p, c in paths.items()

@@ -1,8 +1,10 @@
 """multiverso_tpu_torch: the PyTorch/CUDA port of ``multiverso_tpu``.
 
-Parameter tables with server-side updaters on one ``torch.device``, the
-shared-parameter delta sync, and the transformer LM forward pass whose
-attention is a hand-written CUDA kernel (``csrc/flash_fwd.cu``).
+Parameter tables with server-side updaters on one ``torch.device`` (array,
+matrix and KV tables), the shared-parameter delta sync, the transformer LM
+whose attention is hand-written CUDA (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), and the fused WordEmbedding (skip-gram with a
+batch-shared negative pool, ``apps/word_embedding.py``).
 
 Entry points run on the card: ``init()`` resolves the device to ``cuda``
 and raises if there is none, unless the caller passes ``device="cpu"``.
@@ -14,15 +16,19 @@ from multiverso_tpu_torch.api import (barrier, create_table, device, init,
                                       num_workers, rank, server_id, shutdown,
                                       size, worker_id)
 from multiverso_tpu_torch.sharedvar import SharedPytree
-from multiverso_tpu_torch.tables import ArrayTable, ArrayTableOption
+from multiverso_tpu_torch.tables import (ArrayTable, ArrayTableOption,
+                                         KVTable, KVTableOption, MatrixTable,
+                                         MatrixTableOption)
 from multiverso_tpu_torch.updaters import AddOption, get_updater, register_updater
 from multiverso_tpu_torch.utils import config, log
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
+from multiverso_tpu_torch.zoo import Zoo
 
 __all__ = [
-    "AddOption", "ArrayTable", "ArrayTableOption", "Dashboard",
-    "SharedPytree", "barrier", "config", "create_table", "device",
-    "get_updater", "init", "is_master_worker", "log", "monitor",
-    "num_servers", "num_workers", "rank", "register_updater",
-    "server_id", "shutdown", "size", "worker_id",
+    "AddOption", "ArrayTable", "ArrayTableOption", "Dashboard", "KVTable",
+    "KVTableOption", "MatrixTable", "MatrixTableOption", "SharedPytree",
+    "Zoo", "barrier", "config", "create_table", "device", "get_updater",
+    "init", "is_master_worker", "log", "monitor", "num_servers",
+    "num_workers", "rank", "register_updater", "server_id", "shutdown",
+    "size", "worker_id",
 ]

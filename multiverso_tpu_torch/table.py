@@ -16,9 +16,11 @@ Program order on one stream gives every Get the state after all previously
 issued Adds, the BSP guarantee of the reference's SyncServer. On the CPU
 every op completes before it returns.
 
-Not ported yet (see ROADMAP): the wire filters, the version-stamped get
-cache and write-triggered prefetch, host-add coalescing, the functional
-plane (``state``/``functional_add``/``adopt``) and ``store``/``load``.
+The functional plane's ``state``/``adopt`` hand the live tensors to code
+that trains them in place (the fused WordEmbedding epoch) and commit the
+result. Not ported yet (see ROADMAP): the wire filters, the version-stamped
+get cache and write-triggered prefetch, host-add coalescing,
+``functional_add`` and ``store``/``load``.
 """
 
 from __future__ import annotations
@@ -83,8 +85,8 @@ class Table:
         self.device = zoo.device()
         self._num_shards = 1
 
-        # at least one spare row, as in the JAX package (scatter scratch
-        # for the masked row ops of later slices)
+        # at least one spare row, as in the JAX package, so padded shapes
+        # (and a seeded init's draws) match its layout
         self._padded_rows = _ceil_to(self.shape[0] + 1, self._num_shards)
         self._padded_shape = (self._padded_rows,) + self.shape[1:]
 
@@ -132,6 +134,30 @@ class Table:
     def raw(self) -> torch.Tensor:
         """The live padded data tensor."""
         return self._data
+
+    # ------------------------------------------------------------------ #
+    # functional plane (ref multiverso_tpu/table.py state/adopt)
+    # ------------------------------------------------------------------ #
+    @property
+    def state(self) -> Dict[str, Any]:
+        """The live table state ``{"data", "ustate"}``: the padded data
+        tensor and the updater's state tensors, not copies."""
+        return {"data": self._data, "ustate": self._ustate}
+
+    def adopt(self, state: Dict[str, Any]) -> None:
+        """Commit a table state advanced outside the table (the end of an
+        in-place training loop). The data keeps the table's padded shape,
+        dtype and device."""
+        data = state["data"]
+        if (tuple(data.shape) != self._padded_shape
+                or data.dtype != self.dtype or data.device != self.device):
+            raise ValueError(
+                f"adopt: data {tuple(data.shape)} {data.dtype} {data.device}"
+                f" does not match the table's {self._padded_shape} "
+                f"{self.dtype} {self.device}")
+        with self._dispatch_lock:
+            self._data = data
+            self._ustate = state["ustate"]
 
     # ------------------------------------------------------------------ #
     # msg-id bookkeeping (ref src/table.cpp:27-97)

@@ -1,3 +1,7 @@
 from multiverso_tpu_torch.tables.array_table import ArrayTable, ArrayTableOption
+from multiverso_tpu_torch.tables.kv_table import KVTable, KVTableOption
+from multiverso_tpu_torch.tables.matrix_table import (MatrixTable,
+                                                      MatrixTableOption)
 
-__all__ = ["ArrayTable", "ArrayTableOption"]
+__all__ = ["ArrayTable", "ArrayTableOption", "KVTable", "KVTableOption",
+           "MatrixTable", "MatrixTableOption"]

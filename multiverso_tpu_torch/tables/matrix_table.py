@@ -1,0 +1,170 @@
+"""MatrixTable: 2-D parameter matrix with row-batch Add/Get (port of
+``multiverso_tpu/tables/matrix_table.py``).
+
+One device holds the whole matrix (row sharding across cards arrives with
+the multi-card slice). The host-side contract of a row op is the JAX
+package's, exactly:
+
+* row ids must be integers (``TypeError`` on floats, which would truncate
+  onto arbitrary rows) inside ``[0, num_row)`` (``IndexError``), and not
+  empty (``ValueError``);
+* duplicate ids in one add are summed on the host in float64 with
+  ``np.add.at`` and cast to the table's dtype, so the sum does not depend on
+  the order of the duplicates (the reference accumulates per row);
+* updater locality: an add gathers the touched rows and their updater
+  state, applies the updater to them, and scatters both back, so untouched
+  rows keep their momentum/adagrad state (a full-table update with a
+  zero-padded delta would decay them);
+* a get returns the rows in the order asked, duplicates included.
+
+The JAX package pads each id batch to a power-of-two bucket aimed at a
+scratch row, so XLA compiles one program per bucket; that changes no
+result. PyTorch runs eagerly, so the port applies just the k unique rows.
+Not ported yet (ROADMAP): the cross-process union of row adds, the hot-row
+train cache and ``ops/row_assemble.py``'s device gather/scatter helpers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from multiverso_tpu_torch import updaters as updaters_lib
+from multiverso_tpu_torch.table import Table, _Pending
+from multiverso_tpu_torch.updaters import AddOption
+from multiverso_tpu_torch.utils.dashboard import monitor
+
+
+class MatrixTable(Table):
+    def __init__(self, num_row: int, num_col: int, dtype=np.float32,
+                 updater: Union[str, updaters_lib.Updater, None] = None,
+                 name: str = "matrix",
+                 init=None, seed: Optional[int] = None,
+                 init_scale: float = 0.0):
+        super().__init__((int(num_row), int(num_col)), dtype=dtype,
+                         updater=updater, name=name, init=init, seed=seed,
+                         init_scale=init_scale)
+
+    @property
+    def num_row(self) -> int:
+        return self.shape[0]
+
+    @property
+    def num_col(self) -> int:
+        return self.shape[1]
+
+    def _state_row_axis(self, leaf: torch.Tensor) -> Optional[int]:
+        """Axis of ``leaf`` that is the table's row axis, or None (a leaf
+        shared by all rows, such as Adam's step count)."""
+        nd, pd = leaf.dim(), len(self._padded_shape)
+        if nd >= pd and tuple(leaf.shape[nd - pd:]) == self._padded_shape:
+            return nd - pd
+        return None
+
+    def _prep_ids(self, row_ids, values=None
+                  ) -> Tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
+        """Validate and dedupe a row-id batch: (sorted unique ids, their
+        summed values or None, inverse) where ``inverse`` maps each id
+        asked for to its unique slot."""
+        raw = np.asarray(row_ids)
+        if raw.size == 0:
+            raise ValueError("empty row_ids")
+        if not np.issubdtype(raw.dtype, np.integer):
+            raise TypeError(f"row_ids must be integers, got dtype "
+                            f"{raw.dtype} (silent float truncation would "
+                            f"hit arbitrary rows)")
+        ids = raw.astype(np.int64).reshape(-1)
+        if np.any((ids < 0) | (ids >= self.num_row)):
+            raise IndexError(f"row id out of range [0, {self.num_row})")
+        uids, inv = np.unique(ids, return_inverse=True)
+        inv = inv.reshape(-1)
+        vals = None
+        if values is not None:
+            vals = np.asarray(values, dtype=self.np_dtype).reshape(
+                ids.size, self.num_col)
+            acc = np.zeros((uids.size, self.num_col), dtype=np.float64)
+            np.add.at(acc, inv, vals.astype(np.float64))
+            vals = acc.astype(self.np_dtype)
+        return uids, vals, inv
+
+    def add_rows_async(self, row_ids, values,
+                       opt: Optional[AddOption] = None) -> int:
+        """ref MatrixWorkerTable::AddAsync(row_ids, values): apply the
+        updater to the touched rows on the device's stream."""
+        opt = opt or AddOption()
+        with monitor(f"table[{self.name}].add_rows"), self._dispatch_lock:
+            uids, vals, _ = self._prep_ids(row_ids, values)
+            ids = torch.from_numpy(uids).to(self.device)
+            delta = torch.from_numpy(vals).to(self.device)
+            rows = self._data.index_select(0, ids)
+            axes = {k: self._state_row_axis(v) for k, v in self._ustate.items()}
+            gstate = {k: (v.index_select(axes[k], ids)
+                          if axes[k] is not None else v)
+                      for k, v in self._ustate.items()}
+            rows, gstate = self.updater.apply(rows, gstate, delta, opt)
+            self._data.index_copy_(0, ids, rows)
+            for k, axis in axes.items():
+                if axis is not None:
+                    self._ustate[k].index_copy_(axis, ids, gstate[k])
+            return self._track(_Pending(self._event()))
+
+    def add_rows(self, row_ids, values,
+                 opt: Optional[AddOption] = None) -> None:
+        self.wait(self.add_rows_async(row_ids, values, opt))
+
+    def get_rows_async(self, row_ids) -> int:
+        """ref MatrixWorkerTable::GetAsync(row_ids): gather the rows, start
+        the device -> host copy, return a msg id."""
+        with monitor(f"table[{self.name}].get_rows"), self._dispatch_lock:
+            uids, _, inv = self._prep_ids(row_ids)
+            rows = self._data.index_select(
+                0, torch.from_numpy(uids).to(self.device))
+            if self.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=self.dtype,
+                                   pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+            else:
+                host = rows
+            return self._track(_Pending(self._event(), host,
+                                        lambda h: h.numpy()[inv]))
+
+    def get_rows(self, row_ids,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+        host = self.wait(self.get_rows_async(row_ids))
+        if out is not None:
+            np.copyto(out.reshape(host.shape), host)
+            return out
+        return host
+
+    def get_row(self, row_id: int,
+                out: Optional[np.ndarray] = None) -> np.ndarray:
+        row = self.get_rows([row_id])
+        if out is not None:
+            np.copyto(out.reshape(self.num_col), row[0])
+            return out
+        return row[0]
+
+    def add_row(self, row_id: int, values,
+                opt: Optional[AddOption] = None) -> None:
+        self.add_rows([row_id], np.asarray(values).reshape(1, -1), opt)
+
+
+class MatrixTableOption:
+    """ref DEFINE_TABLE_TYPE option struct:
+    ``create_table(MatrixTableOption(num_row, num_col))``."""
+
+    def __init__(self, num_row: int, num_col: int, dtype=np.float32,
+                 updater=None, init=None, seed=None, init_scale: float = 0.0):
+        self.num_row, self.num_col = num_row, num_col
+        self.dtype = dtype
+        self.updater = updater
+        self.init = init
+        self.seed = seed
+        self.init_scale = init_scale
+
+    def build(self, name: str = "matrix") -> MatrixTable:
+        return MatrixTable(self.num_row, self.num_col, dtype=self.dtype,
+                           updater=self.updater, name=name, init=self.init,
+                           seed=self.seed, init_scale=self.init_scale)

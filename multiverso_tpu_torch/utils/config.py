@@ -141,6 +141,21 @@ def parse_cmd_flags(argv: Optional[List[str]] = None) -> List[str]:
     return remainder
 
 
+def consume_runtime_flags(argv: Optional[List[str]]) -> List[str]:
+    """App-CLI preamble: ``-key=value`` entries are runtime flags, parsed
+    into the registry (an unknown one is logged and dropped, as the
+    reference warns and keeps going); everything else (the app's own
+    ``-key value`` pairs and positionals) is returned in order."""
+    argv = list(argv or [])
+    flags = [a for a in argv if a.startswith("-") and "=" in a]
+    rest = [a for a in argv if not (a.startswith("-") and "=" in a)]
+    for a in parse_cmd_flags(flags):
+        from multiverso_tpu_torch.utils import log   # lazy: log reads flags
+        log.error("unknown runtime flag %s (ignored; app keys use "
+                  "'-key value' form)", a)
+    return rest
+
+
 # ---------------------------------------------------------------------------
 # Flags read by this package (names, types and defaults as in the JAX
 # package, plus ``device``).

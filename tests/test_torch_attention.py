@@ -62,14 +62,14 @@ def test_flash_matches_jax_kernel_and_reference(case):
     want = jak.flash_attention(jq, jk, jv, causal, blk, blk)   # interpret
     got = tak.flash_attention(tq, tk, tv, causal, blk, blk)
     assert got.dtype == tq.dtype and tuple(got.shape) == shape
-    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL[dtype], rtol=0)
-    np.testing.assert_allclose(
-        _np(got), _np(jring.reference_attention(jq, jk, jv, causal)),
-        atol=ATOL[dtype], rtol=0)
-    np.testing.assert_allclose(
-        _np(tring.reference_attention(tq, tk, tv, causal)),
-        _np(jring.reference_attention(jq, jk, jv, causal)),
-        atol=ATOL[dtype], rtol=0)
+    jref = jring.reference_attention(jq, jk, jv, causal)
+    tref = tring.reference_attention(tq, tk, tv, causal)
+    # each pair named, so a failure says which side moved
+    for name, a, b in (("port vs JAX kernel", got, want),
+                       ("port vs JAX reference", got, jref),
+                       ("port reference vs JAX reference", tref, jref)):
+        np.testing.assert_allclose(_np(a), _np(b), atol=ATOL[dtype], rtol=0,
+                                   err_msg=f"{name}, case {CASES[case]}")
 
 
 @pytest.mark.parametrize("causal", [True, False])

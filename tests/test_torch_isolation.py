@@ -30,12 +30,20 @@ def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import multiverso_tpu_torch as mv\n"
+        "import multiverso_tpu_torch.apps.word_embedding\n"
+        "import multiverso_tpu_torch.data.dictionary\n"
         "import multiverso_tpu_torch.examples.transformer_ps\n"
+        "import multiverso_tpu_torch.io.realtext\n"
+        "import multiverso_tpu_torch.models.word2vec\n"
+        "import multiverso_tpu_torch.native\n"
+        "import multiverso_tpu_torch.tables.kv_table\n"
+        "import multiverso_tpu_torch.tables.matrix_table\n"
         "import multiverso_tpu_torch.models.transformer\n"
         "import multiverso_tpu_torch.ops.attention_kernels\n"
         "import multiverso_tpu_torch.ops._build\n"
         "import multiverso_tpu_torch.parallel.ring\n"
         "import chip_smoke\n"
+        "multiverso_tpu_torch.native.available()   # builds and loads\n"
         "bad = [m for m in sys.modules if m == 'multiverso_tpu'\n"
         "       or m.startswith('multiverso_tpu.')]\n"
         "assert not bad, bad\n"
