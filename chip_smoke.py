@@ -27,17 +27,25 @@ Phases, every one on every run, in this order:
             each sync checked against numpy bit for bit, the gradients of
             attn="flash" against attn="local", and one step profiled
 6. we       the WordEmbedding path (no kernel of its own: gathers, matrix
-            products and index_add_): the native data library built and
-            loaded, MatrixTable row Add/Get with duplicate ids on a
-            71,290 x 128 table against numpy bit for bit, ``train_fused``
-            on the real-text corpus (bench.py:220-221) and on the
-            synthetic one (bench.py:114-121), one warm and 3 timed epochs
-            each (words/s, device span, falling loss), the real-text
-            probe's nearest neighbours, a bf16 epoch against an f32 one
-            from the same start, the card's f32 epoch against the CPU's on
-            the same batches, one profiled epoch, and the app's command
-            line (``python -m multiverso_tpu_torch.apps.word_embedding``)
-            in its own process, its vectors read back
+            products, index_add_ and the threefry sampler's integer
+            arithmetic): the native data library built and loaded,
+            MatrixTable row Add/Get with duplicate ids on a 71,290 x 128
+            table against numpy bit for bit, ``train_fused`` on the
+            real-text corpus (bench.py:220-221) with the shared pool and
+            on the synthetic one (bench.py:114-121), one warm and 3 timed
+            epochs each (words/s, device span, falling loss), the
+            real-text probe's nearest neighbours, a bf16 epoch against an
+            f32 one from the same start, the card's f32 epoch against the
+            CPU's on the same batches, one profiled epoch; then the four
+            other branches on the real text at the same width (skip-gram
+            with per-pair negatives, skip-gram HS, CBOW NS, CBOW HS), each
+            with warm and timed epochs, its f32 epoch against the CPU's,
+            the run-to-run spread, for per-pair negatives the epoch's ids
+            drawn on the card against the CPU's bit for bit, and one
+            profiled epoch; and the app's command line (``python -m
+            multiverso_tpu_torch.apps.word_embedding``, with the shared
+            pool and with ``-cbow 1 -hs 1``), each in its own process, its
+            vectors read back
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -740,6 +748,24 @@ def phase_train(dev, shared, layers: int) -> dict:
 WE_CFG = dict(size=128, min_count=5, batch_size=16384, negative=5, window=5,
               shared_negatives=256)
 WE_SYNTH_CORPUS = dict(num_tokens=400_000, vocab=10_000, seed=7)
+# the other four branches of train_fused, each on the real text at the same
+# widths (WE_CFG; CBOW and HS leave the pool size unread): per-pair
+# negatives from jax.random's threefry stream, hierarchical softmax (HS),
+# CBOW with per-pair negatives, CBOW with HS. All four compute in f32
+WE_VARIANTS = (("skipgram per-pair", dict(shared_negatives=0)),
+               ("skipgram HS", dict(hs=1)),
+               ("CBOW NS", dict(cbow=1)),
+               ("CBOW HS", dict(cbow=1, hs=1)))
+# at batch 16384 the HS epochs diverge, in the JAX package as in the port:
+# each batch adds every path's update into the Huffman root and its
+# children at lr 0.025 (on the CPU the loss passes 1e6 within 16 batches
+# and is inf by batch 31, tests/test_torch_word2vec.py). So an HS branch is
+# timed there without a check on its loss, and trained at the largest
+# power of two below it at which the loss falls in each of its four epochs,
+# found by halving down to WE_HS_MIN_BATCH (we_hs_sweep). On the CPU, in
+# both packages, that is 512 for CBOW HS, where 1024 rises in its third
+# epoch (tests/test_torch_we_bench_width.py)
+WE_HS_MIN_BATCH = 128
 WE_TIMED_EPOCHS = 3
 WE_PROBES = ("array", "matrix", "value", "data")   # bench.py:233
 # a MatrixTable of text8's vocabulary at min_count 5 by 128 columns
@@ -747,18 +773,37 @@ TEXT8_VOCAB = 71_290
 # one epoch in bf16 against one in f32 from the same start, on the same
 # pairs and negatives: the products round to bf16 (8 significant bits, a
 # relative 2^-9 per rounding) and the tables take bf16-rounded deltas, so
-# the epoch's mean loss moves by a fraction of a percent; 1e-2 relative
+# the epoch's mean loss moves by a fraction of a percent. Only the loss is
+# bounded: at this width every batch adds hundreds to thousands of updates
+# into the frequent rows, so any rounding difference grows about 1000x
+# every 16 batches (in the JAX package as in the port), and over a
+# 222-batch epoch the bf16 and f32 tables end 11-15% apart. Tables agree
+# element by element over the first ~16 batches only; past that, epochs
+# are held by their loss. The f32 epoch is run twice, so the loss that the
+# atomics' order alone moves is printed beside the bf16 difference
 WE_BF16_LOSS_RTOL = 1e-2
 # the card's f32 epoch against the CPU's on the same inputs (the first
-# WE_REF_BATCHES batches of the real-text pairs): index_add_ adds duplicate
-# rows with atomics on the card, in an order that changes from run to run,
-# so the sums differ from the CPU's ordered ones by f32 rounding. The loss
-# to 1e-5 relative; the tables to 2e-5 of their largest magnitude (|x|
-# reaches ~4-6 after a few epochs, where one f32 ulp is 4.8e-7: ~40 ulps,
-# for rows that take up to some thousands of adds a batch)
+# WE_REF_BATCHES batches, from the tables the timed epochs left): index_add_
+# adds duplicate rows with atomics on the card, in an order that changes
+# from run to run, so the sums differ from the CPU's ordered ones by f32
+# rounding. WE_REF_BATCHES must stay at 16 or fewer (the amplification
+# above). Shared pool: the loss to 1e-5 relative; the tables to 2e-5 of
+# their largest magnitude (|x| reaches ~4-6 after a few epochs, where one
+# f32 ulp is 4.8e-7: ~40 ulps, for rows that take up to some thousands of
+# adds a batch)
 WE_REF_BATCHES = 8
 WE_REF_LOSS_RTOL = 1e-5
 WE_REF_TABLE_RTOL = 2e-5
+# the other branches against the CPU: each loss sums 16,384 x 6 to 18
+# terms a batch in another order than the CPU (the two packages differ by
+# 2e-6 to 8e-6 relative on the CPU at this width), so 2e-5 (measured on an
+# H100 80GB HBM3 at 700 W: <= 1.2e-7). The tables to 1e-4 of their
+# largest magnitude: HS adds all 16,384 paths' updates into the Huffman
+# root and its children with atomics, and the per-pair epoch runs from
+# tables |x| ~5 (measured there: up to 1.2e-5, skip-gram per-pair; HS
+# 2.5e-6 to 3.5e-6 from the fresh tables)
+WE_VARIANT_LOSS_RTOL = 2e-5
+WE_VARIANT_TABLE_RTOL = 1e-4
 
 
 def we_group(name: str) -> str:
@@ -821,10 +866,12 @@ def phase_we_table(dev) -> None:
         "bit (3 rounds); out-of-range and float ids raise")
 
 
-def we_run(label: str, we, ids) -> dict:
+def we_run(label: str, we, ids, trains: bool = True) -> dict:
     """One warm epoch, then WE_TIMED_EPOCHS timed ones of ``train_fused``:
     words/s by the host's clock (train_fused ends with the loss readback)
-    and the device span of each epoch by CUDA events."""
+    and the device span of each epoch by CUDA events. The losses must be
+    finite and fall, unless ``trains`` is False (a configuration that
+    diverges in both packages, timed all the same)."""
     import torch
     losses, wps, span_ms = [], [], []
     stats = we.train_fused(ids, epochs=1)    # warm: pairs to the card
@@ -850,6 +897,8 @@ def we_run(label: str, we, ids) -> dict:
         f"{[round(w) for w in wps]} (median {float(np.median(wps)):.0f}); "
         f"device span ms (CUDA events) {[round(t, 3) for t in span_ms]}; "
         f"loss per epoch (warm first) {[round(l, 6) for l in losses]}")
+    if not trains:
+        return {"losses": losses, "words_per_sec": wps, "span_ms": span_ms}
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite WordEmbedding loss {losses}")
     if not losses[-1] < losses[0]:
@@ -859,9 +908,10 @@ def we_run(label: str, we, ids) -> dict:
 
 def phase_we(dev) -> dict:
     """The WordEmbedding path on the card: the host pipeline's library,
-    the MatrixTable checks, train_fused on real text and on the synthetic
-    corpus, bf16 against f32, the card's f32 epoch against the CPU's, and
-    one profiled epoch."""
+    the MatrixTable checks, train_fused on real text with the shared pool
+    (bf16 against f32, the card's f32 epoch against the CPU's, one
+    profiled epoch), the four other branches on real text (we_variant),
+    the synthetic corpus, and the command line."""
     import torch
     import multiverso_tpu_torch as mv
     from multiverso_tpu_torch import native
@@ -907,65 +957,42 @@ def phase_we(dev) -> dict:
                             cfg.alpha, False, False, cfg.shared_negatives)
     cbd, xbd, _ = we._device_pairs(ids)
     start = (we.table_in.raw(), we.table_out.raw(), we._lcg)
-    out = {}
-    for dt in (torch.bfloat16, torch.float32):
+    out = []
+    for dt in (torch.bfloat16, torch.float32, torch.float32):
         fn = w2v.make_fused_shared_epoch(w2v_cfg, we.unigram, compute_dtype=dt)
         win, wout, loss, _ = fn(*(t.clone() for t in start[:2]), cbd, xbd,
                                 start[2].clone())
-        out[dt] = (float(loss), win)
-    (lb, wb), (lf, wf) = out[torch.bfloat16], out[torch.float32]
-    rel = abs(lb - lf) / abs(lf)
+        out.append((float(loss), win))
+    (lb, wb), (lf, wf), (lf2, wf2) = out
+    rel, rel_f32 = abs(lb - lf) / abs(lf), abs(lf2 - lf) / abs(lf)
     log(f"we bf16 vs f32, one epoch from the same start: loss {lb:.6f} vs "
         f"{lf:.6f}, relative difference {rel:.3e} (bound "
         f"{WE_BF16_LOSS_RTOL:.0e}); embed_in ||bf16 - f32|| / ||f32|| "
-        f"{float((wb - wf).norm() / wf.norm()):.3e}")
+        f"{float((wb - wf).norm() / wf.norm()):.3e}; f32 run twice (the "
+        f"atomics' order alone): loss {lf2:.6f}, relative {rel_f32:.3e}, "
+        f"embed_in {float((wf2 - wf).norm() / wf.norm()):.3e}")
     if not rel <= WE_BF16_LOSS_RTOL:
         raise AssertionError("the bf16 epoch's loss is outside its bound")
-    del out, wb, wf
+    del out, wb, wf, wf2
 
     # the card's f32 epoch against the CPU's on the first batches
     n = WE_REF_BATCHES
-    res = {}
-    for where in ("cuda", "cuda again", "cpu"):
-        d_ = dev if where != "cpu" else torch.device("cpu")
-        fn = w2v.make_fused_shared_epoch(w2v_cfg, we.unigram,
-                                         compute_dtype=torch.float32)
+    fn = w2v.make_fused_shared_epoch(w2v_cfg, we.unigram,
+                                     compute_dtype=torch.float32)
+
+    def shared_f32(d_):
         win, wout, loss, lcg = fn(*(t.to(d_, copy=True) for t in start[:2]),
                                   cbd[:n].to(d_), xbd[:n].to(d_),
                                   start[2].to(d_, copy=True))
-        res[where] = (float(loss), win.cpu(), wout.cpu(), lcg.cpu())
-    lc, winc, woutc, lcgc = res["cpu"]
-    scale = max(float(winc.abs().max()), float(woutc.abs().max()))
-    for where in ("cuda", "cuda again"):
-        lg, wing, woutg, lcgg = res[where]
-        derr = max(float((wing - winc).abs().max()),
-                   float((woutg - woutc).abs().max()))
-        lrel = abs(lg - lc) / abs(lc)
-        log(f"we f32 epoch of {n} batches, {where} vs the CPU: loss "
-            f"{lg:.8f} vs {lc:.8f} (relative {lrel:.3e}, bound "
-            f"{WE_REF_LOSS_RTOL:.0e}), tables max |diff| {derr:.3e} at max "
-            f"|x| {scale:.3f} (relative {derr / scale:.3e}, bound "
-            f"{WE_REF_TABLE_RTOL:.0e}), LCG state equal "
-            f"{torch.equal(lcgg, lcgc)}")
-        if not (lrel <= WE_REF_LOSS_RTOL and derr <= WE_REF_TABLE_RTOL * scale
-                and torch.equal(lcgg, lcgc)):
-            raise AssertionError("the card's epoch disagrees with the CPU's")
-    run_to_run = max(float((res["cuda"][1] - res["cuda again"][1]).abs()
-                           .max()),
-                     float((res["cuda"][2] - res["cuda again"][2]).abs()
-                           .max()))
-    log(f"we f32 card epoch run to run (index_add_ atomics): tables max "
-        f"|diff| {run_to_run:.3e}")
-    del res
+        return float(loss), (win, wout), (lcg,)
 
-    prof = profile("we realtext epoch",
-                   lambda: we.train_fused(ids, epochs=1), top=12,
-                   group=we_group)
-    if prof["busy_ms"]:
-        span = float(np.median(real["span_ms"]))
-        log(f"we realtext epoch: device busy {prof['busy_ms']:.3f} ms "
-            f"(profiled) against a device span of {span:.3f} ms (median "
-            f"unprofiled epoch): idle share {max(0.0, 1 - prof['busy_ms'] / span):.3f}")
+    we_card_vs_cpu("shared pool", shared_f32, dev, WE_REF_LOSS_RTOL,
+                   WE_REF_TABLE_RTOL)
+    we_profile("realtext", lambda: we.train_fused(ids, epochs=1),
+               real["span_ms"])
+    del we
+    variants = {label: we_variant(dev, label, extra, d, ids)
+                for label, extra in WE_VARIANTS}
 
     t0 = time.perf_counter()
     tokens = synthetic_corpus(**WE_SYNTH_CORPUS)
@@ -976,44 +1003,199 @@ def phase_we(dev) -> dict:
     log(f"we synthetic: {len(tokens)} tokens, vocab {len(d)}, {ids_s.size} "
         f"training tokens ({time.perf_counter() - t0:.1f} s on the host)")
     synth = we_run("synthetic", we_s, ids_s)
-    del we, we_s
+    del we_s
     mv.barrier()
-    phase_we_cli(vocab_real)
-    return {"realtext": real, "synthetic": synth}
+    phase_we_cli(vocab_real, variants["CBOW HS"]["trained"]["batch"])
+    return {"realtext": real, "synthetic": synth, **variants}
 
 
-def phase_we_cli(vocab: int) -> None:
-    """The app's command line on the card, in its own process: one epoch
-    of the real-text corpus at the same config, binary vectors out, read
-    back and checked (``vocab`` rows of finite values)."""
+def we_card_vs_cpu(label: str, epoch, dev, loss_rtol: float,
+                   table_rtol: float) -> float:
+    """``epoch(device) -> (loss, tables, exact)`` trains the first
+    WE_REF_BATCHES batches from one start on ``device``. It runs twice on
+    the card and once on the CPU: each card run's loss within ``loss_rtol``
+    (relative) of the CPU's, its tables within ``table_rtol`` of their
+    largest magnitude, its ``exact`` tensors equal. Returns the card's
+    run-to-run spread (max |diff| of the tables)."""
+    import torch
+    res = {where: epoch(dev if where != "cpu" else torch.device("cpu"))
+           for where in ("cuda", "cuda again", "cpu")}
+    res = {w: (l, [t.cpu() for t in ts], [t.cpu() for t in ex])
+           for w, (l, ts, ex) in res.items()}
+    lc, tc, exc = res["cpu"]
+    scale = max(float(t.abs().max()) for t in tc)
+    for where in ("cuda", "cuda again"):
+        lg, tg, exg = res[where]
+        derr = max(float((g - c).abs().max()) for g, c in zip(tg, tc))
+        lrel = abs(lg - lc) / abs(lc)
+        exact = all(torch.equal(g, c) for g, c in zip(exg, exc))
+        log(f"we {label} f32 epoch of {WE_REF_BATCHES} batches, {where} vs "
+            f"the CPU: loss {lg:.8f} vs {lc:.8f} (relative {lrel:.3e}, "
+            f"bound {loss_rtol:.0e}), tables max |diff| {derr:.3e} at max "
+            f"|x| {scale:.3f} (relative {derr / scale:.3e}, bound "
+            f"{table_rtol:.0e})" + (f", {len(exc)} sampler tensor(s) equal "
+                                    f"{exact}" if exc else ""))
+        if not (lrel <= loss_rtol and derr <= table_rtol * scale and exact):
+            raise AssertionError(f"the card's {label} epoch disagrees with "
+                                 f"the CPU's")
+    spread = max(float((a - b).abs().max())
+                 for a, b in zip(res["cuda"][1], res["cuda again"][1]))
+    log(f"we {label} f32 card epoch run to run (index_add_ atomics): tables "
+        f"max |diff| {spread:.3e} ({spread / scale:.3e} of max |x|)")
+    return spread
+
+
+def we_profile(label: str, fn, span_ms) -> dict:
+    """One profiled epoch: device time by group, and the idle share
+    against the median unprofiled span."""
+    prof = profile(f"we {label} epoch", fn, top=12, group=we_group)
+    if prof["busy_ms"]:
+        span = float(np.median(span_ms))
+        prof["idle_share"] = max(0.0, 1 - prof["busy_ms"] / span)
+        log(f"we {label} epoch: device busy {prof['busy_ms']:.3f} ms "
+            f"(profiled) against a device span of {span:.3f} ms (median "
+            f"unprofiled epoch): idle share {prof['idle_share']:.3f}")
+    return prof
+
+
+def we_variant(dev, label: str, extra: dict, d, ids) -> dict:
+    """One more branch of ``train_fused`` on the real text at full width:
+    warm and timed epochs, the card's f32 epoch against the CPU's on its
+    first WE_REF_BATCHES batches, for per-pair negatives the whole epoch's
+    negative ids drawn on the card against the CPU's (bit for bit), and
+    one profiled epoch. An HS branch diverges at the full batch: there the
+    check runs from the fresh tables, before the loss leaves the f32
+    range, the full-batch epochs are timed and profiled without a check on
+    their losses, and we_hs_sweep finds the batch where it trains."""
+    import torch
+    from multiverso_tpu_torch.apps.word_embedding import (WEConfig,
+                                                          WordEmbedding)
+    from multiverso_tpu_torch.models import word2vec as w2v
+    from multiverso_tpu_torch.utils import threefry
+
+    cfg = WEConfig(**{**WE_CFG, **extra})
+    we = WordEmbedding(cfg, d)
+    if not cfg.hs:
+        run = we_run(label, we, ids)
+    *batches, _ = (we._device_cbow(ids) if cfg.cbow
+                   else we._device_pairs(ids))
+    fn = we._epoch_fn()
+    out = we.table_hs if cfg.hs else we.table_out
+    start = (we.table_in.raw(), out.raw())
+    # the first epoch's key of a train_fused call
+    key = threefry.split(threefry.key(cfg.seed))[1]
+    n = WE_REF_BATCHES
+
+    def f32(d_):
+        win, wout, loss = fn(*(t.to(d_, copy=True) for t in start),
+                             *(b[:n].to(d_) for b in batches), key)
+        return float(loss), (win, wout), ()
+
+    spread = we_card_vs_cpu(label + (" (fresh tables)" if cfg.hs else ""),
+                            f32, dev, WE_VARIANT_LOSS_RTOL,
+                            WE_VARIANT_TABLE_RTOL)
+    if cfg.hs:
+        run = we_run(f"{label} at batch {cfg.batch_size} (diverges in both "
+                     f"packages)", we, ids, trains=False)
+    run["spread"] = spread
+    if not cfg.hs:
+        table = torch.from_numpy(w2v.build_negative_table(we.unigram)
+                                 .astype(np.int64))
+        nb, b = batches[-1].shape
+        shape = (nb, b, cfg.negative)
+        on_card = w2v.epoch_negatives(key, table.to(dev), *shape).cpu()
+        on_cpu = w2v.epoch_negatives(key, table, *shape)
+        log(f"we {label}: the epoch's {on_cpu.numel()} negative ids "
+            f"{tuple(shape)} drawn on the card equal the CPU's bit for bit "
+            f"{torch.equal(on_card, on_cpu)}")
+        if not torch.equal(on_card, on_cpu):
+            raise AssertionError(f"the {label} negatives drawn on the card "
+                                 f"differ from the CPU's")
+    run["profile"] = we_profile(
+        label + (f" at batch {cfg.batch_size} (the scatter-adds' load; "
+                 f"the loss diverges)" if cfg.hs else ""),
+        lambda: we.train_fused(ids, epochs=1), run["span_ms"])
+    if we.total_word_count() != (2 + WE_TIMED_EPOCHS) * ids.size:
+        raise AssertionError("the word_count KVTable is off")
+    del we
+    if cfg.hs:
+        run["trained"] = we_hs_sweep(label, extra, d, ids)
+    return run
+
+
+def we_hs_sweep(label: str, extra: dict, d, ids) -> dict:
+    """The largest power of two below the bench batch at which an HS
+    branch trains: halving from WE_CFG's batch, each batch gets we_run's
+    warm and timed epochs from fresh tables, and the first whose losses
+    are all finite and each below the one before is the answer (then one
+    profiled epoch there). Fails if none down to WE_HS_MIN_BATCH does."""
+    from multiverso_tpu_torch.apps.word_embedding import (WEConfig,
+                                                          WordEmbedding)
+    batch = WE_CFG["batch_size"] // 2
+    while batch >= WE_HS_MIN_BATCH:
+        we = WordEmbedding(
+            WEConfig(**{**WE_CFG, **extra, "batch_size": batch}), d)
+        run = we_run(f"{label} at batch {batch}", we, ids, trains=False)
+        losses = run["losses"]
+        if (np.isfinite(losses).all()
+                and all(b < a for a, b in zip(losses, losses[1:]))):
+            log(f"we {label}: {batch} is the largest batch (a power of two) "
+                f"at which the loss falls in every epoch")
+            run["batch"] = batch
+            run["profile"] = we_profile(
+                f"{label} at batch {batch}",
+                lambda: we.train_fused(ids, epochs=1), run["span_ms"])
+            return run
+        del we
+        batch //= 2
+    raise AssertionError(f"{label} trains at no batch down to "
+                         f"{WE_HS_MIN_BATCH}")
+
+
+def phase_we_cli(vocab: int, cbow_hs_batch: int) -> None:
+    """The app's command line on the card, each run in its own process:
+    one epoch of the real-text corpus at the same config, skip-gram with
+    the shared pool and then CBOW with HS (``-cbow 1 -hs 1``, at
+    ``cbow_hs_batch``, where we_hs_sweep found it trains), binary vectors
+    out, read back and checked (``vocab`` rows of finite values)."""
     import os
     import tempfile
     from multiverso_tpu_torch.apps.word_embedding import load_embeddings
     from multiverso_tpu_torch.io import realtext
 
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "vec.bin")
-        argv = [sys.executable, "-m", "multiverso_tpu_torch.apps.word_embedding",
-                "-train_file", realtext.materialize(os.path.join(tmp, "rt.txt")),
-                "-output", out, "-binary", "1", "-epoch", "1"]
-        for key, value in WE_CFG.items():
-            argv += [f"-{key}", str(value)]
-        t0 = time.perf_counter()
-        res = subprocess.run(argv, capture_output=True, text=True,
-                             timeout=300)
-        seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise AssertionError(f"the WordEmbedding CLI failed "
-                                 f"({res.returncode}):\n{res.stdout[-2000:]}"
-                                 f"\n{res.stderr[-2000:]}")
-        trained = [l for l in res.stdout.splitlines() if "trained:" in l]
-        words, emb = load_embeddings(out)
-    log(f"we cli: {seconds:.1f} s for the process (start, corpus, one "
-        f"epoch, binary output); {trained[-1].split('] ')[-1] if trained else ''}"
-        f"; {len(words)} x {emb.shape[1]} vectors read back")
-    if emb.shape != (vocab, WE_CFG["size"]) or not np.isfinite(emb).all():
-        raise AssertionError(f"the CLI wrote {emb.shape} vectors, or "
-                             f"non-finite ones")
+        corpus = realtext.materialize(os.path.join(tmp, "rt.txt"))
+        for flags in ([], ["-cbow", "1", "-hs", "1",
+                           "-batch_size", str(cbow_hs_batch)]):
+            out = os.path.join(tmp, "vec.bin")
+            argv = [sys.executable, "-m",
+                    "multiverso_tpu_torch.apps.word_embedding",
+                    "-train_file", corpus, "-output", out, "-binary", "1",
+                    "-epoch", "1"]
+            for key, value in WE_CFG.items():
+                argv += [f"-{key}", str(value)]
+            argv += flags           # a later key overrides an earlier one
+            t0 = time.perf_counter()
+            res = subprocess.run(argv, capture_output=True, text=True,
+                                 timeout=300)
+            seconds = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(
+                    f"the WordEmbedding CLI {flags} failed "
+                    f"({res.returncode}):\n{res.stdout[-2000:]}"
+                    f"\n{res.stderr[-2000:]}")
+            trained = [l for l in res.stdout.splitlines() if "trained:" in l]
+            words, emb = load_embeddings(out)
+            os.remove(out)
+            log(f"we cli {' '.join(flags) or '(skip-gram, shared pool)'}: "
+                f"{seconds:.1f} s for the process (start, corpus, one "
+                f"epoch, binary output); "
+                f"{trained[-1].split('] ')[-1] if trained else ''}; "
+                f"{len(words)} x {emb.shape[1]} vectors read back")
+            if (emb.shape != (vocab, WE_CFG["size"])
+                    or not np.isfinite(emb).all()):
+                raise AssertionError(f"the CLI {flags} wrote {emb.shape} "
+                                     f"vectors, or non-finite ones")
 
 
 def lm_group(name: str) -> str:

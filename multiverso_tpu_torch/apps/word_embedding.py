@@ -1,32 +1,39 @@
 """WordEmbedding application, distributed word2vec (port of
-``multiverso_tpu/apps/word_embedding.py``, the fused skip-gram path with a
-batch-shared negative pool).
+``multiverso_tpu/apps/word_embedding.py``, the fused path: skip-gram and
+CBOW, negative sampling and hierarchical softmax).
 
 * min_count vocab pruning, stopword filtering (-stopwords 1 -sw_file),
   frequent-word subsampling and the dynamic window, on the host: the native
   ``csrc/mv_data.cpp`` when a C++ compiler builds it, else numpy
   (``native.available()`` says which)
-* the two embedding tables are :class:`MatrixTable`\\ s on the card
+* the embedding tables are :class:`MatrixTable`\\ s on the card
   (``embed_in`` uniform +-0.5/size from ``seed + 17``, ``embed_out``
-  zero), the trained-word count a :class:`KVTable`
-* ``train_fused``: the (center, context) pair batches are generated once
-  per corpus and kept on the device (a bounded LRU, flag
-  ``we_pair_cache_corpora``); each epoch trains the tables in place,
-  batch after batch, with :func:`word2vec.make_fused_shared_epoch`, and
-  the loss is read back once at the end. The products run in bf16 on the
-  card (the JAX package picks bf16 on its accelerator) and in f32 on the
-  CPU
+  zero, and with -hs 1 ``embed_hs``, the V-1 Huffman inner nodes, zero),
+  the trained-word count a :class:`KVTable`
+* ``train_fused``: the batches (skip-gram's (center, context) pairs,
+  CBOW's (windows, masks, targets)) are made once per corpus and kept on
+  the device (a bounded LRU, flag ``we_pair_cache_corpora``; the JAX app
+  caches the pairs and uploads the CBOW batches at every call, which
+  changes no result); each epoch trains the tables in place, batch after
+  batch, and the loss is read back once at the end. Five epochs, the JAX
+  app's branches: skip-gram with a shared negative pool
+  (``-shared_negatives`` > 0, the default; its products run in bf16 on the
+  card, as the JAX package's do on its accelerator, and in f32 on the
+  CPU), skip-gram with per-pair negatives (``-shared_negatives 0``),
+  skip-gram HS (``-hs 1``), CBOW NS (``-cbow 1``) and CBOW HS (``-cbow 1
+  -hs 1``). The last four compute in f32 everywhere, as the JAX epochs
+  do, and the per-pair negatives follow jax.random's threefry stream from
+  ``seed`` bit for bit
 * text and binary (-binary 1) embedding output, a round-tripping loader,
   words/sec reporting
 
 Not ported yet (``train_fused`` raises ``NotImplementedError`` naming the
-ROADMAP item): CBOW, hierarchical softmax, ``shared_negatives=0``
-(per-pair negatives from ``jax.random``'s stream), the PS block path
-(``use_ps``, ``train_ps_blocks``) and the async PS tables (``async_ps``).
+ROADMAP item): the PS block path (``use_ps``, ``train_ps_blocks``) and the
+async PS tables (``async_ps``).
 
 Usage: ``python -m multiverso_tpu_torch.apps.word_embedding -train_file
-f.txt -output vec.txt -size 128 ...`` (argv keys mirror ref util.cpp
-ParseArgs; ``-device=cpu`` runs on the CPU).
+f.txt -output vec.txt -size 128 -cbow 1 -hs 1 ...`` (argv keys mirror ref
+util.cpp ParseArgs; ``-device=cpu`` runs on the CPU).
 """
 
 from __future__ import annotations
@@ -41,22 +48,21 @@ import torch
 
 import multiverso_tpu_torch as mv
 from multiverso_tpu_torch import native
-from multiverso_tpu_torch.data.dictionary import Dictionary
+from multiverso_tpu_torch.data.dictionary import Dictionary, build_huffman
 from multiverso_tpu_torch.models import word2vec as w2v
-from multiverso_tpu_torch.utils import config, log
+from multiverso_tpu_torch.utils import config, log, threefry
 
 config.define_int(
     "we_pair_cache_corpora", 4,
     "bounded LRU capacity (corpora) of the fused path's device-resident "
-    "pair-batch cache")
+    "batch cache")
 
-# what train_fused does not run yet, and the ROADMAP.md item that queues it
+# what train_fused does not run yet, and the title of the ROADMAP.md §A
+# item that queues it (by title: the items are renumbered as they land)
 _NOT_PORTED = (
-    ("cbow", "cbow=1", "§A.3 WordEmbedding family: CBOW and HS"),
-    ("hs", "hs=1", "§A.3 WordEmbedding family: CBOW and HS"),
     ("use_ps", "use_ps=1 (train_ps_blocks)",
-     "§A.3 WordEmbedding family: train_ps_blocks"),
-    ("async_ps", "async_ps=1", "§A.3 the async PS (ps/)"),
+     "WordEmbedding family: train_ps_blocks"),
+    ("async_ps", "async_ps=1", "the async PS (ps/)"),
 )
 
 
@@ -180,12 +186,20 @@ class WordEmbedding:
                                         updater="default")
         self.word_count = mv.KVTable(name="word_count")
         self.unigram = dictionary.unigram_table()
-        # the epoch function and its LCG state, made at the first train
-        self._epoch_fn: Optional[w2v.EpochFn] = None
+        # the epoch function cfg selects, made at the first train, and the
+        # shared-pool epoch's LCG state
+        self._epoch = None
         self._lcg: Optional[torch.Tensor] = None
-        # bounded LRU of device-resident pair batches, keyed by a corpus
+        # bounded LRU of device-resident batches, keyed by a corpus
         # fingerprint (flag we_pair_cache_corpora)
         self._pair_cache: "OrderedDict[object, tuple]" = OrderedDict()
+        if cfg.hs:
+            # the Huffman paths and the V-1 inner-node rows they index
+            self._hs = build_huffman(dictionary.counts)
+            self.table_hs = mv.MatrixTable(max(v - 1, 1), d, name="embed_hs",
+                                           updater="default")
+        else:
+            self._hs = None
 
     # ------------------------------------------------------------------ #
     # corpus -> id stream -> device pair batches
@@ -202,78 +216,139 @@ class WordEmbedding:
                 f"corpus too small: {centers.size} pairs < batch {b}")
         return (centers[:n].reshape(-1, b), contexts[:n].reshape(-1, b))
 
-    def _device_pairs(self, ids: np.ndarray):
-        """(centers, contexts, pair count): the batched pairs as
-        (num_batches, batch) int64 tensors on the tables' device. Pair
-        generation is one-time corpus preprocessing; caching the batches
+    def _cached(self, key, make):
+        """The LRU entry for ``key``, made by ``make()`` on a miss.
+        Making the batches is one-time corpus preprocessing; caching them
         keeps repeat epochs off the host -> device path."""
-        key = (ids.shape, hash(ids.tobytes()),
-               self.cfg.window, self.cfg.seed, self.cfg.batch_size)
         hit = self._pair_cache.get(key)
         if hit is not None:
             self._pair_cache.move_to_end(key)
             return hit
-        centers, contexts = _gen_pairs(ids, self.cfg.window, self.cfg.seed)
-        cb, xb = self._batches(centers, contexts)
-        dev = self.table_in.device
-        hit = (torch.from_numpy(cb.astype(np.int64)).to(dev),
-               torch.from_numpy(xb.astype(np.int64)).to(dev), cb.size)
-        self._pair_cache[key] = hit
+        hit = self._pair_cache[key] = make()
         cap = max(1, int(config.get_flag("we_pair_cache_corpora")))
         while len(self._pair_cache) > cap:
             self._pair_cache.popitem(last=False)
         return hit
 
+    def _device_pairs(self, ids: np.ndarray):
+        """(centers, contexts, pair count): the batched skip-gram pairs as
+        (num_batches, batch) int64 tensors on the tables' device."""
+        def make():
+            centers, contexts = _gen_pairs(ids, self.cfg.window,
+                                           self.cfg.seed)
+            cb, xb = self._batches(centers, contexts)
+            dev = self.table_in.device
+            return (torch.from_numpy(cb.astype(np.int64)).to(dev),
+                    torch.from_numpy(xb.astype(np.int64)).to(dev), cb.size)
+
+        return self._cached((ids.shape, hash(ids.tobytes()), self.cfg.window,
+                             self.cfg.seed, self.cfg.batch_size), make)
+
+    def _device_cbow(self, ids: np.ndarray):
+        """(windows, masks, targets, target count): the CBOW batches on the
+        tables' device, (num_batches, batch, 2*window) int64 windows and
+        bool masks and (num_batches, batch) int64 targets; the corpus's
+        tail short of a batch is dropped, as in the JAX app."""
+        def make():
+            windows, masks, targets = w2v.generate_cbow_batches(
+                ids, self.cfg.window)
+            b = self.cfg.batch_size
+            n = (targets.size // b) * b
+            if n == 0:
+                raise ValueError("corpus too small for batch size")
+            dev = self.table_in.device
+            return (torch.from_numpy(windows[:n].astype(np.int64))
+                    .reshape(-1, b, windows.shape[1]).to(dev),
+                    torch.from_numpy(masks[:n])
+                    .reshape(-1, b, masks.shape[1]).to(dev),
+                    torch.from_numpy(targets[:n].astype(np.int64))
+                    .reshape(-1, b).to(dev), n)
+
+        return self._cached(("cbow", ids.shape, hash(ids.tobytes()),
+                             self.cfg.window, self.cfg.batch_size), make)
+
     # ------------------------------------------------------------------ #
     # fused path (device-resident training)
     # ------------------------------------------------------------------ #
     def _check_ported(self) -> None:
-        cfg = self.cfg
         for attr, what, item in _NOT_PORTED:
-            if getattr(cfg, attr):
+            if getattr(self.cfg, attr):
                 raise NotImplementedError(
                     f"WordEmbedding.train_fused: {what} is not ported to "
-                    f"multiverso_tpu_torch yet (ROADMAP.md {item})")
-        if cfg.shared_negatives <= 0:
-            raise NotImplementedError(
-                "WordEmbedding.train_fused: shared_negatives=0 (per-pair "
-                "negatives from jax.random's threefry stream) is not ported "
-                "to multiverso_tpu_torch yet (ROADMAP.md §A.3 WordEmbedding "
-                "family: shared_negatives=0)")
+                    f"multiverso_tpu_torch yet (ROADMAP.md §A {item})")
 
     def compute_dtype(self) -> torch.dtype:
-        """bf16 on the card, f32 on the CPU."""
+        """The shared-pool epoch's compute dtype: bf16 on the card, f32 on
+        the CPU. The other epochs (per-pair, HS, CBOW) compute in the
+        tables' f32 everywhere, as the JAX epochs do."""
         return (torch.bfloat16 if self.table_in.device.type == "cuda"
                 else torch.float32)
 
-    def train_fused(self, ids: np.ndarray,
-                    epochs: Optional[int] = None) -> Dict[str, float]:
-        """Train ``epochs`` (default ``cfg.epoch``) epochs of skip-gram with
-        shared negatives over ``ids``. Returns the last epoch's mean loss
-        and the run's words/sec (corpus tokens per second, the word2vec
-        convention), seconds, pairs and pairs/sec."""
-        self._check_ported()
+    def _branch(self) -> str:
+        """The JAX app's name for the epoch that cfg selects."""
         cfg = self.cfg
-        epochs = epochs or cfg.epoch
-        t0 = time.perf_counter()
-        cbd, xbd, pairs = self._device_pairs(ids)
-        if self._epoch_fn is None:
-            w2v_cfg = w2v.W2VConfig(len(self.dict), cfg.size, cfg.negative,
-                                    cfg.window, cfg.alpha, cfg.cbow, cfg.hs,
-                                    cfg.shared_negatives)
-            self._epoch_fn = w2v.make_fused_shared_epoch(
+        if cfg.cbow:
+            return "cbow_hs" if cfg.hs else "cbow"
+        if cfg.hs:
+            return "hs"
+        return "sg_shared" if cfg.shared_negatives > 0 else "sg"
+
+    def _epoch_fn(self):
+        """The epoch function of cfg's branch, made at the first call."""
+        if self._epoch is not None:
+            return self._epoch
+        cfg, branch = self.cfg, self._branch()
+        w2v_cfg = w2v.W2VConfig(len(self.dict), cfg.size, cfg.negative,
+                                cfg.window, cfg.alpha, cfg.cbow, cfg.hs,
+                                cfg.shared_negatives)
+        if branch == "sg_shared":
+            fn = w2v.make_fused_shared_epoch(
                 w2v_cfg, self.unigram, compute_dtype=self.compute_dtype())
             self._lcg = torch.from_numpy(w2v.init_lcg_state(
                 cfg.shared_negatives, cfg.seed).astype(np.int64)).to(
                     self.table_in.device)
-        state_in, state_out = self.table_in.state, self.table_out.state
+        elif branch in ("hs", "cbow_hs"):
+            make = (w2v.make_fused_hs_epoch if branch == "hs"
+                    else w2v.make_fused_cbow_hs_epoch)
+            fn = make(w2v_cfg, *self._hs)
+        else:
+            make = (w2v.make_fused_epoch if branch == "sg"
+                    else w2v.make_fused_cbow_epoch)
+            fn = make(w2v_cfg, self.unigram)
+        self._epoch = fn
+        return fn
+
+    def train_fused(self, ids: np.ndarray,
+                    epochs: Optional[int] = None) -> Dict[str, float]:
+        """Train ``epochs`` (default ``cfg.epoch``) epochs over ``ids`` with
+        the epoch cfg selects (skip-gram or CBOW, shared-pool or per-pair
+        negatives or HS). Returns the last epoch's mean loss and the run's
+        words/sec (corpus tokens per second, the word2vec convention),
+        seconds, pairs (CBOW: targets) and pairs/sec."""
+        self._check_ported()
+        cfg = self.cfg
+        epochs = epochs or cfg.epoch
+        branch = self._branch()
+        t0 = time.perf_counter()
+        *batches, pairs = (self._device_cbow(ids) if cfg.cbow
+                           else self._device_pairs(ids))
+        epoch_fn = self._epoch_fn()
+        # a fresh key at every call, split once per epoch, as the JAX app
+        # does: two calls of one epoch each draw the same negatives
+        key = threefry.key(cfg.seed)
+        out_table = self.table_hs if cfg.hs else self.table_out
+        state_in, state_out = self.table_in.state, out_table.state
         # train copies, so the live tables survive a failure mid-epoch
         win, wout = state_in["data"].clone(), state_out["data"].clone()
         for _ in range(epochs):
-            win, wout, loss, self._lcg = self._epoch_fn(win, wout, cbd, xbd,
-                                                        self._lcg)
+            if branch == "sg_shared":
+                win, wout, loss, self._lcg = epoch_fn(win, wout, *batches,
+                                                      self._lcg)
+            else:
+                key, sub = threefry.split(key)
+                win, wout, loss = epoch_fn(win, wout, *batches, sub)
         self.table_in.adopt({"data": win, "ustate": state_in["ustate"]})
-        self.table_out.adopt({"data": wout, "ustate": state_out["ustate"]})
+        out_table.adopt({"data": wout, "ustate": state_out["ustate"]})
         # the loss readback is the end of the device's work
         loss_f = float(loss)
         dt = time.perf_counter() - t0
