@@ -46,6 +46,18 @@ Phases, every one on every run, in this order:
             multiverso_tpu_torch.apps.word_embedding``, with the shared
             pool and with ``-cbow 1 -hs 1``), each in its own process, its
             vectors read back
+7. we_ps    the PS block path (``train_ps_blocks``, ``-use_ps 1``; no
+            kernel of its own either) at bench.py:158-159's widths (batch
+            8,192, blocks of 50,000 tokens) on the real text: the four
+            variants on the device plane (HS at the batch where its loss
+            falls, found by halving), each with warm and timed epochs
+            (words/s, device span, the host's cost per block), one
+            profiled epoch and its first 2 blocks against the CPU's;
+            skip-gram NS on the host plane, pipelined and inline, the
+            planes held against each other within the run-to-run spread;
+            the 1M-token synthetic corpus (bench.py:178); and ``-use_ps
+            1`` on the command line, its vectors read back. Launches are
+            counted apart from the ``we`` phase's
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -805,6 +817,38 @@ WE_REF_TABLE_RTOL = 2e-5
 WE_VARIANT_LOSS_RTOL = 2e-5
 WE_VARIANT_TABLE_RTOL = 1e-4
 
+# the PS block path (the we_ps phase): bench_wordembedding_ps's
+# configuration, bench.py:158-159 (size 128, batch 8,192, 5 negatives,
+# window 5, blocks of 50,000 tokens, use_ps 1, an f32 scan), on the real
+# text (13 blocks an epoch) and on the bench's 1M-token synthetic corpus
+# (bench.py:178, vocab 5,000, seed 12)
+WE_PS_CFG = dict(size=128, min_count=5, batch_size=8192, negative=5,
+                 window=5, data_block_size=50_000, use_ps=1)
+WE_PS_SYNTH_CORPUS = dict(num_tokens=1_000_000, vocab=5_000, seed=12)
+WE_PS_VARIANTS = (("skipgram NS", {}), ("CBOW NS", dict(cbow=1)),
+                  ("skipgram HS", dict(hs=1)), ("CBOW HS", dict(cbow=1, hs=1)))
+# the block path's HS diverges at 8,192 in both packages, and skip-gram HS
+# at 4,096 too (its pairs come from 50,000 neighbouring tokens, so each
+# minibatch piles more updates into the same Huffman nodes than the fused
+# epoch's shuffled ones; tests/test_torch_ps_blocks.py): each HS variant
+# is trained at the largest power of two below 8,192 at which its loss
+# falls in every epoch, found by halving (we_ps_hs_sweep)
+# the card against the CPU over the first 2 blocks (100,000 training
+# tokens) from the same seeded tables: the block losses to 1e-4 relative,
+# the tables to 1e-2 of their largest magnitude. Each minibatch adds
+# thousands of updates into the frequent rows, so f32 rounding (atomics'
+# order on the card, the GEMMs' sums) grows minibatch after minibatch: on
+# the CPU the port and the JAX package end the 2 blocks 5.5e-5 of max |x|
+# apart in skip-gram NS. A wrong update moves the tables by O(1)
+WE_PS_REF_TOKENS = 100_000
+WE_PS_REF_LOSS_RTOL = 1e-4
+WE_PS_REF_TABLE_RTOL = 1e-2
+# device plane against host plane (their first block, where the planes
+# compute the same: the host plane's one-block staleness starts at its
+# second) and pipelined against inline (2 blocks): within this many times
+# the card's run-to-run spread of the same runs, plus 1e-6 of max |x|
+WE_PS_SPREAD_FACTOR = 4
+
 
 def we_group(name: str) -> str:
     """The WordEmbedding epoch's kernel groups, by kernel name."""
@@ -1005,7 +1049,8 @@ def phase_we(dev) -> dict:
     synth = we_run("synthetic", we_s, ids_s)
     del we_s
     mv.barrier()
-    phase_we_cli(vocab_real, variants["CBOW HS"]["trained"]["batch"])
+    phase_we_cli(vocab_real, [{}, {"cbow": 1, "hs": 1, "batch_size":
+                                   variants["CBOW HS"]["trained"]["batch"]}])
     return {"realtext": real, "synthetic": synth, **variants}
 
 
@@ -1152,12 +1197,13 @@ def we_hs_sweep(label: str, extra: dict, d, ids) -> dict:
                          f"{WE_HS_MIN_BATCH}")
 
 
-def phase_we_cli(vocab: int, cbow_hs_batch: int) -> None:
+def phase_we_cli(vocab: int, runs) -> None:
     """The app's command line on the card, each run in its own process:
-    one epoch of the real-text corpus at the same config, skip-gram with
-    the shared pool and then CBOW with HS (``-cbow 1 -hs 1``, at
-    ``cbow_hs_batch``, where we_hs_sweep found it trains), binary vectors
-    out, read back and checked (``vocab`` rows of finite values)."""
+    one epoch of the real-text corpus at WE_CFG's config with each run's
+    keys over it (skip-gram with the shared pool; CBOW with HS at the
+    batch where we_hs_sweep found it trains; ``-use_ps 1``, the PS block
+    path, at WE_PS_CFG's), binary vectors out, read back and checked
+    (``vocab`` rows of finite values)."""
     import os
     import tempfile
     from multiverso_tpu_torch.apps.word_embedding import load_embeddings
@@ -1165,13 +1211,14 @@ def phase_we_cli(vocab: int, cbow_hs_batch: int) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         corpus = realtext.materialize(os.path.join(tmp, "rt.txt"))
-        for flags in ([], ["-cbow", "1", "-hs", "1",
-                           "-batch_size", str(cbow_hs_batch)]):
+        for keys in runs:
             out = os.path.join(tmp, "vec.bin")
             argv = [sys.executable, "-m",
                     "multiverso_tpu_torch.apps.word_embedding",
                     "-train_file", corpus, "-output", out, "-binary", "1",
                     "-epoch", "1"]
+            flags = [x for key, value in keys.items()
+                     for x in (f"-{key}", str(value))]
             for key, value in WE_CFG.items():
                 argv += [f"-{key}", str(value)]
             argv += flags           # a later key overrides an earlier one
@@ -1196,6 +1243,251 @@ def phase_we_cli(vocab: int, cbow_hs_batch: int) -> None:
                     or not np.isfinite(emb).all()):
                 raise AssertionError(f"the CLI {flags} wrote {emb.shape} "
                                      f"vectors, or non-finite ones")
+
+
+def we_ps_run(label: str, we, ids, trains: bool = True) -> dict:
+    """One warm epoch, then WE_TIMED_EPOCHS timed ones of
+    ``train_ps_blocks``: words/s by the host's clock (the call ends with
+    the device drained), the device span of each epoch by CUDA events, and
+    the host's cost per block over the timed epochs from the Dashboard's
+    monitors (``we.prepare`` on the producer threads, ``we.block`` and
+    ``we.push`` on the training thread). The losses must be finite and
+    fall, unless ``trains`` is False (a batch that diverges in both
+    packages, timed all the same)."""
+    import torch
+    from multiverso_tpu_torch.utils.dashboard import Dashboard
+    losses, wps, span_ms = [], [], []
+    stats = we.train_ps_blocks(ids, epochs=1)
+    losses.append(stats["loss"])
+    log(f"we_ps {label} warm epoch: {stats['seconds'] * 1e3:.3f} ms, loss "
+        f"{stats['loss']:.6f}")
+    Dashboard.reset()
+    for _ in range(WE_TIMED_EPOCHS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        stats = we.train_ps_blocks(ids, epochs=1)
+        ev[1].record()
+        ev[1].synchronize()
+        losses.append(stats["loss"])
+        wps.append(stats["words_per_sec"])
+        span_ms.append(ev[0].elapsed_time(ev[1]))
+    blocks = -(-ids.size // we.cfg.data_block_size)
+    per_block = {name: snap.total_ms / (WE_TIMED_EPOCHS * blocks)
+                 for name, snap in Dashboard.snapshot().items()
+                 if name.startswith("we.") or name.endswith("_rows")}
+    host_ms = [ids.size / w * 1e3 for w in wps]
+    log(f"we_ps {label}: {ids.size} tokens, {blocks} blocks of "
+        f"{we.cfg.data_block_size}, batch {we.cfg.batch_size}; timed epochs "
+        f"host ms {[round(t, 3) for t in host_ms]}, words/s "
+        f"{[round(w) for w in wps]} (median {float(np.median(wps)):.0f}); "
+        f"device span ms (CUDA events) {[round(t, 3) for t in span_ms]}; "
+        f"loss per epoch (warm first) {[round(l, 6) for l in losses]}")
+    log(f"we_ps {label} host ms per block (Dashboard, timed epochs): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_block.items())))
+    run = {"losses": losses, "words_per_sec": wps, "span_ms": span_ms,
+           "host_ms_per_block": per_block}
+    if not trains:
+        return run
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite PS-block loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the PS-block loss did not fall: {losses}")
+    return run
+
+
+def we_ps_blocks(keys: dict, d, ids, n_tokens: int):
+    """A fresh WordEmbedding at WE_PS_CFG with ``keys`` over it, on the
+    Zoo's device, trained by ``train_ps_blocks`` over ``ids[:n_tokens]``:
+    (the blocks' losses, [embed_in, the second table] on the host)."""
+    from multiverso_tpu_torch.apps.word_embedding import (WEConfig,
+                                                          WordEmbedding)
+    we = WordEmbedding(WEConfig(**{**WE_PS_CFG, **keys}), d)
+    name = "_train_block_device" if we._use_device_plane(1) else (
+        "_train_prepared")
+    losses, inner = [], getattr(we, name)
+
+    def record(*args):
+        loss = inner(*args)
+        losses.append(loss)
+        return loss
+
+    setattr(we, name, record)
+    we.train_ps_blocks(ids[:n_tokens], epochs=1)
+    sec = we.table_hs if we.cfg.hs else we.table_out
+    return [float(l) for l in losses], [we.table_in.get(), sec.get()]
+
+
+def we_ps_card_vs_cpu(label: str, keys: dict, d, ids) -> dict:
+    """The device plane's first 2 blocks (WE_PS_REF_TOKENS) from the seeded
+    tables, twice on the card and once on the CPU (the Zoo restarted
+    there and back): each card run's block losses within
+    WE_PS_REF_LOSS_RTOL of the CPU's and its tables within
+    WE_PS_REF_TABLE_RTOL of their largest magnitude. Returns the errors
+    and the card's run-to-run spread."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.utils.dashboard import Dashboard
+    card = [we_ps_blocks(keys, d, ids, WE_PS_REF_TOKENS) for _ in range(2)]
+    Dashboard.reset()     # shutdown would print it
+    mv.shutdown()
+    mv.init(device="cpu")
+    try:
+        lc, tc = we_ps_blocks(keys, d, ids, WE_PS_REF_TOKENS)
+    finally:
+        Dashboard.reset()
+        mv.shutdown()
+        mv.init()
+    scale = max(float(np.abs(t).max()) for t in tc)
+    out = {"scale": scale}
+    for i, (lg, tg) in enumerate(card):
+        lrel = max(abs(g - c) / abs(c) for g, c in zip(lg, lc))
+        terr = max(float(np.abs(g - c).max()) for g, c in zip(tg, tc))
+        log(f"we_ps {label} first 2 blocks, card run {i + 1} vs the CPU: "
+            f"block losses {[round(l, 6) for l in lg]} vs "
+            f"{[round(l, 6) for l in lc]} (relative {lrel:.3e}, bound "
+            f"{WE_PS_REF_LOSS_RTOL:.0e}); tables max |diff| {terr:.3e} at "
+            f"max |x| {scale:.3f} (relative {terr / scale:.3e}, bound "
+            f"{WE_PS_REF_TABLE_RTOL:.0e})")
+        if not (len(lg) == len(lc) == 2 and lrel <= WE_PS_REF_LOSS_RTOL
+                and terr <= WE_PS_REF_TABLE_RTOL * scale):
+            raise AssertionError(f"the card's {label} blocks disagree with "
+                                 f"the CPU's")
+        out[f"loss_rel_{i}"], out[f"table_rel_{i}"] = lrel, terr / scale
+    out["spread"] = max(float(np.abs(a - b).max())
+                        for a, b in zip(card[0][1], card[1][1])) / scale
+    log(f"we_ps {label} first 2 blocks, card run to run (index_add_ "
+        f"atomics): tables {out['spread']:.3e} of max |x|")
+    return out
+
+
+def we_ps_planes(d, ids) -> dict:
+    """Skip-gram NS on the card: the device plane against the host plane
+    over their first block (the planes compute alike there; the host
+    plane's staleness starts at the second), and the pipelined host plane
+    against the inline one over 2 blocks; each within WE_PS_SPREAD_FACTOR
+    times the run-to-run spread of the same runs measured here, plus 1e-6
+    of max |x|."""
+    block = WE_PS_CFG["data_block_size"]
+    pairs = (("device plane", {}, "host plane", {"ps_device_plane": "0"},
+              block),
+             ("host plane pipelined", {"ps_device_plane": "0"},
+              "host plane inline", {"ps_device_plane": "0",
+                                    "pipeline": "0"}, 2 * block))
+    out = {}
+    for name_a, keys_a, name_b, keys_b, n in pairs:
+        (la, ta), (la2, ta2) = (we_ps_blocks(keys_a, d, ids, n)
+                                for _ in range(2))
+        lb, tb = we_ps_blocks(keys_b, d, ids, n)
+        scale = max(float(np.abs(t).max()) for t in ta)
+        spread = max(float(np.abs(a - b).max()) for a, b in zip(ta, ta2))
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(ta, tb))
+        bound = WE_PS_SPREAD_FACTOR * spread + 1e-6 * scale
+        lrel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+        lspread = max(abs(a - b) / abs(a) for a, b in zip(la, la2))
+        log(f"we_ps {name_a} vs {name_b}, {n // block} block(s): tables max "
+            f"|diff| {diff:.3e} (run to run {spread:.3e}; bound "
+            f"{bound:.3e}; max |x| {scale:.3f}), block losses relative "
+            f"{lrel:.3e} (run to run {lspread:.3e})")
+        if not (diff <= bound and len(la) == len(lb)
+                and lrel <= WE_PS_SPREAD_FACTOR * lspread + 1e-6):
+            raise AssertionError(f"the {name_a} and the {name_b} disagree")
+        out[f"{name_a} vs {name_b}"] = {"diff": diff, "spread": spread,
+                                        "scale": scale}
+    return out
+
+
+def we_ps_hs_sweep(label: str, extra: dict, d, ids) -> dict:
+    """The largest power of two below WE_PS_CFG's batch at which an HS
+    variant's block path trains: halving, each batch gets we_ps_run's warm
+    and timed epochs from fresh tables, and the first whose losses are all
+    finite and each below the one before is the answer. Fails if none
+    down to WE_HS_MIN_BATCH does."""
+    from multiverso_tpu_torch.apps.word_embedding import (WEConfig,
+                                                          WordEmbedding)
+    batch = WE_PS_CFG["batch_size"] // 2
+    while batch >= WE_HS_MIN_BATCH:
+        we = WordEmbedding(
+            WEConfig(**{**WE_PS_CFG, **extra, "batch_size": batch}), d)
+        run = we_ps_run(f"{label} at batch {batch}", we, ids, trains=False)
+        losses = run["losses"]
+        if (np.isfinite(losses).all()
+                and all(b < a for a, b in zip(losses, losses[1:]))):
+            log(f"we_ps {label}: {batch} is the largest batch (a power of "
+                f"two) at which the loss falls in every epoch")
+            run.update(batch=batch, we=we)
+            return run
+        del we
+        batch //= 2
+    raise AssertionError(f"{label} (PS blocks) trains at no batch down to "
+                         f"{WE_HS_MIN_BATCH}")
+
+
+def phase_we_ps(dev) -> dict:
+    """The PS block path (``train_ps_blocks``) on the card at
+    bench_wordembedding_ps's widths: the four variants on the real text
+    (HS at the batch we_ps_hs_sweep finds, after its divergent epochs at
+    8,192), each with warm and timed epochs, its first 2 blocks against
+    the CPU's and one profiled epoch; skip-gram NS on the host plane,
+    pipelined and inline, with the planes held against each other; the
+    1M-token synthetic corpus; and ``-use_ps 1`` on the command line."""
+    from multiverso_tpu_torch.apps.word_embedding import (WEConfig,
+                                                          WordEmbedding,
+                                                          synthetic_corpus)
+    from multiverso_tpu_torch.data.dictionary import Dictionary
+    from multiverso_tpu_torch.io import realtext
+
+    tokens = realtext.load_tokens()
+    d = Dictionary.build(tokens, WE_PS_CFG["min_count"])
+    ids = WordEmbedding(WEConfig(**WE_PS_CFG), d).prepare_ids(tokens)
+    out = {}
+    for label, extra in WE_PS_VARIANTS:
+        keys = dict(extra)
+        if "hs" in extra:
+            we = WordEmbedding(WEConfig(**{**WE_PS_CFG, **extra}), d)
+            out[f"{label} at {WE_PS_CFG['batch_size']}"] = we_ps_run(
+                f"{label} at batch {WE_PS_CFG['batch_size']} (diverges in "
+                f"both packages)", we, ids, trains=False)
+            del we
+            run = we_ps_hs_sweep(label, extra, d, ids)
+            we = run.pop("we")
+            keys["batch_size"] = run["batch"]
+        else:
+            we = WordEmbedding(WEConfig(**{**WE_PS_CFG, **extra}), d)
+            run = we_ps_run(label, we, ids)
+        if not we._use_device_plane(1) or we.table_in.raw().device != dev:
+            raise AssertionError(f"{label} is not on the card's device plane")
+        run["profile"] = we_profile(
+            f"PS blocks {label} at batch {we.cfg.batch_size}",
+            lambda: we.train_ps_blocks(ids, epochs=1), run["span_ms"])
+        if we.total_word_count() != (2 + WE_TIMED_EPOCHS) * ids.size:
+            raise AssertionError("the word_count KVTable is off")
+        del we
+        run["vs_cpu"] = we_ps_card_vs_cpu(label, keys, d, ids)
+        out[label] = run
+
+    for label, keys in (("host plane pipelined", {"ps_device_plane": "0"}),
+                        ("host plane inline", {"ps_device_plane": "0",
+                                               "pipeline": "0"})):
+        we = WordEmbedding(WEConfig(**{**WE_PS_CFG, **keys}), d)
+        out[label] = we_ps_run(f"skipgram NS {label}", we, ids)
+        out[label]["profile"] = we_profile(
+            f"PS blocks skipgram NS {label}",
+            lambda: we.train_ps_blocks(ids, epochs=1), out[label]["span_ms"])
+        del we
+    out["planes"] = we_ps_planes(d, ids)
+
+    t0 = time.perf_counter()
+    tokens = synthetic_corpus(**WE_PS_SYNTH_CORPUS)
+    ds = Dictionary.build(tokens, WE_PS_CFG["min_count"])
+    we = WordEmbedding(WEConfig(**WE_PS_CFG), ds)
+    ids_s = we.prepare_ids(tokens)
+    log(f"we_ps synthetic: {len(tokens)} tokens, vocab {len(ds)}, "
+        f"{ids_s.size} training tokens ({time.perf_counter() - t0:.1f} s on "
+        f"the host)")
+    out["synthetic"] = we_ps_run("skipgram NS synthetic 1M", we, ids_s)
+    del we
+    phase_we_cli(len(d), [WE_PS_CFG])
+    return out
 
 
 def lm_group(name: str) -> str:
@@ -1289,6 +1581,13 @@ def main(argv=None) -> int:
     log(f"we launches {paths['we']}")
     if any(paths["we"].values()):
         raise AssertionError("the WordEmbedding path launched a flash kernel")
+    # the PS block path, counted the same way: no kernel of the port either
+    ak.reset_launch_counts()
+    phase_we_ps(dev)
+    paths["we_ps"] = ak.launch_counts()
+    log(f"we_ps launches {paths['we_ps']}")
+    if any(paths["we_ps"].values()):
+        raise AssertionError("the PS block path launched a flash kernel")
     mv.shutdown()
     for rec in records:
         by_path = {p: c[rec["name"]] for p, c in paths.items()

@@ -1,6 +1,6 @@
 """WordEmbedding application, distributed word2vec (port of
-``multiverso_tpu/apps/word_embedding.py``, the fused path: skip-gram and
-CBOW, negative sampling and hierarchical softmax).
+``multiverso_tpu/apps/word_embedding.py``: skip-gram and CBOW, negative
+sampling and hierarchical softmax, the fused path and the PS block path).
 
 * min_count vocab pruning, stopword filtering (-stopwords 1 -sw_file),
   frequent-word subsampling and the dynamic window, on the host: the native
@@ -24,16 +24,30 @@ CBOW, negative sampling and hierarchical softmax).
   -hs 1``). The last four compute in f32 everywhere, as the JAX epochs
   do, and the per-pair negatives follow jax.random's threefry stream from
   ``seed`` bit for bit
+* ``train_ps_blocks`` (``-use_ps 1``): the reference's block flow
+  (distributed_wordembedding.cpp:147-252). Per data block the worker pulls
+  the block's rows, trains them locally minibatch after minibatch (the
+  four variants' steps, per-pair negatives from ``splitmix32`` counters)
+  and pushes the (new - old) deltas. Producer threads prepare the blocks
+  ahead (``io/sample_reader.BlockPrepareQueue``, flags
+  ``we_prepare_depth`` and ``we_prepare_threads``). One worker on the
+  sync tables takes the device plane: the pull is a gather on the card,
+  the push ``functional_add_rows``, and the negatives are derived on the
+  card from the block's 4-byte seed. Otherwise (``-ps_device_plane 0``, or
+  several workers) the host plane pulls with ``get_rows_async`` and pushes
+  ``(new - old) / num_workers`` with ``add_rows_async``, each pull
+  dispatched before the previous block's push (the reference's one-block
+  staleness), pipelined or inline (``-pipeline 0``), with the same results
 * text and binary (-binary 1) embedding output, a round-tripping loader,
   words/sec reporting
 
-Not ported yet (``train_fused`` raises ``NotImplementedError`` naming the
-ROADMAP item): the PS block path (``use_ps``, ``train_ps_blocks``) and the
-async PS tables (``async_ps``).
+Not ported yet (both entry points raise ``NotImplementedError`` naming the
+ROADMAP item): the async PS tables (``async_ps``).
 
 Usage: ``python -m multiverso_tpu_torch.apps.word_embedding -train_file
 f.txt -output vec.txt -size 128 -cbow 1 -hs 1 ...`` (argv keys mirror ref
-util.cpp ParseArgs; ``-device=cpu`` runs on the CPU).
+util.cpp ParseArgs; ``-use_ps 1`` trains through the PS block path;
+``-device=cpu`` runs on the CPU).
 """
 
 from __future__ import annotations
@@ -49,19 +63,31 @@ import torch
 import multiverso_tpu_torch as mv
 from multiverso_tpu_torch import native
 from multiverso_tpu_torch.data.dictionary import Dictionary, build_huffman
+from multiverso_tpu_torch.io.sample_reader import BlockPrepareQueue
 from multiverso_tpu_torch.models import word2vec as w2v
+from multiverso_tpu_torch.ops import row_assemble as _rowasm
+from multiverso_tpu_torch.tables.matrix_table import _bucket_size
 from multiverso_tpu_torch.utils import config, log, threefry
+from multiverso_tpu_torch.utils.dashboard import monitor
 
+config.define_int(
+    "we_prepare_depth", 4,
+    "WordEmbedding prepared-block queue depth (blocks produced but not "
+    "yet trained, both PS planes): bounds host prep memory while letting "
+    "the producers run ahead of the consumer")
+config.define_int(
+    "we_prepare_threads", 2,
+    "producer threads feeding the WordEmbedding prepared-block queue "
+    "(pair generation, negative sampling, remap and packing run there, "
+    "off the training thread)")
 config.define_int(
     "we_pair_cache_corpora", 4,
     "bounded LRU capacity (corpora) of the fused path's device-resident "
     "batch cache")
 
-# what train_fused does not run yet, and the title of the ROADMAP.md §A
+# what neither entry point runs yet, and the title of the ROADMAP.md §A
 # item that queues it (by title: the items are renumbered as they land)
 _NOT_PORTED = (
-    ("use_ps", "use_ps=1 (train_ps_blocks)",
-     "WordEmbedding family: train_ps_blocks"),
     ("async_ps", "async_ps=1", "the async PS (ps/)"),
 )
 
@@ -123,15 +149,25 @@ class WEConfig:
         self.sample = float(kw.get("sample", 1e-4))
         self.batch_size = int(kw.get("batch_size", 1024))
         self.data_block_size = int(kw.get("data_block_size", 100_000))
-        # the PS block path and its planes (not ported yet: train_fused
-        # refuses use_ps and async_ps)
+        # -use_ps 1: main trains through the PS block path
+        # (train_ps_blocks) instead of the fused one
         self.use_ps = _flag(kw, "use_ps")
+        # the uncoordinated async tables (not ported yet: both entry points
+        # refuse it)
         self.async_ps = _flag(kw, "async_ps")
+        # the PS block plane: "auto" takes the device plane when this
+        # process is the only worker, "0" forces the host Get/Add plane,
+        # "1" asserts the device plane
         self.ps_device_plane = str(kw.get("ps_device_plane", "auto"))
+        # the block scan's compute dtype (both planes): "bf16" casts the
+        # pulled rows, and the deltas are measured against the
+        # bf16-rounded rows, so an untrained row's delta is exactly zero
         self.ps_block_dtype = str(kw.get("ps_block_dtype", "f32"))
         if self.ps_block_dtype not in ("f32", "bf16"):
             raise ValueError(
                 f"unknown ps_block_dtype {self.ps_block_dtype!r}")
+        # host plane: "1" produces the blocks on the producer queue, "0"
+        # prepares each inline (the parity oracle); the results are equal
         self.pipeline = str(kw.get("pipeline", "1")) in ("1", "true",
                                                          "True")
         self.data_presplit = _flag(kw, "data_presplit")
@@ -193,6 +229,14 @@ class WordEmbedding:
         # bounded LRU of device-resident batches, keyed by a corpus
         # fingerprint (flag we_pair_cache_corpora)
         self._pair_cache: "OrderedDict[object, tuple]" = OrderedDict()
+        # the PS block path's negative table (host, and on the device)
+        self._neg_host: Optional[np.ndarray] = None
+        self._neg_dev: Optional[torch.Tensor] = None
+        # the device plane derives each block's negatives on the device
+        # from its 4-byte seed, which costs one upload of the V-id remap a
+        # block: worth it unless the vocab dwarfs the block's negatives
+        self._dev_negs = (not cfg.hs and cfg.negative > 0
+                          and 4 * v <= cfg.data_block_size * cfg.negative)
         if cfg.hs:
             # the Huffman paths and the V-1 inner-node rows they index
             self._hs = build_huffman(dictionary.counts)
@@ -270,11 +314,11 @@ class WordEmbedding:
     # ------------------------------------------------------------------ #
     # fused path (device-resident training)
     # ------------------------------------------------------------------ #
-    def _check_ported(self) -> None:
+    def _check_ported(self, entry: str) -> None:
         for attr, what, item in _NOT_PORTED:
             if getattr(self.cfg, attr):
                 raise NotImplementedError(
-                    f"WordEmbedding.train_fused: {what} is not ported to "
+                    f"WordEmbedding.{entry}: {what} is not ported to "
                     f"multiverso_tpu_torch yet (ROADMAP.md §A {item})")
 
     def compute_dtype(self) -> torch.dtype:
@@ -325,7 +369,7 @@ class WordEmbedding:
         negatives or HS). Returns the last epoch's mean loss and the run's
         words/sec (corpus tokens per second, the word2vec convention),
         seconds, pairs (CBOW: targets) and pairs/sec."""
-        self._check_ported()
+        self._check_ported("train_fused")
         cfg = self.cfg
         epochs = epochs or cfg.epoch
         branch = self._branch()
@@ -357,6 +401,486 @@ class WordEmbedding:
         return {"loss": loss_f, "words_per_sec": words / dt,
                 "seconds": dt, "pairs": int(pairs),
                 "pairs_per_sec": epochs * pairs / dt}
+
+    # ------------------------------------------------------------------ #
+    # PS block path (the reference's block pipeline)
+    # ------------------------------------------------------------------ #
+    def _use_device_plane(self, num_workers: int) -> bool:
+        """One worker on the sync tables trains each block's pull, local
+        train and push on the device (:meth:`_train_block_device`); several
+        workers keep the host Get/Add plane."""
+        mode = self.cfg.ps_device_plane
+        eligible = num_workers == 1 and not self.cfg.async_ps
+        if mode == "1":
+            if not eligible:
+                raise ValueError(
+                    "ps_device_plane=1 requires a single worker on the sync "
+                    "plane; multi-worker runs exchange deltas over the "
+                    "Get/Add wire")
+            return True
+        if mode == "0":
+            return False
+        return eligible
+
+    def train_ps_blocks(self, ids: np.ndarray,
+                        epochs: Optional[int] = None) -> Dict[str, float]:
+        """ref distributed_wordembedding.cpp:147-252: per block, pull the
+        block's rows, train them locally, push the (new - old) deltas.
+        Returns the mean of the blocks' losses, words/sec (corpus tokens)
+        and seconds, as the JAX app does.
+
+        Each block draws its pairs and negatives from its own child of
+        ``np.random.default_rng(seed)`` (``spawn``), so producer threads
+        and the inline path draw alike. The device plane (one worker)
+        trains block after block on the tables' device and reads the
+        blocks' losses back once, at the end. The host plane dispatches the
+        pull of block N+1 before block N's push, so block N+1 trains from
+        rows without block N's update: the reference's one-block staleness
+        (ref :202-223), the same pipelined (``-pipeline 1``) and inline."""
+        self._check_ported("train_ps_blocks")
+        cfg = self.cfg
+        epochs = epochs or cfg.epoch
+        rng = np.random.default_rng(cfg.seed)
+        nw, _ = self._ps_topology()
+        device_plane = self._use_device_plane(nw)
+        t0, losses, words = time.perf_counter(), [], 0
+        dev_losses: List[torch.Tensor] = []
+        blocks = [ids[lo: lo + cfg.data_block_size]
+                  for lo in range(0, ids.size, cfg.data_block_size)]
+        blocks = [b for b in blocks if b.size >= 2]
+        # one flat schedule across the epochs, so the next block's pull
+        # overlaps the current one's training across epoch boundaries too
+        schedule = [b for _ in range(epochs) for b in blocks]
+        child_rngs = rng.spawn(len(schedule)) if schedule else []
+        if schedule and not cfg.hs:
+            self._neg_table()   # built once, before the producer threads
+
+        def queue(produce):
+            return BlockPrepareQueue(
+                list(range(len(schedule))),
+                lambda idx, _i: produce(schedule[idx], child_rngs[idx]),
+                depth=int(config.get_flag("we_prepare_depth")),
+                threads=int(config.get_flag("we_prepare_threads")))
+
+        if device_plane and schedule:
+            with queue(self._prepare_block_device) as q:
+                for block in schedule:
+                    prepared = q.next()
+                    if prepared is not None:
+                        dev_losses.append(self._train_block_device(prepared))
+                    words += block.size
+        elif schedule and cfg.pipeline and len(schedule) > 1:
+            # the producers run the host half K blocks ahead; each pull is
+            # dispatched here, at dequeue, where the inline path dispatches
+            # it (before the previous block's push), so the results equal
+            # the inline path's
+            with queue(self._produce_block) as q:
+                prepared = self._dispatch_pulls(q.next())
+                for i, block in enumerate(schedule):
+                    nxt = None
+                    if i + 1 < len(schedule):
+                        nxt = self._dispatch_pulls(q.next())
+                    losses.append(self._train_prepared(prepared, nw))
+                    words += block.size
+                    prepared = nxt
+        else:
+            # the inline one-lookahead path (-pipeline 0): the parity oracle
+            prepared = (self._prepare_block(schedule[0], child_rngs[0])
+                        if schedule else None)
+            for i, block in enumerate(schedule):
+                nxt = (self._prepare_block(schedule[i + 1],
+                                           child_rngs[i + 1])
+                       if i + 1 < len(schedule) else None)
+                losses.append(self._train_prepared(prepared, nw))
+                words += block.size
+                prepared = nxt
+        if dev_losses:
+            losses = torch.stack(dev_losses).cpu().tolist()
+        # the last pushes are still in flight on the stream: drain it, so
+        # the trained state is durable when the clock stops
+        if self.table_in.device.type == "cuda":
+            torch.cuda.synchronize(self.table_in.device)
+        dt = time.perf_counter() - t0
+        self.word_count.add([0], [words])
+        return {"loss": float(np.mean(losses)) if losses else 0.0,
+                "words_per_sec": words / dt, "seconds": dt}
+
+    def _neg_table(self) -> np.ndarray:
+        """The unigram^0.75 negative table (2^20 slots, word2vec.c's
+        design), built at the first call."""
+        if self._neg_host is None:
+            self._neg_host = w2v.build_negative_table(self.unigram)
+        return self._neg_host
+
+    def _host_negs(self, n: int, k: int, rng) -> Tuple[np.ndarray, np.uint32]:
+        """(n, k) negative ids and their 4-byte seed: slots of the table
+        hashed from the counters [seed, seed + n*k) (``w2v.counter_negs``),
+        so the device plane can derive the same draws on the device from
+        the seed alone."""
+        table = self._neg_table()
+        seed = np.uint32(rng.integers(0, 1 << 32))
+        idx = w2v.counter_negs(seed, max(n, 1) * k, table.size - 1)
+        return (table[idx].reshape(max(n, 1), k).astype(np.int32), seed)
+
+    def _block_arrays(self, block: np.ndarray, rng) -> Dict:
+        """The host's block prep shared by both planes: the variant's
+        training arrays, the block's input-vocab set, and for HS the
+        block's Huffman inner-node set (ref RequestParameter's needed rows,
+        communicator.cpp:104-142)."""
+        cfg = self.cfg
+        prep: Dict = {}
+        if cfg.cbow:
+            windows, masks, targets = w2v.generate_cbow_batches(
+                block, cfg.window)
+            prep.update(windows=windows, masks=masks, targets=targets)
+            used = [windows.reshape(-1), targets, np.zeros(1, np.int64)]
+            examples = targets   # the word whose path/negatives are scored
+        else:
+            centers, contexts = _gen_pairs(block, cfg.window,
+                                           int(rng.integers(1 << 31)))
+            prep.update(centers=centers, contexts=contexts)
+            used = [centers, contexts]
+            examples = contexts
+        prep["examples"] = examples
+        if cfg.hs:
+            codes, points, lengths = self._hs
+            t = np.asarray(examples, np.int64)
+            pmask = (np.arange(codes.shape[1])[None, :]
+                     < lengths[t][:, None])
+            prep.update(codes=codes[t], points=points[t], pmask=pmask)
+            prep["hs_rows"] = self._used_ids(
+                self.table_hs.shape[0], [prep["points"][pmask]])
+        else:
+            negs, neg_seed = self._host_negs(examples.size, cfg.negative, rng)
+            prep.update(negs=negs, neg_seed=neg_seed)
+            used.append(negs.reshape(-1))
+        prep["vocab"] = self._used_ids(len(self.dict), used)
+        return prep
+
+    @staticmethod
+    def _used_ids(limit: int, arrays) -> np.ndarray:
+        """Sorted unique ids across ``arrays`` through a presence mask,
+        O(n + V) instead of np.unique's sort."""
+        seen = np.zeros(limit, bool)
+        for a in arrays:
+            seen[np.asarray(a).reshape(-1)] = True
+        return np.flatnonzero(seen)
+
+    def _staged(self, arrays):
+        """CPU tensors of ``arrays`` (a tuple of numpy arrays, or one),
+        pinned when the tables are on the card, so the consumer's upload
+        is asynchronous on its own stream; made on the producer thread."""
+        pin = self.table_in.device.type == "cuda"
+
+        def stage(a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.pin_memory() if pin else t
+
+        if isinstance(arrays, tuple):
+            return tuple(stage(a) for a in arrays)
+        return stage(arrays)
+
+    def _upload(self, arrays):
+        """The staged tensors on the tables' device, in stream order; index
+        arrays (int16/int32 on the wire) become int64 there."""
+        dev = self.table_in.device
+
+        def put(t):
+            t = t.to(dev, non_blocking=True)
+            return t.long() if t.dtype in (torch.int16, torch.int32) else t
+
+        if isinstance(arrays, tuple):
+            return tuple(put(a) for a in arrays)
+        return put(arrays)
+
+    def _produce_block(self, block: np.ndarray, rng,
+                       dispatch_early: bool = False) -> Optional[Dict]:
+        """The host half of a host-plane block (pairs, negatives, remap,
+        packing), safe on a producer thread: it reads no table state. The
+        pulls are dispatched apart (:meth:`_dispatch_pulls`), on the
+        consumer thread, in program order; the inline path
+        (``dispatch_early``) dispatches them before the packing, which
+        makes no table op, so the results do not change."""
+        cfg = self.cfg
+        b = cfg.batch_size
+        with monitor("we.prepare"):
+            prep = self._block_arrays(block, rng)
+            n = (prep["examples"].size // b) * b
+            if n == 0:
+                return None
+            nbb = -(-(n // b) // 8) * 8
+            vocab = prep["vocab"]
+            k = vocab.size
+            # the pulled rows are zero-padded to a pow2 bucket, and the
+            # unused slots map to a dummy row appended after it
+            kb = _bucket_size(k, 1 << 30)
+            remap_hs, hkb = None, 0
+            if cfg.hs:
+                hs_rows = prep["hs_rows"]
+                hkb = _bucket_size(hs_rows.size, 1 << 30)
+                remap_hs = np.full(self.table_hs.shape[0] + 1, hkb, np.int64)
+                remap_hs[hs_rows] = np.arange(hs_rows.size)
+            remap = np.full(len(self.dict), kb, np.int64)   # default: dummy
+            remap[vocab] = np.arange(k)
+            prep.update(kb=kb, hkb=hkb)
+            if dispatch_early:
+                self._dispatch_pulls(prep)
+            batch, valid = self._pack_batches(prep, n, nbb, remap, kb,
+                                              remap_hs, hkb)
+            prep.update(batch=self._staged(batch), valid=valid)
+            return prep
+
+    def _dispatch_pulls(self, prep: Optional[Dict]) -> Optional[Dict]:
+        """Dispatch a produced block's row pulls (ref RequestParameter,
+        communicator.cpp:104-142), on the consumer thread: a pull must be
+        issued before the previous block's push, where the inline path
+        issues it, or the pulled rows (and so the results) would change."""
+        if prep is None:
+            return None
+        if "pull_in" in prep:
+            return prep   # already dispatched (the inline path)
+        prep["pull_in"] = self.table_in.get_rows_async(prep["vocab"])
+        prep["pull_sec"] = self._sec_table().get_rows_async(
+            prep["hs_rows"] if self.cfg.hs else prep["vocab"])
+        return prep
+
+    def _prepare_block(self, block: np.ndarray, rng) -> Optional[Dict]:
+        """Inline host-plane block prep (-pipeline 0, the parity oracle):
+        produce and dispatch on the calling thread."""
+        return self._produce_block(block, rng, dispatch_early=True)
+
+    def _train_prepared(self, prep: Optional[Dict],
+                        num_workers: int) -> float:
+        """Wait for the block's pulls, run its scan on the tables' device,
+        push the (new - old) / num_workers deltas with ``add_rows_async``
+        (ref communicator.cpp:144-236 AddAsync): the push overlaps the next
+        block's prep. The tables' stream orders it after the next block's
+        pull, which was dispatched first."""
+        cfg = self.cfg
+        if prep is None:
+            return 0.0
+        sec_t = self._sec_table()
+        dev = self.table_in.device
+        with monitor("we.block"):
+            rows_in = self.table_in.wait(prep["pull_in"])
+            rows_sec = sec_t.wait(prep["pull_sec"])
+            d_in, d_sec, loss = self._run_block_scan(
+                self._step_fn_raw(),
+                _rowasm.pad_rows(rows_in, prep["kb"], dev),
+                _rowasm.pad_rows(rows_sec,
+                                 prep["hkb"] if cfg.hs else prep["kb"], dev),
+                prep["valid"], self._upload(prep["batch"]))
+            d_in, d_sec = d_in.cpu().numpy(), d_sec.cpu().numpy()
+        with monitor("we.push"):
+            k = prep["vocab"].size
+            self.table_in.add_rows_async(prep["vocab"],
+                                         d_in[:k] / num_workers)
+            ids_sec = prep["hs_rows"] if cfg.hs else prep["vocab"]
+            sec_t.add_rows_async(ids_sec,
+                                 d_sec[:ids_sec.size] / num_workers)
+        return float(loss)
+
+    def _sec_table(self):
+        return self.table_hs if self.cfg.hs else self.table_out
+
+    @staticmethod
+    def _idt(limit: int):
+        """Smallest index dtype covering [0, limit]: the packed batches
+        cross the host -> device wire, and int16 halves the bytes."""
+        return np.int16 if limit < (1 << 15) else np.int32
+
+    def _pack_batches(self, prep: Dict, n: int, nbb: int,
+                      remap: np.ndarray, dummy_in: int,
+                      remap_hs: Optional[np.ndarray], dummy_hs: int,
+                      dev_negs: bool = False
+                      ) -> Tuple[Tuple[np.ndarray, ...], np.ndarray]:
+        """Remap and pack the block's training arrays into the (nbb, B,
+        ...) layout of both planes, nbb a multiple of 8 (so the shapes take
+        few values), and the (nbb,) valid weights: 1 for the n // B real
+        minibatches, 0 for the padding. Ids are remapped into the pulled
+        rows; pad slots and padded minibatches point at the dummy row after
+        them, so their (masked) values never touch a real row."""
+        cfg = self.cfg
+        b = cfg.batch_size
+        nb = n // b
+
+        def pack(x, fill, dtype):
+            out = np.full((nbb, b) + x.shape[1:], fill, dtype)
+            out[:nb] = x[:n].reshape((nb, b) + x.shape[1:])
+            return out
+
+        din = self._idt(dummy_in)
+        if cfg.hs:
+            dhs = self._idt(dummy_hs)
+            points = remap_hs[prep["points"][:n]]
+            points[~prep["pmask"][:n]] = dummy_hs  # mask off-path slots
+            sec_batch = (pack(prep["codes"][:n], 0, np.int8),
+                         pack(points, dummy_hs, dhs),
+                         pack(prep["pmask"][:n], False, bool))
+        elif dev_negs:
+            sec_batch = ()  # the negatives are derived on the device
+        else:
+            sec_batch = (pack(remap[prep["negs"][:n]], dummy_in, din),)
+        if cfg.cbow:
+            head = (pack(remap[prep["windows"][:n]], dummy_in, din),
+                    pack(prep["masks"][:n], False, bool))
+            if cfg.hs:          # cbow_hs_step(w, m, codes, points, pmask)
+                batch = head + sec_batch
+            else:               # cbow_ns_step(w, m, targets, negs)
+                batch = head + (pack(remap[prep["targets"][:n]],
+                                     dummy_in, din),) + sec_batch
+        else:
+            centers = pack(remap[prep["centers"][:n]], dummy_in, din)
+            if cfg.hs:          # skipgram_hs_step(c, codes, points, pmask)
+                batch = (centers,) + sec_batch
+            else:               # skipgram_ns_step(c, contexts, negs)
+                batch = (centers,
+                         pack(remap[prep["contexts"][:n]], dummy_in, din),
+                         ) + sec_batch
+        valid = np.zeros(nbb, np.float32)
+        valid[:nb] = 1.0
+        return batch, valid
+
+    def _step_fn_raw(self):
+        """The minibatch step of cfg's variant (ref wordembedding.cpp
+        FeedForward/HS/NS branches), trained in place by both planes."""
+        cfg = self.cfg
+        alpha = cfg.alpha
+        if cfg.cbow and cfg.hs:
+            return lambda a, s, w, m, c, p, pm: w2v.cbow_hs_step(
+                a, s, w, m, c, p, pm, alpha)
+        if cfg.cbow:
+            return lambda a, s, w, m, t, g: w2v.cbow_ns_step(
+                a, s, w, m, t, g, alpha)
+        if cfg.hs:
+            return lambda a, s, c, cd, p, pm: w2v.skipgram_hs_step(
+                a, s, c, cd, p, pm, alpha)
+        return lambda a, s, c, x, g: w2v.skipgram_ns_step(
+            a, s, c, x, g, alpha)
+
+    def _compute_dtype(self) -> Optional[torch.dtype]:
+        return torch.bfloat16 if self.cfg.ps_block_dtype == "bf16" else None
+
+    def _run_block_scan(self, step, rows_in: torch.Tensor,
+                        rows_sec: torch.Tensor, valid: np.ndarray, batch,
+                        negs: Optional[torch.Tensor] = None):
+        """The block's local training, both planes: the pulled rows (with
+        a dummy row appended) trained minibatch after minibatch; returns
+        the (new - old) deltas and the mean loss, on the rows' device.
+        ``negs`` (nb, B, K), the device plane's derived negatives, is the
+        step's last argument. The deltas are measured against the rows the
+        scan started from, in bf16 mode the rounded ones, so a row pulled
+        but not trained gets an exactly-zero delta.
+
+        The JAX scan also runs the padded minibatches (valid 0); they touch
+        only the dummy row and weigh 0 in the loss, so they are skipped."""
+        cdtype = self._compute_dtype()
+
+        def dummy(r):
+            r = r.to(cdtype) if cdtype is not None else r
+            return torch.cat([r, r.new_zeros((1, r.shape[1]))])
+
+        ri, rs = dummy(rows_in), dummy(rows_sec)
+        nb = int(np.count_nonzero(valid))
+        losses = []
+        for t in range(nb):
+            arrs = tuple(a[t] for a in batch)
+            if negs is not None:
+                arrs = arrs + (negs[t],)
+            ri, rs, loss = step(ri, rs, *arrs)
+            losses.append(loss)
+        loss = torch.stack(losses).float().sum() / max(nb, 1)
+
+        def base(old):
+            return old if cdtype is None else old.to(cdtype).to(old.dtype)
+
+        d_in = ri[:-1].to(rows_in.dtype) - base(rows_in)
+        d_sec = rs[:-1].to(rows_sec.dtype) - base(rows_sec)
+        return d_in, d_sec, loss
+
+    def _prepare_block_device(self, block: np.ndarray,
+                              rng) -> Optional[Dict]:
+        """Device-plane block prep, on a producer thread: the bucketed
+        table-row ids (padded with the tables' scratch rows), the packed
+        batches and, with derived negatives, the global -> local remap and
+        the block's 4-byte seed, staged for one upload."""
+        cfg = self.cfg
+        b = cfg.batch_size
+        with monitor("we.prepare"):
+            prep = self._block_arrays(block, rng)
+            n = (prep["examples"].size // b) * b
+            if n == 0:
+                return None
+            nbb = -(-(n // b) // 8) * 8
+            vocab = prep["vocab"]
+            k = vocab.size
+            vbb = _bucket_size(k, self.table_in.padded_shape[0])
+            # padded ids gather the scratch row, and its zero delta
+            # scatters back into it
+            ids_in = np.full(vbb, self.table_in.scratch_row, np.int64)
+            ids_in[:k] = vocab
+            remap = np.full(len(self.dict), vbb, np.int64)  # default: dummy
+            remap[vocab] = np.arange(k)
+            remap_hs, hsb = None, 0
+            payload = {"ids_in": ids_in}
+            if cfg.hs:
+                hs_rows = prep["hs_rows"]
+                hk = hs_rows.size
+                hsb = _bucket_size(hk, self.table_hs.padded_shape[0])
+                ids_sec = np.full(hsb, self.table_hs.scratch_row, np.int64)
+                ids_sec[:hk] = hs_rows
+                remap_hs = np.full(self.table_hs.shape[0] + 1, hsb, np.int64)
+                remap_hs[hs_rows] = np.arange(hk)
+                payload["ids_sec"] = ids_sec
+            batch, valid = self._pack_batches(prep, n, nbb, remap, vbb,
+                                              remap_hs, hsb,
+                                              dev_negs=self._dev_negs)
+            payload["batch"] = batch
+            if self._dev_negs:
+                payload["remap"] = remap.astype(self._idt(vbb))
+                payload["neg_seed"] = np.array(prep["neg_seed"], np.int64)
+            return {"valid": valid,
+                    **{key: self._staged(a) for key, a in payload.items()}}
+
+    def _train_block_device(self, prep: Dict) -> torch.Tensor:
+        """One block on the device: pull (a gather of the block's rows),
+        local train (:meth:`_run_block_scan`), push (the deltas through
+        each table's updater, ``functional_add_rows``). Returns the block's
+        loss as a device scalar (read back at the end of the run)."""
+        cfg = self.cfg
+        t_in, t_sec = self.table_in, self._sec_table()
+        p = {key: self._upload(a) for key, a in prep.items()
+             if key != "valid"}
+        ids_in = p["ids_in"]
+        ids_sec = p.get("ids_sec", ids_in)
+        negs = None
+        if self._dev_negs:
+            # the splitmix32 counter stream the host drew the pull set
+            # from, the block's minibatches in one pass: only the 4-byte
+            # seed crossed the wire
+            if self._neg_dev is None:
+                self._neg_dev = torch.from_numpy(
+                    self._neg_table().astype(np.int64)).to(t_in.device)
+            nb = int(np.count_nonzero(prep["valid"]))
+            bk = cfg.batch_size * cfg.negative
+            slots = w2v.counter_negs(p["neg_seed"], nb * bk,
+                                     self._neg_dev.numel() - 1)
+            negs = p["remap"][self._neg_dev[slots]].reshape(
+                nb, cfg.batch_size, cfg.negative)
+        with monitor("we.block"), t_in._dispatch_lock, t_sec._dispatch_lock:
+            s_in, s_sec = t_in.state, t_sec.state
+            d_in, d_sec, loss = self._run_block_scan(
+                self._step_fn_raw(), s_in["data"].index_select(0, ids_in),
+                s_sec["data"].index_select(0, ids_sec), prep["valid"],
+                p["batch"], negs)
+            t_in.functional_add_rows(s_in, ids_in, d_in)
+            t_sec.functional_add_rows(s_sec, ids_sec, d_sec)
+        return loss
+
+    def _ps_topology(self) -> Tuple[int, int]:
+        """(num_workers, worker_id) of the sync plane: one process, whose
+        logical worker count is the ``num_workers`` flag."""
+        return max(mv.num_workers(), 1), mv.rank()
 
     def total_word_count(self) -> int:
         """Trained-word count across all workers (ref communicator.cpp:
@@ -545,7 +1069,10 @@ def main(argv=None) -> int:
     log.info("vocab %d words, %d training tokens (native=%s)",
              len(dictionary), ids.size, native.available())
     we = WordEmbedding(cfg, dictionary)
-    stats = we.train_fused(ids)
+    if cfg.use_ps:
+        stats = we.train_ps_blocks(ids)
+    else:
+        stats = we.train_fused(ids)
     log.info("trained: %s", stats)
     we.save_embeddings()
     mv.shutdown()

@@ -1,6 +1,6 @@
 """word2vec model math: skip-gram and CBOW, negative sampling and
 hierarchical softmax (port of ``multiverso_tpu/models/word2vec.py``, the
-parts the fused epochs need).
+parts the fused epochs and the PS block path need).
 
 The step functions take the embedding tables as tensors and train them IN
 PLACE (``index_add_``), where the JAX functions return new arrays; each
@@ -24,13 +24,14 @@ negative ids bit for bit:
   come from jax.random's threefry2x32 (``utils/threefry.py``): the JAX
   epoch splits its key once per batch inside the scan; here the chain of
   splits is walked on the host and the whole epoch's (n, B, K) ids are
-  drawn in one vectorized pass before the loop.
+  drawn in one vectorized pass before the loop;
+* the PS block path's negatives are slots of the 2^20-slot table hashed
+  from counters by ``splitmix32`` (``counter_negs``), on numpy uint32
+  arrays on the host and on int64 tensors on the device, equal bit for
+  bit.
 
 Scatter-adds with duplicate ids: on the CPU ``index_add_`` adds in index
 order; on CUDA it uses atomics, so two runs differ by f32 rounding.
-
-Not ported yet (ROADMAP): the PS block path's ``splitmix32`` and
-``counter_negs``.
 """
 
 from __future__ import annotations
@@ -104,6 +105,47 @@ def epoch_negatives(key: threefry.Key, neg_table: torch.Tensor, n: int,
         key, sub = threefry.split(key)
         subs.append(sub)
     return sample_negatives_table(subs, neg_table, batch, k)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c) -> torch.Tensor:
+    """``x * c mod 2^32`` for int64 ``x`` and ``c`` (an int or an int64
+    tensor) in [0, 2^32). The plain int64 product can pass 2^63, so ``c`` is
+    split into 16-bit halves: ``x * c = x * c_lo + (x * c_hi) << 16``,
+    where only the low 16 bits of ``x * c_hi`` survive the shift modulo
+    2^32. Every intermediate stays below 2^49."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def splitmix32(x):
+    """Counter-based hash (splitmix64's finalizer, 32-bit constants), equal
+    bit for bit on numpy uint32 arrays and on int64 tensors holding values
+    in [0, 2^32). The PS block path draws the same negative stream twice
+    with it: on the host, to know which rows to pull, and on the device,
+    so the sampled ids never cross the host -> device wire."""
+    if isinstance(x, torch.Tensor):
+        x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+        x = _mul32(x ^ (x >> 15), 0x846CA68B)
+        return x ^ (x >> 16)
+    x = (x ^ (x >> np.uint32(16))) * np.uint32(0x7FEB352D)
+    x = (x ^ (x >> np.uint32(15))) * np.uint32(0x846CA68B)
+    return x ^ (x >> np.uint32(16))
+
+
+def counter_negs(base, count: int, table_mask: int):
+    """Slot indices into a pow2-sized negative table for the counters
+    [base, base + count), which wrap past 2^32 as uint32 does.
+    ``table_mask`` = table size - 1. A numpy uint32 ``base`` gives a numpy
+    uint32 array; a 0-d int64 tensor gives an int64 tensor on its
+    device."""
+    if isinstance(base, torch.Tensor):
+        ctr = (torch.arange(count, dtype=torch.int64, device=base.device)
+               + base) & _MASK32
+        return splitmix32(ctr) & table_mask
+    ctr = np.arange(count, dtype=np.uint32) + base
+    return splitmix32(ctr) & np.uint32(table_mask)
 
 
 def _ns_forward_backward(v: torch.Tensor, u: torch.Tensor,
@@ -311,7 +353,6 @@ def make_fused_epoch(cfg: W2VConfig, unigram: np.ndarray) -> SgEpochFn:
 
 _LCG_A = np.uint32(1664525)
 _LCG_C = np.uint32(1013904223)
-_MASK32 = 0xFFFFFFFF
 
 
 @functools.lru_cache(maxsize=8)
@@ -335,19 +376,13 @@ def _lcg_jump_consts(n: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def lcg_states(lcg_state: torch.Tensor, n: int) -> torch.Tensor:
     """The sampler's states after 1..n steps, (n, K') int64 in [0, 2^32),
-    from the per-lane states ``lcg_state`` (K',) int64 in [0, 2^32).
-
-    ``s * A_t mod 2^32`` with both factors below 2^32 would overflow int64,
-    so A_t is split into 16-bit halves: ``s * A = s * a_lo + (s * a_hi) <<
-    16``, where only the low 16 bits of ``s * a_hi`` survive the shift
-    modulo 2^32. Every intermediate stays below 2^49."""
+    from the per-lane states ``lcg_state`` (K',) int64 in [0, 2^32); the
+    products modulo 2^32 as :func:`_mul32` takes them."""
     At, Ct = _lcg_jump_consts(n)
     dev = lcg_state.device
     a = torch.from_numpy(At.astype(np.int64)).to(dev)[:, None]
     c = torch.from_numpy(Ct.astype(np.int64)).to(dev)[:, None]
-    s = lcg_state[None, :]
-    prod = s * (a & 0xFFFF) + (((s * (a >> 16)) & 0xFFFF) << 16)
-    return (prod + c) & _MASK32
+    return (_mul32(lcg_state[None, :], a) + c) & _MASK32
 
 
 def shared_neg_step(win: torch.Tensor, wout: torch.Tensor,

@@ -19,22 +19,31 @@ package's, exactly:
 
 The JAX package pads each id batch to a power-of-two bucket aimed at a
 scratch row, so XLA compiles one program per bucket; that changes no
-result. PyTorch runs eagerly, so the port applies just the k unique rows.
-Not ported yet (ROADMAP): the cross-process union of row adds, the hot-row
-train cache and ``ops/row_assemble.py``'s device gather/scatter helpers.
+result. PyTorch runs eagerly, so the port's row ops apply just the k
+unique rows. ``functional_add_rows`` takes ids on the device, which the PS
+block path pads to a bucket with ``scratch_row``.
+Not ported yet (ROADMAP): the cross-process union of row adds and the
+hot-row train cache (``train_cache_device_block``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from multiverso_tpu_torch import updaters as updaters_lib
+from multiverso_tpu_torch.ops import row_assemble as _rowasm
 from multiverso_tpu_torch.table import Table, _Pending
 from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils.dashboard import monitor
+
+
+def _bucket_size(k: int, cap: int) -> int:
+    """The row bucket of a k-row batch, capped at ``cap`` rows: the one
+    bucketing rule (``ops/row_assemble.bucket_rows``)."""
+    return min(_rowasm.bucket_rows(k), cap)
 
 
 class MatrixTable(Table):
@@ -54,6 +63,12 @@ class MatrixTable(Table):
     @property
     def num_col(self) -> int:
         return self.shape[1]
+
+    @property
+    def scratch_row(self) -> int:
+        """A padding row past the logical rows (the table keeps at least
+        one): padded id slots gather and update it, and no Get sees it."""
+        return self._padded_rows - 1
 
     def _state_row_axis(self, leaf: torch.Tensor) -> Optional[int]:
         """Axis of ``leaf`` that is the table's row axis, or None (a leaf
@@ -93,22 +108,39 @@ class MatrixTable(Table):
                        opt: Optional[AddOption] = None) -> int:
         """ref MatrixWorkerTable::AddAsync(row_ids, values): apply the
         updater to the touched rows on the device's stream."""
-        opt = opt or AddOption()
         with monitor(f"table[{self.name}].add_rows"), self._dispatch_lock:
             uids, vals, _ = self._prep_ids(row_ids, values)
-            ids = torch.from_numpy(uids).to(self.device)
-            delta = torch.from_numpy(vals).to(self.device)
-            rows = self._data.index_select(0, ids)
-            axes = {k: self._state_row_axis(v) for k, v in self._ustate.items()}
-            gstate = {k: (v.index_select(axes[k], ids)
-                          if axes[k] is not None else v)
-                      for k, v in self._ustate.items()}
-            rows, gstate = self.updater.apply(rows, gstate, delta, opt)
-            self._data.index_copy_(0, ids, rows)
-            for k, axis in axes.items():
-                if axis is not None:
-                    self._ustate[k].index_copy_(axis, ids, gstate[k])
+            self.functional_add_rows(
+                self.state, torch.from_numpy(uids).to(self.device),
+                torch.from_numpy(vals).to(self.device), opt)
             return self._track(_Pending(self._event()))
+
+    def functional_add_rows(self, state: Dict[str, Any], ids: torch.Tensor,
+                            vals: torch.Tensor,
+                            opt: Optional[AddOption] = None
+                            ) -> Dict[str, Any]:
+        """Apply the updater to rows ``ids`` of ``state`` (``{"data",
+        "ustate"}``, the table's padded layout) with deltas ``vals`` (one
+        row per id), all on the state's device: gather the rows and their
+        row-shaped updater state, apply, scatter both back. Rows not in
+        ``ids`` keep their updater state. The ids may repeat only where
+        their deltas leave equal rows (the scratch row with zero deltas,
+        how the PS block path pads a bucket). The JAX function returns new
+        arrays; this one updates ``state``'s tensors in place and returns
+        ``state``."""
+        opt = opt or AddOption()
+        data, ustate = state["data"], state["ustate"]
+        axes = {k: self._state_row_axis(v) for k, v in ustate.items()}
+        rows = data.index_select(0, ids)
+        gstate = {k: (v.index_select(axes[k], ids)
+                      if axes[k] is not None else v)
+                  for k, v in ustate.items()}
+        rows, gstate = self.updater.apply(rows, gstate, vals, opt)
+        data.index_copy_(0, ids, rows)
+        for k, axis in axes.items():
+            if axis is not None:
+                ustate[k].index_copy_(axis, ids, gstate[k])
+        return state
 
     def add_rows(self, row_ids, values,
                  opt: Optional[AddOption] = None) -> None:

@@ -34,12 +34,14 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.data.dictionary\n"
         "import multiverso_tpu_torch.examples.transformer_ps\n"
         "import multiverso_tpu_torch.io.realtext\n"
+        "import multiverso_tpu_torch.io.sample_reader\n"
         "import multiverso_tpu_torch.models.word2vec\n"
         "import multiverso_tpu_torch.native\n"
         "import multiverso_tpu_torch.tables.kv_table\n"
         "import multiverso_tpu_torch.tables.matrix_table\n"
         "import multiverso_tpu_torch.models.transformer\n"
         "import multiverso_tpu_torch.ops.attention_kernels\n"
+        "import multiverso_tpu_torch.ops.row_assemble\n"
         "import multiverso_tpu_torch.ops._build\n"
         "import multiverso_tpu_torch.parallel.ring\n"
         "import chip_smoke\n"

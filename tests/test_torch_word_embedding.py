@@ -157,22 +157,34 @@ def test_load_embeddings_rejects_a_short_text_file(tmp_path):
         twe.load_embeddings(str(path))
 
 
-@pytest.mark.parametrize("what,kw,title", [
-    ("use_ps=1", {"use_ps": "1"}, "WordEmbedding family: train_ps_blocks"),
-    ("async_ps=1", {"async_ps": "1"}, "the async PS (ps/)"),
-])
-def test_what_is_not_ported_raises(what, kw, title):
-    """The error names the ROADMAP.md §A item by its title, which the
-    roadmap holds (a renumbering cannot make it wrong)."""
+@pytest.mark.parametrize("entry", ["train_fused", "train_ps_blocks"])
+def test_what_is_not_ported_raises(entry):
+    """async_ps=1 raises in both entry points. The error names the
+    ROADMAP.md §A item by its title, which the roadmap holds (a
+    renumbering cannot make it wrong)."""
+    what, title = "async_ps=1", "the async PS (ps/)"
     tokens = twe.synthetic_corpus(3000, vocab=100, seed=1)
-    cfg = twe.WEConfig(size=8, batch_size=64, min_count=1, **kw)
+    cfg = twe.WEConfig(size=8, batch_size=64, min_count=1, async_ps="1")
     we = twe.WordEmbedding(cfg, twe.Dictionary.build(tokens, 1))
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md §A {re.escape(title)}") as e:
-        we.train_fused(we.prepare_ids(tokens))
-    assert what in str(e.value)
+        getattr(we, entry)(we.prepare_ids(tokens))
+    assert what in str(e.value) and entry in str(e.value)
     assert title in (REPO / "ROADMAP.md").read_text()
     assert we.total_word_count() == 0
+
+
+def test_train_fused_under_use_ps_matches_jax():
+    """use_ps=1 chooses the path in main only: train_fused trains under it
+    as the JAX one does (the shared pool, to test_train_fused_two_epochs's
+    bounds)."""
+    j, t, ids = _both(ARGV + ["-use_ps", "1"])
+    assert t.cfg.use_ps and j.cfg.use_ps
+    js, ts = j.train_fused(ids), t.train_fused(ids)
+    np.testing.assert_allclose(ts["loss"], js["loss"], rtol=RTOL_LOSS)
+    np.testing.assert_allclose(t.embeddings(), j.embeddings(), rtol=0,
+                               atol=ATOL_TABLE)
+    assert t.total_word_count() == j.total_word_count() == ids.size
 
 
 @pytest.mark.parametrize("extra", [
@@ -243,8 +255,10 @@ def test_load_corpus_and_vocab_files_match_jax(tmp_path):
             == jwe.read_vocab_file(str(vocab), 3, 10).words)
 
 
-@pytest.mark.parametrize("variant", [[], ["-cbow", "1", "-hs", "1"]],
-                         ids=["skipgram_shared", "cbow_hs"])
+@pytest.mark.parametrize("variant", [[], ["-cbow", "1", "-hs", "1"],
+                                     ["-use_ps", "1",
+                                      "-data_block_size", "4000"]],
+                         ids=["skipgram_shared", "cbow_hs", "use_ps"])
 def test_main_matches_jax(tmp_path, variant):
     path = _corpus_file(tmp_path)
     outs = {}
