@@ -37,7 +37,10 @@ sampling and hierarchical softmax, the fused path and the PS block path).
   several workers) the host plane pulls with ``get_rows_async`` and pushes
   ``(new - old) / num_workers`` with ``add_rows_async``, each pull
   dispatched before the previous block's push (the reference's one-block
-  staleness), pipelined or inline (``-pipeline 0``), with the same results
+  staleness), pipelined or inline (``-pipeline 0``), with the same results.
+  With the hot-row train cache (``-train_cache_rows N``), a block whose
+  rows are all cached is pulled as a device block from the cache's
+  mirror (``MatrixTable.train_cache_device_block``), with the same results
 * text and binary (-binary 1) embedding output, a round-tripping loader,
   words/sec reporting
 
@@ -634,14 +637,27 @@ class WordEmbedding:
         """Dispatch a produced block's row pulls (ref RequestParameter,
         communicator.cpp:104-142), on the consumer thread: a pull must be
         issued before the previous block's push, where the inline path
-        issues it, or the pulled rows (and so the results) would change."""
+        issues it, or the pulled rows (and so the results) would change.
+        A table whose hot-row train cache holds every row of the block
+        serves it as a (bucket, D) block on the device instead
+        (``train_cache_device_block``: gathered and padded there, nothing
+        crosses the host); otherwise ``get_rows_async``."""
         if prep is None:
             return None
-        if "pull_in" in prep:
+        if "dev_in" in prep or "pull_in" in prep:
             return prep   # already dispatched (the inline path)
-        prep["pull_in"] = self.table_in.get_rows_async(prep["vocab"])
-        prep["pull_sec"] = self._sec_table().get_rows_async(
-            prep["hs_rows"] if self.cfg.hs else prep["vocab"])
+
+        def pull(table, ids, bucket, k_dev, k_pull):
+            blk = table.train_cache_device_block(ids, bucket)
+            if blk is not None:
+                prep[k_dev] = blk
+            else:
+                prep[k_pull] = table.get_rows_async(ids)
+
+        pull(self.table_in, prep["vocab"], prep["kb"], "dev_in", "pull_in")
+        sec = ("hs_rows", "hkb") if self.cfg.hs else ("vocab", "kb")
+        pull(self._sec_table(), prep[sec[0]], prep[sec[1]], "dev_sec",
+             "pull_sec")
         return prep
 
     def _prepare_block(self, block: np.ndarray, rng) -> Optional[Dict]:
@@ -662,14 +678,19 @@ class WordEmbedding:
         sec_t = self._sec_table()
         dev = self.table_in.device
         with monitor("we.block"):
-            rows_in = self.table_in.wait(prep["pull_in"])
-            rows_sec = sec_t.wait(prep["pull_sec"])
+            # a cache-served block is on the device already
+            win = prep.get("dev_in")
+            if win is None:
+                win = _rowasm.pad_rows(self.table_in.wait(prep["pull_in"]),
+                                       prep["kb"], dev)
+            wsec = prep.get("dev_sec")
+            if wsec is None:
+                wsec = _rowasm.pad_rows(sec_t.wait(prep["pull_sec"]),
+                                        prep["hkb"] if cfg.hs else prep["kb"],
+                                        dev)
             d_in, d_sec, loss = self._run_block_scan(
-                self._step_fn_raw(),
-                _rowasm.pad_rows(rows_in, prep["kb"], dev),
-                _rowasm.pad_rows(rows_sec,
-                                 prep["hkb"] if cfg.hs else prep["kb"], dev),
-                prep["valid"], self._upload(prep["batch"]))
+                self._step_fn_raw(), win, wsec, prep["valid"],
+                self._upload(prep["batch"]))
             d_in, d_sec = d_in.cpu().numpy(), d_sec.cpu().numpy()
         with monitor("we.push"):
             k = prep["vocab"].size

@@ -12,8 +12,10 @@ attention (the CUDA kernels on the card, forward and backward),
 ``forward``, ``loss_fn`` and ``make_train_step`` are differentiable with
 autograd; a caller that only scores wraps them in ``torch.no_grad()`` or
 ``torch.inference_mode()``. ``remat=True`` recomputes each layer in the
-backward (``torch.utils.checkpoint``). Decoding, the optax-style step, the
-parallel axes and MoE arrive with later slices.
+backward (``torch.utils.checkpoint``). ``make_optim_train_step`` is the
+counterpart of the JAX ``make_optax_train_step``: one step of any
+``torch.optim`` optimizer. Decoding, the parallel axes and MoE arrive with
+later slices.
 """
 
 from __future__ import annotations
@@ -232,6 +234,40 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-2):
             for p, g in zip(params, grads):
                 lr = torch.tensor(learning_rate, dtype=p.dtype).item()
                 p.sub_(g * lr)
+        return loss.detach()
+
+    return step
+
+
+def make_optim_train_step(cfg: TransformerConfig,
+                          optimizer: torch.optim.Optimizer):
+    """One step of any ``torch.optim`` optimizer over a ``Transformer``:
+    ``(model, tokens, targets) -> loss`` (port of the JAX
+    ``make_optax_train_step``).
+
+    The JAX step is ``(params, opt_state, tokens, targets) -> (params,
+    opt_state, loss)`` for an optax ``GradientTransformation`` initialized
+    with ``optimizer.init(params)``. Here the parameters are the model's
+    own, and the optimizer, built over ``model.parameters()`` by the
+    caller, holds its state (``optimizer.state``) and updates the
+    parameters in place. So the step takes the model and the batch, and
+    returns only the loss (detached): the loss of ``loss_fn``, its
+    backward (through the flash autograd function with
+    ``attn="flash"``), ``optimizer.step()``, then ``zero_grad``.
+
+    The hyperparameters' defaults differ between the libraries
+    (``optax.adamw``'s weight decay is 1e-4, ``torch.optim.AdamW``'s is
+    1e-2): pass each one explicitly. The update rules agree: optax's
+    ``sgd(lr, momentum)`` is ``torch.optim.SGD(lr, momentum)`` (no
+    dampening, no Nesterov), ``adam`` and ``adamw`` are ``Adam`` and
+    ``AdamW`` (bias correction, eps outside the square root, decoupled
+    decay), with the state in the parameters' dtype in both."""
+    def step(model: Transformer, tokens: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        loss = loss_fn(model, tokens, targets, cfg=cfg)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
         return loss.detach()
 
     return step

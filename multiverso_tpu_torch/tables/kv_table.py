@@ -6,7 +6,7 @@ by WordEmbedding as the global word-count aggregator. Scalar KV traffic has
 no business on the card, so, as in the JAX package, it is a host dict with
 the reference's Add/Get semantics. The port runs one process, so the
 aggregated view (``get(global_=True)``, ``allreduce``) is the local one.
-``store``/``load`` are not ported yet (ROADMAP, with ``Table.store/load``).
+``store``/``load`` write and read the JAX package's format.
 """
 
 from __future__ import annotations
@@ -56,6 +56,28 @@ class KVTable:
         """Aggregate across processes and commit the merged view; with one
         process the local view, unchanged."""
         return self.get()
+
+    # ------------------------------------------------------------------ #
+    # checkpoint (implemented, unlike the reference's stub)
+    # ------------------------------------------------------------------ #
+    def store(self, stream) -> None:
+        """The keys (int64) and the values (float64), sorted by key, with
+        ``np.save``."""
+        with self._lock:
+            items = sorted(self._store.items())
+        np.save(stream, np.array([k for k, _ in items], dtype=np.int64),
+                allow_pickle=False)
+        np.save(stream, np.array([v for _, v in items], dtype=np.float64),
+                allow_pickle=False)
+
+    def load(self, stream) -> None:
+        """Replace the map with what :meth:`store` (of either package)
+        wrote, each value cast to the table's dtype."""
+        keys = np.load(stream)
+        vals = np.load(stream)
+        with self._lock:
+            self._store = {int(k): self.dtype.type(v).item()
+                           for k, v in zip(keys, vals)}
 
 
 class KVTableOption:

@@ -22,8 +22,16 @@ scratch row, so XLA compiles one program per bucket; that changes no
 result. PyTorch runs eagerly, so the port's row ops apply just the k
 unique rows. ``functional_add_rows`` takes ids on the device, which the PS
 block path pads to a bucket with ``scratch_row``.
-Not ported yet (ROADMAP): the cross-process union of row adds and the
-hot-row train cache (``train_cache_device_block``).
+
+With the ``train_cache_rows`` flag set, the table keeps a hot-row train
+cache (``serving/hotcache.TrainRowCache``): a row get whose ids are all
+cached is served from the host copy, and the PS block path takes a fully
+cached block as a device block (:meth:`train_cache_device_block`). A
+default-updater table writes its pushes through to the cache (the same
+deduplicated, float64-summed and cast delta the device adds, so the copy
+stays equal to the table's rows bit for bit); any other updater
+invalidates the pushed rows.
+Not ported yet (ROADMAP): the cross-process union of row adds.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from multiverso_tpu_torch import updaters as updaters_lib
 from multiverso_tpu_torch.ops import row_assemble as _rowasm
+from multiverso_tpu_torch.serving import hotcache as _hotcache
 from multiverso_tpu_torch.table import Table, _Pending
 from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils.dashboard import monitor
@@ -55,6 +64,13 @@ class MatrixTable(Table):
         super().__init__((int(num_row), int(num_col)), dtype=dtype,
                          updater=updater, name=name, init=init, seed=seed,
                          init_scale=init_scale)
+        # hot-row train cache (flag train_cache_rows): write-through is
+        # exact only for the plain-add updater
+        self._train_cache = _hotcache.make_train_cache(
+            name, int(num_col), self.np_dtype,
+            writethrough_ok=(getattr(self.updater, "name", "")
+                             == "default"),
+            device=self.device)
 
     @property
     def num_row(self) -> int:
@@ -108,11 +124,17 @@ class MatrixTable(Table):
                        opt: Optional[AddOption] = None) -> int:
         """ref MatrixWorkerTable::AddAsync(row_ids, values): apply the
         updater to the touched rows on the device's stream."""
+        self._mark_mutated()
         with monitor(f"table[{self.name}].add_rows"), self._dispatch_lock:
             uids, vals, _ = self._prep_ids(row_ids, values)
-            self.functional_add_rows(
+            if self._train_cache is not None:
+                # the deduplicated, float64-summed and cast delta: exactly
+                # what the updater adds on the device
+                self._train_cache.on_push(uids, vals)
+            self._apply_rows(
                 self.state, torch.from_numpy(uids).to(self.device),
                 torch.from_numpy(vals).to(self.device), opt)
+            self._version_applied()
             return self._track(_Pending(self._event()))
 
     def functional_add_rows(self, state: Dict[str, Any], ids: torch.Tensor,
@@ -127,7 +149,20 @@ class MatrixTable(Table):
         their deltas leave equal rows (the scratch row with zero deltas,
         how the PS block path pads a bucket). The JAX function returns new
         arrays; this one updates ``state``'s tensors in place and returns
-        ``state``."""
+        ``state``. On the table's live state it is a mutation of the
+        table: the version bumps and the train cache clears."""
+        live = state["data"] is self._data
+        if live:
+            self._mark_mutated()
+        self._apply_rows(state, ids, vals, opt)
+        if live:
+            self._wrote_in_place()
+        return state
+
+    def _apply_rows(self, state: Dict[str, Any], ids: torch.Tensor,
+                    vals: torch.Tensor,
+                    opt: Optional[AddOption] = None) -> None:
+        """The body of :meth:`functional_add_rows`, with no bookkeeping."""
         opt = opt or AddOption()
         data, ustate = state["data"], state["ustate"]
         axes = {k: self._state_row_axis(v) for k, v in ustate.items()}
@@ -140,7 +175,6 @@ class MatrixTable(Table):
         for k, axis in axes.items():
             if axis is not None:
                 ustate[k].index_copy_(axis, ids, gstate[k])
-        return state
 
     def add_rows(self, row_ids, values,
                  opt: Optional[AddOption] = None) -> None:
@@ -148,9 +182,24 @@ class MatrixTable(Table):
 
     def get_rows_async(self, row_ids) -> int:
         """ref MatrixWorkerTable::GetAsync(row_ids): gather the rows, start
-        the device -> host copy, return a msg id."""
+        the device -> host copy, return a msg id. With the train cache, a
+        batch whose ids are all cached is served from the host copy, and
+        the rows of a miss fill the cache when the reply is read."""
+        self._flush_host_adds()   # row reads see prior whole-table adds
         with monitor(f"table[{self.name}].get_rows"), self._dispatch_lock:
             uids, _, inv = self._prep_ids(row_ids)
+            tc = self._train_cache
+            token = 0
+            if tc is not None:
+                tc.on_get()
+                # token, membership and gather in one cache lock hold;
+                # all or nothing (a partial hit refetches every row)
+                token, buf = tc.serve_full(uids)
+                if buf is not None:
+                    tc.count(uids.size, 0)
+                    return self._track(_Pending(None, buf,
+                                                lambda b: b[inv]))
+                tc.count(0, uids.size)
             rows = self._data.index_select(
                 0, torch.from_numpy(uids).to(self.device))
             if self.device.type == "cuda":
@@ -159,8 +208,16 @@ class MatrixTable(Table):
                 host.copy_(rows, non_blocking=True)
             else:
                 host = rows
-            return self._track(_Pending(self._event(), host,
-                                        lambda h: h.numpy()[inv]))
+
+            def _fin(h):
+                h = h.numpy()
+                if tc is not None:
+                    # warm for the next block, reconciled with the pushes
+                    # issued since the token (fill_since replays them)
+                    tc.fill_since(uids, h, token)
+                return h[inv]
+
+            return self._track(_Pending(self._event(), host, _fin))
 
     def get_rows(self, row_ids,
                  out: Optional[np.ndarray] = None) -> np.ndarray:
@@ -181,6 +238,24 @@ class MatrixTable(Table):
     def add_row(self, row_id: int, values,
                 opt: Optional[AddOption] = None) -> None:
         self.add_rows([row_id], np.asarray(values).reshape(1, -1), opt)
+
+    # ------------------------------------------------------------------ #
+    # hot-row train cache (serving/hotcache.TrainRowCache)
+    # ------------------------------------------------------------------ #
+    def train_cache_stats(self) -> Optional[Dict]:
+        tc = self._train_cache
+        return None if tc is None else tc.stats()
+
+    def train_cache_device_block(self, row_ids,
+                                 bucket: int) -> Optional[torch.Tensor]:
+        """The cached rows of ``row_ids`` as a zero-padded (bucket,
+        num_col) block on the table's device when EVERY id is cached;
+        None otherwise (the caller falls back to :meth:`get_rows_async`,
+        which counts its own hits and misses)."""
+        tc = self._train_cache
+        if tc is None:
+            return None
+        return tc.device_block_counted(row_ids, bucket)
 
 
 class MatrixTableOption:

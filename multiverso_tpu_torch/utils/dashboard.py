@@ -68,6 +68,13 @@ class Monitor:
             self.total_ms += ms
             self._hist.observe(ms)
 
+    def incr(self, n: int = 1) -> None:
+        """Pure event counter: bump ``count`` by ``n`` without touching the
+        timing sum or the histogram (cache hits: events with no duration
+        worth recording)."""
+        with self._lock:
+            self.count += n
+
     def snapshot(self) -> MonitorSnapshot:
         """Consistent immutable view (one lock hold)."""
         with self._lock:

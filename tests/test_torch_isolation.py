@@ -44,6 +44,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.ops.row_assemble\n"
         "import multiverso_tpu_torch.ops._build\n"
         "import multiverso_tpu_torch.parallel.ring\n"
+        "import multiverso_tpu_torch.serving.hotcache\n"
+        "import multiverso_tpu_torch.ops.wire_codec\n"
+        "import multiverso_tpu_torch.utils.filters\n"
+        "import multiverso_tpu_torch.utils.linkprobe\n"
         "import chip_smoke\n"
         "multiverso_tpu_torch.native.available()   # builds and loads\n"
         "bad = [m for m in sys.modules if m == 'multiverso_tpu'\n"
