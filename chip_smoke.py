@@ -75,6 +75,23 @@ Phases, every one on every run, in this order:
             the 1M-token synthetic corpus (bench.py:178); and ``-use_ps
             1`` on the command line, its vectors read back. Launches are
             counted apart from the ``we`` phase's
+8. lr       LogisticRegression (``apps/logistic_regression.py``; no kernel
+            of its own: matrix products and elementwise ops) at LR-MNIST's
+            width (784 inputs, 10 classes, bench.py:194-199's softmax,
+            minibatch 64, lr 0.05, SGD) on the JAX package's MNIST-shaped
+            fixture (60,000 + 10,000 samples): the fused ``train_arrays``
+            (a warm and 3 timed epochs, samples/s, device span, one
+            profiled epoch, its first epoch's table and test accuracy
+            against the CPU's); the ``use_ps`` host loop over a dense file
+            of 8,192 samples with sync_frequency 1 and 3, each with and
+            without the pipelined pull, and with the SSP clock (the
+            deterministic run against the CPU's); the sparse path on a
+            SparseMatrixTable at rcv1.binary's shape (47,236 features,
+            20,242 samples) with sigmoid + FTRL and softmax + SGD (two
+            epochs, the first against the CPU's, the stale share of the
+            second's pulls, FTRL's exact zeros, held-out accuracy); and
+            the command line, its model read back. Launches are counted
+            apart
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -2046,6 +2063,413 @@ def phase_we_ps(dev) -> dict:
     return out
 
 
+# LogisticRegression (``apps/logistic_regression.py``), LR-MNIST at its
+# full width with bench.py:194-199's settings (softmax, minibatch 64, lr
+# 0.05, SGD). The card's machine has no scikit-learn and no MNIST files,
+# so the fused path trains the JAX package's MNIST-shaped fixture
+# (``models/logreg.synthetic_dataset``, models/logreg.py:113-127) from
+# fixed seeds: 60,000 training and 10,000 test samples, MNIST's split.
+LR_KEYS = dict(input_size=784, output_size=10, objective_type="softmax",
+               updater_type="sgd", minibatch_size=64, learning_rate=0.05)
+LR_TRAIN = (60_000, 0)       # samples, synthetic_dataset seed
+LR_TEST = (10_000, 1)
+LR_TIMED_EPOCHS = 3
+# card vs CPU from the same start, one epoch: the tables' max |diff| over
+# their max |x| (cuBLAS and the CPU's BLAS sum the products in other
+# orders; this phase read 9.7e-8 to 1.8e-6 on an H100), and the test
+# accuracy within 2 of 10,000 samples (a near-tie may flip)
+LR_TABLE_RTOL = 1e-4
+LR_ACC_TOL = 2e-4
+LR_MIN_ACC = 0.9             # the blobs are separable at this noise
+# the host loop (use_ps): 8,192 MNIST-shaped samples written as ``dense``
+# text (libsvm would be too slow to parse at 784 features), one epoch per
+# run, sync_frequency 1 or 3, each with and without the pipelined pull
+LR_HOST_SAMPLES = (8_192, 2)
+LR_HOST_RUNS = ((1, False), (1, True), (3, False), (3, True))
+# the sparse path at the shape of LIBSVM's rcv1.binary (47,236 features,
+# 20,242 training samples, ~74 nonzeros a sample, values of unit L2 norm
+# per sample): zipf-distributed feature ids and labels from a planted
+# sparse weight vector (normal on the 1,000 most frequent ids, 0
+# elsewhere), from a seed; 2,048 held-out samples of the same model for
+# the accuracy
+LR_RCV1 = dict(features=47_236, train=20_242, test=2_048, nnz=74,
+               zipf=1.1, planted=1_000, seed=3)
+LR_SPARSE_RUNS = (("sigmoid", "ftrl", 0.1), ("softmax", "sgd", 0.5))
+# two epochs reach 0.73-0.76 held-out in a CPU run of this phase, against a
+# majority class of ~0.50: hold each at least 0.1 above the majority
+LR_SPARSE_MIN_GAIN = 0.1
+
+
+def lr_pairs(**over) -> dict:
+    """A LogRegConfig's key=value pairs: LR_KEYS with ``over``."""
+    return {k: str(v).lower() if isinstance(v, bool) else str(v)
+            for k, v in {**LR_KEYS, **over}.items()}
+
+
+def on_cpu(fn):
+    """``fn()`` with the Zoo restarted on the CPU, on one intra-op thread
+    (LR's ops are small: a thread pool costs more than it saves), then
+    back on the card."""
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.utils.dashboard import Dashboard
+    Dashboard.reset()     # shutdown would print it
+    mv.shutdown()
+    mv.init(device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(threads)
+        Dashboard.reset()
+        mv.shutdown()
+        mv.init()
+
+
+def table_vs_cpu(label: str, card: np.ndarray, cpu: np.ndarray) -> float:
+    """The card's table against the CPU's: max |diff| over max |x|, within
+    LR_TABLE_RTOL."""
+    scale = float(np.abs(cpu).max())
+    rel = float(np.abs(card - cpu).max()) / scale
+    log(f"lr {label}, card vs CPU from the same start: tables max |diff| "
+        f"{rel * scale:.3e} at max |x| {scale:.4f} (relative {rel:.3e}, "
+        f"bound {LR_TABLE_RTOL:.0e})")
+    if not (np.isfinite(card).all() and rel <= LR_TABLE_RTOL):
+        raise AssertionError(f"the card's LR table ({label}) disagrees "
+                             f"with the CPU's")
+    return rel
+
+
+def lr_write_dense(path: str, x: np.ndarray, y: np.ndarray) -> None:
+    with open(path, "w") as f:
+        np.savetxt(f, np.column_stack([y, x]), fmt=["%d"] + ["%.4f"] *
+                   x.shape[1])
+
+
+def lr_write_rcv1(train: str, test: str) -> dict:
+    """Write LR_RCV1's train and test files (libsvm). Feature ids: a zipf
+    draw per slot, through a fixed permutation of the ids, deduplicated
+    and cut at ``nnz`` a sample; values uniform, normalized to unit L2
+    norm a sample; label 1 where the planted weights (normal on the
+    ``planted`` most frequent ids) score the sample above the training
+    samples' median score, so the classes are balanced."""
+    c = LR_RCV1
+    rng = np.random.default_rng(c["seed"])
+    F = c["features"]
+    perm = rng.permutation(F)          # zipf rank -> feature id
+    w = np.zeros(F)
+    w[perm[: c["planted"]]] = rng.normal(size=c["planted"])
+    samples = []
+    for n in (c["train"], c["test"]):
+        z = rng.zipf(c["zipf"], (n, 2 * c["nnz"] + 16)) - 1
+        rows = []
+        for row in z:
+            ids = np.unique(perm[row[row < F]])[: c["nnz"]]
+            v = rng.uniform(0.1, 1.0, ids.size)
+            rows.append((ids, v / np.linalg.norm(v)))
+        samples.append(rows)
+    cut = np.median([v @ w[ids] for ids, v in samples[0]])
+    nnz, labels = [], []
+    for path, rows in zip((train, test), samples):
+        with open(path, "w") as f:
+            for ids, v in rows:
+                nnz.append(ids.size)
+                labels.append(int(v @ w[ids] > cut))
+                f.write(f"{labels[-1]} " + " ".join(
+                    f"{i}:{x:.5f}" for i, x in zip(ids.tolist(),
+                                                   v.tolist())) + "\n")
+    test_pos = float(np.mean(labels[c["train"]:]))
+    return {"nnz": float(np.mean(nnz)),
+            "majority": max(test_pos, 1 - test_pos)}
+
+
+def lr_fused(xy) -> dict:
+    """``train_arrays`` at LR_KEYS on LR-MNIST's shape: a warm epoch (from
+    zeros: its table and accuracy are held against the CPU's), 3 timed
+    epochs (samples/s by the call's own clock, the CUDA-event span of the
+    call, the upload of the 188 MB epoch included), one profiled epoch,
+    the loss falling and the test accuracy."""
+    import torch
+    from multiverso_tpu_torch.apps.logistic_regression import (LogReg,
+                                                               LogRegConfig)
+    x, y, xt, yt = xy
+    lr = LogReg(LogRegConfig(lr_pairs()))
+    warm = lr.train_arrays(x, y, epochs=1)
+    table1, acc1 = lr.table.get(), lr.test_arrays(xt, yt)
+    losses, sps, span_ms = [warm["loss"]], [], []
+    for _ in range(LR_TIMED_EPOCHS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        stats = lr.train_arrays(x, y, epochs=1)
+        ev[1].record()
+        ev[1].synchronize()
+        losses.append(stats["loss"])
+        sps.append(stats["samples_per_sec"])
+        span_ms.append(ev[0].elapsed_time(ev[1]))
+    prof = profile("lr fused epoch", lambda: lr.train_arrays(x, y, epochs=1),
+                   group=lm_group)
+    span = float(np.median(span_ms))
+    if prof["busy_ms"]:
+        prof["idle_share"] = max(0.0, 1 - prof["busy_ms"] / span)
+        log(f"lr fused epoch: device busy {prof['busy_ms']:.3f} ms "
+            f"(profiled) against a device span of {span:.3f} ms (median "
+            f"unprofiled epoch): idle share {prof['idle_share']:.3f}")
+    acc = lr.test_arrays(xt, yt)
+    n = len(y) // LR_KEYS["minibatch_size"]
+    log(f"lr fused: {len(y)} samples, {n} minibatches of "
+        f"{LR_KEYS['minibatch_size']} an epoch; timed epochs samples/s "
+        f"{[round(s) for s in sps]} (median {float(np.median(sps)):.0f}); "
+        f"device span ms (CUDA events, with the upload) "
+        f"{[round(t, 3) for t in span_ms]}; loss (mean of the last 10 "
+        f"minibatches, warm first) {[round(l, 6) for l in losses]}; test "
+        f"accuracy after 1 epoch {acc1:.4f}, after {2 + LR_TIMED_EPOCHS} "
+        f"{acc:.4f}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the fused LR loss did not fall: {losses}")
+    if not acc >= LR_MIN_ACC:
+        raise AssertionError(f"fused LR test accuracy {acc}")
+
+    def cpu():
+        ref = LogReg(LogRegConfig(lr_pairs()))
+        ref.train_arrays(x, y, epochs=1)
+        return ref.table.get(), ref.test_arrays(xt, yt)
+
+    table_c, acc_c = on_cpu(cpu)
+    rel = table_vs_cpu("fused, 1 epoch", table1, table_c)
+    log(f"lr fused, 1 epoch: test accuracy card {acc1:.4f}, CPU "
+        f"{acc_c:.4f} (bound {LR_ACC_TOL:.0e})")
+    if abs(acc1 - acc_c) > LR_ACC_TOL:
+        raise AssertionError("the card's fused LR accuracy disagrees with "
+                             "the CPU's")
+    return {"samples_per_sec": sps, "span_ms": span_ms, "losses": losses,
+            "accuracy": acc, "table_rel": rel, "profile": prof}
+
+
+def lr_host(paths: dict, xy, tmp: str) -> dict:
+    """The use_ps host loop (``train_file``) over the dense file: the four
+    LR_HOST_RUNS, each a fresh table and one epoch (samples/s over the
+    call, the Dashboard's ``logreg.minibatch`` mean ms, the test
+    accuracy), then sync_frequency 1 with the SSP clock at staleness 0,
+    and its minibatches again with the reader drained first (the
+    ``logreg.minibatch`` ms with no parsing thread beside it); the
+    deterministic run (sync_frequency 1, no pipeline) against the
+    CPU's."""
+    import os
+    from multiverso_tpu_torch.apps.logistic_regression import (LogReg,
+                                                               LogRegConfig)
+    from multiverso_tpu_torch.utils.dashboard import Dashboard
+    _, _, xt, yt = xy
+    base = dict(train_file=paths["dense"], reader_type="dense")
+    out = {}
+    runs = [(sf, pipe, {}) for sf, pipe in LR_HOST_RUNS] + [
+        (1, False, {"staleness": 0, "ssp_dir": os.path.join(tmp, "ssp")})]
+    for sf, pipe, extra in runs:
+        label = f"sync_frequency {sf}{', pipeline' if pipe else ''}" + (
+            ", SSP staleness 0" if extra else "")
+        Dashboard.reset()
+        lr = LogReg(LogRegConfig(lr_pairs(**base, **extra,
+                                          sync_frequency=sf, pipeline=pipe)))
+        stats = lr.train_file()
+        mb = Dashboard.snapshot()["logreg.minibatch"]
+        acc = lr.test_arrays(xt, yt)
+        log(f"lr host loop, {label}: {LR_HOST_SAMPLES[0]} samples, "
+            f"{mb.count} minibatches in {stats['seconds'] * 1e3:.3f} ms, "
+            f"{stats['samples_per_sec']:.0f} samples/s; logreg.minibatch "
+            f"mean {mb.average_ms:.3f} ms (p50 {mb.p50_ms:.3f}); loss "
+            f"{stats['loss']:.6f}; test accuracy {acc:.4f}")
+        if not (np.isfinite(stats["loss"]) and acc >= LR_MIN_ACC):
+            raise AssertionError(f"the LR host loop ({label}) did not train")
+        if extra:
+            from multiverso_tpu_torch.ssp import SSPClock
+            clock = SSPClock(extra["ssp_dir"], staleness=0).clock
+            if clock != mb.count:
+                raise AssertionError(f"SSP clock {clock} after {mb.count} "
+                                     f"minibatches")
+            log(f"lr host loop SSP: the clock reads {clock}")
+        out[label] = {"samples_per_sec": stats["samples_per_sec"],
+                      "minibatch_ms": mb.average_ms, "accuracy": acc}
+        if (sf, pipe, extra) == (1, False, {}):
+            table1 = lr.table.get()
+
+    # the same minibatches with the reader drained first: no parsing
+    # thread competes with the training thread for the interpreter
+    from multiverso_tpu_torch.io.sample_reader import SampleReader
+    batches = list(SampleReader(paths["dense"], LR_KEYS["input_size"],
+                                LR_KEYS["minibatch_size"], fmt="dense"))
+    lr = LogReg(LogRegConfig(lr_pairs(**base)))
+    lr._sync_model()
+    Dashboard.reset()
+    for i, (xb, yb, _) in enumerate(batches):
+        lr._train_minibatch(xb, yb, i, None)
+    mb = Dashboard.snapshot()["logreg.minibatch"]
+    out["drained_minibatch_ms"] = mb.average_ms
+    log(f"lr host loop, sync_frequency 1, the reader drained first: "
+        f"logreg.minibatch mean {mb.average_ms:.3f} ms (p50 "
+        f"{mb.p50_ms:.3f}) over {mb.count} minibatches")
+
+    def cpu():
+        ref = LogReg(LogRegConfig(lr_pairs(**base)))
+        ref.train_file()
+        return ref.table.get()
+
+    out["table_rel"] = table_vs_cpu("host loop, sync_frequency 1", table1,
+                                    on_cpu(cpu))
+    return out
+
+
+def lr_count_pulls(table) -> dict:
+    """Count, on the host, the distinct rows each sparse Get asks for and
+    the stale ones it copies off the card (the worker cache's puts)."""
+    import multiverso_tpu_torch as mv
+    counts = {"asked": 0, "pulled": 0}
+    cache = table._worker_cache(mv.worker_id())
+    put, get = cache.put, table.get_rows_sparse
+
+    def counted_put(ids, rows):
+        counts["pulled"] += len(ids)
+        return put(ids, rows)
+
+    def counted_get(ids, worker_id=0):
+        counts["asked"] += np.unique(ids).size
+        return get(ids, worker_id)
+
+    cache.put, table.get_rows_sparse = counted_put, counted_get
+    return counts
+
+
+def lr_sparse(paths: dict, majority: float) -> dict:
+    """The sparse path (``sparse=true``, a 47,237 x 2 SparseMatrixTable) on
+    the rcv1.binary-shaped file, for each of LR_SPARSE_RUNS: epoch 1 (its
+    table held against the CPU's), epoch 2 with the stale share of its
+    pulls counted; samples/s, the ``get_rows_sparse`` ms, the held-out
+    accuracy LR_SPARSE_MIN_GAIN above the majority class's share, FTRL's
+    exact zeros."""
+    from multiverso_tpu_torch.apps.logistic_regression import (LogReg,
+                                                               LogRegConfig)
+    from multiverso_tpu_torch.utils.dashboard import Dashboard
+    out = {}
+    for objective, updater, rate in LR_SPARSE_RUNS:
+        label = f"{objective} + {updater}"
+        pairs = lr_pairs(input_size=LR_RCV1["features"], output_size=2,
+                         sparse=True, objective_type=objective,
+                         updater_type=updater, learning_rate=rate,
+                         train_file=paths["rcv1"],
+                         test_file=paths["rcv1_test"])
+        lr = LogReg(LogRegConfig(pairs))
+        epochs = []
+        for epoch in range(2):
+            counts = lr_count_pulls(lr.sparse_table) if epoch else None
+            Dashboard.reset()
+            stats = lr.train_file()
+            snap = Dashboard.snapshot()
+            get = snap[f"table[{lr.sparse_table.name}].get_rows_sparse"]
+            mb = snap["logreg.sparse_minibatch"]
+            epochs.append({"samples_per_sec": stats["samples_per_sec"],
+                           "get_rows_sparse_ms": get.average_ms,
+                           "minibatch_ms": mb.average_ms,
+                           "loss": stats["loss"]})
+            stale = (counts["pulled"] / counts["asked"] if counts
+                     else None)
+            log(f"lr sparse {label}, epoch {epoch + 1}: {mb.count} "
+                f"minibatches in {stats['seconds'] * 1e3:.3f} ms, "
+                f"{stats['samples_per_sec']:.0f} samples/s; "
+                f"logreg.sparse_minibatch mean {mb.average_ms:.3f} ms, "
+                f"get_rows_sparse mean {get.average_ms:.3f} ms (p50 "
+                f"{get.p50_ms:.3f}); loss {stats['loss']:.6f}"
+                + (f"; stale share of the pulls {stale:.4f} "
+                   f"({counts['pulled']} of {counts['asked']} rows)"
+                   if counts else ""))
+            if epoch == 0:
+                table1 = lr.sparse_table.get()
+        acc = lr.test_file()
+        table = lr.sparse_table.get()
+        zeros = float(np.mean(table == 0))
+        log(f"lr sparse {label}: held-out accuracy {acc:.4f} (majority "
+            f"class {majority:.4f}, bound +{LR_SPARSE_MIN_GAIN}); exact "
+            f"zeros {zeros:.4f} of the table")
+        if not (np.isfinite(table).all()
+                and acc >= majority + LR_SPARSE_MIN_GAIN):
+            raise AssertionError(f"the sparse LR ({label}) did not train")
+        if updater == "ftrl" and not 0 < zeros < 1:
+            raise AssertionError("the FTRL table holds no exact zeros")
+
+        def cpu():
+            ref = LogReg(LogRegConfig(pairs))
+            ref.train_file()
+            return ref.sparse_table.get()
+
+        out[label] = {"epochs": epochs, "stale_share": stale,
+                      "accuracy": acc, "zeros": zeros,
+                      "table_rel": table_vs_cpu(f"sparse {label}, epoch 1",
+                                                table1, on_cpu(cpu))}
+    return out
+
+
+def lr_cli(paths: dict, xy, tmp: str) -> None:
+    """The app's command line in its own process on the card: one epoch of
+    the dense file with ``output_file``; the model read back with
+    ``load_model`` scores the test set."""
+    import os
+    from multiverso_tpu_torch.apps.logistic_regression import (LogReg,
+                                                               LogRegConfig)
+    _, _, xt, yt = xy
+    model = os.path.join(tmp, "lr.model")
+    pairs = lr_pairs(train_file=paths["dense"], reader_type="dense",
+                     output_file=model)
+    cfg = os.path.join(tmp, "lr.cfg")
+    with open(cfg, "w") as f:
+        f.write("".join(f"{k}={v}\n" for k, v in pairs.items()))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "multiverso_tpu_torch.apps.logistic_regression",
+                          cfg], capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the LR CLI failed ({res.returncode}):\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    done = [l for l in res.stdout.splitlines() if "train done" in l]
+    lr = LogReg(LogRegConfig(pairs))
+    lr.load_model(model)
+    acc = lr.test_arrays(xt, yt)
+    log(f"lr cli: {seconds:.1f} s for the process (start, one epoch, the "
+        f"model written); {done[-1].split('] ')[-1] if done else ''}; "
+        f"read back: test accuracy {acc:.4f}")
+    if not acc >= LR_MIN_ACC:
+        raise AssertionError(f"the LR CLI's model scores {acc}")
+
+
+def phase_lr(dev) -> dict:
+    """LogisticRegression on the card: the fused path on LR-MNIST's shape,
+    the host loop (four runs and SSP), the sparse path at rcv1.binary's
+    shape with FTRL and SGD, each held against the CPU, and the command
+    line."""
+    import tempfile
+    from multiverso_tpu_torch.models import logreg
+    t0 = time.perf_counter()
+    x, y = logreg.synthetic_dataset(LR_TRAIN[0], 784, 10, seed=LR_TRAIN[1])
+    xt, yt = logreg.synthetic_dataset(LR_TEST[0], 784, 10, seed=LR_TEST[1])
+    xy = (x, y, xt, yt)
+    out = {"fused": lr_fused(xy)}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"dense": f"{tmp}/host.dense", "rcv1": f"{tmp}/rcv1.svm",
+                 "rcv1_test": f"{tmp}/rcv1_test.svm"}
+        t1 = time.perf_counter()
+        xh, yh = logreg.synthetic_dataset(LR_HOST_SAMPLES[0], 784, 10,
+                                          seed=LR_HOST_SAMPLES[1])
+        lr_write_dense(paths["dense"], xh, yh)
+        rcv1 = lr_write_rcv1(paths["rcv1"], paths["rcv1_test"])
+        log(f"lr data: the dense and rcv1-shaped files written in "
+            f"{time.perf_counter() - t1:.1f} s on the host ({rcv1['nnz']:.1f} "
+            f"nonzeros a sparse sample)")
+        out["host"] = lr_host(paths, xy, tmp)
+        out["sparse"] = lr_sparse(paths, rcv1["majority"])
+        lr_cli(paths, xy, tmp)
+    log(f"lr phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -2144,6 +2568,14 @@ def main(argv=None) -> int:
     log(f"we_ps launches {paths['we_ps']}")
     if any(paths["we_ps"].values()):
         raise AssertionError("the PS block path launched a flash kernel")
+    # LogisticRegression, counted the same way: no kernel of the port
+    ak.reset_launch_counts()
+    phase_lr(dev)
+    paths["lr"] = ak.launch_counts()
+    log(f"lr launches {paths['lr']}")
+    if any(paths["lr"].values()):
+        raise AssertionError("the LogisticRegression path launched a flash "
+                             "kernel")
     mv.shutdown()
     for rec in records:
         by_path = {p: c[rec["name"]] for p, c in paths.items()

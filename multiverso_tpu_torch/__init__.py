@@ -1,10 +1,11 @@
 """multiverso_tpu_torch: the PyTorch/CUDA port of ``multiverso_tpu``.
 
 Parameter tables with server-side updaters on one ``torch.device`` (array,
-matrix and KV tables), the shared-parameter delta sync, the transformer LM
-whose attention is hand-written CUDA (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``), and the fused WordEmbedding (skip-gram with a
-batch-shared negative pool, ``apps/word_embedding.py``).
+matrix, sparse matrix and KV tables), the shared-parameter delta sync, the
+transformer LM whose attention is hand-written CUDA
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), WordEmbedding
+(``apps/word_embedding.py``) and LogisticRegression
+(``apps/logistic_regression.py``).
 
 Entry points run on the card: ``init()`` resolves the device to ``cuda``
 and raises if there is none, unless the caller passes ``device="cpu"``.
@@ -18,16 +19,19 @@ from multiverso_tpu_torch.api import (barrier, create_table, device, init,
 from multiverso_tpu_torch.sharedvar import SharedPytree
 from multiverso_tpu_torch.tables import (ArrayTable, ArrayTableOption,
                                          KVTable, KVTableOption, MatrixTable,
-                                         MatrixTableOption)
+                                         MatrixTableOption, SparseMatrixTable,
+                                         SparseMatrixTableOption)
 from multiverso_tpu_torch.updaters import AddOption, get_updater, register_updater
 from multiverso_tpu_torch.utils import config, log
+from multiverso_tpu_torch.utils.async_buffer import AsyncBuffer
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 from multiverso_tpu_torch.zoo import Zoo
 
 __all__ = [
-    "AddOption", "ArrayTable", "ArrayTableOption", "Dashboard", "KVTable",
-    "KVTableOption", "MatrixTable", "MatrixTableOption", "SharedPytree",
-    "Zoo", "barrier", "config", "create_table", "device", "get_updater",
+    "AddOption", "ArrayTable", "ArrayTableOption", "AsyncBuffer",
+    "Dashboard", "KVTable", "KVTableOption", "MatrixTable",
+    "MatrixTableOption", "SharedPytree", "SparseMatrixTable",
+    "SparseMatrixTableOption", "Zoo", "barrier", "config", "create_table", "device", "get_updater",
     "init", "is_master_worker", "log", "monitor", "num_servers",
     "num_workers", "rank", "register_updater", "server_id", "shutdown",
     "size", "worker_id",

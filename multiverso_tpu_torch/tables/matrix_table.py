@@ -31,7 +31,9 @@ default-updater table writes its pushes through to the cache (the same
 deduplicated, float64-summed and cast delta the device adds, so the copy
 stays equal to the table's rows bit for bit); any other updater
 invalidates the pushed rows.
-Not ported yet (ROADMAP): the cross-process union of row adds.
+A subclass sees each row add's deduplicated ids through
+:meth:`_rows_applied`, under the dispatch lock (the sparse table's dirty
+bits). Not ported yet (ROADMAP): the cross-process union of row adds.
 """
 
 from __future__ import annotations
@@ -131,11 +133,19 @@ class MatrixTable(Table):
                 # the deduplicated, float64-summed and cast delta: exactly
                 # what the updater adds on the device
                 self._train_cache.on_push(uids, vals)
-            self._apply_rows(
-                self.state, torch.from_numpy(uids).to(self.device),
-                torch.from_numpy(vals).to(self.device), opt)
+            dev_ids = torch.from_numpy(uids).to(self.device)
+            self._apply_rows(self.state, dev_ids,
+                             torch.from_numpy(vals).to(self.device), opt)
+            # subclass hook (the sparse table's dirty bits), fed the ids
+            # the add applied
+            self._rows_applied(uids, dev_ids)
             self._version_applied()
             return self._track(_Pending(self._event()))
+
+    def _rows_applied(self, ids: np.ndarray, dev_ids: torch.Tensor) -> None:
+        """Called under the dispatch lock with the deduplicated row ids of
+        each row add, on the host and on the table's device. Default:
+        nothing."""
 
     def functional_add_rows(self, state: Dict[str, Any], ids: torch.Tensor,
                             vals: torch.Tensor,

@@ -156,6 +156,30 @@ def consume_runtime_flags(argv: Optional[List[str]]) -> List[str]:
     return rest
 
 
+def parse_config_file(path: str) -> Dict[str, str]:
+    """Parse a ``key=value`` config file (LR-app style, ref configure.cpp).
+
+    Lines starting with ``#`` and blank lines are skipped. Known flags are
+    set; all pairs are returned for the app to read.
+    """
+    out: Dict[str, str] = {}
+    with open(path, "r") as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            key, _, value = line.partition("=")
+            key, value = key.strip(), value.strip()
+            if not key:
+                continue
+            out[key] = value
+            with _lock:
+                if key in _registry:
+                    flag = _registry[key]
+                    flag.value = _coerce(flag, value)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Flags read by this package (names, types and defaults as in the JAX
 # package, plus ``device``).

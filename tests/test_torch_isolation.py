@@ -30,12 +30,21 @@ def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import multiverso_tpu_torch as mv\n"
+        "import multiverso_tpu_torch.apps.logistic_regression\n"
         "import multiverso_tpu_torch.apps.word_embedding\n"
         "import multiverso_tpu_torch.data.dictionary\n"
+        "import multiverso_tpu_torch.elastic\n"
         "import multiverso_tpu_torch.examples.transformer_ps\n"
+        "import multiverso_tpu_torch.io.mnist\n"
         "import multiverso_tpu_torch.io.realtext\n"
         "import multiverso_tpu_torch.io.sample_reader\n"
+        "import multiverso_tpu_torch.io.stream\n"
+        "import multiverso_tpu_torch.models.logreg\n"
         "import multiverso_tpu_torch.models.word2vec\n"
+        "import multiverso_tpu_torch.ssp\n"
+        "import multiverso_tpu_torch.tables.sparse_matrix_table\n"
+        "import multiverso_tpu_torch.utils.async_buffer\n"
+        "import multiverso_tpu_torch.utils.config\n"
         "import multiverso_tpu_torch.native\n"
         "import multiverso_tpu_torch.tables.kv_table\n"
         "import multiverso_tpu_torch.tables.matrix_table\n"
