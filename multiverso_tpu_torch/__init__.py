@@ -5,7 +5,8 @@ matrix, sparse matrix and KV tables), the shared-parameter delta sync, the
 transformer LM whose attention is hand-written CUDA
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), WordEmbedding
 (``apps/word_embedding.py``) and LogisticRegression
-(``apps/logistic_regression.py``).
+(``apps/logistic_regression.py``), and the async parameter-server plane
+(``ps/``: uncoordinated Add/Get against tables sharded over processes).
 
 Entry points run on the card: ``init()`` resolves the device to ``cuda``
 and raises if there is none, unless the caller passes ``device="cpu"``.
@@ -16,6 +17,9 @@ from multiverso_tpu_torch.api import (barrier, create_table, device, init,
                                       is_master_worker, num_servers,
                                       num_workers, rank, server_id, shutdown,
                                       size, worker_id)
+from multiverso_tpu_torch.ps import (AsyncArrayTable, AsyncKVTable,
+                                     AsyncMatrixTable, AsyncSparseKVTable,
+                                     AsyncSparseMatrixTable)
 from multiverso_tpu_torch.sharedvar import SharedPytree
 from multiverso_tpu_torch.tables import (ArrayTable, ArrayTableOption,
                                          KVTable, KVTableOption, MatrixTable,
@@ -28,7 +32,9 @@ from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 from multiverso_tpu_torch.zoo import Zoo
 
 __all__ = [
-    "AddOption", "ArrayTable", "ArrayTableOption", "AsyncBuffer",
+    "AddOption", "ArrayTable", "ArrayTableOption", "AsyncArrayTable",
+    "AsyncBuffer", "AsyncKVTable", "AsyncMatrixTable", "AsyncSparseKVTable",
+    "AsyncSparseMatrixTable",
     "Dashboard", "KVTable", "KVTableOption", "MatrixTable",
     "MatrixTableOption", "SharedPytree", "SparseMatrixTable",
     "SparseMatrixTableOption", "Zoo", "barrier", "config", "create_table", "device", "get_updater",

@@ -33,8 +33,13 @@ Entry points run on the card: ``LogReg`` starts the Zoo when it is not
 started, which resolves to ``cuda`` or raises; ``-device=cpu`` on the
 command line (or ``init(device="cpu")`` first) asks for the CPU.
 
-Not ported yet (ROADMAP §A): ``async_ps`` (it raises
-``NotImplementedError``), and the profiler's ``lr.minibatch`` step.
+``async_ps=true`` trains the same host loop against the uncoordinated
+tables of ``ps/``: an ``AsyncArrayTable`` (dense) or an
+``AsyncSparseKVTable`` keyed by feature (sparse, SGD or FTRL, whose z/n
+live as shard state), whose overlapped ``get_rows_sparse_async`` pulls
+the sparse lookahead runs under ``pipeline=true``.
+
+Not ported yet (ROADMAP §A): the profiler's ``lr.minibatch`` step.
 
 Usage: ``python -m multiverso_tpu_torch.apps.logistic_regression <config
 file> [-flag=value ...]`` (same one-arg shape as ref src/main.cpp:7-13).
@@ -58,8 +63,6 @@ from multiverso_tpu_torch.utils import config as config_lib
 from multiverso_tpu_torch.utils import log
 from multiverso_tpu_torch.utils.async_buffer import AsyncBuffer
 from multiverso_tpu_torch.utils.dashboard import monitor
-
-_ASYNC_PS = "the async PS (ps/)"   # ROADMAP.md §A's title for it
 
 
 class LogRegConfig:
@@ -95,7 +98,7 @@ class LogRegConfig:
         self.heartbeat_dir = g("heartbeat_dir", "")
         self.pipeline = b("pipeline")
         self.use_ps = b("use_ps", "true")
-        # uncoordinated async tables: not ported yet, LogReg refuses it
+        # the uncoordinated async tables (ps/) instead of the sync ones
         self.async_ps = b("async_ps")
         self.fused = b("fused")
         # reader_type accepts BOTH this app's format names (libsvm |
@@ -137,12 +140,20 @@ class LogReg:
         if cfg.input_size <= 0:
             raise ValueError("config must set input_size")
         self.cfg = cfg
-        self._refuse_async_ps("LogReg")
         if not mv.Zoo.get().started:
             mv.init()
         self.device = mv.device()
         n_params = model_lib.param_count(cfg.input_size, cfg.output_size)
-        if cfg.sparse:
+        if cfg.sparse and cfg.async_ps:
+            # the reference's flagship sparse workload: hash-keyed rows on
+            # the uncoordinated plane, FTRL z/n living as shard updater
+            # state (ref model/ps_model.cpp:24-41, util/sparse_table.h,
+            # util/ftrl_sparse_table.h)
+            self.sparse_table = mv.AsyncSparseKVTable(
+                cfg.output_size, updater=cfg.updater_type,
+                name="logreg_sparse", num_row=cfg.input_size + 1)
+            self.table = None
+        elif cfg.sparse:
             # feature-major layout: row = feature (last row = bias), col =
             # class, in a SparseMatrixTable so only active-feature rows
             # cross the wire (ref custom SparseWorkerTable + per-chunk key
@@ -151,17 +162,17 @@ class LogReg:
                 cfg.input_size + 1, cfg.output_size,
                 updater=cfg.updater_type, name="logreg_sparse")
             self.table = None
+        elif cfg.async_ps:
+            # the reference's default (async) server mode: deltas land on
+            # the owning shard as they arrive (ref src/server.cpp:36-58)
+            self.sparse_table = None
+            self.table = mv.AsyncArrayTable(
+                n_params, updater=cfg.updater_type, name="logreg_params")
         else:
             self.sparse_table = None
             self.table = mv.ArrayTable(n_params, updater=cfg.updater_type,
                                        name="logreg_params")
         self._local_w = np.zeros(n_params, dtype=np.float32)
-
-    def _refuse_async_ps(self, entry: str) -> None:
-        if self.cfg.async_ps:
-            raise NotImplementedError(
-                f"{entry}: async_ps=true is not ported to "
-                f"multiverso_tpu_torch yet (ROADMAP.md §A {_ASYNC_PS})")
 
     # ------------------------------------------------------------------ #
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -289,7 +300,8 @@ class LogReg:
                 kb *= 2
             pad = kb - k
             keys_p = np.concatenate([keys_b, np.full(pad, D, np.int64)])
-            wid = mv.worker_id()
+            # the async table's own rank is its worker (None)
+            wid = None if cfg.async_ps else mv.worker_id()
             # dispatch BEFORE the xa build so the pull hides under the
             # submatrix host work
             pull = (self.sparse_table.get_rows_sparse_async(keys_p,
@@ -361,7 +373,11 @@ class LogReg:
         """Fused path: every minibatch on the device, one in-place
         ``functional_add`` step each (the JAX app's ``lax.scan`` epoch)."""
         cfg = self.cfg
-        self._refuse_async_ps("LogReg.train_arrays")
+        if cfg.async_ps:
+            raise ValueError("async_ps trains through the use_ps host loop "
+                             "(train_file / train_minibatches); the fused "
+                             "path needs the functional table plane, which "
+                             "async tables do not expose")
         epochs = epochs or cfg.train_epoch
         n = (len(y) // cfg.minibatch_size) * cfg.minibatch_size
         xb = self._to_dev(x[:n]).reshape(-1, cfg.minibatch_size,

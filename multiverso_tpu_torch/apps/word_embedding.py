@@ -41,11 +41,16 @@ sampling and hierarchical softmax, the fused path and the PS block path).
   With the hot-row train cache (``-train_cache_rows N``), a block whose
   rows are all cached is pulled as a device block from the cache's
   mirror (``MatrixTable.train_cache_device_block``), with the same results
+* ``-async_ps 1`` swaps in the uncoordinated tables of ``ps/``
+  (``AsyncMatrixTable``, ``AsyncKVTable``; shards on this process's
+  device, other ranks over TCP, ``ps_world``/``ps_rank``/
+  ``ps_rendezvous``): ``train_ps_blocks`` runs the host plane against
+  them, each rank training ``blocks[rank::world]`` (or, with
+  ``-data_presplit 1``, every block of the corpus it was given) and
+  pushing ``(new - old) / world``. ``train_fused`` trains the sync
+  tables in place and refuses the async ones
 * text and binary (-binary 1) embedding output, a round-tripping loader,
   words/sec reporting
-
-Not ported yet (both entry points raise ``NotImplementedError`` naming the
-ROADMAP item): the async PS tables (``async_ps``).
 
 Usage: ``python -m multiverso_tpu_torch.apps.word_embedding -train_file
 f.txt -output vec.txt -size 128 -cbow 1 -hs 1 ...`` (argv keys mirror ref
@@ -87,12 +92,6 @@ config.define_int(
     "we_pair_cache_corpora", 4,
     "bounded LRU capacity (corpora) of the fused path's device-resident "
     "batch cache")
-
-# what neither entry point runs yet, and the title of the ROADMAP.md §A
-# item that queues it (by title: the items are renumbered as they land)
-_NOT_PORTED = (
-    ("async_ps", "async_ps=1", "the async PS (ps/)"),
-)
 
 
 def _gen_pairs(ids: np.ndarray, window: int, seed: int):
@@ -216,14 +215,16 @@ class WordEmbedding:
         if v < 2:
             raise ValueError("vocabulary too small; lower min_count")
         # input/output embedding tables (ref communicator.cpp:17-31: two
-        # MatrixTables; input randomly initialized server-side)
-        self.table_in = mv.MatrixTable(v, d, name="embed_in",
-                                       updater="default",
-                                       seed=cfg.seed + 17,
-                                       init_scale=0.5 / d)
-        self.table_out = mv.MatrixTable(v, d, name="embed_out",
-                                        updater="default")
-        self.word_count = mv.KVTable(name="word_count")
+        # MatrixTables; input randomly initialized server-side). async_ps
+        # swaps in the uncoordinated tables: same client API, no lockstep
+        if cfg.async_ps:
+            matrix, kv = mv.AsyncMatrixTable, mv.AsyncKVTable
+        else:
+            matrix, kv = mv.MatrixTable, mv.KVTable
+        self.table_in = matrix(v, d, name="embed_in", updater="default",
+                               seed=cfg.seed + 17, init_scale=0.5 / d)
+        self.table_out = matrix(v, d, name="embed_out", updater="default")
+        self.word_count = kv(name="word_count")
         self.unigram = dictionary.unigram_table()
         # the epoch function cfg selects, made at the first train, and the
         # shared-pool epoch's LCG state
@@ -243,8 +244,8 @@ class WordEmbedding:
         if cfg.hs:
             # the Huffman paths and the V-1 inner-node rows they index
             self._hs = build_huffman(dictionary.counts)
-            self.table_hs = mv.MatrixTable(max(v - 1, 1), d, name="embed_hs",
-                                           updater="default")
+            self.table_hs = matrix(max(v - 1, 1), d, name="embed_hs",
+                                   updater="default")
         else:
             self._hs = None
 
@@ -317,13 +318,6 @@ class WordEmbedding:
     # ------------------------------------------------------------------ #
     # fused path (device-resident training)
     # ------------------------------------------------------------------ #
-    def _check_ported(self, entry: str) -> None:
-        for attr, what, item in _NOT_PORTED:
-            if getattr(self.cfg, attr):
-                raise NotImplementedError(
-                    f"WordEmbedding.{entry}: {what} is not ported to "
-                    f"multiverso_tpu_torch yet (ROADMAP.md §A {item})")
-
     def compute_dtype(self) -> torch.dtype:
         """The shared-pool epoch's compute dtype: bf16 on the card, f32 on
         the CPU. The other epochs (per-pair, HS, CBOW) compute in the
@@ -372,8 +366,14 @@ class WordEmbedding:
         negatives or HS). Returns the last epoch's mean loss and the run's
         words/sec (corpus tokens per second, the word2vec convention),
         seconds, pairs (CBOW: targets) and pairs/sec."""
-        self._check_ported("train_fused")
         cfg = self.cfg
+        if cfg.async_ps:
+            # the fused epochs train the tables' state in place, which the
+            # async tables (shards behind a wire) do not expose
+            raise ValueError(
+                "WordEmbedding.train_fused: async_ps=1 trains through the "
+                "PS block path (train_ps_blocks, -use_ps 1); the fused "
+                "epochs need the sync tables' in-place state")
         epochs = epochs or cfg.epoch
         branch = self._branch()
         t0 = time.perf_counter()
@@ -440,17 +440,23 @@ class WordEmbedding:
         pull of block N+1 before block N's push, so block N+1 trains from
         rows without block N's update: the reference's one-block staleness
         (ref :202-223), the same pipelined (``-pipeline 1``) and inline."""
-        self._check_ported("train_ps_blocks")
         cfg = self.cfg
         epochs = epochs or cfg.epoch
         rng = np.random.default_rng(cfg.seed)
-        nw, _ = self._ps_topology()
+        nw, wid = self._ps_topology()
         device_plane = self._use_device_plane(nw)
         t0, losses, words = time.perf_counter(), [], 0
         dev_losses: List[torch.Tensor] = []
         blocks = [ids[lo: lo + cfg.data_block_size]
                   for lo in range(0, ids.size, cfg.data_block_size)]
         blocks = [b for b in blocks if b.size >= 2]
+        # deltas are scaled by 1/nw on the multi-worker planes (ref
+        # communicator.cpp:154). On the uncoordinated plane each rank
+        # trains its share of the blocks, unless the caller already split
+        # the corpus (-data_presplit 1); sync-table row adds would need
+        # equal block counts per worker, so the split is async-only
+        if nw > 1 and cfg.async_ps and not cfg.data_presplit:
+            blocks = blocks[wid::nw]
         # one flat schedule across the epochs, so the next block's pull
         # overlaps the current one's training across epoch boundaries too
         schedule = [b for _ in range(epochs) for b in blocks]
@@ -499,8 +505,13 @@ class WordEmbedding:
                 prepared = nxt
         if dev_losses:
             losses = torch.stack(dev_losses).cpu().tolist()
-        # the last pushes are still in flight on the stream: drain it, so
-        # the trained state is durable when the clock stops
+        # drain the in-flight pushes, so the trained state is durable when
+        # the clock stops: the async tables' with an explicit flush, the
+        # sync tables' on the device's stream
+        for t in (self.table_in, self.table_out,
+                  getattr(self, "table_hs", None)):
+            if t is not None and hasattr(t, "flush"):
+                t.flush()
         if self.table_in.device.type == "cuda":
             torch.cuda.synchronize(self.table_in.device)
         dt = time.perf_counter() - t0
@@ -678,16 +689,20 @@ class WordEmbedding:
         sec_t = self._sec_table()
         dev = self.table_in.device
         with monitor("we.block"):
-            # a cache-served block is on the device already
-            win = prep.get("dev_in")
-            if win is None:
-                win = _rowasm.pad_rows(self.table_in.wait(prep["pull_in"]),
-                                       prep["kb"], dev)
-            wsec = prep.get("dev_sec")
-            if wsec is None:
-                wsec = _rowasm.pad_rows(sec_t.wait(prep["pull_sec"]),
-                                        prep["hkb"] if cfg.hs else prep["kb"],
-                                        dev)
+            # the residual of the pulls dispatched a block ahead (on the
+            # async plane: the sockets and the owners' serving); a
+            # cache-served block is on the device already
+            with monitor("we.pull_wait"):
+                rows_in = (None if "dev_in" in prep
+                           else self.table_in.wait(prep["pull_in"]))
+                rows_sec = (None if "dev_sec" in prep
+                            else sec_t.wait(prep["pull_sec"]))
+            win = (prep["dev_in"] if rows_in is None
+                   else _rowasm.pad_rows(rows_in, prep["kb"], dev))
+            wsec = (prep["dev_sec"] if rows_sec is None
+                    else _rowasm.pad_rows(
+                        rows_sec, prep["hkb"] if cfg.hs else prep["kb"],
+                        dev))
             d_in, d_sec, loss = self._run_block_scan(
                 self._step_fn_raw(), win, wsec, prep["valid"],
                 self._upload(prep["batch"]))
@@ -899,13 +914,19 @@ class WordEmbedding:
         return loss
 
     def _ps_topology(self) -> Tuple[int, int]:
-        """(num_workers, worker_id) of the sync plane: one process, whose
-        logical worker count is the ``num_workers`` flag."""
+        """(num_workers, worker_id) of the PS plane in use: the async
+        context's world and rank for the uncoordinated tables; otherwise
+        one process, whose logical worker count is the ``num_workers``
+        flag."""
+        if self.cfg.async_ps:
+            ctx = self.table_in.ctx
+            return max(ctx.world, 1), ctx.rank
         return max(mv.num_workers(), 1), mv.rank()
 
     def total_word_count(self) -> int:
         """Trained-word count across all workers (ref communicator.cpp:
-        17-31, the server-aggregated KV value)."""
+        17-31, the server-aggregated KV value; an async table aggregates
+        on every get)."""
         return int(self.word_count.get([0], global_=True)[0])
 
     # ------------------------------------------------------------------ #

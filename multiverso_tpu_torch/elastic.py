@@ -1,15 +1,16 @@
-"""Failure detection, the read side (port of ``multiverso_tpu/elastic.py``:
-``peers``, ``_tombstones`` and ``failed``).
+"""Failure detection (port of ``multiverso_tpu/elastic.py``: ``peers``,
+``_tombstones``, ``failed``, ``mark_failed`` and ``bind_ps``).
 
 Each process of a job writes a JSON liveness beacon
 (``heartbeat.<rank>.json``: rank, step, timestamp) to shared storage, and a
 PS plane that sees a peer's socket die writes a tombstone
 (``failed.<rank>.json``). These functions read both, in the JAX package's
 format, so the LR app's SSP clock can stop waiting on dead workers
-(``heartbeat_dir``), whichever package wrote the files.
+(``heartbeat_dir``), whichever package wrote the files. ``bind_ps`` makes
+the async PS plane's socket deaths write those tombstones.
 
-Not ported yet (ROADMAP §A): the writers (``Heartbeat``, ``mark_failed``),
-``stragglers``, ``health`` and ``ElasticLoop``.
+Not ported yet (ROADMAP §A): ``Heartbeat``, ``stragglers``, ``health``
+and ``ElasticLoop``.
 """
 
 from __future__ import annotations
@@ -91,3 +92,37 @@ def failed(directory: str, timeout: float = 30.0,
         if not fresh_incarnation and float(beacon["ts"]) <= tomb["ts"]:
             out.add(rank)
     return sorted(out)
+
+
+def mark_failed(directory: str, rank: int,
+                addr: Optional[str] = None) -> None:
+    """Tombstone ``rank`` as failed NOW — the PS plane's socket-death
+    signal feeding the heartbeat view (see :func:`bind_ps`). The tombstone
+    records the rank's last-seen beacon timestamp (the subject's own
+    clock) and the dead incarnation's address (``addr``, defaulting to
+    the last beacon's); a newer beacon, or one with another address,
+    clears it (:func:`failed`)."""
+    os.makedirs(directory, exist_ok=True)
+    beacon = peers(directory).get(int(rank))
+    seen_ts = float(beacon["ts"]) if beacon else float("-inf")
+    if addr is None and beacon is not None:
+        addr = beacon.get("addr")
+    path = os.path.join(directory, f"failed.{int(rank)}.json")
+    tmp = path + ".tmp"
+    entry: Dict = {"rank": int(rank), "ts": time.time(),
+                   "beacon_ts": seen_ts}
+    if addr:
+        entry["addr"] = addr
+    with open(tmp, "w") as f:
+        json.dump(entry, f)
+    os.replace(tmp, path)
+
+
+def bind_ps(directory: str, ctx=None) -> None:
+    """Feed PS-plane peer deaths into this heartbeat directory: every
+    socket death the service observes writes a tombstone that
+    :func:`failed` reports immediately."""
+    if ctx is None:
+        from multiverso_tpu_torch.ps.service import default_context
+        ctx = default_context()
+    ctx.service.add_death_hook(lambda rank: mark_failed(directory, rank))

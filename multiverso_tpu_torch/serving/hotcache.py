@@ -34,6 +34,7 @@ import torch
 from multiverso_tpu_torch.ops import row_assemble
 from multiverso_tpu_torch.utils import config
 from multiverso_tpu_torch.utils.dashboard import Dashboard
+from multiverso_tpu_torch.zoo import default_device
 
 config.define_int(
     "train_cache_rows", 0,
@@ -78,8 +79,10 @@ class HotRowCache:
         self.dtype = np.dtype(dtype)
         self.capacity = int(capacity)
         self.name = name
-        # where the device mirror lives (the table's device)
-        self.device = torch.device(device if device is not None else "cpu")
+        # where the device mirror lives: the table's device; None
+        # resolves as init() does (the Zoo's device when the runtime is
+        # up, else the card), never a quiet CPU default
+        self.device = default_device(device)
         self._lock = threading.RLock()
         self._ids: Optional[np.ndarray] = None      # sorted int64
         self._rows: Optional[np.ndarray] = None     # (n, num_col) host

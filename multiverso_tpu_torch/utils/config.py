@@ -196,3 +196,24 @@ define_bool("dashboard", True, "collect Monitor timings and display at shutdown"
 define_string("device", "",
               "torch device the tables and models live on: '' = cuda "
               "(the card), or an explicit device such as 'cpu' or 'cuda:1'")
+define_string("ps_role", "default",
+              "role of this process: none|worker|server|default")
+# The async PS plane's client windows and replay (ps/tables.py): the
+# flags exist with the JAX package's names and defaults (off), and an
+# async table refuses them when set, because those planes are not
+# ported yet (ROADMAP.md §A).
+define_float("batch_window_ms", 0.0,
+             "send-window age bound in ms for async add_rows batching; "
+             "0 disables the window (every add ships immediately)")
+define_float("get_window_ms", 0.0,
+             "client get coalescer for async tables: > 0 turns on "
+             "single-flight per-owner fetches; 0 disables (every get is "
+             "its own frame)")
+define_bool("ps_replay", False,
+            "stamp windowed async-table frames with (client, seq) and "
+            "replay the non-durable tail to a restarted shard")
+define_int("get_chunk_rows", 0,
+           "chunk-stream async get replies above this many rows: the "
+           "owner ships self-describing sub-frames instead of one frame, "
+           "so the client's decode and scatter overlap the receive. "
+           "0 disables")

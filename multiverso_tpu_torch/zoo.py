@@ -81,6 +81,10 @@ class Zoo:
         if config.get_flag("dashboard"):
             Dashboard.display(log.info)
             Dashboard.reset()
+        # the async PS plane's default context quiesces (each rank keeps
+        # serving until its live peers are done) and closes
+        from multiverso_tpu_torch.ps import service as _ps_service
+        _ps_service.reset_default_context()
         self._tables.clear()
         self._next_table_id = 0
         self._device = None
@@ -136,3 +140,13 @@ class Zoo:
 
     def tables(self) -> Dict[int, Any]:
         return dict(self._tables)
+
+
+def default_device(device: DeviceLike = None) -> torch.device:
+    """``device`` resolved, or, for ``None``, where the runtime runs: the
+    Zoo's device when it is up, else what ``init()`` would resolve (the
+    card, or an error without one)."""
+    zoo = Zoo.get()
+    if device is None and zoo.started:
+        return zoo.device()
+    return resolve_device(device)

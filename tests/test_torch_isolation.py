@@ -57,6 +57,15 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.ops.wire_codec\n"
         "import multiverso_tpu_torch.utils.filters\n"
         "import multiverso_tpu_torch.utils.linkprobe\n"
+        "import multiverso_tpu_torch.ps\n"
+        "import multiverso_tpu_torch.ps.service\n"
+        "import multiverso_tpu_torch.ps.shard\n"
+        "import multiverso_tpu_torch.ps.tables\n"
+        "import multiverso_tpu_torch.ps.wire\n"
+        "import multiverso_tpu_torch.ops.spmd_apply\n"
+        "import multiverso_tpu_torch.utils.retry\n"
+        "import multiverso_tpu_torch.examples.we_async\n"
+        "import multiverso_tpu_torch.examples.we_f32_error\n"
         "import chip_smoke\n"
         "multiverso_tpu_torch.native.available()   # builds and loads\n"
         "bad = [m for m in sys.modules if m == 'multiverso_tpu'\n"

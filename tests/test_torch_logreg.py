@@ -353,9 +353,7 @@ def test_command_line_matches_jax(tmp_path):
     assert tapp.main([]) == 2
 
 
-def test_async_ps_raises_with_the_roadmap_title():
-    with pytest.raises(NotImplementedError, match=r"the async PS \(ps/\)"):
-        tapp.LogReg(tapp.LogRegConfig(_pairs(async_ps="true")))
+def test_config_errors_raise():
     with pytest.raises(ValueError, match="ssp_dir"):
         tapp.LogRegConfig({"input_size": "4", "staleness": "0"})
     with pytest.raises(ValueError, match="use_ps"):

@@ -16,9 +16,6 @@ batches the shared pool's tables agree to atol 2e-6 and the losses to rtol
 1e-5; the other epochs state their own bounds.
 """
 
-import re
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -36,7 +33,6 @@ ARGV = ["-size", "16", "-batch_size", "256", "-shared_negatives", "32",
         "-negative", "5", "-window", "3", "-min_count", "3",
         "-sample", "1e-3", "-seed", "4"]
 ATOL_TABLE, RTOL_LOSS = 2e-6, 1e-5
-REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -155,23 +151,6 @@ def test_load_embeddings_rejects_a_short_text_file(tmp_path):
     path.write_text("3 2\na 0.5 1.0\nb 1.0 2.0\n")
     with pytest.raises(ValueError, match="malformed"):
         twe.load_embeddings(str(path))
-
-
-@pytest.mark.parametrize("entry", ["train_fused", "train_ps_blocks"])
-def test_what_is_not_ported_raises(entry):
-    """async_ps=1 raises in both entry points. The error names the
-    ROADMAP.md §A item by its title, which the roadmap holds (a
-    renumbering cannot make it wrong)."""
-    what, title = "async_ps=1", "the async PS (ps/)"
-    tokens = twe.synthetic_corpus(3000, vocab=100, seed=1)
-    cfg = twe.WEConfig(size=8, batch_size=64, min_count=1, async_ps="1")
-    we = twe.WordEmbedding(cfg, twe.Dictionary.build(tokens, 1))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md §A {re.escape(title)}") as e:
-        getattr(we, entry)(we.prepare_ids(tokens))
-    assert what in str(e.value) and entry in str(e.value)
-    assert title in (REPO / "ROADMAP.md").read_text()
-    assert we.total_word_count() == 0
 
 
 def test_train_fused_under_use_ps_matches_jax():
