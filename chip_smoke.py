@@ -115,6 +115,31 @@ Phases, every one on every run, in this order:
             (c) LR with async_ps=true, dense and sparse FTRL at
             rcv1.binary's shape (samples/s), each first epoch held against
             the CPU's within 1e-4 of max |x|
+10. resnet  ResNet-CIFAR (``apps/resnet_cifar.py``: every parameter in one
+            Adam ArrayTable; no kernel of its own: cuDNN's convolutions
+            and elementwise ops) at bench_resnet's shape (depth 32, batch
+            128, 50,000 synthetic_cifar images uploaded once): the card's
+            first 2 steps against the CPU's from one start, a warm and 3
+            timed epochs (s/epoch, images/s, a full 50k epoch beside the
+            reference's GTX TITAN X times), the loss falling epoch over
+            epoch, one profiled epoch (conv, BN and elementwise, Adam,
+            other; the idle share), the eval accuracy on 512 images
+11. lda     the topic model (``models/lda.py``) over a SparseMatrixTable:
+            the planted-topic run of tests/test_lda.py (purity, the
+            likelihood ascending, the table against the CPU's), then a
+            timed run at 100,000 words x 1,024 topics, batches of 512
+            documents (tokens/s, get_rows_sparse and add_rows ms, the
+            stale share of the pulls)
+12. decode  the LM's serving path (``generate``, ``generate_beam``, int8
+            weights; dense attention over the KV cache, not the flash
+            kernel): bench_decode's config in f32 and int8 (tokens/s, ms a
+            step) with its checks (the teacher-forced argmax, batched
+            against token-by-token prefill, num_beams=1 against greedy,
+            the card's first-step logits against the CPU's, the int8
+            logits within their scales' bound, a top_p sample), then the
+            472M LM in bf16, int8 and a beam of 4 (tokens/s, ms a step,
+            peak memory, weight bytes). Each of the three phases counts
+            its launches apart and launches no flash kernel
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -128,6 +153,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2907,6 +2933,632 @@ def phase_ps_async(dev, lr_data: dict) -> dict:
     return out
 
 
+# resnet: ResNet-CIFAR (``apps/resnet_cifar.py``; no kernel of its own:
+# cuDNN's convolutions, the BatchNorm and Adam elementwise ops) at
+# bench_resnet's shape (bench.py:965-997): depth 32, batch 128, the
+# 50,000 synthetic_cifar images of seed 1 uploaded once, the remainder of
+# 50,000 % 128 dropped as the JAX trainer drops it; a warm epoch, timed
+# epochs, RES_PROFILE_STEPS profiled steps (the profiler's bookkeeping
+# of a whole epoch's ~1.5M events took ~7 minutes on the card's host),
+# and the eval accuracy on 512 images of seed 2.
+# The card's first RES_CPU_STEPS steps are held against the CPU's from
+# the same start: the mean loss within 1e-4 relative and the table within
+# 2 * lr * steps absolute, as in tests/test_torch_resnet.py (Adam's first
+# steps move a weight by ~lr whatever its gradient's size, so a near-zero
+# gradient whose sign the two sums disagree on moves it by up to 2 * lr a
+# step). That test's third bound, 99.9% of the table within 1e-6, holds
+# at depth 8; at depth 32 f32's own rounding passes it: this phase's
+# first run found the first step's gradient off from a float64 run's by
+# up to 2.1e-2 (card) and 1.0e-2 (CPU) of a leaf's max |g|, 3.7e-3 and
+# 3.5e-3 of its L2 norm (measured on an H100 80GB HBM3 at 700 W), and
+# Adam's normalization turns that into table differences past 1e-6 on
+# most weights (0.14 of them within it). So each run measures the noise:
+# the card's first-step gradient (the worst leaf's relative L2 error)
+# and its table's mean error against a float64 run of the same steps on
+# the CPU are held within RES_F64_FACTOR times the CPU f32's own (the
+# card's f32 convolutions are other algorithms, with other rounding). A
+# wrong gradient, or a wrong sign on a leaf (relative L2 error 2), puts
+# the card far past it
+RES_DEPTH = 32
+RES_BATCH = 128
+RES_IMAGES = (50_000, 1)      # synthetic_cifar count, seed
+RES_EVAL = (512, 2)
+RES_TIMED_EPOCHS = 3
+RES_PROFILE_STEPS = 20
+RES_MIN_ACC = 0.3             # 10 classes: chance is 0.1
+RES_CPU_STEPS = 2
+RES_LOSS_RTOL = 1e-4
+RES_F64_FACTOR = 4.0
+# the reference's published ResNet-32 sec/epoch on a GTX TITAN X
+# (BASELINE.md:12,17)
+RES_REFERENCE = (("Torch", 20.366), ("Theano/Lasagne", 100.02))
+
+
+def res_group(name: str) -> str:
+    """The ResNet step's kernel groups: convolutions (cuDNN's and the
+    GEMMs), elementwise and reductions (BatchNorm, ReLU, the loss, Adam),
+    the rest."""
+    low = name.lower()
+    if any(t in low for t in ("conv", "cudnn", "dgrad", "wgrad", "fprop",
+                              "implicit", "xmma", "winograd", "fft",
+                              "gemm", "nvjet", "cutlass")):
+        return "conv"
+    if any(t in low for t in ("elementwise", "reduce", "vectorized",
+                              "unrolled", "batch_norm", "softmax")):
+        return "elementwise/reduce"
+    return "other"
+
+
+def res_tree_cast(tree, dtype, device):
+    if isinstance(tree, dict):
+        return {k: res_tree_cast(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [res_tree_cast(v, dtype, device) for v in tree]
+    return tree.to(device=device, dtype=dtype)
+
+
+def res_steps(flat: np.ndarray, bn, meta, x, y, lr: float, steps: int,
+              device, dtype):
+    """``steps`` Adam steps of the trainer's math in ``dtype`` on
+    ``device``: (the first step's flat gradient, the final flat weights),
+    both float64 numpy."""
+    import torch
+    from multiverso_tpu_torch import updaters
+    from multiverso_tpu_torch.models import resnet
+
+    # a copy: Adam writes ``w`` in place
+    w = torch.tensor(flat, device=device, dtype=dtype)
+    bn = res_tree_cast(bn, dtype, device)
+    adam = updaters.AdamUpdater()
+    state = adam.init_state(w.shape, dtype, device)
+    opt = updaters.AddOption(learning_rate=lr)
+    for i in range(steps):
+        f = w.clone().requires_grad_()
+        sl = slice(i * RES_BATCH, (i + 1) * RES_BATCH)
+        loss, bn = resnet.loss_fn(
+            resnet.unflatten_params(f, meta), bn,
+            torch.from_numpy(x[sl]).to(device=device, dtype=dtype),
+            torch.from_numpy(y[sl]).to(device))
+        loss.backward()
+        if i == 0:
+            g0 = f.grad.double().cpu().numpy()
+        with torch.no_grad():
+            adam.apply(w, state, f.grad, opt)
+    return g0, w.double().cpu().numpy()
+
+
+def res_worst_leaf(g: np.ndarray, ref: np.ndarray, meta) -> tuple:
+    """Over the leaves, the largest relative L2 error ||g - ref|| / ||ref||
+    and the largest max |g - ref| over the leaf's max |ref|."""
+    l2, peak, off = 0.0, 0.0, 0
+    for _, shape in meta:
+        n = int(np.prod(shape))
+        a, b = g[off:off + n], ref[off:off + n]
+        l2 = max(l2, float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+        peak = max(peak, float(np.abs(a - b).max() / np.abs(b).max()))
+        off += n
+    return l2, peak
+
+
+def res_card_vs_cpu(x: np.ndarray, y: np.ndarray) -> dict:
+    """The first RES_CPU_STEPS steps at depth 32 on the card and on the
+    CPU from one start (the port's init of seed 0), through the trainer,
+    and the same steps in float64 on the CPU, the noise's measure."""
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.apps.resnet_cifar import ResNetTrainer
+    from multiverso_tpu_torch.models import resnet
+
+    params, bn = resnet.init_resnet(0, depth=RES_DEPTH)
+    init = resnet.resnet_from_jax(params, bn)
+    _, meta = resnet.flatten_params(params)
+    n = RES_CPU_STEPS * RES_BATCH
+
+    def run():
+        t = ResNetTrainer(depth=RES_DEPTH, batch_size=RES_BATCH, init=init)
+        stats = t.train(x[:n], y[:n], epochs=1)
+        return stats["loss"], t.table.get()[: t.n_params], t.learning_rate
+
+    card_loss, card, lr = run()
+    t0 = time.perf_counter()
+    cpu_loss, cpu, _ = on_cpu(run)
+    t1 = time.perf_counter()
+    dev = mv.device()    # the card again, after on_cpu
+    g_card, _ = res_steps(init[0], bn, meta, x, y, lr, 1, dev, torch.float32)
+    g_cpu, _ = res_steps(init[0], bn, meta, x, y, lr, 1, "cpu",
+                         torch.float32)
+    g64, w64 = res_steps(init[0], bn, meta, x, y, lr, RES_CPU_STEPS, "cpu",
+                         torch.float64)
+    t2 = time.perf_counter()
+    grad_card = res_worst_leaf(g_card, g64, meta)
+    grad_cpu = res_worst_leaf(g_cpu, g64, meta)
+    err_card = float(np.abs(card - w64).mean())
+    err_cpu = float(np.abs(cpu - w64).mean())
+    diff = float(np.abs(card - cpu).max())
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    log(f"resnet card vs CPU, {RES_CPU_STEPS} steps at depth {RES_DEPTH} "
+        f"from one start (CPU trainer {t1 - t0:.1f} s, the f32 and float64 "
+        f"reference steps {t2 - t1:.1f} s): mean loss {card_loss:.7f} vs "
+        f"{cpu_loss:.7f} (relative {rel:.2e}, bound {RES_LOSS_RTOL:.0e}); "
+        f"tables max |diff| {diff:.3e} (bound {2 * lr * RES_CPU_STEPS:.0e}), "
+        f"{float((np.abs(card - cpu) <= 1e-6).mean()):.4f} of it within "
+        f"1e-6")
+    log(f"resnet against float64 (the f32 noise): the first step's "
+        f"gradient, worst leaf's relative L2 error: card {grad_card[0]:.3e}, "
+        f"CPU {grad_cpu[0]:.3e} (worst leaf's max |err| over its max |g|: "
+        f"card {grad_card[1]:.3e}, CPU {grad_cpu[1]:.3e}); the table's mean "
+        f"|err| after {RES_CPU_STEPS} steps: card {err_card:.3e}, CPU "
+        f"{err_cpu:.3e} (the card's bounds: {RES_F64_FACTOR}x the CPU's)")
+    if not (np.isfinite(card).all() and rel <= RES_LOSS_RTOL
+            and diff <= 2 * lr * RES_CPU_STEPS
+            and grad_card[0] <= RES_F64_FACTOR * grad_cpu[0]
+            and err_card <= RES_F64_FACTOR * err_cpu):
+        raise AssertionError("the card's ResNet steps disagree with the "
+                             "CPU's past f32's own noise")
+    return {"loss_rel": rel, "table_max": diff, "grad_card": grad_card,
+            "grad_cpu": grad_cpu, "err_card": err_card, "err_cpu": err_cpu}
+
+
+def phase_resnet(dev) -> dict:
+    """ResNet-32 on the card at bench_resnet's shape: card vs CPU, a warm
+    epoch, timed epochs with a falling loss, a profiled epoch, the eval
+    accuracy."""
+    import torch
+    from multiverso_tpu_torch.apps.resnet_cifar import ResNetTrainer
+    from multiverso_tpu_torch.models import resnet
+    from multiverso_tpu_torch.updaters import AddOption
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    x, y = resnet.synthetic_cifar(RES_IMAGES[0], seed=RES_IMAGES[1])
+    log(f"resnet settings: depth {RES_DEPTH}, batch {RES_BATCH}, "
+        f"{RES_IMAGES[0]} synthetic_cifar images (seed {RES_IMAGES[1]}, "
+        f"{x.nbytes / 1e6:.0f} MB f32, made in "
+        f"{time.perf_counter() - t0:.1f} s), Adam lr 1e-3 in one "
+        f"ArrayTable, f32, TF32 "
+        f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
+    out = {"card_vs_cpu": res_card_vs_cpu(x, y)}
+
+    trainer = ResNetTrainer(depth=RES_DEPTH, batch_size=RES_BATCH, seed=0)
+    t0 = time.perf_counter()
+    xd = torch.from_numpy(x).to(dev)      # uploaded once
+    yd = torch.from_numpy(y).to(dev)
+    data = trainer._batches(xd, yd)       # views of xd and yd
+    torch.cuda.synchronize()
+    steps = data[0].shape[0]
+    images = steps * RES_BATCH
+    log(f"resnet: {trainer.n_params} parameters; {images} images a epoch "
+        f"({steps} steps) on {dev} in {time.perf_counter() - t0:.1f} s")
+    epochs = [trainer.train(xd, yd, epochs=1)]   # warm
+    for _ in range(RES_TIMED_EPOCHS):
+        epochs.append(trainer.train(xd, yd, epochs=1))
+    losses = [e["loss"] for e in epochs]
+    secs = [e["seconds"] for e in epochs[1:]]
+    sec = float(np.median(secs))
+    sec_50k = sec * RES_IMAGES[0] / images
+    log(f"resnet epochs (warm + {RES_TIMED_EPOCHS} timed): mean losses "
+        f"{[round(v, 5) for v in losses]}, seconds "
+        f"{[round(s, 3) for s in secs]}")
+    log(f"resnet-{RES_DEPTH}: {sec:.3f} s/epoch ({images} images), "
+        f"{images / sec:.0f} images/s, {sec_50k:.3f} s for a full 50k epoch; "
+        f"the reference on a GTX TITAN X (BASELINE.md): " + ", ".join(
+            f"{name} {ref} s ({ref / sec_50k:.1f}x this)"
+            for name, ref in RES_REFERENCE))
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the ResNet loss does not fall epoch over "
+                             f"epoch: {losses}")
+
+    # Adam's share: its apply alone, timed on a copy of the state
+    state = trainer.table.state
+    copy = {"data": state["data"].clone(),
+            "ustate": {k: v.clone() for k, v in state["ustate"].items()}}
+    delta = torch.randn_like(copy["data"]) * 1e-3
+    opt = AddOption(learning_rate=trainer.learning_rate)
+    adam_ms = cuda_ms(lambda: trainer.table.updater.apply(
+        copy["data"], copy["ustate"], delta, opt))
+    del copy, delta
+
+    n_prof = min(RES_PROFILE_STEPS, steps)
+
+    def some_steps():
+        live = trainer.table.state
+        for i in range(n_prof):
+            trainer.step(live, data[0][i], data[1][i], opt)
+        torch.cuda.synchronize()
+        trainer.table.adopt(live)
+
+    prof = profile(f"resnet {n_prof} steps", some_steps, top=10,
+                   group=res_group)
+    if prof["busy_ms"]:
+        span_ms = sec * 1e3 * n_prof / steps
+        adam = adam_ms * n_prof
+        groups = dict(prof["groups"])
+        ew = groups.get("elementwise/reduce", 0.0)
+        prof["idle_share"] = max(0.0, 1 - prof["busy_ms"] / span_ms)
+        log(f"resnet busy by group over {n_prof} steps: conv "
+            f"{groups.get('conv', 0.0):.1f} ms, BN and elementwise "
+            f"{max(ew - adam, 0.0):.1f} ms, Adam {adam:.1f} ms ({adam_ms:.4f} "
+            f"ms a step, timed alone), other {groups.get('other', 0.0):.1f} "
+            f"ms; busy {prof['busy_ms']:.1f} ms against {span_ms:.1f} ms of "
+            f"the median unprofiled epoch: idle share "
+            f"{prof['idle_share']:.3f}")
+
+    acc = trainer.evaluate(*resnet.synthetic_cifar(RES_EVAL[0],
+                                                   seed=RES_EVAL[1]))
+    log(f"resnet eval accuracy on {RES_EVAL[0]} images (seed {RES_EVAL[1]})"
+        f": {acc:.4f} (bound > {RES_MIN_ACC}, chance 0.1)")
+    if not acc > RES_MIN_ACC:
+        raise AssertionError(f"ResNet eval accuracy {acc} <= {RES_MIN_ACC}")
+    out.update(sec_per_epoch=sec, images_per_sec=images / sec,
+               sec_50k=sec_50k, losses=losses, accuracy=acc, profile=prof)
+    del trainer, data, xd, yd
+    torch.cuda.empty_cache()
+    log(f"resnet phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# lda: the topic model (``models/lda.py``; no kernel of its own: gathers,
+# elementwise ops, reductions and index_add_) over a SparseMatrixTable on
+# the card. (a) tests/test_lda.py:29-44's planted-topic run: purity above
+# 0.85, the likelihood ascending, and the table within 1e-4 of max |x| of
+# the CPU's run (index_add_ adds with atomics on the card, so not bit for
+# bit). (b) A size a topic-model user holds on one card: 100,000 words x
+# 1,024 topics (a 410 MB f32 table), documents of 64 tokens, 5 EM
+# iterations, batches of 512 documents (134 MB of responsibilities)
+LDA_PLANTED = dict(vocab_size=400, num_topics=4, doc_len=32, em_iters=4)
+LDA_PLANTED_DOCS = (600, 3)   # documents, corpus seed (tests/test_lda.py)
+LDA_PLANTED_EPOCHS = 3
+LDA_PLANTED_BATCH = 64
+LDA_TABLE_RTOL = 1e-4
+LDA_MIN_PURITY = 0.85
+LDA_WIDE = dict(vocab_size=100_000, num_topics=1024, doc_len=64,
+                em_iters=5)
+LDA_WIDE_BATCH = 512
+LDA_WIDE_BATCHES = (2, 8)     # warm, timed
+LDA_WIDE_SEED = 4
+
+
+def lda_purity(word_topics: np.ndarray, labels: np.ndarray, k: int) -> float:
+    """tests/test_lda.py's agreement of the learned topics with the
+    planted ones."""
+    conf = np.zeros((k, k))
+    np.add.at(conf, (labels[: word_topics.size], word_topics), 1)
+    return float(conf.max(axis=1).sum() / conf.sum())
+
+
+def lda_planted() -> dict:
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import lda
+
+    cfg = lda.LDAConfig(**LDA_PLANTED)
+    docs, labels = lda.synthetic_corpus(cfg, *LDA_PLANTED_DOCS)
+
+    def run():
+        table = mv.SparseMatrixTable(cfg.vocab_size, cfg.num_topics,
+                                     name="lda_planted", num_workers=1)
+        trainer = lda.LDATrainer(cfg, table)
+        lls = [trainer.train_batch(docs[lo: lo + LDA_PLANTED_BATCH])
+               for _ in range(LDA_PLANTED_EPOCHS)
+               for lo in range(0, len(docs), LDA_PLANTED_BATCH)]
+        return lls, table.get(), trainer.word_topics()
+
+    lls, card, topics = run()
+    _, cpu, _ = on_cpu(run)
+    purity = lda_purity(topics, labels, cfg.num_topics)
+    rise = float(np.mean(lls[-5:]) - np.mean(lls[:5]))
+    scale = float(np.abs(cpu).max())
+    rel = float(np.abs(card - cpu).max()) / scale
+    log(f"lda planted topics ({cfg.vocab_size} words, {cfg.num_topics} "
+        f"topics, {LDA_PLANTED_DOCS[0]} documents, {LDA_PLANTED_EPOCHS} "
+        f"epochs of {LDA_PLANTED_BATCH}): purity {purity:.4f} (bound > "
+        f"{LDA_MIN_PURITY}), mean ll of the last 5 batches minus the first "
+        f"5: {rise:.4f} (bound > 0.1); card vs CPU tables max |diff| "
+        f"{rel * scale:.3e} at max |x| {scale:.2f} (relative {rel:.2e}, "
+        f"bound {LDA_TABLE_RTOL:.0e})")
+    if not (purity > LDA_MIN_PURITY and rise > 0.1
+            and rel <= LDA_TABLE_RTOL and np.isfinite(card).all()):
+        raise AssertionError("the planted-topic LDA run failed its checks")
+    return {"purity": purity, "ll_rise": rise, "table_rel": rel}
+
+
+def timed_method(obj, name: str, into: list) -> None:
+    """Wrap ``obj.name`` to append each call's host milliseconds to
+    ``into`` (the table's row ops return or wait for their result, so the
+    host clock spans the device work)."""
+    real = getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            into.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, name, wrapped)
+
+
+def lda_wide(dev) -> dict:
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import lda
+
+    cfg = lda.LDAConfig(**LDA_WIDE)
+    n_batches = sum(LDA_WIDE_BATCHES)
+    t0 = time.perf_counter()
+    docs, _ = lda.synthetic_corpus(cfg, n_batches * LDA_WIDE_BATCH,
+                                   seed=LDA_WIDE_SEED)
+    table = mv.SparseMatrixTable(cfg.vocab_size, cfg.num_topics,
+                                 name="lda_wide", num_workers=1)
+    torch.cuda.synchronize()
+    log(f"lda wide settings: {cfg.vocab_size} words x {cfg.num_topics} "
+        f"topics ({cfg.vocab_size * cfg.num_topics * 4 / 1e6:.0f} MB f32 "
+        f"table on {dev}), documents of {cfg.doc_len} tokens, "
+        f"{cfg.em_iters} EM iterations, batches of {LDA_WIDE_BATCH} "
+        f"({LDA_WIDE_BATCH * cfg.doc_len * cfg.num_topics * 4 / 1e6:.0f} "
+        f"MB of responsibilities); corpus of {len(docs)} documents (seed "
+        f"{LDA_WIDE_SEED}) made in {time.perf_counter() - t0:.1f} s")
+    trainer = lda.LDATrainer(cfg, table)
+    gets, adds, secs, stale, rows, lls = [], [], [], [], [], []
+    for i in range(n_batches):
+        batch = docs[i * LDA_WIDE_BATCH: (i + 1) * LDA_WIDE_BATCH]
+        if i == LDA_WIDE_BATCHES[0]:       # the timed batches start
+            timed_method(table, "get_rows_sparse", gets)
+            timed_method(table, "add_rows", adds)
+        uids = np.unique(batch)
+        if i >= LDA_WIDE_BATCHES[0]:
+            stale.append(table.stale_fraction(uids))
+            rows.append(uids.size)
+        t0 = time.perf_counter()
+        lls.append(trainer.train_batch(batch))
+        if i >= LDA_WIDE_BATCHES[0]:
+            secs.append(time.perf_counter() - t0)
+    tokens = LDA_WIDE_BATCH * cfg.doc_len
+    sec = float(np.median(secs))
+    log(f"lda wide: {tokens / sec:.0f} tokens/s ({sec * 1e3:.1f} ms a batch "
+        f"of {tokens} tokens, median of {len(secs)}), get_rows_sparse "
+        f"{np.median(gets):.1f} ms, add_rows {np.median(adds):.1f} ms, "
+        f"{np.mean(rows):.0f} distinct rows a batch, stale share of the "
+        f"pulls {np.mean(stale):.4f}; lls {[round(v, 4) for v in lls]}")
+    if not np.isfinite(lls).all():
+        raise AssertionError("the wide LDA run's likelihood is not finite")
+    mass = float(torch.sum(table.state["data"]))
+    if abs(mass - n_batches * tokens) > 1e-3 * n_batches * tokens:
+        raise AssertionError(f"the wide table holds {mass} counts, not "
+                             f"{n_batches * tokens}")
+    return {"tokens_per_sec": tokens / sec, "batch_ms": sec * 1e3,
+            "get_rows_sparse_ms": float(np.median(gets)),
+            "add_rows_ms": float(np.median(adds)),
+            "stale_share": float(np.mean(stale)), "rows": float(np.mean(rows))}
+
+
+def phase_lda(dev) -> dict:
+    """LDA on the card: (a) the planted-topic run against the CPU, (b) the
+    timed run at 100,000 x 1,024."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"planted": lda_planted(), "wide": lda_wide(dev)}
+    torch.cuda.empty_cache()
+    log(f"lda phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# decode: the LM's serving path (``models/transformer.generate``,
+# ``generate_beam``, int8 weights from ``ops/quantization.py``; no kernel of
+# its own: the prefill and each step's attention are dense products over
+# the KV cache, not the flash kernel, whose rounding of p would give other
+# tokens). (a) bench_decode's config (bench.py:926-962): vocab 8192, dim
+# 256, 8 heads, 4 layers, max_seq 192, f32, batch 8, a 64-token prompt and
+# 128 new tokens, with f32 and with int8 weights. (b) The 472M LM (LM) at
+# full width, bf16, random weights of seed 0: greedy in bf16 and in int8,
+# and a beam of 4 in bf16. Checks on (a) in f32: the greedy tokens equal
+# the teacher-forced argmax of forward(attn="local") at every position
+# where the top two logits lie more than DEC_TIE apart; the batched
+# prefill's logits within 1e-5 of the token-by-token prefill's; num_beams=1
+# equal to greedy; the card's first-step logits within 1e-4 of the CPU's;
+# the int8 tied-logits product within its bound: each int8 weight is off
+# by at most scale/2, so a logit v of hidden state x is off by at most
+# ||x||_1 * scale_v / 2 (plus f32 rounding, 1e-5 of max |logit|); a
+# top_p=0.9 sampled decode with its tokens in range
+DEC_SMALL = dict(vocab_size=8192, dim=256, num_heads=8, num_layers=4,
+                 max_seq=192)
+DEC_BATCH, DEC_PROMPT, DEC_NEW = 8, 64, 128
+DEC_TIMED = 3
+DEC_TIE = 1e-4
+DEC_PREFILL_ATOL = 1e-5
+DEC_CPU_ATOL = 1e-4
+DEC_BEAMS = 4
+
+
+def dec_time(fn, label: str, timed: int = DEC_TIMED, warm=None) -> dict:
+    """A warm call (``warm``, by default ``fn``: a whole decode), then
+    ``timed`` calls of ``fn`` on the host clock, each ended by a
+    synchronize: median seconds, tokens/s, ms a step, peak device
+    memory."""
+    import torch
+    (warm or fn)()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    sec = float(np.median(secs))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"decode {label}: {DEC_BATCH * DEC_NEW / sec:.0f} tokens/s, "
+        f"{sec / DEC_NEW * 1e3:.3f} ms a step (median of {timed} decodes of "
+        f"{DEC_NEW} tokens x batch {DEC_BATCH}, prefill included), peak "
+        f"memory {peak:.2f} GiB")
+    return {"out": out, "tokens_per_sec": DEC_BATCH * DEC_NEW / sec,
+            "ms_per_step": sec / DEC_NEW * 1e3, "peak_gib": peak}
+
+
+def weight_bytes(tree) -> int:
+    from multiverso_tpu_torch.ops.quantization import QuantizedTensor
+    if isinstance(tree, dict):
+        return sum(weight_bytes(v) for v in tree.values())
+    if isinstance(tree, QuantizedTensor):
+        return weight_bytes(tree.q) + weight_bytes(tree.scale)
+    return tree.numel() * tree.element_size()
+
+
+def dec_checks(model, tree, qtree, prompt, cfg, out) -> dict:
+    """(a)'s checks in f32 on the greedy tokens ``out``."""
+    import torch
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.utils import threefry
+
+    p = DEC_PROMPT
+    with torch.inference_mode():
+        logits = tfm.forward(model, out[:, :-1].long(), cfg)[:, p - 1:]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > DEC_TIE
+    agree = logits.argmax(-1) == out[:, p:]
+    skipped = int((~clear).sum())
+    log(f"decode (a) greedy vs the teacher-forced argmax of forward(attn="
+        f"'local'): {int((agree & clear).sum())} of {int(clear.sum())} "
+        f"positions agree; {skipped} of {clear.numel()} skipped (top two "
+        f"logits within {DEC_TIE})")
+    if not bool(agree[clear].all()):
+        raise AssertionError("greedy decode disagrees with the forward's "
+                             "argmax")
+
+    seen = []
+    real = tfm._tied_logits
+
+    def capture(x, e):
+        seen.append(x)
+        return real(x, e)
+
+    tfm._tied_logits = capture
+    try:
+        caches, batched = tfm._prefill(tree, prompt, cfg, p + 1)
+    finally:
+        tfm._tied_logits = real
+    _, seq = tfm._prefill(tree, prompt, cfg, p + 1, batched=False)
+    pre = max_err(batched, seq)
+    log(f"decode (a) batched prefill vs token by token: logits max |diff| "
+        f"{pre:.3e} (bound {DEC_PREFILL_ATOL:.0e})")
+    if not pre <= DEC_PREFILL_ATOL:
+        raise AssertionError("the batched prefill disagrees with the "
+                             "token-by-token prefill")
+
+    beam1 = tfm.generate_beam(model, prompt, cfg, DEC_NEW, num_beams=1)
+    if not torch.equal(beam1, out):
+        raise AssertionError("num_beams=1 is not greedy")
+    log("decode (a) num_beams=1 equals greedy")
+
+    cpu_model = tfm.params_from_jax(tfm.params_to_numpy(model), cfg, "cpu")
+    _, cpu_logits = tfm._prefill(tfm.param_tree(cpu_model), prompt.cpu(),
+                                 cfg, p + 1)
+    cpu_err = max_err(batched.cpu(), cpu_logits)
+    log(f"decode (a) first-step logits, card vs CPU: max |diff| "
+        f"{cpu_err:.3e} (bound {DEC_CPU_ATOL:.0e})")
+    if not cpu_err <= DEC_CPU_ATOL:
+        raise AssertionError("the card's first-step logits disagree with "
+                             "the CPU's")
+
+    x = seen[0].float()                                    # [B, D]
+    e = qtree["embed"]
+    exact = tfm._tied_logits(x, tree["embed"])
+    q = tfm._tied_logits(x, e)
+    bound = (x.abs().sum(-1, keepdim=True) * e.scale[:, 0][None] / 2
+             + 1e-5 * exact.abs().max())
+    ratio = float(((q - exact).abs() / bound).max())
+    _, qlogits = tfm._prefill(qtree, prompt, cfg, p + 1)
+    log(f"decode (a) int8 tied logits on the f32 hidden state: max |diff| "
+        f"{max_err(q, exact):.3e}, at most {ratio:.3f} of the bound "
+        f"||x||_1 * scale_v / 2 (+1e-5 of max |logit| "
+        f"{float(exact.abs().max()):.2f}); the whole int8 first step: "
+        f"logits max |diff| {max_err(qlogits, batched):.3e}")
+    if not ratio <= 1.0:
+        raise AssertionError("the int8 logits pass the bound their scales "
+                             "imply")
+
+    sampled = tfm.generate(model, prompt, cfg, DEC_NEW, temperature=1.0,
+                           key=threefry.key(0), top_p=0.9)
+    new = sampled[:, p:]
+    if not (tuple(sampled.shape) == (DEC_BATCH, p + DEC_NEW)
+            and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size):
+        raise AssertionError("the top_p sample is out of range")
+    log(f"decode (a) top_p=0.9 sample: {tuple(sampled.shape)}, tokens in "
+        f"[{int(new.min())}, {int(new.max())}], "
+        f"{int((new != out[:, p:]).sum())} of {new.numel()} differ from "
+        f"greedy")
+    return {"skipped": skipped, "prefill_err": pre, "cpu_err": cpu_err,
+            "int8_ratio": ratio}
+
+
+def phase_decode(dev) -> dict:
+    """Decode on the card: (a) bench_decode's config in f32 and int8 with
+    the checks, (b) the 472M LM greedy in bf16 and int8 and a beam of 4."""
+    import torch
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.ops.quantization import quantize_lm_params
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    cfg = tfm.TransformerConfig(dtype=torch.float32, attn="local",
+                                **DEC_SMALL)
+    log(f"decode settings: (a) {DEC_SMALL}, f32, attn='local'; (b) the LM "
+        f"{LM} with {LAYERS} layers, bf16; batch {DEC_BATCH}, prompt "
+        f"{DEC_PROMPT}, {DEC_NEW} new tokens, greedy unless named; TF32 "
+        f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}")
+    model = tfm.params_from_jax(tfm.init_params(cfg, seed=0), cfg, dev)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT)).astype(np.int32)).to(dev)
+    tree = tfm.param_tree(model)
+    qtree = quantize_lm_params(model)
+    out = {"small_f32": dec_time(
+        lambda: tfm.generate(model, prompt, cfg, DEC_NEW), "(a) f32")}
+    out["small_int8"] = dec_time(
+        lambda: tfm.generate(qtree, prompt, cfg, DEC_NEW), "(a) int8")
+    greedy = out["small_f32"]["out"]
+    out["checks"] = dec_checks(model, tree, qtree, prompt, cfg, greedy)
+    differ = int((out["small_int8"]["out"] != greedy).sum())
+    log(f"decode (a) int8 greedy: {differ} of "
+        f"{greedy[:, DEC_PROMPT:].numel()} tokens differ from f32")
+    del model, tree, qtree
+
+    big = tfm.TransformerConfig(num_layers=LAYERS, dtype=torch.bfloat16,
+                                attn="local", **LM)
+    t0 = time.perf_counter()
+    model = tfm.params_from_jax(tfm.init_params(big, seed=0), big, dev)
+    qtree = quantize_lm_params(model)
+    torch.cuda.synchronize()
+    bf16_bytes, int8_bytes = weight_bytes(tfm.param_tree(model)), \
+        weight_bytes(qtree)
+    log(f"decode (b) the LM built (seed 0) and quantized in "
+        f"{time.perf_counter() - t0:.1f} s: weights {bf16_bytes / 2**30:.3f} "
+        f"GiB in bf16, {int8_bytes / 2**30:.3f} GiB in int8 (q and scales)")
+    prompt = torch.from_numpy(rng.integers(
+        0, big.vocab_size, (DEC_BATCH, DEC_PROMPT)).astype(np.int32)).to(dev)
+    out["big_bf16"] = dec_time(
+        lambda: tfm.generate(model, prompt, big, DEC_NEW), "(b) bf16")
+    out["big_int8"] = dec_time(
+        lambda: tfm.generate(qtree, prompt, big, DEC_NEW), "(b) int8")
+    out["big_beam"] = dec_time(
+        lambda: tfm.generate_beam(model, prompt, big, DEC_NEW,
+                                  num_beams=DEC_BEAMS),
+        f"(b) beam of {DEC_BEAMS} bf16", timed=1,
+        warm=lambda: tfm.generate_beam(model, prompt, big, 2,
+                                       num_beams=DEC_BEAMS))
+    for key in ("big_bf16", "big_int8", "big_beam"):
+        toks = out[key].pop("out")
+        if not (tuple(toks.shape) == (DEC_BATCH, DEC_PROMPT + DEC_NEW)
+                and int(toks.min()) >= 0
+                and int(toks.max()) < big.vocab_size):
+            raise AssertionError(f"decode {key}: tokens out of range")
+    for key in ("small_f32", "small_int8"):
+        out[key].pop("out")
+    out.update(bf16_bytes=bf16_bytes, int8_bytes=int8_bytes)
+    del model, qtree
+    torch.cuda.empty_cache()
+    log(f"decode phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -2960,6 +3612,13 @@ def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
 
+    # after a torch.profiler session kineto leaves CUPTI attached unless it
+    # is told to tear it down, and every later launch pays for it on the
+    # host: on an H100 a decode step of the decode phase's config (a) took
+    # 1.8-3.1 ms after profiled calls without the teardown and 1.3-2.1 ms
+    # with it (1.4-1.5 ms before any). The phases after the first profile
+    # are host-bound, so their times would carry the profiler's cost
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3022,6 +3681,17 @@ def main(argv=None) -> int:
         log(f"ps_async launches {paths['ps_async']}")
         if any(paths["ps_async"].values()):
             raise AssertionError("the async PS path launched a flash kernel")
+    # ResNet, LDA and decode, each counted the same way: none of them runs
+    # a kernel of the port (cuDNN's convolutions, index_add_, dense
+    # products over the KV cache)
+    for name, phase in (("resnet", phase_resnet), ("lda", phase_lda),
+                        ("decode", phase_decode)):
+        ak.reset_launch_counts()
+        phase(dev)
+        paths[name] = ak.launch_counts()
+        log(f"{name} launches {paths[name]}")
+        if any(paths[name].values()):
+            raise AssertionError(f"the {name} path launched a flash kernel")
     mv.shutdown()
     for rec in records:
         by_path = {p: c.get(rec["name"], 0) for p, c in paths.items()}

@@ -3,10 +3,14 @@
 Parameter tables with server-side updaters on one ``torch.device`` (array,
 matrix, sparse matrix and KV tables), the shared-parameter delta sync, the
 transformer LM whose attention is hand-written CUDA
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), WordEmbedding
-(``apps/word_embedding.py``) and LogisticRegression
-(``apps/logistic_regression.py``), and the async parameter-server plane
-(``ps/``: uncoordinated Add/Get against tables sharded over processes).
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) with its KV-cache decode
+and int8 weights (``models/transformer.generate``,
+``ops/quantization.py``, ``io/lm_data.py``), WordEmbedding
+(``apps/word_embedding.py``), LogisticRegression
+(``apps/logistic_regression.py``), ResNet-CIFAR
+(``apps/resnet_cifar.py``), the LDA topic model (``models/lda.py``), and
+the async parameter-server plane (``ps/``: uncoordinated Add/Get against
+tables sharded over processes).
 
 Entry points run on the card: ``init()`` resolves the device to ``cuda``
 and raises if there is none, unless the caller passes ``device="cpu"``.

@@ -1,12 +1,13 @@
 """The parts of ``jax.random``'s threefry2x32 stream that the WordEmbedding
-epochs draw from, bit for bit, as jax runs them with 64-bit types off (its
+epochs and the LM's sampled decode draw from, bit for bit, as jax runs them with 64-bit types off (its
 default) and ``jax_threefry_partitionable=True`` (its default since 0.5).
 
 A key is a pair of Python ints ``(k1, k2)``, each a uint32: the words of
 ``jax.random.key_data(key)``. ``key`` and ``split`` run on the host (two
 words per key: a chain of splits is cheap there and would be dozens of tiny
 launches on a device); ``random_bits`` and ``randint`` return int64 tensors
-on the device asked for, one row per key of a sequence of keys.
+on the device asked for, one row per key of a sequence of keys;
+``uniform`` and ``categorical`` draw with one key, as ``generate`` does.
 
 uint32 arithmetic runs on int64 tensors (or Python ints) masked with
 ``0xFFFFFFFF``: a sum of two masked words stays below 2^33, a left shift by
@@ -120,3 +121,34 @@ def randint(keys: Sequence[Key], shape: Sequence[int], minval: int,
     if multiplier:
         offset = (((draw(0) * multiplier) & _MASK32) + offset) & _MASK32
     return (offset % span + minval).to(torch.int32)
+
+
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def uniform(k: Key, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, jnp.float32, minval, maxval)``
+    (``jax._src.random._uniform``): the top 23 of each element's 32 bits
+    become the mantissa of a float in [1, 2), less 1, scaled to
+    ``[minval, maxval)`` in f32 and floored at ``minval``. Bit for bit
+    where ``maxval - minval`` is 1 (the draws ``categorical`` makes);
+    for other ranges XLA may fuse the scaling's multiply-add into one
+    rounding, and the two differ by up to an ulp of the range."""
+    bits = random_bits([k], shape, device)[0]
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def categorical(k: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(k, logits)`` over the last axis for f32
+    logits, in its default ``mode="low"``: the argmax of ``logits +
+    gumbel``, ``gumbel = -log(-log(u))`` with ``u`` uniform on [tiny, 1).
+    Returns int64 indices of shape ``logits.shape[:-1]``."""
+    u = uniform(k, tuple(logits.shape), minval=_F32_TINY, maxval=1.0,
+                device=logits.device)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(gumbel + logits.float(), dim=-1)

@@ -4,7 +4,8 @@ own tests run them) and against both packages' ``reference_attention``,
 forward and backward.
 
 Forward tolerances: f32 max abs error 2e-5 (the online softmax sums over
-blocks in another order than a dense softmax); bf16 2e-2 (``p`` is
+blocks in another order than a dense softmax; each side is also held to
+that bound against a float64 numpy attention, which both meet by 4.3e-7); bf16 2e-2 (``p`` is
 rounded to bf16 relative to the running max in the kernel, to the row max
 in the plain version). The lse output agrees to 2e-5 with ``_fwd``'s
 lse[..., 0].
@@ -55,17 +56,38 @@ def _np(x):
                       else x.astype(jnp.float32))
 
 
+def _attention_f64(shape, causal, seed):
+    """Softmax attention of ``_inputs``' arrays in float64 numpy: the
+    oracle each side is held against, so a failure names the side that
+    moved."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=shape).astype(np.float32).astype(np.float64)
+               for _ in range(3))
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(shape[-1])
+    if causal:
+        s = np.where(np.tri(shape[2], dtype=bool), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+
+
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_flash_matches_jax_kernel_and_reference(case):
     shape, causal, blk, dtype = CASES[case]
     (jq, jk, jv), (tq, tk, tv) = _inputs(shape, dtype, seed=case)
-    want = jak.flash_attention(jq, jk, jv, causal, blk, blk)   # interpret
+    # the JAX side at f32 precision, as the file's other JAX comparisons:
+    # a dot at the default precision may take a cheaper path
+    with jax.default_matmul_precision("float32"):
+        want = jak.flash_attention(jq, jk, jv, causal, blk, blk)  # interpret
+        jref = jring.reference_attention(jq, jk, jv, causal)
     got = tak.flash_attention(tq, tk, tv, causal, blk, blk)
     assert got.dtype == tq.dtype and tuple(got.shape) == shape
-    jref = jring.reference_attention(jq, jk, jv, causal)
     tref = tring.reference_attention(tq, tk, tv, causal)
-    # each pair named, so a failure says which side moved
-    for name, a, b in (("port vs JAX kernel", got, want),
+    oracle = _attention_f64(shape, causal, case)
+    # each side against the f64 oracle, then each pair, all named, so a
+    # failure says which side moved
+    for name, a, b in (("JAX kernel vs f64", want, oracle),
+                       ("port vs f64", got, oracle),
+                       ("port vs JAX kernel", got, want),
                        ("port vs JAX reference", got, jref),
                        ("port reference vs JAX reference", tref, jref)):
         np.testing.assert_allclose(_np(a), _np(b), atol=ATOL[dtype], rtol=0,

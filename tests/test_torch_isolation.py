@@ -31,6 +31,11 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import sys; sys.modules['jax'] = None\n"
         "import multiverso_tpu_torch as mv\n"
         "import multiverso_tpu_torch.apps.logistic_regression\n"
+        "import multiverso_tpu_torch.apps.resnet_cifar\n"
+        "import multiverso_tpu_torch.io.lm_data\n"
+        "import multiverso_tpu_torch.models.lda\n"
+        "import multiverso_tpu_torch.models.resnet\n"
+        "import multiverso_tpu_torch.ops.quantization\n"
         "import multiverso_tpu_torch.apps.word_embedding\n"
         "import multiverso_tpu_torch.data.dictionary\n"
         "import multiverso_tpu_torch.elastic\n"

@@ -2,7 +2,12 @@
 (threefry2x32, 64-bit types off, jax_threefry_partitionable on), bit for
 bit: the hash itself on the Random123 known answers, ``key``, chains of
 ``split``, 32-bit ``random_bits`` and int32 ``randint``, at several seeds,
-shapes and spans. Integer work: every comparison is exact."""
+shapes and spans. Integer work: every comparison is exact. Then the f32
+draws of the sampled decode, ``uniform`` and ``categorical``, also bit for
+bit: the uniform is the bits' mantissa (exact), and the categorical is an
+argmax over logits plus gumbel noise, whose two logs agree between XLA
+and torch on these draws (a one-ulp disagreement could flip only an exact
+near-tie)."""
 
 import jax
 import jax.numpy as jnp
@@ -94,3 +99,32 @@ def test_a_batch_of_keys_draws_each_key_s_rows():
 def test_randint_needs_int32_bounds():
     with pytest.raises(ValueError, match="int32"):
         threefry.randint([threefry.key(0)], (2,), 0, 2 ** 31)
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 7), (2, 32), (8, 4096)])
+@pytest.mark.parametrize("seed", [0, 3, 99])
+def test_uniform_matches_jax(seed, shape):
+    tiny = float(np.finfo(np.float32).tiny)
+    for lo, hi in ((0.0, 1.0), (tiny, 1.0), (-2.0, 3.5)):
+        want = np.asarray(jax.random.uniform(jax.random.key(seed), shape,
+                                             minval=lo, maxval=hi))
+        got = threefry.uniform(threefry.key(seed), shape, lo, hi)
+        assert got.dtype == torch.float32
+        if hi - lo == 1.0:   # the draws generate makes: exact
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:   # XLA fuses ``u * (hi - lo) + lo`` into one rounding: the
+            # product's rounding, half an ulp of the range, is the gap
+            atol = float(np.spacing(np.float32(hi - lo)))
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(7,), (2, 32), (8, 4096)])
+@pytest.mark.parametrize("seed", [0, 7, 12345])
+def test_categorical_matches_jax(seed, shape):
+    logits = np.random.default_rng(seed).normal(0, 2, shape).astype(
+        np.float32)
+    # masked entries, as generate's nucleus filter leaves them
+    logits.reshape(-1)[::5] = -1e30
+    want = np.asarray(jax.random.categorical(jax.random.key(seed), logits))
+    got = threefry.categorical(threefry.key(seed), torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), want)

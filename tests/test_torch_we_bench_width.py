@@ -7,7 +7,7 @@ negatives, min_count 5, sample 1e-4) on ``data/realtext.txt.gz``. Each
 test makes the calls ``chip_smoke.py``'s ``we`` phase makes: a warm epoch
 and three more, one epoch a call, each call drawing its negatives afresh
 from the seed, as the JAX app does. At this width a rounding difference
-grows with every batch (ROADMAP.md C.2), so past the first batches the two
+grows with every batch (ROADMAP.md C.1), so past the first batches the two
 packages are held by their losses, each within its measured bound.
 """
 

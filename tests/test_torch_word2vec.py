@@ -429,7 +429,7 @@ def test_fused_shared_epoch_at_bench_width_matches_jax(realtext_pairs):
     batch, in another order than XLA's). The next 16 batches, chained,
     are held by their loss alone: each batch adds hundreds of updates
     into the frequent rows, and a rounding difference grows with every
-    batch (ROADMAP.md C.2)."""
+    batch (ROADMAP.md C.1)."""
     d, centers, contexts = realtext_pairs
     nb, b, k = 16, 16384, 256
     c = centers[: 2 * nb * b].reshape(2, nb, b)
