@@ -105,10 +105,16 @@ Phases, every one on every run, in this order:
             where they cross the socket) and within 1e-5 for AdaGrad;
             (b) WordEmbedding in two OS processes on this card
             (``examples/we_async.py``, -use_ps 1 -async_ps 1 at
-            bench.py:146-182's PS cell), on the real text and the 1M-token
-            synthetic corpus, 2 epochs (words/s per rank and summed, the
-            loss finite and falling, both ranks reading the same tables;
-            host ms by monitor; one more epoch profiled for the idle share),
+            bench.py:146-182's PS cell, in the reference's layout: every
+            rank sweeps every block with its deltas divided by the world,
+            the ranks meeting before each epoch after the warm one), on
+            the real text and the 1M-token synthetic corpus, a warm and a
+            measured epoch (words/s per rank and summed, the losses
+            finite, their mean over the ranks falling by at least 0.25%
+            of itself on the real text and 30% on the synthetic corpus
+            (half the least fall of either package), both ranks reading
+            the same tables and counting every rank's words; host ms by
+            monitor; one more epoch profiled for the idle share),
             then at world 1 the pipelined path with the train cache
             against the unpipelined, uncached oracle on 125,000 tokens
             (bench.py:361-375) within 4x the oracle's run-to-run spread;
@@ -140,6 +146,33 @@ Phases, every one on every run, in this order:
             472M LM in bf16, int8 and a beam of 4 (tokens/s, ms a step,
             peak memory, weight bytes). Each of the three phases counts
             its launches apart and launches no flash kernel
+13. ps_window the client send and get windows (``ps/tables.py``) on two
+            ranks in this process: 1-row adds window on vs off (p50 per
+            call, tools/bench_small_add.py), 1-row gets with the get
+            coalescer on vs off (p50/p99), 4 threads pulling at once (gets
+            per frame), a 120,000 x 8 bf16 get plain and chunk-streamed
+            (tools/bench_get_rows.py), and ps_async (a)'s 100,000 x 128
+            plane with the send window on and off (adds/s, shard sub-ops
+            and applies); every pair of arms equal bit for bit, the plane
+            against a numpy model
+14. serving DLRM train-while-serve (``apps/dlrm_serving.py``: the async
+            PS, ``serving/replica.py``'s ReadReplica with its hot-row cache
+            on the card, admission control): the card's first 4 train
+            steps (app and ``make_train_step``) against the CPU's, then (a)
+            tools/bench_serving.py's cell and (b) DLRM at the Criteo Kaggle
+            widths of facebookresearch/dlrm (26 fields capped at 1,000,000
+            rows, MLPs 13-512-256-64-16 and 512-256-1, batch 128), each
+            through the tool's calib, steady and overload phases: train
+            steps/s, write ms p50/p99 by phase, served QPS, infer
+            p50/p99/p999, staleness against the bound, shed rate,
+            deferred refreshes, the hot cache's hit rate against the
+            sketch's estimate; asserted: replica parity bit for bit, every
+            served read within the bound, overload sheds while the write
+            p50 degrades at most 2x, the loss falls; each part then 20
+            profiled train steps (the idle share); (b) also a timed
+            snapshot pull (which sets the cadence) and a pull of the
+            uncapped 33.76M-row table. Both phases count their launches
+            apart and launch no flash kernel
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -2572,9 +2605,16 @@ PSA_ADAGRAD = dict(learning_rate=0.5, rho=0.1)
 PSA_ADAGRAD_RTOL = 1e-5
 # (b) the product shape: two OS processes on this card, each a rank of
 # WordEmbedding on async tables (multiverso_tpu_torch/examples/we_async.py:
-# bench.py:146-182's PS cell, -use_ps 1 -async_ps 1, each rank training its
-# half of the blocks), on the real text and on the 1M-token synthetic
-# corpus, PSA_WE_EPOCHS epochs and one more under torch.profiler; then at world 1 in this process the
+# bench.py:146-182's PS cell, -use_ps 1 -async_ps 1, in the reference's
+# layout of tools/bench_we_async.py:125-155: -data_presplit 1, every rank
+# sweeping every block with its deltas divided by the world, the ranks
+# meeting at a barrier before every epoch after the warm one), on the
+# real text and on the 1M-token synthetic corpus, a warm epoch, then
+# PSA_WE_EPOCHS - 1 measured ones and one more under torch.profiler; each
+# rank's losses must be finite and the loss averaged over the ranks must
+# fall from the warm epoch to the last measured one by at least
+# PSA_WE_MIN_FALL of itself (a single rank's epoch mean rises now and then
+# in this layout, in both packages); then at world 1 in this process the
 # pipelined path with the hot-row train cache against the unpipelined,
 # uncached oracle (bench.py:361-375) on the first PSA_PARITY_TOKENS
 # synthetic tokens, within WE_PS_SPREAD_FACTOR times the oracle's own
@@ -2582,6 +2622,13 @@ PSA_ADAGRAD_RTOL = 1e-5
 # max |x|
 PSA_WE_EPOCHS = 2
 PSA_WE_CORPORA = ("realtext", "synthetic")
+# the least relative fall of the ranks' mean loss, warm epoch -> last
+# measured: half the smallest fall seen in this layout, rounded down, over
+# world-2 runs of the JAX package on the CPU
+# (tests/we_async_layout_losses.py: 16 runs 0.0053-0.0584 on the real
+# text, 8 runs 0.693-0.701 on the synthetic corpus) and 12 runs of this
+# part alone on an H100 (0.0116-0.0922 and 0.648-0.702)
+PSA_WE_MIN_FALL = {"realtext": 0.0025, "synthetic": 0.3}
 PSA_WE_TOKENS = 0             # 0: each corpus whole
 PSA_PARITY_TOKENS = 125_000   # bench.py:362: max(30,000, 1M // 8)
 PSA_WE_TIMEOUT = 400
@@ -2743,8 +2790,9 @@ def psa_we_world2(dev) -> dict:
     """Part (b), the product shape: for each corpus, two processes of
     ``examples/we_async.py`` (ranks 0 and 1 of one rendezvous directory)
     on this card; their RESULT lines: words/s per rank and summed, the
-    loss of each epoch (finite and falling), the same tables on both
-    ranks, every rank's words counted."""
+    loss of each epoch (finite; the mean over the ranks falling by at
+    least ``PSA_WE_MIN_FALL`` of itself), the
+    same tables on both ranks, every rank's words counted."""
     import json
     import os
     import tempfile
@@ -2806,16 +2854,38 @@ def psa_we_world2(dev) -> dict:
                    if prof["busy_ms"] else
                    "; device time not measured (the profiler saw no device "
                    "activity)"))
-            if not (np.isfinite(losses).all() and losses[-1] < losses[0]
-                    and res["emb_finite"]):
+            if not (np.isfinite(losses).all() and res["emb_finite"]):
                 raise AssertionError(f"ps_async WE rank {res['rank']} "
                                      f"({corpus}) did not train: {losses}")
+        # convergence: the loss averaged over the ranks falls by at least
+        # PSA_WE_MIN_FALL of itself from the warm epoch to the last
+        # measured one. A single rank's epoch mean is noisier than that:
+        # in this layout one rank's loss rose in 3 of 12 runs on an H100
+        # (2.7178 -> 2.7473, 2.3472 -> 2.3954, 2.3993 -> 2.4116) and in 1
+        # of 16 runs of the JAX package on the CPU (2.7574 -> 2.7764)
+        warm = float(np.mean([r["epochs"][0]["loss"] for r in results]))
+        last = float(np.mean([r["epochs"][-1]["loss"] for r in results]))
+        fall = (warm - last) / warm
+        log(f"ps_async WE world 2, {corpus}: loss averaged over the ranks "
+            f"{warm:.6f} (warm epoch) -> {last:.6f} (last measured), a "
+            f"relative fall of {fall:.4f} (at least "
+            f"{PSA_WE_MIN_FALL[corpus]})")
+        if not fall >= PSA_WE_MIN_FALL[corpus]:
+            raise AssertionError(
+                f"ps_async WE ({corpus}) did not train: the ranks' mean loss "
+                f"{warm:.6f} -> {last:.6f}, a relative fall of {fall:.4f} "
+                f"(at least {PSA_WE_MIN_FALL[corpus]})")
         r0, r1 = results
+        # every rank sweeps every block of every epoch (the measured ones
+        # and the profiled one): the word counter aggregates all of them
+        words = len(results) * (PSA_WE_EPOCHS + 1) * r0["tokens"]
         if not (r0["emb_sha"] == r1["emb_sha"]
                 and r0["total_word_count"] == r1["total_word_count"]
-                == (PSA_WE_EPOCHS + 1) * r0["tokens"]):
-            raise AssertionError(f"ps_async WE ({corpus}): the ranks "
-                                 "disagree on the tables or the word count")
+                == words):
+            raise AssertionError(
+                f"ps_async WE ({corpus}): the ranks disagree on the tables "
+                f"or the word count ({r0['total_word_count']}, "
+                f"{r1['total_word_count']}; expected {words})")
         log(f"ps_async WE world 2, {corpus}: words/s summed over the ranks "
             f"per epoch {[round(w) for w in per_epoch]}; both ranks read "
             f"the same tables (sha {r0['emb_sha'][:12]}) and count "
@@ -3559,6 +3629,845 @@ def phase_decode(dev) -> dict:
     return out
 
 
+# ps_window: the client send and get windows (ps/tables._SendWindow,
+# _GetWindow) on the port's plane on the card, the counterparts of
+# tools/bench_small_add.py and tools/bench_get_rows.py: two ranks in this
+# process over a FileRendezvous and loopback TCP, every op to the REMOTE
+# rank's rows, each arm's timed loop run apart (the JAX tools' rule:
+# interleaving per call lets one arm's serve threads pollute the other's
+# p50) and the arms alternated over two passes, the same ids and values
+# to both; a number is kept only when both arms' tables agree bit for bit.
+# (a) 1-row adds, window 2 ms (bench_small_add.py:79-91): p50 per call;
+# (b) 1-row gets with the get coalescer (bench_get_rows.py): p50/p99,
+# then 4 threads pulling at once (the fan-in dedupe: gets per frame), and
+# a 120,000 x 8 bf16 get plain and chunk-streamed; (c) ps_async part (a)'s
+# plane (100,000 x 128 f32, 2 ranks, 1,024-row adds) with and without the
+# send window: each rank adds a new set of its own rows each call (rows
+# that no other add in flight touches, so a window may merge them), in
+# bursts of PSA_DEPTH adds, then waits for the burst (a wait fences the
+# window); with the window a burst leaves as one frame an owner (its 4 x
+# 256 KB reach batch_window_bytes' 1 MiB); adds/s, the shards' sub-ops
+# and applies against the adds, and each rank's full Get against a numpy
+# model bit for bit
+PSW_SMALL = (1024, 32)
+PSW_SMALL_ITERS = 400
+PSW_GET = (4096, 32)
+PSW_GET_ITERS = 300
+PSW_FAN_THREADS = 4
+PSW_BIG = (120_000, 8)
+PSW_WINDOW_MS = 2.0
+PSW_PLANE_SETS = 48           # disjoint 1,024-row sets a rank rotates
+
+
+def psw_world(dev):
+    """Two PSContexts on ``dev`` over a fresh rendezvous directory."""
+    import tempfile
+    from multiverso_tpu_torch.ps.service import (FileRendezvous, PSContext,
+                                                 PSService)
+    tmp = tempfile.TemporaryDirectory()
+    rdv = FileRendezvous(tmp.name)
+    return tmp, [PSContext(r, 2, PSService(r, 2, rdv), device=dev)
+                 for r in range(2)]
+
+
+def psw_pair(ctxs, rows, cols, name, **kw):
+    """The table on rank 0 (the client) and its shard on rank 1."""
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    peer_kw = {k: v for k, v in kw.items()
+               if k not in ("send_window_ms", "get_window_ms")}
+    return (AsyncMatrixTable(rows, cols, name=name, ctx=ctxs[0], **kw),
+            AsyncMatrixTable(rows, cols, name=name, ctx=ctxs[1], **peer_kw))
+
+
+def psw_small_add(ctxs) -> dict:
+    rows, cols = PSW_SMALL
+    t_off, _ = psw_pair(ctxs, rows, cols, "psw_add_off")
+    t_on, _ = psw_pair(ctxs, rows, cols, "psw_add_on",
+                       send_window_ms=PSW_WINDOW_MS)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(rows // 2, rows, PSW_SMALL_ITERS)
+    vals = rng.normal(size=(PSW_SMALL_ITERS, 1, cols)).astype(np.float32)
+    for t in (t_off, t_on):   # warm the conns and the shard's update
+        for i in range(32):
+            t.add_rows_async([ids[i]], vals[i])
+        t.flush()
+
+    def arm(table):
+        samples = []
+        for i in range(PSW_SMALL_ITERS):
+            t0 = time.perf_counter()
+            table.add_rows_async([ids[i]], vals[i])
+            samples.append(time.perf_counter() - t0)
+            if (i + 1) % 50 == 0:
+                table.flush()
+        table.flush()
+        return np.asarray(samples) * 1e3
+
+    passes = []
+    for order in ((t_on, t_off), (t_off, t_on)):
+        got = {id(t): arm(t) for t in order}
+        passes.append({"on_p50_ms": float(np.percentile(got[id(t_on)], 50)),
+                       "off_p50_ms": float(np.percentile(got[id(t_off)],
+                                                         50))})
+    if not np.array_equal(t_on.get(), t_off.get()):
+        raise AssertionError("ps_window: the window-on table diverged from "
+                             "the window-off table under the same adds")
+    best = max(passes, key=lambda p: p["off_p50_ms"] / p["on_p50_ms"])
+    snap = {k: dash_count(f"table[psw_add_on].add_rows.{k}")
+            for k in ("windowed", "flushes", "merged_rows")}
+    log(f"ps_window small adds (1 row of {cols} f32, {PSW_SMALL_ITERS} a "
+        f"pass, 2 passes): p50 per call window on "
+        + ", ".join(f"{p['on_p50_ms']:.4f}" for p in passes)
+        + " ms, off " + ", ".join(f"{p['off_p50_ms']:.4f}" for p in passes)
+        + f" ms (best speedup {best['off_p50_ms'] / best['on_p50_ms']:.2f}"
+        f"x); window counters {snap}; the two tables equal bit for bit")
+    return {"passes": passes, "counters": snap}
+
+
+def psw_small_get(ctxs) -> dict:
+    import threading
+    rows, cols = PSW_GET
+    rng = np.random.default_rng(7)
+    init = rng.normal(size=(rows, cols)).astype(np.float32)
+    t_off, _ = psw_pair(ctxs, rows, cols, "psw_get_off", init=init)
+    t_on, _ = psw_pair(ctxs, rows, cols, "psw_get_on", init=init,
+                       get_window_ms=PSW_WINDOW_MS)
+    ids = rng.integers(rows // 2, rows, PSW_GET_ITERS)
+    for i in rng.integers(rows // 2, rows, 32):
+        t_off.get_rows([i])
+        t_on.get_rows([i])
+
+    def serial(table):
+        samples, last = [], None
+        for i in range(PSW_GET_ITERS):
+            t0 = time.perf_counter()
+            last = table.get_rows([ids[i]])
+            samples.append(time.perf_counter() - t0)
+        return np.asarray(samples) * 1e3, last
+
+    on_ms, on_last = serial(t_on)
+    off_ms, off_last = serial(t_off)
+    if not (np.array_equal(on_last, off_last) and np.array_equal(
+            t_on.get_rows(np.arange(rows)), t_off.get_rows(np.arange(rows)))):
+        raise AssertionError("ps_window: the get coalescer returned other "
+                             "bytes than the plain get")
+    fetch0 = dash_count("table[psw_get_on].get_rows.fetches")
+    win0 = dash_count("table[psw_get_on].get_rows.windowed")
+    fan_iters = max(PSW_GET_ITERS // 4, 25)
+
+    def fan(table):
+        errs = []
+
+        def run(seed):
+            r = np.random.default_rng(seed)
+            try:
+                for _ in range(fan_iters):
+                    want = r.integers(rows // 2, rows, 4)
+                    if not np.array_equal(table.get_rows(want), init[want]):
+                        errs.append(AssertionError("a fan-in get returned "
+                                                   "other rows"))
+            except Exception as e:   # noqa: BLE001 — raised after the join
+                errs.append(e)
+
+        ths = [threading.Thread(target=run, args=(s,))
+               for s in range(PSW_FAN_THREADS)]
+        t0 = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=120)
+            if th.is_alive():
+                raise AssertionError("ps_window: a fan-in getter hung")
+        if errs:
+            raise errs[0]
+        return time.perf_counter() - t0
+
+    fan_on = fan(t_on)
+    fan_off = fan(t_off)
+    gets = dash_count("table[psw_get_on].get_rows.windowed") - win0
+    frames = dash_count("table[psw_get_on].get_rows.fetches") - fetch0
+    big_rows, big_cols = PSW_BIG
+    t_big, _ = psw_pair(ctxs, big_rows, big_cols, "psw_big", wire="bf16")
+    t_big.set_rows(np.arange(big_rows), rng.normal(
+        size=PSW_BIG).astype(np.float32))
+    all_ids = np.arange(big_rows)
+
+    def timed_big():
+        t0 = time.perf_counter()
+        got = t_big.get_rows(all_ids)
+        return (time.perf_counter() - t0) * 1e3, got
+
+    from multiverso_tpu_torch.utils import config
+    timed_big()
+    plain = [timed_big() for _ in range(3)]
+    config.set_flag("get_chunk_rows", max(big_rows // 8, 256))
+    try:
+        chunked = [timed_big() for _ in range(3)]
+    finally:
+        config.set_flag("get_chunk_rows", 0)
+    if not all(np.array_equal(g, plain[0][1]) for _, g in plain + chunked):
+        raise AssertionError("ps_window: the chunk-streamed get differs from "
+                             "the one-frame get")
+    out = {"on_p50_ms": float(np.percentile(on_ms, 50)),
+           "on_p99_ms": float(np.percentile(on_ms, 99)),
+           "off_p50_ms": float(np.percentile(off_ms, 50)),
+           "off_p99_ms": float(np.percentile(off_ms, 99)),
+           "fan_gets": gets, "fan_frames": frames,
+           "fan_dedupe": gets / max(frames, 1),
+           "fan_on_s": fan_on, "fan_off_s": fan_off,
+           "big_plain_ms": min(ms for ms, _ in plain),
+           "big_chunked_ms": min(ms for ms, _ in chunked)}
+    log(f"ps_window small gets (1 row of {cols} f32, {PSW_GET_ITERS} each): "
+        f"window on p50 {out['on_p50_ms']:.4f} ms, p99 "
+        f"{out['on_p99_ms']:.4f} ms; off p50 {out['off_p50_ms']:.4f} ms, p99 "
+        f"{out['off_p99_ms']:.4f} ms; {PSW_FAN_THREADS} threads x "
+        f"{fan_iters} gets of 4 rows: {gets} gets in {frames} frames "
+        f"(dedupe {out['fan_dedupe']:.2f}), {fan_on:.3f} s on vs "
+        f"{fan_off:.3f} s off; {big_rows} x {big_cols} bf16 get "
+        f"{out['big_plain_ms']:.3f} ms plain, {out['big_chunked_ms']:.3f} ms "
+        f"chunk-streamed (min of 3); every reply equal bit for bit")
+    return out
+
+
+def psw_plane(ctxs) -> dict:
+    """ps_async part (a)'s config with the send window on and off."""
+    import threading
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    rows, cols = PSA_TABLE
+    sets = [[((np.arange(PSA_BATCH) * 2 + r) + 2 * PSA_BATCH * k) % rows
+             for k in range(PSW_PLANE_SETS)] for r in range(2)]
+    rng = np.random.default_rng(3)
+    vals = [(rng.normal(size=(PSA_BATCH, cols)) * 0.01).astype(np.float32)
+            for _ in range(2)]
+    out = {}
+    for label, wm in (("window on", PSW_WINDOW_MS), ("window off", 0.0)):
+        name = "psw_plane_" + label.split()[1]
+        ts = [AsyncMatrixTable(rows, cols, name=name, ctx=c,
+                               send_window_ms=wm) for c in ctxs]
+        for r in range(2):   # warm
+            ts[r].add_rows(sets[r][0], vals[r])
+        counts = [1, 1]
+
+        def client(r):
+            t_end = time.perf_counter() + PSA_SECONDS
+            k = 1
+            while time.perf_counter() < t_end:
+                mids = []
+                for _ in range(PSA_DEPTH):
+                    mids.append(ts[r].add_rows_async(
+                        sets[r][k % PSW_PLANE_SETS], vals[r]))
+                    k += 1
+                for m in mids:
+                    ts[r].wait(m)
+            counts[r] = k
+
+        t0 = time.perf_counter()
+        th = [threading.Thread(target=client, args=(r,)) for r in range(2)]
+        for t in th:
+            t.start()
+        for t in th:
+            t.join(timeout=PSA_SECONDS + 120)
+            if t.is_alive():
+                raise AssertionError(f"ps_window plane ({label}): a client "
+                                     "did not finish")
+        dt = time.perf_counter() - t0
+        model = np.zeros(PSA_TABLE, np.float32)
+        for r in range(2):
+            for k in range(counts[r]):
+                model[sets[r][k % PSW_PLANE_SETS]] += vals[r]
+        for r in range(2):
+            if not np.array_equal(ts[r].get(), model):
+                raise AssertionError(f"ps_window plane ({label}): rank {r}'s "
+                                     "full Get differs from the numpy model")
+        shards = [t._shard.stats() for t in ts]
+        adds = sum(counts) - 2
+        res = {"adds_per_sec": adds / dt, "adds": adds,
+               "shard_adds": [s["adds"] for s in shards],
+               "applies": [s["applies"] for s in shards],
+               "frames": dash_count(f"table[{name}].add_rows.flushes"),
+               "merged_rows": dash_count(
+                   f"table[{name}].add_rows.merged_rows")}
+        log(f"ps_window plane, {label} ({rows:,} x {cols} f32, "
+            f"{PSA_BATCH}-row adds from both ranks for {PSA_SECONDS} s, "
+            f"bursts of {PSA_DEPTH}): {adds} adds in {dt:.3f} s, "
+            f"{res['adds_per_sec']:.1f} adds/s; shard sub-ops "
+            f"{res['shard_adds']} in {res['applies']} applies; window "
+            f"frames {res['frames']}, merged rows {res['merged_rows']}; "
+            f"both ranks' full Gets equal the numpy model bit for bit")
+        out[label] = res
+        del ts, model
+    return out
+
+
+def phase_ps_window(dev) -> dict:
+    t0 = time.perf_counter()
+    tmp, ctxs = psw_world(dev)
+    try:
+        out = {"small_add": psw_small_add(ctxs),
+               "small_get": psw_small_get(ctxs),
+               "plane": psw_plane(ctxs)}
+    finally:
+        for c in ctxs:
+            c.close()
+        tmp.cleanup()
+    log(f"ps_window phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# serving: DLRM train-while-serve (apps/dlrm_serving.py over the async
+# PS, serving/replica.py, serving/admission.py; no kernel of the port:
+# autograd's GEMMs, gathers and index ops), the counterpart of
+# tools/bench_serving.py: two ranks in this process over a FileRendezvous
+# and loopback TCP, the embedding table sharded over both on the card, the
+# replica's snapshot on the host and its hot-row cache on the card;
+# training threads push AdaGrad row gradients through blocking adds (the
+# protected write latency) while inference threads read the replica with
+# field 0 on a zipf(1.2) head through ONE shared permutation (the
+# training samples' field 0 rides the same head, so the shards' sketch
+# ranks the keys inference hits). Phases: calib (unpaced, no admission:
+# the loaded rate), steady (paced at 0.95 of an admission limit of 0.3 x
+# the loaded rate), overload (unpaced: far over the limit). Asserted, as
+# the tool asserts (bench_serving.py:341-414): every served read's age <=
+# the bound; after the writes quiesce and one refresh, every row through
+# the replica equals the shards' own, bit for bit; overload sheds (> 0)
+# while the training write p50 degrades at most 2x its steady value; and
+# the loss falls over the run (the last 16 steps' mean below the first
+# 16's).
+# (a) the tool's own cell (bench_serving.py:62-71, :122-267): vocab
+# (4096, 1024, 256, 64), embed 16, dense 8, bottom (32, 16), top (16, 1),
+# AdaGrad lr 0.05, cache 128 rows, refresh 0.2 s, bound 1.0 s,
+# hotkeys_capacity 1024, serving_snapshot_chunk_rows 2048, 2 train
+# threads at batch 64, 4 infer threads at batch 16, 10 s (calib 1 s,
+# steady and overload 5 s each).
+# (b) DLRM at the published widths of facebookresearch/dlrm's Criteo
+# Kaggle configuration (bench/dlrm_s_criteo_kaggle.sh): 26 categorical
+# fields of the Kaggle set's row counts capped at 1,000,000 a field (the
+# script's own --max-ind-range; 5,569,296 of 33,762,577 rows: the cap
+# is forced by the run's time, since at full rows one snapshot is 2.16 GB
+# through the Python wire), --arch-sparse-feature-size=16, 13 dense
+# features, --arch-mlp-bot=13-512-256-64-16, --arch-mlp-top=512-256-1,
+# train batch 128, f32, AdaGrad; refresh = max(0.2, 2P) and bound =
+# max(1.0, 4P) from one timed snapshot pull P; the same traffic shape as
+# (a); and, time allowing, one pull of the uncapped table. After each
+# part's traffic, 20 train steps on one thread under the profiler (the
+# replica's refresh stopped) give the device's busy time.
+# Card vs CPU: the first SERVE_CPU_STEPS DLRMServing.train_steps at (a)'s
+# config, single-threaded, from the same start (the loss within 1e-5
+# relative, the table and the MLP within 1e-5 of max |x|), and
+# models/dlrm.make_train_step on MatrixTable + ArrayTable the same way.
+SERVE_A = dict(vocab_sizes=(4096, 1024, 256, 64), embed_dim=16,
+               dense_dim=8, bottom_mlp=(32, 16), top_mlp=(16, 1))
+SERVE_KAGGLE_ROWS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                     93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10,
+                     5652, 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+SERVE_ROW_CAP = 1_000_000     # dlrm_s_criteo_kaggle.sh --max-ind-range
+SERVE_B = dict(vocab_sizes=tuple(min(v, SERVE_ROW_CAP)
+                                 for v in SERVE_KAGGLE_ROWS),
+               embed_dim=16, dense_dim=13, bottom_mlp=(512, 256, 64, 16),
+               top_mlp=(512, 256, 1))
+SERVE_LR = 0.05
+SERVE_CACHE_ROWS = 128
+SERVE_REFRESH_S = 0.2
+SERVE_BOUND_S = 1.0
+SERVE_HOTKEYS = 1024
+SERVE_CHUNK_ROWS = 2048
+SERVE_ZIPF = 1.2
+SERVE_SHED_BACKOFF_S = 0.005
+SERVE_TRAIN = (2, 64)         # threads, batch
+SERVE_TRAIN_B = (2, 128)
+SERVE_INFER = (4, 16)
+SERVE_SECONDS = 10.0
+SERVE_SAMPLES = 8192
+SERVE_PROFILE_STEPS = 20
+SERVE_CPU_STEPS = 4
+SERVE_CPU_RTOL = 1e-5
+SERVE_FULL_PULL_BUDGET_S = 150.0   # pull the uncapped table only below
+SERVE_PHASES = ("calib", "steady", "overload")
+
+
+def serve_zipf(rng, n: int, perm: np.ndarray):
+    """Bounded zipf over [0, n) through the shared rank -> id
+    permutation (bench_serving.py:_zipf_sampler's distribution). It draws
+    through a CDF built once, where the tool's ``rng.choice(n, p=p)``
+    rebuilds and checks the CDF on every call (75 us against 7 us for 16
+    ids of 4,096 on a CPU): the load generator runs in the trainer's
+    process, and its own cost is not the serving plane's."""
+    cdf = np.cumsum(1.0 / np.arange(1, n + 1, dtype=np.float64)
+                    ** SERVE_ZIPF)
+    cdf /= cdf[-1]
+
+    def sample(size: int) -> np.ndarray:
+        return perm[np.minimum(np.searchsorted(cdf, rng.random(size),
+                                               side="right"), n - 1)]
+
+    return sample
+
+
+def serve_pct(samples, q):
+    return float(np.percentile(np.asarray(samples), q)) if samples else None
+
+
+def serve_world(dev, name: str, cfg, refresh_s: float, bound_s: float,
+                start: bool = True):
+    """The app on rank 0, the table's other shard on rank 1, the data."""
+    from multiverso_tpu_torch.apps.dlrm_serving import DLRMServing
+    from multiverso_tpu_torch.models import dlrm
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    tmp, ctxs = psw_world(dev)
+    app = DLRMServing(cfg, ctx=ctxs[0], name=name, lr=SERVE_LR,
+                      cache_rows=SERVE_CACHE_ROWS, refresh_s=refresh_s,
+                      staleness_s=bound_s, start_replica=start)
+    peer = AsyncMatrixTable(dlrm.total_rows(cfg), cfg.embed_dim,
+                            updater="adagrad", seed=0, init_scale=0.05,
+                            name=app.emb.name, ctx=ctxs[1])
+    cat, dense, labels = dlrm.synthetic_ctr(cfg, SERVE_SAMPLES, seed=2)
+    perm = np.random.default_rng(13).permutation(cfg.vocab_sizes[0])
+    cat[:, 0] = serve_zipf(np.random.default_rng(11), cfg.vocab_sizes[0],
+                           perm)(len(cat))
+    return {"tmp": tmp, "ctxs": ctxs, "app": app, "peer": peer,
+            "data": (cat, dense, labels), "perm": perm, "cfg": cfg}
+
+
+def serve_close(w) -> None:
+    w["app"].close()
+    for c in w["ctxs"]:
+        c.close()
+    w["tmp"].cleanup()
+
+
+def serve_traffic(label: str, w, train: tuple, bound_s: float) -> dict:
+    """bench_serving.py's three phases over ``w``; the contract checks."""
+    import threading
+    from multiverso_tpu_torch.serving.admission import SheddingError
+    from multiverso_tpu_torch.telemetry import hotkeys
+    app, cfg = w["app"], w["cfg"]
+    cat, dense, labels = w["data"]
+    table = app.emb.name
+    train_threads, bs = train
+    infer_threads, ib = SERVE_INFER
+    app.train_step(cat[:bs], dense[:bs], labels[:bs])   # warm
+    app.replica.refresh()
+    app.infer(cat[:ib], dense[:ib])
+    stop = threading.Event()
+    ctl = {"phase": "calib", "pace": 0.0}
+    results, losses = [], []
+
+    def train_worker(j):
+        r = np.random.default_rng(100 + j)
+        my = {"write_ms": {p: [] for p in SERVE_PHASES}, "errors": []}
+        results.append(my)
+        while not stop.is_set():
+            idx = r.integers(0, len(labels), bs)
+            try:
+                loss, ms = app.train_step(cat[idx], dense[idx], labels[idx])
+            except Exception as e:   # noqa: BLE001 — counted, raised below
+                my["errors"].append(repr(e))
+                continue
+            losses.append(loss)
+            my["write_ms"][ctl["phase"]].append(ms)
+
+    def infer_worker(j):
+        r = np.random.default_rng(200 + j)
+        zipf = serve_zipf(np.random.default_rng(300 + j), cfg.vocab_sizes[0],
+                          w["perm"])
+        my = {"lat_ms": {p: [] for p in SERVE_PHASES},
+              "served": {p: 0 for p in SERVE_PHASES},
+              "shed": {p: 0 for p in SERVE_PHASES},
+              "age_max": 0.0, "errors": []}
+        results.append(my)
+        highs = np.asarray(cfg.vocab_sizes[1:], np.int64)
+        next_t = time.perf_counter()
+        while not stop.is_set():
+            c = np.column_stack([zipf(ib), r.integers(0, highs,
+                                                      (ib, highs.size))])
+            ids = app._ids(c)
+            ph = ctl["phase"]
+            t0 = time.perf_counter()
+            try:
+                _rows, age = app.replica.get_rows(ids, with_age=True)
+            except SheddingError:
+                my["shed"][ph] += 1
+                time.sleep(SERVE_SHED_BACKOFF_S)
+                continue
+            except Exception as e:   # noqa: BLE001
+                my["errors"].append(repr(e))
+                continue
+            my["lat_ms"][ph].append((time.perf_counter() - t0) * 1e3)
+            my["served"][ph] += 1
+            my["age_max"] = max(my["age_max"], age)
+            if my["served"][ph] % 64 == 0:
+                # now and then the whole app path: rows -> forward -> scores
+                try:
+                    app.infer(c, dense[:ib])
+                except SheddingError:
+                    my["shed"][ph] += 1
+                except Exception as e:   # noqa: BLE001
+                    my["errors"].append(repr(e))
+            pace = ctl["pace"]
+            if pace > 0 and ph == "steady":
+                next_t = max(next_t + pace, time.perf_counter() - pace)
+                dt = next_t - time.perf_counter()
+                if dt > 0:
+                    time.sleep(dt)
+
+    threads = [threading.Thread(target=train_worker, args=(j,), daemon=True)
+               for j in range(train_threads)]
+    threads += [threading.Thread(target=infer_worker, args=(j,),
+                                 daemon=True) for j in range(infer_threads)]
+    calib_s = 1.0
+    steady_s = overload_s = max(SERVE_SECONDS * 0.5, 2.0)
+    for th in threads:
+        th.start()
+    time.sleep(calib_s)
+    calib_served = sum(my["served"]["calib"] for my in results
+                       if "served" in my)
+    loaded_qps = max(calib_served / calib_s, 50.0)
+    limit_qps = loaded_qps * 0.3
+    app.admission.set_limit(table, "infer", limit_qps,
+                            burst=max(limit_qps * 0.1, 2.0))
+    ctl["pace"] = infer_threads / (limit_qps * 0.95)
+    ctl["phase"] = "steady"
+    time.sleep(steady_s)
+    rs0 = app.replica.stats()
+    ctl["pace"] = 0.0
+    ctl["phase"] = "overload"
+    time.sleep(overload_s)
+    stop.set()
+    for th in threads:
+        th.join(timeout=120)
+        if th.is_alive():
+            raise AssertionError(f"serving {label}: a worker did not stop")
+    rs1 = app.replica.stats()
+    dh = rs1["cache_hits"] - rs0["cache_hits"]
+    dm = rs1["cache_misses"] - rs0["cache_misses"]
+    train_ms = {p: [] for p in SERVE_PHASES}
+    infer_ms = {p: [] for p in SERVE_PHASES}
+    served = {p: 0 for p in SERVE_PHASES}
+    shed = {p: 0 for p in SERVE_PHASES}
+    age_max, errors = 0.0, []
+    for my in results:
+        errors += my["errors"]
+        if "write_ms" in my:
+            for p in SERVE_PHASES:
+                train_ms[p] += my["write_ms"][p]
+        else:
+            for p in SERVE_PHASES:
+                infer_ms[p] += my["lat_ms"][p]
+                served[p] += my["served"][p]
+                shed[p] += my["shed"][p]
+            age_max = max(age_max, my["age_max"])
+    if errors:
+        raise AssertionError(f"serving {label}: {len(errors)} worker "
+                             f"errors, first {errors[0]}")
+    # parity at the shards' final version: writes quiesced, one refresh
+    app.emb.flush()
+    app.replica.refresh()
+    direct = app.emb.get()
+    via = app.replica.get_rows(np.arange(app.emb.num_row), cls="train")
+    parity = bool(np.array_equal(direct, via))
+    rep = app.replica.stats()
+    versions = {str(r): app.emb.server_stats(r)["shards"][table]["version"]
+                for r in (0, 1)}
+    sketches = [app.emb.server_stats(r)["shards"][table].get("hotkeys")
+                for r in (0, 1)]
+    merged = hotkeys.merge_sketches(sketches)
+    k, items = rep["cache_rows"], merged.get("items", [])
+    total = merged.get("total") or 0
+    est_hi = sum(c for _, c, _ in items[:k]) / total if k and total else None
+    est_lo = (sum(max(c - e, 0) for _, c, e in items[:k]) / total
+              if k and total else None)
+    measured = dh / (dh + dm) if dh + dm else None
+    all_infer = infer_ms["steady"] + infer_ms["overload"]
+    p50_s, p50_o = (serve_pct(train_ms["steady"], 50),
+                    serve_pct(train_ms["overload"], 50))
+    degradation = p50_o / p50_s if p50_s and p50_o else None
+    demand = served["overload"] + shed["overload"]
+    out = {
+        "train_steps": len(losses),
+        "train_steps_per_s": len(losses) / (calib_s + steady_s + overload_s),
+        "examples_per_s": len(losses) * bs / (calib_s + steady_s
+                                               + overload_s),
+        "train_write_ms": {p: {"p50": serve_pct(train_ms[p], 50),
+                               "p99": serve_pct(train_ms[p], 99)}
+                           for p in SERVE_PHASES},
+        "loaded_qps": loaded_qps, "limit_qps": limit_qps,
+        "served_qps_steady": served["steady"] / steady_s,
+        "served_qps_overload": served["overload"] / overload_s,
+        "infer_p50_ms": serve_pct(all_infer, 50),
+        "infer_p99_ms": serve_pct(all_infer, 99),
+        "infer_p999_ms": serve_pct(all_infer, 99.9),
+        "staleness_max_s": age_max, "bound_s": bound_s,
+        "shed": shed, "shed_rate_overload": (shed["overload"] / demand
+                                             if demand else 0.0),
+        "degradation_x": degradation,
+        "deferred": rep["deferred"], "unchanged_pulls": rep["unchanged_pulls"],
+        "epochs": rep["epoch"], "refresh_ms": rep["refresh_ms"],
+        "cache_measured": measured, "cache_estimate": est_hi,
+        "cache_estimate_lower": est_lo,
+        "hit_rate_curve": hotkeys.hit_rate_curve(merged),
+        "loss_first": float(np.mean(losses[:16])),
+        "loss_last": float(np.mean(losses[-16:])),
+        "parity": parity,
+        "versions_match": all(rep["versions"].get(r) == v
+                              for r, v in versions.items()),
+    }
+    wm = out["train_write_ms"]
+    log(f"serving {label} on {card_label()}: {out['train_steps']} train "
+        f"steps ({out['train_steps_per_s']:.1f} steps/s, "
+        f"{out['examples_per_s']:.0f} examples/s) on {train_threads} "
+        f"threads; write ms p50/p99 calib {wm['calib']['p50']:.3f}/"
+        f"{wm['calib']['p99']:.3f}, steady {wm['steady']['p50']:.3f}/"
+        f"{wm['steady']['p99']:.3f}, overload {wm['overload']['p50']:.3f}/"
+        f"{wm['overload']['p99']:.3f} (p50 x{degradation:.3f} under "
+        f"overload)")
+    log(f"serving {label} on {card_label()}: loaded rate {loaded_qps:.1f} "
+        f"QPS, limit "
+        f"{limit_qps:.1f}; served {out['served_qps_steady']:.1f} QPS steady, "
+        f"{out['served_qps_overload']:.1f} overload; infer p50/p99/p999 "
+        f"{out['infer_p50_ms']:.4f}/{out['infer_p99_ms']:.4f}/"
+        f"{out['infer_p999_ms']:.4f} ms; staleness max {age_max:.4f} s "
+        f"(bound {bound_s:.3f} s); shed {shed} (overload rate "
+        f"{out['shed_rate_overload']:.4f}); deferred refreshes "
+        f"{rep['deferred']}, unchanged pulls {rep['unchanged_pulls']}, "
+        f"{rep['epoch']} epochs (last pull {rep['refresh_ms']:.3f} ms)")
+    log(f"serving {label}: hot cache ({k} rows) measured hit rate "
+        + (f"{measured:.4f}" if measured is not None else "none")
+        + " against the sketch's estimate "
+        + (f"{est_hi:.4f} (lower {est_lo:.4f})" if est_hi is not None
+           else "none")
+        + f"; loss {out['loss_first']:.4f} (first 16) -> "
+        f"{out['loss_last']:.4f} (last 16); replica parity bit for bit "
+        f"{parity}, versions {versions} (match {out['versions_match']})")
+    if not (parity and out["versions_match"]):
+        raise AssertionError(f"serving {label}: the replica's rows differ "
+                             "from the shards'")
+    if not age_max <= bound_s:
+        raise AssertionError(f"serving {label}: a read served data "
+                             f"{age_max:.4f} s old, over the bound")
+    if not (shed["overload"] > 0 and degradation is not None
+            and degradation <= 2.0):
+        raise AssertionError(f"serving {label}: the overload contract "
+                             f"failed (shed {shed}, degradation "
+                             f"{degradation})")
+    if not (np.isfinite(losses).all()
+            and out["loss_last"] < out["loss_first"]):
+        raise AssertionError(f"serving {label}: the loss did not fall")
+    return out
+
+
+def dlrm_group(name: str) -> str:
+    low = name.lower()
+    return ("matmul" if any(t in low for t in ("gemm", "nvjet", "cutlass",
+                                               "sm90_xmma", "bmm")) else
+            "gather/scatter/index" if any(t in low for t in (
+                "index", "gather", "scatter")) else
+            "elementwise/reduce/copy")
+
+
+def serve_card_vs_cpu(dev) -> dict:
+    """The first SERVE_CPU_STEPS steps on the card and on the CPU from one
+    start: DLRMServing.train_step (world 1) and make_train_step."""
+    from multiverso_tpu_torch.apps.dlrm_serving import DLRMServing
+    from multiverso_tpu_torch.models import dlrm
+    from multiverso_tpu_torch.ps.service import PSContext, PSService
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.updaters import AddOption
+    cfg = dlrm.DLRMConfig(**SERVE_A)
+    cat, dense, labels = dlrm.synthetic_ctr(cfg, SERVE_CPU_STEPS * 64,
+                                            seed=5)
+
+    def app_run(device):
+        ctx = PSContext(0, 1, PSService(0, 1), device=device)
+        try:
+            app = DLRMServing(cfg, ctx=ctx, name="serve_cpu", lr=SERVE_LR,
+                              start_replica=False)
+            losses = [app.train_step(cat[i * 64:(i + 1) * 64],
+                                     dense[i * 64:(i + 1) * 64],
+                                     labels[i * 64:(i + 1) * 64])[0]
+                      for i in range(SERVE_CPU_STEPS)]
+            flat, _ = dlrm.flatten_mlp(app.mlp)
+            out = (np.asarray(losses), app.emb.get(), flat)
+            app.close()
+            return out
+        finally:
+            ctx.close()
+
+    def step_run():
+        emb = mv.MatrixTable(dlrm.total_rows(cfg), cfg.embed_dim,
+                             updater="adagrad", seed=0, init_scale=0.05,
+                             name="serve_step_emb")
+        flat, meta = dlrm.flatten_mlp(dlrm.init_mlp_params(cfg, 0))
+        mlp = mv.ArrayTable(flat.size, updater="adagrad", init=flat,
+                            name="serve_step_mlp")
+        opt = AddOption(learning_rate=SERVE_LR, rho=0.1)
+        step = dlrm.make_train_step(cfg, emb, mlp, meta, emb_opt=opt,
+                                    mlp_opt=opt)
+        es, ms = emb.state, mlp.state
+        losses = []
+        for i in range(SERVE_CPU_STEPS):
+            sl = slice(i * 64, (i + 1) * 64)
+            es, ms, loss = step(es, ms, cat[sl], dense[sl], labels[sl])
+            losses.append(loss.item())
+        return np.asarray(losses), emb.get(), mlp.get()
+
+    out = {}
+    for label, card, cpu in (
+            ("DLRMServing.train_step", app_run(dev),
+             app_run("cpu")),
+            ("make_train_step", step_run(), on_cpu(step_run))):
+        lrel = float(np.max(np.abs(card[0] - cpu[0]) / np.abs(cpu[0])))
+        trel = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(card[1:], cpu[1:])]
+        log(f"serving card vs CPU, {label} ({SERVE_CPU_STEPS} steps from one "
+            f"start): losses {card[0].tolist()} vs {cpu[0].tolist()}, max "
+            f"relative {lrel:.3e}; table and MLP max |diff| over max |x| "
+            f"{trel[0]:.3e}, {trel[1]:.3e} (bound {SERVE_CPU_RTOL:.0e})")
+        if not (lrel <= SERVE_CPU_RTOL and max(trel) <= SERVE_CPU_RTOL):
+            raise AssertionError(f"serving: the card's {label} disagrees "
+                                 "with the CPU's")
+        out[label] = {"loss_rel": lrel, "table_rel": trel}
+    return out
+
+
+def serve_profile(label: str, w, bs: int) -> dict:
+    """SERVE_PROFILE_STEPS train steps of ``w``'s app, one thread, the
+    replica's refresh stopped: the device's busy time and idle share."""
+    import torch
+    app = w["app"]
+    cat, dense, labels = w["data"]
+    app.replica.close()
+
+    def steps():
+        for i in range(SERVE_PROFILE_STEPS):
+            sl = (np.arange(bs) + i * bs) % len(labels)
+            app.train_step(cat[sl], dense[sl], labels[sl])
+        torch.cuda.synchronize()
+
+    return profile(f"serving {label}, {SERVE_PROFILE_STEPS} train steps on "
+                   f"{card_label()}", steps, group=dlrm_group)
+
+
+def card_label() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError, IndexError):
+        return "no card (nvidia-smi absent)"
+
+
+def serve_part_a(dev) -> dict:
+    from multiverso_tpu_torch.models import dlrm
+    w = serve_world(dev, "serve_a", dlrm.DLRMConfig(**SERVE_A),
+                    SERVE_REFRESH_S, SERVE_BOUND_S)
+    try:
+        out = serve_traffic("(a) bench_serving's cell", w, SERVE_TRAIN,
+                            SERVE_BOUND_S)
+        out["profile"] = serve_profile("(a)", w, SERVE_TRAIN[1])
+        return out
+    finally:
+        serve_close(w)
+
+
+def serve_pull(rep) -> tuple:
+    """One full snapshot pull, timed: (ms, MB/s)."""
+    rep._versions, rep._gens = {}, {}   # since=-1: every shard ships
+    t0 = time.perf_counter()
+    rep.refresh(need_from=float("inf"))
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, rep.num_row * rep.num_col * 4 / 1e6 / (ms / 1e3)
+
+
+def serve_part_b(dev, t_phase0: float) -> dict:
+    import torch
+    from multiverso_tpu_torch.models import dlrm
+    from multiverso_tpu_torch.serving.replica import ReadReplica
+    cfg = dlrm.DLRMConfig(**SERVE_B)
+    rows = dlrm.total_rows(cfg)
+    # the replica starts manual: the pull is timed before the cadence
+    w = serve_world(dev, "serve_b", cfg, SERVE_REFRESH_S, 3600.0,
+                    start=False)
+    app = w["app"]
+    out = {"rows": rows, "table_mb": rows * cfg.embed_dim * 4 / 1e6}
+    try:
+        rep = app.replica
+        serve_pull(rep)   # warm: the first pull allocates the snapshot
+        pull_ms, mbs = min(serve_pull(rep) for _ in range(2))
+        rep.close()
+        p = pull_ms / 1e3
+        refresh_s, bound_s = max(0.2, 2 * p), max(1.0, 4 * p)
+        log(f"serving (b) Kaggle widths, {rows:,} rows x {cfg.embed_dim} "
+            f"f32 ({out['table_mb']:.1f} MB, its AdaGrad state as much "
+            f"again, on the card): one full snapshot pull {pull_ms:.3f} ms "
+            f"({mbs:.1f} MB/s); refresh_s {refresh_s:.3f}, staleness bound "
+            f"{bound_s:.3f} s")
+        out.update(pull_ms=pull_ms, pull_mb_per_s=mbs, refresh_s=refresh_s,
+                   bound_s=bound_s)
+        app.replica = ReadReplica(app.emb, admission=app.admission,
+                                  cache_rows=SERVE_CACHE_ROWS,
+                                  refresh_s=refresh_s, staleness_s=bound_s)
+        out.update(serve_traffic("(b) Kaggle widths", w, SERVE_TRAIN_B,
+                                 bound_s))
+        out["profile"] = serve_profile("(b)", w, SERVE_TRAIN_B[1])
+    finally:
+        serve_close(w)
+    torch.cuda.empty_cache()
+    if time.perf_counter() - t_phase0 < SERVE_FULL_PULL_BUDGET_S:
+        out["full_pull"] = serve_full_pull(dev)
+    else:
+        log("serving (b): the uncapped table's pull skipped: the phase is "
+            "past its budget")
+    return out
+
+
+def serve_full_pull(dev) -> dict:
+    """One snapshot pull of the uncapped Kaggle table (33,762,577 x 16
+    f32, zero rows on the card; the default updater: no state)."""
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    from multiverso_tpu_torch.serving.replica import ReadReplica
+    import torch
+    rows = sum(SERVE_KAGGLE_ROWS)
+    tmp, ctxs = psw_world(dev)
+    try:
+        ts = [AsyncMatrixTable(rows, 16, name="serve_full", ctx=c)
+              for c in ctxs]
+        rep = ReadReplica(ts[0], start=False, staleness_s=3600.0)
+        ms, mbs = serve_pull(rep)
+        rep.close()
+        del ts, rep
+    finally:
+        for c in ctxs:
+            c.close()
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"serving (b), uncapped: one snapshot pull of {rows:,} x 16 f32 "
+        f"({rows * 64 / 1e9:.2f} GB) {ms:.1f} ms ({mbs:.1f} MB/s), the "
+        "first (it allocates the host snapshot)")
+    return {"rows": rows, "pull_ms": ms, "mb_per_s": mbs}
+
+
+def phase_serving(dev) -> dict:
+    from multiverso_tpu_torch.utils import config
+    t0 = time.perf_counter()
+    config.set_flag("serving_snapshot_chunk_rows", SERVE_CHUNK_ROWS)
+    config.set_flag("hotkeys_capacity", SERVE_HOTKEYS)
+    try:
+        out = {"card_vs_cpu": serve_card_vs_cpu(dev)}
+        t1 = time.perf_counter()
+        out["a"] = serve_part_a(dev)
+        t2 = time.perf_counter()
+        out["b"] = serve_part_b(dev, t0)
+    finally:
+        config.set_flag("serving_snapshot_chunk_rows", 4096)
+        config.set_flag("hotkeys_capacity", 128)
+    log(f"serving phase: {time.perf_counter() - t0:.1f} s (card vs CPU "
+        f"{t1 - t0:.1f} s, part (a) {t2 - t1:.1f} s, part (b) "
+        f"{time.perf_counter() - t2:.1f} s)")
+    return out
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -3684,8 +4593,13 @@ def main(argv=None) -> int:
     # ResNet, LDA and decode, each counted the same way: none of them runs
     # a kernel of the port (cuDNN's convolutions, index_add_, dense
     # products over the KV cache)
+    # the client windows and train-while-serve DLRM, counted the same way:
+    # host code, wire frames, autograd's GEMMs and index ops, no kernel
+    # of the port
     for name, phase in (("resnet", phase_resnet), ("lda", phase_lda),
-                        ("decode", phase_decode)):
+                        ("decode", phase_decode),
+                        ("ps_window", phase_ps_window),
+                        ("serving", phase_serving)):
         ak.reset_launch_counts()
         phase(dev)
         paths[name] = ak.launch_counts()

@@ -5,18 +5,26 @@ block pipeline + src/server.cpp async applies).
 
 Every rank builds the same corpus and dictionary, creates the async
 tables (``-async_ps 1``: shards on this process's device, the other
-ranks over TCP through the ``--rdv`` directory), trains its share of the
-blocks (``blocks[rank::world]``) with ``train_ps_blocks`` (``-use_ps 1``,
-the host plane) for ``--epochs`` epochs, and prints one line ``RESULT
-{json}``: the loss and words/s of each epoch, the last epoch's host time
-by Dashboard monitor (the block's prep, training and push; the client's
-dedupe and send in ``add_rows``, its pulls in ``get_rows``; this rank's
-shard serving and applying), with ``--profile`` the device's busy time in
-one more epoch traced by ``torch.profiler`` and that epoch's wall time,
-the aggregated trained-word count and a digest of the input embeddings. Ranks meet at a marker in the
-rendezvous directory after the tables exist and after training, then
-shut down (``mv.shutdown`` quiesces: each rank serves until the others
-are done).
+ranks over TCP through the ``--rdv`` directory) and trains with
+``train_ps_blocks`` (``-use_ps 1``, the host plane) in the reference's
+layout, as the JAX package's async cell does
+(``tools/bench_we_async.py``): ``-data_presplit 1`` with every rank fed
+the whole corpus, so each rank sweeps every block and pushes its deltas
+divided by the world (ref communicator.cpp:154). The first epoch warms;
+``--epochs`` - 1 measured epochs follow. Ranks meet at a marker in the
+rendezvous directory after the tables exist, before every epoch after
+the warm one (so no rank's measured epoch overlaps another's warm one),
+before the profiled epoch and after training, then shut down
+(``mv.shutdown`` quiesces: each rank serves until the others are done).
+
+It prints one line ``RESULT {json}``: the loss and words/s of each
+epoch, the last epoch's host time by Dashboard monitor (the block's
+prep, training and push; the client's dedupe and send in ``add_rows``,
+its pulls in ``get_rows``; this rank's shard serving and applying), with
+``--profile`` the device's busy time in one more epoch traced by
+``torch.profiler`` and that epoch's wall time, the aggregated
+trained-word count (every rank's words of every epoch) and a digest of
+the input embeddings.
 
 The configuration is bench.py's PS cell (size 128, batch 8,192, 5
 negatives, window 5, blocks of 50,000, f32, seed 12) on the real text
@@ -41,7 +49,8 @@ import time
 import numpy as np
 
 WE_CFG = dict(size=128, min_count=5, batch_size=8192, negative=5, window=5,
-              data_block_size=50_000, use_ps="1", async_ps="1", seed=12)
+              data_block_size=50_000, use_ps="1", async_ps="1",
+              data_presplit="1", seed=12)
 SYNTH = dict(num_tokens=1_000_000, vocab=5_000, seed=12)
 
 
@@ -110,6 +119,8 @@ def main(argv=None) -> int:
     barrier("we_async_tables")
     epochs, profiled = [], None
     for e in range(args.epochs):
+        if e:   # the warm epoch, then each measured one, start together
+            barrier(f"we_async_epoch{e}")
         if e == args.epochs - 1:
             Dashboard.reset()
         stats = we.train_ps_blocks(ids, epochs=1)
@@ -120,6 +131,7 @@ def main(argv=None) -> int:
                        "p50_ms": snap.p50_ms}
                 for name, snap in Dashboard.snapshot().items()}
     if args.profile:
+        barrier("we_async_profiled")
         acts = [torch.profiler.ProfilerActivity.CPU]
         if we.table_in.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)

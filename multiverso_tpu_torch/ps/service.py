@@ -22,11 +22,14 @@ Failure semantics: requests to a dead/unreachable rank raise
 :class:`PSPeerError` (after ``ps_connect_timeout``/``ps_timeout``); the
 service keeps serving live peers — no collective, so nobody hangs.
 
+The stats payload (MSG_STATS) carries the Dashboard monitors, every
+shard's stats and, when this process serves read replicas, their
+``serving`` block (``serving/replica.stats_snapshot``).
+
 Not ported (ROADMAP.md §A, each under its title): the native C++ plane
 (``ps_native``, which raises here), failover and fault injection, the
-spmd stack, the serving replica, and the telemetry planes (flight
-recorder, trace, exporter, aggregator, watchdog). The Dashboard monitors
-stay.
+spmd stack, and the telemetry planes (flight recorder, trace, exporter,
+aggregator, watchdog). The Dashboard monitors stay.
 """
 
 from __future__ import annotations
@@ -42,13 +45,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from multiverso_tpu_torch.ps import wire
+from multiverso_tpu_torch.serving import replica as _serving_replica
 from multiverso_tpu_torch.utils import config, log, retry as _retry
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 from multiverso_tpu_torch.zoo import default_device
 
 # ROADMAP.md §A titles of the parts of ps/ this plane refuses
 NATIVE_ITEM = "the native plane (ps/native.py, native/mv_ps.cpp)"
-WINDOWS_ITEM = "the send and get windows"
+TELEMETRY_ITEM = "Telemetry and tools"
 REPLAY_ITEM = "failover, faults and replay"
 NO_FILE_RDV_ITEM = "a rendezvous without a file"
 
@@ -535,8 +539,18 @@ class PSService:
                               "total_ms": snap.total_ms,
                               "p50_ms": snap.p50_ms, "p90_ms": snap.p90_ms,
                               "p99_ms": snap.p99_ms, "max_ms": snap.max_ms}
-        return {"monitors": monitors, "shards": shards, "pid": os.getpid(),
-                "rank": self.rank, "world": self.world, "addr": self.addr}
+        payload = {"monitors": monitors, "shards": shards,
+                   "pid": os.getpid(), "rank": self.rank,
+                   "world": self.world, "addr": self.addr}
+        # the serving plane: this process's read replicas and pools (lag,
+        # versions, cache hit rate, shed counters)
+        try:
+            serving = _serving_replica.stats_snapshot()
+            if serving:
+                payload["serving"] = serving
+        except Exception:   # noqa: BLE001 — telemetry never raises
+            pass
+        return payload
 
     def stats(self, rank: int, timeout: Optional[float] = None) -> Dict:
         """Pull ``rank``'s telemetry snapshot over MSG_STATS (the local

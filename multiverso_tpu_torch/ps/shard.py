@@ -30,9 +30,14 @@ float64, merging gated by the updaters' ``ROW_LOCAL_STATE`` /
 ``OPT_INSENSITIVE`` classes, so ``stat_adds`` / ``stat_applies`` count
 the same coalescing as the JAX package.
 
+Hot keys: every get and add the shard serves feeds a Space-Saving sketch
+of its global row ids (``telemetry/hotkeys.py``, flag
+``hotkeys_capacity``), reported in ``stats()["hotkeys"]``; the read
+replica seeds its hot-row cache from it.
+
 Not ported (ROADMAP.md §A): the native plane's shard binding, the spmd
 lane, the replay channels and ``mark_durable``, and the telemetry hooks
-(flight recorder, hot keys, tenants, trace spans).
+(flight recorder, tenants, trace spans).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from multiverso_tpu_torch.ps import service as svc
 from multiverso_tpu_torch.ps import wire
 from multiverso_tpu_torch.table import _dtypes
 from multiverso_tpu_torch.tables.matrix_table import _bucket_size
+from multiverso_tpu_torch.telemetry import hotkeys as _hotkeys
 from multiverso_tpu_torch.updaters import (AddOption, Updater,
                                            OPT_INSENSITIVE as _OPT_INSENSITIVE,
                                            ROW_LOCAL_STATE as _ROW_LOCAL_STATE,
@@ -156,6 +162,10 @@ class RowShard:
         self._stat_snapshot_unchanged = 0
         self._stat_get_bytes = 0
         self._stat_add_bytes = 0
+        # heavy-hitter sketch over the served GLOBAL row ids (bounded
+        # memory, O(1) per recorded op): stats()["hotkeys"]
+        cap = _config.get_flag("hotkeys_capacity")
+        self._hotkeys = _hotkeys.SpaceSaving(cap) if cap > 0 else None
         self._mon_apply = f"ps[{name}].apply"   # Dashboard monitor
         # dirty[worker, local_row]: starts all-True so a worker's first
         # sparse Get pulls everything
@@ -228,6 +238,8 @@ class RowShard:
         }
         if dirty_rows is not None:
             out["dirty_rows"] = dirty_rows
+        if self._hotkeys is not None:
+            out["hotkeys"] = self._hotkeys.to_dict()
         return out
 
     def queue_depth(self) -> int:
@@ -252,6 +264,14 @@ class RowShard:
     @property
     def scratch(self) -> int:
         return self.n
+
+    def _note_rows(self, local: np.ndarray) -> None:
+        """Feed the heavy-hitter sketch this op's GLOBAL row ids
+        (shard-local + ``lo``), after the ids were validated. HashShard
+        overrides: its calls here carry slot ids, and the sketch ranks
+        the workload's keys."""
+        if self._hotkeys is not None:
+            self._hotkeys.observe(local, offset=self.lo)
 
     # ------------------------------------------------------------------ #
     # off-lock read epochs (snapshot serving)
@@ -499,6 +519,7 @@ class RowShard:
         value payload decodes once here, from the frame blobs."""
         opt = AddOption(**meta.get("opt", {}))
         local = self._localize_raw(arrays[0])
+        self._note_rows(local)   # one sketch record per add (plain, batch)
         wirem = meta.get("wire", "none")
         if wirem in ("none", "bf16"):   # single blob decodes implicitly
             vals = wire.as_values(arrays[1], self.dtype)[: local.size]
@@ -607,6 +628,7 @@ class RowShard:
     def _serve_get_rows(self, meta: Dict, arrays: Sequence[np.ndarray]
                         ) -> Tuple[Dict, Any]:
         local = self._localize_raw(arrays[0])
+        self._note_rows(local)
         return self._serve_rows_from_pin(self._pin_data(), local, meta)
 
     def _serve_rows_from_pin(self, pin: _DataPin, local: np.ndarray,
@@ -786,6 +808,7 @@ class RowShard:
             # stale-only reply for meta["worker_id"]
             wid = int(meta.get("worker_id", 0))
             local = self._localize_raw(arrays[0])
+            self._note_rows(local)
             with self._lock:
                 if self._dirty is None:
                     raise svc.PSError(
@@ -923,6 +946,15 @@ class HashShard(RowShard):
         apply stay atomic)."""
         super()._apply_rows(self._slots_for(keys), vals, opt)
 
+    def _note_rows(self, local: np.ndarray) -> None:
+        """No-op: the inherited serve paths reach here with SLOT ids; hash
+        traffic records its KEYS through :meth:`_note_keys` where they are
+        validated."""
+
+    def _note_keys(self, keys: np.ndarray) -> None:
+        if self._hotkeys is not None:
+            self._hotkeys.observe(keys)
+
     def _validate_keys(self, arr) -> np.ndarray:
         keys = np.asarray(arr, np.int64)
         if keys.size == 0:
@@ -936,6 +968,7 @@ class HashShard(RowShard):
         """Batched sub-ops carry KEYS (validated here); key -> slot
         translation stays at apply time."""
         keys = self._validate_keys(arrays[0])
+        self._note_keys(keys)
         opt = AddOption(**meta.get("opt", {}))
         vals = wire.as_values(arrays[1], self.dtype)[: keys.size]
         self._stat_add_bytes += sum(int(getattr(a, "nbytes", 0))
@@ -993,6 +1026,7 @@ class HashShard(RowShard):
             # allocation-free read: unknown keys gather the scratch row,
             # which stays zeros (padded adds apply zero deltas to it)
             keys = self._validate_keys(arrays[0])
+            self._note_keys(keys)
             with self._lock:
                 slots = np.array(
                     [self._slot_of.get(k, self.n)
@@ -1002,6 +1036,8 @@ class HashShard(RowShard):
         keys = None
         if msg_type in (svc.MSG_GET_ROWS, svc.MSG_SET_ROWS):
             keys = self._validate_keys(arrays[0])
+            if msg_type == svc.MSG_GET_ROWS:   # a sparse keyed get
+                self._note_keys(keys)
         with self._lock:   # reentrant: key->slot stays atomic w/ the update
             if msg_type == svc.MSG_GET_STATE and meta.get("dump"):
                 return self._dump()

@@ -9,12 +9,18 @@ waiting on each other. Every async op returns a msg id; ``wait(id)``
 blocks on its request futures and returns the assembled host array for
 gets.
 
+The client windows, both off by default as in the JAX package: the send
+window (flag ``batch_window_ms`` or the table's ``send_window_ms=``,
+:class:`_SendWindow`) queues ``add_rows_async`` per owner and ships each
+owner's queue as one frame; the get window (flag ``get_window_ms`` or
+the table's ``get_window_ms=``, :class:`_GetWindow`) merges concurrent
+gets to an owner into single-flight fetches. Windowed results equal
+window-off results bit for bit.
+
 Not ported (ROADMAP.md §A, each raising ``NotImplementedError`` that
 names its item when asked for): the native transport's futures, the
-client send and get windows (flags ``batch_window_ms``,
-``get_window_ms``; per-table ``send_window_ms=``/``get_window_ms=``),
-and the replay buffer (``ps_replay``). Their flags default to off, as in
-the JAX package.
+replay buffer (``ps_replay``) and per-tenant add budgets
+(``tenant_add_qps``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import threading
+import time
+import weakref
 from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -45,24 +53,19 @@ def _resolve_updater(updater, num_workers: int, dtype):
     return updater
 
 
-def _refuse_windows(send_window_ms: Optional[float] = None,
-                    get_window_ms: Optional[float] = None) -> None:
-    """The send/get windows and the replay plane are not ported: asking
-    for one raises, naming its ROADMAP item, instead of quietly running
+def _refuse_unported() -> None:
+    """The replay plane and per-tenant add budgets are not ported: asking
+    for either raises, naming its ROADMAP item, instead of quietly running
     without it."""
-    send = (config.get_flag("batch_window_ms") if send_window_ms is None
-            else float(send_window_ms))
-    get = (config.get_flag("get_window_ms") if get_window_ms is None
-           else float(get_window_ms))
-    if send > 0 or get > 0:
-        raise NotImplementedError(
-            f"async table send window ({send} ms) / get window ({get} ms): "
-            "the client windows are not ported to multiverso_tpu_torch yet "
-            f"(ROADMAP.md §A {svc.WINDOWS_ITEM})")
     if config.get_flag("ps_replay"):
         raise NotImplementedError(
             "ps_replay=True: the replay plane is not ported to "
             f"multiverso_tpu_torch yet (ROADMAP.md §A {svc.REPLAY_ITEM})")
+    if config.get_flag("tenant_add_qps") > 0:
+        raise NotImplementedError(
+            "tenant_add_qps > 0: per-tenant add budgets at the send window "
+            "are not ported to multiverso_tpu_torch yet (ROADMAP.md §A "
+            f"{svc.TELEMETRY_ITEM})")
 
 
 def _dedupe_batch(row_ids, num_col: int, dtype,
@@ -104,6 +107,305 @@ def _dedupe_batch(row_ids, num_col: int, dtype,
     return uids, acc.astype(dtype), inv
 
 
+def _window_loop(ref: "weakref.ref") -> None:
+    """Flusher thread body. Holds the window only through a WEAKREF,
+    re-resolved each cycle: when the table (and its window) are
+    garbage-collected the thread exits at its next bounded wakeup, so a
+    windowed table is not pinned in memory by its own daemon thread."""
+    while True:
+        win = ref()
+        if win is None:
+            return
+        step = win._step
+        del win
+        step()
+        # the bound method strongly references the window: drop it before
+        # the next cycle's wait
+        del step
+
+
+def _complete_window_futures(batch_fut: cf.Future,
+                             group_futs: List[List[cf.Future]]) -> None:
+    """Fan a window frame's one ack out to the placeholder futures the
+    callers track (runs on the peer's recv thread). ``group_futs`` is
+    aligned with the frame's sub-ops: a partly applied batch names its
+    failed sub-ops in the reply meta ("failed"), and only THOSE futures
+    carry the error — a delta that was applied is never reported lost,
+    or a caller re-issuing lost deltas would apply it twice."""
+    exc: Optional[BaseException] = None
+    meta: Dict = {}
+    try:
+        exc = batch_fut.exception()
+        if exc is None:
+            res = batch_fut.result()
+            if isinstance(res, tuple) and isinstance(res[0], dict):
+                meta = res[0]
+    except (cf.CancelledError, Exception) as e:   # defensive
+        exc = e
+    failed = set(meta.get("failed", ()))
+    ferr = (svc.PSError("batched add failed at the shard: "
+                        f"{meta.get('error', '?')}") if failed else None)
+    for i, futs in enumerate(group_futs):
+        for f in futs:
+            if f.done():
+                continue
+            if exc is not None:
+                f.set_exception(exc)
+            elif i in failed:
+                f.set_exception(ferr)
+            else:
+                f.set_result(({}, []))
+
+
+class _SendWindow:
+    """Client-side cross-call add coalescer (the PS *send window*), one
+    per windowed table: ``add_rows_async`` enqueues per-owner entries and
+    returns at once; a time/byte/op-bounded flusher ships each owner's
+    pending adds as ONE frame — a plain MSG_ADD_ROWS when the whole
+    window merged into one op, a MSG_BATCH multi-op frame otherwise — so
+    a window costs one round trip and one batched shard apply.
+
+    Exactness: queued entries merge into one sub-op ONLY when the merge
+    is bit-transparent — same AddOption (unless the updater never reads
+    it), pairwise-disjoint row sets, an elementwise wire ("none" or
+    "bf16") and a row-local-state updater (``updaters.ROW_LOCAL_STATE``;
+    Adam's step counter advances once per apply, so Adam never merges).
+    Everything else stays its own sub-op, and the shard applies the
+    sub-ops in order as conflict-free waves
+    (``shard._apply_batch_adds``). Windowed results therefore equal
+    window-off results bit for bit.
+
+    Ordering: each owner's frames leave in enqueue order on the owner's
+    conn — senders serialize on a per-owner SEND lock, taken before the
+    queue is popped, so a later sender always ships a later batch — and
+    the window lock is never held across a socket send, so an enqueue
+    never blocks behind a flush. A caller that fences
+    (:meth:`flush_pending`) and then issues a get on the same conn reads
+    its own writes (the conn's FIFO does the rest); the fence does not
+    wait for acks."""
+
+    # idle condvar waits are bounded so the flusher notices its window
+    # died (see _window_loop's weakref)
+    _IDLE_WAIT_S = 5.0
+
+    def __init__(self, table, window_ms: float, max_bytes: int,
+                 max_ops: int):
+        # weak: the table owns the window, not the other way round
+        self._table_ref = weakref.ref(table)
+        self._table_name = table.name
+        self.window_s = float(window_ms) / 1e3
+        self.max_bytes = int(max_bytes)
+        self.max_ops = int(max_ops)
+        self._cv = threading.Condition()
+        # owner -> [(ids, vals, opt, placeholder future)], enqueue order
+        self._pending: Dict[int, List[Tuple]] = {}
+        self._nbytes: Dict[int, int] = {}
+        self._send_locks: Dict[int, threading.Lock] = {}
+        self._deadline: Optional[float] = None
+        self._thread: Optional[threading.Thread] = None
+        base = f"table[{table.name}].add_rows"
+        self._mon_windowed = Dashboard.get(base + ".windowed")
+        self._mon_flushes = Dashboard.get(base + ".flushes")
+        self._mon_merged = Dashboard.get(base + ".merged_rows")
+
+    # ------------------------------------------------------------------ #
+    def submit(self, parts: List[Tuple[int, np.ndarray, np.ndarray]],
+               opt: AddOption) -> List[cf.Future]:
+        """Queue ONE logical add's per-owner pieces; returns one
+        placeholder future per owner (completed by the window ack)."""
+        self._mon_windowed.incr()
+        return [self._enqueue(r, ids, vals, opt) for r, ids, vals in parts]
+
+    def _enqueue(self, owner: int, ids: np.ndarray, vals: np.ndarray,
+                 opt: AddOption) -> cf.Future:
+        fut: cf.Future = cf.Future()
+        ship = False
+        with self._cv:
+            q = self._pending.setdefault(owner, [])
+            q.append((ids, vals, opt, fut))
+            self._nbytes[owner] = (self._nbytes.get(owner, 0)
+                                   + ids.nbytes + vals.nbytes)
+            if (len(q) >= self.max_ops
+                    or self._nbytes[owner] >= self.max_bytes):
+                ship = True   # bound hit: ship now, on this thread
+            elif self._deadline is None:
+                # arm the window and wake the flusher only then (a notify
+                # per enqueue would cost a thread wakeup per small add)
+                self._deadline = time.monotonic() + self.window_s
+                self._ensure_flusher_locked()
+                self._cv.notify()
+        if ship:
+            self._flush_owner(owner)
+        return fut
+
+    def flush_pending(self) -> None:
+        """Send every queued add NOW — the fence that gets, flush and
+        overwrites run before dispatching their own frames. On return,
+        every entry queued before the call is on its conn. The sweep
+        covers every owner ever sent to, not only those pending: a
+        concurrent flusher may have popped an owner's queue but not yet
+        reached the socket, and taking the owner's send lock waits that
+        send out."""
+        with self._cv:
+            owners = set(self._pending) | set(self._send_locks)
+            self._deadline = None
+        self._flush_owners(owners)
+
+    def _ensure_flusher_locked(self) -> None:
+        """Start (or restart) the flusher thread; caller holds ``_cv``."""
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=_window_loop, args=(weakref.ref(self),),
+                daemon=True, name=f"ps-window-{self._table_name}")
+            self._thread.start()
+
+    def _step(self) -> bool:
+        """One flusher cycle: wait out the open window (or idle, bounded),
+        then ship everything pending."""
+        owners: List[int] = []
+        with self._cv:
+            bound = self._IDLE_WAIT_S
+            if self._deadline is not None:
+                delay = self._deadline - time.monotonic()
+                if delay <= 0:
+                    self._deadline = None
+                    owners = list(self._pending)
+                else:
+                    bound = min(bound, delay)
+            if not owners:
+                self._cv.wait(bound)
+        self._flush_owners(owners)
+        return bool(owners)
+
+    # ------------------------------------------------------------------ #
+    def _send_lock(self, owner: int) -> threading.Lock:
+        with self._cv:
+            lock = self._send_locks.get(owner)
+            if lock is None:
+                lock = self._send_locks[owner] = threading.Lock()
+            return lock
+
+    # one flush pool shared by every window: per-owner flushes block only
+    # on their owner's send lock and socket, so owners never deadlock
+    _flush_pool: Optional[cf.ThreadPoolExecutor] = None
+    _flush_pool_lock = threading.Lock()
+
+    @classmethod
+    def _flush_executor(cls) -> cf.ThreadPoolExecutor:
+        with cls._flush_pool_lock:
+            if cls._flush_pool is None:
+                cls._flush_pool = cf.ThreadPoolExecutor(
+                    max_workers=4, thread_name_prefix="ps-flush")
+            return cls._flush_pool
+
+    def _flush_owners(self, owners) -> None:
+        """One multi-owner flush sweep: owners flush concurrently on the
+        shared pool; the sweep returns only when every owner's batch is
+        on its conn (the fence contract), then raises the first failure."""
+        owners = sorted(owners)
+        if len(owners) > 1:
+            pool = self._flush_executor()
+            futs = [pool.submit(self._flush_owner, o) for o in owners]
+            cf.wait(futs)
+            for f in futs:
+                f.result()
+        elif owners:
+            self._flush_owner(owners[0])
+
+    def _flush_owner(self, owner: int) -> None:
+        """Merge and ship one owner's queue as one frame. The send lock is
+        taken BEFORE popping, so concurrent senders to one owner serialize
+        pop-and-send as a unit; the window lock is only held for the pop."""
+        with self._send_lock(owner):
+            with self._cv:
+                entries = self._pending.pop(owner, None)
+                self._nbytes.pop(owner, None)
+            if entries:
+                self._send(owner, entries)
+
+    def _send(self, owner: int, entries: List[Tuple]) -> None:
+        t = self._table_ref()
+        if t is None:
+            # the table was dropped with adds queued: fail their futures
+            # so any stray holder sees a typed error, not a hang
+            err = svc.PSError(
+                f"table[{self._table_name}] was garbage-collected with "
+                "windowed adds still queued")
+            for _, _, _, fut in entries:
+                if not fut.done():
+                    fut.set_exception(err)
+            return
+        w = t._wire_for(owner)
+        # merging conditions, ALL required for bit-transparency: an
+        # elementwise wire (1bit/topk mix values across their block or
+        # top-k structure), disjoint row sets, a row-local-state updater,
+        # and matching AddOptions (unless the updater never reads them)
+        exact = (w in ("none", "bf16")
+                 and type(t.updater) in updaters_lib.ROW_LOCAL_STATE)
+        merge_all = type(t.updater) in updaters_lib.OPT_INSENSITIVE
+        groups: List[List] = []   # [ids[], vals[], opt, futs[], idset]
+        merged_rows = 0
+        for ids, vals, opt, fut in entries:
+            g = groups[-1] if groups else None
+            if (g is not None and exact
+                    and (merge_all or opt == g[2])
+                    and not g[4].intersection(ids.tolist())):
+                g[0].append(ids)
+                g[1].append(vals)
+                g[3].append(fut)
+                g[4].update(ids.tolist())
+                merged_rows += int(ids.size)
+            else:
+                groups.append([[ids], [vals], opt, [fut],
+                               set(ids.tolist())])
+        try:
+            packed = [(np.concatenate(g[0]) if len(g[0]) > 1 else g[0][0],
+                       np.concatenate(g[1]) if len(g[1]) > 1 else g[1][0],
+                       g[2]) for g in groups]
+        except Exception as e:   # a merge failure must not orphan waiters
+            for g in groups:
+                for f in g[3]:
+                    if not f.done():
+                        f.set_exception(e)
+            return
+        # a window can outgrow one frame: ship MAX_BATCH_OPS sub-ops a
+        # frame, in order on the same conn
+        for i0 in range(0, len(packed), wire_mod.MAX_BATCH_OPS):
+            chunk = packed[i0:i0 + wire_mod.MAX_BATCH_OPS]
+            gfuts = [g[3] for g in groups[i0:i0 + wire_mod.MAX_BATCH_OPS]]
+            try:
+                if len(chunk) == 1:
+                    ids, vals, opt = chunk[0]
+                    meta = {"table": t.name, "opt": opt._asdict()}
+                    if w != "none":
+                        meta["wire"] = w
+                    msg_type = svc.MSG_ADD_ROWS
+                    arrays = [ids] + wire_mod.encode_payload(vals, w)
+                    meta_b = t._add_meta_b(opt, w)
+                else:
+                    blobs = [wire_mod.encode(
+                        svc.MSG_ADD_ROWS, i, t._add_meta_b(opt, w),
+                        [ids] + wire_mod.encode_payload(vals, w))
+                        for i, (ids, vals, opt) in enumerate(chunk)]
+                    msg_type = svc.MSG_BATCH
+                    meta = {"table": t.name, "n": len(chunk)}
+                    arrays = wire_mod.pack_batch(blobs)
+                    meta_b = None
+            except Exception as e:   # an encode failure must not orphan
+                for fs in gfuts:     # waiters
+                    for f in fs:
+                        if not f.done():
+                            f.set_exception(e)
+                continue
+            self._mon_flushes.incr()
+            req = t.ctx.service.request(owner, msg_type, meta, arrays,
+                                        meta_b=meta_b)
+            req.add_done_callback(
+                lambda bf, gf=gfuts: _complete_window_futures(bf, gf))
+        if merged_rows:
+            self._mon_merged.incr(merged_rows)
+
+
 def _chunk_scatter(buf: np.ndarray, idx: Optional[np.ndarray],
                    ncol: int, dtype):
     """Sink for a chunk-streamed get reply: decode each sub-frame as it
@@ -118,6 +420,193 @@ def _chunk_scatter(buf: np.ndarray, idx: Optional[np.ndarray],
         else:
             buf[idx[a:a + k]] = rows
     return sink
+
+
+class _GetWindow:
+    """Client-side get coalescer (the read-path mirror of
+    :class:`_SendWindow`), one per windowed table: concurrent
+    ``get_rows_async`` calls dedupe overlapping row ids per owner into
+    single-flight batched fetches.
+
+    A get to an owner with NO fetch outstanding dispatches at once, so
+    serial gets pay nothing for the window. Gets arriving while that
+    owner's fetch is on the wire queue here; their ids dedupe into ONE
+    follow-up frame, dispatched when the outstanding reply lands or when
+    the oldest queued entry ages past ``get_window_ms`` (a 1-row get must
+    not wait out a long chunked fetch). Each waiter's future resolves to
+    ITS OWN rows, sliced from the batch reply, so N concurrent pullers
+    cost one frame, one shard serve and one reply.
+
+    Read-your-writes: every caller fences its send window before
+    :meth:`fetch`, and a batch's frame reaches the conn only after the
+    join, so the conn's FIFO orders the fetch behind the caller's adds.
+    Batches are released only from the flusher thread, never from the
+    peer's recv thread, where a socket send could block the very reply
+    plane that completes fetches (with both TCP buffers full, a
+    deadlock)."""
+
+    _IDLE_WAIT_S = 5.0
+
+    def __init__(self, table, window_ms: float):
+        self._table_ref = weakref.ref(table)
+        self._table_name = table.name
+        self.window_s = float(window_ms) / 1e3
+        self._cv = threading.Condition()
+        # owner -> [(unique ids, waiter future)], join order
+        self._queued: Dict[int, List[Tuple[np.ndarray, cf.Future]]] = {}
+        self._q_t0: Dict[int, float] = {}
+        self._inflight: Dict[int, int] = {}
+        # batches a completed fetch released, for the flusher to dispatch
+        self._ready: List[Tuple[int, List[Tuple]]] = []
+        self._thread: Optional[threading.Thread] = None
+        base = f"table[{table.name}].get_rows"
+        self._mon_windowed = Dashboard.get(base + ".windowed")
+        self._mon_fetches = Dashboard.get(base + ".fetches")
+        self._mon_merged = Dashboard.get(base + ".merged_rows")
+
+    def fetch(self, owner: int, ids: np.ndarray) -> cf.Future:
+        """One caller's rows from ``owner`` (``ids`` unique, in the
+        caller's order); resolves to the (len(ids), num_col) host block
+        in that order."""
+        fut: cf.Future = cf.Future()
+        self._mon_windowed.incr()
+        with self._cv:
+            if self._inflight.get(owner, 0) > 0:
+                q = self._queued.setdefault(owner, [])
+                if not q:
+                    self._q_t0[owner] = time.monotonic()
+                q.append((ids, fut))
+                self._ensure_thread_locked()
+                self._cv.notify()
+                return fut
+            self._inflight[owner] = self._inflight.get(owner, 0) + 1
+        self._dispatch(owner, [(ids, fut)])
+        return fut
+
+    def _ensure_thread_locked(self) -> None:
+        """Start the flusher thread (caller holds ``_cv``)."""
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=_window_loop, args=(weakref.ref(self),),
+                daemon=True, name=f"ps-getwin-{self._table_name}")
+            self._thread.start()
+
+    def _step(self) -> bool:
+        """One flusher cycle: dispatch the batches a completed fetch
+        released, and queued batches whose oldest entry aged past the
+        window."""
+        with self._cv:
+            batches, self._ready = self._ready, []
+            if not batches and not self._q_t0:
+                self._cv.wait(self._IDLE_WAIT_S)
+                return False
+            now = time.monotonic()
+            due = [o for o, t0 in self._q_t0.items()
+                   if now - t0 >= self.window_s]
+            if not due and not batches:
+                soonest = min(self._q_t0.values()) + self.window_s - now
+                self._cv.wait(min(max(soonest, 0.001), self._IDLE_WAIT_S))
+                return False
+            for o in due:
+                q = self._queued.pop(o, None)
+                self._q_t0.pop(o, None)
+                if q:
+                    self._inflight[o] = self._inflight.get(o, 0) + 1
+                    batches.append((o, q))
+        for o, q in batches:
+            self._dispatch(o, q)
+        return True
+
+    def _release(self, owner: int) -> None:
+        """A fetch completed: drop its flight and hand whatever queued
+        behind it to the FLUSHER as the next batch (this runs on the
+        peer's recv thread, which must never send)."""
+        with self._cv:
+            self._inflight[owner] = max(self._inflight.get(owner, 1) - 1, 0)
+            if self._inflight[owner] == 0:
+                q = self._queued.pop(owner, None)
+                self._q_t0.pop(owner, None)
+                if q:
+                    self._inflight[owner] = 1
+                    self._ready.append((owner, q))
+                    self._ensure_thread_locked()
+                    self._cv.notify()
+
+    def _dispatch(self, owner: int, entries: List[Tuple]) -> None:
+        try:
+            self._dispatch_inner(owner, entries)
+        except Exception as e:   # noqa: BLE001 — waiters must never hang
+            for _, fut in entries:
+                if not fut.done():
+                    fut.set_exception(e)
+            self._release(owner)
+
+    def _dispatch_inner(self, owner: int, entries: List[Tuple]) -> None:
+        t = self._table_ref()
+        if t is None:
+            raise svc.PSError(
+                f"table[{self._table_name}] was garbage-collected with "
+                "coalesced gets still queued")
+        if len(entries) == 1:
+            # one waiter: its ids as they are, the reply is its block
+            uids = entries[0][0]
+        else:
+            # a merged batch: the SORTED unique union, so each waiter's
+            # ids resolve by searchsorted below
+            cat = np.concatenate([ids for ids, _ in entries])
+            uids = np.unique(cat)
+            self._mon_merged.incr(int(cat.size - uids.size))
+        gw = t._get_wire_for(owner)
+        chunk = int(config.get_flag("get_chunk_rows"))
+        buf = np.empty((uids.size, t.num_col), t.dtype)
+        meta: Dict = {"table": t.name}
+        if gw != "none":
+            meta["wire"] = gw
+        sink = None
+        if chunk > 0 and uids.size > chunk and owner != t.ctx.rank:
+            meta["chunk"] = chunk
+            sink = _chunk_scatter(buf, None, t.num_col, t.dtype)
+        self._mon_fetches.incr()
+        req = t.ctx.service.request(owner, svc.MSG_GET_ROWS, meta, [uids],
+                                    chunk_sink=sink)
+        chunked = sink is not None
+        # the callback holds the window by weakref too: the peer's recv
+        # loop may keep the last completed request (and its callbacks)
+        # alive, which must not pin the window and its flusher thread
+        wself = weakref.ref(self)
+
+        def _done(bf, entries=entries, uids=uids, buf=buf, gw=gw,
+                  ncol=t.num_col, dt=t.dtype):
+            exc: Optional[BaseException] = None
+            try:
+                exc = bf.exception()
+                if exc is None:
+                    rmeta, arrays = bf.result()
+                    if not (chunked and rmeta.get("chunks")):
+                        buf[:] = wire_mod.decode_payload(
+                            arrays, gw, (uids.size, ncol), dt)
+            except (cf.CancelledError, Exception) as e:   # defensive
+                exc = e
+            try:
+                for ids, fut in entries:
+                    if fut.done():
+                        continue
+                    if exc is not None:
+                        fut.set_exception(exc)
+                    elif len(entries) == 1:
+                        fut.set_result(buf)
+                    else:
+                        # each waiter's own rows, in ITS id order (a
+                        # fancy-index copy)
+                        fut.set_result(buf[np.searchsorted(uids, ids)])
+            finally:
+                # ALWAYS drop the flight: a slicing fault above fails this
+                # batch, it must not wedge every later get
+                win = wself()
+                if win is not None:
+                    win._release(owner)
+
+        req.add_done_callback(_done)
 
 
 def _part_len(ix) -> int:
@@ -159,9 +648,17 @@ class _AsyncBase:
         self._next_msg_id = 0
         self._lock = threading.Lock()
         self._meta_cache: Dict[Any, bytes] = {}
+        # the client send window (flag batch_window_ms or the table's
+        # send_window_ms=); None = every add ships at once (the default)
+        self._window: Optional[_SendWindow] = None
         # failures of already-swept fire-and-forget ops, kept so flush()
         # surfaces them deterministically
         self._swept_failures: List[Exception] = []
+
+    def _wire_for(self, rank: int) -> str:
+        """Wire codec per destination rank (tables with a compressed wire
+        override; hash and KV tables always send raw)."""
+        return "none"
 
     def _add_meta_b(self, opt: AddOption, wire: str = "none") -> bytes:
         """Packed add meta, cached per (AddOption, wire)."""
@@ -175,6 +672,26 @@ class _AsyncBase:
             if len(self._meta_cache) < 64:
                 self._meta_cache[key] = b
         return b
+
+    def _make_window(self, send_window_ms: Optional[float]) -> None:
+        """Install the send window when enabled (the table's
+        ``send_window_ms`` wins over the batch_window_ms flag; <= 0 stays
+        off)."""
+        wm = (config.get_flag("batch_window_ms") if send_window_ms is None
+              else float(send_window_ms))
+        if wm > 0:
+            self._window = _SendWindow(
+                self, wm, config.get_flag("batch_window_bytes"),
+                # the wire refuses frames over MAX_BATCH_OPS sub-ops
+                min(config.get_flag("batch_window_ops"),
+                    wire_mod.MAX_BATCH_OPS))
+
+    def _flush_window(self) -> None:
+        """Ordering fence: ship queued windowed adds before the caller
+        dispatches an op that must observe them (no-op when the window
+        is off or empty)."""
+        if self._window is not None:
+            self._window.flush_pending()
 
     # sweep trigger: under this many pending ops the scan of finished
     # fire-and-forget ops is deferred (flush() still surfaces failures)
@@ -207,6 +724,14 @@ class _AsyncBase:
         returns the assembled host array; for adds, None. Raises
         :class:`~multiverso_tpu_torch.ps.service.PSPeerError` if an owning
         rank died — other tables/ops remain usable."""
+        # the op may still be queued in the send window: ship it (its
+        # placeholder futures complete on the window's ack)
+        self._flush_window()
+        return self._wait_tracked(msg_id)
+
+    def _wait_tracked(self, msg_id: int) -> Any:
+        """:meth:`wait` without the window fence, for callers that already
+        fenced (flush waits many ops behind ONE fence)."""
         with self._lock:
             entry = self._pending.pop(msg_id, None)
         if entry is None:
@@ -222,10 +747,11 @@ class _AsyncBase:
         """Wait for every outstanding op on this table (this worker only —
         NOT a barrier). Raises the first failure of any fire-and-forget op
         issued since the last flush, pending or already swept."""
+        self._flush_window()
         with self._lock:
             ids = list(self._pending)
         for mid in ids:
-            self.wait(mid)
+            self._wait_tracked(mid)
         with self._lock:
             failures, self._swept_failures = self._swept_failures, []
         if failures:
@@ -262,8 +788,15 @@ class AsyncMatrixTable(_AsyncBase):
         payloads over TCP as bfloat16; ``"1bit"``/``"topk"`` send
         whole-table add deltas with per-owner error feedback, row adds as
         stateless codec payloads, and get replies as bf16. The local rank
-        never compresses (no socket to save)."""
-        _refuse_windows(send_window_ms, get_window_ms)
+        never compresses (no socket to save).
+
+        ``send_window_ms`` overrides the ``batch_window_ms`` flag for this
+        table: > 0 buffers ``add_rows_async`` on the client and ships each
+        owner's queue as one (multi-op) frame (:class:`_SendWindow`).
+        ``get_window_ms`` overrides the ``get_window_ms`` flag: > 0 merges
+        concurrent gets into single-flight per-owner fetches
+        (:class:`_GetWindow`). Values are unchanged either way."""
+        _refuse_unported()
         super().__init__(ctx, name)
         if wire not in ("none", "bf16", "1bit", "topk"):
             raise ValueError(f"unknown wire {wire!r}")
@@ -299,13 +832,26 @@ class AsyncMatrixTable(_AsyncBase):
                          min((r + 1) * self._rows_per, self.num_row))
                         for r in range(world)]
         self._ranges = [(r, a, b) for r, a, b in self._ranges if b > a]
+        self._make_window(send_window_ms)
+        # the client get coalescer (flag get_window_ms or the table's
+        # get_window_ms=); None = every get is its own frame (the default)
+        self._get_window: Optional[_GetWindow] = None
+        gm = (config.get_flag("get_window_ms") if get_window_ms is None
+              else float(get_window_ms))
+        if gm > 0:
+            self._get_window = _GetWindow(self, gm)
         # hot-row TRAINING cache (flag train_cache_rows) on the client's
         # device: write-through is bit-exact only when the local push
         # delta IS what the shard applies (plain-add updater, lossless
-        # wire, no sparse dirty-bit protocol)
+        # wire, no sparse dirty-bit protocol, and no window: the send
+        # window may merge two queued deltas into one summed add, and the
+        # get window may queue a cold fetch behind an in-flight one, so
+        # dispatch order is no longer the conn's order)
         self._train_cache = _hotcache.make_train_cache(
             name, self.num_col, self.dtype,
             writethrough_ok=(wire == "none" and shard_workers == 0
+                             and self._window is None
+                             and self._get_window is None
                              and getattr(self.updater, "name", "")
                              == "default"),
             device=self.device)
@@ -408,6 +954,22 @@ class AsyncMatrixTable(_AsyncBase):
                 # push at the same point in program order the conn FIFO
                 # will (write-through applies the exact deduped delta)
                 self._train_cache.on_push(uids, vals)
+            if self._window is not None:
+                # send window: enqueue the per-owner pieces and return;
+                # the flusher (or the next fencing op) ships each owner's
+                # queue as ONE frame
+                oparts = self._owner_slices(uids)
+                if len(oparts) == 1:
+                    # the flusher reads vals LATER: own the bytes (a
+                    # caller reusing its gradient buffer must not change
+                    # a queued delta)
+                    if vals is values or vals.base is not None:
+                        vals = vals.copy()
+                    parts = [(oparts[0][0], uids, vals)]
+                else:
+                    parts = [(r, _owned_part(uids, ix),
+                              _owned_part(vals, ix)) for r, ix in oparts]
+                return self._track(self._window.submit(parts, opt))
             futs = []
             for r, ix in self._owner_slices(uids):
                 w = self._wire_for(r)
@@ -509,12 +1071,33 @@ class AsyncMatrixTable(_AsyncBase):
         """The wire get: ``(futures, finalize)`` for :meth:`_track`.
         ``prepped=True`` marks ``row_ids`` as already validated
         sorted-unique int64 (the cache's cold residual)."""
+        # ordering fence: a get observes every windowed add this caller
+        # already issued (read-your-writes over the conn's FIFO)
+        self._flush_window()
         with monitor(f"table[{self.name}].get_rows"):
             if prepped:
                 uids, inv = np.asarray(row_ids, np.int64), None
             else:
                 uids, _, inv = self._prep(row_ids)
             parts = self._owner_slices(uids)
+            if self._get_window is not None:
+                # single-flight fetches: each part resolves to its own
+                # rows, perhaps from a batch shared with other callers
+                futs = [self._get_window.fetch(r, _owned_part(uids, ix))
+                        for r, ix in parts]
+
+                def _assemble_win(results):
+                    buf = self._reply_buffer(out if inv is None else None,
+                                             uids.size)
+                    for (r, ix), rows in zip(parts, results):
+                        buf[ix] = rows
+                    if inv is None:
+                        return buf
+                    dest = self._reply_buffer(out, inv.size)
+                    np.take(buf, inv, axis=0, out=dest)
+                    return dest
+
+                return futs, _assemble_win
             gw = self._reply_wire()
             chunk = int(config.get_flag("get_chunk_rows"))
             meta_b = wire_mod.pack_meta({"table": self.name, "wire": gw})
@@ -613,6 +1196,7 @@ class AsyncMatrixTable(_AsyncBase):
             raise ValueError("set_rows requires unique row ids")
         if np.any((uids < 0) | (uids >= self.num_row)):
             raise IndexError(f"row id out of range [0, {self.num_row})")
+        self._flush_window()   # queued windowed adds leave first
         meta = {"table": self.name}
         futs = [self.ctx.service.request(r, svc.MSG_SET_ROWS, meta,
                                          [uids[m], vals[m]])
@@ -628,6 +1212,9 @@ class AsyncMatrixTable(_AsyncBase):
     # ------------------------------------------------------------------ #
     def add_async(self, delta, opt: Optional[AddOption] = None) -> int:
         opt = opt or AddOption(worker_id=self.ctx.rank)
+        # fence: queued windowed row adds land before a whole-table delta
+        # (floating-point sums do not commute bit for bit)
+        self._flush_window()
         try:
             return self._add_full_dispatch(delta, opt)
         finally:
@@ -682,6 +1269,7 @@ class AsyncMatrixTable(_AsyncBase):
         self.wait(self.add_async(delta, opt))
 
     def get_async(self) -> int:
+        self._flush_window()   # read-your-writes for windowed adds
         with monitor(f"table[{self.name}].get"):
             ranges = list(self._ranges)
             host = np.empty(self.shape, self.dtype)
@@ -828,6 +1416,7 @@ class _SparseGetMixin:
         Several pulls for the same worker may be in flight."""
         worker_id = self.ctx.rank if worker_id is None else worker_id
         cache, cache_lock, seqs = self._worker_cache(worker_id)
+        self._flush_window()   # read-your-writes for windowed adds
         with monitor(f"table[{self.name}].get_rows_sparse"):
             uids, _, inv = self._prep(row_ids)
             parts = list(self._by_owner(uids))
@@ -934,7 +1523,7 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
                  num_workers: Optional[int] = None,
                  send_window_ms: Optional[float] = None,
                  ctx: Optional[svc.PSContext] = None):
-        _refuse_windows(send_window_ms)
+        _refuse_unported()
         super().__init__(ctx, name)
         self.num_col = int(num_col)
         self.dtype = np.dtype(dtype)
@@ -950,6 +1539,7 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
         self._caches_lock = threading.Lock()
         self._pull_seq = 0
         self.last_transfer_rows = -1
+        self._make_window(send_window_ms)
         self.table_id = _maybe_register_in_zoo(self)
 
     def raw(self):
@@ -969,6 +1559,20 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
         opt = opt or AddOption(worker_id=self.ctx.rank)
         with monitor(f"table[{self.name}].add_rows"):
             uids, vals, _ = self._prep(keys, values)
+            if self._window is not None:
+                # send window: per-owner key batches queue and ship as one
+                # (multi-op) frame (see _SendWindow)
+                owners = uids % self.ctx.world
+                r0 = int(owners[0])
+                if uids.size == 1 or not np.any(owners != r0):
+                    # the flusher reads vals later: own the bytes
+                    if vals is values or vals.base is not None:
+                        vals = vals.copy()
+                    parts = [(r0, uids, vals)]
+                else:
+                    parts = [(r, uids[m], vals[m])
+                             for r, m in self._by_owner(uids)]
+                return self._track(self._window.submit(parts, opt))
             meta = {"table": self.name, "opt": opt._asdict()}
             meta_b = wire_mod.pack_meta(meta)
             futs = [self.ctx.service.request(r, svc.MSG_ADD_ROWS, meta,
@@ -982,6 +1586,7 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
         self.wait(self.add_rows_async(keys, values, opt))
 
     def get_rows_async(self, keys) -> int:
+        self._flush_window()   # read-your-writes for windowed adds
         with monitor(f"table[{self.name}].get_rows"):
             uids, _, inv = self._prep(keys)
             parts = list(self._by_owner(uids))
@@ -1011,6 +1616,7 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
 
     def store(self, stream) -> None:
         """(keys, rows, per-key updater state) per owner."""
+        self._flush_window()   # the dump sees this caller's queued adds
         timeout = config.get_flag("ps_timeout")
         np.save(stream, np.array([self.ctx.world], np.int64),
                 allow_pickle=False)
@@ -1032,6 +1638,8 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
         self._load(stream, only_local=True)
 
     def _load(self, stream, only_local: bool) -> None:
+        # stale pre-restore deltas must not land on the restored state
+        self._flush_window()
         world = int(np.load(stream)[0])
         if world != self.ctx.world:
             raise ValueError(

@@ -6,8 +6,7 @@ under two disciplines:
 
 * **replica** (:meth:`HotRowCache.install` / :meth:`take_device`): the
   owner replaces the whole cache at an epoch boundary; rows never change
-  in place. (The serving replica that uses it arrives with ROADMAP A's
-  serving slice.)
+  in place (``serving/replica.ReadReplica``).
 * **training** (:meth:`fill` / :meth:`apply_delta` / :meth:`drop`): rows
   enter when a get reply delivers them; local pushes either *write
   through* (the plain-add updater: the cached copy takes the same f32 add

@@ -198,17 +198,32 @@ define_string("device", "",
               "(the card), or an explicit device such as 'cpu' or 'cuda:1'")
 define_string("ps_role", "default",
               "role of this process: none|worker|server|default")
-# The async PS plane's client windows and replay (ps/tables.py): the
-# flags exist with the JAX package's names and defaults (off), and an
-# async table refuses them when set, because those planes are not
-# ported yet (ROADMAP.md §A).
+# The async PS plane's client windows (ps/tables.py), off by default as
+# in the JAX package; its replay plane and per-tenant add budgets exist
+# with the JAX package's names and defaults, and an async table refuses
+# them when set (ROADMAP.md §A).
 define_float("batch_window_ms", 0.0,
              "send-window age bound in ms for async add_rows batching; "
-             "0 disables the window (every add ships immediately)")
+             "0 disables the window (every add ships immediately). "
+             "1-2 ms suits ~1-row adds")
+define_int("batch_window_bytes", 1 << 20,
+           "flush an owner's send window early once its pending add "
+           "payloads reach this many bytes")
+define_int("batch_window_ops", 64,
+           "flush an owner's send window early once this many logical "
+           "adds are queued for it")
 define_float("get_window_ms", 0.0,
-             "client get coalescer for async tables: > 0 turns on "
-             "single-flight per-owner fetches; 0 disables (every get is "
-             "its own frame)")
+             "enable the client get coalescer for async tables: > 0 "
+             "turns on single-flight per-owner fetches — a get to an "
+             "idle owner dispatches immediately; gets arriving while that "
+             "owner's fetch is outstanding merge into one follow-up frame, "
+             "dispatched when the reply lands or after this many ms. 0 "
+             "disables (every get is its own frame). Per-table override: "
+             "get_window_ms= on the table")
+define_float("tenant_add_qps", 0.0,
+             "per-(table, tenant) client-side add budget (qps) at the send "
+             "window; 0 disables the bucket (the only value the port "
+             "takes)")
 define_bool("ps_replay", False,
             "stamp windowed async-table frames with (client, seq) and "
             "replay the non-durable tail to a restarted shard")

@@ -15,7 +15,8 @@ the CPU, on the same data and seeds.
   uncached oracle bit for bit (bench.py:361-375's parity stage).
 * WE at world 2: two OS processes of
   ``multiverso_tpu_torch.examples.we_async`` meeting through a rendezvous
-  directory, each training its half of the blocks.
+  directory, in the reference's layout (``-data_presplit 1``: each rank
+  sweeps every block, its deltas divided by the world).
 """
 
 import json
@@ -261,9 +262,9 @@ def test_we_async_two_processes(tmp_path):
     r0, r1 = results
     assert r0["emb_sha"] == r1["emb_sha"] and r0["emb_finite"]
     assert r0["shard_rows"][1] == r1["shard_rows"][0]
-    # two epochs and the profiled one, each rank half the blocks
+    # two epochs and the profiled one, each rank sweeping every block
     assert r0["total_word_count"] == r1["total_word_count"] == \
-        3 * r0["tokens"]
+        2 * 3 * r0["tokens"]
     for r in results:
         assert all(np.isfinite(e["loss"]) for e in r["epochs"])
         assert r["profiled_epoch"]["seconds"] > 0

@@ -13,8 +13,8 @@ multiverso_tpu_torch against multiverso_tpu's pure-Python plane
 * a mixed world: rank 0 a JAX ``PSContext``, rank 1 a port one, in one
   directory, summing exactly;
 * the pinned read: a Get racing Adds sees whole rows;
-* the refusals of the planes not ported (native, windows, replay, a
-  world > 1 without a rendezvous), each naming its ROADMAP item.
+* the refusals of the planes not ported (native, replay, a world > 1
+  without a rendezvous), each naming its ROADMAP item.
 
 ``ps_timeout`` and ``ps_connect_timeout`` are a few seconds in both
 packages, so no test can wait out the 300 s default.
@@ -715,28 +715,6 @@ def test_ps_native_raises_naming_its_item():
     with pytest.raises(NotImplementedError, match="native plane"):
         tsvc.PSService(0, 1)
     assert tsvc.NATIVE_ITEM in ROADMAP
-
-
-@pytest.mark.parametrize("how", ["flag_send", "flag_get", "table_send",
-                                 "table_get", "kv_send"])
-def test_windows_raise_naming_their_item(port_ranks, how):
-    kw = {}
-    if how == "flag_send":
-        tconfig.set_flag("batch_window_ms", 2.0)
-    elif how == "flag_get":
-        tconfig.set_flag("get_window_ms", 2.0)
-    elif how == "table_send":
-        kw["send_window_ms"] = 1.0
-    elif how == "table_get":
-        kw["get_window_ms"] = 1.0
-    with pytest.raises(NotImplementedError, match="send and get windows"):
-        if how == "kv_send":
-            ttables.AsyncSparseKVTable(2, send_window_ms=1.0, name="kw",
-                                       ctx=port_ranks[0])
-        else:
-            ttables.AsyncMatrixTable(4, 2, name="win", ctx=port_ranks[0],
-                                     **kw)
-    assert tsvc.WINDOWS_ITEM in ROADMAP
 
 
 def test_ps_replay_raises_naming_its_item(port_ranks):

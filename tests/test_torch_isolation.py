@@ -70,6 +70,13 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.ops.spmd_apply\n"
         "import multiverso_tpu_torch.utils.retry\n"
         "import multiverso_tpu_torch.examples.we_async\n"
+        "import multiverso_tpu_torch.serving\n"
+        "import multiverso_tpu_torch.serving.admission\n"
+        "import multiverso_tpu_torch.serving.replica\n"
+        "import multiverso_tpu_torch.serving.pool\n"
+        "import multiverso_tpu_torch.telemetry.hotkeys\n"
+        "import multiverso_tpu_torch.models.dlrm\n"
+        "import multiverso_tpu_torch.apps.dlrm_serving\n"
         "import multiverso_tpu_torch.examples.we_f32_error\n"
         "import chip_smoke\n"
         "multiverso_tpu_torch.native.available()   # builds and loads\n"
