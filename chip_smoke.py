@@ -173,6 +173,25 @@ Phases, every one on every run, in this order:
             snapshot pull (which sets the cadence) and a pull of the
             uncapped 33.76M-row table. Both phases count their launches
             apart and launch no flash kernel
+15. chaos   failover, faults and replay on the async plane
+            (``examples/chaos.py``, tools/bench_chaos.py's scenarios and
+            gates; no kernel of the port): (a) partition_heal,
+            dup_reorder, slow_shard_shed and replica_kill on two ranks in
+            this process, both shards on the card, 32 x 8 with a 1 ms
+            send window and replay on; (b) combined at 64 x 8 (two OS
+            processes, each shard on the card: SIGKILL of rank 1 and a
+            replica kill at one instant, this process's
+            FailoverSupervisor respawning rank 1 at generation 1 from its
+            newest committed per-shard checkpoint); (c) combined at
+            100,000 x 128; then save_shard_state and restore_shard_state
+            of a 100,000 x 128 AdaGrad shard, timed, with the add p99
+            while saves run. Asserted, strict: exactly-once (no op lost,
+            none applied twice, the table equal to the acked oracle bit
+            for bit), served reads within their bound, the spare
+            activated, injections nonzero and deduped, the respawn at
+            generation 1 restored from a tag; recovery to 90% of the
+            pre-fault rate gets one more run before it fails. It counts
+            its launches apart and launches no flash kernel
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -4468,6 +4487,228 @@ def phase_serving(dev) -> dict:
     return out
 
 
+# chaos: failover, faults and replay on the async plane
+# (examples/chaos.py, the counterpart of tools/bench_chaos.py; no kernel
+# of the port: host code, wire frames, and shard copies between the card
+# and the host). (a) the four in-process scenarios at the tool's shape
+# (bench_chaos.py:1276-1290): two PSContexts in this process, both shards
+# on the card, AsyncMatrixTable(32, 8) with a 1 ms send window and replay
+# on, max(seconds * 0.6, 8) s each. (b) ``combined`` at the tool's shape
+# (:1268-1270: 64 x 8, 4 threads, 18 s): two OS processes, each shard on
+# the card, the rank-1 process SIGKILLed and pool replica 0 felled at one
+# instant; this process's FailoverSupervisor (timeout 2 s, poll 0.2 s,
+# ranks [1]) respawns rank 1 at generation 1, which restores its newest
+# committed tag before it publishes. (c) ``combined`` at the async
+# plane's table, 100,000 x 128 f32 (tools/bench_async_ps.py:57): 25.6 MB
+# a shard, checkpointed every 0.5 s, 51.2 MB a replica refresh; the adds
+# stay 1-row adds of ones (the oracle is exact counts). Then one
+# save_shard_state and one restore_shard_state of a 100,000 x 128 AdaGrad
+# shard (data and one state leaf, 102.4 MB) on the card, timed, with the
+# 1-row add p99 before and while saves run. Gates, as the tool's, strict
+# on every run: exactly-once (no op lost, none applied twice, the final
+# table equal to the acked oracle bit for bit), served reads nonzero and
+# none over its bound, the spare activated, the dup/reorder injections
+# nonzero and deduped; the recovery-to-90% gate alone gets one more run
+# (tests/test_chaos.py:775-793).
+CHAOS_SECONDS = 18.0                # bench_chaos.py:1268
+CHAOS_COMBINED = (64, 8, 4)         # rows, dim, threads (:1269-1270)
+CHAOS_DEPLOYED = (100_000, 128, 4)  # bench_async_ps.py:57's table
+CHAOS_CKPT_TABLE = (100_000, 128)   # the AdaGrad shard timed alone
+CHAOS_SAVE_WINDOW_S = 3.0           # saves back to back under adds
+
+
+def chaos_run(label: str, dev, fn, **kw) -> dict:
+    """One scenario under the weather rule: every strict gate must hold;
+    a failed recovery gate alone earns one more run."""
+    for attempt in range(2):
+        t0 = time.perf_counter()
+        r = fn(**kw)
+        r["wall_s"] = time.perf_counter() - t0
+        bad = [g for g, ok in r["gates"].items() if not ok]
+        strict = [g for g in bad if g != "recovery"]
+        chaos_log(label, r, attempt, dev)
+        if strict:
+            raise AssertionError(f"chaos {label}: gates {strict} failed: "
+                                 f"{r['gates']}")
+        if not bad:
+            return r
+    raise AssertionError(f"chaos {label}: recovery to 90% failed twice: "
+                         f"{r['gates']}")
+
+
+def chaos_log(label: str, r: dict, attempt: int, dev) -> None:
+    rates = ", ".join(f"{k} {r[k]}" for k in (
+        "pre_fault_ops_per_s", "post_fault_ops_per_s", "pre_fault_qps",
+        "post_fault_qps") if k in r)
+    log(f"chaos {label} (run {attempt + 1}, {r['wall_s']:.1f} s): "
+        f"recovery_s {r.get('recovery_s')}, train_recovery_s "
+        f"{r.get('train_recovery_s', '-')}; {rates}; acked ops "
+        f"{r['acked_ops']}, lost {r['ops_lost']}, applied twice "
+        f"{r['ops_double_applied']}, parity {r['parity_bit_for_bit']}, "
+        f"add errors {r['add_errors']}; replay {r.get('replay')}; "
+        f"injected {r.get('injected', '-')}; serving "
+        f"{r.get('serving', '-')}; gates {r['gates']}")
+    if "supervisor" in r:
+        v, re = r["victim_shard"], r["respawned"]
+        log(f"chaos {label}: victim shard dup_frames {v.get('dup_frames')}"
+            f", version {v.get('version')}, on {v.get('device')}; "
+            f"supervisor {[e['phase'] for e in r['supervisor']['events']]}"
+            f", detect->rejoin "
+            f"{[s['detect_to_rejoin_s'] for s in r['supervisor']['spans']]}"
+            f" s; respawned rank generation {re.get('gen')}, restored "
+            f"{re.get('rejoin')}, on {re.get('device')}; respawns "
+            f"{r['respawns']}; checkpoint saves {r['ckpt_saves']}; worker "
+            f"startup {r['startup_s']} s")
+        if re.get("gen") != 1 or (re.get("rejoin") or {}).get(
+                "restored") != 1 or r["respawns"] != 1:
+            raise AssertionError(f"chaos {label}: the respawned rank is "
+                                 f"not generation 1 restored from a tag: "
+                                 f"{re}, respawns {r['respawns']}")
+        if dev.type not in str(v.get("device")) or dev.type not in str(
+                re.get("device")):
+            raise AssertionError(f"chaos {label}: a shard is not on "
+                                 f"{dev.type}: {v}, {re}")
+
+
+def chaos_ckpt(dev) -> dict:
+    """save_shard_state / restore_shard_state of a 100,000 x 128 AdaGrad
+    shard on the card, timed, the rows and the state back bit for bit;
+    and the 1-row add latency before and while saves run back to back."""
+    import tempfile
+    import threading
+    import torch
+    from multiverso_tpu_torch import checkpoint
+    from multiverso_tpu_torch.ps.service import PSContext, PSService
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    from multiverso_tpu_torch.updaters import AddOption
+    rows, cols = CHAOS_CKPT_TABLE
+    ctx = PSContext(0, 1, PSService(0, 1), device=dev)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t = AsyncMatrixTable(rows, cols, updater="adagrad", name="ckpt",
+                             ctx=ctx)
+        rng = np.random.default_rng(0)
+        opt = AddOption(learning_rate=0.1, rho=0.1)
+        for _ in range(8):
+            ids = rng.choice(rows, 8192, replace=False)
+            t.add_rows(ids, rng.normal(size=(8192, cols)).astype(
+                np.float32), opt)
+        shard = t._shard
+        nbytes = 2 * rows * cols * 4
+        want = t.get_rows(np.arange(rows))
+        want_g = shard._ustate["g_sqr"][:rows].cpu().numpy().copy()
+        t0 = time.perf_counter()
+        path = checkpoint.save_shard_state(tmp.name, 0, [t])
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t.add_rows(np.arange(4), np.ones((4, cols), np.float32), opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = checkpoint.restore_shard_state(tmp.name, 0, [t])
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if n != 1 or shard._data.device != shard.device or any(
+                v.device != shard.device for v in shard._ustate.values()):
+            raise AssertionError(f"the AdaGrad shard did not restore onto "
+                                 f"{shard.device}")
+        if not (np.array_equal(t.get_rows(np.arange(rows)), want)
+                and np.array_equal(
+                    shard._ustate["g_sqr"][:rows].cpu().numpy(), want_g)):
+            raise AssertionError("the restored AdaGrad shard differs from "
+                                 "the saved one")
+
+        def adds(seconds: float) -> list:
+            lat, end = [], time.perf_counter() + seconds
+            one = np.ones((1, cols), np.float32)
+            while time.perf_counter() < end:
+                a = time.perf_counter()
+                t.add_rows([int(rng.integers(rows))], one, opt)
+                lat.append((time.perf_counter() - a) * 1e3)
+            return lat
+
+        quiet = adds(1.0)
+        stop, saves = threading.Event(), []
+
+        def saver():
+            while not stop.is_set():
+                a = time.perf_counter()
+                checkpoint.save_shard_state(tmp.name, 0, [t])
+                checkpoint.prune_shard_tags(tmp.name, 0, 2)
+                saves.append((time.perf_counter() - a) * 1e3)
+
+        th = threading.Thread(target=saver, daemon=True)
+        th.start()
+        busy = adds(CHAOS_SAVE_WINDOW_S)
+        stop.set()
+        th.join(timeout=60)
+    finally:
+        ctx.close()
+        tmp.cleanup()
+    out = {"rows": rows, "cols": cols, "mb": nbytes / 1e6,
+           "save_ms": save_ms, "save_mb_per_s": nbytes / 1e6 / (save_ms /
+                                                               1e3),
+           "restore_ms": restore_ms,
+           "restore_mb_per_s": nbytes / 1e6 / (restore_ms / 1e3),
+           "add_p50_ms_quiet": float(np.percentile(quiet, 50)),
+           "add_p99_ms_quiet": float(np.percentile(quiet, 99)),
+           "add_p50_ms_saving": float(np.percentile(busy, 50)),
+           "add_p99_ms_saving": float(np.percentile(busy, 99)),
+           "adds_saving": len(busy), "saves": len(saves),
+           "save_ms_under_adds": float(np.median(saves)) if saves else None}
+    log(f"chaos checkpoint: a {rows:,} x {cols} AdaGrad shard on {dev} "
+        f"(data + g_sqr, {out['mb']:.1f} MB): save_shard_state "
+        f"{save_ms:.1f} ms ({out['save_mb_per_s']:.0f} MB/s, {path}), "
+        f"restore_shard_state {restore_ms:.1f} ms "
+        f"({out['restore_mb_per_s']:.0f} MB/s), rows and state back bit "
+        f"for bit; 1-row add p50/p99 {out['add_p50_ms_quiet']:.3f}/"
+        f"{out['add_p99_ms_quiet']:.3f} ms quiet, "
+        f"{out['add_p50_ms_saving']:.3f}/{out['add_p99_ms_saving']:.3f} "
+        f"ms while {len(saves)} saves ran (median "
+        f"{out['save_ms_under_adds']} ms each)")
+    return out
+
+
+def phase_chaos(dev) -> dict:
+    from multiverso_tpu_torch.examples import chaos
+    from multiverso_tpu_torch.utils import config
+    keys = ("ps_replay", "ps_timeout", "ps_connect_timeout",
+            "ps_reconnect_backoff", "ps_replay_backoff",
+            "ps_replay_backoff_cap")
+    saved = {k: config.get_flag(k) for k in keys}
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        for name, fn in chaos.SCENARIOS.items():
+            out[name] = chaos_run(f"(a) {name}", dev, fn,
+                                  seconds=max(CHAOS_SECONDS * 0.6, 8.0),
+                                  device=dev)
+        t1 = time.perf_counter()
+        # the worker processes resolve the card themselves
+        wdev = None if dev.type == "cuda" else str(dev)
+        rows, dim, threads = CHAOS_COMBINED
+        out["combined"] = chaos_run(
+            f"(b) combined {rows} x {dim}", dev, chaos.scenario_combined,
+            seconds=CHAOS_SECONDS, rows=rows, dim=dim, threads=threads,
+            device=wdev)
+        t2 = time.perf_counter()
+        rows, dim, threads = CHAOS_DEPLOYED
+        log(f"chaos (c): {rows:,} x {dim} f32, {rows // 2 * dim * 4 / 1e6:.1f}"
+            f" MB a shard on the card, a replica refresh "
+            f"{rows * dim * 4 / 1e6:.1f} MB")
+        out["deployed"] = chaos_run(
+            f"(c) combined {rows:,} x {dim}", dev, chaos.scenario_combined,
+            seconds=CHAOS_SECONDS, rows=rows, dim=dim, threads=threads,
+            device=wdev)
+        t3 = time.perf_counter()
+        out["checkpoint"] = chaos_ckpt(dev)
+    finally:
+        for k, v in saved.items():
+            config.set_flag(k, v)
+    log(f"chaos phase: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}"
+        f" s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, checkpoint "
+        f"{time.perf_counter() - t3:.1f} s)")
+    return out
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -4595,11 +4836,13 @@ def main(argv=None) -> int:
     # products over the KV cache)
     # the client windows and train-while-serve DLRM, counted the same way:
     # host code, wire frames, autograd's GEMMs and index ops, no kernel
-    # of the port
+    # of the port; and failover, faults and replay: host code, wire frames
+    # and shard copies between the card and the host
     for name, phase in (("resnet", phase_resnet), ("lda", phase_lda),
                         ("decode", phase_decode),
                         ("ps_window", phase_ps_window),
-                        ("serving", phase_serving)):
+                        ("serving", phase_serving),
+                        ("chaos", phase_chaos)):
         ak.reset_launch_counts()
         phase(dev)
         paths[name] = ak.launch_counts()
@@ -4612,6 +4855,7 @@ def main(argv=None) -> int:
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"card: {smi}")   # again: the run's first lines scroll away
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

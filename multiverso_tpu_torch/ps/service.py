@@ -26,10 +26,19 @@ The stats payload (MSG_STATS) carries the Dashboard monitors, every
 shard's stats and, when this process serves read replicas, their
 ``serving`` block (``serving/replica.stats_snapshot``).
 
+Failover and faults: the service reads its incarnation ``generation``
+from flag ``ps_generation`` (echoed by MSG_HEALTH), can hold its
+rendezvous publish until a restarted shard has restored
+(``defer_publish``), starts and stops the per-shard checkpointer
+(``ps/failover.py``, flags ``failover_dir`` and
+``failover_ckpt_interval_s``), and hooks the fault-injection plane
+(``ps/faults.py``) on the client send path and the serve loop; disarmed,
+each hook costs one attribute read.
+
 Not ported (ROADMAP.md §A, each under its title): the native C++ plane
-(``ps_native``, which raises here), failover and fault injection, the
-spmd stack, and the telemetry planes (flight recorder, trace, exporter,
-aggregator, watchdog). The Dashboard monitors stay.
+(``ps_native``, which raises here), the spmd stack, and the telemetry
+planes (flight recorder, trace, exporter, aggregator, watchdog). The
+Dashboard monitors stay.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from multiverso_tpu_torch.ps import failover as _failover
+from multiverso_tpu_torch.ps import faults as _faults
 from multiverso_tpu_torch.ps import wire
 from multiverso_tpu_torch.serving import replica as _serving_replica
 from multiverso_tpu_torch.utils import config, log, retry as _retry
@@ -53,7 +64,6 @@ from multiverso_tpu_torch.zoo import default_device
 # ROADMAP.md §A titles of the parts of ps/ this plane refuses
 NATIVE_ITEM = "the native plane (ps/native.py, native/mv_ps.cpp)"
 TELEMETRY_ITEM = "Telemetry and tools"
-REPLAY_ITEM = "failover, faults and replay"
 NO_FILE_RDV_ITEM = "a rendezvous without a file"
 
 # message types (request side; replies reuse the id space below 0x100)
@@ -255,8 +265,11 @@ class _Peer:
     def __init__(self, rank: int, addr: str, connect_timeout: float,
                  io_timeout: float,
                  on_death: Optional[Callable[["_Peer", Exception],
-                                             None]] = None):
+                                             None]] = None,
+                 src: int = -1):
         self.rank = rank
+        self.src = src     # the LOCAL rank (fault-plane src identity;
+        #                    -1 = unknown, the plane falls back to its own)
         self.addr = addr   # the resolved incarnation address
         self._on_death = on_death
         host, port = addr.rsplit(":", 1)
@@ -279,6 +292,10 @@ class _Peer:
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sock.settimeout(io_timeout)
         self._send_lock = threading.Lock()
+        # reorder-injection holdback (ps/faults.py): held encoded frames,
+        # released after a LATER frame ships. Touched only under
+        # _send_lock, and only when the fault plane is armed
+        self._held: List[bytes] = []
         self._pending: Dict[int, cf.Future] = {}
         self._pending_lock = threading.Lock()
         # msg ids start at a per-incarnation base (generation << 32), so a
@@ -360,13 +377,20 @@ class _Peer:
             with self._pending_lock:
                 self._pending[msg_id] = fut
             try:
-                wire.send(self._sock, msg_type, msg_id, meta, arrays)
+                if _faults.PLANE.armed:   # fault plane (off: one load)
+                    self._send_faulted(msg_type, msg_id, meta, arrays)
+                else:
+                    wire.send(self._sock, msg_type, msg_id, meta, arrays)
             except OSError as e:
                 err = PSPeerError(f"rank {self.rank} send failed: {e}")
                 self._dead = err
                 with self._pending_lock:
-                    self._pending.pop(msg_id, None)
-                fut.set_exception(err)
+                    mine = self._pending.pop(msg_id, None)
+                # an injected reset shuts the socket down before it
+                # raises, so the recv loop may already have failed this
+                # future in its death sweep
+                if mine is not None:
+                    fut.set_exception(err)
                 if self._on_death is not None:
                     self._on_death(self, err)
                 return fut
@@ -384,6 +408,76 @@ class _Peer:
             if still is not None and not fut.done():
                 fut.set_exception(self._dead)
         return fut
+
+    # fault plane (ps/faults.py; reached ONLY when a scenario is armed)
+    _HELD_CAP = 8   # safety ceiling on the rule's reorder depth
+
+    def _send_faulted(self, msg_type: int, msg_id: int, meta,
+                      arrays) -> None:
+        """One outbound frame through the armed fault plane. Runs under
+        ``_send_lock`` (the caller holds it), so the holdback list and the
+        socket have one writer here. Injected partitions and resets raise
+        :class:`faults.InjectedFault` (a ConnectionResetError): the
+        caller's OSError handling then takes the organic peer-death path,
+        which is the point."""
+        plan = _faults.PLANE.plan_send(self.rank, msg_type, msg_id,
+                                       src=self.src)
+        if plan is None:
+            wire.send(self._sock, msg_type, msg_id, meta, arrays)
+            self._release_held()
+            return
+        if plan.delay_s:
+            # a slow wire backpressures senders to this peer like a real
+            # one: the sleep holds the send lock
+            time.sleep(plan.delay_s)
+        if plan.reset:
+            # kill the conn FIRST so the recv loop observes the death
+            # (fails in-flight futures, replay re-arms), then fail this
+            # send as the kernel would
+            try:
+                self._sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            raise _faults.InjectedFault(
+                f"injected {'/'.join(plan.kinds)} to rank {self.rank}")
+        if plan.drop:
+            return   # silently eaten; the caller's timeout is the signal
+        buf = wire.encode(msg_type, msg_id, meta, arrays)
+        if plan.reorder and len(self._held) < min(plan.depth,
+                                                 self._HELD_CAP):
+            self._held.append(buf)   # ships AFTER the next frame...
+            timer = threading.Timer(plan.hold_s, self._release_held,
+                                    kwargs={"locked": False})
+            timer.daemon = True      # ...or after hold_s: a blocking
+            timer.start()            # caller awaiting THIS frame's ack
+            return                   # is its own only traffic source
+        self._sock.sendall(buf)
+        # a reorder-claimed frame never duplicates, even when the holdback
+        # was full and it shipped at once, so the plane's counts and log
+        # match what hit the wire
+        if plan.duplicate and not plan.reorder:
+            self._sock.sendall(buf)
+        self._release_held()
+
+    def _release_held(self, locked: bool = True) -> None:
+        """Flush reorder-held frames (oldest first) now that a later frame
+        has shipped (``locked=True``: the caller holds the send lock) or
+        the hold timer fired. Socket errors are swallowed on both paths: a
+        held frame dying with the conn is an injected drop, the recv loop
+        owns the death signal, and the current frame's future must not
+        fail for a sibling."""
+        if not self._held:
+            return
+        if not locked:
+            with self._send_lock:
+                self._release_held()
+            return
+        held, self._held = self._held, []
+        try:
+            for buf in held:
+                self._sock.sendall(buf)
+        except OSError:
+            pass
 
     def inflight(self) -> int:
         with self._pending_lock:
@@ -438,7 +532,14 @@ class PSService:
     """Listener + shard registry + peer pool for one rank."""
 
     def __init__(self, rank: int, world: int, rendezvous=None,
-                 host: Optional[str] = None, port: Optional[int] = None):
+                 host: Optional[str] = None, port: Optional[int] = None,
+                 defer_publish: bool = False):
+        """``defer_publish=True`` holds the rendezvous publish until
+        :meth:`publish_addr`: a RESTARTED shard must restore from its
+        checkpoint before any survivor can discover the new address, or a
+        replayed frame landing on the still-empty shard would commit its
+        sequence, ack, and then be wiped by the restore (see
+        ``failover.rejoin``)."""
         check_native()
         self.rank, self.world = rank, world
         if host is None:
@@ -449,6 +550,9 @@ class PSService:
         # table -> shard object for MSG_STATS / MSG_HEALTH
         self._shards: Dict[str, Any] = {}
         self._handlers_cv = threading.Condition()
+        # fault plane: adopt the rank; arms from faults_spec /
+        # $MV_FAULTS_SPEC when set, else stays the null object
+        _faults.configure(rank)
         self._peers: Dict[int, _Peer] = {}
         self._peers_lock = threading.Lock()
         self._peer_locks: Dict[int, threading.Lock] = {}
@@ -466,7 +570,11 @@ class PSService:
         # hop through one serial executor (per-owner FIFO)
         self._local_exec = cf.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ps-local")
-        self.generation = 0
+        # shard incarnation generation (flag ps_generation): 0 for a first
+        # boot; the failover supervisor spawns each replacement at gen + 1
+        # and MSG_HEALTH echoes it. Set BEFORE the listener exists: a
+        # health probe can land the instant the accept loop starts
+        self.generation = int(config.get_flag("ps_generation"))
         self._listener = socket.create_server(
             (host, port if port is not None else config.get_flag("ps_port")))
         # published address must be ROUTABLE: a wildcard bind advertises
@@ -479,15 +587,21 @@ class PSService:
             target=self._accept_loop, name="ps-accept", daemon=True)
         self._accept_thread.start()
         self._published = False
-        if rendezvous is not None:
+        if rendezvous is not None and not defer_publish:
             self.publish_addr()
+        # flag-gated per-shard failover checkpointer (failover_dir +
+        # failover_ckpt_interval_s): the durable half of exactly-once
+        # replay; shards registered later are picked up each cycle
+        _failover.ensure_checkpointer(self)
         log.debug("PSService rank %d/%d listening on %s", rank, world,
                   self.addr)
 
     # ----------------------------- server side ----------------------- #
     def publish_addr(self) -> None:
         """Publish this incarnation's address through the rendezvous (and
-        join the in-process colocation registry); idempotent."""
+        join the in-process colocation registry) — the moment peers may
+        discover it. A deferred-publish (restarted) service calls this
+        after its checkpoint restore; idempotent."""
         if self._rendezvous is not None:
             self._rendezvous.publish(self.rank, self.addr)
             self._published = True
@@ -772,6 +886,16 @@ class PSService:
                 # probes leave the beat alone: it marks data-plane liveness
                 self.beat("serve")
                 try:
+                    # fault plane: slow-serve sleeps before the handler (a
+                    # slow RANK, not a slow wire); drop_reply serves the
+                    # request but never answers — an ack lost after the
+                    # apply, which the client's replay must dedupe
+                    drop_reply = False
+                    if _faults.PLANE.armed:
+                        _slow_s, drop_reply = _faults.PLANE.plan_serve(
+                            msg_type, msg_id, rank=self.rank)
+                        if _slow_s:
+                            time.sleep(_slow_s)
                     if msg_type == MSG_MULTI:
                         with monitor("ps[multi].serve"):
                             rmeta, rarrays = self._handle_multi(meta,
@@ -786,13 +910,16 @@ class PSService:
                         # sub-frame as the generator yields, closed by
                         # the ordinary OK
                         for cmeta, carrays in rarrays.chunks:
+                            if drop_reply:
+                                continue   # drain, send nothing
                             with send_lock:
                                 wire.send(conn, MSG_REPLY_CHUNK, msg_id,
                                           cmeta, carrays)
                         rmeta, rarrays = rarrays.meta, ()
-                    with send_lock:
-                        wire.send(conn, MSG_REPLY_OK, msg_id, rmeta,
-                                  rarrays)
+                    if not drop_reply:
+                        with send_lock:
+                            wire.send(conn, MSG_REPLY_OK, msg_id, rmeta,
+                                      rarrays)
                 except Exception as e:  # reply errors, don't kill the conn
                     log.debug("ps handler error: %s", e)
                     with send_lock:
@@ -875,7 +1002,8 @@ class PSService:
                              config.get_flag("ps_connect_timeout"),
                              config.get_flag("ps_timeout"),
                              on_death=lambda p, e, r=rank:
-                                 self._note_death(r, peer=p))
+                                 self._note_death(r, peer=p),
+                             src=self.rank)
             except PSError:
                 # lookup/connect failure: backoff yes, death hooks no
                 self._note_death(rank, hooks=False)
@@ -951,6 +1079,10 @@ class PSService:
             return False
 
     def close(self) -> None:
+        # the shard checkpointer stops with a FINAL save while the shards
+        # are intact: a cleanly closing rank's tail of applies stays
+        # durable for whoever inherits its rows
+        _failover.stop_if_bound(self)
         self._closed = True
         # colocated clients observe this rank's death like a dead socket
         self._release_colocated()

@@ -35,9 +35,15 @@ of its global row ids (``telemetry/hotkeys.py``, flag
 ``hotkeys_capacity``), reported in ``stats()["hotkeys"]``; the read
 replica seeds its hot-row cache from it.
 
+Exactly-once replay: add frames stamped by a replay-enabled send window
+(``wire.REPLAY_*`` meta) pass a per-client sequence channel
+(:class:`_SeqChannel`); a frame already applied acks as a duplicate
+without touching the data. ``checkpoint_state``/``restore_checkpoint``
+carry the channels beside the rows, the updater state and the version,
+and ``mark_durable`` advances the floors the acks report as durable.
+
 Not ported (ROADMAP.md §A): the native plane's shard binding, the spmd
-lane, the replay channels and ``mark_durable``, and the telemetry hooks
-(flight recorder, tenants, trace spans).
+lane, and the telemetry hooks (flight recorder, tenants, trace spans).
 """
 
 from __future__ import annotations
@@ -62,11 +68,6 @@ from multiverso_tpu_torch.updaters import (AddOption, Updater,
 from multiverso_tpu_torch.utils import config as _config
 from multiverso_tpu_torch.utils.dashboard import Dashboard
 
-# replay-stamped frames carry the sending client's identity here (the JAX
-# package's wire.REPLAY_CLIENT_KEY); this plane refuses them
-_REPLAY_CLIENT_KEY = "cl"
-
-
 def _host(arr, dtype) -> torch.Tensor:
     """A CPU tensor of ``arr`` in ``dtype`` that owns writable memory
     (frame blobs are views into the receive buffer)."""
@@ -74,6 +75,84 @@ def _host(arr, dtype) -> torch.Tensor:
     if not (a.flags.c_contiguous and a.flags.writeable):
         a = np.array(a, dtype, copy=True)
     return torch.from_numpy(a)
+
+
+def _leaf_shaped(got, want: torch.Tensor):
+    """A checkpoint's updater-state leaf shaped as the live one: the JAX
+    package's per-shard files hold a 0-d leaf (Adam's step) as shape (1,)
+    (ROADMAP C.14), which is read back as 0-d."""
+    if want.dim() == 0 and np.size(got) == 1 and np.ndim(got) == 1:
+        return np.reshape(got, ())
+    return got
+
+
+class _SeqChannel:
+    """Per-client applied-sequence tracker for exactly-once replay:
+    ``floor`` means every sequence at or below it has applied; ``above``
+    is the sparse set of applied sequences past a gap. The gap shape
+    exists because a frame re-sent across a connection change can arrive
+    after a later frame sent on the fresh conn — a plain high-water mark
+    would then dedupe the LATE frame as already applied and lose it."""
+
+    __slots__ = ("floor", "above", "failed")
+
+    # frames that applied with per-sub-op failures, kept so a DUP ack can
+    # echo the same "failed" indices (a replayed batch whose first ack was
+    # lost must not resolve its failed sub-ops as successes); bounded
+    _MAX_FAILED = 64
+
+    def __init__(self, floor: int = -1, above=(), failed=None):
+        self.floor = int(floor)
+        self.above = set(int(s) for s in above)
+        self.failed: Dict[int, Dict] = {
+            int(k): v for k, v in (failed or {}).items()}
+
+    def seen(self, seq: int) -> bool:
+        return seq <= self.floor or seq in self.above
+
+    def note_failed(self, seq: int, rmeta: Dict) -> None:
+        self.failed[int(seq)] = {"failed": list(rmeta.get("failed", ())),
+                                 "error": rmeta.get("error", "")}
+        while len(self.failed) > self._MAX_FAILED:
+            del self.failed[min(self.failed)]
+
+    @staticmethod
+    def _max_above() -> int:
+        """Gap-set bound: a client never has more frames outstanding than
+        its retention cap (flag ``ps_replay_max_frames``), so a larger set
+        means some sequence was abandoned for good (the client dropped its
+        frame after ``ps_replay_timeout``) and the gap will never fill.
+        Floored at the flag's default so a tiny knob never makes live
+        out-of-order pipelines jump the floor."""
+        return max(int(_config.get_flag("ps_replay_max_frames")), 4096)
+
+    def commit(self, seq: int) -> None:
+        if seq == self.floor + 1:
+            self.floor += 1
+            while self.floor + 1 in self.above:
+                self.floor += 1
+                self.above.discard(self.floor)
+        elif seq > self.floor:
+            self.above.add(seq)
+            if len(self.above) > self._max_above():
+                # jump past the abandoned gap instead of growing the set
+                # (and every checkpoint's replay block) forever
+                self.floor = min(self.above) - 1
+                while self.floor + 1 in self.above:
+                    self.floor += 1
+                    self.above.discard(self.floor)
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"floor": self.floor,
+                               "above": sorted(self.above)}
+        if self.failed:
+            out["failed"] = {str(k): v for k, v in self.failed.items()}
+        return out
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "_SeqChannel":
+        return cls(d.get("floor", -1), d.get("above", ()),
+                   d.get("failed"))
 
 
 class _DataPin:
@@ -162,6 +241,16 @@ class RowShard:
         self._stat_snapshot_unchanged = 0
         self._stat_get_bytes = 0
         self._stat_add_bytes = 0
+        # exactly-once replay: per-client applied-sequence channels
+        # (_replay_seq) and the channel floors at the last committed
+        # checkpoint (_durable_floor, echoed in every stamped reply as
+        # the client's retention-prune signal). _stamp_lock makes (dup
+        # check, apply, commit) atomic against concurrent same-client
+        # replays and against checkpoint_state's snapshot
+        self._replay_seq: Dict[str, _SeqChannel] = {}
+        self._durable_floor: Dict[str, int] = {}
+        self._stamp_lock = threading.Lock()
+        self._stat_dup_frames = 0
         # heavy-hitter sketch over the served GLOBAL row ids (bounded
         # memory, O(1) per recorded op): stats()["hotkeys"]
         cap = _config.get_flag("hotkeys_capacity")
@@ -233,6 +322,10 @@ class RowShard:
             "cow_applies": self._stat_cow, "read_pins": self._cur_pins,
             "get_bytes": self._stat_get_bytes,
             "add_bytes": self._stat_add_bytes,
+            # replay plane: stamped frames deduped as duplicates, and
+            # how many clients hold a sequence channel here
+            "dup_frames": self._stat_dup_frames,
+            "replay_clients": len(self._replay_seq),
             "snapshots": self._stat_snapshots,
             "snapshots_unchanged": self._stat_snapshot_unchanged,
         }
@@ -352,10 +445,15 @@ class RowShard:
         return rows[:k] if rows.shape[0] != k else rows
 
     def _full_rows(self, data: torch.Tensor) -> np.ndarray:
-        """The shard's logical rows of ``data`` as an owned host array
-        (on the CPU ``.cpu()`` is the tensor itself: copy it)."""
-        rows = data[: self.n].cpu().numpy()
-        return rows.copy() if self.device.type == "cpu" else rows
+        """The shard's logical rows of ``data`` as an owned host array."""
+        return self._owned_host(data[: self.n])
+
+    @staticmethod
+    def _owned_host(t: torch.Tensor) -> np.ndarray:
+        """``t`` as a host array that shares no memory with the shard (on
+        the CPU ``.cpu()`` is the tensor itself: copy it)."""
+        a = t.cpu().numpy()
+        return a.copy() if t.device.type == "cpu" else a
 
     # ------------------------------------------------------------------ #
     # coalescing apply queue (ps_coalesce)
@@ -655,9 +753,12 @@ class RowShard:
         """Replica subscription snapshot (MSG_SNAPSHOT): the shard's rows
         plus the mutation version they correspond to, taken atomically.
         ``meta["since"]`` = the version the replica holds: an unchanged
-        shard answers a meta-only frame."""
+        shard answers a meta-only frame. The dedupe token is
+        ``(generation, version)``: a respawned incarnation restores an
+        older checkpoint and re-applies other ops, so its counter can
+        match the replica's last-seen version while the rows differ."""
         since = int(meta.get("since", -1))
-        gen = 0
+        gen = int(_config.get_flag("ps_generation"))
         since_gen = int(meta.get("since_gen", -1))
         with self._lock:
             version = self._version
@@ -727,29 +828,88 @@ class RowShard:
                arrays: Sequence[np.ndarray]
                ) -> Tuple[Dict, List[np.ndarray]]:
         if (msg_type in (svc.MSG_ADD_ROWS, svc.MSG_BATCH)
-                and _REPLAY_CLIENT_KEY in meta):
-            raise svc.PSError(
-                f"{self.name}: replay-stamped add frames need the replay "
-                "plane, which is not ported to multiverso_tpu_torch yet "
-                f"(ROADMAP.md §A {svc.REPLAY_ITEM})")
+                and wire.REPLAY_CLIENT_KEY in meta):
+            return self._handle_stamped(msg_type, meta, arrays)
         return self._handle(msg_type, meta, arrays)
 
+    def _handle_stamped(self, msg_type: int, meta: Dict,
+                        arrays: Sequence[np.ndarray]
+                        ) -> Tuple[Dict, List[np.ndarray]]:
+        """Dedupe gate for replay-stamped add frames: a frame the client's
+        channel has already applied acks as a duplicate without touching
+        the data (a survivor re-flushing its retained window to a
+        restored incarnation never double-applies the prefix the
+        checkpoint holds, and a replay racing a late ack applies once).
+        Stamped frames serialize on ``_stamp_lock``, so the check, the
+        apply and the commit are one unit against concurrent same-client
+        replays and against :meth:`checkpoint_state`. Replies echo the
+        DURABLE mark (``wire.REPLAY_DURABLE_KEY``), below which the client
+        prunes its retained frames."""
+        cl = str(meta[wire.REPLAY_CLIENT_KEY])
+        seq = int(meta.get(wire.REPLAY_SEQ_KEY, -1))
+        with self._stamp_lock:
+            chan = self._replay_seq.get(cl)
+            if chan is not None and chan.seen(seq):
+                self._stat_dup_frames += 1
+                dup: Dict = {wire.REPLAY_DUP_KEY: True,
+                             wire.REPLAY_DURABLE_KEY:
+                                 self._durable_floor.get(cl, -1)}
+                # the original apply had per-sub-op failures: the dup ack
+                # repeats them
+                dup.update(chan.failed.get(seq, ()))
+                return dup, []
+            rmeta, rarrays = self._handle(msg_type, meta, arrays)
+            # commit AFTER a successful apply: an apply that raised stays
+            # replayable. A batch with per-sub-op failures still consumes
+            # the frame (those are reported per op, and memoized for dup
+            # acks)
+            if chan is None:
+                chan = self._replay_seq[cl] = _SeqChannel()
+            chan.commit(seq)
+            if rmeta.get("failed"):
+                chan.note_failed(seq, rmeta)
+            rmeta = dict(rmeta)
+            rmeta[wire.REPLAY_DURABLE_KEY] = self._durable_floor.get(cl, -1)
+        return rmeta, rarrays
+
+    def mark_durable(self, floors: Dict[str, int]) -> None:
+        """Advance the durable (checkpointed) channel floors — called by
+        the shard checkpointer after a COMMITTED save whose snapshot
+        carried exactly these channels."""
+        with self._stamp_lock:
+            self._durable_floor = dict(floors)
+
     # ------------------------------------------------------------------ #
-    # checkpoint surface: one atomic (meta, arrays) snapshot of the data
-    # rows, the updater state and the mutation version
+    # failover checkpoint surface (checkpoint.save_shard_state): one
+    # atomic (meta, arrays) snapshot of the data rows, the updater state,
+    # the replay channels and the mutation version
     # ------------------------------------------------------------------ #
     def checkpoint_state(self) -> Tuple[Dict, List[np.ndarray]]:
-        """Consistent shard snapshot (under the shard lock); every array
-        is an owned host copy."""
-        with self._lock:
+        """Consistent shard snapshot, taken under ``_stamp_lock`` and the
+        shard lock so the replay marks and the rows agree exactly. Every
+        array is an OWNED host copy of the card's tensors: an apply right
+        after the locks release must not change the bytes being written."""
+        with self._stamp_lock, self._lock:
+            chans = {k: v.to_dict() for k, v in self._replay_seq.items()}
             version = self._version
-            data = self._data[: self.n].cpu().numpy().copy()
-            leaves = [l.cpu().numpy().copy() for l in self._leaves()]
+            data = self._full_rows(self._data)
+            leaves = [self._owned_host(l) for l in self._leaves()]
         meta = {"kind": "row", "lo": self.lo, "rows": self.n,
                 "cols": self.num_col, "dtype": str(self.dtype),
-                "version": int(version), "replay": {},
+                "version": int(version), "replay": chans,
                 "n_leaves": len(leaves)}
         return meta, [data] + leaves
+
+    def _adopt_replay_channels(self, meta: Dict) -> None:
+        """Rebuild the replay channels from a checkpoint's ``replay`` block
+        (caller holds ``_stamp_lock``). The restored channels are BOTH the
+        applied and the durable marks: the restored state is exactly what
+        the checkpoint made durable."""
+        self._replay_seq = {str(k): _SeqChannel.from_dict(v)
+                            for k, v in (meta.get("replay")
+                                         or {}).items()}
+        self._durable_floor = {k: c.floor
+                               for k, c in self._replay_seq.items()}
 
     def _set_leaves(self, arrays: Sequence[np.ndarray]) -> None:
         """Adopt updater-state leaves (caller holds the lock), checked
@@ -760,6 +920,8 @@ class RowShard:
                 f"{self.name}: checkpoint has {len(arrays)} updater-state "
                 f"leaves, shard expects {len(keys)} (was the table created "
                 "with a different updater?)")
+        arrays = [_leaf_shaped(got, self._ustate[k])
+                  for got, k in zip(arrays, keys)]
         for got, k in zip(arrays, keys):
             want = self._ustate[k]
             if tuple(np.shape(got)) != tuple(want.shape):
@@ -774,8 +936,10 @@ class RowShard:
 
     def restore_checkpoint(self, meta: Dict,
                            arrays: Sequence[np.ndarray]) -> None:
-        """Adopt a :meth:`checkpoint_state` snapshot. Dirty bits reset to
-        all-True (sparse workers re-pull everything)."""
+        """Adopt a :meth:`checkpoint_state` snapshot (of either package),
+        rows and state placed on the shard's device. Dirty bits reset to
+        all-True (sparse workers re-pull everything), and the restored
+        replay marks become both the applied and the durable marks."""
         if meta.get("kind") != "row":
             raise svc.PSError(f"{self.name}: checkpoint kind "
                               f"{meta.get('kind')!r} is not a row shard")
@@ -786,11 +950,12 @@ class RowShard:
                 f"{int(meta['lo']) + int(meta['rows'])})x{meta['cols']} "
                 f"!= live [{self.lo}, {self.hi})x{self.num_col} — "
                 "partition changed since the save")
-        with self._lock:
+        with self._stamp_lock, self._lock:
             self._set_leaves(list(arrays[1:]))
             host = np.zeros(self._padded, self.dtype)
             host[: self.n] = np.asarray(arrays[0], self.dtype)
             self._data = self._place_rows(host)
+            self._adopt_replay_channels(meta)
             self._version = int(meta.get("version", 0))
             if self._dirty is not None:
                 self._dirty[:] = True
@@ -991,22 +1156,25 @@ class HashShard(RowShard):
 
     def checkpoint_state(self) -> Tuple[Dict, List[np.ndarray]]:
         """Hash-shard snapshot: the (keys, rows, state-leaf) dump plus the
-        version."""
-        with self._lock:
+        replay marks and the version, with RowShard's atomicity."""
+        with self._stamp_lock, self._lock:
+            chans = {k: v.to_dict() for k, v in self._replay_seq.items()}
             version = self._version
             _, arrs = self._dump()
         meta = {"kind": "hash", "cols": self.num_col,
                 "dtype": str(self.dtype), "version": int(version),
-                "replay": {}, "n_leaves": max(len(arrs) - 2, 0)}
-        return meta, [np.ascontiguousarray(a) for a in arrs]
+                "replay": chans, "n_leaves": max(len(arrs) - 2, 0)}
+        return meta, [np.ascontiguousarray(a) if np.ndim(a) else a
+                      for a in arrs]
 
     def restore_checkpoint(self, meta: Dict,
                            arrays: Sequence[np.ndarray]) -> None:
         if meta.get("kind") != "hash":
             raise svc.PSError(f"{self.name}: checkpoint kind "
                               f"{meta.get('kind')!r} is not a hash shard")
-        with self._lock:
+        with self._stamp_lock, self._lock:
             self._restore(arrays)
+            self._adopt_replay_channels(meta)
             self._version = int(meta.get("version", 0))
 
     def _handle(self, msg_type: int, meta: Dict,
@@ -1100,7 +1268,7 @@ class HashShard(RowShard):
                 idx = (slice(None),) * axis + (slots,)
                 arr[idx] = np.asarray(got, arr.dtype)
             else:
-                arr = np.asarray(got, arr.dtype)
+                arr = np.asarray(_leaf_shaped(got, want), arr.dtype)
             self._ustate[k] = _host(arr, arr.dtype).to(self.device)
         if self._dirty is not None:
             self._dirty = np.ones((self._nw, self.n), bool)

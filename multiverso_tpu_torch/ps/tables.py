@@ -17,16 +17,24 @@ the table's ``get_window_ms=``, :class:`_GetWindow`) merges concurrent
 gets to an owner into single-flight fetches. Windowed results equal
 window-off results bit for bit.
 
+Exactly-once replay (flag ``ps_replay``, on a windowed table): the send
+window stamps each frame with (client, per-owner sequence), retains it
+past its ack until the owner reports it durable, and re-flushes the
+retained tail in sequence order when the owner dies
+(:class:`_ReplayBuffer`); the shard's sequence channels dedupe.
+
 Not ported (ROADMAP.md §A, each raising ``NotImplementedError`` that
-names its item when asked for): the native transport's futures, the
-replay buffer (``ps_replay``) and per-tenant add budgets
-(``tenant_add_qps``).
+names its item when asked for): the native transport's futures and
+per-tenant add budgets (``tenant_add_qps``).
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures as cf
 import contextlib
+import itertools
+import os
 import threading
 import time
 import weakref
@@ -41,6 +49,7 @@ from multiverso_tpu_torch.ps.shard import HashShard, KVShard, RowShard
 from multiverso_tpu_torch.serving import hotcache as _hotcache
 from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils import config, log
+from multiverso_tpu_torch.utils import retry as _retry
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 
 
@@ -54,13 +63,8 @@ def _resolve_updater(updater, num_workers: int, dtype):
 
 
 def _refuse_unported() -> None:
-    """The replay plane and per-tenant add budgets are not ported: asking
-    for either raises, naming its ROADMAP item, instead of quietly running
-    without it."""
-    if config.get_flag("ps_replay"):
-        raise NotImplementedError(
-            "ps_replay=True: the replay plane is not ported to "
-            f"multiverso_tpu_torch yet (ROADMAP.md §A {svc.REPLAY_ITEM})")
+    """Per-tenant add budgets are not ported: asking for them raises,
+    naming the ROADMAP item, instead of quietly running without them."""
     if config.get_flag("tenant_add_qps") > 0:
         raise NotImplementedError(
             "tenant_add_qps > 0: per-tenant add budgets at the send window "
@@ -157,6 +161,85 @@ def _complete_window_futures(batch_fut: cf.Future,
                 f.set_result(({}, []))
 
 
+class _RetainedFrame:
+    """One replay-retained window frame: everything needed to put the
+    EXACT frame back on the wire (same sequence stamp, meta and blobs)
+    plus the waiter futures its eventual ack fans out to."""
+
+    __slots__ = ("owner", "seq", "msg_type", "meta", "arrays", "gfuts",
+                 "acked", "needs_send", "created", "attempts",
+                 "retry_since", "episode_attempts")
+
+    def __init__(self, owner: int, seq: int, msg_type: int, meta: Dict,
+                 arrays, gfuts):
+        self.owner, self.seq = owner, seq
+        self.msg_type, self.meta, self.arrays = msg_type, meta, arrays
+        self.gfuts = gfuts
+        self.acked = False
+        self.needs_send = False
+        self.created = time.monotonic()
+        self.attempts = 0
+        # when this frame ENTERED its current replay episode (first failed
+        # attempt or owner-death re-arm); None = not replaying.
+        # ps_replay_timeout bounds time spent RETRYING, measured from here
+        self.retry_since: Optional[float] = None
+        # failed attempts within the current episode: the exponent of the
+        # shared capped-exponential backoff (utils/retry.py)
+        self.episode_attempts = 0
+
+
+def _replay_backoff() -> _retry.Backoff:
+    """The replay plane's instance of the shared retry policy: base
+    ``ps_replay_backoff``, capped at ``ps_replay_backoff_cap``, jittered
+    so a fleet of clients re-arming off one death de-synchronizes."""
+    base = config.get_flag("ps_replay_backoff")
+    return _retry.Backoff(
+        base_s=base,
+        cap_s=max(config.get_flag("ps_replay_backoff_cap"), base),
+        jitter=0.25)
+
+
+class _ReplayBuffer:
+    """Client half of exactly-once send-window replay (flag
+    ``ps_replay``): per-owner monotonic frame sequences, the
+    retained-frame log and the replay schedule.
+
+    Every windowed frame is stamped with (client id, per-owner seq) and
+    RETAINED past its ack until the owning shard reports it durable (the
+    reply's ``dseq`` floor, advanced by the failover checkpointer). On a
+    peer death the whole retained tail for that owner re-arms and the
+    flusher re-flushes it, oldest first, to whatever incarnation the
+    rendezvous resolves next: the restored shard's sequence channels ack
+    the already-checkpointed prefix as duplicates and apply the rest."""
+
+    # per-process window nonce: a re-created same-named table must get a
+    # FRESH sequence channel on the shard — reusing (rank, pid) alone
+    # would restart next_seq at 0 under the old channel's floor and the
+    # shard would dedupe every fresh frame as already applied
+    _nonce = itertools.count()
+
+    def __init__(self, table):
+        self.client_id = (f"r{table.ctx.rank}.{os.getpid()}"
+                          f".{next(self._nonce)}")
+        self.lock = threading.Lock()
+        self.next_seq: Dict[int, int] = {}
+        # owner -> seq -> frame, insertion (= seq) order
+        self.retained: Dict[int, "collections.OrderedDict[int, _RetainedFrame]"] = {}
+        # owner -> count of frames awaiting (re-)send; > 0 blocks direct
+        # dispatch of NEW frames so the wire order stays the seq order
+        self.pending_send: Dict[int, int] = {}
+        # owner -> monotonic deadline of the next replay attempt
+        self.next_due: Dict[int, float] = {}
+        base = f"table[{table.name}].replay"
+        self.mon_replayed = Dashboard.get(base + ".frames")
+        self.mon_dups = Dashboard.get(base + ".dups")
+        self.mon_dropped = Dashboard.get(base + ".dropped")
+
+    def soonest_due(self) -> Optional[float]:
+        with self.lock:
+            return min(self.next_due.values()) if self.next_due else None
+
+
 class _SendWindow:
     """Client-side cross-call add coalescer (the PS *send window*), one
     per windowed table: ``add_rows_async`` enqueues per-owner entries and
@@ -182,7 +265,16 @@ class _SendWindow:
     never blocks behind a flush. A caller that fences
     (:meth:`flush_pending`) and then issues a get on the same conn reads
     its own writes (the conn's FIFO does the rest); the fence does not
-    wait for acks."""
+    wait for acks.
+
+    Replay (flag ``ps_replay``): frames are stamped, retained past their
+    ack until the owner reports them durable, and re-flushed in sequence
+    order when the owner dies. While an owner's retained tail awaits
+    replay, fresh frames to it queue behind (seq order IS wire order)
+    and their futures stay pending until the restored incarnation acks
+    them; the fence then means "queued or retained", and
+    read-your-writes on that owner degrades to eventual until the
+    replay drains."""
 
     # idle condvar waits are bounded so the flusher notices its window
     # died (see _window_loop's weakref)
@@ -207,6 +299,20 @@ class _SendWindow:
         self._mon_windowed = Dashboard.get(base + ".windowed")
         self._mon_flushes = Dashboard.get(base + ".flushes")
         self._mon_merged = Dashboard.get(base + ".merged_rows")
+        # exactly-once replay: stamped, retained, re-flushed frames. The
+        # peer-death hook is weakref-bound — the service's hook list
+        # outlives any one table and must not pin it
+        self._replay: Optional[_ReplayBuffer] = None
+        if config.get_flag("ps_replay"):
+            self._replay = _ReplayBuffer(table)
+            wref = weakref.ref(self)
+
+            def _death(rank: int, _w=wref) -> None:
+                w = _w()
+                if w is not None:
+                    w._on_owner_death(rank)
+
+            table.ctx.service.add_death_hook(_death)
 
     # ------------------------------------------------------------------ #
     def submit(self, parts: List[Tuple[int, np.ndarray, np.ndarray]],
@@ -252,7 +358,10 @@ class _SendWindow:
         self._flush_owners(owners)
 
     def _ensure_flusher_locked(self) -> None:
-        """Start (or restart) the flusher thread; caller holds ``_cv``."""
+        """Start (or restart) the flusher thread; caller holds ``_cv``.
+        Shared by the enqueue path and the replay plane: a replay-armed
+        window with no fresh enqueues still needs the thread to drive
+        retries."""
         if self._thread is None or not self._thread.is_alive():
             self._thread = threading.Thread(
                 target=_window_loop, args=(weakref.ref(self),),
@@ -261,21 +370,32 @@ class _SendWindow:
 
     def _step(self) -> bool:
         """One flusher cycle: wait out the open window (or idle, bounded),
-        then ship everything pending."""
+        then ship everything pending; with replay armed, the wait also
+        bounds to the soonest replay deadline and every cycle drives due
+        replays."""
         owners: List[int] = []
+        rp = self._replay
         with self._cv:
             bound = self._IDLE_WAIT_S
+            now = time.monotonic()
+            nd = rp.soonest_due() if rp is not None else None
+            if nd is not None:
+                bound = min(bound, max(nd - now, 0.005))
             if self._deadline is not None:
-                delay = self._deadline - time.monotonic()
+                delay = self._deadline - now
                 if delay <= 0:
                     self._deadline = None
                     owners = list(self._pending)
                 else:
                     bound = min(bound, delay)
-            if not owners:
+            if not owners and not (nd is not None and nd <= now):
                 self._cv.wait(bound)
+        # _replay_step runs OUTSIDE the cv hold: it takes owner send locks
+        # (and its sends can block on a dead owner's sockets), while
+        # senders holding those locks block on the cv to queue armed
+        # frames — calling it under the cv would deadlock
         self._flush_owners(owners)
-        return bool(owners)
+        return self._replay_step() or bool(owners)
 
     # ------------------------------------------------------------------ #
     def _send_lock(self, owner: int) -> threading.Lock:
@@ -381,7 +501,8 @@ class _SendWindow:
                         meta["wire"] = w
                     msg_type = svc.MSG_ADD_ROWS
                     arrays = [ids] + wire_mod.encode_payload(vals, w)
-                    meta_b = t._add_meta_b(opt, w)
+                    meta_b = (None if self._replay is not None
+                              else t._add_meta_b(opt, w))
                 else:
                     blobs = [wire_mod.encode(
                         svc.MSG_ADD_ROWS, i, t._add_meta_b(opt, w),
@@ -398,12 +519,265 @@ class _SendWindow:
                             f.set_exception(e)
                 continue
             self._mon_flushes.incr()
+            if self._replay is not None:
+                # stamped, retained dispatch: the ack callback, retention
+                # pruning and peer-death replay live in _frame_done
+                self._dispatch_retained(t, owner, msg_type, meta, arrays,
+                                        gfuts)
+                continue
             req = t.ctx.service.request(owner, msg_type, meta, arrays,
                                         meta_b=meta_b)
             req.add_done_callback(
                 lambda bf, gf=gfuts: _complete_window_futures(bf, gf))
         if merged_rows:
             self._mon_merged.incr(merged_rows)
+
+    # ------------------------------------------------------------------ #
+    # exactly-once replay plane (flag ps_replay)
+    # ------------------------------------------------------------------ #
+    def _dispatch_retained(self, t, owner: int, msg_type: int,
+                           meta: Dict, arrays, gfuts) -> None:
+        """Stamp one window frame with (client, per-owner seq), retain
+        it, and put it on the wire — unless earlier frames to this owner
+        await replay, in which case it queues behind them (seq order IS
+        wire order: a new frame overtaking a replayed one could commit a
+        later sequence first, and the shard would then treat the late
+        arrival as the duplicate)."""
+        rp = self._replay
+        with rp.lock:
+            seq = rp.next_seq.get(owner, 0)
+            rp.next_seq[owner] = seq + 1
+            meta = dict(meta)
+            meta[wire_mod.REPLAY_CLIENT_KEY] = rp.client_id
+            meta[wire_mod.REPLAY_SEQ_KEY] = seq
+            fr = _RetainedFrame(owner, seq, msg_type, meta, arrays, gfuts)
+            q = rp.retained.setdefault(owner, collections.OrderedDict())
+            q[seq] = fr
+            blocked = rp.pending_send.get(owner, 0) > 0
+            if blocked:
+                fr.needs_send = True
+                rp.pending_send[owner] += 1
+        if blocked:
+            with self._cv:
+                self._ensure_flusher_locked()
+                self._cv.notify()
+            return
+        self._send_frame(t, fr)
+
+    def _send_frame(self, t, fr: _RetainedFrame) -> None:
+        fr.attempts += 1
+        req = t.ctx.service.request(fr.owner, fr.msg_type, fr.meta,
+                                    fr.arrays)
+        req.add_done_callback(lambda bf, fr=fr: self._frame_done(bf, fr))
+
+    def _frame_done(self, bf: cf.Future, fr: _RetainedFrame) -> None:
+        """Outcome of one retained frame's latest wire attempt (the peer's
+        recv thread, or inline for a failed-fast dispatch). A
+        peer-unreachable failure inside the replay window does NOT fail
+        the waiters — the frame re-arms, and they complete when it lands
+        on a (possibly restored) incarnation; anything else — a shard
+        error, or the replay window exhausted — completes them with the
+        error, as the unreplayed path does."""
+        rp = self._replay
+        exc: Optional[BaseException] = None
+        meta: Dict = {}
+        try:
+            exc = bf.exception()
+            if exc is None:
+                res = bf.result()
+                if isinstance(res, tuple) and isinstance(res[0], dict):
+                    meta = res[0]
+        except (cf.CancelledError, Exception) as e:   # defensive
+            exc = e
+        if isinstance(exc, svc.PSPeerError):
+            now = time.monotonic()
+            if fr.retry_since is None:
+                fr.retry_since = now
+                fr.episode_attempts = 0
+            if (now - fr.retry_since
+                    <= config.get_flag("ps_replay_timeout")):
+                with rp.lock:
+                    if not fr.needs_send:
+                        fr.needs_send = True
+                        rp.pending_send[fr.owner] = (
+                            rp.pending_send.get(fr.owner, 0) + 1)
+                    # the delay never schedules past the episode's
+                    # ps_replay_timeout budget
+                    due = now + _replay_backoff().delay_s(
+                        fr.episode_attempts,
+                        deadline=fr.retry_since
+                        + config.get_flag("ps_replay_timeout"))
+                    fr.episode_attempts += 1
+                    cur = rp.next_due.get(fr.owner)
+                    if cur is None or due < cur:
+                        rp.next_due[fr.owner] = due
+                with self._cv:
+                    self._ensure_flusher_locked()
+                    self._cv.notify()
+                return
+        if meta.get(wire_mod.REPLAY_DUP_KEY):
+            rp.mon_dups.incr()
+        with rp.lock:
+            q = rp.retained.get(fr.owner)
+            if exc is None:
+                fr.acked = True
+                fr.retry_since = None
+                fr.episode_attempts = 0
+                if q is not None:
+                    self._prune_owner_locked(
+                        fr.owner,
+                        int(meta.get(wire_mod.REPLAY_DURABLE_KEY, -1)))
+            elif q is not None:
+                # permanently failed: nothing left to replay. Drop the
+                # frame, keeping the armed-frame invariant (pending_send
+                # == count of needs_send frames; a stale positive count
+                # would block every later frame to this owner forever)
+                if fr.needs_send:
+                    fr.needs_send = False
+                    rp.pending_send[fr.owner] = max(
+                        rp.pending_send.get(fr.owner, 0) - 1, 0)
+                dropped_acked = all(f.done()
+                                    for fs in fr.gfuts for f in fs)
+                q.pop(fr.seq, None)
+                if dropped_acked:
+                    # the waiters already saw success: this IS a lost
+                    # acked op, and it must be loud
+                    log.error(
+                        "table[%s]: replay of frame seq %d to owner %d "
+                        "exhausted its window (%s); an ACKED op may be "
+                        "lost", self._table_name, fr.seq, fr.owner, exc)
+        _complete_window_futures(bf, fr.gfuts)
+
+    def _prune_owner_locked(self, owner: int, durable: int) -> None:
+        """Drop retained frames the shard has made durable (caller holds
+        ``rp.lock``), then enforce the retention cap: past it the oldest
+        ACKED frames drop with a warning — durability degrades to
+        ack-time instead of memory growing without bound when no
+        checkpointer advances the durable floor."""
+        rp = self._replay
+
+        def _remove(seq: int) -> None:
+            # keep the armed-frame invariant on EVERY removal path: a
+            # frame can be re-armed by an owner death while its
+            # (old-incarnation) success ack is in flight
+            fr = q.pop(seq, None)
+            if fr is not None and fr.needs_send:
+                fr.needs_send = False
+                rp.pending_send[owner] = max(
+                    rp.pending_send.get(owner, 0) - 1, 0)
+
+        q = rp.retained.get(owner)
+        if not q:
+            return
+        # q is in seq order (frames are inserted under rp.lock with
+        # increasing seq): only its head can be at or below the floor
+        done = []
+        for seq, f in q.items():
+            if seq > durable:
+                break
+            if f.acked:
+                done.append(seq)
+        for seq in done:
+            _remove(seq)
+        cap = config.get_flag("ps_replay_max_frames")
+        if len(q) > cap:
+            drop = [s for s, f in q.items() if f.acked][: len(q) - cap]
+            if drop:
+                rp.mon_dropped.incr(len(drop))
+                log.error(
+                    "table[%s]: replay retention cap (%d) dropped %d acked "
+                    "frames for owner %d — they are durable only to "
+                    "ack-time (is the failover checkpointer running?)",
+                    self._table_name, cap, len(drop), owner)
+                for seq in drop:
+                    _remove(seq)
+
+    def _on_owner_death(self, rank: int) -> None:
+        """Peer-death hook: the owner may come back restored from a
+        checkpoint missing the tail of what it acked — re-arm EVERY
+        retained frame (acked ones too) for re-flush in seq order; the
+        restored incarnation's sequence channels ack the prefix its
+        checkpoint holds as duplicates and apply only the lost tail."""
+        rp = self._replay
+        if rp is None:
+            return
+        now = time.monotonic()
+        with rp.lock:
+            q = rp.retained.get(rank)
+            if not q:
+                return
+            armed = 0
+            for fr in q.values():
+                fr.acked = False
+                if fr.retry_since is None:
+                    fr.retry_since = now
+                    fr.episode_attempts = 0
+                if not fr.needs_send:
+                    fr.needs_send = True
+                    armed += 1
+            if armed:
+                rp.pending_send[rank] = (rp.pending_send.get(rank, 0)
+                                         + armed)
+            # episode start: the FIRST re-flush is quick (attempt 0 of the
+            # shared policy); later failures grow the delay per frame
+            rp.next_due[rank] = (time.monotonic()
+                                 + _replay_backoff().delay_s(0))
+        with self._cv:
+            self._ensure_flusher_locked()
+            self._cv.notify()
+
+    def _replay_step(self) -> bool:
+        """Flusher-cycle half of the replay plane: re-flush every owner
+        whose retry deadline passed."""
+        rp = self._replay
+        if rp is None:
+            return False
+        now = time.monotonic()
+        with rp.lock:
+            due = [o for o, t0 in rp.next_due.items() if now >= t0]
+        did = False
+        for owner in due:
+            did = self._replay_owner(owner) or did
+        return did
+
+    def _replay_owner(self, owner: int) -> bool:
+        """Re-flush one owner's armed frames, oldest first, under the
+        owner's SEND lock (fresh flushes queue behind, so the conn sees
+        strict seq order). Frames that fail again re-arm themselves in
+        their _frame_done; frames landing on a restored incarnation
+        dedupe at the shard."""
+        rp = self._replay
+        t = self._table_ref()
+        with self._send_lock(owner):
+            with rp.lock:
+                rp.next_due.pop(owner, None)
+                q = rp.retained.get(owner)
+                frames = ([f for f in q.values() if f.needs_send]
+                          if q else [])
+                for f in frames:
+                    f.needs_send = False
+                if frames:
+                    rp.pending_send[owner] = max(
+                        rp.pending_send.get(owner, 0) - len(frames), 0)
+            if not frames:
+                return False
+            if t is None:
+                err = svc.PSError(
+                    f"table[{self._table_name}] was garbage-collected "
+                    "with frames awaiting replay")
+                with rp.lock:
+                    for f in frames:
+                        if q is not None:
+                            q.pop(f.seq, None)
+                for f in frames:
+                    for fut in (x for fs in f.gfuts for x in fs):
+                        if not fut.done():
+                            fut.set_exception(err)
+                return True
+            rp.mon_replayed.incr(len(frames))
+            for fr in frames:
+                self._send_frame(t, fr)
+        return True
 
 
 def _chunk_scatter(buf: np.ndarray, idx: Optional[np.ndarray],

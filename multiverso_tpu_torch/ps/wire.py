@@ -64,6 +64,17 @@ OWNER_META_KEY = "ow"
 # non-default tenant)
 TENANT_META_KEY = "tn"
 
+# Exactly-once replay meta: a windowed add frame (MSG_ADD_ROWS /
+# MSG_BATCH from a replay-enabled send window) stamps its outer meta with
+# the sending client's identity and a per-(client, table) sequence; the
+# owning shard dedupes by them. Replies echo the shard's durable
+# (checkpointed) high-water mark for that client, the client's
+# retention-prune signal. Unstamped frames behave exactly as before.
+REPLAY_CLIENT_KEY = "cl"     # request: client identity string
+REPLAY_SEQ_KEY = "seq"       # request: per-(client, table) sequence
+REPLAY_DURABLE_KEY = "dseq"  # reply: durable high-water mark for cl
+REPLAY_DUP_KEY = "dup"       # reply: frame was a deduped duplicate
+
 
 def with_trace(meta: Dict, trace) -> Dict:
     """Meta dict + trace ID (no-op passthrough for ``trace=None``)."""

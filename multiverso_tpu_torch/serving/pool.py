@@ -32,8 +32,10 @@ The pool registers a merged per-table stats entry with the serving
 block (``serving/replica.register_pool_provider``): summed counters plus
 a ``"pool"`` detail block (per-member age, degraded flag, route share).
 
-Not ported (ROADMAP.md §A): ``bind_failover`` (failover, faults and
-replay) raises, and a read naming a tenant raises (Telemetry and
+``bind_failover`` watches a shard failover supervisor: each shard rejoin
+kicks a fresh pull across the pool.
+
+Not ported (ROADMAP.md §A): a read naming a tenant raises (Telemetry and
 tools).
 """
 
@@ -170,6 +172,8 @@ class ReplicaPool:
         # recovery log: (wall_ts, phase, member idx), phase in
         # demote|promote|spare_activated
         self.events: List = []
+        self._sup = None                  # bound FailoverSupervisor
+        self._sup_seen = 0                # its events consumed so far
         self._closed = False
         self._health_thread: Optional[threading.Thread] = None
         _POOLS.add(self)
@@ -201,13 +205,12 @@ class ReplicaPool:
             m.replica.close()
 
     def bind_failover(self, supervisor) -> None:
-        """Watching a failover supervisor's shard rejoins is not ported:
-        the supervisor is not (ROADMAP.md §A)."""
-        from multiverso_tpu_torch.ps.service import REPLAY_ITEM
-        raise NotImplementedError(
-            "ReplicaPool.bind_failover: the failover supervisor is not "
-            f"ported to multiverso_tpu_torch yet (ROADMAP.md §A "
-            f"{REPLAY_ITEM})")
+        """Watch a :class:`~multiverso_tpu_torch.ps.failover.
+        FailoverSupervisor`: each shard REJOIN it observes kicks an
+        immediate refresh across the pool, so the restored shard's rows
+        re-sync at recovery speed rather than refresh-cadence speed."""
+        self._sup = supervisor
+        self._sup_seen = len(supervisor.events)
 
     # ------------------------------------------------------------------ #
     # health machinery
@@ -224,8 +227,21 @@ class ReplicaPool:
 
     def check_health(self) -> None:
         """One health pass (the loop's body; tests drive it directly):
-        demote actives whose background pulls keep failing, and probe
-        demoted members for re-promotion."""
+        demote actives whose background pulls keep failing, probe demoted
+        members for re-promotion, and consume a bound supervisor's rejoin
+        events."""
+        # shard rejoin -> an immediate pool-wide re-sync: force a FRESH
+        # pull (need_from=now: an in-bound snapshot does not satisfy it)
+        if self._sup is not None:
+            ev = self._sup.events
+            fresh, self._sup_seen = ev[self._sup_seen:], len(ev)
+            if any(p == "rejoin" for _, p, _ in fresh):
+                for m in self._members:
+                    if m.active and not m.degraded:
+                        try:
+                            m.replica.refresh(need_from=time.monotonic())
+                        except Exception:   # noqa: BLE001 — probed
+                            pass            # again next pass
         for m in list(self._members):
             if m.active and not m.degraded:
                 if (m.replica.pull_health()["consecutive"]

@@ -199,9 +199,9 @@ define_string("device", "",
 define_string("ps_role", "default",
               "role of this process: none|worker|server|default")
 # The async PS plane's client windows (ps/tables.py), off by default as
-# in the JAX package; its replay plane and per-tenant add budgets exist
-# with the JAX package's names and defaults, and an async table refuses
-# them when set (ROADMAP.md §A).
+# in the JAX package; per-tenant add budgets exist with the JAX package's
+# name and default, and an async table refuses them when set (ROADMAP.md
+# §A).
 define_float("batch_window_ms", 0.0,
              "send-window age bound in ms for async add_rows batching; "
              "0 disables the window (every add ships immediately). "
@@ -224,9 +224,70 @@ define_float("tenant_add_qps", 0.0,
              "per-(table, tenant) client-side add budget (qps) at the send "
              "window; 0 disables the bucket (the only value the port "
              "takes)")
+# Exactly-once replay (ps/tables._SendWindow, ps/shard's sequence
+# channels): windowed frames carry a per-(client, table) sequence, the
+# owning shard dedupes them, and the client retains each frame past its
+# ack until the shard reports it durable (checkpointed); on a shard
+# death the retained tail re-flushes to the restored incarnation.
 define_bool("ps_replay", False,
-            "stamp windowed async-table frames with (client, seq) and "
-            "replay the non-durable tail to a restarted shard")
+            "stamp windowed async-table frames with (client, seq), "
+            "retain them until the owning shard reports them durable, "
+            "and replay the unacked/non-durable tail to a restarted "
+            "shard incarnation (dedup by per-client high-water mark on "
+            "the shard). Requires a send window (batch_window_ms / "
+            "send_window_ms=); the failover checkpointer advances the "
+            "durable mark")
+define_float("ps_replay_timeout", 120.0,
+             "seconds a replayed frame keeps retrying against a dead "
+             "owner before its futures fail with PSPeerError (bounds "
+             "how long a failover may take before clients give up)")
+define_float("ps_replay_backoff", 0.5,
+             "BASE seconds between replay attempts against an owner "
+             "that is still unreachable; each failed attempt within an "
+             "episode doubles the delay (jittered) up to "
+             "ps_replay_backoff_cap (utils/retry.py)")
+define_float("ps_replay_backoff_cap", 4.0,
+             "cap seconds for the replay plane's exponential backoff: "
+             "a long owner respawn decays to this poll rate instead "
+             "of hammering the restarting rank at the base rate")
+define_int("ps_replay_max_frames", 4096,
+           "retained-frame cap per owner: past it the oldest ACKED "
+           "frames are dropped (with a warning) — durability degrades "
+           "to ack-time instead of checkpoint-time rather than memory "
+           "growing without bound when no checkpointer is advancing "
+           "the durable mark")
+# Shard failover (ps/failover.py, checkpoint.py's per-shard half).
+define_float("failover_timeout", 10.0,
+             "seconds of beacon staleness before the failover "
+             "supervisor treats a rank as dead (tombstoned PS deaths "
+             "short-circuit this)")
+define_float("failover_poll_s", 0.5,
+             "failover supervisor poll interval seconds")
+define_float("failover_ckpt_interval_s", 0.0,
+             "per-shard incremental checkpoint cadence seconds; > 0 "
+             "(with failover_dir set) starts a ShardCheckpointer with "
+             "each PSService — the durable half of exactly-once "
+             "replay. 0 = off")
+define_string("failover_dir", "",
+              "directory for per-shard failover checkpoints (local/NFS; "
+              "shard-r<rank>/v<N> tags inside)")
+define_int("failover_ckpt_keep", 2,
+           "committed per-shard checkpoint tags kept per rank")
+define_int("ps_generation", 0,
+           "this process's shard incarnation generation; the failover "
+           "supervisor spawns each replacement at the previous "
+           "generation + 1, and MSG_HEALTH echoes it")
+# The fault-injection wire plane (ps/faults.py).
+define_string("faults_spec", "",
+              "chaos scenario spec for the fault-injection wire plane "
+              "(ps/faults.py): a JSON file path, or inline JSON when it "
+              "starts with '{'. Empty = plane disarmed (the null object; "
+              "no injection code path reachable)")
+define_int("faults_seed", 0,
+           "seed for the fault plane's deterministic decision streams: "
+           "the same seed + spec + per-(src,dst) message sequence "
+           "injects the identical fault sequence (a spec's own \"seed\" "
+           "key wins over this flag)")
 define_int("get_chunk_rows", 0,
            "chunk-stream async get replies above this many rows: the "
            "owner ships self-describing sub-frames instead of one frame, "

@@ -81,9 +81,13 @@ class Zoo:
         if config.get_flag("dashboard"):
             Dashboard.display(log.info)
             Dashboard.reset()
-        # the async PS plane's default context quiesces (each rank keeps
-        # serving until its live peers are done) and closes
+        # the failover checkpointer writes one final committed save while
+        # the shards are still intact; then the async PS plane's default
+        # context quiesces (each rank keeps serving until its live peers
+        # are done) and closes
+        from multiverso_tpu_torch.ps import failover as _failover
         from multiverso_tpu_torch.ps import service as _ps_service
+        _failover.stop_global(final=True)
         _ps_service.reset_default_context()
         self._tables.clear()
         self._next_table_id = 0

@@ -13,8 +13,9 @@ multiverso_tpu_torch against multiverso_tpu's pure-Python plane
 * a mixed world: rank 0 a JAX ``PSContext``, rank 1 a port one, in one
   directory, summing exactly;
 * the pinned read: a Get racing Adds sees whole rows;
-* the refusals of the planes not ported (native, replay, a world > 1
-  without a rendezvous), each naming its ROADMAP item.
+* the refusals of the planes not ported (native, a world > 1 without a
+  rendezvous), each naming its ROADMAP item, and the replay plane that
+  was once refused.
 
 ``ps_timeout`` and ``ps_connect_timeout`` are a few seconds in both
 packages, so no test can wait out the 300 s default.
@@ -718,18 +719,27 @@ def test_ps_native_raises_naming_its_item():
 
 
 def test_ps_replay_raises_naming_its_item(port_ranks):
+    """Once a refusal, now the replay plane: ``ps_replay=True`` builds a
+    table (no NotImplementedError), and a replay-stamped frame — as a JAX
+    client sends it — applies once at the shard and acks a second copy as
+    a duplicate with the durable floor, bit for bit against numpy."""
     tconfig.set_flag("ps_replay", True)
-    with pytest.raises(NotImplementedError, match="failover, faults and "
-                                                  "replay"):
-        ttables.AsyncMatrixTable(4, 2, name="rp", ctx=port_ranks[0])
-    assert tsvc.REPLAY_ITEM in ROADMAP
-    # a replay-stamped frame from a JAX client is refused at the shard
+    t = ttables.AsyncMatrixTable(4, 2, name="rp", ctx=port_ranks[0])
+    ttables.AsyncMatrixTable(4, 2, name="rp", ctx=port_ranks[1])
+    assert t._window is None   # replay rides the send window only
     tconfig.set_flag("ps_replay", False)
-    t = ttables.AsyncMatrixTable(4, 2, name="rp2", ctx=port_ranks[0])
-    with pytest.raises(tsvc.PSError, match="replay"):
-        t._shard.handle(tsvc.MSG_ADD_ROWS, {"table": "rp2", "cl": "c",
-                                            "seq": 0},
-                        [np.array([0]), np.ones((1, 2), np.float32)])
+    t2 = ttables.AsyncMatrixTable(4, 2, name="rp2", ctx=port_ranks[0])
+    meta = {"table": "rp2", "opt": {}, jwire.REPLAY_CLIENT_KEY: "c",
+            jwire.REPLAY_SEQ_KEY: 0}
+    arrays = [np.array([0]), np.ones((1, 2), np.float32)]
+    r1, _ = t2._shard.handle(tsvc.MSG_ADD_ROWS, meta, arrays)
+    r2, _ = t2._shard.handle(tsvc.MSG_ADD_ROWS, meta, arrays)
+    assert not r1.get(jwire.REPLAY_DUP_KEY)
+    assert r1[jwire.REPLAY_DURABLE_KEY] == -1
+    assert r2[jwire.REPLAY_DUP_KEY] is True
+    np.testing.assert_array_equal(t2.get_rows([0, 1]),
+                                  np.array([[1, 1], [0, 0]], np.float32))
+    assert t2._shard.stats()["dup_frames"] == 1
 
 
 def test_world_without_rendezvous_raises_naming_its_item():

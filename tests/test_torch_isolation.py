@@ -78,6 +78,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.models.dlrm\n"
         "import multiverso_tpu_torch.apps.dlrm_serving\n"
         "import multiverso_tpu_torch.examples.we_f32_error\n"
+        "import multiverso_tpu_torch.checkpoint\n"
+        "import multiverso_tpu_torch.ps.faults\n"
+        "import multiverso_tpu_torch.ps.failover\n"
+        "import multiverso_tpu_torch.examples.chaos\n"
         "import chip_smoke\n"
         "multiverso_tpu_torch.native.available()   # builds and loads\n"
         "bad = [m for m in sys.modules if m == 'multiverso_tpu'\n"

@@ -3,7 +3,8 @@
 shards, a killed replica demoted and routed around with a warm spare
 activated, failover past a member whose bound cannot be met, demotion on
 failing background pulls and re-promotion, admission enforced once at the
-pool's surface, the merged serving block, and the refusals that stay.
+pool's surface, the merged serving block, the refusal that stays and
+``bind_failover``'s rejoin re-sync.
 Two ranks in one process, on the CPU."""
 
 import gc
@@ -161,10 +162,28 @@ def test_pool_entry_replaces_its_members_in_the_serving_block(world):
 
 
 def test_refusals_name_their_items(world):
+    """A tenant read still raises by its ROADMAP title; ``bind_failover``
+    (once refused) now binds a supervisor, whose rejoin kicks a pull."""
     t0, make = world
-    pool = make()
-    with pytest.raises(NotImplementedError, match="failover, faults"):
-        pool.bind_failover(object())
+    pool = make(probe_s=999.0)   # check_health is driven by hand
+    _written(t0, [7])
+    # quiesce the background refreshes: only the kick may advance the
+    # epoch below
+    for m in pool._members:
+        m.replica._stop.set()
+        m.replica._thread.join(timeout=5)
+
+    class _Sup:   # supervisor-shaped: an events list
+        events = [(time.time(), "detect", 1)]
+
+    pool.bind_failover(_Sup())
+    assert pool._sup_seen == 1
+    e0 = pool._members[0].replica._epoch
+    pool.check_health()   # no rejoin: no kick
+    assert pool._members[0].replica._epoch == e0
+    _Sup.events.append((time.time(), "rejoin", 1))
+    pool.check_health()   # a FRESH pull though the snapshot is in bound
+    assert pool._members[0].replica._epoch > e0
     with pytest.raises(NotImplementedError, match="Telemetry and tools"):
         pool.get_rows([1], tenant="victim")
     with pytest.raises(ValueError, match="active replica"):

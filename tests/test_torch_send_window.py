@@ -442,8 +442,23 @@ def test_tenant_add_budget_raises_naming_its_item(ranks, kind):
 
 
 def test_replay_still_raises_with_a_window(ranks):
+    """Once a refusal, now replay on a windowed table: every frame leaves
+    stamped (one sequence channel per owner), the adds equal numpy's sum
+    bit for bit, and the retained frames stay until the owner's durable
+    floor passes them."""
     tconfig.set_flag("ps_replay", True)
-    with pytest.raises(NotImplementedError, match="failover, faults and "
-                                                  "replay"):
-        ttables.AsyncMatrixTable(4, 2, name="rw", ctx=ranks[0],
-                                 send_window_ms=1.0)
+    t0, t1 = _pair(ttables, ranks, "AsyncMatrixTable", 4, 2, name="rw",
+                   send_window_ms=1.0)
+    rng = np.random.default_rng(3)
+    want = np.zeros((4, 2), np.float32)
+    for _ in range(6):
+        ids = rng.choice(4, 2, replace=False)
+        vals = rng.normal(size=(2, 2)).astype(np.float32)
+        t0.add_rows(ids, vals)
+        want[ids] += vals
+    np.testing.assert_array_equal(t0.get_rows(np.arange(4)), want)
+    rp = t0._window._replay
+    assert rp is not None and set(rp.next_seq) == {0, 1}
+    assert sum(len(q) for q in rp.retained.values()) == sum(
+        rp.next_seq.values())   # no checkpoint yet: nothing is durable
+    assert t1._shard.stats()["replay_clients"] == 1
