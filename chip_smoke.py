@@ -45,7 +45,7 @@ Phases, every one on every run, in this order:
             cache (a full-hit get_rows, the cached rows equal to the
             table's after zipf add_rows), ``train_fused`` on the
             real-text corpus (bench.py:220-221) with the shared pool and
-            on the synthetic one (bench.py:114-121), one warm and 3 timed
+            on the synthetic one (bench.py:114-121), one warm and 2 timed
             epochs each (words/s, device span, falling loss), the
             real-text probe's nearest neighbours, bf16 against f32 from the
             same start (by loss over the first 8 batches; the full epoch
@@ -192,6 +192,21 @@ Phases, every one on every run, in this order:
             generation 1 restored from a tag; recovery to 90% of the
             pre-fault rate gets one more run before it fails. It counts
             its launches apart and launches no flash kernel
+16. ps_native the native C++ transport (``ps/native.py`` over
+            ``csrc/mv_ps.cpp``, built with g++ at first use; host code,
+            no kernel of the card) against the Python wire plane on
+            examples/ps_bench.py's cell (tools/bench_async_ps.py:57: a
+            100,000 x 128 f32 table, 1,024-row strided batches from both
+            ranks' clients at once for 2 s): (a) both ranks in this
+            process, shards on the card (the C++ server punts every op;
+            the client is native); (b) the same with the shards on the
+            CPU, registered with the C++ server, which serves every add
+            and get; (c) one rank per OS process, shards on the card.
+            Each part, each plane: adds/s, gets/s, Get p50/p99, the plane
+            asserted (the table's client, the server, registration, the
+            native applies), every full Get equal to numpy bit for bit;
+            then a bf16-wire table, which punts. It counts its launches
+            apart and launches no flash kernel
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -1286,7 +1301,7 @@ WE_VARIANTS = (("skipgram per-pair", dict(shared_negatives=0)),
 # both packages, that is 512 for CBOW HS, where 1024 rises in its third
 # epoch (tests/test_torch_we_bench_width.py)
 WE_HS_MIN_BATCH = 128
-WE_TIMED_EPOCHS = 3
+WE_TIMED_EPOCHS = 2
 WE_PROBES = ("array", "matrix", "value", "data")   # bench.py:233
 # a MatrixTable of text8's vocabulary at min_count 5 by 128 columns
 TEXT8_VOCAB = 71_290
@@ -2672,10 +2687,11 @@ def psa_model(model: np.ndarray, state, ids: np.ndarray, vals: np.ndarray,
     model[ids] -= vals * rho / (np.sqrt(state[ids]) + np.float32(1e-10))
 
 
-def psa_plane(dev) -> dict:
-    """Part (a): PSA_CONFIGS through two in-process ranks on the card,
+def psa_plane(dev, configs=PSA_CONFIGS) -> dict:
+    """Part (a): ``configs`` through two in-process ranks on the card,
     each held against its numpy model; adds/s, gets/s and the Get's p50
-    and p99 ms across both ranks."""
+    and p99 ms across both ranks, and the plane each table took (the
+    native server live, the client native)."""
     import tempfile
     import threading
     import torch
@@ -2692,7 +2708,7 @@ def psa_plane(dev) -> dict:
         ctxs = [PSContext(r, 2, PSService(r, 2, rdv), device=dev)
                 for r in range(2)]
         try:
-            for updater, wire in PSA_CONFIGS:
+            for updater, wire in configs:
                 label = f"{updater}, wire {wire}"
                 name = f"psa_{updater}_{wire}"
                 ts = [AsyncMatrixTable(rows, cols, updater=updater,
@@ -2781,6 +2797,10 @@ def psa_plane(dev) -> dict:
                        "applies": [s["applies"] for s in shards],
                        "shard_adds": [s["adds"] for s in shards],
                        "cow_applies": [s["cow_applies"] for s in shards],
+                       "native_applies": [s["native_applies"]
+                                          for s in shards],
+                       "native_server": ctxs[0].service._native is not None,
+                       "native_client": ts[0]._native_ok,
                        "model_rel_err": errs}
                 log(f"ps_async plane, {label}: {adds} adds and "
                     f"{lat_all.size} gets of {PSA_BATCH} rows in "
@@ -2791,7 +2811,9 @@ def psa_plane(dev) -> dict:
                     f"p50 {res['get_p50_ms']:.3f} ms, p99 "
                     f"{res['get_p99_ms']:.3f} ms; shard adds "
                     f"{res['shard_adds']} in {res['applies']} applies, "
-                    f"copy-on-write applies {res['cow_applies']}; full Get "
+                    f"copy-on-write applies {res['cow_applies']}; native "
+                    f"server {res['native_server']}, native client "
+                    f"{res['native_client']}; full Get "
                     f"vs the numpy model: "
                     + ("bit for bit" if updater == "default" else
                        f"relative {max(errs):.3e} (bound "
@@ -4709,6 +4731,256 @@ def phase_chaos(dev) -> dict:
     return out
 
 
+# ps_native: the native C++ transport of the async plane
+# (``ps/native.py`` over ``csrc/mv_ps.cpp``: host C++ built with g++ at
+# first use, no kernel of the card) against the Python wire plane, on
+# examples/ps_bench.py's cell (tools/bench_async_ps.py:57: a 100,000 x
+# 128 f32 AsyncMatrixTable, the default updater, wire none, 1,024-row
+# batches strided over both owners, each rank's client adding (at most 4
+# in flight) and timing a get of its rows for PSN_SECONDS):
+# (a) both ranks in this process with their shards on the card, once per
+# plane. A card shard never registers with the C++ server, so on the
+# native plane every op the server receives punts to Python; what the
+# native plane changes there is the client (counted adds, gets scattered
+# into the result in C, one socket to the local rank too);
+# (b) the same with the shards on the CPU (``device="cpu"``, the JAX
+# package's CPU parameter host): the shards register, and C++ serves every
+# add and get with no Python in the loop;
+# (c) one rank per OS process (examples/ps_bench.py), card shards, each
+# plane: in one process the two ranks share one interpreter lock, here
+# each has its own;
+# then a bf16-wire table (ps_async (a)'s check), which punts on the native
+# server. Each part asserts the plane it claims to measure, and every
+# full Get equals the numpy model of the same f32 adds bit for bit
+PSN_SECONDS = 2.0
+PSN_PLANES = ("native", "python")
+PSN_TIMEOUT = 180
+PSN_BUILD: dict = {}   # the library's first build and load (main)
+
+
+def psn_build() -> dict:
+    """Build and load ``csrc/mv_ps.cpp`` (the first use in this run);
+    its path and seconds."""
+    from multiverso_tpu_torch.ps import native as ps_native
+    t0 = time.perf_counter()
+    if not ps_native.available():
+        raise AssertionError("the native PS library did not build from "
+                             "csrc/mv_ps.cpp")
+    PSN_BUILD.update(path=str(ps_native.library_path()),
+                     seconds=time.perf_counter() - t0)
+    log(f"ps_native library {PSN_BUILD['path']}: "
+        f"{PSN_BUILD['seconds']:.1f} s (build and load)")
+    return PSN_BUILD
+
+
+def psn_inproc(plane: str, shard_dev) -> dict:
+    """Two ranks in this process, shards on ``shard_dev``, on ``plane``:
+    both clients at once for PSN_SECONDS, the full Gets against numpy, and
+    the plane asserted (the client's conns, the server, registration)."""
+    import tempfile
+    import threading
+    from multiverso_tpu_torch.examples import ps_bench as pb
+    from multiverso_tpu_torch.ps.native import NativeConn
+    from multiverso_tpu_torch.ps.service import (FileRendezvous, PSContext,
+                                                 PSService)
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    from multiverso_tpu_torch.utils import config
+    native = plane == "native"
+    on_card = str(shard_dev).startswith("cuda")
+    where = "card" if on_card else "CPU"
+    label = f"ps_native shards on the {where}, {plane} plane"
+    config.set_flag("ps_native", native)
+    with tempfile.TemporaryDirectory() as rdv_dir:
+        rdv = FileRendezvous(rdv_dir)
+        ctxs = [PSContext(r, 2, PSService(r, 2, rdv), device=shard_dev)
+                for r in range(2)]
+        try:
+            ts = [AsyncMatrixTable(pb.ROWS, pb.DIM, name="psn", ctx=c)
+                  for c in ctxs]
+            ids = [pb.strided_ids(r) for r in range(2)]
+            vals = [pb.rank_values(r) for r in range(2)]
+            for r in range(2):   # warm: one add and one get a rank
+                ts[r].add_rows(ids[r], vals[r])
+                ts[r].get_rows(ids[r])
+            runs = [None, None]
+
+            def client(r):
+                runs[r] = pb.drive(ts[r], ids[r], vals[r], PSN_SECONDS)
+
+            t0 = time.perf_counter()
+            th = [threading.Thread(target=client, args=(r,))
+                  for r in range(2)]
+            for t in th:
+                t.start()
+            for t in th:
+                t.join(timeout=PSN_SECONDS + PSN_TIMEOUT)
+                if t.is_alive():
+                    raise AssertionError(f"{label}: a client did not "
+                                         "finish")
+            dt = time.perf_counter() - t0
+            counts = [runs[r][0] + 1 for r in range(2)]   # + the warm add
+            want = pb.model([(ids[r], vals[r], counts[r])
+                             for r in range(2)])
+            for r in range(2):
+                if not np.array_equal(ts[r].get(), want):
+                    raise AssertionError(f"{label}: rank {r}'s full Get is "
+                                         "not the numpy model's")
+            stats = [t._shard.stats() for t in ts]
+            conns = [c.service.native_conns() for c in ctxs]
+            # the plane this part claims to measure
+            for r in range(2):
+                if ts[r]._native_ok != native:
+                    raise AssertionError(f"{label}: rank {r}'s table took "
+                                         "the other client plane")
+                if (ctxs[r].service._native is not None) != native:
+                    raise AssertionError(f"{label}: rank {r}'s native "
+                                         "server is " + ("down" if native
+                                                         else "up"))
+                if native and not (conns[r] and all(
+                        isinstance(c, NativeConn) for c in conns[r])):
+                    raise AssertionError(f"{label}: rank {r}'s client "
+                                         "holds no NativeConn")
+                registered = ts[r]._shard._native_ref is not None
+                if registered != (native and not on_card):
+                    raise AssertionError(
+                        f"{label}: rank {r}'s shard is "
+                        + ("" if registered else "not ")
+                        + "registered with the C++ server")
+                if native and on_card and stats[r]["native_applies"]:
+                    raise AssertionError(f"{label}: C++ applied an add to "
+                                         "a shard on the card")
+                if native and not on_card and (
+                        stats[r]["native_applies"] != sum(counts)
+                        or ts[r]._shard._stat_adds != 0):
+                    raise AssertionError(
+                        f"{label}: rank {r}'s shard applied "
+                        f"{stats[r]['native_applies']} adds in C++ and "
+                        f"{ts[r]._shard._stat_adds} in Python; every one "
+                        f"of the {sum(counts)} belongs to C++")
+            lat = np.concatenate([np.asarray(runs[r][1]) for r in range(2)])
+            adds = sum(runs[r][0] for r in range(2))
+            res = {"plane": plane, "shards": where,
+                   "adds_per_sec": adds / dt,
+                   "gets_per_sec": lat.size / dt,
+                   "get_p50_ms": float(np.percentile(lat, 50)),
+                   "get_p99_ms": float(np.percentile(lat, 99)),
+                   "adds": adds, "gets": int(lat.size), "seconds": dt,
+                   "native_applies": [st["native_applies"]
+                                      for st in stats],
+                   "python_adds": [t._shard._stat_adds for t in ts],
+                   "registered": [t._shard._native_ref is not None
+                                  for t in ts]}
+            log(f"{label}: {adds} adds and {lat.size} gets of {pb.BATCH} "
+                f"rows in {dt:.3f} s summed over 2 ranks: "
+                f"{res['adds_per_sec']:.1f} adds/s, "
+                f"{res['gets_per_sec']:.1f} gets/s, Get p50 "
+                f"{res['get_p50_ms']:.3f} ms, p99 {res['get_p99_ms']:.3f} "
+                f"ms; shard adds applied in C++ {res['native_applies']}, "
+                f"in Python {res['python_adds']}, registered "
+                f"{res['registered']}; full Gets = numpy bit for bit "
+                f"({card_label()})")
+            return res
+        finally:
+            for c in ctxs:
+                c.close()
+
+
+def psn_processes(dev, plane: str) -> dict:
+    """Part (c): examples/ps_bench.py's two ranks as two OS processes on
+    this card, on ``plane``: adds/s and the Get p50/p99 per rank and
+    summed; rank 0's full Get against numpy, bit for bit."""
+    import tempfile
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as rdv:
+        cmd = [sys.executable, "-m", "multiverso_tpu_torch.examples.ps_bench",
+               "--rdv", rdv, "--world", "2", "--seconds", str(PSN_SECONDS),
+               "--plane", plane, "--device", str(dev),
+               "--timeout", str(PSN_TIMEOUT)]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=repo,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=PSN_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    results = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        lines = [l for l in so.splitlines() if l.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"ps_native rank {r} ({plane}) failed "
+                                 f"({p.returncode}):\n{so[-2000:]}\n"
+                                 f"{se[-3000:]}")
+        results.append(json.loads(lines[-1][len("RESULT "):]))
+    native = plane == "native"
+    # shards on the card never register; on the CPU (a rehearsal) they do
+    registers = native and not str(dev).startswith("cuda")
+    for res in results:
+        if (res["native_client"] != native or res["native_server"] != native
+                or res["registered"] != registers
+                or bool(res["native_applies"]) != registers):
+            raise AssertionError(f"ps_native processes, {plane} plane: rank "
+                                 f"{res['rank']} ran another plane: {res}")
+        log(f"ps_native processes, {plane} plane, rank {res['rank']} (shards "
+            f"on {res['device']}): {res['adds']} adds and {res['gets']} "
+            f"gets in {res['seconds']:.3f} s: {res['adds_per_sec']:.1f} "
+            f"adds/s, Get p50 {res['get_p50_ms']:.3f} ms, p99 "
+            f"{res['get_p99_ms']:.3f} ms ({card_label()})")
+    if not results[0].get("exact"):
+        raise AssertionError(f"ps_native processes, {plane} plane: the full "
+                             "Get is not the numpy model's")
+    summed = {"adds_per_sec": sum(r["adds_per_sec"] for r in results),
+              "gets_per_sec": sum(r["gets_per_sec"] for r in results)}
+    log(f"ps_native processes, {plane} plane, summed over 2 ranks: "
+        f"{summed['adds_per_sec']:.1f} adds/s, {summed['gets_per_sec']:.1f} "
+        f"gets/s; rank 0's full Get = numpy bit for bit ({card_label()})")
+    return {"ranks": results, **summed}
+
+
+def phase_ps_native(dev) -> dict:
+    """The native transport against the Python plane: (a) card shards in
+    this process, (b) CPU shards in this process, (c) one rank per OS
+    process, each plane; then a bf16-wire table that punts."""
+    from multiverso_tpu_torch.utils import config
+    saved = config.get_flag("ps_native")
+    t0 = time.perf_counter()
+    out = {"library": psn_build() if not PSN_BUILD else dict(PSN_BUILD)}
+    log(f"ps_native library {out['library']['path']}, built in "
+        f"{out['library']['seconds']:.1f} s at its first use")
+    try:
+        out["card"] = {p: psn_inproc(p, dev) for p in PSN_PLANES}
+        t1 = time.perf_counter()
+        out["cpu"] = {p: psn_inproc(p, "cpu") for p in PSN_PLANES}
+        t2 = time.perf_counter()
+        out["processes"] = {p: psn_processes(dev, p) for p in PSN_PLANES}
+        t3 = time.perf_counter()
+        config.set_flag("ps_native", True)
+        bf16 = psa_plane(dev, configs=(("default", "bf16"),))
+        res = bf16["default, wire bf16"]
+        if not res["native_server"] or res["native_client"] or any(
+                res["native_applies"]):
+            raise AssertionError(f"ps_native bf16: not the native server's "
+                                 f"punt path: {res}")
+        out["bf16"] = res
+    finally:
+        config.set_flag("ps_native", saved)
+    for part in ("card", "cpu", "processes"):
+        n, p = out[part]["native"], out[part]["python"]
+        log(f"ps_native {part}: native / python adds/s "
+            f"{n['adds_per_sec'] / p['adds_per_sec']:.2f}x, gets/s "
+            f"{n['gets_per_sec'] / p['gets_per_sec']:.2f}x"
+            + (f", Get p50 {n['get_p50_ms']:.3f} vs {p['get_p50_ms']:.3f} ms"
+               if "get_p50_ms" in n else "")
+            + f" ({card_label()})")
+    log(f"ps_native phase: {time.perf_counter() - t0:.1f} s ((a) card "
+        f"{t1 - t0:.1f} s, (b) CPU {t2 - t1:.1f} s, (c) processes "
+        f"{t3 - t2:.1f} s, bf16 {time.perf_counter() - t3:.1f} s)")
+    return out
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -4789,6 +5061,7 @@ def main(argv=None) -> int:
 
     phase_build()
     records = phase_kernel(torch.device("cuda", 0))
+    psn_build()   # the native PS library's first use in this run
     mv.init()   # the card: no device argument
     dev = mv.device()
     shared = phase_ps(dev, LAYERS)
@@ -4837,12 +5110,14 @@ def main(argv=None) -> int:
     # the client windows and train-while-serve DLRM, counted the same way:
     # host code, wire frames, autograd's GEMMs and index ops, no kernel
     # of the port; and failover, faults and replay: host code, wire frames
-    # and shard copies between the card and the host
+    # and shard copies between the card and the host; and the native
+    # transport: host C++ and the same shard ops
     for name, phase in (("resnet", phase_resnet), ("lda", phase_lda),
                         ("decode", phase_decode),
                         ("ps_window", phase_ps_window),
                         ("serving", phase_serving),
-                        ("chaos", phase_chaos)):
+                        ("chaos", phase_chaos),
+                        ("ps_native", phase_ps_native)):
         ak.reset_launch_counts()
         phase(dev)
         paths[name] = ak.launch_counts()

@@ -1,11 +1,12 @@
-// mv_data: host-side data pipeline of multiverso_tpu_torch's WordEmbedding
-// (a copy of the parts of multiverso_tpu/native/mv_data.cpp that the port
-// uses; plain C++, no CUDA).
+// mv_data: host-side data pipeline of multiverso_tpu_torch (a copy of the
+// parts of multiverso_tpu/native/mv_data.cpp that the port uses; plain C++,
+// no CUDA).
 //
 // One-pass corpus loading (tokenize, count, prune to min_count, encode),
 // frequent-word subsampling and skip-gram pair generation with the dynamic
 // window shrink, on a splitmix64 stream: the same seed gives the same ids
-// and pairs as the JAX package's library. Exposed as a C ABI for ctypes.
+// and pairs as the JAX package's library. Also the LR reader's libsvm line
+// parser. Exposed as a C ABI for ctypes.
 //
 // Built by multiverso_tpu_torch/native/__init__.py with g++ at first use
 // into build/torch_native/.
@@ -14,6 +15,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <string>
 #include <unordered_map>
@@ -203,6 +205,32 @@ int64_t mv_generate_pairs(const int32_t* ids, int64_t n, int32_t window,
     std::swap(out_contexts[i], out_contexts[j]);
   }
   return m;
+}
+
+// libsvm line parsing: "label idx:val ..." -> dense row (ref LR reader.cpp
+// text parser). Fills x (pre-zeroed by caller) of width dim; returns label,
+// or INT32_MIN on an empty or comment line. Parsing stops at the first
+// token that is not idx:val; indices outside [0, dim) are skipped.
+int32_t mv_parse_libsvm_line(const char* line, int64_t len, float* x,
+                             int64_t dim) {
+  int64_t i = 0;
+  while (i < len && is_space(line[i])) ++i;
+  if (i >= len || line[i] == '#') return INT32_MIN;
+  char* end = nullptr;
+  long label = std::strtol(line + i, &end, 10);
+  i = end - line;
+  while (i < len) {
+    while (i < len && is_space(line[i])) ++i;
+    if (i >= len) break;
+    char* colon = nullptr;
+    long idx = std::strtol(line + i, &colon, 10);
+    if (!colon || *colon != ':') break;
+    char* vend = nullptr;
+    double val = std::strtod(colon + 1, &vend);
+    if (idx >= 0 && idx < dim) x[idx] = static_cast<float>(val);
+    i = vend - line;
+  }
+  return static_cast<int32_t>(label);
 }
 
 }  // extern "C"

@@ -24,8 +24,9 @@ the tool's in-run gates.
   restores its newest committed per-shard checkpoint before it publishes.
 
 The in-process scenarios run two ranks in one process with both shards on
-``device``; every scenario runs the Python wire plane (the port has no
-native one). Workers of ``combined`` start as ``python -m
+``device``; every scenario runs the Python wire plane (``ps_native``
+off, as the JAX tool does): the fault plane hooks the Python peer and
+serve boundaries, which the native plane's C++ threads bypass. Workers of ``combined`` start as ``python -m
 multiverso_tpu_torch.examples.chaos worker ...``, never as a fork of a
 process that holds a CUDA context.
 
@@ -126,6 +127,7 @@ class World:
                                                      PSContext, PSService)
         from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
         from multiverso_tpu_torch.utils import config
+        config.set_flag("ps_native", False)   # the fault plane's wire
         config.set_flag("ps_replay", True)
         config.set_flag("ps_timeout", 60.0)
         config.set_flag("ps_connect_timeout", 5.0)
@@ -544,6 +546,7 @@ def worker(argv) -> None:
     from multiverso_tpu_torch.utils import config
 
     restarted = os.environ.get("MV_RESTARTED") == "1"
+    config.set_flag("ps_native", False)   # the fault plane's wire
     config.set_flag("ps_timeout", 60.0)
     config.set_flag("ps_connect_timeout", 5.0)
     config.set_flag("ps_reconnect_backoff", 0.3)

@@ -1,7 +1,10 @@
-"""ctypes loader for the host-side data pipeline ``csrc/mv_data.cpp`` (port
-of ``multiverso_tpu/native/__init__.py``, the parts WordEmbedding uses).
+"""ctypes loaders for the port's host C++ libraries (port of
+``multiverso_tpu/native/__init__.py``): ``csrc/mv_data.cpp``, the
+WordEmbedding data pipeline and the LR reader's libsvm line parser, loaded
+here, and ``csrc/mv_ps.cpp``, the async-PS transport, loaded by
+``ps/native.py``, both through :func:`build_and_load`.
 
-The library is built with the host C++ compiler (``$CXX``, else ``g++``) at
+A library is built with the host C++ compiler (``$CXX``, else ``g++``) at
 first use into ``build/torch_native/`` beside the package; its file name
 hashes the source and the flags, so an edited source is rebuilt. Where no
 compiler builds it, ``available()`` is False and callers take the numpy
@@ -19,12 +22,12 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "mv_data.cpp"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_native"
 # no -march=native: the library may be loaded on another machine than the
 # one that built it, and baseline x86-64 doubles give the same draws
@@ -35,31 +38,40 @@ _lock = threading.Lock()
 _build_failed = False
 
 
-def library_path() -> Path:
-    """Where the library lives: the name hashes the source and the flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libmv_data-{h.hexdigest()[:16]}.so"
+def library_path(so_name: str = "libmv_data", src_name: str = "mv_data.cpp",
+                 extra_flags: Sequence[str] = ()) -> Path:
+    """Where ``csrc/<src_name>`` builds to: ``<so_name>-<hash>.so``, the
+    hash over the source and the flags."""
+    h = hashlib.sha256((CSRC / src_name).read_bytes())
+    h.update(" ".join([*CXX_FLAGS, *extra_flags]).encode())
+    return BUILD_DIR / f"{so_name}-{h.hexdigest()[:16]}.so"
 
 
-def _build(timeout: int = 180) -> Optional[Path]:
-    """Compile the source unless its library exists (atomic rename, so a
-    concurrent process never loads half a file). None if no compiler
-    produced it."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+def build_and_load(so_name: str, src_name: str,
+                   extra_flags: Sequence[str] = (),
+                   timeout: int = 180) -> Optional[ctypes.CDLL]:
+    """Build ``csrc/<src_name>`` unless its library exists (atomic rename,
+    so a concurrent process never loads half a file), then CDLL it. The
+    one build-on-first-use path of this module and ``ps/native.py``.
+    None when no compiler produced a loadable library."""
+    out = library_path(so_name, src_name, extra_flags)
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        try:
+            subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS,
+                            *extra_flags, "-o", str(tmp),
+                            str(CSRC / src_name)],
+                           check=True, capture_output=True, timeout=timeout)
+            os.replace(tmp, out)
+        except (subprocess.SubprocessError, OSError):
+            tmp.unlink(missing_ok=True)
+            if not out.exists():
+                return None
     try:
-        subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o",
-                        str(tmp), str(SOURCE)],
-                       check=True, capture_output=True, timeout=timeout)
-        os.replace(tmp, out)
-    except (subprocess.SubprocessError, OSError):
-        tmp.unlink(missing_ok=True)
-        return out if out.exists() else None
-    return out
+        return ctypes.CDLL(str(out))
+    except OSError:
+        return None
 
 
 def _try_load() -> Optional[ctypes.CDLL]:
@@ -67,11 +79,7 @@ def _try_load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        path = _build()
-        try:
-            lib = ctypes.CDLL(str(path)) if path is not None else None
-        except OSError:
-            lib = None
+        lib = build_and_load("libmv_data", "mv_data.cpp")
         if lib is None:
             _build_failed = True
             return None
@@ -97,6 +105,9 @@ def _try_load() -> Optional[ctypes.CDLL]:
         lib.mv_generate_pairs.restype = c_i64
         lib.mv_generate_pairs.argtypes = [p(c_i32), c_i64, c_i32, c_u64,
                                           c_i32, p(c_i32), p(c_i32)]
+        lib.mv_parse_libsvm_line.restype = c_i32
+        lib.mv_parse_libsvm_line.argtypes = [ctypes.c_char_p, c_i64,
+                                             p(ctypes.c_float), c_i64]
         _lib = lib
         return _lib
 
@@ -184,3 +195,23 @@ def generate_pairs(ids: np.ndarray, window: int, seed: int = 0,
                               centers.ctypes.data_as(_I32P),
                               contexts.ctypes.data_as(_I32P))
     return centers[:m].copy(), contexts[:m].copy()
+
+
+# mv_parse_libsvm_line's answer for an empty or comment line
+_NO_LABEL = -(1 << 31)
+
+
+def parse_libsvm_line(line: bytes, dim: int
+                      ) -> Optional[Tuple[int, np.ndarray]]:
+    """One libsvm line (``label idx:val ...``) as ``(label, dense f32 row
+    of width dim)``; None for an empty or comment line. Parsing stops at
+    the first token that is not ``idx:val``; indices outside ``[0, dim)``
+    are skipped."""
+    lib = _need()
+    x = np.zeros(dim, dtype=np.float32)
+    label = lib.mv_parse_libsvm_line(
+        line, len(line), x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        dim)
+    if label == _NO_LABEL:
+        return None
+    return label, x

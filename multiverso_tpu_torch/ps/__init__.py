@@ -1,5 +1,5 @@
 """The uncoordinated cross-process parameter-server plane (port of
-``multiverso_tpu/ps/``, its pure-Python wire plane).
+``multiverso_tpu/ps/``).
 
 Workers push (``Add``) and pull (``Get``) against sharded tables at their
 own rates, with no barrier (ref src/worker.cpp:30-76 partitions a request
@@ -15,7 +15,16 @@ arrives):
 * clients partition each Add/Get by owner rank and talk directly to the
   owners, local shards short-circuiting the socket;
 * the frames are byte for byte the JAX package's (``ps/wire.py``), so a
-  rank of either package reads the other's traffic.
+  rank of either package reads the other's traffic;
+* the wire's hot path is native (``csrc/mv_ps.cpp`` via
+  :mod:`multiverso_tpu_torch.ps.native`, flag ``ps_native``, on by
+  default): C++ connection threads serve row ops on host-backed linear
+  shards (rows in a CPU tensor) with no Python in the loop, clients fan
+  batches out per owner and scatter get replies in C, and anything the
+  C++ side cannot serve — every op on a shard on the card — punts to the
+  Python handlers synchronously under the same per-shard mutex. The JAX
+  package reports 2-3.8x the pure-Python plane's throughput on a CPU
+  host's loopback; the card's numbers are in PERF.md.
 
 No barrier, no allgather: a dead worker never blocks peers — requests to
 its shard fail with :class:`PSPeerError` after a timeout while traffic to

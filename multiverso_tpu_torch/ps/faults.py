@@ -3,7 +3,9 @@ of ``multiverso_tpu/ps/faults.py``).
 
 Degraded states are provoked deterministically at the boundaries where
 they occur in production: the ``_Peer`` client send path and the
-``_serve_conn`` server loop in ``ps/service.py``.
+``_serve_conn`` server loop in ``ps/service.py``. Those are the Python
+wire's: the native plane's C++ threads bypass them, so a chaos run sets
+``ps_native=False``, as the JAX package's does.
 
 Fault kinds (per-(src, dst) rules of a declarative JSON scenario spec):
 

@@ -1,5 +1,5 @@
 """PSService: the per-process async parameter-server runtime (port of
-``multiverso_tpu/ps/service.py``, the pure-Python wire plane).
+``multiverso_tpu/ps/service.py``).
 
 One PSService per process (or per rank, when a test runs several ranks in
 one process):
@@ -35,10 +35,20 @@ rendezvous publish until a restarted shard has restored
 (``ps/faults.py``) on the client send path and the serve loop; disarmed,
 each hook costs one attribute read.
 
-Not ported (ROADMAP.md §A, each under its title): the native C++ plane
-(``ps_native``, which raises here), the spmd stack, and the telemetry
-planes (flight recorder, trace, exporter, aggregator, watchdog). The
-Dashboard monitors stay.
+The native plane (flag ``ps_native``, on by default as in the JAX
+package, ``ps/native.py`` over ``csrc/mv_ps.cpp``): accepted connections
+are adopted by C++ threads, which serve the hot row ops of a registered
+shard with no Python in the loop and punt every other frame to
+:meth:`PSService._punt` on the connection thread. A shard registers only
+when its rows are a CPU tensor (``device="cpu"``) and its updater is a
+stateless signed accumulate; a shard on the card punts every op. The
+client half (:meth:`PSService.native_conn`) gives the async tables counted
+adds and buffer-filling gets. The fault plane hooks the Python wire only,
+so chaos runs set ``ps_native=False``.
+
+Not ported (ROADMAP.md §A, each under its title): the spmd stack, and the
+telemetry planes (flight recorder, trace, exporter, aggregator,
+watchdog). The Dashboard monitors stay.
 """
 
 from __future__ import annotations
@@ -62,7 +72,6 @@ from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 from multiverso_tpu_torch.zoo import default_device
 
 # ROADMAP.md §A titles of the parts of ps/ this plane refuses
-NATIVE_ITEM = "the native plane (ps/native.py, native/mv_ps.cpp)"
 TELEMETRY_ITEM = "Telemetry and tools"
 NO_FILE_RDV_ITEM = "a rendezvous without a file"
 
@@ -127,10 +136,16 @@ config.define_bool("ps_coalesce", True,
                    "(deltas summed in float64) into ONE update. Exact for "
                    "default/sgd updaters, within the ASGD contract for the "
                    "stateful ones")
-config.define_bool("ps_native", False,
+config.define_bool("ps_native", True,
                    "serve and speak the async-PS wire through the native "
-                   "C++ transport. Not ported: True raises "
-                   f"NotImplementedError (ROADMAP.md §A {NATIVE_ITEM})")
+                   "C++ transport (csrc/mv_ps.cpp) when its library "
+                   "builds: accepted connections are adopted by C++ "
+                   "threads that serve hot row ops on host-backed linear "
+                   "shards (rows in a CPU tensor) with no Python in the "
+                   "loop, and clients send framed adds/gets straight from "
+                   "C. Anything the native side cannot serve (every op on "
+                   "a shard on the card) punts to the Python handlers "
+                   "unchanged. Off = pure-Python plane")
 config.define_float("ps_health_timeout", 5.0,
                     "MSG_HEALTH probe reply timeout seconds (triage scale, "
                     "not ps_timeout)")
@@ -167,16 +182,6 @@ def await_reply(fut: cf.Future, timeout: float, what: str):
         return fut.result(timeout=timeout)
     except cf.TimeoutError as e:
         raise PSPeerError(f"{what}: no reply within {timeout}s") from e
-
-
-def check_native() -> None:
-    """Refuse ``ps_native=True``: the native plane is not ported, and this
-    plane never quietly stands in for it."""
-    if config.get_flag("ps_native"):
-        raise NotImplementedError(
-            "ps_native=True: the native C++ wire plane is not ported to "
-            f"multiverso_tpu_torch yet (ROADMAP.md §A {NATIVE_ITEM}); "
-            "set ps_native=False for the pure-Python plane")
 
 
 # ---------------------------------------------------------------------- #
@@ -540,7 +545,6 @@ class PSService:
         replayed frame landing on the still-empty shard would commit its
         sequence, ack, and then be wiped by the restore (see
         ``failover.rejoin``)."""
-        check_native()
         self.rank, self.world = rank, world
         if host is None:
             host = config.get_flag("ps_host") or "127.0.0.1"
@@ -570,11 +574,29 @@ class PSService:
         # hop through one serial executor (per-owner FIFO)
         self._local_exec = cf.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ps-local")
+        # native transport (flag ps_native + the built library): accepted
+        # connections are adopted by C++ serving threads; _native_cb must
+        # stay referenced or ctypes frees the callback trampoline under
+        # the C++ threads still holding it
+        self._native = None        # cleared (under _native_lock) at close
+        self._native_raw = None    # NEVER cleared: punt callbacks on C++
+        #                            conn threads may run right up to the
+        #                            join inside server_free, which close()
+        #                            calls only after those threads exit
+        self._native_cb = None
+        self._native_lock = threading.Lock()
+        self._nconns: Dict[int, Any] = {}
         # shard incarnation generation (flag ps_generation): 0 for a first
         # boot; the failover supervisor spawns each replacement at gen + 1
         # and MSG_HEALTH echoes it. Set BEFORE the listener exists: a
         # health probe can land the instant the accept loop starts
         self.generation = int(config.get_flag("ps_generation"))
+        if config.get_flag("ps_native"):
+            from multiverso_tpu_torch.ps import native as ps_native
+            if ps_native.available():
+                self._native, self._native_cb = ps_native.server_new(
+                    self._punt, rank)
+                self._native_raw = self._native
         self._listener = socket.create_server(
             (host, port if port is not None else config.get_flag("ps_port")))
         # published address must be ROUTABLE: a wildcard bind advertises
@@ -625,7 +647,17 @@ class PSService:
     def register_handler(self, table: str, handler: Callable,
                          shard=None) -> None:
         """``handler(msg_type, meta, arrays) -> (meta, arrays)``, called on
-        a connection thread; the shard serializes internally."""
+        a connection thread; the shard serializes internally. When
+        ``shard`` is a host-backed linear RowShard and the native server
+        is live, the shard's buffer registers with C++ for zero-Python
+        serving of the hot ops — and the Python handler (which then only
+        sees punted messages: compressed wires, checkpoint state, stamped
+        frames) wraps itself in the native shard mutex so its buffer
+        mutations serialize with C++ applies."""
+        if self._native is not None and shard is not None:
+            wrapped = self._try_register_native(table, handler, shard)
+            if wrapped is not None:
+                handler = wrapped
         with self._handlers_cv:
             self._handlers[table] = handler
             if shard is not None:
@@ -633,6 +665,108 @@ class PSService:
                 if hasattr(shard, "service"):
                     shard.service = self
             self._handlers_cv.notify_all()
+
+    def _try_register_native(self, table: str, handler: Callable,
+                             shard) -> Optional[Callable]:
+        from multiverso_tpu_torch.ps import native as ps_native
+        from multiverso_tpu_torch.ps.shard import RowShard
+        from multiverso_tpu_torch.updaters import STATELESS_LINEAR
+        # EXACT RowShard only: HashShard grows/remaps its buffer, which
+        # would leave C++ writing through a stale pointer. _np_mode: rows
+        # in a CPU tensor and a stateless signed-accumulate updater (a
+        # shard on the card punts every op)
+        if type(shard) is not RowShard or not shard._np_mode:
+            return None
+        sign = STATELESS_LINEAR.get(type(shard.updater))
+        if sign is None:
+            return None
+        nworkers = 0 if shard._dirty is None else shard._dirty.shape[0]
+        with self._native_lock:
+            if self._native is None:   # raced close(): python plane only
+                return None
+            pin = ps_native.register_shard(
+                self._native, table, shard.lo, shard.n, shard.num_col,
+                shard._data, sign, shard._dirty, nworkers)
+        if pin is None:
+            return None
+        # the pin addresses THIS shard object — stable across same-name
+        # re-registration and server close (a name lookup at unlock time
+        # could unlock a DIFFERENT shard's mutex)
+        shard.bind_native(pin)
+
+        def locked_handler(msg_type, meta, arrays,
+                           _inner=handler, _pin=pin):
+            ps_native.shard_pin_lock(_pin)
+            try:
+                return _inner(msg_type, meta, arrays)
+            finally:
+                ps_native.shard_pin_unlock(_pin)
+
+        return locked_handler
+
+    def _punt(self, conn_id: int, frame: bytes) -> None:
+        """Frames the native server can't serve, delivered synchronously
+        on the C++ connection thread (per-connection FIFO preserved).
+        Mirrors _serve_conn's dispatch; the reply goes back through the
+        native conn's write lock."""
+        from multiverso_tpu_torch.ps import native as ps_native
+        try:
+            msg_type, msg_id, meta, arrays = wire.parse_frame(frame)
+        except wire.WireError as e:
+            # Header was sane (C++ validated magic/bounds) but the body
+            # failed to parse. The python plane fails fast by killing the
+            # connection; silently dropping here would instead park the
+            # peer for the full ps_timeout. The header's msg_id is still
+            # trustworthy, so send an ERR reply the peer can raise on.
+            log.debug("ps native punt: malformed frame (%s)", e)
+            try:
+                reply = wire.encode(MSG_REPLY_ERR, wire.peek_msg_id(frame),
+                                    {"error": f"WireError: {e}"})
+                ps_native.send_raw(self._native_raw, conn_id, reply)
+            except Exception:   # noqa: BLE001
+                log.debug("ps native punt: ERR reply for malformed frame "
+                          "failed; dropping")
+            return
+        # probes leave the serve beat alone: it marks data-plane liveness
+        if msg_type not in (MSG_PING, MSG_STATS, MSG_HEALTH):
+            self.beat("serve")
+        try:
+            if msg_type == MSG_PING:       # native serves PING; belt only
+                reply = wire.encode(MSG_REPLY_OK, msg_id,
+                                    {"rank": self.rank})
+            elif msg_type == MSG_STATS:
+                reply = wire.encode(MSG_REPLY_OK, msg_id,
+                                    self.stats_payload())
+            elif msg_type == MSG_HEALTH:
+                reply = wire.encode(MSG_REPLY_OK, msg_id,
+                                    self.health_payload())
+            else:
+                if msg_type == MSG_MULTI:
+                    with monitor("ps[multi].serve"):
+                        rmeta, rarrays = self._handle_multi(meta, arrays)
+                else:
+                    handler = self._wait_handler(meta["table"])
+                    with monitor(f"ps[{meta['table']}].serve"):
+                        rmeta, rarrays = handler(msg_type, meta, arrays)
+                if isinstance(rarrays, wire.ChunkedReply):
+                    # streamed reply over the native conn: each chunk goes
+                    # through send_raw (the conn's C++ write lock orders
+                    # them); the closing OK is the `reply` below
+                    for cmeta, carrays in rarrays.chunks:
+                        ps_native.send_raw(
+                            self._native_raw, conn_id,
+                            wire.encode(MSG_REPLY_CHUNK, msg_id, cmeta,
+                                        carrays))
+                    rmeta, rarrays = rarrays.meta, ()
+                reply = wire.encode(MSG_REPLY_OK, msg_id, rmeta, rarrays)
+        except Exception as e:   # noqa: BLE001 — reply errors
+            log.debug("ps handler error: %s", e)
+            reply = wire.encode(MSG_REPLY_ERR, msg_id,
+                                {"error": f"{type(e).__name__}: {e}"})
+        # _native_raw, not _native: close() clears the latter while punts
+        # may still be in flight; the raw handle stays valid until
+        # server_free (which runs after this conn thread is joined)
+        ps_native.send_raw(self._native_raw, conn_id, reply)
 
     # ----------------------------- telemetry -------------------------- #
     def stats_payload(self) -> Dict:
@@ -700,7 +834,10 @@ class PSService:
 
         return {
             "rank": self.rank, "addr": self.addr, "gen": self.generation,
-            "ts": round(time.time(), 3), "native": False,
+            "ts": round(time.time(), 3),
+            # the native server is live: natively served ops refresh no
+            # beat, so a consumer discounts quiet beats on such a rank
+            "native": self._native_raw is not None,
             "serve_age_s": age("serve"), "apply_age_s": age("apply"),
             "queue_depth": queue_depth,
             "inflight": sum(p.inflight() for p in peers),
@@ -855,6 +992,16 @@ class PSService:
             except OSError:
                 return
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            # single read: close()'s leak branch clears self._native while
+            # this thread may be between the check and the call
+            native = self._native
+            if native is not None:
+                from multiverso_tpu_torch.ps import native as ps_native
+                # hand the fd to a C++ serving thread (detach: the C++
+                # side owns it now; close() reaches it via the native
+                # server, not self._conns)
+                ps_native.serve_fd(native, conn.detach())
+                continue
             with self._conns_lock:
                 self._conns.append(conn)
             threading.Thread(target=self._serve_conn, args=(conn,),
@@ -1016,6 +1163,67 @@ class PSService:
                 stale.close()
             return peer
 
+    # ------------------------- native client side --------------------- #
+    def native_enabled(self) -> bool:
+        """True when this process can open native client connections (the
+        remote end may still be pure-Python — the wire is identical)."""
+        if not config.get_flag("ps_native"):
+            return False
+        from multiverso_tpu_torch.ps import native as ps_native
+        return ps_native.available()
+
+    def native_conn(self, rank: int):
+        """Native client connection to ``rank`` (NativeConn), created
+        lazily; the local rank is reached over loopback too. Liveness,
+        rendezvous and reconnect-backoff bookkeeping stay with the python
+        :meth:`_peer` (which this piggybacks for the address); a native
+        conn observed dead is simply dropped, and the next op re-resolves
+        through _peer, so a restarted rank's fresh address is honoured.
+        Raises PSPeerError like _peer."""
+        from multiverso_tpu_torch.ps import native as ps_native
+        with self._peers_lock:
+            c = self._nconns.get(rank)
+        if c is not None and not c.dead():
+            return c
+        addr = self.addr if rank == self.rank else self._peer(rank).addr
+        try:
+            c2 = ps_native.NativeConn(addr,
+                                      config.get_flag("ps_connect_timeout"),
+                                      config.get_flag("ps_timeout"))
+        except ps_native.NativeConnError as e:
+            raise PSPeerError(f"rank {rank}: {e}") from e
+        with self._peers_lock:
+            old = self._nconns.get(rank)
+            if old is not None and not old.dead():
+                # lost the race to another thread: use theirs
+                c2.close()
+                return old
+            self._nconns[rank] = c2
+        if old is not None:
+            old.close()
+        return c2
+
+    def native_conn_or_none(self, rank: int):
+        """:meth:`native_conn` with unreachable ranks mapped to None (the
+        fan-out paths turn those into failed futures per owner)."""
+        try:
+            return self.native_conn(rank)
+        except PSError:
+            return None
+
+    def drop_native_conn(self, rank: int, conn) -> None:
+        """Forget a native conn observed dead (death bookkeeping belongs
+        to the python peer plane, which sees the same failure on its own
+        socket)."""
+        with self._peers_lock:
+            if self._nconns.get(rank) is conn:
+                del self._nconns[rank]
+        conn.close()
+
+    def native_conns(self):
+        with self._peers_lock:
+            return list(self._nconns.values())
+
     def request(self, rank: int, msg_type: int, meta: Dict,
                 arrays: Sequence[np.ndarray] = (),
                 meta_b: Optional[bytes] = None,
@@ -1096,8 +1304,20 @@ class PSService:
             self._listener.close()
         except OSError:
             pass
+        # the accept thread must be DONE before the native server is
+        # freed: it could otherwise adopt a last-instant connection into
+        # freed memory
         if self._accept_thread.is_alive():
             self._accept_thread.join(timeout=10.0)
+        if self._accept_thread.is_alive():
+            # a wedged accept thread could still call serve_fd into the
+            # native server: leak the server instead of freeing it (its
+            # C++ threads keep the callback trampoline, so _native_cb
+            # stays referenced too)
+            log.error("ps service close: accept thread did not exit in "
+                      "10s; leaking native server instead of freeing it")
+            with self._native_lock:
+                self._native = None
         # drop accepted connections too, so an in-process "killed" service
         # actually goes silent (a killed OS process gets this for free)
         with self._conns_lock:
@@ -1108,10 +1328,23 @@ class PSService:
                     pass
                 conn.close()
             self._conns.clear()
+        with self._native_lock:
+            native, self._native = self._native, None
+        if native is not None:
+            from multiverso_tpu_torch.ps import native as ps_native
+            # server_close shuts the adopted connections down; server_free
+            # then joins the C++ serving threads (an in-flight punt
+            # finishes first: ctypes released the GIL for this call)
+            ps_native.server_close(native)
+            ps_native.server_free(native)
+            self._native_cb = None
         with self._peers_lock:
+            nconns, self._nconns = list(self._nconns.values()), {}
             for peer in self._peers.values():
                 peer.close()
             self._peers.clear()
+        for c in nconns:
+            c.close()
         self._local_exec.shutdown(wait=True)
 
 

@@ -23,6 +23,15 @@ fresh tensor first (copy-on-write, counted as ``cow_applies``) and the
 pinned one retires to its readers. So a get racing adds sees a row
 wholly before or wholly after each add, never a mix.
 
+The native plane (``ps/native.py``): a shard whose rows are a CPU tensor
+and whose updater is a stateless signed accumulate (``_np_mode``)
+registers its tensor with the C++ server, which then applies and serves
+the hot row ops itself under the shard pin's mutex. Such a shard never
+swaps its tensor (C++ holds the pointer), so it does no copy-on-write, and
+its gets keep the locked path: every Python-plane op on it runs under the
+same native mutex (the service's locked handler), so no pin coexists with
+an apply. A shard on the card never registers; C++ punts its every op.
+
 Coalescing (flag ``ps_coalesce``): adds arriving on concurrent connection
 threads queue; whichever thread finds the queue idle drains it, merging
 queued adds into one update: duplicate rows across requests sum in
@@ -42,12 +51,13 @@ without touching the data. ``checkpoint_state``/``restore_checkpoint``
 carry the channels beside the rows, the updater state and the version,
 and ``mark_durable`` advances the floors the acks report as durable.
 
-Not ported (ROADMAP.md §A): the native plane's shard binding, the spmd
-lane, and the telemetry hooks (flight recorder, tenants, trace spans).
+Not ported (ROADMAP.md §A): the spmd lane and the telemetry hooks
+(flight recorder, tenants, trace spans).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -212,6 +222,18 @@ class RowShard:
         self._ustate = updater.init_state(self._padded, self.tdtype,
                                           self.device)
         self._linear = _LINEAR_SIGN.get(type(updater))
+        # the native server's gate: rows in host memory (a CPU tensor: the
+        # JAX package's CPU parameter host) and a stateless signed
+        # accumulate, which C++ applies as a plain row += / -=
+        self._host_serve = self.device.type == "cpu"
+        self._np_mode = self._host_serve and self._linear is not None
+        # native shard PIN once the native server serves this shard's hot
+        # ops (service._try_register_native); Python then only sees punted
+        # messages for it, already holding the native shard mutex. The pin
+        # addresses this exact shard object in C++ and outlives the server
+        # (freed in __del__, along with pins retired by re-registration)
+        self._native_ref: Optional[int] = None
+        self._retired_pins: List[int] = []
         self._gather = spmd_apply.build_gather()
         self._update = self._make_update()
         # RLock: HashShard wraps handle() in the same lock to make its
@@ -283,13 +305,59 @@ class RowShard:
         flattens by sorted key)."""
         return [self._ustate[k] for k in sorted(self._ustate)]
 
+    def bind_native(self, pin: int) -> None:
+        if self._native_ref is not None:
+            # re-registration: the OLD pin must not be freed yet — the
+            # previously installed locked handler still holds it and may
+            # be mid-request; retire it and free it at shard death
+            self._retired_pins.append(self._native_ref)
+        self._native_ref = pin
+
+    def __del__(self):
+        try:
+            pins = list(getattr(self, "_retired_pins", []))
+            if getattr(self, "_native_ref", None) is not None:
+                pins.append(self._native_ref)
+                self._native_ref = None
+            if pins:
+                from multiverso_tpu_torch.ps import native as ps_native
+                for p in pins:
+                    ps_native.shard_pin_free(p)
+        except Exception:   # noqa: BLE001 — interpreter teardown
+            pass
+
+    def _native_stats(self) -> Tuple[int, int]:
+        """(adds, applies) the C++ server served for this shard."""
+        if self._native_ref is None:
+            return 0, 0
+        from multiverso_tpu_torch.ps import native as ps_native
+        return ps_native.shard_pin_stats(self._native_ref)
+
+    def _native_mutex(self):
+        """Context manager holding the native shard mutex when this shard
+        is natively registered (C++ serving threads mutate the tensor
+        under THAT mutex, not ``_lock``); no-op otherwise."""
+        if self._native_ref is None:
+            return contextlib.nullcontext()
+        from multiverso_tpu_torch.ps import native as ps_native
+
+        @contextlib.contextmanager
+        def held(pin=self._native_ref):
+            ps_native.shard_pin_lock(pin)
+            try:
+                yield
+            finally:
+                ps_native.shard_pin_unlock(pin)
+
+        return held()
+
     @property
     def stat_adds(self) -> int:
-        return self._stat_adds
+        return self._stat_adds + self._native_stats()[0]
 
     @property
     def stat_applies(self) -> int:
-        return self._stat_applies
+        return self._stat_applies + self._native_stats()[1]
 
     def stats(self) -> Dict[str, Any]:
         """Server-side stats (MSG_STATS): JSON-safe scalars and the wave
@@ -298,11 +366,16 @@ class RowShard:
             queue_depth = len(self._addq)
             pending_bytes = sum(e.local.nbytes + e.vals.nbytes
                                 for e in self._addq)
+        # ONE native crossing, so adds, applies and version come from one
+        # counter state
+        n_adds, n_applies = self._native_stats()
         with self._lock:
             wave_ops = {str(k): v
                         for k, v in sorted(self._wave_ops.items())}
             wave_max = self._wave_max
-            version = self._version
+            # natively served applies fold into the mutation version (both
+            # only grow); the wave distribution stays a Python-path view
+            version = self._version + n_applies
             dirty_rows = (int(self._dirty.any(axis=0).sum())
                           if self._dirty is not None else None)
         snap = Dashboard.get(self._mon_apply).snapshot()
@@ -312,8 +385,9 @@ class RowShard:
             "bytes": int(self._padded[0] * self.num_col
                          * self.dtype.itemsize),
             "device": str(self.device),
-            "adds": self._stat_adds, "applies": self._stat_applies,
-            "version": version, "queue_depth": queue_depth,
+            "adds": self._stat_adds + n_adds,
+            "applies": self._stat_applies + n_applies,
+            "native_applies": n_applies, "version": version, "queue_depth": queue_depth,
             "pending_bytes": pending_bytes, "wave_ops": wave_ops,
             "wave_max_ops": wave_max,
             "apply": {"count": snap.count, "p50_ms": snap.p50_ms,
@@ -398,8 +472,11 @@ class RowShard:
 
     def _writable_data(self) -> torch.Tensor:
         """The tensor an in-place mutation may write (caller holds
-        ``self._lock``): copy-on-write when a reader pins the epoch."""
-        if self._data_pinned():
+        ``self._lock``): copy-on-write when a reader pins the epoch.
+        Natively registered shards never swap — C++ holds the pointer —
+        and never need to: every Python-plane op on them runs under the
+        native shard mutex, so a pin cannot coexist with an apply."""
+        if self._native_ref is None and self._data_pinned():
             self._data = self._data.clone()
             self._stat_cow += 1
         return self._data
@@ -712,7 +789,17 @@ class RowShard:
 
     def _add_rows(self, local: np.ndarray, vals: np.ndarray,
                   opt: AddOption) -> None:
-        if _config.get_flag("ps_coalesce"):
+        if self._native_ref is not None:
+            # natively served shard: this is a PUNTED add (a compressed
+            # wire, a stamped frame), already running under the native
+            # shard mutex via the service's locked handler. Apply at once:
+            # the queue's drain hand-off runs on a pool thread that would
+            # NOT hold the native mutex, racing C++ applies on the tensor
+            with self._lock:
+                self._apply_add_group([_PendingAdd(local, vals, opt)], opt)
+                self._stat_adds += 1
+                self._stat_applies += 1
+        elif _config.get_flag("ps_coalesce"):
             self._enqueue_add(local, vals, opt)
         else:
             with self._lock:
@@ -761,7 +848,7 @@ class RowShard:
         gen = int(_config.get_flag("ps_generation"))
         since_gen = int(meta.get("since_gen", -1))
         with self._lock:
-            version = self._version
+            version = self._version + self._native_stats()[1]
             if since >= 0 and version == since and since_gen == gen:
                 self._stat_snapshots += 1
                 self._stat_snapshot_unchanged += 1
@@ -888,10 +975,15 @@ class RowShard:
         """Consistent shard snapshot, taken under ``_stamp_lock`` and the
         shard lock so the replay marks and the rows agree exactly. Every
         array is an OWNED host copy of the card's tensors: an apply right
-        after the locks release must not change the bytes being written."""
-        with self._stamp_lock, self._lock:
+        after the locks release must not change the bytes being written.
+        The native shard mutex comes FIRST when C++ serves this shard (its
+        applies would tear the rows otherwise), matching the punt path's
+        order: the locked handler holds it around handle(), which then
+        takes ``_stamp_lock``."""
+        with self._native_mutex(), self._stamp_lock, self._lock:
             chans = {k: v.to_dict() for k, v in self._replay_seq.items()}
-            version = self._version
+            # the natively served applies count, as in stats()
+            version = self._version + self._native_stats()[1]
             data = self._full_rows(self._data)
             leaves = [self._owned_host(l) for l in self._leaves()]
         meta = {"kind": "row", "lo": self.lo, "rows": self.n,
@@ -950,13 +1042,23 @@ class RowShard:
                 f"{int(meta['lo']) + int(meta['rows'])})x{meta['cols']} "
                 f"!= live [{self.lo}, {self.hi})x{self.num_col} — "
                 "partition changed since the save")
-        with self._stamp_lock, self._lock:
+        # native mutex FIRST (the order rule of checkpoint_state)
+        with self._native_mutex(), self._stamp_lock, self._lock:
             self._set_leaves(list(arrays[1:]))
-            host = np.zeros(self._padded, self.dtype)
-            host[: self.n] = np.asarray(arrays[0], self.dtype)
-            self._data = self._place_rows(host)
+            if self._native_ref is not None:
+                # in place: C++ holds the tensor's pointer, so it never
+                # swaps (and no reader pins it under the native mutex)
+                self._data[: self.n].copy_(
+                    _host(arrays[0], self.dtype))
+            else:
+                host = np.zeros(self._padded, self.dtype)
+                host[: self.n] = np.asarray(arrays[0], self.dtype)
+                self._data = self._place_rows(host)
             self._adopt_replay_channels(meta)
-            self._version = int(meta.get("version", 0))
+            # stats() adds the native applies served so far: the restored
+            # shard reports exactly the checkpoint's version
+            self._version = (int(meta.get("version", 0))
+                             - self._native_stats()[1])
             if self._dirty is not None:
                 self._dirty[:] = True
 

@@ -23,9 +23,19 @@ past its ack until the owner reports it durable, and re-flushes the
 retained tail in sequence order when the owner dies
 (:class:`_ReplayBuffer`); the shard's sequence channels dedupe.
 
-Not ported (ROADMAP.md §A, each raising ``NotImplementedError`` that
-names its item when asked for): the native transport's futures and
-per-tenant add budgets (``tenant_add_qps``).
+The native transport (flag ``ps_native``, ``ps/native.py``): a table
+with the plain wire, no sparse stale-row protocol, an f32/f64 dtype and
+no window (``_native_ok``) sends its row adds and gets through the C++
+client — counted fire-and-forget adds (:class:`_NativeAddFuture`), gets
+whose replies the C++ recv threads scatter straight into the result
+buffer (:class:`_NativeGetFuture`), the per-owner split done in C
+(``native.add_fanout`` / ``get_fanout``) — and its whole-table add and
+get one native op per owner. ``set_rows`` fences on the native adds
+(:meth:`AsyncMatrixTable._native_flush`) before its frames take the
+Python conn.
+
+Not ported (ROADMAP.md §A, raising ``NotImplementedError`` that names
+its item when asked for): per-tenant add budgets (``tenant_add_qps``).
 """
 
 from __future__ import annotations
@@ -51,6 +61,157 @@ from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils import config, log
 from multiverso_tpu_torch.utils import retry as _retry
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
+
+
+# ---------------------------------------------------------------------- #
+# native-transport futures: Future-shaped handles over the C++ client
+# (ps/native.py). They plug into the same _track/wait/flush bookkeeping as
+# the python _Peer futures — done()/exception()/result(timeout) is all the
+# plane consumes.
+# ---------------------------------------------------------------------- #
+def _failed_future(exc: Exception) -> cf.Future:
+    f: cf.Future = cf.Future()
+    f.set_exception(exc if isinstance(exc, svc.PSPeerError)
+                    else svc.PSPeerError(str(exc)))
+    return f
+
+
+class _NativeAddFuture:
+    """Counted fire-and-forget add: complete when the conn's ack counter
+    reaches this op's sequence number — no Python wakeup per reply. A
+    server ERR reply binds to this op alone (by msg id), matching the
+    python plane's per-future errors."""
+
+    __slots__ = ("_conn", "_seq", "_mid", "_exc")
+
+    def __init__(self, conn, seq: int, mid: int):
+        self._conn, self._seq, self._mid = conn, seq, mid
+        self._exc: Optional[Exception] = None
+
+    def done(self) -> bool:
+        if self._conn.dead():
+            return True
+        done = self._conn.adds_done()
+        return done < 0 or done >= self._seq
+
+    def result(self, timeout=None):
+        from multiverso_tpu_torch.ps.native import NativeConnError
+        if self._exc is not None:
+            raise self._exc
+        try:
+            self._conn.wait_adds(self._seq,
+                                 3600.0 if timeout is None else timeout)
+        except TimeoutError as e:
+            raise cf.TimeoutError(str(e)) from None
+        except NativeConnError as e:
+            self._exc = svc.PSPeerError(str(e))
+            raise self._exc from None
+        err = self._conn.take_add_error(self._mid)
+        if err is not None:
+            self._exc = svc.PSError(err)
+            raise self._exc
+        return ({}, [])
+
+    def exception(self):
+        if not self.done():
+            return None
+        try:
+            self.result(timeout=1.0)
+        except Exception as e:   # noqa: BLE001 — the sweep logs it
+            return e
+        return None
+
+
+class _NativeGetFuture:
+    """Buffer-filling get: the C++ recv thread copies the reply payload
+    straight into ``out``; result() blocks on the native wait."""
+
+    __slots__ = ("_conn", "_mid", "_out", "_state", "_exc")
+
+    def __init__(self, conn, mid: int, out: np.ndarray):
+        self._conn, self._mid, self._out = conn, mid, out
+        self._state = "pending"
+        self._exc: Optional[Exception] = None
+
+    def done(self) -> bool:
+        return self._state != "pending"
+
+    def __del__(self):
+        # abandoned while pending (a sibling owner's failure aborted the
+        # whole op): cancel so the C++ recv thread can never scatter into
+        # the (about to be freed) out buffer
+        try:
+            if self._state == "pending":
+                self._conn.get_cancel(self._mid)
+        except Exception:   # noqa: BLE001 — interpreter teardown
+            pass
+
+    def result(self, timeout=None):
+        from multiverso_tpu_torch.ps.native import NativeConnError
+        if self._state == "error":
+            raise self._exc
+        if self._state == "pending":
+            try:
+                self._conn.get_wait(self._mid,
+                                    3600.0 if timeout is None else timeout)
+            except TimeoutError as e:
+                # the native side dropped the pending entry: this future
+                # can never complete now — pin the failure
+                self._exc = svc.PSPeerError(f"native get: {e}")
+                self._state = "error"
+                raise cf.TimeoutError(str(e)) from None
+            except NativeConnError as e:
+                self._exc = svc.PSPeerError(str(e))
+                self._state = "error"
+                raise self._exc from None
+            self._state = "done"
+        return ({}, [self._out])
+
+    def exception(self):
+        return self._exc
+
+
+def _native_add(service, rank: int, msg_type: int, meta_b: bytes,
+                ids: Optional[np.ndarray], vals: np.ndarray):
+    """One counted add on the native conn to ``rank``; failures come back
+    as failed futures so multi-owner fan-outs keep their live shards
+    (service.request's never-raise contract)."""
+    conn = None
+    try:
+        conn = service.native_conn(rank)
+        seq, mid = conn.add(msg_type, meta_b, ids, vals)
+        return _NativeAddFuture(conn, seq, mid)
+    except svc.PSError as e:
+        return _failed_future(e)
+    except Exception as e:   # NativeConnError mid-send: conn is toast
+        if conn is not None:
+            service.drop_native_conn(rank, conn)
+        return _failed_future(e)
+
+
+def _native_get(service, rank: int, msg_type: int, meta_b: bytes,
+                ids: Optional[np.ndarray], out: np.ndarray):
+    conn = None
+    try:
+        conn = service.native_conn(rank)
+        mid = conn.get_send(msg_type, meta_b, ids, out)
+        return _NativeGetFuture(conn, mid, out)
+    except svc.PSError as e:
+        return _failed_future(e)
+    except Exception as e:
+        if conn is not None:
+            service.drop_native_conn(rank, conn)
+        return _failed_future(e)
+
+
+def _fanout_futures(parts, make):
+    """Shared shaping of add_fanout/get_fanout results into futures: an
+    unreachable owner becomes a failed future (live shards unaffected),
+    everything else goes through ``make(conn, seq, mid)``."""
+    return [(_failed_future(svc.PSPeerError(f"rank {r} unreachable over "
+                                            "native transport"))
+             if conn is None else make(conn, seq, mid))
+            for r, conn, seq, mid in parts]
 
 
 def _resolve_updater(updater, num_workers: int, dtype):
@@ -1201,6 +1362,14 @@ class AsyncMatrixTable(_AsyncBase):
                                               shard=self._shard)
         else:
             self._shard = None
+        # client-side native transport eligibility: plain wire, no sparse
+        # stale-row protocol (its dirty-bit ordering relies on the python
+        # conn's FIFO), a dtype the C++ side frames. The server side needs
+        # no agreement — a python peer speaks the same wire.
+        self._native_ok = (wire == "none" and shard_workers == 0
+                           and self.dtype.str in ("<f4", "<f8")
+                           and self.ctx.service.native_enabled())
+        self._plain_meta_b = wire_mod.pack_meta({"table": self.name})
         # identical on every rank: (rank, lo, hi) of each non-empty shard
         self._ranges = [(r, min(r * self._rows_per, self.num_row),
                          min((r + 1) * self._rows_per, self.num_row))
@@ -1214,6 +1383,12 @@ class AsyncMatrixTable(_AsyncBase):
               else float(get_window_ms))
         if gm > 0:
             self._get_window = _GetWindow(self, gm)
+        if self._window is not None or self._get_window is not None:
+            # windowed adds and coalesced gets ride the python conns; every
+            # other op must share that per-conn FIFO for the fences to
+            # mean read-your-writes, so the native fast path (its own
+            # socket: no cross-plane ordering) stays off for this table
+            self._native_ok = False
         # hot-row TRAINING cache (flag train_cache_rows) on the client's
         # device: write-through is bit-exact only when the local push
         # delta IS what the shard applies (plain-add updater, lossless
@@ -1307,6 +1482,36 @@ class AsyncMatrixTable(_AsyncBase):
         socket, so its payload stays uncompressed."""
         return "none" if rank == self.ctx.rank else self._wire
 
+    def _owner_conns(self, uids: np.ndarray):
+        """Native conns for the C-side fan-out, indexed by rank. ONLY the
+        ranks that own rows of THIS batch are resolved (a down rank that
+        owns nothing must not cost unrelated ops its connect timeout, and
+        a single-owner batch must not open world-many sockets); the rest
+        stay None, which the fan-out reads as no rows/unreachable."""
+        svc_ = self.ctx.service
+        conns = [None] * self.ctx.world
+        for r, _sl in self._owner_slices(uids):
+            conns[r] = svc_.native_conn_or_none(r)
+        return conns
+
+    def _native_flush(self) -> None:
+        """Order fence before python-conn ops that must observe earlier
+        native adds (set_rows): wait for every add issued on this
+        service's native conns. Failures are swallowed here — they
+        surface deterministically through the ops' own futures."""
+        if not self._native_ok:
+            return
+        timeout = config.get_flag("ps_timeout")
+        for c in self.ctx.service.native_conns():
+            if c.dead():
+                continue
+            seq = c.adds_issued()   # read under the C issue lock: cannot
+            if seq:                 # lag a completed add on any thread
+                try:
+                    c.wait_adds(seq, timeout)
+                except Exception:   # noqa: BLE001
+                    pass
+
     def _reply_wire(self) -> str:
         """Reply wire for gets: 1bit/topk apply to DELTAS; parameter
         values ride bf16 instead."""
@@ -1344,6 +1549,14 @@ class AsyncMatrixTable(_AsyncBase):
                     parts = [(r, _owned_part(uids, ix),
                               _owned_part(vals, ix)) for r, ix in oparts]
                 return self._track(self._window.submit(parts, opt))
+            if self._native_ok and vals.dtype == self.dtype:
+                from multiverso_tpu_torch.ps import native as ps_native
+                parts = ps_native.add_fanout(
+                    self._owner_conns(uids), self.ctx.world, False,
+                    self._rows_per, self._add_meta_b(opt), uids,
+                    np.ascontiguousarray(vals))
+                return self._track(_fanout_futures(
+                    parts, lambda c, s, m: _NativeAddFuture(c, s, m)))
             futs = []
             for r, ix in self._owner_slices(uids):
                 w = self._wire_for(r)
@@ -1453,6 +1666,24 @@ class AsyncMatrixTable(_AsyncBase):
                 uids, inv = np.asarray(row_ids, np.int64), None
             else:
                 uids, _, inv = self._prep(row_ids)
+            if self._native_ok:
+                from multiverso_tpu_torch.ps import native as ps_native
+                # unique ids: the C++ recv threads scatter replies
+                # straight into the caller's buffer
+                buf = self._reply_buffer(out if inv is None else None,
+                                         uids.size)
+                fparts = ps_native.get_fanout(
+                    self._owner_conns(uids), self.ctx.world, False,
+                    self._rows_per, self._plain_meta_b, uids, buf)
+                futs = _fanout_futures(
+                    fparts, lambda c, s, m: _NativeGetFuture(c, m, buf))
+
+                def _assemble_native(results):
+                    # the C++ recv threads filled ``buf``; results only
+                    # carry completion
+                    return buf if inv is None else buf[inv]
+
+                return futs, _assemble_native
             parts = self._owner_slices(uids)
             if self._get_window is not None:
                 # single-flight fetches: each part resolves to its own
@@ -1570,7 +1801,11 @@ class AsyncMatrixTable(_AsyncBase):
             raise ValueError("set_rows requires unique row ids")
         if np.any((uids < 0) | (uids >= self.num_row)):
             raise IndexError(f"row id out of range [0, {self.num_row})")
-        self._flush_window()   # queued windowed adds leave first
+        # order fence: earlier native adds must be acked before this
+        # overwrite travels the python conn (different sockets: no FIFO),
+        # and queued windowed adds must leave first (same-conn FIFO)
+        self._native_flush()
+        self._flush_window()
         meta = {"table": self.name}
         futs = [self.ctx.service.request(r, svc.MSG_SET_ROWS, meta,
                                          [uids[m], vals[m]])
@@ -1601,6 +1836,12 @@ class AsyncMatrixTable(_AsyncBase):
         with monitor(f"table[{self.name}].add"):
             delta = np.ascontiguousarray(
                 np.asarray(delta, self.dtype).reshape(self.shape))
+            if self._native_ok:
+                meta_b = self._add_meta_b(opt)
+                return self._track([
+                    _native_add(self.ctx.service, r, svc.MSG_ADD_FULL,
+                                meta_b, None, delta[a:b])
+                    for r, a, b in self._ranges])
             futs = []
             for r, a, b in self._ranges:
                 w = self._wire_for(r)
@@ -1652,7 +1893,12 @@ class AsyncMatrixTable(_AsyncBase):
             futs = []
             for r, a, b in ranges:
                 w = self._get_wire_for(r)
-                if chunk > 0 and (b - a) > chunk and r != self.ctx.rank:
+                if self._native_ok:
+                    # the reply lands in this range's rows of ``host``
+                    futs.append(_native_get(
+                        self.ctx.service, r, svc.MSG_GET_FULL,
+                        self._plain_meta_b, None, host[a:b]))
+                elif chunk > 0 and (b - a) > chunk and r != self.ctx.rank:
                     # streamed whole-shard pull: sub-frames scatter into
                     # this range's rows as they land
                     futs.append(self.ctx.service.request(
@@ -1666,7 +1912,11 @@ class AsyncMatrixTable(_AsyncBase):
                         r, svc.MSG_GET_FULL,
                         {"table": self.name, "wire": w}))
 
+            native = self._native_ok
+
             def _assemble(results):
+                if native:
+                    return host   # the C++ recv threads filled it
                 for (r, a, b), (rmeta, arrays) in zip(ranges, results):
                     if chunked.get(r) and rmeta.get("chunks"):
                         continue   # scattered by the sinks already

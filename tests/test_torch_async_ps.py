@@ -76,6 +76,21 @@ def port_ranks(tmp_path):
         c.close()
 
 
+@pytest.fixture
+def py_ranks(tmp_path):
+    """``port_ranks`` on the Python wire plane (ps_native off): chunked
+    replies, the serve beat and the dead-rank bookkeeping are that
+    plane's, as in the JAX package (a native op can fail before the
+    Python peer's thread records the death)."""
+    tconfig.set_flag("ps_native", False)
+    rdv = tsvc.FileRendezvous(str(tmp_path / "rdv"))
+    ctxs = [tsvc.PSContext(r, 2, tsvc.PSService(r, 2, rdv), device="cpu")
+            for r in range(2)]
+    yield ctxs
+    for c in ctxs:
+        c.close()
+
+
 # ---------------------------------------------------------------------- #
 # the frames
 # ---------------------------------------------------------------------- #
@@ -331,16 +346,16 @@ def test_errors_are_typed(port_ranks):
                                  ctx=port_ranks[0])
 
 
-def test_chunked_replies_stream_into_the_buffer(port_ranks):
+def test_chunked_replies_stream_into_the_buffer(py_ranks):
     """get_chunk_rows > 0: a remote get above it streams MSG_REPLY_CHUNK
     sub-frames that the client scatters as they land; the result equals
     the unchunked one, and the shard counts the chunks."""
     rng = np.random.default_rng(4)
     init = rng.normal(size=(40, 3)).astype(np.float32)
     t0 = ttables.AsyncMatrixTable(40, 3, name="ch", init=init,
-                                  ctx=port_ranks[0])
+                                  ctx=py_ranks[0])
     t1 = ttables.AsyncMatrixTable(40, 3, name="ch", init=init,
-                                  ctx=port_ranks[1])
+                                  ctx=py_ranks[1])
     tconfig.set_flag("get_chunk_rows", 6)
     ids = rng.permutation(40)[:30]
     np.testing.assert_array_equal(t0.get_rows(ids), init[ids])
@@ -349,9 +364,9 @@ def test_chunked_replies_stream_into_the_buffer(port_ranks):
     assert t0._shard.stats()["get_chunks"] == 0   # the local rank never
 
 
-def test_stats_and_health(port_ranks):
-    t0 = ttables.AsyncMatrixTable(8, 2, name="st", ctx=port_ranks[0])
-    ttables.AsyncMatrixTable(8, 2, name="st", ctx=port_ranks[1])
+def test_stats_and_health(py_ranks):
+    t0 = ttables.AsyncMatrixTable(8, 2, name="st", ctx=py_ranks[0])
+    ttables.AsyncMatrixTable(8, 2, name="st", ctx=py_ranks[1])
     t0.add_rows([1, 7], np.ones((2, 2), np.float32))
     remote = t0.server_stats(1)["shards"]["st"]
     assert remote["kind"] == "row" and remote["adds"] == 1
@@ -360,8 +375,9 @@ def test_stats_and_health(port_ranks):
     h = t0.server_health(1)
     assert h["rank"] == 1 and h["status"] == "ok"
     assert h["serve_age_s"] is not None and h["queue_depth"] == 0
-    assert port_ranks[0].service.stats_oneshot(1)["rank"] == 1
-    assert port_ranks[0].service.ping(1)
+    assert h["native"] is False   # no native server on this plane
+    assert py_ranks[0].service.stats_oneshot(1)["rank"] == 1
+    assert py_ranks[0].service.ping(1)
 
 
 def test_super_frame_dispatch(port_ranks):
@@ -444,12 +460,12 @@ def test_flush_surfaces_swept_failures(port_ranks):
     np.testing.assert_array_equal(t0.get_rows([1])[0], 3.0)
 
 
-def test_dead_peer_does_not_hang_live_traffic(port_ranks):
-    t0 = ttables.AsyncMatrixTable(10, 2, name="dp", ctx=port_ranks[0])
-    ttables.AsyncMatrixTable(10, 2, name="dp", ctx=port_ranks[1])
+def test_dead_peer_does_not_hang_live_traffic(py_ranks):
+    t0 = ttables.AsyncMatrixTable(10, 2, name="dp", ctx=py_ranks[0])
+    ttables.AsyncMatrixTable(10, 2, name="dp", ctx=py_ranks[1])
     t0.add_rows([0, 9], np.ones((2, 2), np.float32))
     t0.flush()
-    port_ranks[1].close()
+    py_ranks[1].close()
     time.sleep(0.1)
     t0.add_rows([1], np.ones((1, 2), np.float32))
     np.testing.assert_array_equal(t0.get_rows([1])[0], 1.0)
@@ -457,7 +473,7 @@ def test_dead_peer_does_not_hang_live_traffic(port_ranks):
     with pytest.raises(tsvc.PSPeerError):
         t0.get_rows([9])
     assert time.monotonic() - start < 10.0
-    assert 1 in port_ranks[0].service.dead_ranks()
+    assert 1 in py_ranks[0].service.dead_ranks()
     # inside the reconnect backoff a request fails fast
     start = time.monotonic()
     with pytest.raises(tsvc.PSPeerError):
@@ -517,17 +533,17 @@ def test_quiesce_times_out_without_the_peer(port_ranks):
     assert 0.3 < time.monotonic() - t0 < 5.0
 
 
-def test_quiesce_skips_an_observed_dead_peer(port_ranks):
+def test_quiesce_skips_an_observed_dead_peer(py_ranks):
     tconfig.set_flag("ps_shutdown_grace", 30.0)
-    t = ttables.AsyncMatrixTable(8, 2, name="qd", ctx=port_ranks[0])
-    ttables.AsyncMatrixTable(8, 2, name="qd", ctx=port_ranks[1])
+    t = ttables.AsyncMatrixTable(8, 2, name="qd", ctx=py_ranks[0])
+    ttables.AsyncMatrixTable(8, 2, name="qd", ctx=py_ranks[1])
     t.add_rows([7], np.ones((1, 2), np.float32))
-    port_ranks[1].service.close()
+    py_ranks[1].service.close()
     with pytest.raises(Exception):
         t.get_rows([7])
-    assert 1 in port_ranks[0].service.dead_ranks()
+    assert 1 in py_ranks[0].service.dead_ranks()
     t0 = time.monotonic()
-    port_ranks[0].quiesce()
+    py_ranks[0].quiesce()
     assert time.monotonic() - t0 < 5.0
 
 
@@ -710,12 +726,25 @@ def test_concurrent_hammer_sums_exactly(port_ranks):
 # ---------------------------------------------------------------------- #
 # refusals
 # ---------------------------------------------------------------------- #
-def test_ps_native_raises_naming_its_item():
-    assert tconfig.get_flag("ps_native") is False
-    tconfig.set_flag("ps_native", True)
-    with pytest.raises(NotImplementedError, match="native plane"):
-        tsvc.PSService(0, 1)
-    assert tsvc.NATIVE_ITEM in ROADMAP
+def test_ps_native_raises_naming_its_item(port_ranks):
+    """Once a refusal, now the native plane: ``ps_native`` defaults to
+    True, the service runs a native server, a CPU table with the plain
+    adder registers its shard with it and rides ``NativeConn``s, and its
+    adds and gets equal numpy bit for bit."""
+    from multiverso_tpu_torch.ps import native as tnative
+    assert tconfig.get_flag("ps_native") is True
+    assert not hasattr(tsvc, "NATIVE_ITEM")
+    assert port_ranks[0].service._native is not None
+    t = ttables.AsyncMatrixTable(6, 2, name="nv", ctx=port_ranks[0])
+    ttables.AsyncMatrixTable(6, 2, name="nv", ctx=port_ranks[1])
+    assert t._native_ok and t._shard._native_ref is not None
+    vals = np.arange(8, dtype=np.float32).reshape(4, 2) / 3
+    t.add_rows([0, 2, 3, 5], vals)
+    want = np.zeros((6, 2), np.float32)
+    want[[0, 2, 3, 5]] += vals
+    np.testing.assert_array_equal(t.get(), want)
+    conns = port_ranks[0].service.native_conns()
+    assert conns and all(isinstance(c, tnative.NativeConn) for c in conns)
 
 
 def test_ps_replay_raises_naming_its_item(port_ranks):

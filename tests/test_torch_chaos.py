@@ -39,6 +39,9 @@ TOOLS = os.path.join(os.path.dirname(os.path.dirname(
 
 @pytest.fixture(autouse=True)
 def _clean():
+    # the fault plane hooks the Python wire (ps_native off, as the JAX
+    # package's chaos bench runs)
+    config.set_flag("ps_native", False)
     yield
     faults.disarm()
     failover.stop_global(final=False)

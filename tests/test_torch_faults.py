@@ -35,6 +35,9 @@ from multiverso_tpu_torch.utils.dashboard import Dashboard as TDashboard
 
 @pytest.fixture(autouse=True)
 def _disarmed():
+    # the fault plane hooks the Python wire: the port's worlds here run
+    # it, as the JAX package's chaos runs do (ps_native off)
+    config.set_flag("ps_native", False)
     yield
     faults.disarm()
     jfaults.disarm()

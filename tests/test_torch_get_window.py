@@ -51,6 +51,20 @@ def ranks(tmp_path):
         c.close()
 
 
+@pytest.fixture
+def py_ranks(tmp_path):
+    """``ranks`` on the Python wire plane (ps_native off), as the JAX
+    package's get-path tests pin it: a test that slows the Python serve
+    path is bypassed by the native C++ one."""
+    tconfig.set_flag("ps_native", False)
+    rdv = tsvc.FileRendezvous(str(tmp_path / "rdv"))
+    ctxs = [tsvc.PSContext(r, 2, tsvc.PSService(r, 2, rdv), device="cpu")
+            for r in range(2)]
+    yield ctxs
+    for c in ctxs:
+        c.close()
+
+
 def _pair(ctxs, rows, cols, name, mod=ttables, **kw):
     return (mod.AsyncMatrixTable(rows, cols, name=name, ctx=ctxs[0], **kw),
             mod.AsyncMatrixTable(rows, cols, name=name, ctx=ctxs[1], **kw))
@@ -61,10 +75,10 @@ def _values(rows, cols, seed=1):
         np.float32)
 
 
-def test_get_window_single_flight(ranks):
+def test_get_window_single_flight(py_ranks):
     rows, cols = 64, 4
     vals = np.arange(rows * cols, dtype=np.float32).reshape(rows, cols)
-    t, t2 = _pair(ranks, rows, cols, "sf", get_window_ms=50.0)
+    t, t2 = _pair(py_ranks, rows, cols, "sf", get_window_ms=50.0)
     t.set_rows(np.arange(rows), vals)
     t.get_rows([40])   # warm the conn
     orig = t2._shard._gather_rows
@@ -131,12 +145,12 @@ def test_get_window_read_your_writes(ranks):
         assert t.get_rows([12])[0, 0] == float(i + 1)
 
 
-def test_concurrent_windowed_gets_each_get_their_rows(ranks):
+def test_concurrent_windowed_gets_each_get_their_rows(py_ranks):
     """Many threads with overlapping, unsorted id sets over both owners:
     each result equals the table's rows in that caller's order."""
     rows, cols = 48, 5
     vals = _values(rows, cols, seed=4)
-    t, t2 = _pair(ranks, rows, cols, "cc", get_window_ms=2.0)
+    t, t2 = _pair(py_ranks, rows, cols, "cc", get_window_ms=2.0)
     t.set_rows(np.arange(rows), vals)
     orig = t2._shard._gather_rows
 
@@ -206,9 +220,9 @@ def test_port_get_window_reads_a_jax_shard(tmp_path):
         jctx.close()
 
 
-def test_get_window_thread_exits_with_table(ranks, monkeypatch):
+def test_get_window_thread_exits_with_table(py_ranks, monkeypatch):
     monkeypatch.setattr(ttables._GetWindow, "_IDLE_WAIT_S", 0.05)
-    t, t2 = _pair(ranks, 8, 2, "gx", get_window_ms=5.0)
+    t, t2 = _pair(py_ranks, 8, 2, "gx", get_window_ms=5.0)
     orig = t2._shard._gather_rows
 
     def slow(local, data=None):

@@ -123,7 +123,9 @@ def test_shard_sketch_matches_jax(tmp_path):
     for cfg in (tconfig, jconfig):
         cfg.set_flag("ps_timeout", 5.0)
         cfg.set_flag("hotkeys_capacity", 64)
-    jconfig.set_flag("ps_native", False)
+        # the sketch hooks the Python serve path (natively served ops
+        # bypass it, in both packages)
+        cfg.set_flag("ps_native", False)
     trdv = tsvc.FileRendezvous(str(tmp_path / "t"))
     jrdv = jsvc.FileRendezvous(str(tmp_path / "j"))
     tctx = [tsvc.PSContext(r, 2, tsvc.PSService(r, 2, trdv), device="cpu")

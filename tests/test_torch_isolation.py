@@ -82,8 +82,11 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.ps.faults\n"
         "import multiverso_tpu_torch.ps.failover\n"
         "import multiverso_tpu_torch.examples.chaos\n"
+        "import multiverso_tpu_torch.ps.native\n"
+        "import multiverso_tpu_torch.examples.ps_bench\n"
         "import chip_smoke\n"
         "multiverso_tpu_torch.native.available()   # builds and loads\n"
+        "multiverso_tpu_torch.ps.native.available()\n"
         "bad = [m for m in sys.modules if m == 'multiverso_tpu'\n"
         "       or m.startswith('multiverso_tpu.')]\n"
         "assert not bad, bad\n"
@@ -137,3 +140,27 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_native_libraries_resolve_under_the_port_build_dir():
+    """The port's two host libraries build from its own csrc/ into
+    build/torch_native/ and load from there, never from the JAX
+    package's multiverso_tpu/native/."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "from multiverso_tpu_torch import native\n"
+        "from multiverso_tpu_torch.ps import native as ps_native\n"
+        "assert native.available() and ps_native.available()\n"
+        "for p in (native.library_path(), ps_native.library_path()):\n"
+        "    assert p.parent == native.BUILD_DIR, p\n"
+        "    assert p.parent.parts[-2:] == ('build', 'torch_native'), p\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "mine = [l.split()[-1] for l in maps.splitlines()\n"
+        "        if 'libmv_' in l]\n"
+        "assert any('libmv_ps-' in m for m in mine), mine\n"
+        "assert any('libmv_data-' in m for m in mine), mine\n"
+        "assert not [m for m in mine if '/multiverso_tpu/native/' in m]\n"
+        "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
