@@ -207,6 +207,28 @@ Phases, every one on every run, in this order:
             native applies), every full Get equal to numpy bit for bit;
             then a bf16-wire table, which punts. It counts its launches
             apart and launches no flash kernel
+17. telemetry the per-process telemetry plane (``telemetry/``,
+            ``utils/profiling.py``, ``tools/``), counted apart: (a) the
+            step profiler over ps_async (b)'s measured WE epoch at world 2
+            (``we_async.py --step_profile``): each rank's per-step phase
+            means, held on the real text to the JAX WE async bench's
+            in-run bounds (attributed >= 0.90, stall < 0.2, 0 steady
+            rebuilds); (b) one train step of the 472M LM under
+            ``utils.profiling.trace`` with ``annotate`` regions: the
+            Chrome trace names B1-B3 by their CUDA functions as often as
+            the wrappers counted their launches (one a layer each), the
+            memory ledger's gauge of the LM's ArrayTable equals its bytes
+            and the device census holds at least those bytes on cuda:0;
+            (c) ps_bench's 100,000 x 128 cell in two processes with trace
+            IDs and the metrics exporter on (0.5 s): every metrics record
+            and ``.prom`` file reads with the port's ``dump_metrics``, and
+            a client add's trace reaches the owner's serve and apply; (d)
+            chaos (b)'s survivor's flight-recorder dump names the killed
+            rank with its unacked requests, and the port's ``postmortem``
+            merges the dumps; (e) the always-on recorder's cost: the
+            windowed 1-row add p50, the native plane's adds/s and Get p50
+            and the serving write-p50 ratio beside the figures PERF.md
+            records (notes, not gates)
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -2845,7 +2867,7 @@ def psa_we_world2(dev) -> dict:
                    "multiverso_tpu_torch.examples.we_async", "--rdv", rdv,
                    "--world", "2", "--corpus", corpus, "--epochs",
                    str(PSA_WE_EPOCHS), "--tokens", str(PSA_WE_TOKENS),
-                   "--profile",
+                   "--profile", "--step_profile",
                    "--device", str(dev), "--timeout", str(PSA_WE_TIMEOUT)]
             t0 = time.perf_counter()
             procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=repo,
@@ -4981,6 +5003,328 @@ def phase_ps_native(dev) -> dict:
     return out
 
 
+# telemetry: the per-process telemetry plane (telemetry/, utils/profiling,
+# tools/; no kernel of its own: its device readings come from torch.cuda
+# and torch.profiler). (a) reads ps_async (b)'s WE world-2 run, whose
+# measured epoch ran under the step profiler, and holds it on the real
+# text to tools/bench_we_async.py:150-186's in-run bounds; (b) one train
+# step of the 472M LM (batch 2, seq 1024, bf16) under
+# utils.profiling.trace; (c) ps_bench's cell (tools/bench_async_ps.py:57,
+# 100,000 x 128) in two processes with trace IDs and the exporter on, on
+# the Python plane (the native fast path is untraced by design); (d)
+# chaos (b)'s combined run's dumps; (e) the always-on flight recorder's
+# cost on the hot paths, beside the last figures PERF.md §5 records
+# before the recorder rode them (the windowed 1-row add p50, the native
+# plane's rates and Get p50s, the serving write-p50 ratio under
+# overload) — notes, not gates.
+TEL_CORPUS = "realtext"         # bench.py's PS cell: the real text
+TEL_METRICS_INTERVAL_S = 0.5
+TEL_PSB_SECONDS = 2.0
+TEL_PREVIOUS = {
+    "window_add_p50_ms": 0.031,
+    "native_adds_per_s": {"card": 133.9, "cpu": 927.2, "processes": 275.4},
+    "python_adds_per_s": {"card": 166.8, "cpu": 136.1, "processes": 297.0},
+    "native_get_p50_ms": {"card": 11.288, "cpu": 1.005},
+    "python_get_p50_ms": {"card": 10.239, "cpu": 12.247},
+    "serving_write_p50_ratio": 0.80,
+}
+
+
+def tel_we_profile(we_world2: dict) -> dict:
+    """(a): each rank's step-profile block, printed for both corpora,
+    then held on the real text to the JAX bench's bounds."""
+    from multiverso_tpu_torch.examples import we_async
+    out = {}
+    for corpus, run in we_world2.items():
+        for res in run["ranks"]:
+            p = res["profile"]
+            if not p:
+                raise AssertionError(f"telemetry (a): rank {res['rank']} "
+                                     f"({corpus}) has no profile block")
+            ph = p["phase_ms_per_step"]
+            log(f"telemetry (a) WE world 2, {corpus}, rank {res['rank']} "
+                f"on {card_label()}: {p['steps']} steps, "
+                f"{p['wall_ms_per_step']:.2f} ms a step; phase ms a step "
+                + ", ".join(f"{k} {ph.get(k, 0.0):.2f}" for k in (
+                    "prepare", "ps_wait", "compute", "push", "io_wait"))
+                + f" (all: {ph}); async spans ms a step "
+                f"{p['async_ms_per_step']}; attributed "
+                f"{p['attributed_fraction']:.4f}, stall "
+                f"{p['stall_fraction']:.4f}, overlap "
+                f"{p['overlap_ms_per_step']:.2f} ms; prepare dominates "
+                f"{p['prepare_dominates']}; steady rebuilds "
+                f"{p['steady_recompiles']}, builds {p['compiles']}, "
+                f"{p['transfer_mb']} MB uploaded")
+            out.setdefault(corpus, []).append(p)
+    for p in out[TEL_CORPUS]:
+        we_async.check_profile(p)
+    log(f"telemetry (a): both ranks on the {TEL_CORPUS} corpus hold "
+        f"attributed >= {we_async.ATTRIBUTED_FRACTION_FLOOR}, stall < "
+        f"{we_async.STALL_FRACTION_CEILING} and 0 steady rebuilds")
+    return out
+
+
+def tel_lm_trace(dev, layers: int) -> dict:
+    """(b): the 472M LM in one ArrayTable (the ledger's gauge = its
+    bytes, the census at least that on the card), then one train step
+    under profiling.trace, whose Chrome trace names B1-B3."""
+    import tempfile
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    from multiverso_tpu_torch.telemetry import devstats, memstats
+    from multiverso_tpu_torch.utils import profiling
+
+    cfg = lm_config(layers)
+    t0 = time.perf_counter()
+    shared = mv.SharedPytree(tfm.init_params(cfg, seed=0), name="tel_lm")
+    torch.cuda.synchronize()
+    data = shared.table.raw()
+    nbytes = data.numel() * data.element_size()
+    gauge = memstats.LEDGER.snapshot()["components"]["table[tel_lm]"]
+    census = memstats.device_census()
+    rollup = devstats.device_rollup()
+    on_card = {g["device"]: g["bytes"] for g in census["top"]}
+    log(f"telemetry (b) the LM's table: {shared.table.size} f32, "
+        f"{nbytes} bytes on {data.device} ({time.perf_counter() - t0:.1f} s"
+        f" to build); ledger table[tel_lm] {gauge}; census {census['bytes']}"
+        f" bytes in {census['arrays']} live blocks over {census['groups']} "
+        f"device(s), cuda:0 {on_card.get('cuda:0')}; rollup {rollup}")
+    if gauge["table_bytes"] != nbytes:
+        raise AssertionError(f"telemetry (b): the ledger's gauge "
+                             f"{gauge['table_bytes']} != the table's "
+                             f"{nbytes} bytes")
+    if not (on_card.get("cuda:0", 0) >= nbytes
+            and rollup["cuda:0"]["bytes"] >= nbytes):
+        raise AssertionError(f"telemetry (b): the census holds fewer than "
+                             f"the table's {nbytes} bytes on cuda:0")
+    model = tfm.params_from_jax(shared.get(), cfg, dev)
+    del shared, data
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BATCH, cfg.max_seq + 1))).to(dev)
+    tok, tgt = toks[:, :-1], toks[:, 1:]
+    sgd = tfm.make_train_step(cfg, LR)
+    float(sgd(model, tok, tgt))   # warm, outside the trace
+    before = ak.launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with profiling.trace("lm_train_step", trace_dir=d) as path:
+            with profiling.annotate("lm.train_step"):
+                loss = float(sgd(model, tok, tgt))
+        traced_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    step = {k: v - before[k] for k, v in ak.launch_counts().items()}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found, dev_us = {}, {}
+    for fn, key in (("flash_fwd_wgmma", "flash_fwd"),
+                    ("flash_bwd_dq_wgmma", "flash_bwd_dq"),
+                    ("flash_bwd_dkv_wgmma", "flash_bwd_dkv")):
+        hits = [e for e in kernels if fn in e.get("name", "")]
+        found[key] = len(hits)
+        dev_us[key] = sum(float(e.get("dur", 0.0)) for e in hits)
+    marks = [e for e in events if e.get("name") == "lm.train_step"]
+    busy_us = sum(float(e.get("dur", 0.0)) for e in kernels)
+    log(f"telemetry (b) one LM train step under profiling.trace: loss "
+        f"{loss:.5f}, {traced_s:.2f} s with the trace's export, {size} "
+        f"bytes, {len(events)} events, {len(kernels)} kernels "
+        f"({busy_us / 1e3:.3f} ms of device time); the flash kernels by "
+        f"CUDA function {found} ({ {k: round(v / 1e3, 3) for k, v in dev_us.items()} } ms)"
+        f", the wrappers counted {step}; annotate regions {len(marks)}")
+    if not (found == step == {k: layers for k in step}):
+        raise AssertionError(f"telemetry (b): the trace holds {found} flash "
+                             f"kernels, the wrappers counted {step}, one "
+                             f"step launches {layers} of each")
+    if not marks:
+        raise AssertionError("telemetry (b): the annotate region is not in "
+                             "the trace")
+    del model
+    torch.cuda.empty_cache()
+    return {"ledger_bytes": gauge["table_bytes"], "table_bytes": nbytes,
+            "census_bytes": census["bytes"], "kernels": found,
+            "kernel_ms": {k: v / 1e3 for k, v in dev_us.items()},
+            "busy_ms": busy_us / 1e3, "trace_bytes": size}
+
+
+def tel_exporter(dev) -> dict:
+    """(c): two ps_bench processes with trace IDs and the exporter on;
+    every metrics record and .prom file reads with the port's
+    dump_metrics, and each client's adds stitch to the other rank's
+    serve and apply by trace id."""
+    import tempfile
+    from multiverso_tpu_torch.telemetry import exporter
+    from multiverso_tpu_torch.tools import dump_metrics
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        mdir = os.path.join(tmp, "metrics")
+        cmd = [sys.executable, "-m", "multiverso_tpu_torch.examples.ps_bench",
+               "--rdv", os.path.join(tmp, "rdv"), "--seconds",
+               str(TEL_PSB_SECONDS), "--plane", "python", "--telemetry",
+               mdir, "--device", str(dev)]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=repo,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        res = []
+        for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+            lines = [l for l in so.splitlines() if l.startswith("RESULT ")]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f"telemetry (c) rank {r} failed "
+                                     f"({p.returncode}):\n{se[-3000:]}")
+            res.append(json.loads(lines[-1][len("RESULT "):]))
+        out = {"ranks": res, "records": {}, "prom_samples": {},
+               "spans": {}}
+        spans = {}
+        for r in range(2):
+            recs = dump_metrics.load_records(
+                os.path.join(mdir, f"metrics-rank{r}.jsonl"))
+            for rec in recs:
+                dump_metrics.format_record(rec)
+            prom = dump_metrics.load_prom(
+                os.path.join(mdir, f"metrics-rank{r}.prom"))
+            with open(os.path.join(mdir, f"metrics-rank{r}.prom")) as f:
+                text = f.read()
+            if text != exporter.prometheus_text(recs[-1]):
+                raise AssertionError(f"telemetry (c): rank {r}'s .prom is "
+                                     "not its last record's text")
+            # the exporter starts with the service, before the table
+            # exists: the shard is in the last record (written at close)
+            if not (all(rec.get("rank") == r and "memory" in rec
+                        for rec in recs)
+                    and "ps_bench" in recs[-1].get("shards", {})):
+                raise AssertionError(f"telemetry (c): rank {r}'s records "
+                                     "miss their rank, memory or shard")
+            with open(os.path.join(mdir, f"trace-rank{r}.jsonl")) as f:
+                spans[r] = [json.loads(l) for l in f]
+            out["records"][r] = len(recs)
+            out["prom_samples"][r] = len(prom)
+            out["spans"][r] = len(spans[r])
+    stitched = {}
+    for client, owner in ((0, 1), (1, 0)):
+        adds = {e["args"]["trace"] for e in spans[client]
+                if e["name"] == "client.add_rows"}
+        by_name = {}
+        for e in spans[owner]:
+            t = e["args"].get("trace")
+            if t in adds:
+                by_name.setdefault(e["name"], set()).add(t)
+        chain = (by_name.get("ps.serve", set())
+                 & (by_name.get("shard.apply", set())
+                    | by_name.get("shard.wave_apply", set())))
+        stitched[client] = {"adds": len(adds), "reached_serve_and_apply":
+                            len(chain), "owner_spans": sorted(by_name)}
+        if not (adds and chain):
+            raise AssertionError(f"telemetry (c): rank {client}'s traced "
+                                 f"adds do not reach rank {owner}'s serve "
+                                 f"and apply: {stitched[client]}")
+    out["stitched"] = stitched
+    log(f"telemetry (c) ps_bench with trace IDs and the exporter "
+        f"({TEL_METRICS_INTERVAL_S} s) on {card_label()}: adds/s "
+        f"{[round(r['adds_per_sec'], 1) for r in res]}, Get p50 "
+        f"{[round(r['get_p50_ms'], 3) for r in res]} ms; metrics records "
+        f"{out['records']}, .prom samples {out['prom_samples']}, all read "
+        f"by dump_metrics; spans {out['spans']}; traced adds reaching the "
+        f"owner's serve and apply {stitched}")
+    return out
+
+
+def tel_postmortem(combined: dict) -> dict:
+    """(d): chaos (b)'s dumps: the survivor's names the killed rank with
+    its unacked requests, and the port's postmortem merges them all."""
+    import contextlib
+    import glob
+    import io
+    from multiverso_tpu_torch.tools import postmortem
+    fr = combined["flightrec_dir"]
+    paths = sorted(glob.glob(os.path.join(fr, "gen*",
+                                          "flightrec-rank*.jsonl")))
+    survivor = os.path.join(fr, "gen0", "flightrec-rank0.jsonl")
+    if survivor not in paths:
+        raise AssertionError(f"telemetry (d): the survivor left no dump "
+                             f"(found {paths})")
+    d0 = postmortem.load_dump(survivor)
+    unacked = [r for r in d0["inflight"] if r.get("peer") == 1]
+    deaths = [e for e in d0["events"] if e.get("ev") == "peer.dead"
+              and e.get("peer") == 1]
+    suspects = postmortem.dead_suspects([d0])
+    log(f"telemetry (d) chaos (b)'s survivor dump: reason "
+        f"{d0['header'].get('reason')!r}, {len(d0['events'])} events, "
+        f"{len(d0['inflight'])} in flight ({len(unacked)} to rank 1), "
+        f"peer.dead of rank 1 {len(deaths)}; suspects {suspects}")
+    if not (unacked and any(s["rank"] == 1 for s in suspects)):
+        raise AssertionError("telemetry (d): the survivor's dump does not "
+                             "name the killed rank 1 with its unacked "
+                             "requests")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = postmortem.main(sorted({os.path.dirname(p) for p in paths})
+                             + ["--json"])
+    rep = json.loads(buf.getvalue())
+    log(f"telemetry (d) postmortem over {len(paths)} dump(s): ranks "
+        f"{rep['ranks']}, {len(rep['timeline'])} timeline records, "
+        f"recovery {rep['recovery']}")
+    if rc != 0 or 0 not in rep["ranks"]:
+        raise AssertionError(f"telemetry (d): postmortem failed ({rc})")
+    return {"dumps": len(paths), "unacked_to_1": len(unacked),
+            "ranks": rep["ranks"]}
+
+
+def tel_cost(later: dict) -> dict:
+    """(e): the hot paths with the always-on recorder, beside the figures
+    PERF.md recorded before it rode them (notes, not gates)."""
+    win = min(p["on_p50_ms"] for p in later["ps_window"]["small_add"]
+              ["passes"])
+    out = {"window_add_p50_ms": win, "native_adds_per_s": {},
+           "python_adds_per_s": {}, "native_get_p50_ms": {},
+           "python_get_p50_ms": {}}
+    for part in ("card", "cpu", "processes"):
+        for plane in ("native", "python"):
+            r = later["ps_native"][part][plane]
+            out[f"{plane}_adds_per_s"][part] = r["adds_per_sec"]
+            if "get_p50_ms" in r and part != "processes":
+                out[f"{plane}_get_p50_ms"][part] = r["get_p50_ms"]
+    out["serving_write_p50_ratio"] = later["serving"]["a"]["degradation_x"]
+    log(f"telemetry (e) always-on cost on {card_label()}, now (the figure "
+        f"before the recorder): windowed 1-row add p50 {win:.4f} ms "
+        f"({TEL_PREVIOUS['window_add_p50_ms']}); "
+        + "; ".join(
+            f"{k} " + ", ".join(
+                f"{p} {v:.3f} ({TEL_PREVIOUS[k][p]})"
+                for p, v in out[k].items())
+            for k in ("native_adds_per_s", "python_adds_per_s",
+                      "native_get_p50_ms", "python_get_p50_ms"))
+        + f"; serving (a) write p50 under overload "
+        f"x{out['serving_write_p50_ratio']:.3f} "
+        f"({TEL_PREVIOUS['serving_write_p50_ratio']})")
+    return out
+
+
+def phase_telemetry(dev, we_world2: dict, later: dict) -> dict:
+    t0 = time.perf_counter()
+    out = {"we_profile": tel_we_profile(we_world2)}
+    t1 = time.perf_counter()
+    out["lm_trace"] = tel_lm_trace(dev, LAYERS)
+    t2 = time.perf_counter()
+    out["exporter"] = tel_exporter(dev)
+    t3 = time.perf_counter()
+    out["postmortem"] = tel_postmortem(later["chaos"]["combined"])
+    out["cost"] = tel_cost(later)
+    log(f"telemetry phase: {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, (d) "
+        f"and (e) {time.perf_counter() - t3:.1f} s)")
+    return out
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -5099,7 +5443,7 @@ def main(argv=None) -> int:
                                  "flash kernel")
         # the async PS plane, counted the same way: no kernel of the port
         ak.reset_launch_counts()
-        phase_ps_async(dev, lr["data"])
+        psa = phase_ps_async(dev, lr["data"])
         paths["ps_async"] = ak.launch_counts()
         log(f"ps_async launches {paths['ps_async']}")
         if any(paths["ps_async"].values()):
@@ -5112,6 +5456,7 @@ def main(argv=None) -> int:
     # of the port; and failover, faults and replay: host code, wire frames
     # and shard copies between the card and the host; and the native
     # transport: host C++ and the same shard ops
+    later = {}
     for name, phase in (("resnet", phase_resnet), ("lda", phase_lda),
                         ("decode", phase_decode),
                         ("ps_window", phase_ps_window),
@@ -5119,11 +5464,21 @@ def main(argv=None) -> int:
                         ("chaos", phase_chaos),
                         ("ps_native", phase_ps_native)):
         ak.reset_launch_counts()
-        phase(dev)
+        later[name] = phase(dev)
         paths[name] = ak.launch_counts()
         log(f"{name} launches {paths[name]}")
         if any(paths[name].values()):
             raise AssertionError(f"the {name} path launched a flash kernel")
+    # the telemetry plane: its LM's warm step and traced step each run
+    # B1-B3 once a layer
+    ak.reset_launch_counts()
+    phase_telemetry(dev, psa["we_world2"], later)
+    paths["telemetry"] = ak.launch_counts()
+    log(f"telemetry launches {paths['telemetry']}")
+    if paths["telemetry"] != {k: 2 * LAYERS for k in paths["telemetry"]}:
+        raise AssertionError(f"the telemetry path launched "
+                             f"{paths['telemetry']}, expected "
+                             f"{2 * LAYERS} of each flash kernel")
     mv.shutdown()
     for rec in records:
         by_path = {p: c.get(rec["name"], 0) for p, c in paths.items()}

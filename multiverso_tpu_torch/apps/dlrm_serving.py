@@ -19,8 +19,11 @@ The two classes meet only at the replica's refresh cadence (MSG_SNAPSHOT
 pulls): inference QPS scales without loading the write path, at a
 staleness cost that is bounded and advertised.
 
-Not ported (ROADMAP.md §A, Telemetry and tools): the step profiler's
-phases and the device-transfer counters of the JAX app.
+Telemetry: each training step is one ``dlrm.train_step`` step of the step
+profiler (flag ``step_profile``) with ``prepare``, ``ps_wait``,
+``compute`` and ``push`` phases and the table layer's ``ps.get``/
+``ps.add`` async spans; the pulled rows and the row gradients report to
+the device plane's transfer counters.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from multiverso_tpu_torch.models import dlrm
 from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
 from multiverso_tpu_torch.serving.admission import AdmissionController
 from multiverso_tpu_torch.serving.replica import ReadReplica
+from multiverso_tpu_torch.telemetry import devstats as _devstats
+from multiverso_tpu_torch.telemetry import profiler as _prof
 from multiverso_tpu_torch.updaters import AddOption
 
 
@@ -96,27 +101,40 @@ class DLRMServing:
         autograd, push the row-gradient deltas (blocking — the ack means
         applied). Returns ``(loss, write_ms)``: the write latency is the
         protected metric (admission control exists so THIS number
-        survives an inference storm)."""
-        b, f = np.asarray(cat).shape
-        ids = self._ids(cat)
-        rows = self.emb.get_rows(ids).reshape(b, f, self.cfg.embed_dim)
-        with self._mlp_lock:
-            mlp = {k: list(v) for k, v in self.mlp.items()}
-        loss, g_mlp, g_rows = dlrm.loss_and_grads(
-            mlp, self._tensor(rows), self._tensor(dense),
-            self._tensor(labels), self.cfg)
-        with self._mlp_lock:
-            self.mlp = {k: [p - self._mlp_lr * g
-                            for p, g in zip(self.mlp[k], g_mlp[k])]
-                        for k in self.mlp}
-        g_host = g_rows.reshape(b * f, self.cfg.embed_dim).cpu().numpy()
-        loss = float(loss)
-        t0 = time.perf_counter()
-        # duplicate ids (one user twice in a batch) accumulate in float64
-        # in the client's _dedupe_batch: scatter-add semantics, as the
-        # fused step's index_add_
-        self.emb.add_rows(ids, g_host, self._opt)
-        return loss, (time.perf_counter() - t0) * 1e3
+        survives an inference storm). Profiled as one step (flag
+        ``step_profile``); ``compute`` ends with the gradients' copy to
+        the host, the device sync."""
+        with _prof.step("dlrm.train_step"):
+            with _prof.phase("prepare"):
+                b, f = np.asarray(cat).shape
+                ids = self._ids(cat)
+            with _prof.phase("ps_wait"):
+                rows = self.emb.get_rows(ids).reshape(
+                    b, f, self.cfg.embed_dim)
+            with _prof.phase("compute"):
+                # the pulled rows ride to the device through the
+                # transfer chokepoint (and the step's transfer delta)
+                _devstats.note_transfer(rows.nbytes, "h2d")
+                with self._mlp_lock:
+                    mlp = {k: list(v) for k, v in self.mlp.items()}
+                loss, g_mlp, g_rows = dlrm.loss_and_grads(
+                    mlp, self._tensor(rows), self._tensor(dense),
+                    self._tensor(labels), self.cfg)
+                with self._mlp_lock:
+                    self.mlp = {k: [p - self._mlp_lr * g
+                                    for p, g in zip(self.mlp[k], g_mlp[k])]
+                                for k in self.mlp}
+                g_host = g_rows.reshape(
+                    b * f, self.cfg.embed_dim).cpu().numpy()
+                _devstats.note_transfer(g_host.nbytes, "d2h")
+                loss = float(loss)
+            t0 = time.perf_counter()
+            # duplicate ids (one user twice in a batch) accumulate in
+            # float64 in the client's _dedupe_batch: scatter-add
+            # semantics, as the fused step's index_add_
+            with _prof.phase("push"):
+                self.emb.add_rows(ids, g_host, self._opt)
+            return loss, (time.perf_counter() - t0) * 1e3
 
     def infer(self, cat, dense, cls: str = "infer") -> np.ndarray:
         """Score candidates against the replica (bounded staleness; may

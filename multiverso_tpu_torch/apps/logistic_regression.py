@@ -39,7 +39,10 @@ tables of ``ps/``: an ``AsyncArrayTable`` (dense) or an
 live as shard state), whose overlapped ``get_rows_sparse_async`` pulls
 the sparse lookahead runs under ``pipeline=true``.
 
-Not ported yet (ROADMAP §A): the profiler's ``lr.minibatch`` step.
+With ``step_profile`` on, every minibatch of the host loop is one
+``lr.minibatch`` step; each step consumes the current minibatch and then
+fetches the next, so the reader's ``io_wait`` phase and its producer's
+``io.produce`` spans land on the step they stalled or overlapped.
 
 Usage: ``python -m multiverso_tpu_torch.apps.logistic_regression <config
 file> [-flag=value ...]`` (same one-arg shape as ref src/main.cpp:7-13).
@@ -58,6 +61,7 @@ import multiverso_tpu_torch as mv
 from multiverso_tpu_torch.io.sample_reader import SampleReader
 from multiverso_tpu_torch.io.stream import open_stream
 from multiverso_tpu_torch.models import logreg as model_lib
+from multiverso_tpu_torch.telemetry import profiler as _prof
 from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils import config as config_lib
 from multiverso_tpu_torch.utils import log
@@ -221,19 +225,28 @@ class LogReg:
                                   cfg.minibatch_size, fmt=cfg.reader_type)
             batches = (self._sparse_lookahead(reader) if sparse_pipeline
                        else reader)
-            for batch_idx, item in enumerate(batches):
-                if sparse_pipeline:
-                    y_len = len(item["y"])
-                    loss = self._train_sparse_prepared(item)
-                elif cfg.sparse:
-                    x, y, keys = item
-                    y_len = len(y)
-                    loss = self._train_minibatch_sparse(x, y, keys)
-                else:
-                    x, y, _ = item
-                    y_len = len(y)
-                    loss = self._train_minibatch(x, y, batch_idx,
-                                                 pull_buffer)
+            # each step consumes the CURRENT minibatch and fetches the
+            # NEXT one, so the reader's io_wait lands on the step it
+            # stalled
+            batches_it = iter(batches)
+            item = next(batches_it, None)
+            batch_idx = 0
+            while item is not None:
+                with _prof.step("lr.minibatch"):
+                    if sparse_pipeline:
+                        y_len = len(item["y"])
+                        loss = self._train_sparse_prepared(item)
+                    elif cfg.sparse:
+                        x, y, keys = item
+                        y_len = len(y)
+                        loss = self._train_minibatch_sparse(x, y, keys)
+                    else:
+                        x, y, _ = item
+                        y_len = len(y)
+                        loss = self._train_minibatch(x, y, batch_idx,
+                                                     pull_buffer)
+                    item = next(batches_it, None)
+                batch_idx += 1
                 losses.append(float(loss))
                 if ssp_clock is not None:
                     ssp_clock.tick()

@@ -56,11 +56,22 @@ Usage: ``python -m multiverso_tpu_torch.apps.word_embedding -train_file
 f.txt -output vec.txt -size 128 -cbow 1 -hs 1 ...`` (argv keys mirror ref
 util.cpp ParseArgs; ``-use_ps 1`` trains through the PS block path;
 ``-device=cpu`` runs on the CPU).
+
+Telemetry: with ``step_profile`` on, every block of the PS block path's
+host plane is one ``we.block`` step with ``prepare`` (inline path),
+``ps_wait``, ``compute`` and ``push`` phases (``io_wait`` and the
+``io.produce`` spans come from ``BlockPrepareQueue``, ``ps.add``/``ps.get``
+spans from the async tables). ``compute`` ends with the deltas' copy to
+the host, the point where the JAX app blocks on the device, so the scan's
+device time lands in ``compute``. The batch upload and the delta readback
+report to the device plane's transfer counters, and the fused path's
+pair-batch cache registers with the memory ledger.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -75,6 +86,9 @@ from multiverso_tpu_torch.io.sample_reader import BlockPrepareQueue
 from multiverso_tpu_torch.models import word2vec as w2v
 from multiverso_tpu_torch.ops import row_assemble as _rowasm
 from multiverso_tpu_torch.tables.matrix_table import _bucket_size
+from multiverso_tpu_torch.telemetry import devstats as _devstats
+from multiverso_tpu_torch.telemetry import memstats as _memstats
+from multiverso_tpu_torch.telemetry import profiler as _prof
 from multiverso_tpu_torch.utils import config, log, threefry
 from multiverso_tpu_torch.utils.dashboard import monitor
 
@@ -92,6 +106,15 @@ config.define_int(
     "we_pair_cache_corpora", 4,
     "bounded LRU capacity (corpora) of the fused path's device-resident "
     "batch cache")
+
+
+def _nbytes(x) -> int:
+    """Bytes of a tensor, an array, or a tuple/list of them."""
+    if isinstance(x, (tuple, list)):
+        return sum(_nbytes(a) for a in x)
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return int(getattr(x, "nbytes", 0) or 0)
 
 
 def _gen_pairs(ids: np.ndarray, window: int, seed: int):
@@ -233,6 +256,11 @@ class WordEmbedding:
         # bounded LRU of device-resident batches, keyed by a corpus
         # fingerprint (flag we_pair_cache_corpora)
         self._pair_cache: "OrderedDict[object, tuple]" = OrderedDict()
+        # guards the LRU against the memory sampler's gauge pull
+        # (mutation is per corpus-epoch: the lock is never hot)
+        self._pair_cache_lock = threading.Lock()
+        _memstats.register(f"we.pair_cache[{self.table_in.name}]", self,
+                           attr="pair_cache_memory_stats")
         # the PS block path's negative table (host, and on the device)
         self._neg_host: Optional[np.ndarray] = None
         self._neg_dev: Optional[torch.Tensor] = None
@@ -268,15 +296,26 @@ class WordEmbedding:
         """The LRU entry for ``key``, made by ``make()`` on a miss.
         Making the batches is one-time corpus preprocessing; caching them
         keeps repeat epochs off the host -> device path."""
-        hit = self._pair_cache.get(key)
-        if hit is not None:
-            self._pair_cache.move_to_end(key)
-            return hit
-        hit = self._pair_cache[key] = make()
-        cap = max(1, int(config.get_flag("we_pair_cache_corpora")))
-        while len(self._pair_cache) > cap:
-            self._pair_cache.popitem(last=False)
+        with self._pair_cache_lock:
+            hit = self._pair_cache.get(key)
+            if hit is not None:
+                self._pair_cache.move_to_end(key)
+                return hit
+        made = make()
+        with self._pair_cache_lock:
+            hit = self._pair_cache[key] = made
+            cap = max(1, int(config.get_flag("we_pair_cache_corpora")))
+            while len(self._pair_cache) > cap:
+                self._pair_cache.popitem(last=False)
         return hit
+
+    def pair_cache_memory_stats(self) -> Dict[str, int]:
+        """Ledger gauges for the pair-batch LRU (pull-only): cached
+        corpora and the bytes of their device tensors."""
+        with self._pair_cache_lock:
+            entries = list(self._pair_cache.values())
+        dev = sum(_nbytes(a) for entry in entries for a in entry)
+        return {"corpora": len(entries), "device_bytes": dev}
 
     def _device_pairs(self, ids: np.ndarray):
         """(centers, contexts, pair count): the batched skip-gram pairs as
@@ -486,21 +525,28 @@ class WordEmbedding:
             with queue(self._produce_block) as q:
                 prepared = self._dispatch_pulls(q.next())
                 for i, block in enumerate(schedule):
-                    nxt = None
-                    if i + 1 < len(schedule):
-                        nxt = self._dispatch_pulls(q.next())
-                    losses.append(self._train_prepared(prepared, nw))
+                    with _prof.step("we.block"):
+                        nxt = None
+                        if i + 1 < len(schedule):
+                            produced = q.next()   # io_wait-timed
+                            with _prof.phase("we.pipeline"):
+                                nxt = self._dispatch_pulls(produced)
+                        losses.append(self._train_prepared(prepared, nw))
                     words += block.size
                     prepared = nxt
         else:
-            # the inline one-lookahead path (-pipeline 0): the parity oracle
+            # the inline one-lookahead path (-pipeline 0): the parity
+            # oracle. The pipeline-fill prepare runs outside any step, so
+            # each steady step covers ONE (prepare of block N+1, train of
+            # block N) pair — the overlap the profiler measures
             prepared = (self._prepare_block(schedule[0], child_rngs[0])
                         if schedule else None)
             for i, block in enumerate(schedule):
-                nxt = (self._prepare_block(schedule[i + 1],
-                                           child_rngs[i + 1])
-                       if i + 1 < len(schedule) else None)
-                losses.append(self._train_prepared(prepared, nw))
+                with _prof.step("we.block"):
+                    nxt = (self._prepare_block(schedule[i + 1],
+                                               child_rngs[i + 1])
+                           if i + 1 < len(schedule) else None)
+                    losses.append(self._train_prepared(prepared, nw))
                 words += block.size
                 prepared = nxt
         if dev_losses:
@@ -673,8 +719,10 @@ class WordEmbedding:
 
     def _prepare_block(self, block: np.ndarray, rng) -> Optional[Dict]:
         """Inline host-plane block prep (-pipeline 0, the parity oracle):
-        produce and dispatch on the calling thread."""
-        return self._produce_block(block, rng, dispatch_early=True)
+        produce and dispatch on the calling thread, profiled as the step's
+        ``prepare`` phase."""
+        with _prof.phase("prepare"):
+            return self._produce_block(block, rng, dispatch_early=True)
 
     def _train_prepared(self, prep: Optional[Dict],
                         num_workers: int) -> float:
@@ -692,22 +740,30 @@ class WordEmbedding:
             # the residual of the pulls dispatched a block ahead (on the
             # async plane: the sockets and the owners' serving); a
             # cache-served block is on the device already
-            with monitor("we.pull_wait"):
+            # ps_wait: the part of the pulls the prefetch did not hide
+            with monitor("we.pull_wait"), _prof.phase("ps_wait"):
                 rows_in = (None if "dev_in" in prep
                            else self.table_in.wait(prep["pull_in"]))
                 rows_sec = (None if "dev_sec" in prep
                             else sec_t.wait(prep["pull_sec"]))
-            win = (prep["dev_in"] if rows_in is None
-                   else _rowasm.pad_rows(rows_in, prep["kb"], dev))
-            wsec = (prep["dev_sec"] if rows_sec is None
-                    else _rowasm.pad_rows(
-                        rows_sec, prep["hkb"] if cfg.hs else prep["kb"],
-                        dev))
-            d_in, d_sec, loss = self._run_block_scan(
-                self._step_fn_raw(), win, wsec, prep["valid"],
-                self._upload(prep["batch"]))
-            d_in, d_sec = d_in.cpu().numpy(), d_sec.cpu().numpy()
-        with monitor("we.push"):
+            with _prof.phase("compute"):
+                win = (prep["dev_in"] if rows_in is None
+                       else _rowasm.pad_rows(rows_in, prep["kb"], dev))
+                wsec = (prep["dev_sec"] if rows_sec is None
+                        else _rowasm.pad_rows(
+                            rows_sec, prep["hkb"] if cfg.hs else prep["kb"],
+                            dev))
+                # the batch upload through the device plane's transfer
+                # chokepoint (also the step's transfer_bytes delta)
+                _devstats.note_transfer(_nbytes(prep["batch"]), "h2d")
+                d_in, d_sec, loss = self._run_block_scan(
+                    self._step_fn_raw(), win, wsec, prep["valid"],
+                    self._upload(prep["batch"]))
+                # the deltas' copy to the host is the device sync: the
+                # scan's device time lands in `compute`, not in the push
+                d_in, d_sec = d_in.cpu().numpy(), d_sec.cpu().numpy()
+                _devstats.note_transfer(d_in.nbytes + d_sec.nbytes, "d2h")
+        with monitor("we.push"), _prof.phase("push"):
             k = prep["vocab"].size
             self.table_in.add_rows_async(prep["vocab"],
                                          d_in[:k] / num_workers)

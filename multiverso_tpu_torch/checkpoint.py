@@ -16,9 +16,12 @@ restarted incarnation restores exactly its own rows without touching its
 peers' newer live state. Its files are the JAX package's too (an
 ``np.save`` JSON header, then the arrays).
 
+The memory ledger (``telemetry/memstats.py``) carries the checkpoint
+plane's gauges under ``checkpoint``: host bytes staged by in-progress
+per-shard saves and the on-disk size of each rank's last committed tag.
+
 Not ported (ROADMAP.md §A): ``backend="orbax"`` and ``block=False`` (a
-JAX library's sharded, asynchronous format) raise ``ValueError``; the
-memory ledger's checkpoint gauges are telemetry.
+JAX library's sharded, asynchronous format) raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,13 +29,67 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Dict, Optional
 
 import numpy as np
 
 from multiverso_tpu_torch.io.stream import open_stream
+from multiverso_tpu_torch.telemetry import memstats as _memstats
 from multiverso_tpu_torch.utils import log
 from multiverso_tpu_torch.zoo import Zoo
+
+
+class _CheckpointGauges:
+    """Byte-ledger gauges for the checkpoint plane: host bytes STAGED by
+    in-progress saves (owned copies of shard data and updater-state
+    leaves, nonzero only while a save runs) and the on-disk size of the
+    last committed tag per rank base. One process-global instance, but
+    not one save at a time: an in-process multi-rank world runs one
+    checkpointer thread per rank, so staging accumulates (stage/unstage
+    deltas under a lock) and committed-tag sizes key by base directory."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._staging = 0
+        self._tags: Dict[str, int] = {}
+
+    def stage(self, nbytes: int) -> None:
+        with self._lock:
+            self._staging += int(nbytes)
+
+    def unstage(self, nbytes: int) -> None:
+        with self._lock:
+            self._staging -= int(nbytes)
+
+    def note_tag(self, base: str, nbytes: int) -> None:
+        with self._lock:
+            self._tags[base] = int(nbytes)
+
+    def memory_stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"staging_bytes": max(int(self._staging), 0),
+                    "disk_tag_bytes": int(sum(self._tags.values()))}
+
+
+_GAUGES = _CheckpointGauges()
+_memstats.register("checkpoint", _GAUGES)
+
+
+def _dir_bytes(path: str) -> int:
+    """Total file bytes under ``path`` (a missing tree reads as 0: the
+    gauge must never fail a save)."""
+    total = 0
+    try:
+        for root, _dirs, files in os.walk(path):
+            for fn in files:
+                try:
+                    total += os.path.getsize(os.path.join(root, fn))
+                except OSError:
+                    pass
+    except OSError:
+        pass
+    return total
 
 # Commit marker written LAST into every checkpoint directory: a tag whose
 # manifest exists but whose marker does not is a torn write (the writer
@@ -256,7 +313,14 @@ def save_shard_state(directory: str, rank: int, tables) -> str:
     for name, shard in shards:
         meta, arrays = shard.checkpoint_state()
         fname = f"{name}.mvs"
-        _save_shard_file(os.path.join(path, fname), meta, arrays)
+        # ledger gauge: this save's owned host copies, released as each
+        # shard's file lands
+        staged = sum(int(getattr(a, "nbytes", 0)) for a in arrays)
+        _GAUGES.stage(staged)
+        try:
+            _save_shard_file(os.path.join(path, fname), meta, arrays)
+        finally:
+            _GAUGES.unstage(staged)
         manifest["tables"][name] = {"file": fname,
                                     "kind": meta.get("kind"),
                                     "version": meta.get("version")}
@@ -264,6 +328,7 @@ def save_shard_state(directory: str, rank: int, tables) -> str:
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     _write_commit(path)
+    _GAUGES.note_tag(base, _dir_bytes(path))
     # durable ONLY now: the marks must never run ahead of a commit a
     # replacement could actually restore
     for shard, meta in metas:

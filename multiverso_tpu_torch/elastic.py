@@ -16,10 +16,11 @@
 The files are the JAX package's, so a beacon or tombstone written by
 either package is read alike by the other.
 
-Not ported (ROADMAP.md §A "Telemetry and tools"): the beacon's
-``last_health`` block, which comes from the watchdog. This package's
-beacons leave it out; :func:`health` still reads ``stuck`` from a beacon
-that has one (a JAX rank's).
+A beacon carries ``last_health``, the local watchdog's latest verdict
+(``telemetry/watchdog.py``), once the watchdog has run: a beacon that
+keeps arriving with ``status="stuck"`` is alive but wedged, which
+:func:`failed`'s staleness test alone cannot tell from healthy, and
+:func:`health` reports it.
 """
 
 from __future__ import annotations
@@ -68,10 +69,21 @@ class Heartbeat:
 
     def beat(self) -> None:
         """Write one beacon now (atomic rename, so readers never see a
-        torn write)."""
+        torn write), with the watchdog's ``last_health`` block once the
+        watchdog has run."""
         entry = {"rank": self.rank, "step": self._step, "ts": time.time()}
         if self.addr:
             entry["addr"] = self.addr
+        try:
+            from multiverso_tpu_torch.telemetry import watchdog
+            v = watchdog.last_verdict()
+            if v.get("checked"):
+                entry["last_health"] = {
+                    "status": v["status"],
+                    "oldest_inflight_s": v["oldest_inflight_s"],
+                    "inflight": v["inflight"]}
+        except Exception:   # noqa: BLE001 — liveness must not depend on
+            pass            # the health plane
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(entry, f)

@@ -22,6 +22,10 @@ the tool's in-run gates.
   instant, under training writes and an inference storm; the parent's
   FailoverSupervisor respawns rank 1 at the next generation, which
   restores its newest committed per-shard checkpoint before it publishes.
+  Each worker's flight recorder dumps under ``flightrec/gen<g>/`` of the
+  scenario's directory (``flightrec_dir`` in the result): the survivor's
+  dump names the killed rank with its unacked requests, for the
+  postmortem tool.
 
 The in-process scenarios run two ranks in one process with both shards on
 ``device``; every scenario runs the Python wire plane (``ps_native``
@@ -694,11 +698,14 @@ def worker(argv) -> None:
     print("RESULT " + json.dumps(out), flush=True)
 
 
-def _spawn_worker(rdv, hb, ck, world, rank, rows, dim, threads, device,
+def _spawn_worker(rdv, hb, ck, fr, world, rank, rows, dim, threads, device,
                   gen: int = 0, restarted: bool = False):
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["MV_PS_GENERATION"] = str(gen)
+    # one flight-recorder directory per incarnation: a respawned rank's
+    # dumps must not replace its predecessor's
+    env["MV_FLIGHTREC_DIR"] = os.path.join(fr, f"gen{gen}")
     if restarted:
         env["MV_RESTARTED"] = "1"
     else:
@@ -739,13 +746,16 @@ def scenario_combined(seconds: float = 18.0, rows: int = 64, dim: int = 8,
     rdv = os.path.join(tmp, "rdv")
     hb = os.path.join(tmp, "hb")
     ck = os.path.join(tmp, "ck")
+    # the workers' flight-recorder dumps (the survivor's names the killed
+    # rank with its unacked requests), one directory per generation
+    fr = os.path.join(tmp, "flightrec")
     os.makedirs(rdv)
     world = 2
     procs = {}
     killed, respawns = [], []
-    procs[1] = _spawn_worker(rdv, hb, ck, world, 1, rows, dim, threads,
+    procs[1] = _spawn_worker(rdv, hb, ck, fr, world, 1, rows, dim, threads,
                              device)
-    procs[0] = _spawn_worker(rdv, hb, ck, world, 0, rows, dim, threads,
+    procs[0] = _spawn_worker(rdv, hb, ck, fr, world, 0, rows, dim, threads,
                              device)
 
     def kill_rank(rank: int) -> None:
@@ -755,8 +765,8 @@ def scenario_combined(seconds: float = 18.0, rows: int = 64, dim: int = 8,
             killed.append(p)
 
     def spawn_rank(rank: int, gen: int) -> None:
-        procs[rank] = _spawn_worker(rdv, hb, ck, world, rank, rows, dim,
-                                    threads, device, gen=gen,
+        procs[rank] = _spawn_worker(rdv, hb, ck, fr, world, rank, rows,
+                                    dim, threads, device, gen=gen,
                                     restarted=True)
         respawns.append(procs[rank])
 
@@ -854,6 +864,7 @@ def scenario_combined(seconds: float = 18.0, rows: int = 64, dim: int = 8,
             "spans": sup.recovery_spans(),
         },
         "respawns": len(respawns),
+        "flightrec_dir": fr,
         "startup_s": round(t_started - t_wall0, 2),
         "world": world, "rows": rows, "dim": dim, "threads": threads,
         "gates": {

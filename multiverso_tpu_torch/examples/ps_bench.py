@@ -14,7 +14,14 @@ same f32 adds gives the table exactly: rank 0 holds its full Get to it
 bit for bit.
 
     python -m multiverso_tpu_torch.examples.ps_bench --rdv DIR --world 2 \\
-        --rank R [--seconds 2] [--plane native|python] [--device cpu]
+        --rank R [--seconds 2] [--plane native|python] [--device cpu] \\
+        [--telemetry DIR]
+
+``--telemetry DIR`` runs the rank with per-request trace IDs (flag
+``trace_ids``) and the metrics exporter (``metrics_dir`` DIR,
+``metrics_interval_s`` 0.5): each rank leaves ``metrics-rank<r>.jsonl``,
+``metrics-rank<r>.prom`` and ``trace-rank<r>.jsonl`` there (the native
+plane's fast path is untraced by design: trace the Python plane).
 
 Each rank prints one ``RESULT {json}`` line: adds/s, gets/s, the Get's
 p50/p99 ms, the plane the table really took, and (rank 0) whether the
@@ -88,6 +95,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="the shards' device (default: the card)")
     ap.add_argument("--timeout", type=float, default=120.0)
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="trace requests and export metrics into DIR")
     args = ap.parse_args(argv)
 
     from multiverso_tpu_torch.ps.native import NativeConn
@@ -98,6 +107,10 @@ def main(argv=None) -> int:
 
     config.set_flag("ps_timeout", args.timeout)
     config.set_flag("ps_native", args.plane == "native")
+    if args.telemetry:
+        config.set_flag("trace_ids", True)
+        config.set_flag("metrics_dir", args.telemetry)
+        config.set_flag("metrics_interval_s", 0.5)
     rdv = FileRendezvous(args.rdv)
 
     def barrier(tag: str) -> None:

@@ -22,9 +22,13 @@ epoch, the last epoch's host time by Dashboard monitor (the block's
 prep, training and push; the client's dedupe and send in ``add_rows``,
 its pulls in ``get_rows``; this rank's shard serving and applying), with
 ``--profile`` the device's busy time in one more epoch traced by
-``torch.profiler`` and that epoch's wall time, the aggregated
-trained-word count (every rank's words of every epoch) and a digest of
-the input embeddings.
+``torch.profiler`` and that epoch's wall time, with ``--step_profile``
+the step profiler's ``profile`` block of the measured epoch (per-step
+phase means, attributed and stall fractions, steady-state rebuilds: the
+JAX package's ``tools/bench_we_async.py`` block, which
+:func:`check_profile` holds to that tool's in-run bounds), the
+aggregated trained-word count (every rank's words of every epoch) and a
+digest of the input embeddings.
 
 The configuration is bench.py's PS cell (size 128, batch 8,192, 5
 negatives, window 5, blocks of 50,000, f32, seed 12) on the real text
@@ -35,7 +39,7 @@ Run one process per rank:
 
     python -m multiverso_tpu_torch.examples.we_async --rdv DIR \\
         --world 2 --rank R [--corpus synthetic] [--epochs 2] \\
-        [--device cpu] [--tokens N] [--profile]
+        [--device cpu] [--tokens N] [--profile] [--step_profile]
 """
 
 from __future__ import annotations
@@ -52,6 +56,60 @@ WE_CFG = dict(size=128, min_count=5, batch_size=8192, negative=5, window=5,
               data_block_size=50_000, use_ps="1", async_ps="1",
               data_presplit="1", seed=12)
 SYNTH = dict(num_tokens=1_000_000, vocab=5_000, seed=12)
+
+# the in-run bounds of the JAX package's WE async bench
+# (tools/bench_we_async.py): the profiler must account for >= 90% of the
+# measured epoch's wall, the pipeline must keep unattributed wall under
+# 20%, and the steady state must rebuild nothing
+ATTRIBUTED_FRACTION_FLOOR = 0.90
+STALL_FRACTION_CEILING = 0.2
+
+
+def profile_block(prof: dict, records=()) -> dict:
+    """The RESULT ``profile`` block from ``profiler.summary()`` of the
+    measured epoch: per-step exclusive phase means, the fractions, and
+    whether ``prepare`` dominates ``compute``; with the epoch's step
+    ``records``, also the per-step means of the async spans (the
+    pipelined path's ``io.produce``: the block prep the producers ran
+    under the step)."""
+    phases = prof["phases"]
+    steps = max(prof["steps"], 1)
+    spans: dict = {}
+    for r in records:
+        for n, d in (r.get("async") or {}).items():
+            spans[n] = spans.get(n, 0.0) + float(d.get("ms", 0.0))
+    return {
+        "async_ms_per_step": {n: round(v / steps, 2)
+                              for n, v in sorted(spans.items())},
+        "steps": prof["steps"],
+        "wall_ms_per_step": round(prof["wall_ms"] / steps, 2),
+        "attributed_fraction": prof["attributed_fraction"],
+        "stall_fraction": prof["stall_fraction"],
+        "overlap_ms_per_step": round(prof["overlap_ms"] / steps, 2),
+        "phase_ms_per_step": {n: round(v / steps, 2)
+                              for n, v in phases.items()},
+        "prepare_dominates": bool(phases.get("prepare", 0.0)
+                                  > phases.get("compute", 0.0)),
+        "steady_recompiles": prof["steady_recompiles"],
+        "compiles": prof["jax"]["compiles"],
+        "transfer_mb": round(prof["jax"]["transfer_bytes"] / 1e6, 2),
+    }
+
+
+def check_profile(profile: dict) -> None:
+    """Raise AssertionError unless a ``profile`` block meets the JAX WE
+    async bench's in-run bounds (see the constants above)."""
+    assert profile and profile["steps"] > 0, "no profiled steps"
+    assert profile["attributed_fraction"] >= ATTRIBUTED_FRACTION_FLOOR, (
+        f"profiler attributed only {profile['attributed_fraction']:.1%} "
+        "of step wall time")
+    assert profile["stall_fraction"] < STALL_FRACTION_CEILING, (
+        f"stall fraction {profile['stall_fraction']:.1%} >= "
+        f"{STALL_FRACTION_CEILING:.0%}: the prepare pipeline is not "
+        "covering the step")
+    assert profile["steady_recompiles"] == 0, (
+        f"{profile['steady_recompiles']} steady-state rebuilds during "
+        "the measured epoch")
 
 
 def corpus(name: str, tokens: int = 0):
@@ -82,6 +140,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one more epoch with torch.profiler and "
                     "report the device's busy time in it")
+    ap.add_argument("--step_profile", action="store_true",
+                    help="run the step profiler over the measured (last) "
+                    "epoch and add its profile block to RESULT")
     args = ap.parse_args(argv)
 
     import torch
@@ -91,6 +152,7 @@ def main(argv=None) -> int:
                                                           WordEmbedding)
     from multiverso_tpu_torch.data.dictionary import Dictionary
     from multiverso_tpu_torch.ps.service import FileRendezvous
+    from multiverso_tpu_torch.telemetry import profiler as _prof
     from multiverso_tpu_torch.utils import config
     from multiverso_tpu_torch.utils.dashboard import Dashboard
 
@@ -121,9 +183,18 @@ def main(argv=None) -> int:
     for e in range(args.epochs):
         if e:   # the warm epoch, then each measured one, start together
             barrier(f"we_async_epoch{e}")
-        if e == args.epochs - 1:
+        last = e == args.epochs - 1
+        if last:
             Dashboard.reset()
+            if args.step_profile:
+                # the measured epoch only: the warm epoch's builds belong
+                # to warmup
+                config.set_flag("step_profile", True)
+                _prof.configure()
         stats = we.train_ps_blocks(ids, epochs=1)
+        if last and args.step_profile:
+            config.set_flag("step_profile", False)
+            _prof.configure()
         epochs.append({"loss": stats["loss"],
                        "words_per_sec": stats["words_per_sec"],
                        "seconds": stats["seconds"]})
@@ -149,6 +220,8 @@ def main(argv=None) -> int:
            "device": str(we.table_in.device), "setup_s": setup_s,
            "epochs": epochs, "monitors": monitors,
            "profiled_epoch": profiled,
+           "profile": (profile_block(_prof.summary(), _prof.records())
+                       if args.step_profile else None),
            "total_word_count": we.total_word_count(),
            "emb_sha": hashlib.sha256(emb.tobytes()).hexdigest(),
            "emb_finite": bool(np.isfinite(emb).all()),

@@ -28,8 +28,10 @@ The reader yields fixed-size minibatches as dense numpy arrays; for sparse
 formats it also reports the batch's active-key set (the
 ``SparseBlock<bool>`` keys the reference feeds to sparse pulls).
 
-Not ported yet (ROADMAP §A, telemetry): the profiler's ``io.produce`` spans
-and ``io_wait`` phase, in both the reader and ``BlockPrepareQueue``.
+Step profiler (flag ``step_profile``): in both the reader and
+``BlockPrepareQueue`` each producer's per-item interval lands as an
+``io.produce`` async span on the process's open step, and the consumer's
+blocked wait is the step's ``io_wait`` phase.
 """
 
 from __future__ import annotations
@@ -37,12 +39,14 @@ from __future__ import annotations
 import queue
 import struct
 import threading
+import time
 from typing import (IO, Any, Callable, Iterator, Optional, Sequence, Set,
                     Tuple)
 
 import numpy as np
 
 from multiverso_tpu_torch.io.stream import TextReader, open_stream
+from multiverso_tpu_torch.telemetry import profiler as _prof
 
 FORMATS = ("libsvm", "dense", "weight", "weight_dense", "bsparse")
 
@@ -161,31 +165,38 @@ class BlockPrepareQueue:
                     return
                 i = self._next_claim
                 self._next_claim += 1
+            t0 = time.time()
             try:
                 out = ("ok", self._fn(self._items[i], i))
             except BaseException as e:   # noqa: BLE001 -- raised in order
                 out = ("err", e)         # at the consumer's next()
+            t1 = time.time()
             with self._cond:
                 if self._closed:   # closed mid-produce: drop the payload
                     return         # (close() already purged _results)
                 self._results[i] = out
                 self._cond.notify_all()
+            if _prof.enabled():
+                _prof.note_async("io.produce", t0, t1, attach="any")
 
     def next(self) -> Any:
-        """The next result in submission order. Raises StopIteration past
-        the last item, or the producer's exception for THIS index."""
+        """The next result in submission order (timed as the step's
+        ``io_wait`` phase when the producers are behind). Raises
+        StopIteration past the last item, or the producer's exception for
+        THIS index."""
         i = self._next_emit
         if i >= len(self._items):
             raise StopIteration
-        with self._cond:
-            while i not in self._results and not self._closed:
-                self._cond.wait()
-            if i not in self._results:
-                raise RuntimeError("BlockPrepareQueue closed while "
-                                   f"item {i} was pending")
-            kind, payload = self._results.pop(i)
-            self._next_emit = i + 1
-            self._cond.notify_all()
+        with _prof.phase("io_wait"):
+            with self._cond:
+                while i not in self._results and not self._closed:
+                    self._cond.wait()
+                if i not in self._results:
+                    raise RuntimeError("BlockPrepareQueue closed while "
+                                       f"item {i} was pending")
+                kind, payload = self._results.pop(i)
+                self._next_emit = i + 1
+                self._cond.notify_all()
         if kind == "err":
             self.close()
             raise payload
@@ -260,32 +271,48 @@ class SampleReader:
         try:
             for _ in range(self._loop_epochs):
                 xs, ys, keys = [], [], set()
+                t_batch0 = time.time()
                 for label, x in self._samples():
                     ys.append(label)
                     xs.append(x)
                     if not self._dense_like:
                         keys.update(np.nonzero(x)[0].tolist())
                     if len(xs) == self.batch_size:
-                        self._emit(xs, ys, keys)
+                        self._emit(xs, ys, keys, t_batch0)
                         xs, ys, keys = [], [], set()
+                        t_batch0 = time.time()
                 if xs and not self.drop_remainder:
-                    self._emit(xs, ys, keys)
+                    self._emit(xs, ys, keys, t_batch0)
             self._queue.put(None)
         except BaseException as e:   # noqa: BLE001 -- raised at the
             self._error = e          # consumer's next item
             self._queue.put(None)
 
-    def _emit(self, xs, ys, keys: Set[int]) -> None:
+    def _emit(self, xs, ys, keys: Set[int],
+              t_batch0: Optional[float] = None) -> None:
         X = np.stack(xs)
         y = np.asarray(ys, dtype=np.int32)
         k = (None if self._dense_like
              else np.asarray(sorted(keys), dtype=np.int64))
+        # stamp the interval's end BEFORE the put: a full queue blocks
+        # put() on backpressure, and folding that wait into io.produce
+        # would name the input pipeline the critical path exactly when
+        # the producer is idle
+        t_done = time.time()
         self._queue.put((X, y, k))
+        # the producer thread holds no step of its own: its per-batch
+        # parse+assemble interval attaches to the process's current step
+        if t_batch0 is not None and _prof.enabled():
+            _prof.note_async("io.produce", t_batch0, t_done,
+                             attach="any")
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray,
                                          Optional[np.ndarray]]]:
         while True:
-            item = self._queue.get()
+            # io_wait: the consumer (the training step's thread) blocked
+            # on the producer
+            with _prof.phase("io_wait"):
+                item = self._queue.get()
             if item is None:
                 if self._error is not None:
                     raise self._error

@@ -21,10 +21,13 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from multiverso_tpu_torch.telemetry import profiler as _profiler
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -59,19 +62,23 @@ def build_and_load(so_name: str, src_name: str,
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         try:
+            t0 = time.perf_counter()
             subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS,
                             *extra_flags, "-o", str(tmp),
                             str(CSRC / src_name)],
                            check=True, capture_output=True, timeout=timeout)
             os.replace(tmp, out)
+            _profiler.note_compile(time.perf_counter() - t0)
         except (subprocess.SubprocessError, OSError):
             tmp.unlink(missing_ok=True)
             if not out.exists():
                 return None
     try:
-        return ctypes.CDLL(str(out))
+        lib = ctypes.CDLL(str(out))
     except OSError:
         return None
+    _profiler.note_load()
+    return lib
 
 
 def _try_load() -> Optional[ctypes.CDLL]:

@@ -23,6 +23,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
+from multiverso_tpu_torch.telemetry import profiler as _profiler
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -96,6 +98,7 @@ def build(name: str) -> Tuple[Path, float, str]:
         raise RuntimeError(f"nvcc failed for {name} (exit {res.returncode}):"
                            f"\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent builder sees all or nothing
+    _profiler.note_compile(seconds)
     return out, seconds, res.stdout + res.stderr
 
 
@@ -115,6 +118,7 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         path, _, _ = build(name)
         lib = ctypes.CDLL(str(path))
+        _profiler.note_load()
         for fn, (restype, argtypes) in _SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.restype, f.argtypes = restype, argtypes

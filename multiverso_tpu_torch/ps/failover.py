@@ -27,9 +27,10 @@ The supervisor is transport-free: it reads beacons and ``<rank>.addr``
 files from shared directories and probes over one-shot sockets, so it can
 run in a worker, a sidecar, or a parent process that serves nothing.
 
-Not ported (ROADMAP.md §A "Telemetry and tools"): the flight recorder's
-``EV_FAILOVER_*`` events and the memory ledger's registration; the
-supervisor's ``events`` list and the checkpointer's counters stay.
+Telemetry: the flight recorder marks each recovery's detect, respawn and
+rejoin (``EV_FAILOVER_*``, which the postmortem tool renders as the
+recovery timeline), and each checkpointer registers its on-disk footprint
+with the memory ledger.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from multiverso_tpu_torch import checkpoint, elastic
+from multiverso_tpu_torch.telemetry import flightrec as _flight
+from multiverso_tpu_torch.telemetry import memstats as _memstats
 from multiverso_tpu_torch.utils import config, log
 
 
@@ -69,6 +72,8 @@ def rejoin(directory: str, rank: int, tables,
     tombstone plane see the fresh incarnation immediately. Returns
     shards restored."""
     n = checkpoint.restore_shard_state(directory, rank, tables)
+    _flight.record(_flight.EV_FAILOVER_REJOIN,
+                   note=f"rank {rank}: {n} shards restored")
     if service is not None:
         service.publish_addr()
     if heartbeat is not None:
@@ -95,6 +100,18 @@ class ShardCheckpointer:
         self.last_path: Optional[str] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # memory ledger: on-disk footprint of this rank's kept tags. The
+        # walk runs here and after each committed save/prune (the only
+        # moments the size changes), never on a ledger pull: pulls ride
+        # the watchdog's sweep, which a slow directory walk would stall
+        self._disk_bytes = checkpoint._dir_bytes(
+            checkpoint._shard_base(directory, self.rank))
+        _memstats.register(f"failover_ckpt[r{self.rank}]", self)
+
+    def memory_stats(self) -> Dict[str, int]:
+        return {"disk_bytes": int(self._disk_bytes),
+                "saves": self.saves}
+
     def checkpoint_now(self) -> Optional[str]:
         """One committed save + prune; returns the tag path (None when
         the rank currently owns nothing checkpointable)."""
@@ -106,6 +123,8 @@ class ShardCheckpointer:
         checkpoint.prune_shard_tags(self.directory, self.rank, self.keep)
         self.saves += 1
         self.last_path = path
+        self._disk_bytes = checkpoint._dir_bytes(
+            checkpoint._shard_base(self.directory, self.rank))
         return path
 
     def start(self) -> "ShardCheckpointer":
@@ -266,6 +285,8 @@ class FailoverSupervisor:
     def _recover(self, rank: int, verdict: str) -> None:
         now = time.time()
         self.events.append((now, "detect", rank))
+        _flight.record(_flight.EV_FAILOVER_DETECT, peer=rank,
+                       note=f"verdict={verdict}")
         log.error("failover: rank %d is %s — recovering", rank, verdict)
         addr = (read_addr(self.rendezvous_dir, rank)
                 if self.rendezvous_dir else None)
@@ -284,6 +305,8 @@ class FailoverSupervisor:
         gen = self._gen.get(rank, 0) + 1
         self._gen[rank] = gen
         self.events.append((time.time(), "respawn", rank))
+        _flight.record(_flight.EV_FAILOVER_RESPAWN, peer=rank,
+                       note=f"gen={gen}")
         with self._lock:
             self._recovering[rank] = time.monotonic()
         try:
@@ -298,6 +321,7 @@ class FailoverSupervisor:
                 return
             del self._recovering[rank]
         self.events.append((time.time(), "rejoin", rank))
+        _flight.record(_flight.EV_FAILOVER_REJOIN, peer=rank)
         log.info("failover: rank %d rejoined", rank)
 
     def recovery_spans(self) -> List[Dict]:

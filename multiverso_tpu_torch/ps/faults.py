@@ -43,9 +43,11 @@ spec is armed, and every hook site guards on ``PLANE.armed`` (one global
 load and one attribute load); disarmed, no injection code path is
 reachable.
 
-Not ported (ROADMAP.md §A "Telemetry and tools"): the flight recorder's
-``EV_FAULT_INJECT``/``EV_FAULT_PLANE`` events. :meth:`FaultPlane.stats`
-and :meth:`FaultPlane.log_snapshot` carry what was injected.
+Every injected fault lands an ``EV_FAULT_INJECT`` event on the flight
+recorder (its note names the kind), and arming, disarming and phase
+flips land ``EV_FAULT_PLANE``, so injected and organic faults tell apart
+in postmortem timelines. :meth:`FaultPlane.stats` and
+:meth:`FaultPlane.log_snapshot` carry what was injected.
 
 Scenario spec (JSON; :func:`load_spec` accepts a path or inline JSON)::
 
@@ -67,6 +69,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from multiverso_tpu_torch.telemetry import flightrec as _flight
 from multiverso_tpu_torch.utils import config, log
 
 KINDS = ("drop", "delay", "duplicate", "reorder", "partition", "reset",
@@ -226,8 +229,10 @@ class FaultPlane:
     # ------------------------------------------------------------------ #
     def set_phase(self, phase: Optional[str]) -> None:
         """Flip phase-gated rules (explicit, reproducible — never
-        wall-clock)."""
+        wall-clock). Records the transition on the ring."""
         self.phase = phase
+        _flight.record(_flight.EV_FAULT_PLANE,
+                       note=f"phase={phase or '-'}")
 
     def configure(self, rank: int) -> None:
         self.rank = int(rank)
@@ -237,12 +242,14 @@ class FaultPlane:
               extra: str = "") -> None:
         """Record one injected fault. Caller holds ``self._lock`` —
         the whole decision loop runs under it, so per-rule counts
-        (max_count) and the injected log stay consistent and
-        deterministic under concurrent senders. ``msg_id`` and ``extra``
-        are the JAX package's flight-recorder note (not ported)."""
+        (max_count), the injected log and the ring events stay
+        consistent and deterministic under concurrent senders."""
         self.counts[kind] = self.counts.get(kind, 0) + 1
         if len(self.log) < self._log_cap:
             self.log.append((n, kind, src, dst, msg_type))
+        _flight.record(_flight.EV_FAULT_INJECT, peer=dst,
+                       msg_type=msg_type, msg_id=msg_id,
+                       note=f"{kind}{extra} src={src}")
 
     # ------------------------------------------------------------------ #
     def plan_send(self, dst: int, msg_type: int, msg_id: int = -1,
@@ -398,13 +405,17 @@ def load_spec(spec) -> Dict[str, Any]:
 def arm(spec, seed: Optional[int] = None,
         rank: Optional[int] = None) -> FaultPlane:
     """Build + bind the process fault plane (replaces any previous
-    one)."""
+    one). Records the arming on the ring so a chaos run's dump is
+    self-describing."""
     global PLANE
     plane = FaultPlane(load_spec(spec), seed=seed,
                        rank=rank if rank is not None else
                        getattr(PLANE, "rank", 0))
     with _arm_lock:
         PLANE = plane
+    _flight.record(_flight.EV_FAULT_PLANE,
+                   note=f"armed seed={plane.seed} "
+                        f"rules={len(plane.rules)}")
     log.info("fault plane armed: %d rules, seed %d", len(plane.rules),
              plane.seed)
     return plane
@@ -413,7 +424,10 @@ def arm(spec, seed: Optional[int] = None,
 def disarm() -> None:
     global PLANE
     with _arm_lock:
+        was = PLANE
         PLANE = NULL
+    if was.armed:
+        _flight.record(_flight.EV_FAULT_PLANE, note="disarmed")
 
 
 def configure(rank: int) -> None:

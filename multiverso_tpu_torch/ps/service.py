@@ -46,9 +46,17 @@ client half (:meth:`PSService.native_conn`) gives the async tables counted
 adds and buffer-filling gets. The fault plane hooks the Python wire only,
 so chaos runs set ``ps_native=False``.
 
+Telemetry (the per-process plane): the flight recorder marks the client's
+send, ack, error and peer-death edges and the server's receive and reply
+edges (probes excluded) and dumps when a peer dies with requests in
+flight; the serve paths record ``ps.serve`` spans for traced frames
+(``trace_ids``); MSG_HEALTH carries the watchdog's verdict and the oldest
+in-flight op; the stats payload is the exporter's record with the
+``profile``, ``memory`` and ``devices`` blocks; closing a context flushes
+the exporter, spans and step records.
+
 Not ported (ROADMAP.md §A, each under its title): the spmd stack, and the
-telemetry planes (flight recorder, trace, exporter, aggregator,
-watchdog). The Dashboard monitors stay.
+cluster telemetry plane (aggregator, slo, tenants; Telemetry and tools).
 """
 
 from __future__ import annotations
@@ -67,6 +75,13 @@ from multiverso_tpu_torch.ps import failover as _failover
 from multiverso_tpu_torch.ps import faults as _faults
 from multiverso_tpu_torch.ps import wire
 from multiverso_tpu_torch.serving import replica as _serving_replica
+from multiverso_tpu_torch.telemetry import devstats as _devstats
+from multiverso_tpu_torch.telemetry import exporter as _exporter
+from multiverso_tpu_torch.telemetry import flightrec as _flight
+from multiverso_tpu_torch.telemetry import memstats as _memstats
+from multiverso_tpu_torch.telemetry import profiler as _profiler
+from multiverso_tpu_torch.telemetry import trace as _trace
+from multiverso_tpu_torch.telemetry import watchdog as _watchdog
 from multiverso_tpu_torch.utils import config, log, retry as _retry
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 from multiverso_tpu_torch.zoo import default_device
@@ -343,6 +358,8 @@ class _Peer:
                     fut = self._pending.pop(msg_id, None)
                 if fut is None:
                     continue
+                _flight.end_op(self.rank, msg_id,
+                               ok=msg_type != MSG_REPLY_ERR)
                 if msg_type == MSG_REPLY_ERR:
                     fut.set_exception(PSError(
                         f"rank {self.rank}: {meta.get('error', '?')}"))
@@ -359,6 +376,18 @@ class _Peer:
             self._dead = err
             with self._pending_lock:
                 pending, self._pending = self._pending, {}
+            # black box first, while this incarnation's unacked ops are
+            # still in the recorder's in-flight table: the dump names the
+            # dead rank's oldest unacked msg for postmortem. Only a death
+            # with unacked traffic dumps; the sweep is scoped to our msg
+            # ids (a reconnected incarnation may already have live ops)
+            _flight.record(_flight.EV_PEER_DEAD, peer=self.rank,
+                           note=str(e)[:120])
+            if pending:
+                _flight.dump_global(
+                    f"peer rank {self.rank} connection lost with "
+                    "requests in flight")
+            _flight.RECORDER.fail_peer(self.rank, msg_ids=list(pending))
             for fut in pending.values():
                 if not fut.done():
                     fut.set_exception(err)
@@ -381,6 +410,12 @@ class _Peer:
             self._next_id += 1
             with self._pending_lock:
                 self._pending[msg_id] = fut
+            # probes are tracked in flight (stuck probes should age) but
+            # keep their send/ack edges out of the ring — supervisor
+            # polling must not wrap the tape
+            _flight.begin_op(self.rank, msg_id, msg_type,
+                             sum(getattr(a, "nbytes", 0) for a in arrays),
+                             record=msg_type not in (MSG_PING, MSG_STATS))
             try:
                 if _faults.PLANE.armed:   # fault plane (off: one load)
                     self._send_faulted(msg_type, msg_id, meta, arrays)
@@ -389,6 +424,7 @@ class _Peer:
             except OSError as e:
                 err = PSPeerError(f"rank {self.rank} send failed: {e}")
                 self._dead = err
+                _flight.end_op(self.rank, msg_id, ok=False)
                 with self._pending_lock:
                     mine = self._pending.pop(msg_id, None)
                 # an injected reset shuts the socket down before it
@@ -401,7 +437,9 @@ class _Peer:
                 return fut
             except BaseException:
                 # encode failure (bad meta, exotic array): not a peer
-                # death — unwind this op and re-raise
+                # death — unwind this op (the recorder's entry too, or it
+                # ages into a spurious "stuck" verdict) and re-raise
+                _flight.end_op(self.rank, msg_id, ok=False)
                 with self._pending_lock:
                     self._pending.pop(msg_id, None)
                 raise
@@ -410,6 +448,10 @@ class _Peer:
         if self._dead is not None:
             with self._pending_lock:
                 still = self._pending.pop(msg_id, None)
+            # close the recorder's entry unconditionally (end_op is
+            # idempotent): the recv loop's sweep may have run before
+            # begin_op registered this op
+            _flight.end_op(self.rank, msg_id, ok=False)
             if still is not None and not fut.done():
                 fut.set_exception(self._dead)
         return fut
@@ -484,10 +526,6 @@ class _Peer:
         except OSError:
             pass
 
-    def inflight(self) -> int:
-        with self._pending_lock:
-            return len(self._pending)
-
     def close(self) -> None:
         try:
             self._sock.shutdown(socket.SHUT_RDWR)
@@ -554,9 +592,23 @@ class PSService:
         # table -> shard object for MSG_STATS / MSG_HEALTH
         self._shards: Dict[str, Any] = {}
         self._handlers_cv = threading.Condition()
+        # telemetry: adopt the trace_ids / step_profile / devstats flags
+        # under this service's rank (the exporter starts at the END of
+        # __init__, once addr exists); the always-on flight recorder pins
+        # the same rank and the watchdog thread starts (flag-gated) to age
+        # its in-flight table
+        _trace.configure(rank)
+        _flight.configure(rank)
+        _profiler.configure(rank)
+        _devstats.configure(rank)
         # fault plane: adopt the rank; arms from faults_spec /
         # $MV_FAULTS_SPEC when set, else stays the null object
         _faults.configure(rank)
+        log.set_rank(rank)
+        _watchdog.ensure_started()
+        # memory sampler (flag memstats_interval_s; the byte ledger is
+        # always on and pull-only)
+        _memstats.ensure_started()
         self._peers: Dict[int, _Peer] = {}
         self._peers_lock = threading.Lock()
         self._peer_locks: Dict[int, threading.Lock] = {}
@@ -611,6 +663,9 @@ class PSService:
         self._published = False
         if rendezvous is not None and not defer_publish:
             self.publish_addr()
+        # flag-gated metrics exporter with the rich (shard-aware)
+        # payload; no-op unless metrics_dir is set
+        _exporter.ensure_started(rank, self.stats_payload)
         # flag-gated per-shard failover checkpointer (failover_dir +
         # failover_ckpt_interval_s): the durable half of exactly-once
         # replay; shards registered later are picked up each cycle
@@ -727,9 +782,15 @@ class PSService:
                 log.debug("ps native punt: ERR reply for malformed frame "
                           "failed; dropping")
             return
-        # probes leave the serve beat alone: it marks data-plane liveness
-        if msg_type not in (MSG_PING, MSG_STATS, MSG_HEALTH):
+        # the serve beat and the ring edges mark data-plane liveness:
+        # probes refresh neither (a wedged server polled at 2 Hz must
+        # report a growing serve age, and probe noise must not wrap the
+        # ring past the pre-wedge evidence)
+        probe = msg_type in (MSG_PING, MSG_STATS, MSG_HEALTH)
+        if not probe:
             self.beat("serve")
+            _flight.record(_flight.EV_RECV, msg_type=msg_type,
+                           msg_id=msg_id)
         try:
             if msg_type == MSG_PING:       # native serves PING; belt only
                 reply = wire.encode(MSG_REPLY_OK, msg_id,
@@ -741,6 +802,9 @@ class PSService:
                 reply = wire.encode(MSG_REPLY_OK, msg_id,
                                     self.health_payload())
             else:
+                tr = (meta.get(wire.TRACE_META_KEY)
+                      if _trace.enabled() else None)
+                t0 = time.time() if tr is not None else 0.0
                 if msg_type == MSG_MULTI:
                     with monitor("ps[multi].serve"):
                         rmeta, rarrays = self._handle_multi(meta, arrays)
@@ -748,6 +812,11 @@ class PSService:
                     handler = self._wait_handler(meta["table"])
                     with monitor(f"ps[{meta['table']}].serve"):
                         rmeta, rarrays = handler(msg_type, meta, arrays)
+                if tr is not None:
+                    _trace.add_span("ps.serve", t0, time.time(), trace=tr,
+                                    args={"table": meta.get("table",
+                                                            "multi"),
+                                          "type": msg_type})
                 if isinstance(rarrays, wire.ChunkedReply):
                     # streamed reply over the native conn: each chunk goes
                     # through send_raw (the conn's C++ write lock orders
@@ -757,21 +826,32 @@ class PSService:
                             self._native_raw, conn_id,
                             wire.encode(MSG_REPLY_CHUNK, msg_id, cmeta,
                                         carrays))
+                        _flight.record(_flight.EV_GET_CHUNK,
+                                       msg_type=msg_type, msg_id=msg_id)
                     rmeta, rarrays = rarrays.meta, ()
                 reply = wire.encode(MSG_REPLY_OK, msg_id, rmeta, rarrays)
         except Exception as e:   # noqa: BLE001 — reply errors
             log.debug("ps handler error: %s", e)
+            if isinstance(e, MemoryError):
+                # OOM forensics: dump the ledger while the hoards are
+                # still reachable
+                _memstats.oom_dump("MemoryError serving a punted request")
             reply = wire.encode(MSG_REPLY_ERR, msg_id,
                                 {"error": f"{type(e).__name__}: {e}"})
         # _native_raw, not _native: close() clears the latter while punts
         # may still be in flight; the raw handle stays valid until
         # server_free (which runs after this conn thread is joined)
+        if not probe:
+            _flight.record(_flight.EV_REPLY, msg_type=msg_type,
+                           msg_id=msg_id, nbytes=len(reply))
         ps_native.send_raw(self._native_raw, conn_id, reply)
 
     # ----------------------------- telemetry -------------------------- #
     def stats_payload(self) -> Dict:
-        """This rank's telemetry snapshot (the MSG_STATS reply meta):
-        Dashboard monitors and per-shard server stats, JSON-safe."""
+        """This rank's telemetry snapshot (the MSG_STATS reply meta and
+        the exporter record share this one shape): Dashboard monitor
+        histograms, notes, per-shard server stats and the additive
+        blocks (serving, profile, memory, devices), JSON-safe."""
         shards = {}
         with self._handlers_cv:
             items = list(self._shards.items())
@@ -781,15 +861,11 @@ class PSService:
             except Exception as e:  # noqa: BLE001 — one bad shard must
                 stats = {"error": f"{type(e).__name__}: {e}"}  # not hide
             shards[table] = stats                              # the rest
-        monitors = {}
-        for name, snap in Dashboard.snapshot().items():
-            monitors[name] = {"count": snap.count,
-                              "total_ms": snap.total_ms,
-                              "p50_ms": snap.p50_ms, "p90_ms": snap.p90_ms,
-                              "p99_ms": snap.p99_ms, "max_ms": snap.max_ms}
-        payload = {"monitors": monitors, "shards": shards,
-                   "pid": os.getpid(), "rank": self.rank,
-                   "world": self.world, "addr": self.addr}
+        # ONE record shape: the monitors/notes assembly is the exporter's
+        # (default_stats_fn), overlaid with this service's identity
+        payload = _exporter.default_stats_fn()
+        payload.update(rank=self.rank, world=self.world, addr=self.addr,
+                       shards=shards)
         # the serving plane: this process's read replicas and pools (lag,
         # versions, cache hit rate, shed counters)
         try:
@@ -797,6 +873,28 @@ class PSService:
             if serving:
                 payload["serving"] = serving
         except Exception:   # noqa: BLE001 — telemetry never raises
+            pass
+        # step-profiler block (flag step_profile): stall fraction and
+        # the steady-state recompile summary, process-global
+        try:
+            profile = _profiler.stats_snapshot()
+            if profile:
+                payload["profile"] = profile
+        except Exception:   # noqa: BLE001
+            pass
+        # memory plane: the byte ledger + RSS + recent leak verdicts,
+        # always present (the ledger is always on)
+        try:
+            payload["memory"] = _memstats.stats_snapshot()
+        except Exception:   # noqa: BLE001
+            pass
+        # device plane: transfer counters + the per-device census,
+        # omitted when nothing ran on the device plane
+        try:
+            devices = _devstats.stats_snapshot()
+            if devices:
+                payload["devices"] = devices
+        except Exception:   # noqa: BLE001
             pass
         return payload
 
@@ -824,14 +922,17 @@ class PSService:
             depth = getattr(s, "queue_depth", None)
             if callable(depth):
                 queue_depth += depth()
-        with self._peers_lock:
-            peers = list(self._peers.values())
         now = time.monotonic()
 
         def age(name):
             t = self._beats.get(name)
             return None if t is None else round(now - t, 3)
 
+        # ONE in-flight snapshot serves both fields (oldest + count): this
+        # path contends the hot-path ring lock and is polled
+        snap = _flight.RECORDER.inflight_snapshot()
+        oldest = (max(snap, key=lambda e: e[2]) if snap else None)
+        wd = _watchdog.last_verdict()
         return {
             "rank": self.rank, "addr": self.addr, "gen": self.generation,
             "ts": round(time.time(), 3),
@@ -840,8 +941,14 @@ class PSService:
             "native": self._native_raw is not None,
             "serve_age_s": age("serve"), "apply_age_s": age("apply"),
             "queue_depth": queue_depth,
-            "inflight": sum(p.inflight() for p in peers),
-            "status": "ok",
+            "inflight": len(snap),
+            "oldest_inflight_s": (round(oldest[2], 3) if oldest else 0.0),
+            "oldest_inflight": ({"peer": oldest[0], "msg_id": oldest[1],
+                                 "type": oldest[3]} if oldest else None),
+            "watchdog": wd,
+            # headline verdict: the watchdog's view when it has run, else
+            # "ok" (an unwatched plane that answered this RPC is serving)
+            "status": wd["status"] if wd.get("checked") else "ok",
         }
 
     def health(self, rank: int, timeout: Optional[float] = None) -> Dict:
@@ -1012,6 +1119,12 @@ class PSService:
         try:
             while not self._closed:
                 msg_type, msg_id, meta, arrays = wire.recv(conn)
+                # serve-loop beat + request edge for the black box; probes
+                # neither beat nor hit the ring (see _punt)
+                if msg_type not in (MSG_PING, MSG_STATS, MSG_HEALTH):
+                    self.beat("serve")
+                    _flight.record(_flight.EV_RECV, msg_type=msg_type,
+                                   msg_id=msg_id)
                 if msg_type == MSG_PING:
                     with send_lock:
                         wire.send(conn, MSG_REPLY_OK, msg_id,
@@ -1030,8 +1143,6 @@ class PSService:
                     with send_lock:
                         wire.send(conn, MSG_REPLY_OK, msg_id, payload)
                     continue
-                # probes leave the beat alone: it marks data-plane liveness
-                self.beat("serve")
                 try:
                     # fault plane: slow-serve sleeps before the handler (a
                     # slow RANK, not a slow wire); drop_reply serves the
@@ -1043,6 +1154,9 @@ class PSService:
                             msg_type, msg_id, rank=self.rank)
                         if _slow_s:
                             time.sleep(_slow_s)
+                    tr = (meta.get(wire.TRACE_META_KEY)
+                          if _trace.enabled() else None)
+                    t0 = time.time() if tr is not None else 0.0
                     if msg_type == MSG_MULTI:
                         with monitor("ps[multi].serve"):
                             rmeta, rarrays = self._handle_multi(meta,
@@ -1052,6 +1166,12 @@ class PSService:
                         with monitor(f"ps[{meta['table']}].serve"):
                             rmeta, rarrays = handler(msg_type, meta,
                                                      arrays)
+                    if tr is not None:
+                        _trace.add_span("ps.serve", t0, time.time(),
+                                        trace=tr,
+                                        args={"table": meta.get(
+                                            "table", "multi"),
+                                              "type": msg_type})
                     if isinstance(rarrays, wire.ChunkedReply):
                         # streamed get reply: one MSG_REPLY_CHUNK per
                         # sub-frame as the generator yields, closed by
@@ -1062,16 +1182,29 @@ class PSService:
                             with send_lock:
                                 wire.send(conn, MSG_REPLY_CHUNK, msg_id,
                                           cmeta, carrays)
+                            _flight.record(_flight.EV_GET_CHUNK,
+                                           msg_type=msg_type,
+                                           msg_id=msg_id)
                         rmeta, rarrays = rarrays.meta, ()
                     if not drop_reply:
                         with send_lock:
                             wire.send(conn, MSG_REPLY_OK, msg_id, rmeta,
                                       rarrays)
+                        _flight.record(_flight.EV_REPLY,
+                                       msg_type=msg_type, msg_id=msg_id)
                 except Exception as e:  # reply errors, don't kill the conn
                     log.debug("ps handler error: %s", e)
+                    if isinstance(e, MemoryError):
+                        # OOM forensics (same rule as the punt path)
+                        _memstats.oom_dump(
+                            "MemoryError serving a request")
                     with send_lock:
                         wire.send(conn, MSG_REPLY_ERR, msg_id,
                                   {"error": f"{type(e).__name__}: {e}"})
+                    # the ERR reply is a reply edge too: without it a
+                    # handler error reads as "received, never answered"
+                    _flight.record(_flight.EV_REPLY, msg_type=msg_type,
+                                   msg_id=msg_id, note="err")
         except (wire.WireError, OSError):
             pass  # client went away; its shard traffic simply stops
         finally:
@@ -1398,6 +1531,19 @@ class PSContext:
                 # shutdown and leak the service's sockets/threads
                 log.error("ps shutdown quiesce failed (%s: %s); closing "
                           "anyway", type(e).__name__, e)
+        # final telemetry flush before the service dies: the last metrics
+        # record and any buffered spans and step records must survive a
+        # short run. export_global, not stop_global: a process may hold
+        # several contexts, and one closing must not stop the exporter for
+        # the rest (it stops at Zoo.stop or with the process)
+        try:
+            _exporter.export_global()
+            d = config.get_flag("metrics_dir")
+            if d:
+                _trace.dump_to(d)
+                _profiler.dump_to(d)
+        except Exception as e:  # noqa: BLE001 — telemetry never blocks
+            log.error("telemetry flush at close failed: %s", e)  # shutdown
         self.service.close()
 
 

@@ -51,8 +51,15 @@ without touching the data. ``checkpoint_state``/``restore_checkpoint``
 carry the channels beside the rows, the updater state and the version,
 and ``mark_durable`` advances the floors the acks report as durable.
 
-Not ported (ROADMAP.md §A): the spmd lane and the telemetry hooks
-(flight recorder, tenants, trace spans).
+Telemetry: the flight recorder marks every apply (with the ``apply``
+beat), conflict-free wave, get serve and snapshot serve, replay dedupe and
+restore; traced frames (``wire.TRACE_META_KEY``, flag ``trace_ids``) add
+``shard.apply``/``shard.wave_apply``/``shard.get_*``/``snapshot.serve``
+spans; the byte ledger (``telemetry/memstats.py``) registers each shard's
+:meth:`RowShard.memory_stats`.
+
+Not ported (ROADMAP.md §A): the spmd lane and the tenant meter
+(Telemetry and tools).
 """
 
 from __future__ import annotations
@@ -70,7 +77,10 @@ from multiverso_tpu_torch.ps import service as svc
 from multiverso_tpu_torch.ps import wire
 from multiverso_tpu_torch.table import _dtypes
 from multiverso_tpu_torch.tables.matrix_table import _bucket_size
+from multiverso_tpu_torch.telemetry import flightrec as _flight
 from multiverso_tpu_torch.telemetry import hotkeys as _hotkeys
+from multiverso_tpu_torch.telemetry import memstats as _memstats
+from multiverso_tpu_torch.telemetry import trace as _trace
 from multiverso_tpu_torch.updaters import (AddOption, Updater,
                                            OPT_INSENSITIVE as _OPT_INSENSITIVE,
                                            ROW_LOCAL_STATE as _ROW_LOCAL_STATE,
@@ -179,12 +189,14 @@ class _DataPin:
 class _PendingAdd:
     """One queued row-add awaiting the shard's applier (coalescing path)."""
 
-    __slots__ = ("local", "vals", "opt", "event", "error")
+    __slots__ = ("local", "vals", "opt", "event", "error", "trace")
 
-    def __init__(self, local: np.ndarray, vals: np.ndarray, opt: AddOption):
+    def __init__(self, local: np.ndarray, vals: np.ndarray, opt: AddOption,
+                 trace: Optional[int] = None):
         self.local, self.vals, self.opt = local, vals, opt
         self.event = threading.Event()
         self.error: Optional[Exception] = None
+        self.trace = trace   # the sub-op's trace id (trace_ids), or None
 
 
 class RowShard:
@@ -282,6 +294,8 @@ class RowShard:
         # sparse Get pulls everything
         self._dirty = (np.ones((num_workers, self.n), bool)
                        if num_workers > 0 else None)
+        # memory ledger: pull-only gauges, a weak reference
+        _memstats.register(f"shard[{name}:{self.lo}-{self.hi}]", self)
 
     # ------------------------------------------------------------------ #
     def _place_rows(self, host: np.ndarray) -> torch.Tensor:
@@ -415,15 +429,17 @@ class RowShard:
 
     def memory_stats(self) -> Dict[str, Any]:
         """Byte gauges: the data tensor, the updater state, the pinned
-        read epochs and the apply queue's pending payload."""
-        with self._lock:
-            data_nb = self._data.numel() * self._data.element_size()
-            ustate_nb = sum(v.numel() * v.element_size()
-                            for v in self._ustate.values())
-            pins = self._cur_pins
-        with self._addq_lock:
-            qd = len(self._addq)
-            qb = sum(e.local.nbytes + e.vals.nbytes for e in self._addq)
+        read epochs and the apply queue's pending payload. Lock-free
+        reads (each attribute read is atomic): the watchdog's verdict
+        sweep pulls this, and must not hang on the wedge it reports."""
+        data = self._data
+        data_nb = data.numel() * data.element_size()
+        ustate_nb = sum(v.numel() * v.element_size()
+                        for v in list(self._ustate.values()))
+        pins = self._cur_pins
+        queue = list(self._addq)
+        qd = len(queue)
+        qb = sum(e.local.nbytes + e.vals.nbytes for e in queue)
         return {"table_bytes": int(data_nb), "ustate_bytes": int(ustate_nb),
                 "dtype": str(self.dtype), "pins": pins,
                 "queue_depth": qd, "queue_pending_bytes": int(qb)}
@@ -602,6 +618,7 @@ class RowShard:
             (time.perf_counter() - t0) * 1e3)
         if self.service is not None:
             self.service.beat("apply")
+        _flight.record(_flight.EV_APPLY, nbytes=vals.nbytes)   # black box
 
     # shared continuation pool for drain hand-off (class-level: shards are
     # many, the pool is one)
@@ -712,7 +729,8 @@ class RowShard:
         """One MSG_BATCH sub-op -> a validated pending entry (HashShard
         overrides: its entries carry keys, translated at apply time)."""
         local, vals, opt = self._prep_add(meta, arrays)
-        return _PendingAdd(local, vals, opt)
+        return _PendingAdd(local, vals, opt, trace=(
+            meta.get(wire.TRACE_META_KEY) if _trace.enabled() else None))
 
     def _apply_batch_adds(self, entries: List[_PendingAdd]
                           ) -> Tuple[List[int], List[str]]:
@@ -737,7 +755,13 @@ class RowShard:
             def flush_wave():
                 if not wave:
                     return
+                traced = (_trace.enabled()
+                          and any(e.trace is not None for _, e in wave))
+                t0 = time.time() if traced else 0.0
                 self._record_wave(len(wave))
+                _flight.record(_flight.EV_WAVE,
+                               nbytes=sum(e.vals.nbytes for _, e in wave),
+                               note=f"ops={len(wave)}")
                 try:
                     if len(wave) == 1:
                         e = wave[0][1]
@@ -751,6 +775,16 @@ class RowShard:
                 except Exception as err:   # noqa: BLE001 — reported per op
                     failed.extend(i for i, _ in wave)
                     errors.append(f"{type(err).__name__}: {err}")
+                if traced:
+                    # ONE span per wave, correlated to every sub-op it
+                    # applied: "trace" carries the first ID, "traces" all
+                    tids = [e.trace for _, e in wave
+                            if e.trace is not None]
+                    _trace.add_span(
+                        "shard.wave_apply", t0, time.time(),
+                        trace=tids[0],
+                        args={"table": self.name, "ops": len(wave),
+                              "traces": tids})
                 wave.clear()
                 seen.clear()
 
@@ -814,27 +848,49 @@ class RowShard:
                         ) -> Tuple[Dict, Any]:
         local = self._localize_raw(arrays[0])
         self._note_rows(local)
-        return self._serve_rows_from_pin(self._pin_data(), local, meta)
+        tr = meta.get(wire.TRACE_META_KEY) if _trace.enabled() else None
+        t0 = time.time() if tr is not None else 0.0
+        pin = self._pin_data()
+        if tr is not None:
+            _trace.add_span("shard.get_pin", t0, time.time(), trace=tr,
+                            args={"table": self.name,
+                                  "rows": int(local.size)})
+        return self._serve_rows_from_pin(pin, local, meta, tr)
 
     def _serve_rows_from_pin(self, pin: _DataPin, local: np.ndarray,
-                             meta: Dict) -> Tuple[Dict, Any]:
+                             meta: Dict, tr: Optional[int] = None
+                             ) -> Tuple[Dict, Any]:
         """The shared off-lock serve body once an epoch is pinned and ids
-        resolved: gather off-lock, release, count, encode."""
+        resolved: flight edge, gather off-lock, release, count, encode."""
+        _flight.record(_flight.EV_GET_SERVE,
+                       nbytes=local.size * self.num_col
+                       * self.dtype.itemsize)
+        t1 = time.time() if tr is not None else 0.0
         try:
             rows = self._gather_rows(local, data=pin.data)
         finally:
             self._release_data(pin)
         self._stat_gets += 1
-        return self._encode_reply(rows, meta)
+        if tr is not None:
+            _trace.add_span("shard.get_gather", t1, time.time(), trace=tr,
+                            args={"table": self.name})
+        return self._encode_reply(rows, meta, tr)
 
     def _serve_get_full(self, meta: Dict) -> Tuple[Dict, Any]:
+        tr = meta.get(wire.TRACE_META_KEY) if _trace.enabled() else None
+        t0 = time.time() if tr is not None else 0.0
         pin = self._pin_data()
+        _flight.record(_flight.EV_GET_SERVE,
+                       nbytes=self.n * self.num_col * self.dtype.itemsize)
         try:
             full = self._full_rows(pin.data)
         finally:
             self._release_data(pin)
         self._stat_gets += 1
-        return self._encode_reply(full, meta)
+        if tr is not None:
+            _trace.add_span("shard.get_gather", t0, time.time(), trace=tr,
+                            args={"table": self.name, "full": True})
+        return self._encode_reply(full, meta, tr)
 
     def export_snapshot(self, meta: Dict) -> Tuple[Dict, Any]:
         """Replica subscription snapshot (MSG_SNAPSHOT): the shard's rows
@@ -847,6 +903,8 @@ class RowShard:
         since = int(meta.get("since", -1))
         gen = int(_config.get_flag("ps_generation"))
         since_gen = int(meta.get("since_gen", -1))
+        tr = meta.get(wire.TRACE_META_KEY) if _trace.enabled() else None
+        t0 = time.time() if tr is not None else 0.0
         with self._lock:
             version = self._version + self._native_stats()[1]
             if since >= 0 and version == since and since_gen == gen:
@@ -856,14 +914,22 @@ class RowShard:
                         "rows": self.n, "cols": self.num_col,
                         "unchanged": True}, []
             pin = self._pin_data_locked()
+        # serving traffic on the same tape as gets and adds: a replica
+        # refresh storm must be visible in a fault dump
+        _flight.record(_flight.EV_SNAPSHOT_SERVE,
+                       nbytes=self.n * self.num_col * self.dtype.itemsize)
         try:
             full = self._full_rows(pin.data)
         finally:
             self._release_data(pin)
         self._stat_snapshots += 1
+        if tr is not None:
+            _trace.add_span("snapshot.serve", t0, time.time(), trace=tr,
+                            args={"table": self.name,
+                                  "version": int(version)})
         rmeta = {"version": int(version), "gen": gen, "lo": self.lo,
                  "rows": self.n, "cols": self.num_col}
-        emeta, payload = self._encode_reply(full, meta)
+        emeta, payload = self._encode_reply(full, meta, tr)
         if isinstance(payload, wire.ChunkedReply):
             payload.meta.update(rmeta)
             return payload.meta, payload
@@ -871,21 +937,25 @@ class RowShard:
         emeta.update(rmeta)
         return emeta, payload
 
-    def _encode_reply(self, rows: np.ndarray, meta: Dict
-                      ) -> Tuple[Dict, Any]:
+    def _encode_reply(self, rows: np.ndarray, meta: Dict,
+                      tr: Optional[int] = None) -> Tuple[Dict, Any]:
         """Wire-encode a gathered get reply — chunk-streamed when the
         client asked for it (meta["chunk"] rows per sub-frame) and the
         reply is big enough, one payload otherwise."""
         w = meta.get("wire", "none")
         chunk = int(meta.get("chunk", 0) or 0)
         if chunk > 0 and rows.shape[0] > chunk:
-            return self._chunked_reply(rows, w, chunk)
+            return self._chunked_reply(rows, w, chunk, tr)
+        t0 = time.time() if tr is not None else 0.0
         payload = wire.encode_payload(rows, w)
         self._stat_get_bytes += sum(int(a.nbytes) for a in payload)
+        if tr is not None:
+            _trace.add_span("shard.get_encode", t0, time.time(), trace=tr,
+                            args={"table": self.name, "wire": w})
         return {}, payload
 
-    def _chunked_reply(self, rows: np.ndarray, w: str, chunk: int
-                       ) -> Tuple[Dict, Any]:
+    def _chunked_reply(self, rows: np.ndarray, w: str, chunk: int,
+                       tr: Optional[int] = None) -> Tuple[Dict, Any]:
         """Stream a big get as self-describing sub-frames, encoded lazily
         per chunk (chunk k+1 encodes while chunk k drains)."""
         n = rows.shape[0]
@@ -899,8 +969,14 @@ class RowShard:
                 cmeta: Dict = {"seq": i, "row0": a, "rows": b - a}
                 if w != "none":
                     cmeta["wire"] = w
+                t0 = time.time() if tr is not None else 0.0
                 payload = wire.encode_payload(rows[a:b], w)
                 shard._stat_get_bytes += sum(int(x.nbytes) for x in payload)
+                if tr is not None:
+                    _trace.add_span("shard.get_encode", t0, time.time(),
+                                    trace=tr,
+                                    args={"table": shard.name, "wire": w,
+                                          "seq": i})
                 yield cmeta, payload
 
         final = {"chunks": nchunks, "rows": n}
@@ -938,6 +1014,8 @@ class RowShard:
             chan = self._replay_seq.get(cl)
             if chan is not None and chan.seen(seq):
                 self._stat_dup_frames += 1
+                _flight.record(_flight.EV_FAILOVER_REPLAY,
+                               note=f"dup seq={seq}")
                 dup: Dict = {wire.REPLAY_DUP_KEY: True,
                              wire.REPLAY_DURABLE_KEY:
                                  self._durable_floor.get(cl, -1)}
@@ -1061,13 +1139,24 @@ class RowShard:
                              - self._native_stats()[1])
             if self._dirty is not None:
                 self._dirty[:] = True
+        _flight.record(_flight.EV_FAILOVER_RESTORE,
+                       note=f"{self.name} v{meta.get('version', 0)}")
 
     def _handle(self, msg_type: int, meta: Dict,
                 arrays: Sequence[np.ndarray]
                 ) -> Tuple[Dict, List[np.ndarray]]:
         if msg_type == svc.MSG_ADD_ROWS:
             local, vals, opt = self._prep_add(meta, arrays)
+            tr = (meta.get(wire.TRACE_META_KEY)
+                  if _trace.enabled() else None)
+            t0 = time.time() if tr is not None else 0.0
             self._add_rows(local, vals, opt)
+            if tr is not None:
+                # the plain-frame analogue of the batch path's
+                # shard.wave_apply span (a 1-op window ships as a plain
+                # MSG_ADD_ROWS frame)
+                _trace.add_span("shard.apply", t0, time.time(), trace=tr,
+                                args={"table": self.name, "traces": [tr]})
             return {}, []
         if msg_type == svc.MSG_BATCH:
             return self._handle_batch(meta, arrays)
@@ -1088,6 +1177,9 @@ class RowShard:
                 mask = self._dirty[wid, local].copy()
                 self._dirty[wid, local] = False
                 pin = self._pin_data_locked()
+            _flight.record(_flight.EV_GET_SERVE,
+                           nbytes=int(mask.sum()) * self.num_col
+                           * self.dtype.itemsize)
             try:
                 stale = local[mask]
                 if stale.size:
@@ -1240,7 +1332,8 @@ class HashShard(RowShard):
         vals = wire.as_values(arrays[1], self.dtype)[: keys.size]
         self._stat_add_bytes += sum(int(getattr(a, "nbytes", 0))
                                     for a in arrays[1:])
-        return _PendingAdd(keys, vals, opt)
+        return _PendingAdd(keys, vals, opt, trace=(
+            meta.get(wire.TRACE_META_KEY) if _trace.enabled() else None))
 
     def _slots_for(self, keys: np.ndarray) -> np.ndarray:
         """key -> slot, allocating unseen keys (under the caller's lock)."""
@@ -1278,6 +1371,8 @@ class HashShard(RowShard):
             self._restore(arrays)
             self._adopt_replay_channels(meta)
             self._version = int(meta.get("version", 0))
+        _flight.record(_flight.EV_FAILOVER_RESTORE,
+                       note=f"{self.name} v{meta.get('version', 0)}")
 
     def _handle(self, msg_type: int, meta: Dict,
                 arrays: Sequence[np.ndarray]
@@ -1290,19 +1385,32 @@ class HashShard(RowShard):
             # adds ride the coalescing queue OUTSIDE the lock; entries
             # carry KEYS, translated to slots at apply time
             entry = self._prep_add_entry(meta, arrays)
+            t0 = time.time() if entry.trace is not None else 0.0
             self._add_rows(entry.local, entry.vals, entry.opt)
+            if entry.trace is not None:
+                _trace.add_span("shard.apply", t0, time.time(),
+                                trace=entry.trace,
+                                args={"table": self.name,
+                                      "traces": [entry.trace]})
             return {}, []
         if msg_type == svc.MSG_GET_ROWS and not meta.get("sparse"):
             # allocation-free read: unknown keys gather the scratch row,
             # which stays zeros (padded adds apply zero deltas to it)
             keys = self._validate_keys(arrays[0])
             self._note_keys(keys)
+            tr = (meta.get(wire.TRACE_META_KEY) if _trace.enabled()
+                  else None)
+            t0 = time.time() if tr is not None else 0.0
             with self._lock:
                 slots = np.array(
                     [self._slot_of.get(k, self.n)
                      for k in keys.tolist()], np.int64)
                 pin = self._pin_data_locked()
-            return self._serve_rows_from_pin(pin, slots, meta)
+            if tr is not None:
+                _trace.add_span("shard.get_pin", t0, time.time(),
+                                trace=tr, args={"table": self.name,
+                                                "rows": int(keys.size)})
+            return self._serve_rows_from_pin(pin, slots, meta, tr)
         keys = None
         if msg_type in (svc.MSG_GET_ROWS, svc.MSG_SET_ROWS):
             keys = self._validate_keys(arrays[0])

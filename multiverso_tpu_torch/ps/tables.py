@@ -34,6 +34,14 @@ get one native op per owner. ``set_rows`` fences on the native adds
 (:meth:`AsyncMatrixTable._native_flush`) before its frames take the
 Python conn.
 
+Telemetry: ``add_rows_async``/``get_rows_async`` mint a trace ID when
+``trace_ids`` is on (``client.enqueue``, ``client.add_rows``,
+``client.get_rows``, ``window.flush`` and ``window.ack`` spans; the shard
+records its side under the same ID), and open ``ps.add``/``ps.get``
+step-profiler async spans closed at the reply. The windows mark their
+enqueue, flush, ack, fetch and replay edges on the flight recorder, and
+the send window registers its ``memory_stats`` with the byte ledger.
+
 Not ported (ROADMAP.md §A, raising ``NotImplementedError`` that names
 its item when asked for): per-tenant add budgets (``tenant_add_qps``).
 """
@@ -57,6 +65,10 @@ from multiverso_tpu_torch.ps import service as svc
 from multiverso_tpu_torch.ps import wire as wire_mod
 from multiverso_tpu_torch.ps.shard import HashShard, KVShard, RowShard
 from multiverso_tpu_torch.serving import hotcache as _hotcache
+from multiverso_tpu_torch.telemetry import flightrec as _flight
+from multiverso_tpu_torch.telemetry import memstats as _memstats
+from multiverso_tpu_torch.telemetry import profiler as _profiler
+from multiverso_tpu_torch.telemetry import trace as _trace
 from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils import config, log
 from multiverso_tpu_torch.utils import retry as _retry
@@ -290,7 +302,8 @@ def _window_loop(ref: "weakref.ref") -> None:
 
 
 def _complete_window_futures(batch_fut: cf.Future,
-                             group_futs: List[List[cf.Future]]) -> None:
+                             group_futs: List[List[cf.Future]],
+                             owner: int = -1) -> None:
     """Fan a window frame's one ack out to the placeholder futures the
     callers track (runs on the peer's recv thread). ``group_futs`` is
     aligned with the frame's sub-ops: a partly applied batch names its
@@ -307,6 +320,9 @@ def _complete_window_futures(batch_fut: cf.Future,
                 meta = res[0]
     except (cf.CancelledError, Exception) as e:   # defensive
         exc = e
+    # black box: the window ack edge (runs on the peer's recv thread)
+    _flight.record(_flight.EV_WIN_ACK, peer=owner,
+                   note=None if exc is None else str(exc)[:120])
     failed = set(meta.get("failed", ()))
     ferr = (svc.PSError("batched add failed at the shard: "
                         f"{meta.get('error', '?')}") if failed else None)
@@ -320,6 +336,56 @@ def _complete_window_futures(batch_fut: cf.Future,
                 f.set_exception(ferr)
             else:
                 f.set_result(({}, []))
+
+
+def _attach_reply_span(futs: List, name: str, t0: float, tid: int,
+                       table: str) -> None:
+    """Record a client send->reply span when the LAST per-owner future
+    completes (runs on a peer recv thread). Only cf.Futures support
+    callbacks — native-transport handles never reach here (the native
+    fast path is untraced by design)."""
+    remaining = [len([f for f in futs if isinstance(f, cf.Future)])]
+    lock = threading.Lock()
+    if not remaining[0]:
+        return
+
+    def _done(_f):
+        with lock:
+            remaining[0] -= 1
+            last = remaining[0] == 0
+        if last:
+            _trace.add_span(name, t0, time.time(), trace=tid,
+                            args={"table": table})
+
+    for f in futs:
+        if isinstance(f, cf.Future):
+            f.add_done_callback(_done)
+
+
+def _attach_profile_end(futs: List, span) -> bool:
+    """Close a step-profiler async span when the LAST per-owner future
+    completes (runs on a peer recv thread) — the round-trip end the
+    overlap-credit math needs. Returns False when ANY future lacks
+    callback support (native-transport handles, including a mixed list):
+    the caller then leaves the span open and the wait()/sweep fallback
+    closes it."""
+    if any(not isinstance(f, cf.Future) for f in futs):
+        return False
+    remaining = [len(futs)]
+    if not remaining[0]:
+        return False
+    lock = threading.Lock()
+
+    def _done(_f):
+        with lock:
+            remaining[0] -= 1
+            last = remaining[0] == 0
+        if last:
+            span.end()
+
+    for f in futs:
+        f.add_done_callback(_done)
+    return True
 
 
 class _RetainedFrame:
@@ -450,7 +516,8 @@ class _SendWindow:
         self.max_bytes = int(max_bytes)
         self.max_ops = int(max_ops)
         self._cv = threading.Condition()
-        # owner -> [(ids, vals, opt, placeholder future)], enqueue order
+        # owner -> [(ids, vals, opt, placeholder future, trace id)],
+        # enqueue order
         self._pending: Dict[int, List[Tuple]] = {}
         self._nbytes: Dict[int, int] = {}
         self._send_locks: Dict[int, threading.Lock] = {}
@@ -460,6 +527,9 @@ class _SendWindow:
         self._mon_windowed = Dashboard.get(base + ".windowed")
         self._mon_flushes = Dashboard.get(base + ".flushes")
         self._mon_merged = Dashboard.get(base + ".merged_rows")
+        # memory ledger: pending window payloads + the replay retention
+        # tail (registration only; gauges are pull-time)
+        _memstats.register(f"window[{table.name}]", self)
         # exactly-once replay: stamped, retained, re-flushed frames. The
         # peer-death hook is weakref-bound — the service's hook list
         # outlives any one table and must not pin it
@@ -477,19 +547,26 @@ class _SendWindow:
 
     # ------------------------------------------------------------------ #
     def submit(self, parts: List[Tuple[int, np.ndarray, np.ndarray]],
-               opt: AddOption) -> List[cf.Future]:
+               opt: AddOption,
+               trace: Optional[int] = None) -> List[cf.Future]:
         """Queue ONE logical add's per-owner pieces; returns one
-        placeholder future per owner (completed by the window ack)."""
+        placeholder future per owner (completed by the window ack).
+        ``trace`` is the logical op's trace ID (telemetry/trace.py); it
+        rides every per-owner entry into the frame meta."""
         self._mon_windowed.incr()
-        return [self._enqueue(r, ids, vals, opt) for r, ids, vals in parts]
+        return [self._enqueue(r, ids, vals, opt, trace)
+                for r, ids, vals in parts]
 
     def _enqueue(self, owner: int, ids: np.ndarray, vals: np.ndarray,
-                 opt: AddOption) -> cf.Future:
+                 opt: AddOption, trace: Optional[int] = None) -> cf.Future:
         fut: cf.Future = cf.Future()
         ship = False
+        # black box: the enqueue edge (one ring write)
+        _flight.record(_flight.EV_WIN_ENQ, peer=owner,
+                       nbytes=ids.nbytes + vals.nbytes)
         with self._cv:
             q = self._pending.setdefault(owner, [])
-            q.append((ids, vals, opt, fut))
+            q.append((ids, vals, opt, fut, trace))
             self._nbytes[owner] = (self._nbytes.get(owner, 0)
                                    + ids.nbytes + vals.nbytes)
             if (len(q) >= self.max_ops
@@ -517,6 +594,50 @@ class _SendWindow:
             owners = set(self._pending) | set(self._send_locks)
             self._deadline = None
         self._flush_owners(owners)
+
+    def memory_stats(self) -> Dict[str, Any]:
+        """Byte-ledger gauges (telemetry/memstats.py, pull-only): queued
+        window payloads awaiting flush, and the replay plane's retained
+        frames — per owner and total, with how many are ARMED for re-send
+        (armed > 0 means the owner is dead or being failed over, which
+        the retention-leak verdict treats as failover working, not
+        hoarding). Bytes are the frames' wire blobs."""
+        with self._cv:
+            pending_ops = sum(len(q) for q in self._pending.values())
+            pending_bytes = sum(self._nbytes.values())
+        out: Dict[str, Any] = {
+            "pending_ops": int(pending_ops),
+            "pending_bytes": int(pending_bytes),
+            "retained_frames": 0, "retained_bytes": 0,
+            "armed_frames": 0,
+        }
+        rp = self._replay
+        if rp is None:
+            return out
+
+        def _nb(a) -> int:
+            nb = getattr(a, "nbytes", None)
+            return int(nb) if nb is not None else len(a)
+
+        owners: Dict[str, Dict[str, int]] = {}
+        with rp.lock:
+            for owner, q in rp.retained.items():
+                fb = sum(sum(_nb(a) for a in fr.arrays)
+                         for fr in q.values())
+                # armed PER OWNER: one dead owner's re-armed tail must not
+                # mask another live owner's unpruned hoard
+                owners[str(owner)] = {
+                    "retained_frames": len(q),
+                    "retained_bytes": int(fb),
+                    "armed_frames": max(
+                        int(rp.pending_send.get(owner, 0)), 0)}
+                out["retained_frames"] += len(q)
+                out["retained_bytes"] += int(fb)
+            out["armed_frames"] = sum(max(int(n), 0)
+                                      for n in rp.pending_send.values())
+        if owners:
+            out["owners"] = owners
+        return out
 
     def _ensure_flusher_locked(self) -> None:
         """Start (or restart) the flusher thread; caller holds ``_cv``.
@@ -612,10 +733,18 @@ class _SendWindow:
             err = svc.PSError(
                 f"table[{self._table_name}] was garbage-collected with "
                 "windowed adds still queued")
-            for _, _, _, fut in entries:
+            for _, _, _, fut, _ in entries:
                 if not fut.done():
                     fut.set_exception(err)
             return
+        traced = _trace.enabled()
+        t_flush0 = time.time() if traced else 0.0
+        # flush edge: per flush (not per add), so the note's f-string is
+        # off the hot path
+        _flight.record(_flight.EV_WIN_FLUSH, peer=owner,
+                       nbytes=sum(e[0].nbytes + e[1].nbytes
+                                  for e in entries),
+                       note=f"ops={len(entries)}")
         w = t._wire_for(owner)
         # merging conditions, ALL required for bit-transparency: an
         # elementwise wire (1bit/topk mix values across their block or
@@ -624,9 +753,9 @@ class _SendWindow:
         exact = (w in ("none", "bf16")
                  and type(t.updater) in updaters_lib.ROW_LOCAL_STATE)
         merge_all = type(t.updater) in updaters_lib.OPT_INSENSITIVE
-        groups: List[List] = []   # [ids[], vals[], opt, futs[], idset]
-        merged_rows = 0
-        for ids, vals, opt, fut in entries:
+        groups: List[List] = []   # [ids[], vals[], opt, futs[], idset,
+        merged_rows = 0           #  traces[]]
+        for ids, vals, opt, fut, tid in entries:
             g = groups[-1] if groups else None
             if (g is not None and exact
                     and (merge_all or opt == g[2])
@@ -635,20 +764,41 @@ class _SendWindow:
                 g[1].append(vals)
                 g[3].append(fut)
                 g[4].update(ids.tolist())
+                if tid is not None:
+                    g[5].append(tid)
                 merged_rows += int(ids.size)
             else:
                 groups.append([[ids], [vals], opt, [fut],
-                               set(ids.tolist())])
+                               set(ids.tolist()),
+                               [] if tid is None else [tid]])
         try:
             packed = [(np.concatenate(g[0]) if len(g[0]) > 1 else g[0][0],
                        np.concatenate(g[1]) if len(g[1]) > 1 else g[1][0],
-                       g[2]) for g in groups]
+                       g[2], g[5]) for g in groups]
         except Exception as e:   # a merge failure must not orphan waiters
+            # close the flush edge too: an unmatched win.flush in a dump
+            # is the wedged-window signature, and this one failed fast
+            _flight.record(_flight.EV_WIN_FLUSH_END, peer=owner,
+                           note=f"merge failed: {e}"[:120])
             for g in groups:
                 for f in g[3]:
                     if not f.done():
                         f.set_exception(e)
             return
+        def sub_meta(opt, tids):
+            """Per-sub-op meta: the cached packed bytes normally; a dict
+            carrying the trace ID (wire.TRACE_META_KEY) when stamped — a
+            merged group's FIRST ID names the sub-op, the full set rides
+            the client flush/ack spans."""
+            if not tids:
+                return t._add_meta_b(opt, w)
+            meta = {"table": t.name, "opt": opt._asdict(),
+                    wire_mod.TRACE_META_KEY: tids[0]}
+            if w != "none":
+                meta["wire"] = w
+            return meta
+
+        all_tids = [tid for g in groups for tid in g[5]]
         # a window can outgrow one frame: ship MAX_BATCH_OPS sub-ops a
         # frame, in order on the same conn
         for i0 in range(0, len(packed), wire_mod.MAX_BATCH_OPS):
@@ -656,19 +806,21 @@ class _SendWindow:
             gfuts = [g[3] for g in groups[i0:i0 + wire_mod.MAX_BATCH_OPS]]
             try:
                 if len(chunk) == 1:
-                    ids, vals, opt = chunk[0]
+                    ids, vals, opt, tids = chunk[0]
                     meta = {"table": t.name, "opt": opt._asdict()}
                     if w != "none":
                         meta["wire"] = w
+                    if tids:
+                        meta[wire_mod.TRACE_META_KEY] = tids[0]
                     msg_type = svc.MSG_ADD_ROWS
                     arrays = [ids] + wire_mod.encode_payload(vals, w)
-                    meta_b = (None if self._replay is not None
+                    meta_b = (None if tids or self._replay is not None
                               else t._add_meta_b(opt, w))
                 else:
                     blobs = [wire_mod.encode(
-                        svc.MSG_ADD_ROWS, i, t._add_meta_b(opt, w),
+                        svc.MSG_ADD_ROWS, i, sub_meta(opt, tids),
                         [ids] + wire_mod.encode_payload(vals, w))
-                        for i, (ids, vals, opt) in enumerate(chunk)]
+                        for i, (ids, vals, opt, tids) in enumerate(chunk)]
                     msg_type = svc.MSG_BATCH
                     meta = {"table": t.name, "n": len(chunk)}
                     arrays = wire_mod.pack_batch(blobs)
@@ -688,10 +840,37 @@ class _SendWindow:
                 continue
             req = t.ctx.service.request(owner, msg_type, meta, arrays,
                                         meta_b=meta_b)
-            req.add_done_callback(
-                lambda bf, gf=gfuts: _complete_window_futures(bf, gf))
+            if traced and all_tids:
+                # ack span: frame on the wire -> window ack fanned out
+                # (runs on the peer's recv thread)
+                t_send = time.time()
+                chunk_tids = [tid for (_, _, _, tids) in chunk
+                              for tid in tids]
+
+                def _done(bf, gf=gfuts, ts=t_send, ct=chunk_tids):
+                    _complete_window_futures(bf, gf, owner=owner)
+                    _trace.add_span(
+                        "window.ack", ts, time.time(),
+                        trace=ct[0] if ct else None,
+                        args={"owner": owner, "traces": ct})
+
+                req.add_done_callback(_done)
+            else:
+                req.add_done_callback(
+                    lambda bf, gf=gfuts:
+                        _complete_window_futures(bf, gf, owner=owner))
+        _flight.record(
+            _flight.EV_WIN_FLUSH_END, peer=owner,
+            note=f"frames={-(-len(packed) // wire_mod.MAX_BATCH_OPS)}")
         if merged_rows:
             self._mon_merged.incr(merged_rows)
+        if traced and all_tids:
+            nframes = -(-len(packed) // wire_mod.MAX_BATCH_OPS)  # frames
+            _trace.add_span(
+                "window.flush", t_flush0, time.time(),
+                trace=all_tids[0],
+                args={"owner": owner, "ops": len(entries),
+                      "frames": nframes, "traces": all_tids})
 
     # ------------------------------------------------------------------ #
     # exactly-once replay plane (flag ps_replay)
@@ -807,7 +986,7 @@ class _SendWindow:
                         "table[%s]: replay of frame seq %d to owner %d "
                         "exhausted its window (%s); an ACKED op may be "
                         "lost", self._table_name, fr.seq, fr.owner, exc)
-        _complete_window_futures(bf, fr.gfuts)
+        _complete_window_futures(bf, fr.gfuts, owner=fr.owner)
 
     def _prune_owner_locked(self, owner: int, durable: int) -> None:
         """Drop retained frames the shard has made durable (caller holds
@@ -883,6 +1062,9 @@ class _SendWindow:
             # shared policy); later failures grow the delay per frame
             rp.next_due[rank] = (time.monotonic()
                                  + _replay_backoff().delay_s(0))
+            n = len(q)
+        _flight.record(_flight.EV_FAILOVER_REPLAY, peer=rank,
+                       note=f"owner died: {n} frames re-armed")
         with self._cv:
             self._ensure_flusher_locked()
             self._cv.notify()
@@ -936,6 +1118,8 @@ class _SendWindow:
                             fut.set_exception(err)
                 return True
             rp.mon_replayed.incr(len(frames))
+            _flight.record(_flight.EV_FAILOVER_REPLAY, peer=owner,
+                           note=f"re-flush {len(frames)} frames")
             for fr in frames:
                 self._send_frame(t, fr)
         return True
@@ -1101,6 +1285,8 @@ class _GetWindow:
         if chunk > 0 and uids.size > chunk and owner != t.ctx.rank:
             meta["chunk"] = chunk
             sink = _chunk_scatter(buf, None, t.num_col, t.dtype)
+        _flight.record(_flight.EV_GET_WIN, peer=owner,
+                       note=f"ops={len(entries)}")
         self._mon_fetches.incr()
         req = t.ctx.service.request(owner, svc.MSG_GET_ROWS, meta, [uids],
                                     chunk_sink=sink)
@@ -1189,6 +1375,9 @@ class _AsyncBase:
         # failures of already-swept fire-and-forget ops, kept so flush()
         # surfaces them deterministically
         self._swept_failures: List[Exception] = []
+        # msg id -> open step-profiler span of an op whose futures take
+        # no callbacks (native handles): closed at wait() or the sweep
+        self._prof_spans: Dict[int, Any] = {}
 
     def _wire_for(self, rank: int) -> str:
         """Wire codec per destination rank (tables with a compressed wire
@@ -1232,7 +1421,8 @@ class _AsyncBase:
     # fire-and-forget ops is deferred (flush() still surfaces failures)
     _SWEEP_THRESHOLD = 32
 
-    def _track(self, futures: List[cf.Future], finalize=None) -> int:
+    def _track(self, futures: List[cf.Future], finalize=None,
+               op: Optional[str] = None) -> int:
         with self._lock:
             # sweep fire-and-forget adds whose futures are all done; their
             # failures are LOGGED, not raised (a dead peer's stale error
@@ -1242,6 +1432,9 @@ class _AsyncBase:
                     if len(self._pending) >= self._SWEEP_THRESHOLD else ())
             for mid in done:
                 futs, _ = self._pending.pop(mid)
+                sp = self._prof_spans.pop(mid, None)
+                if sp is not None:   # native-handle span: close at the
+                    sp.end()         # sweep (its futures are all done)
                 for f in futs:
                     exc = f.exception()
                     if exc is not None:
@@ -1252,6 +1445,22 @@ class _AsyncBase:
             msg_id = self._next_msg_id
             self._next_msg_id += 1
             self._pending[msg_id] = (futures, finalize)
+        # step-profiler async span (one attribute read when off): the
+        # op's dispatch->reply interval, which the overlap-credit math
+        # intersects with the compute phases. Reply callbacks close it at
+        # the round-trip end; native handles (no callbacks) close it at
+        # wait() or the sweep
+        if op is not None and _profiler.PROFILER.enabled:
+            span = _profiler.async_begin(op, attach="thread")
+            if span is not None:
+                if not _attach_profile_end(futures, span):
+                    with self._lock:
+                        # re-check under the lock: a concurrent sweep may
+                        # have popped this msg id already
+                        if msg_id in self._pending:
+                            self._prof_spans[msg_id] = span
+                        else:
+                            span.end()
         return msg_id
 
     def wait(self, msg_id: int) -> Any:
@@ -1269,13 +1478,20 @@ class _AsyncBase:
         fenced (flush waits many ops behind ONE fence)."""
         with self._lock:
             entry = self._pending.pop(msg_id, None)
+            span = self._prof_spans.pop(msg_id, None)
         if entry is None:
+            if span is not None:
+                span.end()
             return None
         futures, finalize = entry
         timeout = config.get_flag("ps_timeout")
-        results = [svc.await_reply(f, timeout,
-                                   f"table[{self.name}] op {msg_id}")
-                   for f in futures]
+        try:
+            results = [svc.await_reply(f, timeout,
+                                       f"table[{self.name}] op {msg_id}")
+                       for f in futures]
+        finally:
+            if span is not None:   # native-handle span: the reply is in
+                span.end()         # by the time await_reply returned
         return finalize(results) if finalize is not None else None
 
     def flush(self) -> None:
@@ -1533,10 +1749,16 @@ class AsyncMatrixTable(_AsyncBase):
                 # push at the same point in program order the conn FIFO
                 # will (write-through applies the exact deduped delta)
                 self._train_cache.on_push(uids, vals)
+            # per-request trace ID (telemetry/trace.py): rides the frame
+            # meta so client spans and the owning shard's spans stitch by
+            # ID; None (the default) costs one attribute read. The native
+            # fan-out stays untraced by design
+            tid = _trace.new_id() if _trace.enabled() else None
             if self._window is not None:
                 # send window: enqueue the per-owner pieces and return;
                 # the flusher (or the next fencing op) ships each owner's
                 # queue as ONE frame
+                t_enq0 = time.time() if tid is not None else 0.0
                 oparts = self._owner_slices(uids)
                 if len(oparts) == 1:
                     # the flusher reads vals LATER: own the bytes (a
@@ -1548,7 +1770,14 @@ class AsyncMatrixTable(_AsyncBase):
                 else:
                     parts = [(r, _owned_part(uids, ix),
                               _owned_part(vals, ix)) for r, ix in oparts]
-                return self._track(self._window.submit(parts, opt))
+                mid = self._track(self._window.submit(parts, opt, tid),
+                                  op="ps.add")
+                if tid is not None:
+                    _trace.add_span("client.enqueue", t_enq0, time.time(),
+                                    trace=tid,
+                                    args={"table": self.name,
+                                          "rows": int(uids.size)})
+                return mid
             if self._native_ok and vals.dtype == self.dtype:
                 from multiverso_tpu_torch.ps import native as ps_native
                 parts = ps_native.add_fanout(
@@ -1556,11 +1785,14 @@ class AsyncMatrixTable(_AsyncBase):
                     self._rows_per, self._add_meta_b(opt), uids,
                     np.ascontiguousarray(vals))
                 return self._track(_fanout_futures(
-                    parts, lambda c, s, m: _NativeAddFuture(c, s, m)))
+                    parts, lambda c, s, m: _NativeAddFuture(c, s, m)),
+                    op="ps.add")
+            t_send0 = time.time() if tid is not None else 0.0
             futs = []
             for r, ix in self._owner_slices(uids):
                 w = self._wire_for(r)
-                meta = {"table": self.name, "opt": opt._asdict()}
+                meta = wire_mod.with_trace(
+                    {"table": self.name, "opt": opt._asdict()}, tid)
                 if w != "none":
                     meta["wire"] = w
                 # the local rank's executor dispatch reads the arrays
@@ -1571,8 +1803,12 @@ class AsyncMatrixTable(_AsyncBase):
                 futs.append(self.ctx.service.request(
                     r, svc.MSG_ADD_ROWS, meta,
                     [ids_part] + wire_mod.encode_payload(vals_part, w),
-                    meta_b=self._add_meta_b(opt, w)))
-        return self._track(futs)
+                    meta_b=(None if tid is not None
+                            else self._add_meta_b(opt, w))))
+            if tid is not None:
+                _attach_reply_span(futs, "client.add_rows", t_send0, tid,
+                                   self.name)
+        return self._track(futs, op="ps.add")
 
     def add_rows(self, row_ids, values,
                  opt: Optional[AddOption] = None) -> None:
@@ -1597,7 +1833,8 @@ class AsyncMatrixTable(_AsyncBase):
         tc = self._train_cache
         if tc is not None:
             return self._train_cache_get(row_ids, out)
-        return self._track(*self._get_rows_futs(row_ids, out))
+        futs, fin = self._get_rows_futs(row_ids, out)
+        return self._track(futs, fin, op="ps.get")
 
     def _train_cache_get(self, row_ids,
                          out: Optional[np.ndarray] = None) -> int:
@@ -1650,7 +1887,7 @@ class AsyncMatrixTable(_AsyncBase):
             tc.fill_since(cold_uids, rows_cold, token)
             return _expand(buf)
 
-        return self._track(futs, _fin)
+        return self._track(futs, _fin, op="ps.get")
 
     def _get_rows_futs(self, row_ids,
                        out: Optional[np.ndarray] = None,
@@ -1705,7 +1942,10 @@ class AsyncMatrixTable(_AsyncBase):
                 return futs, _assemble_win
             gw = self._reply_wire()
             chunk = int(config.get_flag("get_chunk_rows"))
-            meta_b = wire_mod.pack_meta({"table": self.name, "wire": gw})
+            tid = _trace.new_id() if _trace.enabled() else None
+            t_send0 = time.time() if tid is not None else 0.0
+            meta_b = wire_mod.pack_meta(wire_mod.with_trace(
+                {"table": self.name, "wire": gw}, tid))
             # the local rank never chunk-streams: no network receive to
             # overlap
             will_chunk = {r for r, ix in parts
@@ -1723,7 +1963,9 @@ class AsyncMatrixTable(_AsyncBase):
                 if r in will_chunk:
                     futs.append(self.ctx.service.request(
                         r, svc.MSG_GET_ROWS,
-                        {"table": self.name, "wire": gw, "chunk": chunk},
+                        wire_mod.with_trace(
+                            {"table": self.name, "wire": gw,
+                             "chunk": chunk}, tid),
                         [uids[ix]],
                         chunk_sink=_chunk_scatter(
                             buf, _part_index(ix), self.num_col,
@@ -1734,8 +1976,12 @@ class AsyncMatrixTable(_AsyncBase):
                                 if r == self.ctx.rank else uids[ix])
                     futs.append(self.ctx.service.request(
                         r, svc.MSG_GET_ROWS,
-                        {"table": self.name, "wire": "none"},
+                        wire_mod.with_trace(
+                            {"table": self.name, "wire": "none"}, tid),
                         [ids_part], meta_b=meta_b))
+            if tid is not None:
+                _attach_reply_span(futs, "client.get_rows", t_send0, tid,
+                                   self.name)
 
             def _assemble(results):
                 for (r, ix), (rmeta, arrays) in zip(parts, results):
@@ -2183,9 +2429,11 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
         opt = opt or AddOption(worker_id=self.ctx.rank)
         with monitor(f"table[{self.name}].add_rows"):
             uids, vals, _ = self._prep(keys, values)
+            tid = _trace.new_id() if _trace.enabled() else None
             if self._window is not None:
                 # send window: per-owner key batches queue and ship as one
                 # (multi-op) frame (see _SendWindow)
+                t_enq0 = time.time() if tid is not None else 0.0
                 owners = uids % self.ctx.world
                 r0 = int(owners[0])
                 if uids.size == 1 or not np.any(owners != r0):
@@ -2196,14 +2444,22 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
                 else:
                     parts = [(r, uids[m], vals[m])
                              for r, m in self._by_owner(uids)]
-                return self._track(self._window.submit(parts, opt))
-            meta = {"table": self.name, "opt": opt._asdict()}
+                mid = self._track(self._window.submit(parts, opt, tid),
+                                  op="ps.add")
+                if tid is not None:
+                    _trace.add_span("client.enqueue", t_enq0, time.time(),
+                                    trace=tid,
+                                    args={"table": self.name,
+                                          "rows": int(uids.size)})
+                return mid
+            meta = wire_mod.with_trace(
+                {"table": self.name, "opt": opt._asdict()}, tid)
             meta_b = wire_mod.pack_meta(meta)
             futs = [self.ctx.service.request(r, svc.MSG_ADD_ROWS, meta,
                                              [uids[m], vals[m]],
                                              meta_b=meta_b)
                     for r, m in self._by_owner(uids)]
-        return self._track(futs)
+        return self._track(futs, op="ps.add")
 
     def add_rows(self, keys, values,
                  opt: Optional[AddOption] = None) -> None:
@@ -2226,7 +2482,7 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
                     out[m] = wire_mod.as_values(arrays[0], self.dtype)
                 return out if inv is None else out[inv]
 
-        return self._track(futs, _assemble)
+        return self._track(futs, _assemble, op="ps.get")
 
     def get_rows(self, keys) -> np.ndarray:
         return self.wait(self.get_rows_async(keys))

@@ -18,8 +18,8 @@ under two disciplines:
 ``MatrixTable`` builds a :class:`TrainRowCache` behind the
 ``train_cache_rows`` flag (:func:`make_train_cache`). Every public method
 takes the cache's lock. The ``memory_stats()`` methods report the
-cache's bytes; registering them with a memory ledger waits for the
-telemetry slice (ROADMAP A, telemetry and tools).
+cache's bytes; :func:`make_train_cache` registers each train cache with
+the memory ledger (``telemetry/memstats.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch.ops import row_assemble
+from multiverso_tpu_torch.telemetry import memstats as _memstats
 from multiverso_tpu_torch.utils import config
 from multiverso_tpu_torch.utils.dashboard import Dashboard
 from multiverso_tpu_torch.zoo import default_device
@@ -587,7 +588,9 @@ def make_train_cache(table_name: str, num_col: int, dtype,
             "eligible (needs the default plain-add updater and a "
             "lossless wire) — use 'auto' or 'invalidate'")
     wt = writethrough_ok if mode == "auto" else (mode == "writethrough")
-    return TrainRowCache(
+    cache = TrainRowCache(
         table_name, num_col, dtype, capacity=capacity, writethrough=wt,
         refresh_gets=int(config.get_flag("train_cache_refresh_gets")),
         device=device)
+    _memstats.register(f"train_cache[{table_name}]", cache)
+    return cache

@@ -52,9 +52,15 @@ Module-import discipline: ps/service.py imports this module at module
 level (flag registration before argv parse), so nothing here may import
 the ps package at module scope — ps imports stay inside methods.
 
-Not ported (ROADMAP.md §A, Telemetry and tools): the tenant ledger, the
-memory ledger's gauges, the flight recorder and trace spans; a read
-naming a tenant raises.
+Telemetry: each replica registers :meth:`ReadReplica.memory_stats` (the
+snapshot buffer, the hot-row cache and the refresh's staging copy) with
+the memory ledger; every refresh lands one ``EV_REPLICA_PULL`` on the
+flight recorder and, with ``trace_ids`` on, one trace ID rides every
+shard's snapshot request, so the ``replica.pull`` span stitches to the
+shards' ``snapshot.serve`` spans.
+
+Not ported (ROADMAP.md §A, Telemetry and tools): the tenant ledger; a
+read naming a tenant raises.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from multiverso_tpu_torch.serving.admission import (AdmissionController,
 from multiverso_tpu_torch.serving.hotcache import (HotRowCache,
                                                    match_positions)
 from multiverso_tpu_torch.telemetry import hotkeys as _hotkeys
+from multiverso_tpu_torch.telemetry import memstats as _memstats
 from multiverso_tpu_torch.utils import config, log
 from multiverso_tpu_torch.utils import retry as _retry
 from multiverso_tpu_torch.utils.dashboard import Dashboard
@@ -271,9 +278,28 @@ class ReadReplica:
 
         self._closed = False
         self._thread: Optional[threading.Thread] = None
+        # in-flight refresh staging copy (bytes; nonzero only while a
+        # pull assembles its fresh buffer) — the memory ledger's view of
+        # the transient second table each refresh costs
+        self._staging_nb = 0
         _REPLICAS.add(self)
+        _memstats.register(f"replica[{self.name}]", self)
         if start:
             self.start()
+
+    def memory_stats(self) -> Dict[str, Any]:
+        """Byte-ledger gauges (pull-only): the adopted snapshot buffer,
+        the hot-row cache, and the transient refresh staging copy."""
+        with self._swap_lock:
+            data = self._data
+        cstats = self._cache.memory_stats()
+        return {
+            "snapshot_bytes": int(getattr(data, "nbytes", 0) or 0)
+            if data is not None else 0,
+            "cache_device_bytes": cstats["device_bytes"],
+            "cache_rows": cstats["rows"],
+            "staging_bytes": int(self._staging_nb),
+        }
 
     # ------------------------------------------------------------------ #
     # lifecycle
@@ -370,15 +396,23 @@ class ReadReplica:
 
     def _pull_once(self) -> None:
         from multiverso_tpu_torch.ps import service as svc
+        from multiverso_tpu_torch.ps import wire as wire_mod
+        from multiverso_tpu_torch.telemetry import flightrec as _flight
+        from multiverso_tpu_torch.telemetry import trace as _trace
         t_start = time.monotonic()
+        # one trace ID per refresh cycle rides every shard's snapshot
+        # request, so the replica.pull span and each shard's
+        # snapshot.serve span stitch on one timeline
+        tr = _trace.new_id() if _trace.enabled() else None
+        t_wall0 = time.time() if tr is not None else 0.0
         service = self.ctx.service
         chunk = int(config.get_flag("serving_snapshot_chunk_rows"))
 
         def dispatch(rank, lo, hi):
-            meta: Dict[str, Any] = {
+            meta: Dict[str, Any] = wire_mod.with_trace({
                 "table": self.name,
                 "since": int(self._versions.get(rank, -1)),
-                "since_gen": int(self._gens.get(rank, -1))}
+                "since_gen": int(self._gens.get(rank, -1))}, tr)
             sink = buf = None
             if chunk > 0 and (hi - lo) > chunk and rank != self.ctx.rank:
                 buf = np.empty((hi - lo, self.num_col), self.dtype)
@@ -453,6 +487,7 @@ class ReadReplica:
             staging = np.zeros((self.num_row, self.num_col), self.dtype)
         elif changed:
             staging = cur.copy()
+            self._staging_nb = int(staging.nbytes)   # ledger gauge
         else:
             staging = cur   # nothing applied anywhere: the epoch
             #                 advances, the buffer stays
@@ -487,6 +522,21 @@ class ReadReplica:
                 # "cache and snapshot are always the same epoch"
                 # contract the class docstring promises.
                 self._cache.clear()
+            self._staging_nb = 0
+        # flight recorder + trace span: one refresh = one event/span, so
+        # serving refresh traffic shows on the data plane's timeline
+        # (nbytes = rows actually re-shipped this cycle)
+        _flight.record(
+            _flight.EV_REPLICA_PULL,
+            nbytes=sum(r.nbytes for r in changed.values()),
+            note=f"replica[{self.name}] epoch {self._epoch}")
+        if tr is not None:
+            _trace.add_span(
+                "replica.pull", t_wall0, time.time(), trace=tr,
+                cat="serving",
+                args={"table": self.name, "epoch": int(self._epoch),
+                      "changed": len(changed),
+                      "shards": len(self._ranges)})
 
     # ------------------------------------------------------------------ #
     # hot-row cache (seeded from the Space-Saving sketch)

@@ -21,8 +21,9 @@ where the reference's SyncServer would sit. Compose with
 :func:`multiverso_tpu_torch.elastic.failed` to stop waiting on dead
 workers.
 
-Not ported yet (ROADMAP §A, telemetry): the flight recorder's
-``ssp.wait``, ``ssp.resolved`` and ``ssp.timeout`` events.
+A blocked wait marks the flight recorder: ``ssp.wait`` when it blocks,
+``ssp.resolved`` when it clears, and ``ssp.timeout`` (with the clock
+snapshot) before the timeout raises.
 """
 
 from __future__ import annotations
@@ -125,7 +126,9 @@ class SSPClock:
         seconds (None = wait forever) — the exception message carries the
         full per-worker clock snapshot (and which workers were excluded
         as dead) so a fleet-wide stall is attributable from the error
-        alone."""
+        alone, and the flight recorder gets the same snapshot before the
+        raise."""
+        from multiverso_tpu_torch.telemetry import flightrec
         deadline = (None if self.timeout is None
                     else time.monotonic() + self.timeout)
         warned = False
@@ -136,11 +139,18 @@ class SSPClock:
                 snapshot = (f"clock {self._clock}, staleness "
                             f"{self.staleness}, peer clocks {clocks}, "
                             f"ignored-dead {dead}")
+                flightrec.record(flightrec.EV_SSP_TIMEOUT,
+                                 note=snapshot[:200])
                 raise SSPTimeout(
                     f"worker {self.worker_id} waited >{self.timeout}s "
                     f"for stragglers ({snapshot})")
             if not warned:
                 log.debug(f"[ssp] worker {self.worker_id} clock "
                           f"{self._clock} waiting on stragglers")
+                flightrec.record(flightrec.EV_SSP_WAIT,
+                                 msg_id=self._clock)
                 warned = True
             time.sleep(self.poll)
+        if warned:   # the blocked wait resolved: close the edge
+            flightrec.record(flightrec.EV_SSP_RESOLVED,
+                             msg_id=self._clock)

@@ -58,6 +58,7 @@ import torch
 
 from multiverso_tpu_torch import updaters as updaters_lib
 from multiverso_tpu_torch.ops import wire_codec
+from multiverso_tpu_torch.telemetry import memstats as _memstats
 from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils import config, log
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
@@ -249,17 +250,30 @@ class Table:
         # behind the train_cache_rows flag; the base ops only clear it
         # after coarse mutations
         self._train_cache = None
+        # memory ledger (telemetry/memstats.py): pull-only gauges, a weak
+        # reference
+        _memstats.register(f"table[{name}]", self)
 
     def memory_stats(self) -> Dict[str, Any]:
         """Byte gauges: the cached Get's host copy and the prefetch's
-        pinned host buffer."""
+        pinned host buffer (the JAX package's two), plus the table's own
+        device tensor (``table_bytes``, padded rows included) and its
+        updater state (``ustate_bytes``). Lock-free reads of the
+        attribute references: the ledger tolerates a one-sample-stale
+        figure."""
         cache = self._get_cache
         pf = self._get_prefetch
         host = pf[1].host if pf is not None else None
+        data = self._data
         return {
             "cache_bytes": int(cache[1].nbytes) if cache is not None else 0,
             "prefetch_bytes": (host.numel() * host.element_size()
                                if host is not None else 0),
+            "table_bytes": int(data.numel() * data.element_size()),
+            "ustate_bytes": int(sum(
+                v.numel() * v.element_size()
+                for v in list(self._ustate.values())
+                if isinstance(v, torch.Tensor))),
         }
 
     def _build_init(self, init, seed, init_scale) -> torch.Tensor:

@@ -3,8 +3,12 @@
 Timestamped leveled messages (DEBUG/INFO/ERROR/FATAL) to stdout and an
 optional file, a ``kill_fatal`` toggle deciding whether FATAL raises, and
 ``check`` / ``check_notnull`` assertion helpers. ``reset_log_file(path,
-jsonl=True)`` makes the file sink structured: one JSON object per line.
-The flight-recorder dump on FATAL arrives with the telemetry slice.
+jsonl=True)`` makes the file sink structured: one JSON object per line
+(ts/mono/level/rank/name/msg), so log lines interleave with
+flight-recorder dumps on one timeline in ``tools/postmortem.py``;
+``set_rank`` stamps the rank. ``Logger.fatal`` records ``EV_FATAL`` and
+dumps the flight recorder (best-effort, no-op unless a dump directory
+resolves) before it raises.
 """
 
 from __future__ import annotations
@@ -85,6 +89,15 @@ class Logger:
                     self._file.write(line + "\n")
                 self._file.flush()
         if level == LogLevel.FATAL and self.kill_fatal:
+            # black box before the raise: a FATAL is a fault-time event,
+            # and the dump must not depend on anyone catching FatalError
+            # (best-effort; no-op unless a dump directory resolves)
+            try:
+                from multiverso_tpu_torch.telemetry import flightrec
+                flightrec.record(flightrec.EV_FATAL, note=msg[:200])
+                flightrec.dump_global(f"fatal: {msg[:120]}", stacks=True)
+            except Exception:   # noqa: BLE001 — never mask the FATAL
+                pass
             raise FatalError(msg)
 
     def debug(self, msg: str, *args: Any) -> None:
@@ -145,3 +158,24 @@ def check_notnull(value: Any, name: str = "value") -> Any:
     if value is None:
         _default.fatal(f"CHECK_NOTNULL failed: {name} is None")
     return value
+
+
+_rank_pinned = False
+
+
+def set_rank(rank: int) -> None:
+    """Stamp this process's PS rank into structured log records (called
+    from Zoo.start / PSService init; first caller wins like the tracer,
+    so in-process multi-rank tests keep one attribution)."""
+    global _rank_pinned
+    if not _rank_pinned:
+        _default.rank = int(rank)
+        _rank_pinned = True
+
+
+def reset_rank() -> None:
+    """Unpin the rank stamp (test isolation — the counterpart of
+    flightrec.reset()/Tracer.reset(), which unpin their ranks too)."""
+    global _rank_pinned
+    _rank_pinned = False
+    _default.rank = 0

@@ -50,6 +50,7 @@ class Zoo:
         self._device: Optional[torch.device] = None
         self._tables: Dict[int, Any] = {}
         self._next_table_id = 0
+        self._barrier_count = 0
 
     @classmethod
     def get(cls) -> "Zoo":
@@ -66,6 +67,25 @@ class Zoo:
         config.parse_cmd_flags(argv)
         log.configure_from_flags()
         self._device = resolve_device(device)
+        # telemetry plane: adopt the trace_ids / step_profile / devstats
+        # flags and start the flag-gated metrics exporter (no-ops unless
+        # configured; a PSService starting later upgrades the exporter's
+        # payload with its shard registry)
+        from multiverso_tpu_torch.telemetry import devstats as _devstats
+        from multiverso_tpu_torch.telemetry import exporter as _exporter
+        from multiverso_tpu_torch.telemetry import flightrec as _flightrec
+        from multiverso_tpu_torch.telemetry import profiler as _profiler
+        from multiverso_tpu_torch.telemetry import trace as _trace
+        _trace.configure(self.rank())
+        _profiler.configure(self.rank())
+        _devstats.configure(self.rank())
+        _exporter.ensure_started(self.rank())
+        # flight-recorder plane: pin the rank, give the structured log
+        # sink the same rank, and dump the black box if a fault signal
+        # lands (a later handler replaces this one and dumps on its own)
+        _flightrec.configure(self.rank())
+        log.set_rank(self.rank())
+        _flightrec.install_signal_handlers()
         self._started = True
         log.info("multiverso_tpu_torch started: process %d/%d on %s%s",
                  self.rank(), self.size(), self._device,
@@ -79,15 +99,50 @@ class Zoo:
             return
         self.barrier()
         if config.get_flag("dashboard"):
-            Dashboard.display(log.info)
-            Dashboard.reset()
-        # the failover checkpointer writes one final committed save while
-        # the shards are still intact; then the async PS plane's default
-        # context quiesces (each rank keeps serving until its live peers
-        # are done) and closes
+            # natively-served async ops never cross the Python monitor,
+            # so surface the C++ counters in the shutdown report (before
+            # the final exporter snapshot, so its last record has them)
+            for table in list(self._tables.values()):
+                shard = getattr(table, "_shard", None)
+                if shard is None or getattr(shard, "_native_ref",
+                                            None) is None:
+                    continue
+                adds, applies = shard._native_stats()
+                if adds:
+                    Dashboard.note(
+                        f"ps[{table.name}].native_served",
+                        f"adds = {adds}, applies = {applies}")
+        # final telemetry flush while the monitors still hold this run's
+        # numbers (the exporter's stop() writes a last snapshot; buffered
+        # trace spans and step records drain to metrics_dir); the failover
+        # checkpointer first writes one final committed save while the
+        # shards are still intact
         from multiverso_tpu_torch.ps import failover as _failover
         from multiverso_tpu_torch.ps import service as _ps_service
+        from multiverso_tpu_torch.telemetry import exporter as _exporter
+        from multiverso_tpu_torch.telemetry import flightrec as _flightrec
+        from multiverso_tpu_torch.telemetry import profiler as _profiler
+        from multiverso_tpu_torch.telemetry import trace as _trace
         _failover.stop_global(final=True)
+        _exporter.stop_global()
+        # final black-box dump (no-op unless a dump directory resolves);
+        # routine=True keeps an earlier fault dump of this process
+        _flightrec.dump_global("Zoo.stop", routine=True)
+        d = config.get_flag("metrics_dir")
+        if d:
+            try:
+                _trace.dump_to(d)
+            except OSError as e:
+                log.error("trace dump at shutdown failed: %s", e)
+            try:
+                _profiler.dump_to(d)
+            except OSError as e:
+                log.error("profile dump at shutdown failed: %s", e)
+        if config.get_flag("dashboard"):
+            Dashboard.display(log.info)
+            Dashboard.reset()
+        # the async PS plane's default context quiesces (each rank keeps
+        # serving until its live peers are done) and closes
         _ps_service.reset_default_context()
         self._tables.clear()
         self._next_table_id = 0
@@ -127,9 +182,17 @@ class Zoo:
 
     def barrier(self) -> None:
         """One process: every prior Add is visible once the device's queue
-        has drained."""
+        has drained. The flight recorder marks both edges: a rank that
+        dies inside the barrier leaves "enter without exit" last on its
+        tape."""
+        from multiverso_tpu_torch.telemetry import flightrec as _flightrec
+        self._barrier_count += 1
+        _flightrec.record(_flightrec.EV_BARRIER_ENTER,
+                          msg_id=self._barrier_count, note="zoo.barrier")
         if self._device is not None and self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+        _flightrec.record(_flightrec.EV_BARRIER_EXIT,
+                          msg_id=self._barrier_count, note="zoo.barrier")
 
     # table registry
     def register_table(self, table: Any) -> int:

@@ -139,3 +139,57 @@ def test_example_trains_on_the_card(cuda_device):
     on_cpu = tex.main(steps=10, sync_every=5, device="cpu")
     print(f"example final loss: card {on_card:.7f}, cpu {on_cpu:.7f}")
     assert np.isfinite(on_card) and abs(on_card - on_cpu) <= 1e-3
+
+
+# ---------------------------------------------------------------------- #
+# the telemetry plane's device readings
+# ---------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_device_census_counts_live_bytes(cuda_device):
+    """The memory ledger's census and the device plane's per-device
+    rollup read the caching allocator: a live 64 MiB tensor shows on
+    cuda:0 in both, and its table gauge equals its bytes."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.telemetry import devstats, memstats
+    mv.init()
+    try:
+        t = mv.ArrayTable(16 << 20, name="census")   # f32: 64 MiB + 1 row
+        nb = t._data.numel() * t._data.element_size()
+        census = memstats.device_census()
+        rollup = devstats.device_rollup()
+        assert census["bytes"] >= nb and rollup["cuda:0"]["bytes"] >= nb
+        assert census["top"][0]["device"] == "cuda:0"
+        gauges = memstats.LEDGER.snapshot()["components"]["table[census]"]
+        assert gauges["table_bytes"] == nb
+    finally:
+        mv.shutdown()
+
+
+@pytest.mark.cuda
+def test_profiling_trace_names_the_flash_kernels(cuda_device, tmp_path):
+    """``utils.profiling.trace`` writes a Chrome trace of the region that
+    holds each flash kernel's CUDA function as many times as the
+    wrappers counted launches, inside the ``annotate`` regions."""
+    from multiverso_tpu_torch.utils import profiling
+    rng = np.random.default_rng(4)
+    q, k, v = _randn(rng, (1, 2, 256, 128), cuda_device, torch.bfloat16, 3)
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    ak.flash_attention(q, k, v, causal=True).float().sum().backward()
+    ak.reset_launch_counts()
+    with profiling.trace("flash", trace_dir=str(tmp_path)) as path:
+        with profiling.annotate("fwd"):
+            out = ak.flash_attention(q, k, v, causal=True)
+        with profiling.annotate("bwd"):
+            out.float().sum().backward()
+    counts = ak.launch_counts()
+    import json
+    events = json.load(open(path))["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if e.get("cat") == "kernel"]
+    for fn, key in (("flash_fwd_wgmma", "flash_fwd"),
+                    ("flash_bwd_dq_wgmma", "flash_bwd_dq"),
+                    ("flash_bwd_dkv_wgmma", "flash_bwd_dkv")):
+        assert counts[key] >= 1
+        assert sum(fn in n for n in names) == counts[key], (fn, counts)
+    assert {"fwd", "bwd"} <= {e.get("name") for e in events}
