@@ -45,8 +45,8 @@ Phases, every one on every run, in this order:
             cache (a full-hit get_rows, the cached rows equal to the
             table's after zipf add_rows), ``train_fused`` on the
             real-text corpus (bench.py:220-221) with the shared pool and
-            on the synthetic one (bench.py:114-121), one warm and 2 timed
-            epochs each (words/s, device span, falling loss), the
+            on the synthetic one (bench.py:114-121), one warm and one
+            timed epoch each (words/s, device span, falling loss), the
             real-text probe's nearest neighbours, bf16 against f32 from the
             same start (by loss over the first 8 batches; the full epoch
             beside the f32-twice spread), the card's f32 epoch against the
@@ -125,7 +125,7 @@ Phases, every one on every run, in this order:
             Adam ArrayTable; no kernel of its own: cuDNN's convolutions
             and elementwise ops) at bench_resnet's shape (depth 32, batch
             128, 50,000 synthetic_cifar images uploaded once): the card's
-            first 2 steps against the CPU's from one start, a warm and 3
+            first 2 steps against the CPU's from one start, a warm and 2
             timed epochs (s/epoch, images/s, a full 50k epoch beside the
             reference's GTX TITAN X times), the loss falling epoch over
             epoch, one profiled epoch (conv, BN and elementwise, Adam,
@@ -176,9 +176,17 @@ Phases, every one on every run, in this order:
 15. chaos   failover, faults and replay on the async plane
             (``examples/chaos.py``, tools/bench_chaos.py's scenarios and
             gates; no kernel of the port): (a) partition_heal,
-            dup_reorder, slow_shard_shed and replica_kill on two ranks in
-            this process, both shards on the card, 32 x 8 with a 1 ms
-            send window and replay on; (b) combined at 64 x 8 (two OS
+            dup_reorder, slow_shard_shed, replica_kill and noisy_neighbor
+            on two ranks in this process, both shards on the card, 32 x 8
+            with a 1 ms send window and replay on, the SLO sentinel
+            judging an availability objective on explicit polls (it fires
+            in the cut and clears after the heal, stays quiet under
+            duplicates and reorders, ends clear after the slow phase,
+            whose mid-slow signal bus makes mvautoscale say GROW), each
+            episode printed with its burns and times; noisy_neighbor's
+            two tenants over their own budgets (the storm capped, the
+            victim's p99, one verdict opened and cleared); (b) combined
+            at 64 x 8 (two OS
             processes, each shard on the card: SIGKILL of rank 1 and a
             replica kill at one instant, this process's
             FailoverSupervisor respawning rank 1 at generation 1 from its
@@ -207,7 +215,31 @@ Phases, every one on every run, in this order:
             native applies), every full Get equal to numpy bit for bit;
             then a bf16-wire table, which punts. It counts its launches
             apart and launches no flash kernel
-17. telemetry the per-process telemetry plane (``telemetry/``,
+17. cluster the cluster telemetry plane (``telemetry/aggregator.py``,
+            ``signals.py``, ``slo.py``, ``tenants.py``; the port's
+            ``tools/mvtop.py`` and ``mvautoscale.py``; host code, no
+            kernel of the card), counted apart: (a) two ranks in this
+            process on a 100,000 x 128 table, rank 0's service starting
+            the poller itself (``stats_poll_interval_s`` 0.5,
+            ``metrics_dir`` set), Zipf-hot traffic from 4 client threads:
+            the record's per-table adds, applies and gets equal the
+            shards' ``stats()`` sums exactly, the merged monitors the
+            ranks' sums, the planted hot rows head the top-K, the windowed
+            skew is about 1 for uniform traffic and 2 for rank 1's rows
+            only, applies/s equal the shards' deltas over the polls'
+            interval, ``cluster.jsonl`` holds every poll and the final one
+            and ``cluster.prom`` parses; card shards on the Python plane,
+            card shards on the native plane (punted), CPU shards on the
+            native plane (served by C++); (b) four ranks, one a process
+            (ps_bench, card shards) read by ``mvtop --once --json`` (exit
+            0, 4 ranks) and ``mvautoscale --dry-run`` (hold) from other
+            processes; (c) two tenants on card shards, each tenant's ops
+            metered exactly, ``tenant_add_qps`` deferring the over-budget
+            tenant within its token bucket's bound; (d) printed, not
+            gated: one poll's wall time at world 2 and 4, the jsonl bytes
+            a record, the 1-row add p50/p99 with the poller at 0.5 s
+            against off, in turns
+18. telemetry the per-process telemetry plane (``telemetry/``,
             ``utils/profiling.py``, ``tools/``), counted apart: (a) the
             step profiler over ps_async (b)'s measured WE epoch at world 2
             (``we_async.py --step_profile``): each rank's per-step phase
@@ -1323,7 +1355,7 @@ WE_VARIANTS = (("skipgram per-pair", dict(shared_negatives=0)),
 # both packages, that is 512 for CBOW HS, where 1024 rises in its third
 # epoch (tests/test_torch_we_bench_width.py)
 WE_HS_MIN_BATCH = 128
-WE_TIMED_EPOCHS = 2
+WE_TIMED_EPOCHS = 1   # cut from 3 to 1 to keep the script in its time
 WE_PROBES = ("array", "matrix", "value", "data")   # bench.py:233
 # a MatrixTable of text8's vocabulary at min_count 5 by 128 columns
 TEXT8_VOCAB = 71_290
@@ -3096,7 +3128,7 @@ RES_DEPTH = 32
 RES_BATCH = 128
 RES_IMAGES = (50_000, 1)      # synthetic_cifar count, seed
 RES_EVAL = (512, 2)
-RES_TIMED_EPOCHS = 3
+RES_TIMED_EPOCHS = 2   # cut from 3 to keep the script in its time
 RES_PROFILE_STEPS = 20
 RES_MIN_ACC = 0.3             # 10 classes: chance is 0.1
 RES_CPU_STEPS = 2
@@ -4555,6 +4587,8 @@ def phase_serving(dev) -> dict:
 # nonzero and deduped; the recovery-to-90% gate alone gets one more run
 # (tests/test_chaos.py:775-793).
 CHAOS_SECONDS = 18.0                # bench_chaos.py:1268
+CHAOS_INPROC_SECONDS = 8.0          # each in-process scenario (the CPU
+#                                     smokes' length)
 CHAOS_COMBINED = (64, 8, 4)         # rows, dim, threads (:1269-1270)
 CHAOS_DEPLOYED = (100_000, 128, 4)  # bench_async_ps.py:57's table
 CHAOS_CKPT_TABLE = (100_000, 128)   # the AdaGrad shard timed alone
@@ -4581,9 +4615,39 @@ def chaos_run(label: str, dev, fn, **kw) -> dict:
 
 
 def chaos_log(label: str, r: dict, attempt: int, dev) -> None:
+    if "victim" in r:   # noisy_neighbor: tenants, budgets and a verdict
+        v, s, tb = r["victim"], r["storm"], r["tenants_block"]
+        log(f"chaos {label} (run {attempt + 1}, {r['wall_s']:.1f} s): "
+            f"victim served {v['served']} shed {v['shed']} at "
+            f"{v['qps_limit']} qps, p99 {v['base_p99_ms']} ms quiet -> "
+            f"{v['storm_p99_ms']} ms under the storm; storm served "
+            f"{s['served']} (allowed {s['allowed_at_budget']}) shed "
+            f"{s['shed']} at {s['qps_limit']} qps, share "
+            f"{r['storm_share']}; verdict {tb.get('verdict')}, episodes "
+            f"{r['episodes']}, recorder verdicts {r['flight_verdicts']}, "
+            f"open {tb.get('active')}; gates {r['gates']}")
+        return
     rates = ", ".join(f"{k} {r[k]}" for k in (
         "pre_fault_ops_per_s", "post_fault_ops_per_s", "pre_fault_qps",
         "post_fault_qps") if k in r)
+    slo = r.get("slo")
+    if slo is not None:
+        # each SLO episode: the objective, fired or cleared, its burns
+        # and the judging poll's wall clock against the fault's
+        t_fault = r.get("fault_wall")
+        eps = "; ".join(
+            f"{e['objective']} {e['kind']} burn {e['burn_fast']}/"
+            f"{e['burn_slow']} at "
+            + (f"{e['ts'] - t_fault:+.2f} s from the fault"
+               if t_fault and e.get("ts") else f"{e.get('ts')}")
+            for e in slo.get("episodes_log", [])) or "none"
+        log(f"chaos {label} SLO: evals {slo['evals']}, episodes "
+            f"{slo['episodes']}, firing {slo['firing']}; {eps}"
+            + (f"; heal at {r['heal_wall'] - t_fault:+.2f} s"
+               if t_fault and r.get("heal_wall") else ""))
+    if "autoscale" in r:
+        log(f"chaos {label} autoscale (dry run, mid-slow): "
+            f"{r['autoscale']}")
     log(f"chaos {label} (run {attempt + 1}, {r['wall_s']:.1f} s): "
         f"recovery_s {r.get('recovery_s')}, train_recovery_s "
         f"{r.get('train_recovery_s', '-')}; {rates}; acked ops "
@@ -4716,14 +4780,14 @@ def phase_chaos(dev) -> dict:
     from multiverso_tpu_torch.utils import config
     keys = ("ps_replay", "ps_timeout", "ps_connect_timeout",
             "ps_reconnect_backoff", "ps_replay_backoff",
-            "ps_replay_backoff_cap")
+            "ps_replay_backoff_cap", "ps_health_timeout")
     saved = {k: config.get_flag(k) for k in keys}
     t0 = time.perf_counter()
     out = {}
     try:
         for name, fn in chaos.SCENARIOS.items():
             out[name] = chaos_run(f"(a) {name}", dev, fn,
-                                  seconds=max(CHAOS_SECONDS * 0.6, 8.0),
+                                  seconds=CHAOS_INPROC_SECONDS,
                                   device=dev)
         t1 = time.perf_counter()
         # the worker processes resolve the card themselves
@@ -5309,6 +5373,545 @@ def tel_cost(later: dict) -> dict:
     return out
 
 
+# cluster: the cluster telemetry plane (telemetry/aggregator.py,
+# signals.py, slo.py, tenants.py; tools/mvtop.py and mvautoscale.py; host
+# code, no kernel of the card). (a) Two ranks in this process on
+# ps_async (a)'s 100,000 x 128 plane, the service starting rank 0's
+# poller itself (stats_poll_interval_s 0.5, metrics_dir set): Zipf-hot
+# traffic from CLU_THREADS client threads, then the record against the
+# shards' stats() exactly, the merged monitors against the ranks' own,
+# the planted hot rows in the top-K, the windowed skew of uniform and
+# of rank-1-only traffic, the rates against the shards' deltas, and the
+# jsonl/prom files; card shards on the Python plane, card shards on the
+# native plane (the C++ server punts them), CPU shards on the native
+# plane (C++ serves). (b) Four ranks, one a process (ps_bench, card
+# shards), read from other processes by mvtop --once --json and
+# mvautoscale --dry-run. (c) Two tenants on card shards: their ops
+# metered exactly, and tenant_add_qps deferring the over-budget one.
+# (d) The costs: a poll's wall time at world 2 and 4, the jsonl bytes a
+# record, and the 1-row add p50/p99 with the poller at 0.5 s against
+# off, in turns (printed, not gated)
+CLU_TABLE = (100_000, 128)
+CLU_HOT = (7, 11, 50_003, 50_011)   # planted hot rows, two a rank
+CLU_SECONDS = 4.0                   # the first run's traffic
+CLU_SECONDS_OTHER = 2.0             # the other two planes' traffic
+CLU_THREADS = 4
+CLU_BATCH = 8
+CLU_POLL_S = 0.5
+CLU_SKEW_S = 1.0                    # each windowed-skew phase
+CLU_POLLS_TIMED = 20
+CLU_W4_SECONDS = 6.0                # the world of 4's drive after warm-up
+# a reader of part (b): started beside the ranks, so that its imports
+# overlap their start-up, it waits for every rank's warm mark and then
+# runs the tool's main with the remaining arguments
+CLU_READER = """
+import importlib, os, sys, time
+tool = importlib.import_module(sys.argv[1])
+rdv, world, end = sys.argv[2], int(sys.argv[3]), time.monotonic() + float(
+    sys.argv[4])
+while not all(os.path.exists(os.path.join(rdv, f"ps_bench_warm.{r}"))
+              for r in range(world)):
+    if time.monotonic() > end:
+        sys.exit(f"{sys.argv[1]}: the ranks never warmed up")
+    time.sleep(0.05)
+sys.exit(tool.main(sys.argv[5:]))
+"""
+CLU_TENANT_QPS = 20.0
+CLU_STORM_S = 2.0
+CLU_COST_TURNS = 3                  # poller on/off turns, each
+CLU_COST_TURN_S = 1.0
+
+
+def clu_traffic(table, seconds: float, pick, threads: int = CLU_THREADS
+                ) -> int:
+    """``threads`` clients adding to and reading batches of
+    ``pick(rng)`` rows for ``seconds``; the ops issued."""
+    import threading
+    counts = [0] * threads
+    stop = time.perf_counter() + seconds
+    dim = table.num_col
+
+    def run(j):
+        rng = np.random.default_rng(1000 + j)
+        vals = np.full((CLU_BATCH, dim), 0.01 * (j + 1), np.float32)
+        while time.perf_counter() < stop:
+            ids = np.unique(pick(rng))
+            table.add_rows(ids, vals[:ids.size])
+            table.get_rows(ids)
+            counts[j] += 2
+
+    th = [threading.Thread(target=run, args=(j,)) for j in range(threads)]
+    for t in th:
+        t.start()
+    for t in th:
+        t.join(timeout=seconds + 120)
+        if t.is_alive():
+            raise AssertionError("cluster: a traffic thread did not finish")
+    table.flush()
+    return sum(counts)
+
+
+def clu_pick_zipf(rows: int):
+    hot = np.asarray(CLU_HOT)
+
+    def pick(rng):
+        ids = rng.integers(0, rows, CLU_BATCH)
+        m = rng.random(CLU_BATCH) < 0.6
+        ids[m] = hot[rng.integers(0, hot.size, int(m.sum()))]
+        return ids
+    return pick
+
+
+def clu_sums(ctxs, name: str) -> dict:
+    st = [c.service._shards[name].stats() for c in ctxs]
+    return {k: sum(int(s.get(k) or 0) for s in st)
+            for k in ("adds", "applies", "gets", "get_bytes", "add_bytes")}
+
+
+def clu_probe_merge(service, world: int):
+    """One poll through ``service``'s one-shot probes, the raw per-rank
+    payloads kept: (stats, merged record)."""
+    from multiverso_tpu_torch.telemetry import aggregator
+
+    def probe_one(r, stats, health):
+        health[r] = service.health(r)
+        stats[r] = service.stats_oneshot(r)
+
+    stats, health = aggregator.probe_all(range(world), probe_one, 30.0)
+    return stats, aggregator.merge_cluster(stats, health, world=world)
+
+
+def clu_check_monitors(stats: dict, rec: dict, label: str) -> int:
+    """Each merged monitor's count against the sum over the answering
+    processes (ranks of one process report one registry: counted once)."""
+    seen, want = set(), {}
+    for r in sorted(stats):
+        st = stats[r]
+        key = ((st.get("addr") or "").rsplit(":", 1)[0], st.get("pid"))
+        if key in seen:
+            continue
+        seen.add(key)
+        for name, m in st.get("monitors", {}).items():
+            want[name] = want.get(name, 0) + int(m.get("count") or 0)
+    got = {n: m["count"] for n, m in rec["monitors"].items()}
+    if got != want:
+        bad = {n: (got.get(n), want.get(n)) for n in set(got) | set(want)
+               if got.get(n) != want.get(n)}
+        raise AssertionError(f"{label}: merged monitor counts are not the "
+                             f"ranks' sums: {bad}")
+    return len(got)
+
+
+def clu_pcts(ms) -> dict:
+    a = np.asarray(ms, np.float64)
+    return {"n": int(a.size), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def clu_world2(shard_dev, plane: str, seconds: float, full: bool) -> dict:
+    """Part (a) on one plane; ``full`` adds the skew phases and part
+    (d)'s poll and add costs."""
+    import tempfile
+    from multiverso_tpu_torch.ps.service import (FileRendezvous, PSContext,
+                                                 PSService)
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    from multiverso_tpu_torch.telemetry import aggregator
+    from multiverso_tpu_torch.tools import dump_metrics
+    from multiverso_tpu_torch.utils import config
+    where = "card" if str(shard_dev).startswith("cuda") else "CPU"
+    label = f"cluster (a) shards on the {where}, {plane} plane"
+    rows, dim = CLU_TABLE
+    out = {"plane": plane, "shards": where}
+    with tempfile.TemporaryDirectory() as tmp:
+        mdir = os.path.join(tmp, "metrics")
+        config.set_flag("ps_native", plane == "native")
+        config.set_flag("stats_poll_interval_s", CLU_POLL_S)
+        config.set_flag("metrics_dir", mdir)
+        rdv = FileRendezvous(os.path.join(tmp, "rdv"))
+        ctxs = [PSContext(r, 2, PSService(r, 2, rdv), device=shard_dev)
+                for r in range(2)]
+        try:
+            # the first service (rank 0) started the poller itself
+            agg = aggregator.global_aggregator()
+            if (agg is None or agg.service is not ctxs[0].service
+                    or agg._thread is None or agg.interval_s != CLU_POLL_S):
+                raise AssertionError(f"{label}: rank 0's service did not "
+                                     "start the poller")
+            ts = [AsyncMatrixTable(rows, dim, name="clu", ctx=c)
+                  for c in ctxs]
+            registered = ts[0]._shard._native_ref is not None
+            if registered != (plane == "native" and where == "CPU"):
+                raise AssertionError(f"{label}: the shard's registration "
+                                     "with the C++ server is wrong")
+            t0 = time.perf_counter()
+            ops = clu_traffic(ts[0], seconds, clu_pick_zipf(rows))
+            dt = time.perf_counter() - t0
+            agg.stop(final=False)   # quiesced: the poller too
+            polls_bg = len(agg.history())
+            rec = agg.poll_once()
+            tab, sums = rec["tables"]["clu"], clu_sums(ctxs, "clu")
+            for k in ("adds", "applies", "gets", "get_bytes", "add_bytes"):
+                if tab[k] != sums[k]:
+                    raise AssertionError(f"{label}: the record's {k} "
+                                         f"{tab[k]} is not the shards' sum "
+                                         f"{sums[k]}")
+            stats, prec = clu_probe_merge(ctxs[0].service, 2)
+            nmon = clu_check_monitors(stats, prec, label)
+            top = [k for k, _c, _e in
+                   rec.get("hotkeys", {}).get("clu", {}).get("top", [])[:8]]
+            if not registered and not set(CLU_HOT) <= set(top):
+                raise AssertionError(f"{label}: planted hot rows {CLU_HOT} "
+                                     f"not in the top-8 {top}")
+            out.update(ops=ops, seconds=dt, polls_background=polls_bg,
+                       record_tables=tab["adds"], sums=sums,
+                       monitors_checked=nmon, top8=top,
+                       skew=tab["skew"], registered=registered)
+            log(f"{label}: {ops} ops from {CLU_THREADS} threads in "
+                f"{dt:.2f} s, {polls_bg} background polls; record = shards' "
+                f"stats() exactly {sums}; {nmon} merged monitors = the "
+                f"ranks' sums; top-8 {top}" + (" (the C++ server serves "
+                f"every op: no sketch)" if registered else "")
+                + f"; cumulative skew {tab['skew']}")
+            if full:
+                out.update(clu_skew_and_rates(label, agg, ctxs, ts[0], rows))
+                out.update(clu_costs(label, agg, ctxs, ts[0]))
+        finally:
+            for c in ctxs:
+                c.close()   # rank 0's close: the poller's final poll
+        lines = dump_metrics.load_records(os.path.join(mdir,
+                                                       "cluster.jsonl"))
+        size = os.path.getsize(os.path.join(mdir, "cluster.jsonl"))
+        if (len(lines) != len(agg.history())
+                or len(lines) < seconds / CLU_POLL_S - 1
+                or any(r.get("kind") != "cluster" for r in lines)):
+            raise AssertionError(f"{label}: cluster.jsonl holds "
+                                 f"{len(lines)} records for "
+                                 f"{len(agg.history())} polls")
+        prom = dump_metrics.load_prom(os.path.join(mdir, "cluster.prom"))
+        if not any(n == "mv_shard_skew" and lb.get("table") == "clu"
+                   and lb.get("rank") == "cluster" for n, lb, _v in prom):
+            raise AssertionError(f"{label}: cluster.prom has no "
+                                 "mv_shard_skew of the table")
+        out.update(jsonl_records=len(lines),
+                   jsonl_bytes_per_record=size / len(lines),
+                   prom_samples=len(prom))
+        log(f"{label}: cluster.jsonl {len(lines)} records (every poll and "
+            f"the final one), {size / len(lines):.0f} bytes a record; "
+            f"cluster.prom {len(prom)} samples parse ({card_label()})")
+    return out
+
+
+def clu_skew_and_rates(label: str, agg, ctxs, table, rows: int) -> dict:
+    """The windowed skew of uniform traffic (about 1) and of traffic on
+    rank 1's rows only (2 at world 2), and the applies/s of the second
+    window against the shards' stats() deltas over the polls' interval."""
+    res = {}
+    for name, pick in (
+            ("uniform", lambda rng: rng.integers(0, rows, CLU_BATCH)),
+            ("rank1", lambda rng: rng.integers(rows // 2, rows,
+                                               CLU_BATCH))):
+        a = agg.poll_once()
+        s0 = clu_sums(ctxs, "clu")
+        clu_traffic(table, CLU_SKEW_S, pick)
+        b = agg.poll_once()
+        s1 = clu_sums(ctxs, "clu")
+        r = b["rates"]["clu"]
+        dt = b["ts"] - a["ts"]
+        want = (s1["applies"] - s0["applies"]) / dt
+        res[f"skew_{name}"] = r["skew_window"]
+        res[f"applies_per_s_{name}"] = r["applies_per_s"]
+        if abs(r["applies_per_s"] - want) > 0.006:
+            raise AssertionError(f"{label}: applies/s {r['applies_per_s']}"
+                                 f" against the shards' {want:.3f}")
+    if not res["skew_uniform"] <= 1.1 or res["skew_rank1"] != 2.0:
+        raise AssertionError(f"{label}: windowed skew uniform "
+                             f"{res['skew_uniform']}, rank 1 only "
+                             f"{res['skew_rank1']} (want ~1 and 2)")
+    log(f"{label}: windowed skew {res['skew_uniform']} (uniform) and "
+        f"{res['skew_rank1']} (rank 1's rows only); applies/s "
+        f"{res['applies_per_s_uniform']} and {res['applies_per_s_rank1']}"
+        f" = the shards' deltas over the polls' interval")
+    return res
+
+
+def clu_costs(label: str, agg, ctxs, table) -> dict:
+    """Part (d) at world 2: one poll's wall time, and the 1-row add's
+    p50/p99 to a row of rank 1 with a poller at CLU_POLL_S against none,
+    in turns."""
+    from multiverso_tpu_torch.telemetry import aggregator
+    polls = []
+    for _ in range(CLU_POLLS_TIMED):
+        t0 = time.perf_counter()
+        agg.poll_once()
+        polls.append((time.perf_counter() - t0) * 1e3)
+    lat = {"on": [], "off": []}
+    one = np.ones((1, table.num_col), np.float32)
+    row = [CLU_TABLE[0] - 1]
+    for turn in range(2 * CLU_COST_TURNS):
+        arm = "on" if turn % 2 == 0 else "off"
+        poller = (aggregator.ClusterAggregator(ctxs[0].service,
+                                               CLU_POLL_S).start()
+                  if arm == "on" else None)
+        try:
+            end = time.perf_counter() + CLU_COST_TURN_S
+            while time.perf_counter() < end:
+                t0 = time.perf_counter()
+                table.add_rows(row, one)
+                lat[arm].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            if poller is not None:
+                poller.stop(final=False)
+    res = {"poll_w2": clu_pcts(polls),
+           "add_poller_on": clu_pcts(lat["on"]),
+           "add_poller_off": clu_pcts(lat["off"])}
+    log(f"{label} (d): one poll at world 2 p50 "
+        f"{res['poll_w2']['p50_ms']:.3f} ms, p99 "
+        f"{res['poll_w2']['p99_ms']:.3f} ms ({CLU_POLLS_TIMED} polls); "
+        f"1-row add with the poller at {CLU_POLL_S} s: p50 "
+        f"{res['add_poller_on']['p50_ms']:.3f} ms, p99 "
+        f"{res['add_poller_on']['p99_ms']:.3f} ms ({res['add_poller_on']['n']}"
+        f" adds); off: p50 {res['add_poller_off']['p50_ms']:.3f} ms, p99 "
+        f"{res['add_poller_off']['p99_ms']:.3f} ms "
+        f"({res['add_poller_off']['n']} adds); {CLU_COST_TURNS} turns of "
+        f"{CLU_COST_TURN_S} s each ({card_label()})")
+    return res
+
+
+def clu_world4(dev) -> dict:
+    """Part (b): ps_bench's four ranks, one a process, shards on the
+    card; while they drive, mvtop --once --json and mvautoscale
+    --dry-run read them from two more processes, and this process times
+    its own polls (part (d) at world 4) and holds one poll's merged
+    monitors to the four payloads' sums."""
+    import tempfile
+    from multiverso_tpu_torch.ps import service as svc
+    from multiverso_tpu_torch.telemetry import aggregator
+    from multiverso_tpu_torch.tools import mvtop
+    repo = os.path.dirname(os.path.abspath(__file__))
+    world = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        rdv = os.path.join(tmp, "rdv")
+        cmd = [sys.executable, "-m", "multiverso_tpu_torch.examples.ps_bench",
+               "--rdv", rdv, "--world", str(world), "--seconds",
+               str(CLU_W4_SECONDS), "--device", str(dev), "--timeout",
+               str(PSN_TIMEOUT)]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=repo,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(world)]
+        tools = {"mvtop": ["multiverso_tpu_torch.tools.mvtop", "--once",
+                           "--json"],
+                 "mvautoscale": ["multiverso_tpu_torch.tools.mvautoscale",
+                                 "--dry-run", "--json"]}
+        readers = [(k, subprocess.Popen(
+            [sys.executable, "-c", CLU_READER, a[0], rdv, str(world),
+             str(PSN_TIMEOUT)] + a[1:] + ["--rdv", rdv, "--world",
+                                          str(world)],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)) for k, a in tools.items()]
+        try:
+            deadline = time.monotonic() + PSN_TIMEOUT
+            while not all(os.path.exists(os.path.join(
+                    rdv, f"ps_bench_warm.{r}")) for r in range(world)):
+                if time.monotonic() > deadline or any(
+                        p.poll() is not None for p in procs):
+                    raise AssertionError("cluster (b): the ranks never "
+                                         "warmed up")
+                time.sleep(0.05)
+            t_warm = time.perf_counter()
+            addrs = mvtop.read_addrs(rdv, world)
+            polls = []
+            for _ in range(CLU_POLLS_TIMED):
+                t0 = time.perf_counter()
+                rec = mvtop.poll(addrs, 5.0)
+                polls.append((time.perf_counter() - t0) * 1e3)
+                if rec["polled"] != world:
+                    raise AssertionError(f"cluster (b): a poll reached "
+                                         f"{rec['polled']} of {world} ranks")
+
+            def probe_one(r, stats, health):
+                health[r] = svc.oneshot_probe(addrs[r], svc.MSG_HEALTH, 5.0)
+                stats[r] = svc.oneshot_probe(addrs[r], svc.MSG_STATS, 5.0)
+
+            stats, health = aggregator.probe_all(range(world), probe_one,
+                                                 30.0)
+            nmon = clu_check_monitors(
+                stats, aggregator.merge_cluster(stats, health, world=world),
+                "cluster (b)")
+            outs = {k: p.communicate(timeout=120) for k, p in readers}
+            t_read = time.perf_counter() - t_warm
+            # the readers must have read a live cluster, not its end
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError(f"cluster (b): a rank ended before "
+                                     f"the readers did ({t_read:.1f} s "
+                                     f"after the warm mark)")
+            rcs = {k: p.returncode for k, p in readers}
+            res = [p.communicate(timeout=PSN_TIMEOUT) for p in procs]
+        finally:
+            for p in procs + [p for _k, p in readers]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for r, (p, (so, se)) in enumerate(zip(procs, res)):
+        lines = [l for l in so.splitlines() if l.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"cluster (b) rank {r} failed "
+                                 f"({p.returncode}):\n{se[-3000:]}")
+        if r == 0 and not json.loads(lines[-1][len("RESULT "):])["exact"]:
+            raise AssertionError("cluster (b): the full Get is not the "
+                                 "numpy model's")
+    top = json.loads(outs["mvtop"][0]) if rcs["mvtop"] == 0 else {}
+    tab = top.get("tables", {}).get("ps_bench", {})
+    if (rcs["mvtop"] != 0 or top.get("polled") != world
+            or sorted(top.get("ranks", {})) != [str(r) for r in range(world)]
+            or any(e.get("status") == "unreachable"
+                   for e in top["ranks"].values())
+            or len(tab.get("shards", {})) != world):
+        raise AssertionError(f"cluster (b): mvtop exited {rcs['mvtop']}: "
+                             f"{outs['mvtop'][0][:500]}"
+                             f"{outs['mvtop'][1][-2000:]}")
+    verdict = (json.loads(outs["mvautoscale"][0])
+               if rcs["mvautoscale"] == 0 else {})
+    if rcs["mvautoscale"] != 0 or verdict.get("action") != "hold":
+        raise AssertionError(f"cluster (b): mvautoscale exited "
+                             f"{rcs['mvautoscale']}: "
+                             f"{outs['mvautoscale'][0][:500]}"
+                             f"{outs['mvautoscale'][1][-2000:]}")
+    out = {"poll_w4": clu_pcts(polls), "monitors_checked": nmon,
+           "mvtop_ranks": len(top["ranks"]), "mvtop_adds": tab.get("adds"),
+           "mvtop_skew": tab.get("skew"), "autoscale": verdict,
+           "readers_s": t_read}
+    where = "the card" if dev.type == "cuda" else str(dev)
+    log(f"cluster (b) world of 4, one rank a process, shards on {where}: "
+        f"mvtop --once --json exit 0 with {world} ranks ok, ps_bench "
+        f"{tab.get('adds')} adds over {world} shards, skew "
+        f"{tab.get('skew')}; mvautoscale --dry-run: {verdict['action']} "
+        f"({verdict['reason']}); both read {t_read:.1f} s after the warm "
+        f"mark; {nmon} merged monitors = the 4 payloads' sums; one poll at "
+        f"world 4 p50 {out['poll_w4']['p50_ms']:.3f} ms, p99 "
+        f"{out['poll_w4']['p99_ms']:.3f} ms ({CLU_POLLS_TIMED} polls, from "
+        f"this process under the ranks' traffic; {card_label()})")
+    return out
+
+
+def clu_tenants(dev) -> dict:
+    """Part (c): two tenants on card shards; each tenant's ops metered
+    exactly by the owner's shard (and in the record's wire block), and
+    tenant_add_qps deferring the over-budget tenant's windowed adds."""
+    import tempfile
+    from multiverso_tpu_torch.ps.service import (FileRendezvous, PSContext,
+                                                 PSService)
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    from multiverso_tpu_torch.serving.admission import TokenBucket
+    from multiverso_tpu_torch.telemetry import aggregator, tenants
+    from multiverso_tpu_torch.utils import config
+    label = f"cluster (c) tenants, shards on {dev}"
+    rows, dim = 1000, 16
+    tenants.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        rdv = FileRendezvous(os.path.join(tmp, "rdv"))
+        ctxs = [PSContext(r, 2, PSService(r, 2, rdv), device=dev)
+                for r in range(2)]
+        try:
+            plain = [AsyncMatrixTable(rows, dim, name="clt", ctx=c)
+                     for c in ctxs]
+            one = np.ones((1, dim), np.float32)
+            plan = {"a": (30, 10), "b": (20, 5)}   # adds, gets
+            for tn, (na, ng) in plan.items():
+                with tenants.tenant_scope(tn):
+                    for i in range(na):
+                        plain[0].add_rows([rows // 2 + i], one)
+                    for _ in range(ng):
+                        plain[0].get_rows([rows - 1])
+            plain[0].flush()
+            meter = ctxs[1].service._shards["clt"].stats()["tenants"]
+            rec = aggregator.ClusterAggregator(ctxs[0].service).poll_once()
+            wire = rec["tenants"]["wire"]
+            for tn, (na, ng) in plan.items():
+                if meter[tn]["ops"] != na + ng or wire[tn]["ops"] != na + ng:
+                    raise AssertionError(f"{label}: tenant {tn}'s ops "
+                                         f"{meter[tn]}, record {wire[tn]}; "
+                                         f"want {na + ng}")
+            # the budget: one token bucket per (table, tenant) at the
+            # send window
+            config.set_flag("tenant_add_qps", CLU_TENANT_QPS)
+            win = [AsyncMatrixTable(rows, dim, name="clw", ctx=c,
+                                    **({"send_window_ms": 1.0} if r == 0
+                                       else {}))
+                   for r, c in enumerate(ctxs)]
+            n = {"storm": 0, "quiet": 0}
+            t0 = time.perf_counter()
+            with tenants.tenant_scope("storm"):
+                while time.perf_counter() - t0 < CLU_STORM_S:
+                    win[0].add_rows_async([rows - 2], one)
+                    n["storm"] += 1
+            T = time.perf_counter() - t0
+            with tenants.tenant_scope("quiet"):
+                for _ in range(5):
+                    win[0].add_rows_async([rows - 3], one)
+                    n["quiet"] += 1
+            win[0].flush()
+            got = win[0].get_rows([rows - 2, rows - 3])[:, 0]
+            led = tenants.LEDGER.stats_snapshot()["tables"]["clw"]
+            deferred = {tn: led.get(tn, {}).get("deferred", 0) for tn in n}
+            admitted = n["storm"] - deferred["storm"]
+            burst = TokenBucket(CLU_TENANT_QPS).burst
+            bound = burst + CLU_TENANT_QPS * T
+            if (not deferred["storm"] or deferred["quiet"]
+                    or not burst <= admitted <= bound + 1
+                    or got.tolist() != [float(n["storm"]),
+                                        float(n["quiet"])]):
+                raise AssertionError(
+                    f"{label}: storm {n['storm']} adds in {T:.2f} s, "
+                    f"deferred {deferred}, admitted {admitted} (bound "
+                    f"{bound:.1f}), rows {got.tolist()}")
+        finally:
+            config.set_flag("tenant_add_qps", 0.0)
+            tenants.reset()
+            for c in ctxs:
+                c.close()
+    log(f"{label}: ops metered exactly (a {meter['a']['ops']}, b "
+        f"{meter['b']['ops']}; the record's wire block the same); storm "
+        f"{n['storm']} windowed adds in {T:.2f} s at tenant_add_qps "
+        f"{CLU_TENANT_QPS}: {admitted} admitted (bound burst {burst:.0f} + "
+        f"qps x T = {bound:.1f}), {deferred['storm']} deferred and still "
+        f"applied (rows = the adds); quiet tenant 0 deferred")
+    return {"meter": {tn: meter[tn] for tn in plan}, "storm_adds": n["storm"],
+            "storm_s": T, "admitted": admitted, "deferred": deferred,
+            "bound": bound}
+
+
+def phase_cluster(dev) -> dict:
+    from multiverso_tpu_torch.telemetry import aggregator
+    from multiverso_tpu_torch.utils import config
+    keys = ("ps_native", "stats_poll_interval_s", "metrics_dir",
+            "ps_timeout", "tenant_add_qps", "ps_health_timeout")
+    saved = {k: config.get_flag(k) for k in keys}
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        config.set_flag("ps_timeout", 60.0)
+        out["card_python"] = clu_world2(dev, "python", CLU_SECONDS, True)
+        out["card_native"] = clu_world2(dev, "native", CLU_SECONDS_OTHER,
+                                        False)
+        out["cpu_native"] = clu_world2("cpu", "native", CLU_SECONDS_OTHER,
+                                       False)
+        config.set_flag("stats_poll_interval_s", 0.0)
+        config.set_flag("metrics_dir", "")
+        t1 = time.perf_counter()
+        out["world4"] = clu_world4(dev)
+        t2 = time.perf_counter()
+        out["tenants"] = clu_tenants(dev)
+    finally:
+        aggregator.stop_global(final=False)
+        for k, v in saved.items():
+            config.set_flag(k, v)
+    log(f"cluster phase: {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{time.perf_counter() - t2:.1f} s)")
+    return out
+
+
 def phase_telemetry(dev, we_world2: dict, later: dict) -> dict:
     t0 = time.perf_counter()
     out = {"we_profile": tel_we_profile(we_world2)}
@@ -5402,17 +6005,27 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    walls = {}   # each phase's wall seconds, printed at the end
+
+    def mark(name: str) -> None:
+        walls[name] = round(time.perf_counter() - t_start - sum(
+            walls.values()), 1)
 
     phase_build()
+    mark("build")
     records = phase_kernel(torch.device("cuda", 0))
+    mark("kernel")
     psn_build()   # the native PS library's first use in this run
     mv.init()   # the card: no device argument
     dev = mv.device()
     shared = phase_ps(dev, LAYERS)
+    mark("ps")
     paths = {"request": {"flash_fwd": phase_request(dev, shared, LAYERS,
                                                     BATCHES)}}
+    mark("request")
     torch.cuda.empty_cache()   # the request model is gone
     paths["train"] = phase_train(dev, shared, LAYERS)
+    mark("train")
     del shared
     torch.cuda.empty_cache()   # the LM is gone
     # the WordEmbedding path, driven with the counts at 0: it runs no
@@ -5420,6 +6033,7 @@ def main(argv=None) -> int:
     from multiverso_tpu_torch.ops import attention_kernels as ak
     ak.reset_launch_counts()
     phase_we(dev)
+    mark("we")
     paths["we"] = ak.launch_counts()
     log(f"we launches {paths['we']}")
     if any(paths["we"].values()):
@@ -5427,6 +6041,7 @@ def main(argv=None) -> int:
     # the PS block path, counted the same way: no kernel of the port either
     ak.reset_launch_counts()
     phase_we_ps(dev)
+    mark("we_ps")
     paths["we_ps"] = ak.launch_counts()
     log(f"we_ps launches {paths['we_ps']}")
     if any(paths["we_ps"].values()):
@@ -5436,6 +6051,7 @@ def main(argv=None) -> int:
         # LogisticRegression, counted the same way: no kernel of the port
         ak.reset_launch_counts()
         lr = phase_lr(dev, lr_tmp)
+        mark("lr")
         paths["lr"] = ak.launch_counts()
         log(f"lr launches {paths['lr']}")
         if any(paths["lr"].values()):
@@ -5444,6 +6060,7 @@ def main(argv=None) -> int:
         # the async PS plane, counted the same way: no kernel of the port
         ak.reset_launch_counts()
         psa = phase_ps_async(dev, lr["data"])
+        mark("ps_async")
         paths["ps_async"] = ak.launch_counts()
         log(f"ps_async launches {paths['ps_async']}")
         if any(paths["ps_async"].values()):
@@ -5462,9 +6079,11 @@ def main(argv=None) -> int:
                         ("ps_window", phase_ps_window),
                         ("serving", phase_serving),
                         ("chaos", phase_chaos),
-                        ("ps_native", phase_ps_native)):
+                        ("ps_native", phase_ps_native),
+                        ("cluster", phase_cluster)):
         ak.reset_launch_counts()
         later[name] = phase(dev)
+        mark(name)
         paths[name] = ak.launch_counts()
         log(f"{name} launches {paths[name]}")
         if any(paths[name].values()):
@@ -5473,6 +6092,7 @@ def main(argv=None) -> int:
     # B1-B3 once a layer
     ak.reset_launch_counts()
     phase_telemetry(dev, psa["we_world2"], later)
+    mark("telemetry")
     paths["telemetry"] = ak.launch_counts()
     log(f"telemetry launches {paths['telemetry']}")
     if paths["telemetry"] != {k: 2 * LAYERS for k in paths["telemetry"]}:
@@ -5484,7 +6104,7 @@ def main(argv=None) -> int:
         by_path = {p: c.get(rec["name"], 0) for p, c in paths.items()}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; by phase (s) {walls}")
     log(f"card: {smi}")   # again: the run's first lines scroll away
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -7,16 +7,24 @@ the tool's in-run gates.
 
 * ``partition_heal`` — a one-way client→shard partition for seconds, then
   heal: every add issued before and during the cut lands exactly once
-  (replay), and add throughput recovers to ≥90% of pre-fault.
+  (replay), and add throughput recovers to ≥90% of pre-fault. The SLO
+  sentinel's availability objective fires during the cut and clears
+  after the heal.
 * ``dup_reorder`` — duplicate and bounded-reorder injection on the
   windowed add frames: the shard's sequence channels apply every frame
   exactly once (ledger vs the acked-op oracle, bit for bit), with the
-  injected counts nonzero so a disarmed plane cannot pass.
+  injected counts nonzero so a disarmed plane cannot pass; the sentinel
+  stays quiet (no stall, no episode).
 * ``slow_shard_shed`` — slow-serve injection on one shard while a
   ReplicaPool serves a read storm: no served read exceeds the staleness
-  bound, and served QPS recovers after the heal.
+  bound, served QPS recovers after the heal, the autoscaler's verdict
+  off the signal bus mid-slow is GROW, and the sentinel ends clear.
 * ``replica_kill`` — one pool member killed mid-storm: the pool demotes
   it, routes around, activates the warm spare, and served QPS recovers.
+* ``noisy_neighbor`` — two tenants share one pool, each over its own
+  per-tenant budget: the storm tenant is capped at its budget, the
+  victim's p99 holds, and the ledger's sweep opens exactly one
+  noisy-neighbor episode and clears it.
 * ``combined`` — two OS processes (each shard on its own process's
   device): SIGKILL of the rank-1 shard and a replica kill at the same
   instant, under training writes and an inference storm; the parent's
@@ -35,10 +43,11 @@ multiverso_tpu_torch.examples.chaos worker ...``, never as a fork of a
 process that holds a CUDA context.
 
 The shared math (``rate_buckets``, ``_recovery_core``: the 90% bar over a
-1 s rolling window) and every gate below are the tool's. Not here
-(ROADMAP.md §A "Telemetry and tools"): the SLO sentinel's gates and the
-autoscaler's verdict (``slo_*``, ``autoscale_grow``), and the
-``noisy_neighbor`` scenario, which needs per-tenant budgets.
+1 s rolling window) and every gate below are the tool's. The sentinel's
+scenarios drive an explicit in-process aggregator (nothing polls in the
+background) and disarm the process-global sentinel and signal bus on
+exit; the noisy-neighbor sweeps run only on the scenario's own
+``stats_snapshot`` pulls.
 
     python -m multiverso_tpu_torch.examples.chaos [seconds] [rows] [dim]
         [threads] [--scenario NAME] [--device cpu]
@@ -333,60 +342,296 @@ def _exactly_once(led: dict) -> bool:
 
 
 # ---------------------------------------------------------------------- #
+# SLO sentinel plumbing (tools/bench_chaos.py): scenarios arm a
+# scenario-scoped spec and drive an EXPLICIT in-process aggregator —
+# nothing else in this process polls, so the judge schedule (and hence
+# the episode lifecycle) is deterministic
+# ---------------------------------------------------------------------- #
+AVAIL_OBJECTIVE = {
+    "name": "chaos_availability", "kind": "availability",
+    "table": TABLE, "target": 0.9, "min": 1.0}
+
+
+_health_saved: list = []   # ps_health_timeout before each _arm_sentinel
+
+
+def _arm_sentinel(w: "World", objectives,
+                  fast_window_s: float = 3.0):
+    """Reset sentinel + bus, arm the scenario spec, and return
+    (aggregator, metrics_dir). fast_burn=1.0 (one bad poll in the fast
+    window pages — the scenario owns the schedule), slow_burn low so
+    the 60 s slow window confirms rather than delays. Pair with
+    :func:`_disarm_sentinel` in the scenario's finally — the matrix
+    (and the tests) share one process."""
+    from multiverso_tpu_torch.telemetry import aggregator
+    from multiverso_tpu_torch.telemetry import signals as sgn
+    from multiverso_tpu_torch.telemetry import slo as slo_mod
+    from multiverso_tpu_torch.utils import config
+    slo_mod.reset()
+    sgn.reset()
+    # probes must stay snappy while a partition wedges the data plane
+    # (one poll is bounded by ~2 health timeouts); _disarm_sentinel puts
+    # the caller's timeout back
+    _health_saved.append(config.get_flag("ps_health_timeout"))
+    config.set_flag("ps_health_timeout", 1.0)
+    slo_mod.arm({"fast_window_s": fast_window_s, "slow_window_s": 60.0,
+                 "fast_burn": 1.0, "slow_burn": 0.1,
+                 "objectives": list(objectives)})
+    mdir = os.path.join(w.tmp, "metrics")
+    agg = aggregator.ClusterAggregator(w.ctx0.service, directory=mdir)
+    return agg, mdir
+
+
+def _disarm_sentinel() -> None:
+    """Scenario-exit cleanup: a still-armed process-global sentinel
+    would judge (and tag ``slo`` blocks onto) every later poll in this
+    process, and so would the 1 s health timeout."""
+    from multiverso_tpu_torch.telemetry import signals as sgn
+    from multiverso_tpu_torch.telemetry import slo as slo_mod
+    from multiverso_tpu_torch.utils import config
+    slo_mod.reset()
+    sgn.reset()
+    if _health_saved:
+        config.set_flag("ps_health_timeout", _health_saved.pop())
+
+
+def _sleep_poll(agg, seconds: float, cadence: float = 0.5,
+                seqs: dict = None) -> None:
+    """Sleep ``seconds`` while polling every ``cadence`` — each poll is
+    one sentinel judgment. ``seqs``: scan the flight recorder for SLO
+    events right after EVERY poll (post-heal traffic wraps the ring in
+    well under a phase)."""
+    end = time.monotonic() + float(seconds)
+    while True:
+        left = end - time.monotonic()
+        if left <= 0:
+            return
+        time.sleep(min(cadence, left))
+        try:
+            agg.poll_once()
+        except Exception:   # noqa: BLE001 — telemetry never kills chaos
+            pass
+        if seqs is not None:
+            _scan_slo_events(seqs)
+
+
+def _scan_slo_events(seqs: dict) -> None:
+    """Ring-scan dedup by seq (the ring wraps many times in a matrix
+    run, so scan at every poll, not once at the end)."""
+    from multiverso_tpu_torch.telemetry import flightrec as flight
+    for s in flight.RECORDER.snapshot():
+        if s[2] in (flight.EV_SLO_FIRED, flight.EV_SLO_CLEARED):
+            seqs[s[0]] = {"ev": flight.EV_NAMES.get(s[2]),
+                          "note": s[7]}
+
+
+def _read_alerts(mdir: str) -> list:
+    """alerts.jsonl lines (the sentinel's episode log) as dicts."""
+    out = []
+    try:
+        with open(os.path.join(mdir, "alerts.jsonl")) as f:
+            for ln in f:
+                ln = ln.strip()
+                if ln:
+                    out.append(json.loads(ln))
+    except (OSError, ValueError):
+        pass
+    return out
+
+
+def _slo_block(agg) -> dict:
+    """The scenario result's ``slo`` summary: per-objective episode
+    counts, the eval count and what is firing."""
+    snap = ((agg.last() or {}).get("slo")) or {}
+    return {
+        "episodes": {name: int(o.get("episodes") or 0)
+                     for name, o in (snap.get("objectives")
+                                     or {}).items()},
+        "evals": snap.get("evals", 0),
+        "firing": list(snap.get("firing") or []),
+    }
+
+
+def _episodes(mdir: str) -> list:
+    """Each alert line reduced to what the chaos phase prints: the
+    objective, fired or cleared, the burns and the judging poll's
+    wall clock."""
+    return [{"objective": a.get("objective"), "kind": a.get("kind"),
+             "burn_fast": a.get("burn_fast"),
+             "burn_slow": a.get("burn_slow"), "ts": a.get("ts")}
+            for a in _read_alerts(mdir)]
+
+
+class TenantReader:
+    """One tenant's paced read loop against the pool (the noisy-neighbor
+    scenario's unit): every admitted read's wall latency and served age
+    is per-tenant evidence for the p99/staleness gates, every shed is
+    the per-tenant budget doing its job. ``pace_s`` bounds the ATTEMPT
+    rate (sheds sleep it too)."""
+
+    def __init__(self, pool, rows: int, tenant: str,
+                 pace_s: float = 0.0, n_threads: int = 1):
+        self.pool = pool
+        self.tenant = tenant
+        self._stop = threading.Event()
+        self.lat = [[] for _ in range(n_threads)]   # (wall_ts, ms)
+        self.shed = [0] * n_threads
+        self.refused = [0] * n_threads
+        self.over_bound = [0] * n_threads
+        self.max_age = [0.0] * n_threads
+        hot = np.arange(min(8, rows))
+
+        def run(j):
+            from multiverso_tpu_torch.serving.admission import SheddingError
+            rng = np.random.default_rng(97 + j)
+            while not self._stop.is_set():
+                ids = np.unique(hot[rng.integers(0, len(hot), 3)])
+                t0 = time.perf_counter()
+                try:
+                    _rows, age = self.pool.get_rows(
+                        ids, with_age=True, tenant=self.tenant)
+                except SheddingError:
+                    self.shed[j] += 1
+                    time.sleep(pace_s or 0.001)
+                    continue
+                except Exception:   # noqa: BLE001 — outage/over bound
+                    self.refused[j] += 1
+                    time.sleep(0.02)
+                    continue
+                ms = (time.perf_counter() - t0) * 1e3
+                self.max_age[j] = max(self.max_age[j], age)
+                if age > self.pool.staleness_s + 1e-9:
+                    self.over_bound[j] += 1
+                self.lat[j].append((time.time(), ms))
+                if pace_s:
+                    time.sleep(pace_s)
+
+        self._threads = [threading.Thread(target=run, args=(j,),
+                                          daemon=True)
+                         for j in range(n_threads)]
+
+    def start(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=30)
+
+    def all_lat(self):
+        return [p for l in self.lat for p in l]
+
+    def report(self):
+        return {
+            "served": int(sum(len(l) for l in self.lat)),
+            "shed": int(sum(self.shed)),
+            "refused": int(sum(self.refused)),
+            "max_served_age_s": round(max(self.max_age), 3),
+            "over_bound_serves": int(sum(self.over_bound)),
+        }
+
+
+# ---------------------------------------------------------------------- #
 # in-process scenarios
 # ---------------------------------------------------------------------- #
 def scenario_partition_heal(seconds: float = 10.0, tmp: str = "",
                             device=None) -> dict:
-    """One-way 0→1 partition under windowed-add traffic, then heal."""
+    """One-way 0→1 partition under windowed-add traffic, then heal.
+    The SLO sentinel judges a chaos-table availability objective on
+    every explicit poll: the cut stalls every add thread on its shard-1
+    row while replay retains their frames — zero windowed progress
+    against provably pent demand — so the objective must FIRE during
+    the cut and CLEAR after the heal, on both evidence surfaces (the
+    flight recorder and alerts.jsonl)."""
     from multiverso_tpu_torch.ps import faults
     w = World(tmp, rows=32, dim=8, device=device)
+    slo_seqs: dict = {}
     try:
         rep0 = _replay_counts()
+        agg, mdir = _arm_sentinel(w, [AVAIL_OBJECTIVE])
         plane = faults.arm({"seed": 11, "rules": [
             {"kind": "partition", "src": 0, "dst": 1,
              "phase": "cut"}]}, rank=0)
         tr = Traffic(w, n_threads=3).start()
         pre_s = min(max(seconds * 0.3, 2.5), 4.0)
+        # >= 2.2 s cut: the judge needs two in-cut polls (the first
+        # cut interval can still hold pre-cut acks)
         cut_s = max(min(max(seconds * 0.2, 1.5), 3.0), 2.2)
-        time.sleep(pre_s)
+        _sleep_poll(agg, pre_s, seqs=slo_seqs)
         fault_wall = time.time()
         plane.set_phase("cut")
-        time.sleep(cut_s)
+        _sleep_poll(agg, cut_s, seqs=slo_seqs)
         heal_wall = time.time()
         plane.set_phase(None)
-        time.sleep(max(seconds - pre_s - cut_s, 4.5))
+        _sleep_poll(agg, max(seconds - pre_s - cut_s, 4.5),
+                    seqs=slo_seqs)
+        _scan_slo_events(slo_seqs)
         tr.stop()
         led = tr.ledger()
         pre, post, rec = recovery_from_stamps(
             tr.all_stamps(), tr.t_start, tr.t_end, fault_wall,
             recover_from=heal_wall)
         inj = plane.stats()["injected"]
+        alerts = _read_alerts(mdir)
+        a_fired = [a for a in alerts
+                   if a.get("kind") == "slo.fired"
+                   and a.get("objective") == "chaos_availability"]
+        a_cleared = [a for a in alerts
+                     if a.get("kind") == "slo.cleared"
+                     and a.get("objective") == "chaos_availability"]
+        ring_fired = sum(1 for e in slo_seqs.values()
+                         if e["ev"] == "slo.fired")
+        ring_cleared = sum(1 for e in slo_seqs.values()
+                           if e["ev"] == "slo.cleared")
         return {
             "recovery_s": rec, "recovered_to_90pct": rec is not None,
             "pre_fault_ops_per_s": round(pre, 1),
             "post_fault_ops_per_s": round(post, 1),
             "partition_s": round(heal_wall - fault_wall, 2),
+            "fault_wall": fault_wall, "heal_wall": heal_wall,
             "injected": inj,
             "replay": _delta(_replay_counts(), rep0),
+            "slo": {**_slo_block(agg),
+                    "alerts_fired": len(a_fired),
+                    "alerts_cleared": len(a_cleared),
+                    "ring_fired": ring_fired,
+                    "ring_cleared": ring_cleared,
+                    "episodes_log": _episodes(mdir)},
             **led,
             "gates": {
                 "exactly_once": _exactly_once(led),
                 "recovery": rec is not None,
                 "injected_nonzero": inj.get("partition", 0) > 0,
+                # the alert carries the judging poll's wall clock: the
+                # fire must land inside the cut (small slack for the
+                # poll that straddles the heal), the clear after it
+                "slo_fired_during_cut": ring_fired > 0 and any(
+                    fault_wall <= (a.get("ts") or 0)
+                    <= heal_wall + 0.75 for a in a_fired),
+                "slo_cleared_after_heal": ring_cleared > 0 and any(
+                    (a.get("ts") or 0) >= heal_wall
+                    for a in a_cleared),
             },
         }
     finally:
+        _disarm_sentinel()
         w.close()
 
 
 def scenario_dup_reorder(seconds: float = 8.0, tmp: str = "",
                          device=None) -> dict:
     """Duplicate and bounded-reorder injection on the replay-stamped add
-    frames: the shard's sequence channels must hold exactly-once."""
+    frames: the shard's sequence channels must hold exactly-once. A
+    QUIET scenario for the SLO sentinel: dups and reorders never stall
+    progress, so the availability objective that fires under a
+    partition must log ZERO episodes here — the false-fire guard."""
     from multiverso_tpu_torch.ps import faults
     w = World(tmp, rows=32, dim=8, device=device)
     try:
         rep0 = _replay_counts()
+        agg, mdir = _arm_sentinel(w, [AVAIL_OBJECTIVE])
         plane = faults.arm({"seed": 7, "rules": [
             {"kind": "duplicate", "src": 0, "dst": 1, "p": 0.35,
              "msg_types": ["MSG_ADD_ROWS", "MSG_BATCH"]},
@@ -394,10 +639,11 @@ def scenario_dup_reorder(seconds: float = 8.0, tmp: str = "",
              "depth": 2, "msg_types": ["MSG_ADD_ROWS", "MSG_BATCH"]},
         ]}, rank=0)
         tr = Traffic(w, n_threads=3).start()
-        time.sleep(max(seconds, 4.0))
+        _sleep_poll(agg, max(seconds, 4.0))
         tr.stop()
         faults.disarm()   # the settle flush runs clean
         led = tr.ledger()
+        slo_blk = _slo_block(agg)
         dup_frames = 0
         try:
             dup_frames = int(w.t0.server_stats(1)["shards"][TABLE]
@@ -409,15 +655,22 @@ def scenario_dup_reorder(seconds: float = 8.0, tmp: str = "",
             "recovery_s": None,   # no heal phase in this scenario
             "injected": inj, "dup_frames_deduped": dup_frames,
             "replay": _delta(_replay_counts(), rep0),
+            "slo": {**slo_blk, "episodes_log": _episodes(mdir)},
             **led,
             "gates": {
                 "exactly_once": _exactly_once(led),
                 "injected_nonzero": inj.get("duplicate", 0) > 0
                 and inj.get("reorder", 0) > 0,
                 "dups_reached_shard": dup_frames > 0,
+                # false-fire guard: the sentinel judged every poll and
+                # nothing fired
+                "slo_quiet": slo_blk["evals"] > 0
+                and sum(slo_blk["episodes"].values()) == 0
+                and not _read_alerts(mdir),
             },
         }
     finally:
+        _disarm_sentinel()
         w.close()
 
 
@@ -425,12 +678,20 @@ def scenario_slow_shard_shed(seconds: float = 12.0, tmp: str = "",
                              device=None) -> dict:
     """Slow-serve injection on shard 1 under a pooled read storm and
     training writes: the staleness bound holds on every served read while
-    the slow phase sheds or defers, and QPS recovers after the heal."""
+    the slow phase sheds or defers, and QPS recovers after the heal. The
+    pool carries one warm spare so the autoscaling seam closes end to
+    end: mid-slow, the storm's admission shedding rides the signal bus
+    (``shed_rate`` far over policy, ``spares_left`` = 1) and
+    ``tools/mvautoscale.recommend`` must say GROW — without actuating.
+    Also a QUIET scenario for the availability objective (reads slow,
+    writes never stall)."""
     from multiverso_tpu_torch.ps import faults
     from multiverso_tpu_torch.serving.admission import AdmissionController
+    from multiverso_tpu_torch.tools import mvautoscale
     w = World(tmp, rows=32, dim=8, staleness_s=2.0, device=device)
     try:
         rep0 = _replay_counts()
+        agg, mdir = _arm_sentinel(w, [AVAIL_OBJECTIVE])
         adm = AdmissionController()
         adm.set_limit(TABLE, "infer", 400.0)
         plane = faults.arm({"seed": 13, "rules": [
@@ -445,17 +706,22 @@ def scenario_slow_shard_shed(seconds: float = 12.0, tmp: str = "",
         # pre-fault window
         pre_s = min(max(seconds * 0.25, 4.5), 6.0)
         slow_s = min(max(seconds * 0.3, 2.5), 4.0)
-        time.sleep(pre_s)
+        _sleep_poll(agg, pre_s)
         fault_wall = time.time()
         plane.set_phase("slow")
-        time.sleep(slow_s)
+        _sleep_poll(agg, slow_s)
+        # mid-storm verdict off the freshest record (rates derived vs
+        # the poll one cadence earlier): the autoscaler's exact input
+        verdict = mvautoscale.recommend(
+            mvautoscale.snapshot_from_record(agg.last() or {}))
         heal_wall = time.time()
         plane.set_phase(None)
-        time.sleep(max(seconds - pre_s - slow_s, 4.0))
+        _sleep_poll(agg, max(seconds - pre_s - slow_s, 4.0))
         storm.stop()
         tr.stop()
         led = tr.ledger()
         srv = storm.report()
+        slo_blk = _slo_block(agg)
         pre, post, rec = recovery_from_stamps(
             storm.all_stamps(), tr.t_start, time.time(), fault_wall,
             recover_from=heal_wall)
@@ -465,9 +731,14 @@ def scenario_slow_shard_shed(seconds: float = 12.0, tmp: str = "",
             "pre_fault_qps": round(pre, 1),
             "post_fault_qps": round(post, 1),
             "slow_s": round(heal_wall - fault_wall, 2),
+            "fault_wall": fault_wall, "heal_wall": heal_wall,
             "injected": inj,
             "serving": srv, "pool": pool.stats_entry()["pool"],
             "replay": _delta(_replay_counts(), rep0),
+            "slo": {**slo_blk, "episodes_log": _episodes(mdir)},
+            "autoscale": {"action": verdict["action"],
+                          "actionable": verdict["actionable"],
+                          "reason": verdict["reason"]},
             **led,
             "gates": {
                 "exactly_once": _exactly_once(led),
@@ -475,9 +746,19 @@ def scenario_slow_shard_shed(seconds: float = 12.0, tmp: str = "",
                 "staleness": srv["over_bound_serves"] == 0,
                 "recovery": rec is not None,
                 "injected_nonzero": inj.get("slow_serve", 0) > 0,
+                "autoscale_grow": verdict["action"] == "grow"
+                and verdict["actionable"],
+                # the injected slow-serve genuinely stalls the data
+                # plane, so the availability objective MAY fire during
+                # the slow phase — but the sentinel must judge
+                # throughout and be CLEAR again once the heal's polls
+                # age the stall out of the fast window
+                "slo_judged_and_clear": slo_blk["evals"] > 0
+                and slo_blk["firing"] == [],
             },
         }
     finally:
+        _disarm_sentinel()
         w.close()
 
 
@@ -521,6 +802,125 @@ def scenario_replica_kill(seconds: float = 10.0, tmp: str = "",
             },
         }
     finally:
+        w.close()
+
+
+def scenario_noisy_neighbor(seconds: float = 12.0, tmp: str = "",
+                            device=None) -> dict:
+    """Two tenants share one pool: the storm tenant drives far past its
+    per-tenant infer budget while the victim is paced modestly over its
+    own. The quiet phase (victim alone) measures the victim's baseline
+    p99 on ADMITTED reads — with one active tenant no verdict can fire,
+    by construction. The storm phase adds the storm tenant; the sweep
+    must open exactly one noisy-neighbor episode and clear it after the
+    cool-down. Sweeps run only on the explicit ``stats_snapshot`` pulls
+    here — nothing else in this process asks for MSG_STATS — so the
+    episode lifecycle is deterministic."""
+    from multiverso_tpu_torch.serving.admission import AdmissionController
+    from multiverso_tpu_torch.telemetry import flightrec as flight
+    from multiverso_tpu_torch.telemetry import tenants
+    w = World(tmp, rows=32, dim=8, staleness_s=2.0, device=device)
+    # flight-recorder verdict records deduped by ring seq across scans:
+    # the Python wire plane wraps the ring many times in a run
+    verdict_seqs = {}
+
+    def scan_verdicts():
+        for s in flight.RECORDER.snapshot():
+            if s[2] == flight.EV_TENANT_VERDICT:
+                verdict_seqs[s[0]] = s[7]
+
+    try:
+        # the matrix runs scenarios in ONE process: drop the neighbors'
+        # ledger entries and tape before the verdict gates
+        tenants.reset()
+        flight.reset()
+        VICTIM_QPS, STORM_QPS = 30.0, 50.0
+        STORM_BURST = 10.0
+        adm = AdmissionController()
+        adm.set_tenant_limit(TABLE, "victim", "infer", VICTIM_QPS,
+                             burst=8.0)
+        adm.set_tenant_limit(TABLE, "storm", "infer", STORM_QPS,
+                             burst=STORM_BURST)
+        pool = w.make_pool(replicas=2, refresh_s=0.15, admission=adm)
+        quiet_s = min(max(seconds * 0.3, 2.5), 4.0)
+        storm_s = min(max(seconds * 0.4, 3.0), 5.0)
+        # victim: ~90 attempts/s vs a 30 qps budget — sheds steadily in
+        # BOTH phases, so the storm interval always has a degraded
+        # second tenant (the verdict's victim condition)
+        victim = TenantReader(pool, w.rows, "victim",
+                              pace_s=1.0 / 90.0).start()
+        time.sleep(quiet_s)
+        tenants.stats_snapshot()   # sweep 1: quiet interval — victim
+        scan_verdicts()            # alone, no verdict possible
+        storm_wall = time.time()
+        # storm: 2 threads ~250 attempts/s each vs a 50 qps budget
+        storm = TenantReader(pool, w.rows, "storm", pace_s=0.004,
+                             n_threads=2).start()
+        time.sleep(max(storm_s * 0.6, 1.5))
+        snap_mid = tenants.stats_snapshot()   # sweep 2: verdict fires
+        scan_verdicts()
+        time.sleep(max(storm_s * 0.4, 1.0))
+        tenants.stats_snapshot()   # sweep 3: episode stays open (dedup)
+        scan_verdicts()
+        storm.stop()
+        storm_end = time.time()
+        victim.stop()
+        tenants.stats_snapshot()   # sweep 4: residual deltas
+        time.sleep(0.25)
+        final = tenants.stats_snapshot()   # sweep 5: zero deltas clear
+        scan_verdicts()            # the episode
+
+        v_lat = victim.all_lat()
+        base = [ms for ts, ms in v_lat if ts < storm_wall]
+        stormp = [ms for ts, ms in v_lat if ts >= storm_wall]
+        base_p99 = float(np.percentile(base, 99)) if base else 0.0
+        storm_p99 = (float(np.percentile(stormp, 99)) if stormp
+                     else float("inf"))
+        # sub-ms baselines on the in-process pool are scheduler noise,
+        # not a serving-latency statement: floor before the 2x gate
+        p99_bound = 2.0 * max(base_p99, 1.5)
+        T = storm_end - storm_wall
+        srv_v, srv_s = victim.report(), storm.report()
+        # the budget cap: served <= qps*T + burst + slack (one second
+        # of rate + a constant for sweep/timing jitter)
+        allowed = STORM_QPS * T + STORM_BURST + STORM_QPS + 20.0
+        ver = final.get("verdict") or {}
+        return {
+            "recovery_s": None,   # no heal phase: caps + verdicts gate
+            "quiet_s": round(quiet_s, 2), "storm_s": round(T, 2),
+            "victim": {
+                "qps_limit": VICTIM_QPS, **srv_v,
+                "base_p99_ms": round(base_p99, 3),
+                "storm_p99_ms": round(storm_p99, 3),
+                "storm_served": len(stormp),
+            },
+            "storm": {
+                "qps_limit": STORM_QPS, **srv_s,
+                "allowed_at_budget": round(allowed, 1),
+            },
+            "storm_share": (snap_mid.get("shares") or {}).get("storm"),
+            "tenants_block": {k: final.get(k) for k in
+                              ("shares", "episodes", "active",
+                               "verdict")},
+            "flight_verdicts": len(verdict_seqs),
+            "episodes": tenants.LEDGER.episodes(),
+            "gates": {
+                "served_nonzero": len(base) > 0 and srv_s["served"] > 0,
+                "storm_capped": srv_s["served"] <= allowed,
+                "storm_shed_nonzero": srv_s["shed"] > 0,
+                "victim_admitted": len(stormp) > 0,
+                "victim_p99": storm_p99 <= p99_bound,
+                "staleness": srv_v["over_bound_serves"] == 0
+                and srv_s["over_bound_serves"] == 0,
+                "verdict_once": tenants.LEDGER.episodes() == 1
+                and len(verdict_seqs) == 1,
+                "verdict_in_stats": final.get("episodes") == 1
+                and final.get("active") is False
+                and ver.get("tenant") == "storm",
+            },
+        }
+    finally:
+        tenants.reset()
         w.close()
 
 
@@ -885,6 +1285,7 @@ SCENARIOS = {
     "dup_reorder": scenario_dup_reorder,
     "slow_shard_shed": scenario_slow_shard_shed,
     "replica_kill": scenario_replica_kill,
+    "noisy_neighbor": scenario_noisy_neighbor,
 }
 
 

@@ -55,8 +55,14 @@ in-flight op; the stats payload is the exporter's record with the
 ``profile``, ``memory`` and ``devices`` blocks; closing a context flushes
 the exporter, spans and step records.
 
-Not ported (ROADMAP.md §A, each under its title): the spmd stack, and the
-cluster telemetry plane (aggregator, slo, tenants; Telemetry and tools).
+Telemetry (the cluster plane): rank 0 starts the cluster aggregator
+(``telemetry/aggregator.py``, flag ``stats_poll_interval_s``), which
+polls every rank's MSG_STATS and MSG_HEALTH over one-shot probes and
+drives the SLO sentinel and the signal bus; the stats payload adds the
+``tenants`` block (``telemetry/tenants.py``) and, while the sentinel is
+armed, the ``slo`` block (``telemetry/slo.py``).
+
+Not ported (ROADMAP.md §A, under its title): the spmd stack.
 """
 
 from __future__ import annotations
@@ -75,19 +81,21 @@ from multiverso_tpu_torch.ps import failover as _failover
 from multiverso_tpu_torch.ps import faults as _faults
 from multiverso_tpu_torch.ps import wire
 from multiverso_tpu_torch.serving import replica as _serving_replica
+from multiverso_tpu_torch.telemetry import aggregator as _aggregator
 from multiverso_tpu_torch.telemetry import devstats as _devstats
 from multiverso_tpu_torch.telemetry import exporter as _exporter
 from multiverso_tpu_torch.telemetry import flightrec as _flight
 from multiverso_tpu_torch.telemetry import memstats as _memstats
 from multiverso_tpu_torch.telemetry import profiler as _profiler
+from multiverso_tpu_torch.telemetry import slo as _slo
+from multiverso_tpu_torch.telemetry import tenants as _tenants
 from multiverso_tpu_torch.telemetry import trace as _trace
 from multiverso_tpu_torch.telemetry import watchdog as _watchdog
 from multiverso_tpu_torch.utils import config, log, retry as _retry
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 from multiverso_tpu_torch.zoo import default_device
 
-# ROADMAP.md §A titles of the parts of ps/ this plane refuses
-TELEMETRY_ITEM = "Telemetry and tools"
+# ROADMAP.md §A title of the part of ps/ this plane refuses
 NO_FILE_RDV_ITEM = "a rendezvous without a file"
 
 # message types (request side; replies reuse the id space below 0x100)
@@ -666,6 +674,12 @@ class PSService:
         # flag-gated metrics exporter with the rich (shard-aware)
         # payload; no-op unless metrics_dir is set
         _exporter.ensure_started(rank, self.stats_payload)
+        # controller-side cluster observability (flag
+        # stats_poll_interval_s): rank 0 polls every rank's MSG_STATS +
+        # MSG_HEALTH over the one-shot probe path and keeps the merged
+        # cluster time series
+        if rank == 0:
+            _aggregator.ensure_started(self)
         # flag-gated per-shard failover checkpointer (failover_dir +
         # failover_ckpt_interval_s): the durable half of exactly-once
         # replay; shards registered later are picked up each cycle
@@ -851,7 +865,8 @@ class PSService:
         """This rank's telemetry snapshot (the MSG_STATS reply meta and
         the exporter record share this one shape): Dashboard monitor
         histograms, notes, per-shard server stats and the additive
-        blocks (serving, profile, memory, devices), JSON-safe."""
+        blocks (serving, profile, memory, devices, tenants, slo),
+        JSON-safe."""
         shards = {}
         with self._handlers_cv:
             items = list(self._shards.items())
@@ -894,6 +909,23 @@ class PSService:
             devices = _devstats.stats_snapshot()
             if devices:
                 payload["devices"] = devices
+        except Exception:   # noqa: BLE001
+            pass
+        # tenant attribution plane: per-tenant serve ledger + budgets +
+        # the noisy-neighbor verdict sweep (the pull drives one sweep
+        # interval); omitted when no tenant traffic was accounted
+        try:
+            tenants = _tenants.stats_snapshot()
+            if tenants:
+                payload["tenants"] = tenants
+        except Exception:   # noqa: BLE001
+            pass
+        # SLO sentinel: per-objective burn rates, firing state, episode
+        # counts and the named straggler; omitted while disarmed
+        try:
+            slo_block = _slo.stats_snapshot()
+            if slo_block:
+                payload["slo"] = slo_block
         except Exception:   # noqa: BLE001
             pass
         return payload
@@ -1420,9 +1452,12 @@ class PSService:
             return False
 
     def close(self) -> None:
-        # the shard checkpointer stops with a FINAL save while the shards
-        # are intact: a cleanly closing rank's tail of applies stays
-        # durable for whoever inherits its rows
+        # the cluster aggregator polls THROUGH this service: stop it
+        # (final short-timeout poll included) while the probe path is
+        # still alive. The shard checkpointer stops with a FINAL save
+        # while the shards are intact: a cleanly closing rank's tail of
+        # applies stays durable for whoever inherits its rows
+        _aggregator.stop_if_bound(self)
         _failover.stop_if_bound(self)
         self._closed = True
         # colocated clients observe this rank's death like a dead socket

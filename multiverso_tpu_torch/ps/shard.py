@@ -56,10 +56,11 @@ beat), conflict-free wave, get serve and snapshot serve, replay dedupe and
 restore; traced frames (``wire.TRACE_META_KEY``, flag ``trace_ids``) add
 ``shard.apply``/``shard.wave_apply``/``shard.get_*``/``snapshot.serve``
 spans; the byte ledger (``telemetry/memstats.py``) registers each shard's
-:meth:`RowShard.memory_stats`.
+:meth:`RowShard.memory_stats`; a :class:`~multiverso_tpu_torch.telemetry.
+tenants.TenantMeter` counts each tenant's ops and bytes
+(``stats()["tenants"]``) at the byte counters' chokepoints.
 
-Not ported (ROADMAP.md §A): the spmd lane and the tenant meter
-(Telemetry and tools).
+Not ported (ROADMAP.md §A): the spmd lane.
 """
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ from multiverso_tpu_torch.table import _dtypes
 from multiverso_tpu_torch.tables.matrix_table import _bucket_size
 from multiverso_tpu_torch.telemetry import flightrec as _flight
 from multiverso_tpu_torch.telemetry import hotkeys as _hotkeys
+from multiverso_tpu_torch.telemetry import tenants as _tenants
 from multiverso_tpu_torch.telemetry import memstats as _memstats
 from multiverso_tpu_torch.telemetry import trace as _trace
 from multiverso_tpu_torch.updaters import (AddOption, Updater,
@@ -289,6 +291,11 @@ class RowShard:
         # memory, O(1) per recorded op): stats()["hotkeys"]
         cap = _config.get_flag("hotkeys_capacity")
         self._hotkeys = _hotkeys.SpaceSaving(cap) if cap > 0 else None
+        # tenant attribution (telemetry/tenants.py): per-tenant op/byte
+        # counters at the same chokepoints as the byte counters. The
+        # default tenant is one dict increment; named tenants (stamped
+        # frames, which always punt to Python) take the meter's lock
+        self._tenants = _tenants.TenantMeter()
         self._mon_apply = f"ps[{name}].apply"   # Dashboard monitor
         # dirty[worker, local_row]: starts all-True so a worker's first
         # sparse Get pulls everything
@@ -421,6 +428,11 @@ class RowShard:
             out["dirty_rows"] = dirty_rows
         if self._hotkeys is not None:
             out["hotkeys"] = self._hotkeys.to_dict()
+        # per-tenant op/byte counters: omitted until the meter counts
+        # (the aggregator sums these per rank, never per process)
+        tm = self._tenants.to_dict()
+        if tm:
+            out["tenants"] = tm
         return out
 
     def queue_depth(self) -> int:
@@ -719,9 +731,12 @@ class RowShard:
             vals = wire.decode_payload(arrays[1:], wirem,
                                        (local.size, self.num_col),
                                        self.dtype)
-        # ENCODED payload bytes, per request
-        self._stat_add_bytes += sum(int(getattr(a, "nbytes", 0))
-                                    for a in arrays[1:])
+        # ENCODED payload bytes, per request; the tenant op rides the
+        # same chokepoint (an unstamped frame is the default tenant)
+        nbytes = sum(int(getattr(a, "nbytes", 0)) for a in arrays[1:])
+        self._stat_add_bytes += nbytes
+        self._tenants.note(meta.get(wire.TENANT_META_KEY),
+                           add_bytes=nbytes)
         return local, vals, opt
 
     def _prep_add_entry(self, meta: Dict, arrays: Sequence[np.ndarray]
@@ -945,22 +960,30 @@ class RowShard:
         w = meta.get("wire", "none")
         chunk = int(meta.get("chunk", 0) or 0)
         if chunk > 0 and rows.shape[0] > chunk:
-            return self._chunked_reply(rows, w, chunk, tr)
+            return self._chunked_reply(rows, w, chunk, tr,
+                                       meta.get(wire.TENANT_META_KEY))
         t0 = time.time() if tr is not None else 0.0
         payload = wire.encode_payload(rows, w)
-        self._stat_get_bytes += sum(int(a.nbytes) for a in payload)
+        nbytes = sum(int(a.nbytes) for a in payload)
+        self._stat_get_bytes += nbytes
+        # every reply-encoded read is one tenant op
+        self._tenants.note(meta.get(wire.TENANT_META_KEY),
+                           get_bytes=nbytes)
         if tr is not None:
             _trace.add_span("shard.get_encode", t0, time.time(), trace=tr,
                             args={"table": self.name, "wire": w})
         return {}, payload
 
     def _chunked_reply(self, rows: np.ndarray, w: str, chunk: int,
-                       tr: Optional[int] = None) -> Tuple[Dict, Any]:
+                       tr: Optional[int] = None,
+                       tn: Optional[str] = None) -> Tuple[Dict, Any]:
         """Stream a big get as self-describing sub-frames, encoded lazily
         per chunk (chunk k+1 encodes while chunk k drains)."""
         n = rows.shape[0]
         nchunks = -(-n // chunk)
         self._stat_chunks += nchunks
+        # one tenant op per streamed request (bytes ride per chunk)
+        self._tenants.note(tn)
         shard = self
 
         def gen():
@@ -971,7 +994,9 @@ class RowShard:
                     cmeta["wire"] = w
                 t0 = time.time() if tr is not None else 0.0
                 payload = wire.encode_payload(rows[a:b], w)
-                shard._stat_get_bytes += sum(int(x.nbytes) for x in payload)
+                cbytes = sum(int(x.nbytes) for x in payload)
+                shard._stat_get_bytes += cbytes
+                shard._tenants.note(tn, ops=0, get_bytes=cbytes)
                 if tr is not None:
                     _trace.add_span("shard.get_encode", t0, time.time(),
                                     trace=tr,
@@ -1190,6 +1215,8 @@ class RowShard:
                 self._release_data(pin)
             self._stat_gets += 1
             self._stat_get_bytes += mask.nbytes + rows.nbytes
+            self._tenants.note(meta.get(wire.TENANT_META_KEY),
+                               get_bytes=mask.nbytes + rows.nbytes)
             return {}, [mask, rows]
         if msg_type == svc.MSG_GET_ROWS:
             return self._serve_get_rows(meta, arrays)

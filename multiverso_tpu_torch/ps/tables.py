@@ -42,8 +42,14 @@ step-profiler async spans closed at the reply. The windows mark their
 enqueue, flush, ack, fetch and replay edges on the flight recorder, and
 the send window registers its ``memory_stats`` with the byte ledger.
 
-Not ported (ROADMAP.md §A, raising ``NotImplementedError`` that names
-its item when asked for): per-tenant add budgets (``tenant_add_qps``).
+Tenants (``telemetry/tenants.py``): a named tenant (``tenant_scope`` or
+the ``tenant_id`` flag) stamps ``wire.TENANT_META_KEY`` on every add and
+get frame, which punts the native server to Python where the shard's
+meter counts it; default traffic keeps the cached meta bytes and the
+native fast path. The send window merges only entries of one tenant, a
+named tenant's gets bypass the get window, and ``tenant_add_qps``
+budgets each (table, tenant)'s windowed adds: an over-budget add still
+ships and is counted as deferred in the tenant ledger.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from multiverso_tpu_torch.serving import hotcache as _hotcache
 from multiverso_tpu_torch.telemetry import flightrec as _flight
 from multiverso_tpu_torch.telemetry import memstats as _memstats
 from multiverso_tpu_torch.telemetry import profiler as _profiler
+from multiverso_tpu_torch.telemetry import tenants as _tenants
 from multiverso_tpu_torch.telemetry import trace as _trace
 from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils import config, log
@@ -233,16 +240,6 @@ def _resolve_updater(updater, num_workers: int, dtype):
         updater = updaters_lib.get_updater(updater, num_workers=num_workers,
                                            dtype=dtype)
     return updater
-
-
-def _refuse_unported() -> None:
-    """Per-tenant add budgets are not ported: asking for them raises,
-    naming the ROADMAP item, instead of quietly running without them."""
-    if config.get_flag("tenant_add_qps") > 0:
-        raise NotImplementedError(
-            "tenant_add_qps > 0: per-tenant add budgets at the send window "
-            "are not ported to multiverso_tpu_torch yet (ROADMAP.md §A "
-            f"{svc.TELEMETRY_ITEM})")
 
 
 def _dedupe_batch(row_ids, num_col: int, dtype,
@@ -516,10 +513,12 @@ class _SendWindow:
         self.max_bytes = int(max_bytes)
         self.max_ops = int(max_ops)
         self._cv = threading.Condition()
-        # owner -> [(ids, vals, opt, placeholder future, trace id)],
-        # enqueue order
+        # owner -> [(ids, vals, opt, placeholder future, trace id,
+        # tenant id)], enqueue order
         self._pending: Dict[int, List[Tuple]] = {}
         self._nbytes: Dict[int, int] = {}
+        # per-tenant add budgets (flag tenant_add_qps): tenant -> bucket
+        self._tenant_buckets: Dict[str, Any] = {}
         self._send_locks: Dict[int, threading.Lock] = {}
         self._deadline: Optional[float] = None
         self._thread: Optional[threading.Thread] = None
@@ -548,17 +547,37 @@ class _SendWindow:
     # ------------------------------------------------------------------ #
     def submit(self, parts: List[Tuple[int, np.ndarray, np.ndarray]],
                opt: AddOption,
-               trace: Optional[int] = None) -> List[cf.Future]:
+               trace: Optional[int] = None,
+               tenant: Optional[str] = None) -> List[cf.Future]:
         """Queue ONE logical add's per-owner pieces; returns one
         placeholder future per owner (completed by the window ack).
         ``trace`` is the logical op's trace ID (telemetry/trace.py); it
-        rides every per-owner entry into the frame meta."""
+        rides every per-owner entry into the frame meta, as does the
+        resolved ``tenant`` (wire.TENANT_META_KEY; None = default)."""
         self._mon_windowed.incr()
-        return [self._enqueue(r, ids, vals, opt, trace)
+        if tenant is not None:
+            self._note_tenant_budget(tenant)
+        return [self._enqueue(r, ids, vals, opt, trace, tenant)
                 for r, ids, vals in parts]
 
+    def _note_tenant_budget(self, tn: str) -> None:
+        """Per-(table, tenant) add budget (flag ``tenant_add_qps``):
+        train writes are never dropped — an over-budget windowed add is
+        COUNTED as deferred in the tenant ledger (the noisy-neighbor
+        sweep's write-plane evidence) and still ships."""
+        qps = config.get_flag("tenant_add_qps")
+        if qps <= 0:
+            return
+        b = self._tenant_buckets.get(tn)
+        if b is None or b.rate != qps:
+            from multiverso_tpu_torch.serving.admission import TokenBucket
+            b = self._tenant_buckets[tn] = TokenBucket(qps)
+        if not b.try_acquire(1.0):
+            _tenants.LEDGER.note_deferred(self._table_name, tn)
+
     def _enqueue(self, owner: int, ids: np.ndarray, vals: np.ndarray,
-                 opt: AddOption, trace: Optional[int] = None) -> cf.Future:
+                 opt: AddOption, trace: Optional[int] = None,
+                 tn: Optional[str] = None) -> cf.Future:
         fut: cf.Future = cf.Future()
         ship = False
         # black box: the enqueue edge (one ring write)
@@ -566,7 +585,7 @@ class _SendWindow:
                        nbytes=ids.nbytes + vals.nbytes)
         with self._cv:
             q = self._pending.setdefault(owner, [])
-            q.append((ids, vals, opt, fut, trace))
+            q.append((ids, vals, opt, fut, trace, tn))
             self._nbytes[owner] = (self._nbytes.get(owner, 0)
                                    + ids.nbytes + vals.nbytes)
             if (len(q) >= self.max_ops
@@ -733,7 +752,7 @@ class _SendWindow:
             err = svc.PSError(
                 f"table[{self._table_name}] was garbage-collected with "
                 "windowed adds still queued")
-            for _, _, _, fut, _ in entries:
+            for _, _, _, fut, _, _ in entries:
                 if not fut.done():
                     fut.set_exception(err)
             return
@@ -754,11 +773,14 @@ class _SendWindow:
                  and type(t.updater) in updaters_lib.ROW_LOCAL_STATE)
         merge_all = type(t.updater) in updaters_lib.OPT_INSENSITIVE
         groups: List[List] = []   # [ids[], vals[], opt, futs[], idset,
-        merged_rows = 0           #  traces[]]
-        for ids, vals, opt, fut, tid in entries:
+        merged_rows = 0           #  traces[], tenant]
+        for ids, vals, opt, fut, tid, tn in entries:
             g = groups[-1] if groups else None
+            # tenants never blur: a merged sub-op is one attribution
+            # record at the shard, so only same-tenant entries merge
             if (g is not None and exact
                     and (merge_all or opt == g[2])
+                    and tn == g[6]
                     and not g[4].intersection(ids.tolist())):
                 g[0].append(ids)
                 g[1].append(vals)
@@ -770,11 +792,11 @@ class _SendWindow:
             else:
                 groups.append([[ids], [vals], opt, [fut],
                                set(ids.tolist()),
-                               [] if tid is None else [tid]])
+                               [] if tid is None else [tid], tn])
         try:
             packed = [(np.concatenate(g[0]) if len(g[0]) > 1 else g[0][0],
                        np.concatenate(g[1]) if len(g[1]) > 1 else g[1][0],
-                       g[2], g[5]) for g in groups]
+                       g[2], g[5], g[6]) for g in groups]
         except Exception as e:   # a merge failure must not orphan waiters
             # close the flush edge too: an unmatched win.flush in a dump
             # is the wedged-window signature, and this one failed fast
@@ -785,17 +807,21 @@ class _SendWindow:
                     if not f.done():
                         f.set_exception(e)
             return
-        def sub_meta(opt, tids):
+        def sub_meta(opt, tids, tn):
             """Per-sub-op meta: the cached packed bytes normally; a dict
-            carrying the trace ID (wire.TRACE_META_KEY) when stamped — a
-            merged group's FIRST ID names the sub-op, the full set rides
-            the client flush/ack spans."""
-            if not tids:
+            carrying the trace ID (wire.TRACE_META_KEY) and/or tenant
+            (wire.TENANT_META_KEY) when stamped — a merged group's FIRST
+            ID names the sub-op, the full set rides the client flush/ack
+            spans."""
+            if not tids and tn is None:
                 return t._add_meta_b(opt, w)
-            meta = {"table": t.name, "opt": opt._asdict(),
-                    wire_mod.TRACE_META_KEY: tids[0]}
+            meta = {"table": t.name, "opt": opt._asdict()}
             if w != "none":
                 meta["wire"] = w
+            if tids:
+                meta[wire_mod.TRACE_META_KEY] = tids[0]
+            if tn is not None:
+                meta[wire_mod.TENANT_META_KEY] = tn
             return meta
 
         all_tids = [tid for g in groups for tid in g[5]]
@@ -806,21 +832,25 @@ class _SendWindow:
             gfuts = [g[3] for g in groups[i0:i0 + wire_mod.MAX_BATCH_OPS]]
             try:
                 if len(chunk) == 1:
-                    ids, vals, opt, tids = chunk[0]
+                    ids, vals, opt, tids, tn = chunk[0]
                     meta = {"table": t.name, "opt": opt._asdict()}
                     if w != "none":
                         meta["wire"] = w
                     if tids:
                         meta[wire_mod.TRACE_META_KEY] = tids[0]
+                    if tn is not None:
+                        meta[wire_mod.TENANT_META_KEY] = tn
                     msg_type = svc.MSG_ADD_ROWS
                     arrays = [ids] + wire_mod.encode_payload(vals, w)
-                    meta_b = (None if tids or self._replay is not None
+                    meta_b = (None if tids or tn is not None
+                              or self._replay is not None
                               else t._add_meta_b(opt, w))
                 else:
                     blobs = [wire_mod.encode(
-                        svc.MSG_ADD_ROWS, i, sub_meta(opt, tids),
+                        svc.MSG_ADD_ROWS, i, sub_meta(opt, tids, tn),
                         [ids] + wire_mod.encode_payload(vals, w))
-                        for i, (ids, vals, opt, tids) in enumerate(chunk)]
+                        for i, (ids, vals, opt, tids, tn)
+                        in enumerate(chunk)]
                     msg_type = svc.MSG_BATCH
                     meta = {"table": t.name, "n": len(chunk)}
                     arrays = wire_mod.pack_batch(blobs)
@@ -844,7 +874,7 @@ class _SendWindow:
                 # ack span: frame on the wire -> window ack fanned out
                 # (runs on the peer's recv thread)
                 t_send = time.time()
-                chunk_tids = [tid for (_, _, _, tids) in chunk
+                chunk_tids = [tid for (_, _, _, tids, _) in chunk
                               for tid in tids]
 
                 def _done(bf, gf=gfuts, ts=t_send, ct=chunk_tids):
@@ -1547,7 +1577,6 @@ class AsyncMatrixTable(_AsyncBase):
         ``get_window_ms`` overrides the ``get_window_ms`` flag: > 0 merges
         concurrent gets into single-flight per-owner fetches
         (:class:`_GetWindow`). Values are unchanged either way."""
-        _refuse_unported()
         super().__init__(ctx, name)
         if wire not in ("none", "bf16", "1bit", "topk"):
             raise ValueError(f"unknown wire {wire!r}")
@@ -1754,6 +1783,11 @@ class AsyncMatrixTable(_AsyncBase):
             # ID; None (the default) costs one attribute read. The native
             # fan-out stays untraced by design
             tid = _trace.new_id() if _trace.enabled() else None
+            # effective tenant (telemetry/tenants.py): None for the
+            # default tenant, so default traffic keeps the cached meta
+            # bytes and the native fast path; a named tenant stamps
+            # TENANT_META_KEY on every frame (the C++ server punts it)
+            tn = _tenants.current()
             if self._window is not None:
                 # send window: enqueue the per-owner pieces and return;
                 # the flusher (or the next fencing op) ships each owner's
@@ -1770,19 +1804,27 @@ class AsyncMatrixTable(_AsyncBase):
                 else:
                     parts = [(r, _owned_part(uids, ix),
                               _owned_part(vals, ix)) for r, ix in oparts]
-                mid = self._track(self._window.submit(parts, opt, tid),
-                                  op="ps.add")
+                mid = self._track(
+                    self._window.submit(parts, opt, tid, tenant=tn),
+                    op="ps.add")
                 if tid is not None:
                     _trace.add_span("client.enqueue", t_enq0, time.time(),
                                     trace=tid,
                                     args={"table": self.name,
                                           "rows": int(uids.size)})
                 return mid
+            if tn is None:
+                meta_b = self._add_meta_b(opt)
+            else:
+                # named tenant: stamped meta per call (the cache is keyed
+                # on (opt, wire) only)
+                meta_b = wire_mod.pack_meta(wire_mod.with_tenant(
+                    {"table": self.name, "opt": opt._asdict()}, tn))
             if self._native_ok and vals.dtype == self.dtype:
                 from multiverso_tpu_torch.ps import native as ps_native
                 parts = ps_native.add_fanout(
                     self._owner_conns(uids), self.ctx.world, False,
-                    self._rows_per, self._add_meta_b(opt), uids,
+                    self._rows_per, meta_b, uids,
                     np.ascontiguousarray(vals))
                 return self._track(_fanout_futures(
                     parts, lambda c, s, m: _NativeAddFuture(c, s, m)),
@@ -1791,8 +1833,8 @@ class AsyncMatrixTable(_AsyncBase):
             futs = []
             for r, ix in self._owner_slices(uids):
                 w = self._wire_for(r)
-                meta = wire_mod.with_trace(
-                    {"table": self.name, "opt": opt._asdict()}, tid)
+                meta = wire_mod.with_tenant(wire_mod.with_trace(
+                    {"table": self.name, "opt": opt._asdict()}, tid), tn)
                 if w != "none":
                     meta["wire"] = w
                 # the local rank's executor dispatch reads the arrays
@@ -1803,7 +1845,7 @@ class AsyncMatrixTable(_AsyncBase):
                 futs.append(self.ctx.service.request(
                     r, svc.MSG_ADD_ROWS, meta,
                     [ids_part] + wire_mod.encode_payload(vals_part, w),
-                    meta_b=(None if tid is not None
+                    meta_b=(None if tid is not None or tn is not None
                             else self._add_meta_b(opt, w))))
             if tid is not None:
                 _attach_reply_span(futs, "client.add_rows", t_send0, tid,
@@ -1903,15 +1945,24 @@ class AsyncMatrixTable(_AsyncBase):
                 uids, inv = np.asarray(row_ids, np.int64), None
             else:
                 uids, _, inv = self._prep(row_ids)
+            # effective tenant (telemetry/tenants.py): None = default,
+            # frames stay unstamped and every cached-meta/coalescing
+            # fast path below is untouched
+            tn = _tenants.current()
             if self._native_ok:
                 from multiverso_tpu_torch.ps import native as ps_native
                 # unique ids: the C++ recv threads scatter replies
                 # straight into the caller's buffer
                 buf = self._reply_buffer(out if inv is None else None,
                                          uids.size)
+                # a stamped get punts the native server to Python; the
+                # reply frame is unchanged, so the C++ scatter applies
+                gmeta_b = (self._plain_meta_b if tn is None
+                           else wire_mod.pack_meta(wire_mod.with_tenant(
+                               {"table": self.name}, tn)))
                 fparts = ps_native.get_fanout(
                     self._owner_conns(uids), self.ctx.world, False,
-                    self._rows_per, self._plain_meta_b, uids, buf)
+                    self._rows_per, gmeta_b, uids, buf)
                 futs = _fanout_futures(
                     fparts, lambda c, s, m: _NativeGetFuture(c, m, buf))
 
@@ -1922,9 +1973,11 @@ class AsyncMatrixTable(_AsyncBase):
 
                 return futs, _assemble_native
             parts = self._owner_slices(uids)
-            if self._get_window is not None:
+            if self._get_window is not None and tn is None:
                 # single-flight fetches: each part resolves to its own
-                # rows, perhaps from a batch shared with other callers
+                # rows, perhaps from a batch shared with other callers.
+                # Named tenants bypass the coalescer: a batch merged
+                # across tenants would blur the shard's attribution
                 futs = [self._get_window.fetch(r, _owned_part(uids, ix))
                         for r, ix in parts]
 
@@ -1944,8 +1997,9 @@ class AsyncMatrixTable(_AsyncBase):
             chunk = int(config.get_flag("get_chunk_rows"))
             tid = _trace.new_id() if _trace.enabled() else None
             t_send0 = time.time() if tid is not None else 0.0
-            meta_b = wire_mod.pack_meta(wire_mod.with_trace(
-                {"table": self.name, "wire": gw}, tid))
+            meta_b = wire_mod.pack_meta(wire_mod.with_tenant(
+                wire_mod.with_trace(
+                    {"table": self.name, "wire": gw}, tid), tn))
             # the local rank never chunk-streams: no network receive to
             # overlap
             will_chunk = {r for r, ix in parts
@@ -1963,9 +2017,9 @@ class AsyncMatrixTable(_AsyncBase):
                 if r in will_chunk:
                     futs.append(self.ctx.service.request(
                         r, svc.MSG_GET_ROWS,
-                        wire_mod.with_trace(
+                        wire_mod.with_tenant(wire_mod.with_trace(
                             {"table": self.name, "wire": gw,
-                             "chunk": chunk}, tid),
+                             "chunk": chunk}, tid), tn),
                         [uids[ix]],
                         chunk_sink=_chunk_scatter(
                             buf, _part_index(ix), self.num_col,
@@ -1976,8 +2030,9 @@ class AsyncMatrixTable(_AsyncBase):
                                 if r == self.ctx.rank else uids[ix])
                     futs.append(self.ctx.service.request(
                         r, svc.MSG_GET_ROWS,
-                        wire_mod.with_trace(
+                        wire_mod.with_tenant(wire_mod.with_trace(
                             {"table": self.name, "wire": "none"}, tid),
+                            tn),
                         [ids_part], meta_b=meta_b))
             if tid is not None:
                 _attach_reply_span(futs, "client.get_rows", t_send0, tid,
@@ -2393,7 +2448,6 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
                  num_workers: Optional[int] = None,
                  send_window_ms: Optional[float] = None,
                  ctx: Optional[svc.PSContext] = None):
-        _refuse_unported()
         super().__init__(ctx, name)
         self.num_col = int(num_col)
         self.dtype = np.dtype(dtype)
@@ -2430,6 +2484,7 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
         with monitor(f"table[{self.name}].add_rows"):
             uids, vals, _ = self._prep(keys, values)
             tid = _trace.new_id() if _trace.enabled() else None
+            tn = _tenants.current()
             if self._window is not None:
                 # send window: per-owner key batches queue and ship as one
                 # (multi-op) frame (see _SendWindow)
@@ -2444,16 +2499,17 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
                 else:
                     parts = [(r, uids[m], vals[m])
                              for r, m in self._by_owner(uids)]
-                mid = self._track(self._window.submit(parts, opt, tid),
-                                  op="ps.add")
+                mid = self._track(
+                    self._window.submit(parts, opt, tid, tenant=tn),
+                    op="ps.add")
                 if tid is not None:
                     _trace.add_span("client.enqueue", t_enq0, time.time(),
                                     trace=tid,
                                     args={"table": self.name,
                                           "rows": int(uids.size)})
                 return mid
-            meta = wire_mod.with_trace(
-                {"table": self.name, "opt": opt._asdict()}, tid)
+            meta = wire_mod.with_tenant(wire_mod.with_trace(
+                {"table": self.name, "opt": opt._asdict()}, tid), tn)
             meta_b = wire_mod.pack_meta(meta)
             futs = [self.ctx.service.request(r, svc.MSG_ADD_ROWS, meta,
                                              [uids[m], vals[m]],
@@ -2470,7 +2526,8 @@ class AsyncSparseKVTable(_SparseGetMixin, _AsyncBase):
         with monitor(f"table[{self.name}].get_rows"):
             uids, _, inv = self._prep(keys)
             parts = list(self._by_owner(uids))
-            meta = {"table": self.name}
+            meta = wire_mod.with_tenant({"table": self.name},
+                                        _tenants.current())
             meta_b = wire_mod.pack_meta(meta)
             futs = [self.ctx.service.request(
                         r, svc.MSG_GET_ROWS, meta, [uids[m]], meta_b=meta_b)

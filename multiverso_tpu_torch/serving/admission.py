@@ -27,16 +27,13 @@ overloaded plane costs every op behind it.
 Shedding raises :class:`SheddingError` (via the caller) rather than
 queueing: bounded-staleness replicas make retries cheap, and a queue
 in front of an overloaded server is just a slower way to time out.
-
-Not ported (ROADMAP.md §A, Telemetry and tools): the per-tenant budgets
-(``set_tenant_limit``, ``tenant_stats``); ``admit`` with a named tenant
-raises.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Dict, Optional, Tuple
 
 from multiverso_tpu_torch.utils import config
@@ -126,7 +123,17 @@ class AdmissionController:
         self._buckets: Dict[Tuple[str, str],
                             Optional[TokenBucket]] = {}
         self._counts: Dict[Tuple[str, str], Dict[str, int]] = {}
+        # per-(table, tenant, cls) budgets (telemetry/tenants.py): the
+        # noisy-neighbor containment knob — a NAMED tenant's bucket is
+        # checked BEFORE the table-wide one, so a storm tenant's shed
+        # never burns aggregate tokens the victim needed. Same
+        # tombstone discipline as the aggregate buckets; the lazy
+        # default comes from the tenant_infer_qps flag.
+        self._tbuckets: Dict[Tuple[str, str, str],
+                             Optional[TokenBucket]] = {}
+        self._tcounts: Dict[Tuple[str, str, str], Dict[str, int]] = {}
         self._lock = threading.Lock()
+        _CONTROLLERS.add(self)
 
     # ------------------------------------------------------------------ #
     def set_limit(self, table: str, cls: str, qps: float,
@@ -160,18 +167,62 @@ class AdmissionController:
                     return b
             return None
 
+    def set_tenant_limit(self, table: str, tenant: str, cls: str,
+                         qps: float,
+                         burst: Optional[float] = None) -> None:
+        """Install (or with ``qps <= 0`` remove) a QPS budget for
+        ``(table, tenant, cls)``. Removal is an explicit exemption
+        overriding the ``tenant_infer_qps`` flag default, same
+        discipline as :meth:`set_limit`."""
+        if cls not in CLASSES:
+            raise ValueError(f"unknown admission class {cls!r} "
+                             f"(one of {CLASSES})")
+        if not tenant:
+            raise ValueError("per-tenant limits need a named tenant "
+                             "(use set_limit for the table-wide budget)")
+        with self._lock:
+            key = (table, tenant, cls)
+            if qps <= 0:
+                self._tbuckets[key] = None   # tombstone
+            else:
+                self._tbuckets[key] = TokenBucket(qps, burst)
+
+    def _tenant_bucket(self, table: str, tenant: str,
+                       cls: str) -> Optional[TokenBucket]:
+        with self._lock:
+            key = (table, tenant, cls)
+            if key in self._tbuckets:   # explicit limit OR exemption
+                return self._tbuckets[key]
+            if cls == "infer":
+                # lazy flag default for NAMED tenants only — the
+                # default tenant is governed by the table-wide budget
+                qps = (config.get_flag("tenant_infer_qps")
+                       if config.has_flag("tenant_infer_qps") else 0.0)
+                if qps > 0:
+                    b = self._tbuckets[key] = TokenBucket(qps)
+                    return b
+            return None
+
     def admit(self, table: str, cls: str = "infer",
               n: float = 1.0, tenant: Optional[str] = None) -> bool:
         """One admission decision (``n`` tokens = usually 1 request —
         QPS budgets queries, not rows). ``"train"`` with no explicit
-        limit is always admitted: the priority contract. Never blocks;
+        limit is always admitted: the priority contract. A NAMED
+        tenant's budget is judged first — a tenant-shed request never
+        draws down the table-wide bucket. Never raises, never blocks;
         the caller owns what a shed means (raise SheddingError, drop,
         retry-after)."""
         if tenant:
-            raise NotImplementedError(
-                f"admission for tenant {tenant!r}: per-tenant budgets are "
-                "not ported to multiverso_tpu_torch yet (ROADMAP.md §A "
-                "Telemetry and tools)")
+            tb = self._tenant_bucket(table, tenant, cls)
+            if tb is not None:
+                ok_t = tb.try_acquire(n)
+                tkey = (table, tenant, cls)
+                with self._lock:
+                    c = self._tcounts.setdefault(
+                        tkey, {"admitted": 0, "shed": 0})
+                    c["admitted" if ok_t else "shed"] += 1
+                if not ok_t:
+                    return False
         bucket = self._bucket(table, cls)
         ok = bucket is None or bucket.try_acquire(n)
         key = (table, cls)
@@ -200,3 +251,53 @@ class AdmissionController:
                     "admitted": 0, "shed": 0,
                     "qps_limit": round(b.rate, 3)})
         return out
+
+    def tenant_stats(self) -> Dict[str, Dict]:
+        """Per-(table, tenant, class) decision counters + limits — the
+        MSG_STATS ``tenants.admission`` shape (keys
+        ``"<table>/<tenant>/<cls>"``). Empty when no tenant budget was
+        ever installed or exercised."""
+        out: Dict[str, Dict] = {}
+        with self._lock:
+            for (table, tn, cls), c in self._tcounts.items():
+                b = self._tbuckets.get((table, tn, cls))
+                out[f"{table}/{tn}/{cls}"] = {
+                    "admitted": c["admitted"], "shed": c["shed"],
+                    "qps_limit": (round(b.rate, 3)
+                                  if b is not None else None),
+                }
+            for (table, tn, cls), b in self._tbuckets.items():
+                if b is None:
+                    continue
+                out.setdefault(f"{table}/{tn}/{cls}", {
+                    "admitted": 0, "shed": 0,
+                    "qps_limit": round(b.rate, 3)})
+        return out
+
+
+# every live controller, so the process-global MSG_STATS "tenants"
+# block (telemetry/tenants.py stats_snapshot) can gather tenant budget
+# decisions without the ledger holding controller references — a
+# replica pool closing drops out of the block automatically
+_CONTROLLERS: "weakref.WeakSet[AdmissionController]" = weakref.WeakSet()
+
+
+def tenant_stats_all() -> Dict[str, Dict]:
+    """Merged :meth:`AdmissionController.tenant_stats` across every
+    live controller in the process (sums counters for a key two
+    controllers share; keeps the first non-None limit)."""
+    out: Dict[str, Dict] = {}
+    for ctl in list(_CONTROLLERS):
+        try:
+            for k, v in ctl.tenant_stats().items():
+                e = out.get(k)
+                if e is None:
+                    out[k] = dict(v)
+                else:
+                    e["admitted"] += v["admitted"]
+                    e["shed"] += v["shed"]
+                    if e.get("qps_limit") is None:
+                        e["qps_limit"] = v.get("qps_limit")
+        except Exception:
+            continue
+    return out

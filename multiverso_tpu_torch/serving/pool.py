@@ -35,8 +35,9 @@ a ``"pool"`` detail block (per-member age, degraded flag, route share).
 ``bind_failover`` watches a shard failover supervisor: each shard rejoin
 kicks a fresh pull across the pool.
 
-Not ported (ROADMAP.md §A): a read naming a tenant raises (Telemetry and
-tools).
+Tenants: a read's tenant (``tenant=``, else ``tenants.current()``) is
+judged by admission's per-tenant budget first; a shed lands in the
+tenant ledger, and the member that serves records the read there.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from multiverso_tpu_torch.serving.admission import (AdmissionController,
                                                     SheddingError)
 from multiverso_tpu_torch.serving.replica import (BoundUnsatisfiableError,
                                                   ReadReplica)
+from multiverso_tpu_torch.telemetry import tenants as _tenants
 from multiverso_tpu_torch.utils import config, log
 
 config.define_int(
@@ -318,21 +320,19 @@ class ReplicaPool:
                  with_age: bool = False,
                  tenant: Optional[str] = None):
         """Serve rows from the least-stale healthy member, failing
-        over across the pool. Admission (``cls="infer"`` budgets) is
-        enforced once, up front — a shed is a policy decision, never a
-        health signal, and must not trigger failover. Raises the last
-        member's error only when EVERY member refused: the whole pool is
-        over bound (or unreachable). ``tenant``: only the default (None
-        or ``""``) is ported."""
-        if tenant:
-            raise NotImplementedError(
-                f"pool read for tenant {tenant!r}: tenant attribution is "
-                "not ported to multiverso_tpu_torch yet (ROADMAP.md §A "
-                "Telemetry and tools)")
+        over across the pool. Admission (``cls="infer"`` budgets,
+        per-tenant budgets first) is enforced once, up front — a shed
+        is a policy decision, never a health signal, and must not
+        trigger failover. Raises the last member's error only when
+        EVERY member refused: the whole pool is over bound (or
+        unreachable). ``tenant`` overrides the caller's scope/flag
+        attribution (``""`` = explicitly the default tenant)."""
+        tn = _tenants.current() if tenant is None else (tenant or None)
         if self.admission is not None and not self.admission.admit(
-                self.name, cls):
+                self.name, cls, tenant=tn):
             with self._lock:
                 self._shed += 1
+            _tenants.LEDGER.note_shed(self.name, tn)
             raise SheddingError(
                 f"pool[{self.name}]: {cls} read shed by admission "
                 "control")
@@ -340,8 +340,11 @@ class ReplicaPool:
         last: Optional[BaseException] = None
         for i, m in enumerate(candidates):
             try:
+                # tenant rides to the member explicitly ("" = default):
+                # the member's ledger entry is the serve-side record
                 res = m.replica.get_rows(row_ids, cls="train", out=out,
-                                         with_age=with_age)
+                                         with_age=with_age,
+                                         tenant=tn or "")
             except (ValueError, IndexError, TypeError):
                 # caller input errors (empty/out-of-range row_ids) are
                 # not replica health events: propagate untouched — a
@@ -376,7 +379,8 @@ class ReplicaPool:
         if spare is not None:
             try:
                 res = spare.replica.get_rows(row_ids, cls="train",
-                                             out=out, with_age=with_age)
+                                             out=out, with_age=with_age,
+                                             tenant=tn or "")
                 with self._lock:
                     spare.routed += 1
                 return res

@@ -57,10 +57,11 @@ snapshot buffer, the hot-row cache and the refresh's staging copy) with
 the memory ledger; every refresh lands one ``EV_REPLICA_PULL`` on the
 flight recorder and, with ``trace_ids`` on, one trace ID rides every
 shard's snapshot request, so the ``replica.pull`` span stitches to the
-shards' ``snapshot.serve`` spans.
-
-Not ported (ROADMAP.md §A, Telemetry and tools): the tenant ledger; a
-read naming a tenant raises.
+shards' ``snapshot.serve`` spans. Reads feed the process's tenant
+ledger (``telemetry/tenants.LEDGER``): each serve with its latency and
+age, each shed and each deferred (synchronous-refresh) read, under the
+caller's tenant; snapshot pulls are stamped with the process's
+``tenant_id``.
 """
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ from multiverso_tpu_torch.serving.hotcache import (HotRowCache,
                                                    match_positions)
 from multiverso_tpu_torch.telemetry import hotkeys as _hotkeys
 from multiverso_tpu_torch.telemetry import memstats as _memstats
+from multiverso_tpu_torch.telemetry import tenants as _tenants
 from multiverso_tpu_torch.utils import config, log
 from multiverso_tpu_torch.utils import retry as _retry
 from multiverso_tpu_torch.utils.dashboard import Dashboard
@@ -409,10 +411,16 @@ class ReadReplica:
         chunk = int(config.get_flag("serving_snapshot_chunk_rows"))
 
         def dispatch(rank, lo, hi):
-            meta: Dict[str, Any] = wire_mod.with_trace({
-                "table": self.name,
-                "since": int(self._versions.get(rank, -1)),
-                "since_gen": int(self._gens.get(rank, -1))}, tr)
+            # tenant-stamped like add/get frames (the refresh thread has
+            # no per-call scope, so this is the process's tenant_id
+            # flag): the shard attributes pull bytes to the tenant the
+            # replica serves
+            meta: Dict[str, Any] = wire_mod.with_tenant(
+                wire_mod.with_trace({
+                    "table": self.name,
+                    "since": int(self._versions.get(rank, -1)),
+                    "since_gen": int(self._gens.get(rank, -1))}, tr),
+                _tenants.current())
             sink = buf = None
             if chunk > 0 and (hi - lo) > chunk and rank != self.ctx.rank:
                 buf = np.empty((hi - lo, self.num_col), self.dtype)
@@ -606,7 +614,7 @@ class ReadReplica:
         with self._swap_lock:
             return time.monotonic() - self._pulled_at
 
-    def _grab_fresh(self):
+    def _grab_fresh(self, tn: Optional[str] = None):
         """Enforce the staleness bound and take the serving snapshot in
         ONE atomic step: the age check, the buffer grab, and the served
         age are measured under the same lock hold — a read descheduled
@@ -623,6 +631,9 @@ class ReadReplica:
                     return self._data, age, self._cache.ids()
             self._deferred += 1
             self._mon_deferred.incr()
+            # a deferred serve is per-tenant degradation evidence for
+            # the noisy-neighbor sweep
+            _tenants.LEDGER.note_deferred(self.name, tn)
             # any pull started within the bound satisfies this reader —
             # K concurrent over-bound readers then share ONE pull
             # instead of performing K serialized ones
@@ -653,8 +664,9 @@ class ReadReplica:
         (n, cols) C-contiguous buffer of the table dtype.
         ``with_age=True`` returns ``(rows, age_s)`` with the age of the
         served snapshot measured atomically with the buffer grab — the
-        bench's staleness evidence. ``tenant`` names a tenant for this
-        read; only the default (None or ``""``) is ported."""
+        bench's staleness evidence. ``tenant`` overrides the caller's
+        :func:`tenants.tenant_scope` / ``tenant_id`` attribution for
+        this read (``""`` = explicitly the default tenant)."""
         t0 = time.perf_counter()
         if self._closed:
             # serving off a dead member's last snapshot would mask a
@@ -665,19 +677,16 @@ class ReadReplica:
             raise ValueError("empty row_ids")
         if ids.min() < 0 or ids.max() >= self.num_row:
             raise IndexError(f"row id out of range [0, {self.num_row})")
-        if tenant:
-            raise NotImplementedError(
-                f"replica read for tenant {tenant!r}: tenant attribution "
-                "is not ported to multiverso_tpu_torch yet (ROADMAP.md §A "
-                "Telemetry and tools)")
+        tn = _tenants.current() if tenant is None else (tenant or None)
         if self.admission is not None and not self.admission.admit(
-                self.name, cls):
+                self.name, cls, tenant=tn):
             self._shed += 1
             self._mon_shed.incr()
+            _tenants.LEDGER.note_shed(self.name, tn)
             raise SheddingError(
                 f"replica[{self.name}]: {cls} read shed by admission "
                 "control")
-        data, age, cids = self._grab_fresh()
+        data, age, cids = self._grab_fresh(tn)
         if (out is not None and isinstance(out, np.ndarray)
                 and out.shape == (ids.size, self.num_col)
                 and out.dtype == self.dtype and out.flags.c_contiguous):
@@ -695,7 +704,12 @@ class ReadReplica:
                 self._misses += ids.size - hits
                 self._mon_cache_miss.incr(ids.size - hits)
         self._served += 1
-        self._mon_replica.observe_ms((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._mon_replica.observe_ms(ms)
+        # the serve-side tenant ledger: latency + served age per tenant
+        # (one entry per read, at the member that actually served)
+        _tenants.LEDGER.note_serve(self.name, tn, ms, age_s=age,
+                                   bound_s=self.staleness_s)
         return (rows, age) if with_age else rows
 
     # ------------------------------------------------------------------ #

@@ -25,10 +25,23 @@ names, so either package's tools read the other's files.
 * :mod:`~multiverso_tpu_torch.telemetry.profiler` — the per-step
   critical-path profiler (flag ``step_profile``).
 
+The cluster plane, the same records and blocks as the JAX package's:
+
+* :mod:`~multiverso_tpu_torch.telemetry.aggregator` — rank 0's poller
+  (flag ``stats_poll_interval_s``) of every rank's MSG_STATS and
+  MSG_HEALTH, merged into ``cluster.jsonl`` / ``cluster.prom`` records.
+* :mod:`~multiverso_tpu_torch.telemetry.signals` — the typed autoscaling
+  signals derived from each record, on a subscribable bus.
+* :mod:`~multiverso_tpu_torch.telemetry.slo` — the SLO sentinel (flag
+  ``slo_spec``): burn-rate episodes judged on every poll.
+* :mod:`~multiverso_tpu_torch.telemetry.tenants` — tenant identity, the
+  shards' per-tenant meters, the serve ledger and the noisy-neighbor
+  verdict.
+
 The tools that read these files are ``python -m
-multiverso_tpu_torch.tools.postmortem``, ``.mvprof`` and
-``.dump_metrics``. The cluster plane (aggregator, signals, slo, tenants)
-is not ported yet (ROADMAP.md §A, "Telemetry and tools").
+multiverso_tpu_torch.tools.postmortem``, ``.mvprof``, ``.dump_metrics``,
+``.mvtop`` and ``.mvautoscale``; ``.check_obs_surface`` lints the
+surface.
 """
 
 from multiverso_tpu_torch.telemetry.histogram import Histogram  # noqa: F401

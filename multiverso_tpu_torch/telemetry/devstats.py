@@ -17,7 +17,7 @@ The block keeps the JAX package's keys, so its readers take either
 package's payload: ``collectives`` and ``compiles_by_mesh`` are always
 empty here. Their producers (mesh-keyed compile events, collective spans
 and the SPMD compile-hygiene capture) serve device meshes, which this
-package does not have yet (ROADMAP.md §A item 2).
+package does not have yet (ROADMAP.md §A item 1).
 
 Cost: the ``devstats`` flag (default on) gates every recording site
 behind one attribute read; a counter is one int add under a lock at a

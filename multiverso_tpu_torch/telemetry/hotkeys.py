@@ -114,6 +114,15 @@ class SpaceSaving:
             self.observed += inc
             self._offer(int(key), int(inc))
 
+    def offer_key(self, key, inc: int = 1) -> None:
+        """Like :meth:`offer` without the int cast: string keys (tenant
+        ids, ``telemetry/tenants.py``) rank the same way row ids do.
+        Don't mix key types in one sketch: a stale-top re-push would
+        then compare int against str."""
+        with self._lock:
+            self.observed += inc
+            self._offer(key, int(inc))
+
     def observe(self, ids, offset: int = 0) -> None:
         """Record a batch of row ids (``offset`` turns shard-local ids
         into global ones without allocating a shifted copy). Batches
@@ -172,13 +181,14 @@ class SpaceSaving:
 # cross-shard merge + the cache-sizing curve
 # ---------------------------------------------------------------------- #
 def merge_sketches(dicts: Iterable[Optional[Dict]],
-                   capacity: Optional[int] = None) -> Dict:
+                   capacity: Optional[int] = None, key=int) -> Dict:
     """Merge :meth:`SpaceSaving.to_dict` payloads into one cluster-level
     sketch dict. Counts for a key present in several inputs sum (their
     err bounds sum too, staying conservative); PS shards partition the
     key space, so in practice this is an exact concatenation. The result
     keeps the ``capacity`` largest entries (default: the largest input
-    capacity)."""
+    capacity). ``key`` normalizes keys across inputs: ``int`` for row
+    ids (the default), ``str`` for tenant-id sketches."""
     acc: Dict[Any, List[int]] = {}
     total = observed = cap = 0
     for d in dicts:
@@ -188,7 +198,7 @@ def merge_sketches(dicts: Iterable[Optional[Dict]],
         observed += int(d.get("observed", 0) or 0)
         cap = max(cap, int(d.get("capacity", 0) or 0))
         for k, c, e in d.get("items", []):
-            a = acc.setdefault(int(k), [0, 0])
+            a = acc.setdefault(key(k), [0, 0])
             a[0] += int(c)
             a[1] += int(e)
     items = sorted(([k, c, e] for k, (c, e) in acc.items()),

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 _TRUE_STRINGS = frozenset({"true", "1", "yes", "on"})
 _FALSE_STRINGS = frozenset({"false", "0", "no", "off"})
@@ -86,6 +86,15 @@ def get_flag(name: str) -> Any:
             return _registry[name].value
         except KeyError:
             raise FlagError(f"unknown flag {name!r}") from None
+
+
+def reader(name: str) -> Callable[[], Any]:
+    """A reader of one flag's current value that takes no lock, for
+    per-op hot paths: a dict lookup and an attribute read, each atomic
+    under the interpreter lock, see every ``set_flag``, ``reset_flags``
+    and redefinition at the next call."""
+    get_flag(name)   # unknown names fail here, not on the hot path
+    return lambda: _registry[name].value
 
 
 def set_flag(name: str, value: Any) -> None:
@@ -199,9 +208,8 @@ define_string("device", "",
 define_string("ps_role", "default",
               "role of this process: none|worker|server|default")
 # The async PS plane's client windows (ps/tables.py), off by default as
-# in the JAX package; per-tenant add budgets exist with the JAX package's
-# name and default, and an async table refuses them when set (ROADMAP.md
-# §A).
+# in the JAX package (the per-tenant add budget, tenant_add_qps, lives
+# with the other tenant flags in telemetry/tenants.py).
 define_float("batch_window_ms", 0.0,
              "send-window age bound in ms for async add_rows batching; "
              "0 disables the window (every add ships immediately). "
@@ -220,10 +228,6 @@ define_float("get_window_ms", 0.0,
              "dispatched when the reply lands or after this many ms. 0 "
              "disables (every get is its own frame). Per-table override: "
              "get_window_ms= on the table")
-define_float("tenant_add_qps", 0.0,
-             "per-(table, tenant) client-side add budget (qps) at the send "
-             "window; 0 disables the bucket (the only value the port "
-             "takes)")
 # Exactly-once replay (ps/tables._SendWindow, ps/shard's sequence
 # channels): windowed frames carry a per-(client, table) sequence, the
 # owning shard dedupes them, and the client retains each frame past its

@@ -114,15 +114,18 @@ class Zoo:
                         f"adds = {adds}, applies = {applies}")
         # final telemetry flush while the monitors still hold this run's
         # numbers (the exporter's stop() writes a last snapshot; buffered
-        # trace spans and step records drain to metrics_dir); the failover
-        # checkpointer first writes one final committed save while the
-        # shards are still intact
+        # trace spans and step records drain to metrics_dir). The cluster
+        # aggregator goes first (its final poll needs the PS service);
+        # the failover checkpointer then writes one final committed save
+        # while the shards are still intact
         from multiverso_tpu_torch.ps import failover as _failover
         from multiverso_tpu_torch.ps import service as _ps_service
+        from multiverso_tpu_torch.telemetry import aggregator as _aggregator
         from multiverso_tpu_torch.telemetry import exporter as _exporter
         from multiverso_tpu_torch.telemetry import flightrec as _flightrec
         from multiverso_tpu_torch.telemetry import profiler as _profiler
         from multiverso_tpu_torch.telemetry import trace as _trace
+        _aggregator.stop_global()
         _failover.stop_global(final=True)
         _exporter.stop_global()
         # final black-box dump (no-op unless a dump directory resolves);

@@ -1,9 +1,11 @@
 """Port parity, the chaos matrix (``examples/chaos.py``, the port's copy of
 ``tools/bench_chaos.py``): the shared recovery math against the tool's on
-the same numpy series, the in-process ``partition_heal``, ``dup_reorder``
-and ``replica_kill`` smokes at the tool's shape (32 x 8, a 1 ms send
-window, replay on, two ranks on the CPU) with ``tests/test_chaos.py``'s
-weather rule, and ``ReplicaPool.bind_failover``'s rejoin re-sync driven
+the same numpy series, the in-process ``partition_heal``, ``dup_reorder``,
+``slow_shard_shed``, ``replica_kill`` and ``noisy_neighbor`` smokes at the
+tool's shape (32 x 8, a 1 ms send window, replay on, two ranks on the
+CPU) with ``tests/test_chaos.py``'s weather rule — the SLO sentinel's
+gates (``slo_*``) and the autoscaler's (``autoscale_grow``) among the
+strict ones — and ``ReplicaPool.bind_failover``'s rejoin re-sync driven
 by a real FailoverSupervisor.
 
 The weather rule (``tests/test_chaos.py:775-793``): the correctness gates
@@ -121,6 +123,55 @@ def test_replica_kill_smoke(tmp_path):
         "demote", "spare_activated"]
 
 
+def test_partition_heal_slo_episode(tmp_path):
+    """The sentinel's availability objective fires inside the cut and
+    clears after the heal, on the flight recorder and in alerts.jsonl,
+    and the sentinel is disarmed, with the caller's health timeout put
+    back, when the scenario returns."""
+    from multiverso_tpu_torch.telemetry import slo
+    health = config.get_flag("ps_health_timeout")
+    r = _weather(chaos.scenario_partition_heal, tmp_path, seconds=8.0)
+    assert config.get_flag("ps_health_timeout") == health != 1.0
+    assert r["gates"]["slo_fired_during_cut"]
+    assert r["gates"]["slo_cleared_after_heal"]
+    kinds = [e["kind"] for e in r["slo"]["episodes_log"]]
+    assert kinds[:2] == ["slo.fired", "slo.cleared"]
+    assert not slo.enabled()
+
+
+def test_slow_shard_shed_autoscale_and_slo_smoke(tmp_path):
+    """Mid-slow, the signal bus says GROW (shedding with a warm spare);
+    the sentinel judged every poll and ends clear."""
+    r = _weather(chaos.scenario_slow_shard_shed, tmp_path, seconds=9.0)
+    assert r["gates"]["autoscale_grow"], r["autoscale"]
+    assert r["gates"]["slo_judged_and_clear"], r["slo"]
+    assert r["autoscale"]["action"] == "grow"
+
+
+def test_noisy_neighbor_smoke(tmp_path):
+    """The tool's gates, strict on every run; the victim's p99 compares
+    latencies seconds apart on a shared host, so that one gate gets a
+    second run (the JAX package's tier-1 smoke does the same)."""
+    last = None
+    for attempt in range(2):
+        r = chaos.scenario_noisy_neighbor(
+            seconds=8.0, tmp=os.path.join(str(tmp_path), str(attempt)),
+            device="cpu")
+        strict = {g: ok for g, ok in r["gates"].items()
+                  if g != "victim_p99"}
+        assert all(strict.values()), r["gates"]
+        last = r
+        if r["gates"]["victim_p99"]:
+            break
+    assert last["gates"]["victim_p99"], last["gates"]
+    assert last["episodes"] == 1 and last["flight_verdicts"] == 1
+    assert last["tenants_block"]["verdict"]["tenant"] == "storm"
+    assert last["tenants_block"]["active"] is False
+    assert set(chaos.SCENARIOS) == {"partition_heal", "dup_reorder",
+                                    "slow_shard_shed", "replica_kill",
+                                    "noisy_neighbor"}
+
+
 def test_bind_failover_rejoin_kicks_resync(tmp_path):
     """A FailoverSupervisor's rejoin (a fresh beacon clearing the victim's
     tombstone) makes the bound pool pull at once, though its snapshot is
@@ -147,17 +198,22 @@ def test_bind_failover_rejoin_kicks_resync(tmp_path):
             confirm=False, timeout=1e9, poll_s=60, ranks=[1])
         sup.check_once()
         pool.bind_failover(sup)
-        e0 = pool._members[0].replica._epoch
+        # each replica counts only its own pulls, and the stopped
+        # threads may leave one member a pull behind the other: every
+        # member is held to its OWN epoch before the rejoin
+        e0 = {m.idx: m.replica._epoch for m in pool._members}
         elastic.mark_failed(hb, 1)
         sup.check_once()                       # detect + respawn
         pool.check_health()
-        assert pool._members[0].replica._epoch == e0   # no rejoin yet
+        assert {m.idx: m.replica._epoch
+                for m in pool._members} == e0  # no rejoin yet
         elastic.Heartbeat(hb, rank=1, addr="h:2").beat()
         sup.check_once()                       # the rejoin
         pool.check_health()
         assert spawned == [(1, 1)]
-        assert all(m.replica._epoch > e0 for m in pool._members
-                   if m.active)
+        assert all(m.replica._epoch > e0[m.idx] for m in pool._members
+                   if m.active), (e0, [m.replica._epoch
+                                       for m in pool._members])
     finally:
         pool.close()
         for c in ctxs:

@@ -84,6 +84,10 @@ def test_addr_less_beacons_keep_the_timestamp_rule(tmp_path, mod):
 
 
 def test_stale_beacon_is_dead_and_stuck_is_read(tmp_path):
+    # the port's beacon carries no verdict until its watchdog has run; a
+    # PSService of an earlier test in this process starts the watchdog
+    from multiverso_tpu_torch.telemetry import watchdog
+    watchdog.reset()
     hb = str(tmp_path / "hb")
     tel.Heartbeat(hb, rank=0).beat()
     # a JAX rank's beacon carries the watchdog's last verdict

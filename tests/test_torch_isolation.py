@@ -84,6 +84,13 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.examples.chaos\n"
         "import multiverso_tpu_torch.ps.native\n"
         "import multiverso_tpu_torch.examples.ps_bench\n"
+        "import multiverso_tpu_torch.telemetry.aggregator\n"
+        "import multiverso_tpu_torch.telemetry.signals\n"
+        "import multiverso_tpu_torch.telemetry.slo\n"
+        "import multiverso_tpu_torch.telemetry.tenants\n"
+        "import multiverso_tpu_torch.tools.mvtop\n"
+        "import multiverso_tpu_torch.tools.mvautoscale\n"
+        "import multiverso_tpu_torch.tools.check_obs_surface\n"
         "import chip_smoke\n"
         "multiverso_tpu_torch.native.available()   # builds and loads\n"
         "multiverso_tpu_torch.ps.native.available()\n"
@@ -97,7 +104,8 @@ def test_import_loads_no_jax_and_no_reference_module():
 
 
 def test_sources_import_no_jax_and_no_reference_module():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "chip_ab.py"]
     assert len(files) > 10
     for f in files:
         text = f.read_text()

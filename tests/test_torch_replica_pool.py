@@ -3,8 +3,8 @@
 shards, a killed replica demoted and routed around with a warm spare
 activated, failover past a member whose bound cannot be met, demotion on
 failing background pulls and re-promotion, admission enforced once at the
-pool's surface, the merged serving block, the refusal that stays and
-``bind_failover``'s rejoin re-sync.
+pool's surface, the merged serving block, named tenants' reads against
+the JAX pool's, and ``bind_failover``'s rejoin re-sync.
 Two ranks in one process, on the CPU."""
 
 import gc
@@ -161,9 +161,46 @@ def test_pool_entry_replaces_its_members_in_the_serving_block(world):
     assert block["pl"]["served"] == 1
 
 
-def test_refusals_name_their_items(world):
-    """A tenant read still raises by its ROADMAP title; ``bind_failover``
-    (once refused) now binds a supervisor, whose rejoin kicks a pull."""
+def _pool_tenant_reads(svc, tables, Pool, adm_mod, ten, rdv, **ctx_kw):
+    """Named tenants' pool reads in one package's two-rank world, one
+    tenant over its own budget: the ledger's counters afterwards."""
+    ctxs = [svc.PSContext(r, 2, svc.PSService(r, 2, svc.FileRendezvous(rdv)),
+                          **ctx_kw) for r in range(2)]
+    pool = None
+    try:
+        t0, _ = [tables.AsyncMatrixTable(16, 4, name="pl", ctx=c)
+                 for c in ctxs]
+        t0.add_rows([1], np.ones((1, 4), np.float32))
+        t0.flush()
+        adm = adm_mod.AdmissionController()
+        adm.set_tenant_limit("pl", "storm", "infer", 1.0, burst=1.0)
+        pool = Pool(t0, replicas=2, staleness_s=30.0, probe_s=999.0,
+                    admission=adm, start=False)
+        for m in pool._members:   # primed: no read pays a refresh
+            m.replica.refresh()
+        ten.reset()
+        rows = pool.get_rows([1], tenant="victim")
+        np.testing.assert_array_equal(rows, t0.get_rows([1]))
+        pool.get_rows([1], tenant="storm")
+        with pytest.raises(adm_mod.SheddingError):
+            pool.get_rows([1], tenant="storm")
+        block = ten.LEDGER.stats_snapshot()
+        return ({tn: {k: e[k] for k in ("served", "shed", "deferred")}
+                 for tn, e in block["tables"]["pl"].items()},
+                block["admission"])
+    finally:
+        ten.reset()
+        if pool is not None:
+            pool.close()
+        for c in ctxs:
+            c.close()
+
+
+def test_refusals_name_their_items(world, tmp_path):
+    """A named tenant's pool read (once refused) serves and is metered as
+    the JAX pool's is — the over-budget tenant shed at the pool, the
+    member's serve in the ledger; ``bind_failover`` (once refused) binds
+    a supervisor, whose rejoin kicks a pull."""
     t0, make = world
     pool = make(probe_s=999.0)   # check_health is driven by hand
     _written(t0, [7])
@@ -184,10 +221,24 @@ def test_refusals_name_their_items(world):
     _Sup.events.append((time.time(), "rejoin", 1))
     pool.check_health()   # a FRESH pull though the snapshot is in bound
     assert pool._members[0].replica._epoch > e0
-    with pytest.raises(NotImplementedError, match="Telemetry and tools"):
-        pool.get_rows([1], tenant="victim")
     with pytest.raises(ValueError, match="active replica"):
         ReplicaPool(t0, replicas=0, start=False)
+    from multiverso_tpu.ps import service as jsvc
+    from multiverso_tpu.ps import tables as jtables
+    from multiverso_tpu.serving import admission as jadm
+    from multiverso_tpu.serving.pool import ReplicaPool as JPool
+    from multiverso_tpu.telemetry import tenants as jten
+    from multiverso_tpu.utils import config as jconfig
+    from multiverso_tpu_torch.serving import admission as tadm
+    from multiverso_tpu_torch.telemetry import tenants as tten
+    jconfig.set_flag("ps_native", False)
+    got = _pool_tenant_reads(tsvc, ttables, ReplicaPool, tadm, tten,
+                             str(tmp_path / "trdv"), device="cpu")
+    want = _pool_tenant_reads(jsvc, jtables, JPool, jadm, jten,
+                              str(tmp_path / "jrdv"))
+    assert got == want
+    assert got[0] == {"victim": {"served": 1, "shed": 0, "deferred": 0},
+                      "storm": {"served": 1, "shed": 1, "deferred": 0}}
 
 
 def _pool_script(svc, tables, pool_cls, rdv):

@@ -13,7 +13,8 @@ mirroring ``tests/test_send_window.py``.
 * the window's contract: read-your-writes through the fences, the op
   bound, per-sub-op failures, owned value buffers, a flusher thread that
   exits with its table;
-* the refusals that stay: ``ps_replay`` and ``tenant_add_qps``.
+* tenants: ``tenant_add_qps`` defers over-budget adds, and the window
+  never merges two tenants' entries, as the JAX window does.
 
 Two ranks in one process over a ``FileRendezvous`` (real loopback
 sockets), on the CPU; ``ps_timeout`` a few seconds in both packages.
@@ -426,19 +427,65 @@ def test_flusher_thread_exits_with_table(ranks, monkeypatch):
 
 
 # ---------------------------------------------------------------------- #
-# what stays refused
+# tenants at the window (once refused)
 # ---------------------------------------------------------------------- #
-@pytest.mark.parametrize("kind", ["matrix", "kv"])
-def test_tenant_add_budget_raises_naming_its_item(ranks, kind):
-    tconfig.set_flag("tenant_add_qps", 10.0)
-    with pytest.raises(NotImplementedError, match="Telemetry and tools"):
+def _tenant_window_run(tables, ten, cfg, ctxs, kind):
+    """Two tenants' adds through a window only the flush closes, with a
+    per-tenant add budget of one token that never refills in a test's
+    time: the rows, each shard's tenant meter and the ledger."""
+    ten.reset()
+    cfg.set_flag("tenant_add_qps", 1e-3)   # burst 1 token, ~no refill
+    try:
         if kind == "kv":
-            ttables.AsyncSparseKVTable(2, name="tq", ctx=ranks[0],
-                                       send_window_ms=1.0)
+            t0, t1 = _pair(tables, ctxs, "AsyncSparseKVTable", 2,
+                           name="tq", send_window_ms=HUGE_MS)
         else:
-            ttables.AsyncMatrixTable(4, 2, name="tq", ctx=ranks[0],
-                                     send_window_ms=1.0)
-    assert tsvc.TELEMETRY_ITEM in ROADMAP
+            t0, t1 = _pair(tables, ctxs, "AsyncMatrixTable", 8, 2,
+                           name="tq", send_window_ms=HUGE_MS)
+        rng = np.random.default_rng(3)
+        for i in range(14):
+            # runs of one tenant merge; a tenant switch never does
+            with ten.tenant_scope("noisy" if i % 4 else "quiet"):
+                t0.add_rows_async([i % 8],
+                                  rng.normal(size=(1, 2)).astype(np.float32))
+        t0.flush()
+        rows = t0.get_rows(np.arange(8))
+        # the named tenants' meters: the default tenant's get is served
+        # by the port's C++ server (ps_native is on in its world), which
+        # meters no tenant
+        meters = [{tn: c for tn, c in t._shard._tenants.to_dict().items()
+                   if tn != "default"} for t in (t0, t1)]
+        ledger = {tn: e["deferred"] for tn, e in
+                  ten.LEDGER.stats_snapshot()["tables"]["tq"].items()}
+        return rows, meters, ledger
+    finally:
+        cfg.set_flag("tenant_add_qps", 0.0)
+        ten.reset()
+
+
+@pytest.mark.parametrize("kind", ["matrix", "kv"])
+def test_tenant_add_budget_raises_naming_its_item(ranks, jranks, kind):
+    """The per-tenant add budget (once refused): an over-budget windowed
+    add is counted as deferred and still ships, the window merges only
+    one tenant's entries, and the shards meter each tenant's ops and
+    bytes — all as the JAX package's window does, on the same adds."""
+    from multiverso_tpu.telemetry import tenants as jten
+    from multiverso_tpu_torch.telemetry import tenants as tten
+    got = _tenant_window_run(ttables, tten, tconfig, ranks, kind)
+    want = _tenant_window_run(jtables, jten, jconfig, jranks, kind)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    # 10 "noisy" and 4 "quiet" adds, one token each: all but one deferred
+    assert got[2] == {"noisy": 9, "quiet": 3}
+    ops = {tn: sum(m.get(tn, {}).get("ops", 0) for m in got[1])
+           for tn in ("noisy", "quiet")}
+    if kind == "matrix":
+        # each "quiet" add is its own sub-op (a tenant switch on either
+        # side); "noisy" runs merge where their rows are disjoint
+        assert ops["quiet"] == 4 and 0 < ops["noisy"] < 10
+    else:
+        # the hash shards meter no tenant, in either package
+        assert ops == {"noisy": 0, "quiet": 0}
 
 
 def test_replay_still_raises_with_a_window(ranks):

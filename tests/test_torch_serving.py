@@ -234,7 +234,35 @@ def test_background_refresh_thread(ranks):
         rep.get_rows([1])
 
 
-def test_out_buffer_and_bad_ids(ranks):
+def _tenant_read(svc, tables, Rep, ten, rdv, **ctx_kw):
+    """A named tenant's replica read in one package's two-rank world:
+    the rows served and the tenant ledger's counters afterwards."""
+    ctxs = [svc.PSContext(r, 2, svc.PSService(r, 2, svc.FileRendezvous(rdv)),
+                          **ctx_kw) for r in range(2)]
+    try:
+        t0, _ = _tables(ctxs, mod=tables)
+        rep = Rep(t0, start=False, staleness_s=30.0)
+        rep.refresh()
+        ten.reset()
+        rows = rep.get_rows([1, 40], tenant="storm")
+        rep.close()
+        block = ten.LEDGER.stats_snapshot()["tables"]
+        return rows, {t: {tn: {k: e[k] for k in ("served", "shed",
+                                                   "deferred")}
+                          for tn, e in tt.items()}
+                      for t, tt in block.items()}
+    finally:
+        ten.reset()
+        for c in ctxs:
+            c.close()
+
+
+def test_out_buffer_and_bad_ids(ranks, tmp_path):
+    """``out=``, bad ids, and a named tenant's read (once refused): it
+    serves the same rows and lands in the tenant ledger as the JAX
+    replica's read does."""
+    from multiverso_tpu.telemetry import tenants as jten
+    from multiverso_tpu_torch.telemetry import tenants as tten
     t0, _ = _tables(ranks)
     rep = ReadReplica(t0, start=False, staleness_s=30.0)
     rep.refresh()
@@ -245,9 +273,14 @@ def test_out_buffer_and_bad_ids(ranks):
         rep.get_rows([64])
     with pytest.raises(ValueError):
         rep.get_rows([])
-    with pytest.raises(NotImplementedError, match="Telemetry and tools"):
-        rep.get_rows([1], tenant="storm")
     rep.close()
+    got_rows, got = _tenant_read(tsvc, ttables, ReadReplica, tten,
+                                 str(tmp_path / "trdv"), device="cpu")
+    want_rows, want = _tenant_read(jsvc, jtables, jreplica.ReadReplica,
+                                   jten, str(tmp_path / "jrdv"))
+    np.testing.assert_array_equal(got_rows, want_rows)
+    assert got == want == {"srv": {"storm": {"served": 1, "shed": 0,
+                                             "deferred": 0}}}
 
 
 def test_reads_served_while_writes_flow(ranks):
@@ -413,8 +446,24 @@ def test_priority_classes_and_flag_default():
     assert all(adm.admit("y", "infer") for _ in range(20))
     with pytest.raises(ValueError, match="admission class"):
         adm.set_limit("t", "batch", 1.0)
-    with pytest.raises(NotImplementedError, match="Telemetry and tools"):
-        adm.admit("t", "infer", tenant="storm")
+    # per-tenant budgets (once refused) decide as the JAX package's do: a
+    # named tenant's bucket is judged first, and its sheds never draw the
+    # table-wide bucket down
+    from multiverso_tpu.serving.admission import AdmissionController as JAdm
+    seen = []
+    for Adm in (AdmissionController, JAdm):
+        a = Adm()
+        a.set_limit("t", "infer", 100.0, burst=3.0)
+        a.set_tenant_limit("t", "storm", "infer", 1.0, burst=1.0)
+        dec = ([a.admit("t", "infer", tenant="storm") for _ in range(3)]
+               + [a.admit("t", "infer", tenant="calm") for _ in range(2)])
+        with pytest.raises(ValueError, match="named tenant"):
+            a.set_tenant_limit("t", "", "infer", 1.0)
+        seen.append((dec, a.tenant_stats(), a.stats()))
+    assert seen[0] == seen[1]
+    assert seen[0][0] == [True, False, False, True, True]
+    assert seen[0][1]["t/storm/infer"] == {"admitted": 1, "shed": 2,
+                                           "qps_limit": 1.0}
 
 
 def test_replica_sheds_and_counts(ranks):

@@ -11,7 +11,11 @@ The files are one format, so:
   postmortem`` print the same merged report of the two dumps;
 * the root ``tools/mvprof.py`` and ``tools/dump_metrics.py`` read the
   port's step and metrics files, and the port's copies read the JAX
-  package's, with the same output as the other package's tool.
+  package's, with the same output as the other package's tool;
+* in a mixed world of either order, each package's cluster aggregator
+  polls the other's rank to the same per-table totals, and the root
+  ``tools/mvtop.py`` and the port's render either's ``cluster.jsonl``
+  alike.
 """
 
 import contextlib
@@ -205,3 +209,83 @@ def test_root_tools_read_port_files_and_back(world):
     _run(tdump.main, ["to-perfetto", str(dirs["metrics"] /
                                          "trace-rank1.jsonl"), out_json])
     assert json.load(open(out_json))["traceEvents"]
+
+
+# ---------------------------------------------------------------------- #
+# the cluster plane across packages
+# ---------------------------------------------------------------------- #
+@pytest.fixture(params=["jax_rank0", "port_rank0"])
+def cluster_world(request, tmp_path):
+    """A mixed world of two ranks in either order (the Python plane in
+    both packages), a table written and read from both clients, and each
+    package's aggregator bound to its own rank's service."""
+    from multiverso_tpu.telemetry import aggregator as jagg
+    from multiverso_tpu_torch.telemetry import aggregator as tagg
+    _reset_port()
+    for cfg in (jconfig, tconfig):
+        cfg.set_flag("ps_native", False)
+        cfg.set_flag("ps_timeout", 10.0)
+        cfg.set_flag("ps_connect_timeout", 3.0)
+    rdv = str(tmp_path / "rdv")
+    jr = 0 if request.param == "jax_rank0" else 1
+    jctx = jsvc.PSContext(jr, 2, jsvc.PSService(
+        jr, 2, jsvc.FileRendezvous(rdv)))
+    tctx = tsvc.PSContext(1 - jr, 2, tsvc.PSService(
+        1 - jr, 2, tsvc.FileRendezvous(rdv)), device="cpu")
+    jt = jtables.AsyncMatrixTable(20, 4, name="cx", ctx=jctx,
+                                  updater="adagrad")
+    tt = ttables.AsyncMatrixTable(20, 4, name="cx", ctx=tctx,
+                                  updater="adagrad")
+    rng = np.random.default_rng(5)
+    for table in (jt, tt):
+        for i in range(12):
+            row = 13 if i % 2 else int(rng.integers(0, 20))
+            table.add_rows([row], np.ones((1, 4), np.float32))
+            table.get_rows([row])
+    aggs = {"jax": jagg.ClusterAggregator(
+                jctx.service, directory=str(tmp_path / "jax")),
+            "port": tagg.ClusterAggregator(
+                tctx.service, directory=str(tmp_path / "port"))}
+    try:
+        yield tmp_path, aggs
+    finally:
+        tctx.close()
+        jctx.close()
+        _reset_port()
+
+
+def test_aggregators_poll_each_other(cluster_world):
+    """Each package's aggregator polls the other's rank over its one-shot
+    probes: the per-table totals, the per-shard scalars and the hot keys
+    are the same."""
+    _, aggs = cluster_world
+    recs = {k: a.poll_once() for k, a in aggs.items()}
+    for rec in recs.values():
+        assert rec["polled"] == 2
+        assert all(e["status"] == "ok" for e in rec["ranks"].values())
+    j, t = recs["jax"]["tables"]["cx"], recs["port"]["tables"]["cx"]
+    for k in ("adds", "applies", "gets", "get_bytes", "add_bytes", "rows",
+              "queue_depth", "skew"):
+        assert j[k] == t[k], k
+    assert j["shards"] == t["shards"]
+    assert j["adds"] == 24 and j["gets"] == 24
+    assert recs["jax"]["hotkeys"]["cx"] == recs["port"]["hotkeys"]["cx"]
+    assert recs["port"]["hotkeys"]["cx"]["top"][0][0] == 13
+
+
+def test_mvtops_render_each_others_cluster_jsonl(cluster_world):
+    """The root ``tools/mvtop.py`` and the port's render either
+    package's ``cluster.jsonl`` to the same screen."""
+    from multiverso_tpu_torch.tools import mvtop as tmvtop
+    tmp_path, aggs = cluster_world
+    for a in aggs.values():
+        a.poll_once()
+        a.poll_once()
+    root = _root_tool("mvtop")
+    for k in aggs:
+        recs = tdump.load_records(str(tmp_path / k / "cluster.jsonl"))
+        assert len(recs) == 2 and "rates" in recs[1]
+        for rec in recs:
+            out = tmvtop.render(json.loads(json.dumps(rec)))
+            assert out == root.render(json.loads(json.dumps(rec)))
+            assert "ranks 2/2 up" in out and "table[cx]" in out
