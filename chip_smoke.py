@@ -262,6 +262,25 @@ Phases, every one on every run, in this order:
             and the serving write-p50 ratio beside the figures PERF.md
             records (notes, not gates)
 
+19. mesh   the parallel layers (``parallel/``, the LM's mesh layouts) on
+            two ranks spawned on this one card over gloo (NCCL refuses
+            two ranks on one card; ``ppermute``'s sends run on host
+            copies, counted), at the 472M LM's widths, each part against
+            world-1 references built in this process first (the LM's
+            seed-0 params, handed over as .npy files): (a) tp=2 with
+            attn="flash", 8 layers: the logits and the loss, two SGD
+            steps each with its gathered gradient, B1-B3 on each rank's 8
+            heads, step ms and each collective's bytes and ms; (b) sp=2
+            at seq 1024 (2 layers), ring, zigzag and Ulysses, one forward
+            and backward each against world 1's local attention; (c)
+            pp=2, n_micro 2 (8 layers, 4 a stage) and (d) fsdp=2 (2
+            layers), one train step each; (e) ep=2 MoE (README.md:107-110: 64 experts, top-2; 2
+            layers), a forward at the capacity where nothing drops
+            against the dense every-expert oracle (f32), then two bf16
+            train steps at capacity 2.0 (loss, aux); (f) ``worker_step``
+            BSP at examples/cnn_worker_map.py's shape, the loss falling.
+            Its launches are the ranks' own, summed
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero; it also exits non-zero when
@@ -327,7 +346,7 @@ LR = 1e-2
 # and PS_WIRE_ADDS adds through each wire filter
 PS_TABLE = 16 * 2**20
 PS_ADDS = 16
-PS_WIRE_ADDS = 8
+PS_WIRE_ADDS = 4   # cut from 8 to keep the script in its time
 # the train phase's torch.optim step: AdamW with every hyperparameter
 # explicit (optax and torch.optim default differently). Adam's first
 # update moves every weight by ~lr in the sign of its gradient, a coherent
@@ -705,6 +724,22 @@ def lm_config(layers: int):
                                  attn="flash", **LM)
 
 
+_LM_PARAMS = {}
+
+
+def lm_init_params(layers: int) -> dict:
+    """The 472M LM's ``init_params(seed=0)`` tree (numpy, ~11 s of draws),
+    drawn once and shared by the phases that start from it (ps, decode,
+    telemetry, mesh): the same arrays each time, never written to."""
+    from multiverso_tpu_torch.models import transformer as tfm
+    if layers not in _LM_PARAMS:
+        tree = tfm.init_params(lm_config(layers), seed=0)
+        for _, leaf in tfm.tp_lib.leaves(tree):
+            leaf.flags.writeable = False
+        _LM_PARAMS[layers] = tree
+    return _LM_PARAMS[layers]
+
+
 def phase_ps(dev, layers: int):
     """The LM's parameters through the PS; returns the SharedPytree."""
     import torch
@@ -717,7 +752,7 @@ def phase_ps(dev, layers: int):
     refs = WireReference()   # numpy, on a thread, beside the LM's checks
     cfg = lm_config(layers)
     t0 = time.perf_counter()
-    params = tfm.init_params(cfg, seed=0)
+    params = lm_init_params(layers)
     log(f"ps init_params (numpy, seed 0): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     shared = mv.SharedPytree(params, name="lm_params")
@@ -2685,7 +2720,7 @@ def phase_lr(dev, tmp: str) -> dict:
 # and division against numpy's)
 PSA_TABLE = (100_000, 128)
 PSA_BATCH = 1024
-PSA_SECONDS = 2.0
+PSA_SECONDS = 1.0   # cut from 2 to keep the script in its time
 PSA_DEPTH = 4
 PSA_CONFIGS = (("default", "none"), ("default", "bf16"),
                ("adagrad", "none"), ("adagrad", "bf16"))
@@ -3128,7 +3163,7 @@ RES_DEPTH = 32
 RES_BATCH = 128
 RES_IMAGES = (50_000, 1)      # synthetic_cifar count, seed
 RES_EVAL = (512, 2)
-RES_TIMED_EPOCHS = 2   # cut from 3 to keep the script in its time
+RES_TIMED_EPOCHS = 1   # cut from 3 to keep the script in its time
 RES_PROFILE_STEPS = 20
 RES_MIN_ACC = 0.3             # 10 classes: chance is 0.1
 RES_CPU_STEPS = 2
@@ -3527,7 +3562,7 @@ def phase_lda(dev) -> dict:
 DEC_SMALL = dict(vocab_size=8192, dim=256, num_heads=8, num_layers=4,
                  max_seq=192)
 DEC_BATCH, DEC_PROMPT, DEC_NEW = 8, 64, 128
-DEC_TIMED = 3
+DEC_TIMED = 2   # cut from 3 to keep the script in its time
 DEC_TIE = 1e-4
 DEC_PREFILL_ATOL = 1e-5
 DEC_CPU_ATOL = 1e-4
@@ -3689,7 +3724,7 @@ def phase_decode(dev) -> dict:
     big = tfm.TransformerConfig(num_layers=LAYERS, dtype=torch.bfloat16,
                                 attn="local", **LM)
     t0 = time.perf_counter()
-    model = tfm.params_from_jax(tfm.init_params(big, seed=0), big, dev)
+    model = tfm.params_from_jax(lm_init_params(LAYERS), big, dev)
     qtree = quantize_lm_params(model)
     torch.cuda.synchronize()
     bf16_bytes, int8_bytes = weight_bytes(tfm.param_tree(model)), \
@@ -5142,7 +5177,7 @@ def tel_lm_trace(dev, layers: int) -> dict:
 
     cfg = lm_config(layers)
     t0 = time.perf_counter()
-    shared = mv.SharedPytree(tfm.init_params(cfg, seed=0), name="tel_lm")
+    shared = mv.SharedPytree(lm_init_params(layers), name="tel_lm")
     torch.cuda.synchronize()
     data = shared.table.raw()
     nbytes = data.numel() * data.element_size()
@@ -5928,6 +5963,587 @@ def phase_telemetry(dev, we_world2: dict, later: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# mesh: the parallel layers, two ranks on one card over gloo
+# ---------------------------------------------------------------------- #
+MESH_WORLD = 2            # ranks, spawned, both on cuda:0 (gloo)
+MESH_DEVICE = "cuda"
+MESH_LAYERS = LAYERS      # (a) and (c) at the 472M LM's depth cut
+# (b) and (d) at a depth cut to 2 (their layers are the first 2 of the
+# same params): the phase's share of the script's time
+MESH_SHORT_LAYERS = 2
+MESH_SP_ATTNS = ("ring", "zigzag", "ulysses")
+MESH_PP_MICRO = 2
+# (e) README.md:107-110's MoE (64 experts, top-2) at the LM's widths, cut
+# to 2 layers: at 8 layers the experts alone are ~17B parameters
+MESH_MOE = dict(moe_experts=64, moe_top_k=2, moe_axis="ep")
+MESH_MOE_LAYERS = 2
+MESH_MOE_SEED = 1000
+# capacity = every local token (E / k): nothing can drop
+MESH_MOE_CF_ALL = MESH_MOE["moe_experts"] / MESH_MOE["moe_top_k"]
+# the forward against the dense oracle runs in f32: in bf16 the router's
+# logits for a rank's half of the tokens round otherwise than for the
+# whole batch (cuBLAS picks its kernel by the row count), and a near-tie
+# flips a token's second expert: in bf16 the logits differed from the
+# oracle's by up to 2.82 on an H100. f32 logits: the expert and
+# attention sums in another order through 2 layers, ~100x the error
+# expected from that
+MESH_MOE_ATOL = 1e-3
+MESH_MOE_CF = 2.0
+MESH_MOE_STEPS = 2
+MESH_CNN_EPOCHS = 2       # (f) examples/cnn_worker_map.py's shape
+MESH_TIMEOUT_S = 400
+
+
+def mesh_bits(t) -> np.ndarray:
+    """A bf16 tensor's bits as a host uint16 array (the files' format)."""
+    import torch
+    return t.detach().to(torch.bfloat16).contiguous().view(
+        torch.int16).cpu().numpy().view(np.uint16)
+
+
+def mesh_unbits(arr: np.ndarray, dev):
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).to(
+        dev).view(torch.bfloat16)
+
+
+def mesh_moe_cfg():
+    from multiverso_tpu_torch.models import transformer as tfm
+    return lm_config(MESH_MOE_LAYERS)._replace(
+        moe_capacity_factor=MESH_MOE_CF_ALL, **MESH_MOE)
+
+
+def mesh_moe_weights(layer: int, experts, dev, dtype) -> dict:
+    """Layer ``layer``'s router and the experts ``experts`` (a range), drawn
+    on the card from seeds fixed per expert, so the parent's oracle and
+    each rank draw the same weights for the same expert."""
+    import torch
+    cfg = mesh_moe_cfg()
+    d, m, e = cfg.dim, cfg.mlp_ratio * cfg.dim, cfg.moe_experts
+    s1 = 1.0 / np.sqrt(d)
+    s2 = np.sqrt(1.0 / m) / np.sqrt(2 * cfg.num_layers)
+
+    def draw(seed, shape, scale):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    base = MESH_MOE_SEED + 1000 * layer
+    return {"router": draw(base, (d, e), s1),
+            "w1": torch.stack([draw(base + 1 + j, (d, m), s1)
+                               for j in experts]),
+            "w2": torch.stack([draw(base + 1 + e + j, (m, d), s2)
+                               for j in experts])}
+
+
+def mesh_moe_oracle(tree: dict, tok, dev):
+    """The MoE LM's f32 logits with every expert on every token, combined
+    by the top-k gates (the layout-free form of tests/test_moe.py:21-34's
+    dense oracle), on the whole batch: nothing is dropped."""
+    import torch
+    import torch.nn.functional as F
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.ops.attention_kernels import flash_attention
+    from multiverso_tpu_torch.parallel.moe import top_k_gates
+    cfg = mesh_moe_cfg()
+    b, s = tok.shape
+    d, h = cfg.dim, cfg.num_heads
+    hd = d // h
+    w = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
+    emb = w(tree["embed"])
+    x = emb[tok] + w(tree["pos"][:s])[None]
+    with torch.no_grad():
+        for i in range(cfg.num_layers):
+            lay = {k: w(v[i]) for k, v in tree["layers"].items()
+                   if k in ("wqkv", "wo", "ln1", "ln2")}
+            y = tfm._rmsnorm(x, lay["ln1"])
+            q, k, v = torch.matmul(y, lay["wqkv"]).chunk(3, -1)
+            sp = lambda t: t.reshape(b, s, h, hd).transpose(1, 2)
+            o = flash_attention(sp(q), sp(k), sp(v), causal=True)
+            x = x + torch.matmul(o.transpose(1, 2).reshape(b, s, d),
+                                 lay["wo"])
+            y = tfm._rmsnorm(x, lay["ln2"]).reshape(-1, d)
+            mw = mesh_moe_weights(i, range(cfg.moe_experts), dev,
+                                  torch.float32)
+            probs = torch.softmax(torch.matmul(y, mw["router"]).float(), -1)
+            gates, topi = top_k_gates(probs, cfg.moe_top_k)
+            out = torch.zeros(y.shape, dtype=torch.float32, device=dev)
+            for e in range(cfg.moe_experts):
+                wt = (gates * (topi == e)).sum(-1)
+                ye = torch.matmul(F.gelu(torch.matmul(y, mw["w1"][e]),
+                                         approximate="tanh"), mw["w2"][e])
+                out += ye.float() * wt[:, None]
+            x = x + out.to(x.dtype).reshape(b, s, d)
+            del mw
+        return tfm._lm_head(x, w(tree["ln_f"]), emb)
+
+
+def mesh_short_tree(tree: dict) -> dict:
+    """The first MESH_SHORT_LAYERS layers of the LM's tree (views)."""
+    out = dict(tree)
+    out["layers"] = {k: v[:MESH_SHORT_LAYERS]
+                     for k, v in tree["layers"].items()}
+    return out
+
+
+def mesh_references(dev, tmp: str) -> dict:
+    """The world-1 references on the card, in this process, before the
+    ranks start: the params (the LM's seed-0 tree, saved as float32
+    numpy), the flash LM's logits, loss and two SGD steps' gradients, the
+    short flash and local-attention LMs' losses and gradients, and the
+    MoE oracle's logits. Arrays go to ``tmp`` as .npy; returns the
+    scalars and the batch."""
+    import torch
+    from multiverso_tpu_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    cfg = lm_config(MESH_LAYERS)
+    tree, n = {"layers": {}}, 0
+    for key, leaf in tfm.tp_lib.leaves(lm_init_params(MESH_LAYERS)):
+        path = os.path.join(tmp, "p_" + "_".join(key) + ".npy")
+        np.save(path, leaf)
+        node = tree["layers"] if key[0] == "layers" else tree
+        node[key[-1]] = np.load(path, mmap_mode="r")
+        n += leaf.size
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (BATCH, cfg.max_seq + 1)).astype(
+        np.int64)
+    tok_np, tgt_np = toks[:, :-1], toks[:, 1:]
+    tok = torch.from_numpy(tok_np).to(dev)
+    tgt = torch.from_numpy(tgt_np).to(dev)
+    refs = {"tokens": tok_np, "targets": tgt_np, "params": n}
+
+    def save_grads(model, grads, tag):
+        for (path, _), g in zip(tfm._paths(model), grads):
+            np.save(os.path.join(tmp, f"{tag}_{'_'.join(path)}.npy"),
+                    mesh_bits(g))
+
+    model = tfm.params_from_jax(tree, cfg, dev)
+    with torch.no_grad():
+        logits = tfm.forward(model, tok)
+    np.save(os.path.join(tmp, "logits.npy"), mesh_bits(logits))
+    del logits
+    losses = []
+    for stepno in (1, 2):
+        loss, grads = tfm.loss_and_grads(model, tok, tgt)
+        losses.append(float(loss))
+        save_grads(model, grads, f"g{stepno}")
+        tfm.sgd_update_(list(model.parameters()), grads, LR)
+        del grads
+    refs["loss_flash"] = losses
+    del model
+    short = lm_config(MESH_SHORT_LAYERS)
+    for attn, tag in (("flash", "f2"), ("local", "l2")):
+        model = tfm.params_from_jax(mesh_short_tree(tree),
+                                    short._replace(attn=attn), dev)
+        loss, grads = tfm.loss_and_grads(model, tok, tgt)
+        refs[f"loss_{tag}"] = float(loss)
+        save_grads(model, grads, tag)
+        del model, grads
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    moe = mesh_moe_oracle(tree, tok, dev)
+    np.save(os.path.join(tmp, "logits_moe.npy"), moe.float().cpu().numpy())
+    del moe
+    torch.cuda.empty_cache()
+    log(f"mesh references (world 1, this process): the LM's {n} "
+        f"parameters (seed 0), flash losses {losses}, {MESH_SHORT_LAYERS} "
+        f"layers: flash {refs['loss_f2']:.5f}, local {refs['loss_l2']:.5f}, "
+        f"in {t1 - t0:.1f} s; the MoE dense oracle "
+        f"({MESH_MOE['moe_experts']} experts x {MESH_MOE_LAYERS} layers, "
+        f"every expert on every token) in {time.perf_counter() - t1:.1f} s")
+    return refs
+
+
+def mesh_load_tree(tmp: str) -> dict:
+    """The params the parent saved, memory-mapped (a rank reads only its
+    blocks)."""
+    from multiverso_tpu_torch.models import transformer as tfm
+    tree = {"layers": {}}
+    for key, _ in tfm.tp_lib.leaves(tfm.param_shapes(lm_config(
+            MESH_LAYERS))):
+        arr = np.load(os.path.join(tmp, "p_" + "_".join(key) + ".npy"),
+                      mmap_mode="r")
+        (tree["layers"] if key[0] == "layers" else tree)[key[-1]] = arr
+    return tree
+
+
+def mesh_grad_errors(model, grads, tmp: str, tag: str, dev) -> dict:
+    """||g - g_ref|| / ||g_ref|| per leaf, each rank's blocks gathered on
+    the card (every rank takes part; rank 0's numbers are the check)."""
+    import torch
+    from multiverso_tpu_torch.models import transformer as tfm
+    out = {}
+    for (path, _), g in zip(tfm._paths(model), grads):
+        full = tfm.tp_lib.gather_leaf(g, model.spec(path), model.mesh)
+        if path[-1] == "wqkv" and model.qkv_perm is not None:
+            inv = np.empty_like(model.qkv_perm)
+            inv[model.qkv_perm] = np.arange(model.qkv_perm.size)
+            full = full[..., torch.from_numpy(inv).to(dev)]
+        ref = mesh_unbits(np.load(os.path.join(
+            tmp, f"{tag}_{'_'.join(path)}.npy")), dev).float()
+        out[".".join(path)] = float((full.float() - ref).norm() / ref.norm())
+    return out
+
+
+def mesh_logits_error(logits, cfg, mesh, vocab_sharded, path, dev) -> float:
+    """max |gathered logits - the reference file's| (bf16 bits or f32)."""
+    import torch
+    from multiverso_tpu_torch.parallel.mesh import P
+    from multiverso_tpu_torch.models import transformer as tfm
+    spec = P(cfg.batch_axis if cfg.batch_axis in mesh.shape else None,
+             cfg.seq_axis if cfg.seq_axis in mesh.shape else None,
+             cfg.tp_axis if vocab_sharded else None)
+    full = tfm.tp_lib.gather_leaf(logits, spec, mesh)
+    arr = np.load(path)
+    ref = mesh_unbits(arr, dev) if arr.dtype == np.uint16 else \
+        torch.from_numpy(arr).to(dev)
+    return float((full.float() - ref.float()).abs().max())
+
+
+def mesh_timed(fn):
+    """(result, ms): ``fn()`` timed to its end on the card."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_tp(rank, dev, tree, tmp, refs) -> dict:
+    """(a) tp=2, attn="flash", 8 layers: the logits and the loss against
+    world 1, two SGD steps each with its gathered gradient against world
+    1's; each rank runs B1-B3 on its 8 local heads."""
+    import torch
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    from multiverso_tpu_torch.parallel.mesh import Mesh
+    from multiverso_tpu_torch.telemetry import devstats
+    cfg = lm_config(MESH_LAYERS)._replace(tp_axis="tp")
+    mesh = Mesh({"tp": MESH_WORLD}, device=dev)
+    model = tfm.params_from_jax(tree, cfg, dev, mesh=mesh)
+    heads = model.layers.wqkv.shape[-1] // 3 // (cfg.dim // cfg.num_heads)
+    tok = tfm.shard_batch(refs["tokens"], cfg, mesh)
+    tgt = tfm.shard_batch(refs["targets"], cfg, mesh)
+    devstats.reset()
+    before = ak.launch_counts()
+    with torch.no_grad():
+        logits = tfm.forward(model, tok)
+    err = mesh_logits_error(logits, cfg, mesh, True,
+                            os.path.join(tmp, "logits.npy"), dev)
+    del logits
+    out = {"local_heads": heads, "logits_err": err, "losses": [],
+           "grad_rel": [], "step_ms": []}
+    for stepno in (1, 2):
+        (loss, grads), ms = mesh_timed(lambda: tfm.loss_and_grads(
+            model, tok, tgt))
+        out["losses"].append(float(loss))
+        out["grad_rel"].append(mesh_grad_errors(model, grads, tmp,
+                                                f"g{stepno}", dev))
+        _, ms_upd = mesh_timed(lambda: tfm.sgd_update_(
+            list(model.parameters()), grads, LR))
+        out["step_ms"].append(ms + ms_upd)
+        del grads
+    after = ak.launch_counts()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    out["collectives"] = devstats.collectives()
+    return out
+
+
+def mesh_sp(rank, dev, tree, tmp, refs) -> dict:
+    """(b) sp=2 at seq 1024 (2 layers): ring, zigzag and Ulysses, one
+    forward and backward each, the loss and the gradient against world
+    1's local."""
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.parallel.mesh import Mesh
+    from multiverso_tpu_torch.telemetry import devstats
+    mesh = Mesh({"sp": MESH_WORLD}, device=dev)
+    base = lm_config(MESH_SHORT_LAYERS)._replace(attn="local",
+                                                 seq_axis="sp")
+    model = tfm.params_from_jax(mesh_short_tree(tree), base, dev, mesh=mesh)
+    out = {}
+    for attn in MESH_SP_ATTNS:
+        cfg = base._replace(attn=attn)
+        tok = tfm.shard_batch(refs["tokens"], cfg, mesh)
+        tgt = tfm.shard_batch(refs["targets"], cfg, mesh)
+        devstats.reset()
+        (loss, grads), ms = mesh_timed(lambda: tfm.loss_and_grads(
+            model, tok, tgt, cfg=cfg))
+        out[attn] = {"loss": float(loss), "ms": ms,
+                     "grad_rel": mesh_grad_errors(model, grads, tmp, "l2",
+                                                  dev),
+                     "collectives": devstats.collectives()}
+        del grads
+    return out
+
+
+def mesh_pp(rank, dev, tree, tmp, refs) -> dict:
+    """(c) pp=2, n_micro 2, 8 layers (4 a stage): one train step, its loss
+    and gathered gradient against world 1's."""
+    import torch
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.parallel.mesh import Mesh, P
+    from multiverso_tpu_torch.telemetry import devstats
+    cfg = lm_config(MESH_LAYERS)
+    mesh = Mesh({"pp": MESH_WORLD}, device=dev)
+    stacked = tfm.shard_params_pp(tfm.stack_pp_params(tree, cfg, MESH_WORLD),
+                                  mesh, "pp", cfg)
+    tok = tfm.shard_batch(refs["tokens"], cfg, mesh)
+    tgt = tfm.shard_batch(refs["targets"], cfg, mesh)
+    f = tfm.make_pp_loss_and_grads(cfg, MESH_PP_MICRO, "pp", mesh)
+    devstats.reset()
+    (loss, grads), ms = mesh_timed(lambda: f(stacked, tok, tgt))
+    rel = {}
+    names = [p for p, _ in tfm.tp_lib.leaves(stacked)]
+    for path, g in zip(names, grads):
+        if path[0] == "stages":
+            g = tfm.tp_lib.gather_leaf(g, P("pp"), mesh)
+            g = g.reshape((-1,) + tuple(g.shape[2:]))
+            key = ("layers", path[1])
+        else:
+            key = path
+        ref = mesh_unbits(np.load(os.path.join(
+            tmp, f"g1_{'_'.join(key)}.npy")), dev).float()
+        rel[".".join(key)] = float((g.float() - ref).norm() / ref.norm())
+    tfm.sgd_update_(tfm.pp_leaves(stacked), grads, LR)
+    return {"loss": float(loss), "ms": ms, "grad_rel": rel,
+            "collectives": devstats.collectives()}
+
+
+def mesh_fsdp(rank, dev, tree, tmp, refs) -> dict:
+    """(d) fsdp=2, 2 layers (each rank stores half of every large leaf,
+    computes on its batch row): one train step against world 1."""
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.parallel.mesh import Mesh
+    from multiverso_tpu_torch.telemetry import devstats
+    cfg = lm_config(MESH_SHORT_LAYERS)._replace(batch_axis="fsdp")
+    mesh = Mesh({"fsdp": MESH_WORLD}, device=dev)
+    model = tfm.shard_params_fsdp(mesh_short_tree(tree), cfg, mesh,
+                                  axis="fsdp", device=dev)
+    tok = tfm.shard_batch(refs["tokens"], cfg, mesh)
+    tgt = tfm.shard_batch(refs["targets"], cfg, mesh)
+    devstats.reset()
+    (loss, grads), ms = mesh_timed(lambda: tfm.loss_and_grads(model, tok,
+                                                              tgt))
+    rel = mesh_grad_errors(model, grads, tmp, "f2", dev)
+    tfm.sgd_update_(list(model.parameters()), grads, LR)
+    return {"loss": float(loss), "ms": ms, "grad_rel": rel,
+            "stored": int(sum(p.numel() for p in model.parameters())),
+            "params": int(sum(leaf.size for _, leaf in tfm.tp_lib.leaves(
+                mesh_short_tree(tree)))),
+            "collectives": devstats.collectives()}
+
+
+def mesh_moe(rank, dev, tree, tmp, refs) -> dict:
+    """(e) ep=2 MoE (64 experts, top-2, 2 layers): one forward with
+    nothing dropped against the dense oracle, then two train steps at
+    capacity 2.0."""
+    import torch
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.parallel.mesh import Mesh
+    from multiverso_tpu_torch.telemetry import devstats
+    cfg32 = mesh_moe_cfg()._replace(dtype=torch.float32)
+    mesh = Mesh({"ep": MESH_WORLD}, device=dev)
+    model = tfm.Transformer(cfg32, dev, mesh)
+    el = cfg32.moe_experts // MESH_WORLD
+    mine = range(rank * el, (rank + 1) * el)
+    with torch.no_grad():
+        for path, p in tfm._paths(model):
+            if path[-1].startswith("moe_"):
+                continue
+            arr = tree[path[0]] if path[0] != "layers" else \
+                tree["layers"][path[1]][:cfg32.num_layers]
+            p.copy_(torch.from_numpy(np.array(arr, np.float32)))
+        for i in range(cfg32.num_layers):
+            mw = mesh_moe_weights(i, mine, dev, torch.float32)
+            model.layers.moe_router[i].copy_(mw["router"])
+            model.layers.moe_w1[i].copy_(mw["w1"])
+            model.layers.moe_w2[i].copy_(mw["w2"])
+            del mw
+    tok = tfm.shard_batch(refs["tokens"], cfg32, mesh)
+    tgt = tfm.shard_batch(refs["targets"], cfg32, mesh)
+    stats = {}
+    devstats.reset()
+    with torch.no_grad():
+        logits, aux = tfm.forward_with_aux(model, tok, stats=stats)
+    err = mesh_logits_error(logits, cfg32, mesh, False,
+                            os.path.join(tmp, "logits_moe.npy"), dev)
+    del logits
+    # the train steps in the LM's bf16, from the same weights
+    cfg = mesh_moe_cfg()
+    bf16 = tfm.Transformer(cfg, dev, mesh)
+    with torch.no_grad():
+        for p, q in zip(bf16.parameters(), model.parameters()):
+            p.copy_(q)
+    model = bf16
+    out = {"oracle_err": err, "dropped": stats["dropped"],
+           "aux_all": stats["aux"], "losses": [], "aux": [],
+           "dropped_cf": [], "step_ms": []}
+    step_cfg = cfg._replace(moe_capacity_factor=MESH_MOE_CF)
+    for _ in range(MESH_MOE_STEPS):
+        s = {}
+        with torch.no_grad():
+            tfm.forward_with_aux(model, tok, step_cfg, stats=s)
+        (loss, grads), ms = mesh_timed(lambda: tfm.loss_and_grads(
+            model, tok, tgt, cfg=step_cfg))
+        tfm.sgd_update_(list(model.parameters()), grads, LR)
+        del grads
+        out["losses"].append(float(loss))
+        out["aux"].append(s["aux"])
+        out["dropped_cf"].append(s["dropped"])
+        out["step_ms"].append(ms)
+    out["collectives"] = devstats.collectives()
+    return out
+
+
+def mesh_rank(rank: int, world: int, dev, tmp: str, refs: dict) -> dict:
+    """One rank of the mesh phase: (a)-(f) in turn, each on its own mesh
+    of the two ranks."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from multiverso_tpu_torch.examples import cnn_worker_map
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    from multiverso_tpu_torch.parallel import collectives as coll
+    ak.reset_launch_counts()
+    coll.reset_staged_counts()
+    tree = mesh_load_tree(tmp)
+    walls = {}
+    out = {}
+    for name, fn in (("tp", mesh_tp), ("sp", mesh_sp), ("pp", mesh_pp),
+                     ("fsdp", mesh_fsdp), ("moe", mesh_moe)):
+        t0 = time.perf_counter()
+        out[name] = fn(rank, dev, tree, tmp, refs)
+        torch.cuda.empty_cache()
+        walls[name] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    losses, acc = cnn_worker_map.rank_main(rank, world, dev,
+                                           MESH_CNN_EPOCHS, "", 256)
+    walls["bsp"] = round(time.perf_counter() - t0, 1)
+    out["bsp"] = {"losses": losses, "acc": acc}
+    out["launches"] = ak.launch_counts()
+    out["staged"] = coll.staged_counts()
+    out["walls"] = walls
+    return out
+
+
+def mesh_colls(c: dict) -> str:
+    return ", ".join(f"{op} {d['calls']}x {d['bytes'] / 2**20:.1f} MiB "
+                     f"{d['ms']:.1f} ms" for op, d in sorted(c.items()))
+
+
+def phase_mesh(dev) -> dict:
+    """The parallel layers on two ranks spawned on this card (gloo: NCCL
+    refuses two ranks on one card), against world-1 references built
+    here first; returns the launch counts summed over the ranks."""
+    import shutil
+    import tempfile
+    import torch
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    from multiverso_tpu_torch.parallel.mesh import spawn
+    tmp = tempfile.mkdtemp(prefix="mv_mesh_")
+    try:
+        t0 = time.perf_counter()
+        refs = mesh_references(dev, tmp)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = spawn(mesh_rank, MESH_WORLD, MESH_DEVICE, (tmp, refs),
+                      timeout=MESH_TIMEOUT_S)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    # (a)
+    a = r0["tp"]
+    for r, rk in enumerate(ranks):
+        log(f"mesh (a) tp=2 flash rank {r}: {rk['tp']['local_heads']} local "
+            f"heads, B1-B3 launches {rk['tp']['launches']}, step ms "
+            f"{[round(t, 1) for t in rk['tp']['step_ms']]}; collectives: "
+            f"{mesh_colls(rk['tp']['collectives'])}")
+    log(f"mesh (a) logits max |tp - world 1| {a['logits_err']:.4f} "
+        f"(tolerance {ATOL_LOGITS}); losses {a['losses']} against "
+        f"{refs['loss_flash']}; gradients ||g - g1|| / ||g1||, worst leaf "
+        f"by step: {[round(max(g.values()), 5) for g in a['grad_rel']]}")
+    for rk in ranks:
+        if rk["tp"]["local_heads"] != LM["num_heads"] // MESH_WORLD:
+            raise AssertionError("tp ranks do not hold 8 heads each")
+        got = rk["tp"]["launches"]
+        if not (got["flash_fwd"] == MESH_LAYERS * 3
+                and got["flash_bwd_dq"] == MESH_LAYERS * 2
+                and got["flash_bwd_dkv"] == MESH_LAYERS * 2):
+            raise AssertionError(f"(a) launched {got}: expected B1 "
+                                 f"{3 * MESH_LAYERS}, B2 and B3 "
+                                 f"{2 * MESH_LAYERS} on each rank")
+    if a["logits_err"] > ATOL_LOGITS:
+        raise AssertionError("(a) tp logits disagree with world 1")
+    for got, want_l in zip(a["losses"], refs["loss_flash"]):
+        if abs(got - want_l) > ATOL_LOSS:
+            raise AssertionError(f"(a) tp loss {got} vs world 1 {want_l}")
+    for g in a["grad_rel"]:
+        if max(g.values()) > RTOL_GRAD:
+            raise AssertionError(f"(a) tp gradients disagree: {g}")
+    # (b)
+    for attn, b in r0["sp"].items():
+        log(f"mesh (b) sp=2 {attn}, {MESH_SHORT_LAYERS} layers: loss "
+            f"{b['loss']:.5f} vs world 1 local {refs['loss_l2']:.5f}, "
+            f"fwd+bwd {b['ms']:.1f} ms, worst "
+            f"gradient leaf {max(b['grad_rel'].values()):.5f} "
+            f"({max(b['grad_rel'], key=b['grad_rel'].get)}); collectives: "
+            f"{mesh_colls(b['collectives'])}")
+        if abs(b["loss"] - refs["loss_l2"]) > ATOL_LOSS \
+                or max(b["grad_rel"].values()) > RTOL_GRAD:
+            raise AssertionError(f"(b) {attn} disagrees with world 1")
+    # (c), (d)
+    for name, tag, want in (
+            ("pp", f"(c) pp=2 n_micro 2, {MESH_LAYERS} layers",
+             refs["loss_flash"][0]),
+            ("fsdp", f"(d) fsdp=2, {MESH_SHORT_LAYERS} layers",
+             refs["loss_f2"])):
+        c = r0[name]
+        log(f"mesh {tag}: loss {c['loss']:.5f} vs world 1 {want:.5f}, step "
+            f"{c['ms']:.1f} ms, worst gradient leaf "
+            f"{max(c['grad_rel'].values()):.5f}; "
+            + (f"rank 0 stores {c['stored']} of {c['params']} "
+               "parameters; " if name == "fsdp" else "")
+            + f"collectives: {mesh_colls(c['collectives'])}")
+        if abs(c["loss"] - want) > ATOL_LOSS \
+                or max(c["grad_rel"].values()) > RTOL_GRAD:
+            raise AssertionError(f"mesh {tag} disagrees with world 1")
+    # (e)
+    e = r0["moe"]
+    log(f"mesh (e) ep=2 MoE {MESH_MOE['moe_experts']} experts top-"
+        f"{MESH_MOE['moe_top_k']}, {MESH_MOE_LAYERS} layers: capacity "
+        f"factor {MESH_MOE_CF_ALL:g} (f32) dropped {e['dropped']}, logits "
+        f"max |ep - dense oracle| {e['oracle_err']:.3e} (tolerance "
+        f"{MESH_MOE_ATOL:g}); bf16 at {MESH_MOE_CF:g}: "
+        f"losses {e['losses']}, aux by layer {e['aux']}, dropped "
+        f"{e['dropped_cf']}, step ms {[round(t, 1) for t in e['step_ms']]}"
+        f"; collectives: {mesh_colls(e['collectives'])}")
+    if any(x != 0.0 for x in e["dropped"]):
+        raise AssertionError("(e) tokens dropped at full capacity")
+    if e["oracle_err"] > MESH_MOE_ATOL:
+        raise AssertionError("(e) MoE logits disagree with the dense oracle")
+    if not np.isfinite(e["losses"]).all():
+        raise AssertionError(f"(e) non-finite MoE loss {e['losses']}")
+    # (f)
+    f = r0["bsp"]
+    log(f"mesh (f) worker_step BSP (cnn_worker_map, 2 workers): epoch "
+        f"losses {[round(x, 4) for x in f['losses']]}, train accuracy "
+        f"{f['acc']:.4f}")
+    if not f["losses"][-1] < f["losses"][0]:
+        raise AssertionError("(f) the BSP loss did not fall")
+    if any(rk["bsp"]["losses"] != f["losses"] for rk in ranks):
+        raise AssertionError("(f) the workers' losses differ")
+    counts = {k: sum(rk["launches"][k] for rk in ranks)
+              for k in r0["launches"]}
+    log(f"mesh staged through host buffers (gloo lacks the op on CUDA "
+        f"tensors), rank 0: {r0['staged']}")
+    log(f"mesh launches summed over the ranks {counts}; rank walls (s) "
+        f"{[rk['walls'] for rk in ranks]}; references {t1 - t0:.1f} s, "
+        f"ranks {t2 - t1:.1f} s")
+    return counts
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -6099,6 +6715,13 @@ def main(argv=None) -> int:
         raise AssertionError(f"the telemetry path launched "
                              f"{paths['telemetry']}, expected "
                              f"{2 * LAYERS} of each flash kernel")
+    # the parallel layers on two ranks spawned on this card: the ranks
+    # count their own launches (zeroed as each starts) and send them back
+    paths["mesh"] = phase_mesh(dev)
+    mark("mesh")
+    if not all(paths["mesh"].values()):
+        raise AssertionError(f"the mesh path launched {paths['mesh']}: "
+                             "every flash kernel must run there")
     mv.shutdown()
     for rec in records:
         by_path = {p: c.get(rec["name"], 0) for p, c in paths.items()}

@@ -18,7 +18,7 @@ This package imports neither ``jax`` nor ``multiverso_tpu``.
 """
 
 from multiverso_tpu_torch.api import (barrier, create_table, device, init,
-                                      is_master_worker, num_servers,
+                                      is_master_worker, mesh, num_servers,
                                       num_workers, rank, server_id, shutdown,
                                       size, worker_id)
 from multiverso_tpu_torch.ps import (AsyncArrayTable, AsyncKVTable,
@@ -42,7 +42,7 @@ __all__ = [
     "Dashboard", "KVTable", "KVTableOption", "MatrixTable",
     "MatrixTableOption", "SharedPytree", "SparseMatrixTable",
     "SparseMatrixTableOption", "Zoo", "barrier", "config", "create_table", "device", "get_updater",
-    "init", "is_master_worker", "log", "monitor", "num_servers",
+    "init", "is_master_worker", "log", "mesh", "monitor", "num_servers",
     "num_workers", "rank", "register_updater", "server_id", "shutdown",
     "size", "worker_id",
 ]

@@ -1,5 +1,5 @@
 """Public API facade (port of ``multiverso_tpu/api.py``): the reference's
-MV_* surface in snake_case. ``device()`` takes the place of ``mesh()``."""
+MV_* surface in snake_case, with ``device()`` beside ``mesh()``."""
 
 from __future__ import annotations
 
@@ -13,14 +13,18 @@ from multiverso_tpu_torch.zoo import DeviceLike, Zoo
 
 def init(argv: Optional[List[str]] = None,
          device: DeviceLike = None,
+         mesh: Any = None,
          updater: Optional[str] = None) -> None:
-    """ref MV_Init. ``device=None`` means the card: without CUDA this
-    raises ``RuntimeError`` unless ``device="cpu"`` (or ``-device=cpu`` in
-    ``argv``) asks for the CPU. There is no ``sync`` option: one process
-    on one device is always synchronous."""
+    """ref MV_Init. ``device=None`` means the card (or ``mesh``'s device
+    when a mesh is given): without CUDA this raises ``RuntimeError``
+    unless ``device="cpu"`` (or ``-device=cpu`` in ``argv``) asks for the
+    CPU. ``mesh`` is this rank's ``parallel.mesh.Mesh`` over its
+    ``torch.distributed`` world; without one the Zoo makes a one-rank mesh
+    (no process group). There is no ``sync`` option: one process on one
+    device is always synchronous."""
     if updater is not None:
         config.set_flag("updater_type", updater)
-    Zoo.get().start(argv, device=device)
+    Zoo.get().start(argv, device=device, mesh=mesh)
 
 
 def shutdown(finalize: bool = True) -> None:
@@ -59,6 +63,11 @@ def server_id() -> int:
 
 def device() -> torch.device:
     return Zoo.get().device()
+
+
+def mesh():
+    """The Zoo's mesh (``parallel.mesh.Mesh``)."""
+    return Zoo.get().mesh()
 
 
 def is_master_worker() -> bool:

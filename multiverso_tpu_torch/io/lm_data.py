@@ -6,10 +6,12 @@ yields (tokens, targets[, mask]) batches already on the device, the next
 batch's host-to-device copy overlapped behind the current step through
 ``utils.async_buffer.AsyncBuffer`` (the reference's double-buffered
 prefetch, util/async_buffer.h). On the card each batch is copied from
-pinned host memory without blocking, where the JAX package calls
-``shard_batch``. This slice has one device and no mesh: configs with mesh
-axes or sequence-parallel attention are refused, as
-``models.transformer.check_supported`` refuses them.
+pinned host memory without blocking. A config with mesh axes (or zigzag
+attention) places this rank's block of each batch with
+``models.transformer.shard_batch``, as the JAX package does; the mask is
+placed like the tokens (the port's ``loss_fn`` takes it in the tokens'
+order, where the JAX one permutes an original-order mask itself). What
+``models.transformer.check_supported`` refuses is refused here.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ class TokenBatches:
 
     def __init__(self, windows: np.ndarray, batch_size: int, cfg,
                  device=None, seed: int = 0, prefetch: bool = True,
-                 masks: Optional[np.ndarray] = None):
+                 masks: Optional[np.ndarray] = None, mesh=None):
         from multiverso_tpu_torch.models.transformer import check_supported
         check_supported(cfg)
         if windows.ndim != 2:
@@ -95,6 +97,10 @@ class TokenBatches:
         self._masks = masks
         self._batch = batch_size
         self._device = default_device(device)
+        self._cfg = cfg
+        self._mesh = mesh
+        from multiverso_tpu_torch.models.transformer import cfg_axes
+        self._sharded = bool(cfg_axes(cfg)) or cfg.attn == "zigzag"
         self._rng = np.random.default_rng(seed)
         self._prefetch = prefetch
 
@@ -109,6 +115,16 @@ class TokenBatches:
 
     def _place(self, idx: np.ndarray):
         rows = self._windows[idx]
+        if self._sharded:
+            from multiverso_tpu_torch.models.transformer import shard_batch
+            out = (shard_batch(rows[:, :-1], self._cfg, self._mesh,
+                               self._device),
+                   shard_batch(rows[:, 1:], self._cfg, self._mesh,
+                               self._device))
+            if self._masks is not None:
+                out += (shard_batch(self._masks[idx], self._cfg,
+                                    self._mesh, self._device),)
+            return out
         out = (self._to_device(rows[:, :-1]), self._to_device(rows[:, 1:]))
         if self._masks is not None:
             out += (self._to_device(self._masks[idx]),)

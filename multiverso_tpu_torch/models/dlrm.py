@@ -200,7 +200,8 @@ def loss_and_grads(mlp: Dict[str, Any], rows: torch.Tensor,
 
 def make_train_step(cfg: DLRMConfig, emb_table, mlp_table, mlp_meta,
                     emb_opt: Optional[AddOption] = None,
-                    mlp_opt: Optional[AddOption] = None):
+                    mlp_opt: Optional[AddOption] = None,
+                    mesh=None, axis: Optional[str] = None):
     """One PS step over the tables' states.
 
     ``step(emb_state, mlp_state, cat_ids [B, F], dense, labels) ->
@@ -209,6 +210,11 @@ def make_train_step(cfg: DLRMConfig, emb_table, mlp_table, mlp_meta,
     ``index_add_``), apply each table's server-side updater with
     ``functional_add``. The states' tensors update in place (the JAX step
     returns new ones); on a table's live ``state`` that commits the step.
+
+    With ``mesh`` and a data axis ``axis`` each rank passes its batch
+    shard and holds the same tables: the deltas and the loss are averaged
+    over the axis in one all-reduce before the updaters (the global
+    batch's step, as the JAX step takes it on its mesh-sharded tables).
     """
     offsets = torch.as_tensor(field_offsets(cfg), dtype=torch.int64)
     n_mlp = int(sum(mlp_meta[2]))
@@ -233,11 +239,23 @@ def make_train_step(cfg: DLRMConfig, emb_table, mlp_table, mlp_meta,
             # (duplicate ids accumulate), then ONE updater application
             emb_delta = torch.zeros_like(data).index_add_(
                 0, ids, rows.grad.reshape(b * f, cfg.embed_dim))
+            mlp_grad = flat.grad
+            loss = loss.detach()
+            if mesh is not None and mesh.axis_size(axis) > 1:
+                from multiverso_tpu_torch.parallel import collectives
+                n = mesh.axis_size(axis)
+                merged = collectives.raw_all_reduce(torch.cat([
+                    emb_delta.reshape(-1), mlp_grad.reshape(-1),
+                    loss.reshape(1)]), mesh, axis) / n
+                k = emb_delta.numel()
+                emb_delta = merged[:k].view_as(emb_delta)
+                mlp_grad = merged[k:k + mlp_grad.numel()].view_as(mlp_grad)
+                loss = merged[-1]
             emb_state = emb_table.functional_add(emb_state, emb_delta,
                                                  emb_opt)
             mlp_state = mlp_table.functional_add(
-                mlp_state, mlp_table.pad_delta(flat.grad), mlp_opt)
-        return emb_state, mlp_state, loss.detach()
+                mlp_state, mlp_table.pad_delta(mlp_grad), mlp_opt)
+        return emb_state, mlp_state, loss
 
     return step
 

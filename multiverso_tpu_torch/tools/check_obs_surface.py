@@ -28,8 +28,10 @@ tool asks it mechanically:
    payload grows a key, no pane of glass ever shows it, and the next
    leak's evidence is emitted into the void.
 4. **Every collective entry point** in ``parallel/`` records a devstats
-   span (the port's ``parallel/`` holds only the attention oracle until
-   the mesh slice, so this lint is trivially clean).
+   span: a public function that dispatches on the mesh (a call into
+   ``torch.distributed`` or into the port's collectives, itself or
+   through a helper of its file) must record, and every function that
+   calls ``torch.distributed`` itself must record in its own body.
 6. and 7. The tenant block's keys, the SLO objective kinds and the
    signal-bus names all render.
 
@@ -193,15 +195,35 @@ def stats_surface_findings(
 # ---------------------------------------------------------------------- #
 # collective-coverage rule (lint 4): device-plane ops must record
 # ---------------------------------------------------------------------- #
-# (file, mode): "all" = every public top-level function is a collective
-# entry point and must record; "shard_map" = only public functions that
-# dispatch through the mesh (call _shard_map/shard_map) must. The port's
-# collectives.py and tp.py join this table with the mesh slice.
+# (file, mode): "all" = every public top-level function that dispatches
+# is a collective entry point and must record, a call to a recording
+# function of the same file counting as recording; "shard_map" = the same
+# for the files that place collectives (the JAX mode's name: the port has
+# no shard_map, so a dispatch is a call into torch.distributed or into
+# the port's collectives, whose spans are theirs, not the caller's). In
+# both modes every function or method that calls torch.distributed
+# itself must record in its own body.
 _COLLECTIVE_SOURCES = (
+    (f"{_PKG}/parallel/collectives.py", "all"),
+    (f"{_PKG}/parallel/tp.py", "shard_map"),
     (f"{_PKG}/parallel/ring.py", "shard_map"),
+    (f"{_PKG}/parallel/moe.py", "shard_map"),
+    (f"{_PKG}/parallel/pipeline.py", "shard_map"),
+    (f"{_PKG}/parallel/worker_map.py", "shard_map"),
 )
 # a function "records" when its body calls one of these devstats sites
 _RECORDING_CALLS = frozenset({"collective_span", "note_transfer"})
+# torch.distributed's collectives (a call dist.<name>)
+_DIST_COLLECTIVES = frozenset({
+    "all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+    "all_gather_single", "reduce_scatter", "reduce_scatter_tensor",
+    "reduce_scatter_single", "all_to_all", "all_to_all_single",
+    "batch_isend_irecv", "isend", "irecv", "send", "recv", "gather",
+    "scatter", "reduce", "all_gather_object", "broadcast_object_list"})
+# the module names the port's files import torch.distributed and the
+# port's collectives as
+_DIST_MODULES = frozenset({"dist", "distributed"})
+_COLL_MODULES = frozenset({"coll", "collectives", "_coll"})
 
 
 def _called_names(node: ast.AST) -> set:
@@ -216,15 +238,31 @@ def _called_names(node: ast.AST) -> set:
     return out
 
 
+def _qualified_calls(node: ast.AST) -> set:
+    """(module, name) of every ``module.name(...)`` call in ``node``."""
+    out = set()
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call) and isinstance(sub.func, ast.Attribute):
+            base = sub.func.value
+            mod = base.id if isinstance(base, ast.Name) else (
+                base.attr if isinstance(base, ast.Attribute) else None)
+            out.add((mod, sub.func.attr))
+    return out
+
+
+def _calls_dist(node: ast.AST) -> bool:
+    return any(m in _DIST_MODULES and n in _DIST_COLLECTIVES
+               for m, n in _qualified_calls(node))
+
+
 def collective_coverage_findings(
         sources=_COLLECTIVE_SOURCES,
         source_text: Dict[str, str] = None) -> List[str]:
     """Lint 4: every collective entry point in ``parallel/`` must wrap
-    its dispatch in ``devstats.collective_span`` (or count through
-    ``note_transfer``) — the exact MSG_SNAPSHOT crack for the device
-    plane: a new collective op shipping with no span is invisible to
-    mvtop/flightrec/the scale harness. ``source_text`` injects
-    {rel_path: source} so tests can prove the rule catches a dark op."""
+    its dispatch in ``devstats.collective_span`` (or count it through
+    ``note_transfer``), so a new collective op cannot ship dark to
+    mvtop/flightrec. ``source_text`` injects {rel_path: source} so tests
+    can prove the rule catches a dark op."""
     findings = []
     for rel, mode in sources:
         if source_text is not None and rel in source_text:
@@ -232,18 +270,47 @@ def collective_coverage_findings(
         else:
             with open(os.path.join(_REPO, rel)) as f:
                 src = f.read()
-        for node in ast.parse(src).body:
-            if not isinstance(node, (ast.FunctionDef,
-                                     ast.AsyncFunctionDef)) \
-                    or node.name.startswith("_"):
-                continue
-            calls = _called_names(node)
-            if mode == "shard_map" \
-                    and not calls & {"_shard_map", "shard_map"}:
-                continue   # host-side helper, not a mesh dispatch
-            if not calls & _RECORDING_CALLS:
+        tree = ast.parse(src)
+        # the file's functions and classes (a class's .apply runs its
+        # forward/backward), with what each calls
+        defs = {}
+        for node in tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)):
+                defs[node.name] = node
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and _calls_dist(node) \
+                    and not _called_names(node) & _RECORDING_CALLS:
                 findings.append(
-                    f"collective {rel}:{node.name}(): dispatches on the "
+                    f"collective {rel}:{node.name}(): calls "
+                    "torch.distributed with no devstats recording site in "
+                    "its body — wrap the call in devstats.collective_span")
+
+        def closure(name, seen):
+            if name in seen or name not in defs:
+                return set()
+            seen.add(name)
+            node = defs[name]
+            out = {node}
+            for callee in _called_names(node):
+                out |= closure(callee, seen)
+            return out
+
+        for name, node in defs.items():
+            if name.startswith("_") or isinstance(node, ast.ClassDef):
+                continue
+            reach = closure(name, set())
+            dispatch = any(_calls_dist(n) for n in reach) or any(
+                m in _COLL_MODULES for n in reach
+                for m, _ in _qualified_calls(n))
+            if not dispatch:
+                continue
+            records = any(_called_names(n) & _RECORDING_CALLS
+                          for n in reach)
+            if not records:
+                findings.append(
+                    f"collective {rel}:{name}(): dispatches on the "
                     "mesh with no devstats recording site — wrap the "
                     "dispatch in devstats.collective_span (or count it "
                     "via note_transfer) so the op cannot ship dark")

@@ -205,6 +205,7 @@ define_bool("dashboard", True, "collect Monitor timings and display at shutdown"
 define_string("device", "",
               "torch device the tables and models live on: '' = cuda "
               "(the card), or an explicit device such as 'cpu' or 'cuda:1'")
+define_string("mesh_axis", "mv", "name of the table-sharding mesh axis")
 define_string("ps_role", "default",
               "role of this process: none|worker|server|default")
 # The async PS plane's client windows (ps/tables.py), off by default as

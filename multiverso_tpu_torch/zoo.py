@@ -1,12 +1,21 @@
 """Zoo: lifecycle, device and table registry (port of
 ``multiverso_tpu/zoo.py``).
 
-The JAX package builds a device mesh and shards every table over it. This
-slice runs one process on one device, so the Zoo resolves a single
-``torch.device`` in place of the mesh: ``num_workers() == num_servers() ==
-1`` and the process is rank 0. The device is the card (``cuda``) unless the
-caller names another one; a missing card is an error, never a quiet switch
-to the CPU.
+The JAX package builds a device mesh and shards every table over it. Here
+the Zoo resolves this process's ``torch.device`` and holds a mesh
+(``parallel/mesh.Mesh``) for the parallel layers: the one given to
+``start``/``init()`` (every rank of a ``torch.distributed`` world builds
+its own, one rank a process), else a one-rank mesh over the ``mesh_axis``
+flag on the Zoo's device, which needs no process group. The device is the
+card (``cuda``) unless the caller names another one; a missing card is an
+error, never a quiet switch to the CPU.
+
+Tables stay on the rank's own device: the JAX package row-shards them over
+its mesh's last axis, and their placement across processes comes with the
+multi-process table layer (ROADMAP §A). So ``rank()``/``size()`` keep their
+meaning (this process is rank 0 of one for the tables), ``num_servers()``
+is 1, and the mesh serves the model plane (``parallel/``,
+``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ class Zoo:
     def __init__(self) -> None:
         self._started = False
         self._device: Optional[torch.device] = None
+        self._mesh: Any = None
         self._tables: Dict[int, Any] = {}
         self._next_table_id = 0
         self._barrier_count = 0
@@ -60,13 +70,17 @@ class Zoo:
             return cls._instance
 
     def start(self, argv: Optional[List[str]] = None,
-              device: DeviceLike = None) -> None:
-        """Parse flags, configure logging, resolve the device. Idempotent."""
+              device: DeviceLike = None, mesh: Any = None) -> None:
+        """Parse flags, configure logging, resolve the device and adopt
+        ``mesh`` (else the one-rank default mesh). Idempotent."""
         if self._started:
             return
         config.parse_cmd_flags(argv)
         log.configure_from_flags()
+        if mesh is not None and device is None:
+            device = mesh.device
         self._device = resolve_device(device)
+        self._mesh = mesh if mesh is not None else self._default_mesh()
         # telemetry plane: adopt the trace_ids / step_profile / devstats
         # flags and start the flag-gated metrics exporter (no-ops unless
         # configured; a PSService starting later upgrades the exporter's
@@ -79,6 +93,8 @@ class Zoo:
         _trace.configure(self.rank())
         _profiler.configure(self.rank())
         _devstats.configure(self.rank())
+        # spans with no narrower scope run under this mesh's label
+        _devstats.set_default_mesh(self._mesh)
         _exporter.ensure_started(self.rank())
         # flight-recorder plane: pin the rank, give the structured log
         # sink the same rank, and dump the black box if a fault signal
@@ -87,11 +103,15 @@ class Zoo:
         log.set_rank(self.rank())
         _flightrec.install_signal_handlers()
         self._started = True
-        log.info("multiverso_tpu_torch started: process %d/%d on %s%s",
-                 self.rank(), self.size(), self._device,
+        log.info("multiverso_tpu_torch started: process %d/%d on %s%s, "
+                 "mesh %s", self.rank(), self.size(), self._device,
                  f" ({torch.cuda.get_device_name(self._device)})"
-                 if self._device.type == "cuda" else "")
+                 if self._device.type == "cuda" else "", self._mesh.shape)
         self.barrier()
+
+    def _default_mesh(self):
+        from multiverso_tpu_torch.parallel.mesh import one_rank_mesh
+        return one_rank_mesh(config.get_flag("mesh_axis"), self._device)
 
     def stop(self, finalize: bool = True) -> None:
         """Drain, display the dashboard, forget the tables."""
@@ -150,6 +170,7 @@ class Zoo:
         self._tables.clear()
         self._next_table_id = 0
         self._device = None
+        self._mesh = None
         self._started = False
 
     @property
@@ -168,6 +189,18 @@ class Zoo:
             raise RuntimeError(
                 "multiverso_tpu_torch not initialized; call init()")
         return self._device
+
+    def mesh(self):
+        """The mesh of the parallel layers (a one-rank mesh on
+        :meth:`device` when ``init()`` was given none)."""
+        if self._mesh is None:
+            raise RuntimeError(
+                "multiverso_tpu_torch not initialized; call init()")
+        return self._mesh
+
+    def shard_axis(self) -> str:
+        """The mesh's last axis (the JAX package's table axis)."""
+        return self.mesh().axis_names[-1]
 
     def num_workers(self) -> int:
         n = config.get_flag("num_workers")

@@ -208,8 +208,27 @@ def test_value_errors_match_jax(case):
 
 
 def test_moe_configs_stay_refused():
-    cfg = ttf.TransformerConfig(vocab_size=32, dim=16, num_heads=2,
-                                num_layers=1, max_seq=8, attn="local",
-                                moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf._prefill({}, torch.zeros((1, 2), dtype=torch.int32), cfg, 4)
+    # MoE decodes now (exact top-k routing); a top_k outside the experts
+    # stays refused, in both packages
+    jcfg, tcfg, jp, model = _lm(0, num_layers=1, max_seq=8, moe_experts=4)
+    prompt = np.zeros((1, 2), np.int32)
+    with pytest.raises(ValueError, match="top_k"):
+        jtf.generate(jp, jnp.asarray(prompt), jcfg._replace(moe_top_k=5), 2)
+    with pytest.raises(ValueError, match="top_k"):
+        ttf.generate(model, prompt, tcfg._replace(moe_top_k=5), 2)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_decode_equals_jax(top_k):
+    """``_moe_exact`` in the decode step and the batched prefill: greedy
+    tokens equal, and the prefill's logits within ATOL_LOGITS."""
+    jcfg, tcfg, jp, model = _lm(3, moe_experts=4, moe_top_k=top_k)
+    want = np.asarray(_jax(jtf.generate, jp, jnp.asarray(PROMPT), jcfg, 6))
+    got = ttf.generate(model, PROMPT, tcfg, max_new_tokens=6).numpy()
+    np.testing.assert_array_equal(got, want)
+    _, jl = _jax(jtf._prefill, jp, jnp.asarray(PROMPT), jcfg, 10)
+    with torch.inference_mode():
+        _, tl = ttf._prefill(ttf.param_tree(model), torch.from_numpy(PROMPT),
+                             tcfg, 10)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=ATOL_LOGITS)

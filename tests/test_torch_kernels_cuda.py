@@ -193,3 +193,35 @@ def test_profiling_trace_names_the_flash_kernels(cuda_device, tmp_path):
         assert counts[key] >= 1
         assert sum(fn in n for n in names) == counts[key], (fn, counts)
     assert {"fwd", "bwd"} <= {e.get("name") for e in events}
+
+
+@pytest.mark.cuda
+def test_collectives_on_cuda_tensors(cuda_device):
+    """parallel/collectives.py on CUDA tensors, two ranks on one card over
+    gloo (NCCL refuses two ranks on one card): every op's values, and only
+    ppermute (point-to-point sends, which gloo cannot take from device
+    memory) staged through host buffers, each copy counted."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    from multiverso_tpu_torch.parallel.mesh import spawn
+    from torch_mesh_worker import cuda_collectives
+    got = spawn(cuda_collectives, 2, "cuda", timeout=300)
+    x = [np.arange(8, dtype=np.float32) + 100 * r for r in range(2)]
+    for r, g in enumerate(got):
+        np.testing.assert_array_equal(g["all_reduce"], x[0] + x[1])
+        np.testing.assert_array_equal(g["all_gather"], np.concatenate(x))
+        np.testing.assert_array_equal(g["reduce_scatter"],
+                                      (x[0] + x[1])[r * 4:(r + 1) * 4])
+        np.testing.assert_array_equal(g["broadcast"], x[1])
+        np.testing.assert_array_equal(
+            g["all_to_all"], np.stack([x[0][r * 4:(r + 1) * 4],
+                                       x[1][r * 4:(r + 1) * 4]]))
+        np.testing.assert_array_equal(g["ppermute"], x[1 - r])
+        np.testing.assert_array_equal(g["ppermute_grad"], np.ones(8))
+        assert g["on_cuda"]
+        # three ppermutes (one alone, one forward, its backward), each
+        # 32 B down and 32 B up; every copy counted
+        assert g["staged"] == {"ppermute": {"calls": 3, "bytes": 192}}
+        assert g["transfers"]["d2h"] == {"ops": 3, "bytes": 96}
+        assert g["transfers"]["h2d"] == {"ops": 3, "bytes": 96}

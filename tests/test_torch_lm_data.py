@@ -104,9 +104,9 @@ def test_validation_matches_jax():
             mod.TokenBatches(w, 8, cfg, **kw)
         with pytest.raises(ValueError, match="windows"):
             mod.TokenBatches(w[0], 1, cfg, **kw)
-    # sequence-parallel attention is refused here, as the model refuses it
-    with pytest.raises(NotImplementedError):
-        tlm.TokenBatches(w, 2, tcfg._replace(attn="zigzag"), device="cpu")
+    # what the model refuses is refused here too
+    with pytest.raises(ValueError, match="attn"):
+        tlm.TokenBatches(w, 2, tcfg._replace(attn="bogus"), device="cpu")
 
 
 def _params(jcfg, tcfg, seed=0):

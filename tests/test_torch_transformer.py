@@ -93,8 +93,17 @@ def test_params_round_trip_and_unsupported_configs():
     with pytest.raises(ValueError, match="shape"):
         ttfm.params_from_jax(params, ttfm.TransformerConfig(
             **{**DIMS, "dim": 64}), "cpu")
-    for bad in ({"attn": "ring"}, {"moe_experts": 4}, {"tp_axis": "tp"}):
-        with pytest.raises(NotImplementedError):
+    # the mesh configs build on a world of one; what the JAX model refuses
+    # stays refused
+    for ok in ({"attn": "ring"}, {"moe_experts": 4}, {"tp_axis": "tp"},
+               {"attn": "zigzag", "seq_axis": "sp", "batch_axis": "dp"}):
+        ttfm.Transformer(ttfm.TransformerConfig(**{**DIMS, **ok}))
+    for bad, match in (({"attn": "bogus"}, "attn"),
+                       ({"attn": "flash", "seq_axis": "sp"}, "flash"),
+                       ({"attn": "ulysses", "tp_axis": "tp"}, "ulysses"),
+                       ({"moe_experts": 4, "attn": "ring", "seq_axis": "sp"},
+                        "MoE")):
+        with pytest.raises(ValueError, match=match):
             ttfm.Transformer(ttfm.TransformerConfig(**{**DIMS, **bad}))
 
 
