@@ -239,7 +239,27 @@ Phases, every one on every run, in this order:
             gated: one poll's wall time at world 2 and 4, the jsonl bytes
             a record, the 1-row add p50/p99 with the poller at 0.5 s
             against off, in turns
-18. telemetry the per-process telemetry plane (``telemetry/``,
+18. spmd    the PS half of the mesh data plane (``ps/spmd.py``: flags
+            ``ps_fanout`` and ``ps_spmd_stack``; host code and the
+            shards' index_add_, index_select and elementwise ops, no
+            kernel of the port) on tools/bench_scale.py's cell (40,000 x
+            128 f32, 2048-row batches, M = min(cores, 4) clients at every
+            point), every world in this process with every shard on the
+            card: (a) 4 ranks stacked into one plane on the card, the
+            default updater, AdaGrad and momentum, seeded 2048-row adds
+            from every rank's client, the full Get equal to a 1-shard
+            classic world's bit for bit, one plane dispatch and one apply
+            a shard for each multi-owner add; (b) a pinned slab of a
+            grouped shard unchanged by a grouped apply, then ``set_rows``
+            evicting that member alone, the table still equal to the
+            classic one; (c) the scale curve at 1, 2, 4 and 8 shards,
+            flags armed then off, for 1 s each: adds of ones on each
+            client's own strided rows and gets of them, every row equal
+            to its count of adds; T_n (rows/s), E_n = T_n / (n T_1), Get
+            p50/p99, plane dispatches an add, and the idle share of the
+            armed 4-shard point (profiled). It counts its launches apart
+            and launches no flash kernel
+19. telemetry the per-process telemetry plane (``telemetry/``,
             ``utils/profiling.py``, ``tools/``), counted apart: (a) the
             step profiler over ps_async (b)'s measured WE epoch at world 2
             (``we_async.py --step_profile``): each rank's per-step phase
@@ -262,7 +282,7 @@ Phases, every one on every run, in this order:
             and the serving write-p50 ratio beside the figures PERF.md
             records (notes, not gates)
 
-19. mesh   the parallel layers (``parallel/``, the LM's mesh layouts) on
+20. mesh   the parallel layers (``parallel/``, the LM's mesh layouts) on
             two ranks spawned on this one card over gloo (NCCL refuses
             two ranks on one card; ``ppermute``'s sends run on host
             copies, counted), at the 472M LM's widths, each part against
@@ -6544,6 +6564,381 @@ def phase_mesh(dev) -> dict:
     return counts
 
 
+# spmd: the PS half of the mesh data plane (``ps/spmd.py``; no kernel of
+# its own: index_add_, index_select and the updaters' elementwise ops).
+# The shape is the JAX package's cell of this plane, tools/bench_scale.py:
+# a 40,000 x 128 f32 AsyncMatrixTable (DEFAULT_ROWS, DEFAULT_DIM), 2048-row
+# batches (BATCH_ROWS) and the same M client threads at every point
+# (worker_count(): its constant offered load). Every world is in this
+# process over one FileRendezvous, every shard on the card.
+SPMD_TABLE = (40_000, 128)
+SPMD_BATCH = 2048
+SPMD_CLIENTS = max(2, min(os.cpu_count() or 2, 4))   # bench_scale:79-80
+SPMD_RANKS = 4              # (a) and (b)
+SPMD_STEPS = 8              # (a)'s seeded adds, rank by rank
+SPMD_UPDATERS = (("default", {}), ("adagrad", PSA_ADAGRAD),
+                 ("momentum_sgd", dict(momentum=0.5)))
+SPMD_SHARDS = (1, 2, 4, 8)  # (c)'s points
+SPMD_SECONDS = 0.75         # one window of a point's drive
+SPMD_WINDOWS = 3            # windows a plane, armed and off in turns
+SPMD_WARM = 2               # add + get rounds per client before a point
+SPMD_PROFILE_N = 4          # the profiled point (armed)
+# the hot-key sketch sized to the cell's key set, as bench_scale:207-214
+# sets it: at the default 128 every observe of the clients' strided rows
+# is a heap eviction, a pure-Python cost that took about two thirds of a
+# 2048-row op's host time in a CPU profile of this phase
+SPMD_HOTKEYS = 16384
+
+
+def spmd_world(dev, n: int, rdv: str, name: str, updater="default",
+               armed: bool = True):
+    """``n`` ranks in this process over ``rdv``, shards on ``dev``, with
+    ps_fanout and ps_spmd_stack both ``armed`` (or both off)."""
+    from multiverso_tpu_torch.ps.service import (FileRendezvous, PSContext,
+                                                 PSService)
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    from multiverso_tpu_torch.utils import config
+    config.set_flag("ps_fanout", armed)
+    config.set_flag("ps_spmd_stack", armed)
+    ctxs = [PSContext(r, n, PSService(r, n, FileRendezvous(rdv)),
+                      device=dev) for r in range(n)]
+    try:
+        tabs = [AsyncMatrixTable(*SPMD_TABLE, name=name, updater=updater,
+                                 ctx=c) for c in ctxs]
+    except BaseException:
+        spmd_close(ctxs)
+        raise
+    return ctxs, tabs
+
+
+def spmd_close(ctxs) -> None:
+    from multiverso_tpu_torch.ps import spmd
+    for c in ctxs:
+        c.close()
+    spmd.reset_registry()
+
+
+def spmd_stream(seed: int = 31):
+    """(a)'s seeded adds: 2048 sorted rows each (a stride plus a random
+    offset: every shard's range is hit), normal deltas."""
+    rng = np.random.default_rng(seed)
+    rows, dim = SPMD_TABLE
+    stride = rows // SPMD_BATCH
+    out = []
+    for _ in range(SPMD_STEPS):
+        ids = (np.arange(SPMD_BATCH) * stride
+               + rng.integers(0, stride, SPMD_BATCH))
+        out.append((np.sort(ids), rng.normal(
+            size=(SPMD_BATCH, dim)).astype(np.float32)))
+    return out
+
+
+def spmd_parity(dev, tmp: str) -> dict:
+    """(a) each updater: a 4-rank stacked world against a 1-shard classic
+    world on the card, the same adds from every rank's client in turn,
+    full Gets bit for bit; the applies and dispatches counted. (b) on the
+    default updater's worlds: a pinned slab survives a grouped apply, then
+    ``set_rows`` evicts one member alone and the tables still agree."""
+    import torch
+    from multiverso_tpu_torch.updaters import AddOption
+    out = {}
+    stream = spmd_stream()
+    for upd, opt_kw in SPMD_UPDATERS:
+        label = f"spmd (a) {upd}"
+        # the classic world first: the flags stay armed for the stacked
+        # world's ops (routing reads them at each request)
+        octxs, otab = spmd_world(dev, 1, os.path.join(tmp, upd + "_o"),
+                                 "spmd_o", upd, armed=False)
+        try:
+            ctxs, tabs = spmd_world(dev, SPMD_RANKS,
+                                    os.path.join(tmp, upd), "spmd_a", upd)
+        except BaseException:
+            spmd_close(octxs)
+            raise
+        try:
+            plane = tabs[0]._shard._plane
+            if (plane is None or not plane.active
+                    or len(plane.members) != SPMD_RANKS
+                    or any(t._shard._plane is not plane for t in tabs)
+                    or str(plane.device) != str(dev)):
+                raise AssertionError(f"{label}: the shards are not one "
+                                     f"{SPMD_RANKS}-slot plane on {dev}")
+            if not tabs[0]._fanout or otab[0]._shard._plane is not None:
+                raise AssertionError(f"{label}: the worlds took the other "
+                                     "planes")
+            d0 = plane._dispatches
+            t0 = time.perf_counter()
+            for step, (ids, vals) in enumerate(stream):
+                opt = AddOption(worker_id=step % SPMD_RANKS, **opt_kw)
+                tabs[step % SPMD_RANKS].add_rows(ids, vals, opt)
+                otab[0].add_rows(ids, vals, opt)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got, want = tabs[1].get(), otab[0].get()
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{label}: the stacked table differs from the classic "
+                    f"one (max |diff| {np.abs(got - want).max()})")
+            dispatches = plane._dispatches - d0
+            applies = [t._shard._stat_applies for t in tabs]
+            per_add = dispatches / len(stream)
+            log(f"{label}: {len(stream)} adds of {SPMD_BATCH} rows from "
+                f"{SPMD_RANKS} ranks' clients, each over all {SPMD_RANKS} "
+                f"slots on {plane.device}: full Get = the 1-shard classic "
+                f"world bit for bit; applies a shard {applies}, plane "
+                f"dispatches {dispatches} ({per_add:.2f} a multi-owner add);"
+                f" both worlds' adds took {dt * 1e3:.1f} ms "
+                f"({card_label()})")
+            if per_add != 1 or applies != [len(stream)] * SPMD_RANKS:
+                raise AssertionError(f"{label}: a one-option round must "
+                                     "be one dispatch and one apply a "
+                                     "shard")
+            res = {"adds": len(stream), "applies": applies,
+                   "dispatches": dispatches, "per_add": per_add}
+            if upd == "default":
+                res["aliasing"] = spmd_aliasing(tabs, otab[0], stream)
+            out[upd] = res
+        finally:
+            spmd_close(ctxs + octxs)
+    return out
+
+
+def spmd_aliasing(tabs, oracle, stream) -> dict:
+    """(b): pin one grouped shard's slab, apply a grouped wave, and hold
+    the pinned rows to a copy taken before; then ``set_rows`` on that
+    member evicts it alone, and the table equals the classic one with the
+    same ``set_rows``."""
+    import torch
+    sh = tabs[1]._shard
+    plane = sh._plane
+    pin = sh._pin_data()
+    try:
+        before = pin.data.clone()
+        ids, vals = stream[0]
+        tabs[2].add_rows(ids, vals)   # a grouped wave over every slot
+        oracle.add_rows(ids, vals)
+        torch.cuda.synchronize()
+        if pin.data.data_ptr() == plane.stack.data_ptr() or not \
+                torch.equal(pin.data, before):
+            raise AssertionError("spmd (b): the pinned slab changed under "
+                                 "a grouped apply")
+        if torch.equal(sh._data, before):
+            raise AssertionError("spmd (b): the grouped apply missed the "
+                                 "pinned shard")
+    finally:
+        sh._release_data(pin)
+    rows = np.arange(sh.lo, sh.lo + 64)
+    vals = np.full((rows.size, SPMD_TABLE[1]), 3.0, np.float32)
+    tabs[0].set_rows(rows, vals)
+    oracle.set_rows(rows, vals)
+    others = [t._shard._plane is plane for i, t in enumerate(tabs) if i != 1]
+    if sh._plane is not None or not all(others):
+        raise AssertionError("spmd (b): set_rows did not evict exactly its "
+                             "member")
+    if not np.array_equal(tabs[3].get(), oracle.get()):
+        raise AssertionError("spmd (b): after the eviction the table "
+                             "differs from the classic one")
+    log("spmd (b) pinned slab unchanged by a grouped apply; set_rows "
+        f"evicted slot 1 alone ({sum(others)} members still grouped); the "
+        "table = the classic one bit for bit")
+    return {"pinned_unchanged": True, "grouped_after_evict": sum(others)}
+
+
+def spmd_clients(tabs, seconds: float, counts: list, lat: list,
+                 warm: bool = False) -> float:
+    """SPMD_CLIENTS threads, client w on ``tabs[w % n]``: a 2048-row
+    ``add_rows_async`` of ones on its own strided rows (every shard's
+    range), then a ``get_rows`` of them, for ``seconds`` (or SPMD_WARM
+    rounds when ``warm``). Returns the wall seconds."""
+    import threading
+    rows, dim = SPMD_TABLE
+    ones = np.ones((SPMD_BATCH, dim), np.float32)
+    n = len(tabs)
+    errors = []
+
+    def client(w):
+        try:
+            t = tabs[w % n]
+            ids = np.arange(SPMD_BATCH) * (rows // SPMD_BATCH) + w
+            mids = []
+            stop = time.perf_counter() + seconds
+            k = 0
+            while (k < SPMD_WARM) if warm else (time.perf_counter() < stop):
+                mids.append(t.add_rows_async(ids, ones))
+                counts[w] += 1
+                if len(mids) >= 4:
+                    t.wait(mids.pop(0))
+                g0 = time.perf_counter()
+                t.get_rows(ids)
+                if not warm:
+                    lat.append((time.perf_counter() - g0) * 1e3)
+                k += 1
+            for m in mids:
+                t.wait(m)
+        except BaseException as e:   # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    ths = [threading.Thread(target=client, args=(w,))
+           for w in range(SPMD_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=seconds + 120)
+    dt = time.perf_counter() - t0
+    if any(th.is_alive() for th in ths):
+        raise AssertionError("spmd (c): a client did not finish")
+    if errors:
+        raise errors[0]
+    return dt
+
+
+def spmd_pair(dev, n: int, tmp: str) -> dict:
+    """(c) one point of the curve: n shards, a world with both flags armed
+    and one with both off, alive together and driven in turns (armed,
+    off, armed, ...: SPMD_WINDOWS windows of SPMD_SECONDS each), so a
+    drift of the host's speed falls on both planes alike and the spread
+    of the windows says whether the planes differ. Returns
+    {"armed": point, "off": point}."""
+    import torch
+    rows, dim = SPMD_TABLE
+    worlds = {}
+    t0 = time.perf_counter()
+    try:
+        for armed in (True, False):
+            name = "armed" if armed else "off"
+            worlds[name] = spmd_world(
+                dev, n, os.path.join(tmp, f"c{n}{name}"), "spmd_c",
+                "default", armed=armed)
+        pts = {}
+        for name, (_ctxs, tabs) in worlds.items():
+            counts = [0] * SPMD_CLIENTS
+            spmd_clients(tabs, 0.0, counts, [], warm=True)
+            plane = tabs[0]._shard._plane
+            if name == "armed" and n > 1 and (plane is None
+                                              or not plane.active):
+                raise AssertionError(f"spmd (c) n={n}: the shards did not "
+                                     "stack")
+            if name == "off" and plane is not None:
+                raise AssertionError(f"spmd (c) n={n}: a plane with the "
+                                     "flags off")
+            pts[name] = {"tabs": tabs, "plane": plane, "counts": counts,
+                         "c0": sum(counts), "lat": [], "windows": [],
+                         "d0": plane._dispatches if plane is not None else 0,
+                         "cow0": sum(t._shard._stat_cow for t in tabs)}
+        t_warm = time.perf_counter()
+        for _ in range(SPMD_WINDOWS):
+            for name, pt in pts.items():
+                ops0 = sum(pt["counts"]) + len(pt["lat"])
+                dt = spmd_clients(pt["tabs"], SPMD_SECONDS, pt["counts"],
+                                  pt["lat"])
+                ops = sum(pt["counts"]) + len(pt["lat"]) - ops0
+                pt["windows"].append((dt, ops * SPMD_BATCH / dt))
+        torch.cuda.synchronize()
+        t_drive = time.perf_counter()
+        out = {}
+        for name, pt in pts.items():
+            tabs, plane, counts, lat = (pt["tabs"], pt["plane"],
+                                        pt["counts"], pt["lat"])
+            adds = sum(counts) - pt["c0"]
+            # the deltas are ones: a row's value is exactly its count of
+            # adds
+            want = np.zeros((rows, dim), np.float32)
+            for w in range(SPMD_CLIENTS):
+                want[np.arange(SPMD_BATCH) * (rows // SPMD_BATCH) + w] = \
+                    counts[w]
+            if not np.array_equal(tabs[0].get(), want):
+                raise AssertionError(f"spmd (c) n={n} {name}: a row is "
+                                     "not its count of adds")
+            secs = sum(dt for dt, _r in pt["windows"])
+            wr = [r for _dt, r in pt["windows"]]
+            out[name] = {
+                "n": n, "plane": name, "seconds": secs, "adds": adds,
+                "gets": len(lat),
+                # rows moved: each op carries one 2048-row batch
+                "rows_per_s": (adds + len(lat)) * SPMD_BATCH / secs,
+                "window_rows_per_s": wr,
+                "get_p50_ms": float(np.percentile(lat, 50)),
+                "get_p99_ms": float(np.percentile(lat, 99)),
+                "dispatches_per_add": ((plane._dispatches - pt["d0"]) / adds
+                                       if plane is not None else None),
+                # copy-on-write clones of a shard's table (an add that
+                # found the slab pinned by a get), per add
+                "cow_per_add": (sum(t._shard._stat_cow for t in tabs)
+                                - pt["cow0"]) / adds}
+        if n == SPMD_PROFILE_N:
+            out["armed"]["profile"] = profile(
+                f"spmd (c) n={n} armed, {SPMD_CLIENTS} clients for 0.3 s",
+                lambda: spmd_clients(pts["armed"]["tabs"], 0.3,
+                                     [0] * SPMD_CLIENTS, []))
+        t_check = time.perf_counter()
+        return out
+    finally:
+        for ctxs, _tabs in worlds.values():
+            for c in ctxs:
+                c.close()
+        from multiverso_tpu_torch.ps import spmd
+        spmd.reset_registry()
+        if worlds and "t_check" in locals():
+            log(f"spmd (c) n={n} seconds: worlds and warm-up "
+                f"{t_warm - t0:.2f}, the windows {t_drive - t_warm:.2f}, "
+                f"the checks (and the profile) {t_check - t_drive:.2f}, "
+                f"the close {time.perf_counter() - t_check:.2f}")
+
+
+def phase_spmd(dev) -> dict:
+    """The PS half of the mesh data plane: (a) grouped parity on the card,
+    (b) the aliasing check, (c) the scale curve, flags armed and off."""
+    import tempfile
+    from multiverso_tpu_torch.utils import config
+    saved = {f: config.get_flag(f)
+             for f in ("ps_fanout", "ps_spmd_stack", "hotkeys_capacity")}
+    config.set_flag("hotkeys_capacity", SPMD_HOTKEYS)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = {"parity": spmd_parity(dev, tmp)}
+            t1 = time.perf_counter()
+            curve = {"armed": {}, "off": {}}
+            for n in SPMD_SHARDS:
+                for name, p in spmd_pair(dev, n, tmp).items():
+                    curve[name][n] = p
+    finally:
+        for f, v in saved.items():
+            config.set_flag(f, v)
+    for name, pts in curve.items():
+        t_1 = pts[1]["rows_per_s"]
+        for n, p in pts.items():
+            p["efficiency"] = p["rows_per_s"] / (n * t_1)
+            dpa = p["dispatches_per_add"]
+            wr = p["window_rows_per_s"]
+            log(f"spmd (c) {name} n={n}: T_n {p['rows_per_s']:.0f} rows/s "
+                f"({p['adds']} adds and {p['gets']} gets of {SPMD_BATCH} "
+                f"rows in {p['seconds']:.3f} s, {SPMD_CLIENTS} clients; "
+                f"its {len(wr)} windows {min(wr):.0f}-{max(wr):.0f}), "
+                f"E_n {p['efficiency']:.3f}, Get p50 {p['get_p50_ms']:.3f} "
+                f"ms, p99 {p['get_p99_ms']:.3f} ms, plane dispatches an add "
+                + ("-" if dpa is None else f"{dpa:.2f}")
+                + f", table copies an add {p['cow_per_add']:.3f}"
+                + f"; every row = its count of adds ({card_label()})")
+    for n in SPMD_SHARDS:
+        a, o = curve["armed"][n], curve["off"][n]
+        aw, ow = a["window_rows_per_s"], o["window_rows_per_s"]
+        # the windows ran in turns: armed below off in every turn means the
+        # plane is slower there, whatever the host's drift
+        verdict = ("armed slower in every turn" if max(aw) < min(ow) else
+                   "armed faster in every turn" if min(aw) > max(ow) else
+                   "the windows overlap")
+        turns = ", ".join(f"{x / y:.3f}" for x, y in zip(aw, ow))
+        log(f"spmd (c) n={n}: armed/off T_n "
+            f"{a['rows_per_s'] / o['rows_per_s']:.3f} (turn by turn "
+            f"{turns}): {verdict}")
+    out["curve"] = curve
+    log(f"spmd phase: {time.perf_counter() - t0:.1f} s ((a)+(b) "
+        f"{t1 - t0:.1f} s, (c) {time.perf_counter() - t1:.1f} s)")
+    return out
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -6688,7 +7083,10 @@ def main(argv=None) -> int:
     # host code, wire frames, autograd's GEMMs and index ops, no kernel
     # of the port; and failover, faults and replay: host code, wire frames
     # and shard copies between the card and the host; and the native
-    # transport: host C++ and the same shard ops
+    # transport: host C++ and the same shard ops; and the cluster
+    # telemetry plane and the PS half of the mesh data plane (stacked
+    # shard groups: index_add_, index_select, the updaters' elementwise
+    # ops), host code and the same shard ops
     later = {}
     for name, phase in (("resnet", phase_resnet), ("lda", phase_lda),
                         ("decode", phase_decode),
@@ -6696,7 +7094,8 @@ def main(argv=None) -> int:
                         ("serving", phase_serving),
                         ("chaos", phase_chaos),
                         ("ps_native", phase_ps_native),
-                        ("cluster", phase_cluster)):
+                        ("cluster", phase_cluster),
+                        ("spmd", phase_spmd)):
         ak.reset_launch_counts()
         later[name] = phase(dev)
         mark(name)

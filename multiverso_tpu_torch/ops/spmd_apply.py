@@ -1,10 +1,8 @@
 """Row kernels of the async PS shards (port of
 ``multiverso_tpu/ops/spmd_apply.py``).
 
-The JAX package vmaps one shard's update over a stack of colocated shards
-and places it on a local device mesh with ``shard_map``. One card has no
-mesh, so here each function works on ONE shard's ``(R, C)`` rows and its
-updater state, on the shard's device:
+Per-shard forms, on ONE shard's ``(R, C)`` rows and its updater state, on
+the shard's device (the classic path of ``ps/shard.py``):
 
 * :func:`build_apply` — gather the touched rows and the row-axis state
   leaves, run ``updater.apply``, scatter both back; a state leaf with no
@@ -12,18 +10,47 @@ updater state, on the shard's device:
   is the shard's (``RowShard._state_row_axis``): the leaf's trailing dims
   equal the shard's padded shape, and ``-1`` marks a row-free leaf;
 * :func:`build_gather` — the rows of a batch of ids;
-* :func:`build_slice` — one slab of a stacked leaf;
 * :func:`opt_leaves` — per-field arrays of a list of ``AddOption``.
 
+Stacked forms, over the ``(S, R_max, C)`` layout of a stacked shard
+group (``ps/spmd.py``'s ``MeshStack``): the colocated shards of one table
+on one device, their rows padded to the group's largest shard and stacked
+along a new slot axis; a state leaf whose per-shard row axis is ``ax``
+takes the slot axis at ``ax`` and its rows at ``ax + 1`` (AdaGrad's
+per-worker ``(W, R, C)`` leaf stacks as ``(W, S, R_max, C)``), so the slot
+and row axes of every leaf flatten into one ``S * R_max`` axis whose index
+is ``slot * R_max + local``:
+
+* :func:`build_stacked_apply` — one wave round of several shards as ONE
+  call over the flattened stack: the per-shard body of
+  :func:`build_apply` on the flat views (or, for the plain adder and SGD,
+  the classic path's signed ``index_add_``);
+* :func:`build_stacked_gather` — every shard's gather of a round in one
+  ``index_select`` over the flat view;
+* :func:`build_slice` — one shard's slab of a stacked leaf, as a copy.
+
+The JAX package vmaps the per-shard body over the slot axis and places
+the stack on a local device mesh with ``shard_map``; each device runs the
+program on its own slots, with every shard's ids padded to a shared
+power-of-two bucket with its scratch row. Eager PyTorch compiles no
+shapes, so the flat index does the vmap's work on one device and no round
+pads: a shard without work in a round is simply not indexed, which leaves
+its rows exactly as the JAX scratch lane does. The ops are elementwise per
+row, so a stacked round equals the same shards applied one after another
+bit for bit. The JAX program takes one ``AddOption`` per shard; the port's
+updaters read scalar options, so the caller splits a round by equal
+``AddOption`` and makes one call per part (see ``MeshStack.apply_grouped``).
+
 The port's updaters write their arguments in place; the gathered rows and
-state leaves are copies (``index_select``), so an update reaches the shard
-only through the scatter (``index_copy_``), which writes the rows it is
-given and no other.
+state leaves are copies (``index_select``), so an update reaches the
+shard only through the scatter (``index_copy_``), which writes the rows it
+is given and no other. A slice is a copy for the same reason: a slab view
+of the stack would change under a reader that pinned it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -67,12 +94,67 @@ def build_gather() -> Callable:
     return _take
 
 
-def build_slice() -> Callable:
-    """``(stacked, slot) -> stacked[slot]``: one shard's slab of a stacked
-    leaf (a view)."""
+def stacked_shape(shape, axis: int, slots: int, rows: int) -> tuple:
+    """The stacked shape of a per-shard leaf of ``shape`` whose row axis is
+    ``axis``: the slot axis at ``axis``, ``rows`` (the group's padded row
+    count) at ``axis + 1``."""
+    shape = tuple(shape)
+    return shape[:axis] + (slots, rows) + shape[axis + 1:]
 
-    def _slice(stacked, slot: int):
-        return stacked.select(0, int(slot))
+
+def flat_view(stacked: torch.Tensor, axis: int) -> torch.Tensor:
+    """``stacked`` with its slot axis ``axis`` and row axis ``axis + 1``
+    merged into one, as a VIEW (writes reach the stack)."""
+    shape = tuple(stacked.shape)
+    return stacked.view(shape[:axis] + (shape[axis] * shape[axis + 1],)
+                        + shape[axis + 2:])
+
+
+def build_stacked_apply(updater, row_axes: Dict[str, int],
+                        linear: Optional[float] = None) -> Callable:
+    """``(stack, ustate, flat_ids, vals, opt) -> (stack, ustate)`` for one
+    part of a wave round: ``stack`` the ``(S, R_max, C)`` rows, ``ustate``
+    the stacked leaves (each with its slot axis at the per-shard row axis
+    of ``row_axes``; a row-free leaf cannot stack), ``flat_ids`` a 1-D
+    int64 tensor of ``slot * R_max + local`` indices, unique within the
+    part, ``vals`` one delta row each, ``opt`` the part's one
+    ``AddOption``. ``linear`` (the sign of a stateless signed accumulate)
+    takes the classic path's one ``index_add_``. Written in place."""
+    if any(ax < 0 for ax in row_axes.values()):
+        raise ValueError("a stacked shard group needs every updater-state "
+                         "leaf on the row axis")
+    inner = build_apply(updater, row_axes)
+
+    def _update(stack, ustate, flat_ids, vals, opt: AddOption):
+        flat = flat_view(stack, 0)
+        if linear is not None:
+            flat.index_add_(0, flat_ids, vals, alpha=linear)
+            return stack, ustate
+        flat_state = {k: flat_view(v, row_axes[k]) for k, v in ustate.items()}
+        inner(flat, flat_state, flat_ids, vals, opt)
+        return stack, ustate
+
+    return _update
+
+
+def build_stacked_gather() -> Callable:
+    """``(stack, flat_ids) -> rows``: a new tensor of the ``slot * R_max +
+    local`` rows of the ``(S, R_max, C)`` stack, every shard of a round in
+    one ``index_select``."""
+
+    def _take(stack, flat_ids):
+        return flat_view(stack, 0).index_select(0, flat_ids)
+
+    return _take
+
+
+def build_slice() -> Callable:
+    """``(stacked, slot, axis=0) -> stacked[slot]``: one shard's slab of a
+    stacked leaf whose slot axis is ``axis``, as a new tensor (never a view
+    of the stack, which later applies write in place)."""
+
+    def _slice(stacked, slot: int, axis: int = 0):
+        return stacked.select(axis, int(slot)).clone()
 
     return _slice
 

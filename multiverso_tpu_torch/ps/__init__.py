@@ -24,7 +24,13 @@ arrives):
   C++ side cannot serve — every op on a shard on the card — punts to the
   Python handlers synchronously under the same per-shard mutex. The JAX
   package reports 2-3.8x the pure-Python plane's throughput on a CPU
-  host's loopback; the card's numbers are in PERF.md.
+  host's loopback; the card's numbers are in PERF.md;
+* ranks of one world in one process may skip the socket (flag
+  ``ps_fanout``: requests to a colocated rank run inline in its handler,
+  and a multi-owner row op rides one in-process ``MSG_MULTI``
+  super-frame), and their shards of one table on one device may stack
+  into one tensor with one grouped apply and gather a round (flag
+  ``ps_spmd_stack``), both in :mod:`multiverso_tpu_torch.ps.spmd`.
 
 No barrier, no allgather: a dead worker never blocks peers — requests to
 its shard fail with :class:`PSPeerError` after a timeout while traffic to

@@ -62,7 +62,16 @@ drives the SLO sentinel and the signal bus; the stats payload adds the
 ``tenants`` block (``telemetry/tenants.py``) and, while the sentinel is
 armed, the ``slo`` block (``telemetry/slo.py``).
 
-Not ported (ROADMAP.md §A, under its title): the spmd stack.
+The PS half of the mesh data plane (``ps/spmd.py``, both flags off by
+default): every service joins the process colocation registry when it
+publishes its address. With ``ps_fanout`` armed, a request to a
+colocated rank of the same world runs inline in that rank's handler
+instead of crossing the localhost socket, and a client's multi-owner row
+op rides one in-process ``MSG_MULTI`` super-frame (:meth:`PSService.
+multi_local`). With ``ps_spmd_stack`` armed, the shards registered here
+join their table's stacked group on their device, and the super-frame
+engine applies (or gathers) every sub-op of one stacked plane in one
+grouped dispatch.
 """
 
 from __future__ import annotations
@@ -79,6 +88,10 @@ import numpy as np
 
 from multiverso_tpu_torch.ps import failover as _failover
 from multiverso_tpu_torch.ps import faults as _faults
+# the mesh data plane: module-level so the ps_fanout / ps_spmd_stack flags
+# register before an argv parse; spmd.py never imports this module at
+# module scope, so there is no cycle
+from multiverso_tpu_torch.ps import spmd as _spmd
 from multiverso_tpu_torch.ps import wire
 from multiverso_tpu_torch.serving import replica as _serving_replica
 from multiverso_tpu_torch.telemetry import aggregator as _aggregator
@@ -266,21 +279,6 @@ class FileRendezvous:
                 pass
             time.sleep(0.02)
         return False
-
-
-# ---------------------------------------------------------------------- #
-# process-colocation registry: services sharing a process AND a
-# rendezvous may serve each other's super-frame sub-ops in-process
-# ---------------------------------------------------------------------- #
-_colocated: Dict[Any, Dict[int, "PSService"]] = {}
-_colocated_lock = threading.Lock()
-
-
-def colocated_service(key, rank: int) -> Optional["PSService"]:
-    if key is None:
-        return None
-    with _colocated_lock:
-        return _colocated.get(key, {}).get(rank)
 
 
 # ---------------------------------------------------------------------- #
@@ -595,7 +593,20 @@ class PSService:
         if host is None:
             host = config.get_flag("ps_host") or "127.0.0.1"
         self._rendezvous = rendezvous
-        self._proc_key = getattr(rendezvous, "identity", None)
+        # process-colocation identity (ps/spmd.py): services sharing a
+        # process AND a rendezvous may route to each other in-process when
+        # ps_fanout is armed. The registry entry appears with the
+        # rendezvous publish (a deferred-publish service stays invisible
+        # until its restore, the same rule as its address)
+        self._proc_key = _spmd.proc_key(rendezvous)
+        # ps_fanout is read ONCE, here: routing, inline dispatch and the
+        # tables' copy decision (tables.py reads this attribute) must agree
+        # for the service's whole life, or one owner's ops would split
+        # between the executor and inline dispatch (per-owner FIFO lost)
+        # and a view-passing table's request would queue on the executor
+        self._fanout = bool(config.get_flag("ps_fanout"))
+        self._routed_seen: set = set()
+        self._routed_dead: set = set()
         self._handlers: Dict[str, Callable] = {}
         # table -> shard object for MSG_STATS / MSG_HEALTH
         self._shards: Dict[str, Any] = {}
@@ -690,25 +701,15 @@ class PSService:
     # ----------------------------- server side ----------------------- #
     def publish_addr(self) -> None:
         """Publish this incarnation's address through the rendezvous (and
-        join the in-process colocation registry) — the moment peers may
-        discover it. A deferred-publish (restarted) service calls this
-        after its checkpoint restore; idempotent."""
+        join the process colocation registry, ps/spmd.py) — the moment
+        peers may discover it. A deferred-publish (restarted) service
+        calls this after its checkpoint restore: a survivor routing a
+        replay onto the still-empty shard would commit, ack, and then be
+        wiped by the restore. Idempotent."""
         if self._rendezvous is not None:
             self._rendezvous.publish(self.rank, self.addr)
             self._published = True
-        if self._proc_key is not None:
-            with _colocated_lock:
-                _colocated.setdefault(self._proc_key, {})[self.rank] = self
-
-    def _release_colocated(self) -> None:
-        if self._proc_key is None:
-            return
-        with _colocated_lock:
-            ranks = _colocated.get(self._proc_key, {})
-            if ranks.get(self.rank) is self:
-                del ranks[self.rank]
-            if not ranks:
-                _colocated.pop(self._proc_key, None)
+        _spmd.register_service(self)
 
     def beat(self, name: str) -> None:
         self._beats[name] = time.monotonic()
@@ -734,6 +735,12 @@ class PSService:
                 if hasattr(shard, "service"):
                     shard.service = self
             self._handlers_cv.notify_all()
+        if shard is not None:
+            # stacked grouping (flag ps_spmd_stack, ps/spmd.py): colocated
+            # same-table shards on one device pool into one stacked tensor
+            # with grouped apply and gather. No-op unless armed and the
+            # shard qualifies
+            _spmd.try_join(self, table, shard)
 
     def _try_register_native(self, table: str, handler: Callable,
                              shard) -> Optional[Callable]:
@@ -745,6 +752,14 @@ class PSService:
         # in a CPU tensor and a stateless signed-accumulate updater (a
         # shard on the card punts every op)
         if type(shard) is not RowShard or not shard._np_mode:
+            return None
+        if self._fanout:
+            # process-coalesced routing (ps/spmd.py): a fan-out world's
+            # traffic arrives in-process, where a native registration only
+            # costs (every routed op would cross the FFI to take the C++
+            # shard mutex around its whole Python handler). The C++ fast
+            # path exists for socket clients, which such a world does not
+            # use
             return None
         sign = STATELESS_LINEAR.get(type(shard.updater))
         if sign is None:
@@ -1043,11 +1058,17 @@ class PSService:
     # ------------------------- multi-owner super-frames --------------- #
     def _owner_service(self, owner: int) -> "PSService":
         """A super-frame sub-op's owning service: this rank, or a
-        colocated one (same process, same rendezvous)."""
+        colocated sibling through the process registry (ps/spmd.py). A
+        previously routed owner observed gone raises the typed peer error
+        AND fires the death hooks once, as a dying socket would (the
+        send-window replay plane re-arms off that hook). An owner that
+        was never colocated is a routing error."""
         if owner == self.rank:
             return self
-        svc = colocated_service(self._proc_key, owner)
-        if svc is not None and not svc._closed:
+        svc, err = self._colocated(owner)
+        if err is not None:
+            raise err
+        if svc is not None:
             return svc
         raise PSError(
             f"super-frame sub-op for rank {owner}, which is not "
@@ -1056,8 +1077,11 @@ class PSService:
     def multi_local(self, subs: Sequence[Tuple[int, Dict, Sequence]]
                     ) -> List[cf.Future]:
         """In-process super-frame dispatch from Python objects (no wire
-        encode on either side): every sub-op runs on the caller's thread
-        against its colocated owner, and one future per sub resolves."""
+        encode on either side): every sub-op runs INLINE on the caller's
+        thread against its colocated owner (grouped and host fast paths
+        included), and one future per sub resolves. Program order is
+        per-owner FIFO; an executor hop would cost two thread wakeups per
+        op."""
         futs: List[cf.Future] = [cf.Future() for _ in subs]
         try:
             results = self._handle_multi_obj(subs)
@@ -1069,6 +1093,9 @@ class PSService:
             if ok:
                 f.set_result((rm, ra))
             elif rm.get("peer"):
+                # rethrow TYPED: callers branch on PSPeerError (a dead
+                # owner) vs PSError, and a sub-op riding a super-frame
+                # must not lose that
                 f.set_exception(PSPeerError(rm.get("error", "?")))
             else:
                 f.set_exception(PSError(rm.get("error", "?")))
@@ -1089,27 +1116,157 @@ class PSService:
     def _handle_multi_obj(self, subs: Sequence[Tuple[int, Dict, Sequence]]
                           ) -> List[Tuple[bool, Dict, Any]]:
         """The super-frame sub-op engine: each ``(msg_type, meta,
-        arrays)`` sub-op goes, in frame order, to its owning shard's
-        ordinary handler, and comes back as ``(ok, reply_meta,
-        reply_arrays)``. A failing sub-op fails alone (sub K failing does
-        not fail sub K+1). The JAX package also groups row adds and gets
-        of mesh-stacked shards into one SPMD dispatch; a card has no
-        stack, so every sub-op takes the per-sub path, with the same
-        results."""
-        results: List[Tuple[bool, Dict, Any]] = []
-        for mt, m, arrs in subs:
+        arrays)`` sub-op goes to its owning colocated shard and comes
+        back as ``(ok, reply_meta, reply_arrays)``. Plain (unstamped) row
+        adds and gets of shards in an ACTIVE stacked plane (ps/spmd.py)
+        collapse into one grouped apply and one grouped gather per plane;
+        CPU shards with a linear updater that only Python serves apply at
+        once (``RowShard._apply_now``: no coalescing-queue round trip, the
+        caller's thread is the one server of its routed ops) and serve
+        through ``_serve_get_rows``; everything
+        else — batch frames, replay-stamped frames, state ops, natively
+        registered shards — goes through the shard's ordinary handler in
+        frame order. A failing sub-op fails alone (sub K failing does not
+        fail sub K+1). Grouping needs every owner to appear once, else
+        the whole frame takes the per-sub path."""
+        from multiverso_tpu_torch.ps.shard import RowShard as _RowShard
+        n = len(subs)
+        results: List[Optional[Tuple[bool, Dict, Any]]] = [None] * n
+        owners = [int(m.get(wire.OWNER_META_KEY, self.rank))
+                  for _mt, m, _a in subs]
+        groupable = len(set(owners)) == n
+        add_group: List[Tuple[int, Any, Dict, Sequence]] = []
+        get_group: List[Tuple[int, Any, Dict, Sequence]] = []
+        direct: List[int] = []
+        for i, (mt, m, arrs) in enumerate(subs):
+            shard = None
+            if groupable and mt in (MSG_ADD_ROWS, MSG_GET_ROWS):
+                try:
+                    shard = self._owner_service(
+                        owners[i])._shards.get(m.get("table"))
+                except PSError as e:
+                    results[i] = (False, _sub_err(e), [])
+                    continue
+            plane = getattr(shard, "_plane", None)
+            stacked = plane is not None and plane.active
+            # the host fast path: exactly a RowShard in _np_mode that the
+            # C++ server does not hold (a registered shard keeps its
+            # handler, whose wrapper takes the native shard mutex)
+            np_fast = (type(shard) is _RowShard and shard._np_mode
+                       and shard._native_ref is None)
+            if (mt == MSG_ADD_ROWS and wire.REPLAY_CLIENT_KEY not in m
+                    and (stacked or np_fast)):
+                add_group.append((i, shard, m, arrs))
+            elif (mt == MSG_GET_ROWS and not m.get("sparse")
+                    and not m.get("chunk") and (stacked or np_fast)):
+                get_group.append((i, shard, m, arrs))
+            else:
+                direct.append(i)
+        if add_group:
+            entries = []
+            for i, shard, m, arrs in add_group:
+                try:
+                    local, vals, opt = shard._prep_add(m, arrs)
+                    entries.append((i, shard, local, vals, opt))
+                except Exception as e:  # noqa: BLE001 — per sub
+                    results[i] = (False, _sub_err(e), [])
+            planes: Dict[int, List] = {}
+            for ent in entries:
+                i, s, l, v, o = ent
+                p = s._plane
+                if p is not None and p.active:
+                    planes.setdefault(id(p), []).append(ent)
+                    continue
+                # host fast path: apply at once under the shard lock (the
+                # coalescing queue merges CONCURRENT senders' adds; a
+                # routed caller applies in program order)
+                try:
+                    s._apply_now(l, v, o)
+                    results[i] = (True, {}, [])
+                except Exception as e:  # noqa: BLE001 — per sub
+                    results[i] = (False, _sub_err(e), [])
+            for group in planes.values():
+                plane = group[0][1]._plane
+                try:
+                    strays = plane.apply_grouped(
+                        [(s, l, v, o) for _i, s, l, v, o in group])
+                except Exception as e:  # noqa: BLE001 — the round's subs
+                    err = _sub_err(e)
+                    for i, *_rest in group:
+                        results[i] = (False, dict(err), [])
+                    continue
+                stray_ids = {id(st[0]) for st in strays}
+                for i, s, l, v, o in group:
+                    if id(s) in stray_ids:
+                        # evicted since it was grouped: the classic path
+                        try:
+                            s._add_rows(l, v, o)
+                            results[i] = (True, {}, [])
+                        except Exception as e:  # noqa: BLE001 — per sub
+                            results[i] = (False, _sub_err(e), [])
+                        continue
+                    with s._lock:
+                        s._record_wave(1)
+                        s._stat_adds += 1
+                        s._stat_applies += 1
+                    results[i] = (True, {}, [])
+        if get_group:
+            pairs = []
+            for i, shard, m, arrs in get_group:
+                p = shard._plane
+                try:
+                    if p is None or not p.active:
+                        # host fast path: the shard's own off-lock serve
+                        results[i] = (True, *shard._serve_get_rows(m, arrs))
+                        continue
+                    local = shard._localize_raw(arrs[0])
+                    shard._note_rows(local)
+                    pairs.append((i, shard, m, local))
+                except Exception as e:  # noqa: BLE001 — per sub
+                    results[i] = (False, _sub_err(e), [])
+            gplanes: Dict[int, List] = {}
+            for ent in pairs:
+                gplanes.setdefault(id(ent[1]._plane), []).append(ent)
+            for group in gplanes.values():
+                plane = group[0][1]._plane
+                try:
+                    blocks = plane.gather_grouped(
+                        [(s, l) for _i, s, _m, l in group])
+                except Exception as e:  # noqa: BLE001 — the round's subs
+                    err = _sub_err(e)
+                    for i, *_rest in group:
+                        results[i] = (False, dict(err), [])
+                    continue
+                for (i, s, m, l), rows in zip(group, blocks):
+                    try:
+                        if rows is None:
+                            # evicted since it was grouped: classic serve
+                            results[i] = (True,
+                                          *s._serve_get_rows(m, [l + s.lo]))
+                            continue
+                        s._stat_gets += 1
+                        _flight.record(_flight.EV_GET_SERVE,
+                                       nbytes=l.size * s.num_col
+                                       * s.dtype.itemsize)
+                        results[i] = (True, *s._encode_reply(rows, m))
+                    except Exception as e:  # noqa: BLE001 — per sub
+                        results[i] = (False, _sub_err(e), [])
+        # everything else: in-order per-sub dispatch through the owning
+        # shard's ordinary handler (stamp gates, batch waves and native
+        # mutex wrappers apply exactly as for a direct frame)
+        for i in direct:
+            mt, m, arrs = subs[i]
             try:
-                owner = int(m.get(wire.OWNER_META_KEY, self.rank))
-                svc2 = self._owner_service(owner)
+                svc2 = self._owner_service(owners[i])
                 handler = svc2._wait_handler(m["table"])
                 with monitor(f"ps[{m['table']}].serve"):
                     rmeta, rarrays = handler(mt, m, arrs)
                 if isinstance(rarrays, wire.ChunkedReply):
                     raise PSError("chunk-streamed replies cannot ride a "
                                   "super-frame")
-                results.append((True, rmeta, rarrays))
+                results[i] = (True, rmeta, rarrays)
             except Exception as e:  # noqa: BLE001 — per sub
-                results.append((False, _sub_err(e), []))
+                results[i] = (False, _sub_err(e), [])
         return results
 
     def _wait_handler(self, table: str, timeout: float = 20.0) -> Callable:
@@ -1402,21 +1559,69 @@ class PSService:
         if rank == self.rank:
             return self._dispatch_inproc(self, msg_type, meta, arrays,
                                          chunk_sink)
+        # process-coalesced routing (ps/spmd.py; flag ps_fanout): a
+        # COLOCATED rank's request skips the localhost socket and runs in
+        # the owning service's handler. A routed rank observed gone fails
+        # fast like a dead peer AND fires the death hooks, so the
+        # send-window replay plane re-arms as it would off a dying socket
+        rsvc, rerr = self._route(rank)
+        if rerr is not None:
+            fut: cf.Future = cf.Future()
+            fut.set_exception(rerr)
+            return fut
+        if rsvc is not None:
+            return self._dispatch_inproc(rsvc, msg_type, meta, arrays,
+                                         chunk_sink)
         try:
             return self._peer(rank).request(
                 msg_type, meta if meta_b is None else meta_b, arrays,
                 chunk_sink=chunk_sink)
         except PSError as e:
-            fut: cf.Future = cf.Future()
+            fut = cf.Future()
             fut.set_exception(e if isinstance(e, PSPeerError)
                               else PSPeerError(str(e)))
             return fut
 
+    def _route(self, rank: int):
+        """Resolve ``rank`` to a live colocated service while ps_fanout is
+        armed (see :meth:`_colocated`); ``(None, None)`` = not routed: use
+        the socket path."""
+        if self._proc_key is None or not self._fanout:
+            return None, None
+        return self._colocated(rank)
+
+    def _colocated(self, rank: int):
+        """``(service, None)`` for a live colocated ``rank``; ``(None,
+        PSPeerError)`` once a rank seen colocated is observed gone (its
+        death hooks fire once, as for a dying socket); ``(None, None)``
+        for a rank never colocated."""
+        svc = _spmd.colocated_service(self._proc_key, rank)
+        if svc is not None:
+            self._routed_seen.add(rank)
+            if rank in self._routed_dead:
+                # a fresh incarnation registered (respawn): clear the
+                # tombstone so routing resumes without backoff, and a
+                # second death fires the hooks again
+                self._routed_dead.discard(rank)
+                with self._peers_lock:
+                    self._dead_ranks.pop(rank, None)
+            return svc, None
+        if rank in self._routed_seen:
+            err = PSPeerError(f"rank {rank} (in-process route) is down")
+            if rank not in self._routed_dead:
+                self._routed_dead.add(rank)
+                self._note_death(rank)
+            return None, err
+        return None, None
+
     def _dispatch_inproc(self, svc: "PSService", msg_type: int,
                          meta: Dict, arrays,
                          chunk_sink: Optional[Callable]) -> cf.Future:
-        """The local short-circuit: the handler runs on this service's
-        serial executor (fire-and-forget timing, per-owner FIFO)."""
+        """The local short-circuit, for this service or a colocated one.
+        With ``ps_fanout`` armed the dispatch runs INLINE on the caller's
+        thread (program order is per-owner FIFO, and two thread wakeups
+        per op are saved); with it off, on this service's serial executor
+        (fire-and-forget timing, per-owner FIFO)."""
         fut: cf.Future = cf.Future()
 
         def _run():
@@ -1438,7 +1643,10 @@ class PSService:
             except Exception as e:
                 fut.set_exception(e)
 
-        self._local_exec.submit(_run)
+        if self._fanout:
+            _run()
+        else:
+            self._local_exec.submit(_run)
         return fut
 
     def ping(self, rank: int, timeout: Optional[float] = None) -> bool:
@@ -1460,8 +1668,11 @@ class PSService:
         _aggregator.stop_if_bound(self)
         _failover.stop_if_bound(self)
         self._closed = True
-        # colocated clients observe this rank's death like a dead socket
-        self._release_colocated()
+        # the mesh data plane (ps/spmd.py): leave the routing registry (so
+        # colocated clients observe this rank's death like a dead socket)
+        # and evict this service's shards from their stacked groups; they
+        # keep working standalone for the checkpointer's final save
+        _spmd.release_service(self)
         # shutdown, not just close: close() does not wake a thread blocked
         # in accept() on Linux
         try:

@@ -60,7 +60,12 @@ spans; the byte ledger (``telemetry/memstats.py``) registers each shard's
 tenants.TenantMeter` counts each tenant's ops and bytes
 (``stats()["tenants"]``) at the byte counters' chokepoints.
 
-Not ported (ROADMAP.md §A): the spmd lane.
+Stacked shard groups (``ps/spmd.py``, flag ``ps_spmd_stack``): colocated
+shards of one table on one device may pool their rows into one stacked
+tensor. A grouped shard's ``_data``/``_ustate`` then read a per-epoch copy
+of its slab, its applies run through the plane (``_apply_rows``), its
+gets through the plane's one gather, and ``set_rows``, whole-table adds
+and state restores evict it back to classic storage first.
 """
 
 from __future__ import annotations
@@ -221,6 +226,17 @@ class RowShard:
         self.device = torch.device(device if device is not None else "cpu")
         self.updater = updater
         self.service = None   # set by PSService.register_handler
+        # stacked group membership (ps/spmd.py, flag ps_spmd_stack): while
+        # a plane holds this shard, its storage is one slot of the plane's
+        # stacked tensor and the _data/_ustate properties serve copies of
+        # the slot cached per plane epoch; None = classic storage. Set and
+        # cleared by MeshStack's rebuild and evict under this shard's lock
+        self._plane = None
+        self._plane_slot: Optional[int] = None
+        self._view_cache = None
+        self._view_epoch = -1
+        self._ustate_view_cache = None
+        self._mem_state_bytes = 0
         self._padded = (self.n + 1, self.num_col)
         host = np.zeros(self._padded, self.dtype)
         if init is not None:
@@ -305,6 +321,51 @@ class RowShard:
         _memstats.register(f"shard[{name}:{self.lo}-{self.hi}]", self)
 
     # ------------------------------------------------------------------ #
+    # storage indirection (stacked groups, ps/spmd.py): a classic shard
+    # reads and rebinds `_data_raw`/`_ustate_raw` through these
+    # properties; a grouped shard's storage is one slot of its plane's
+    # stack, and a read gets a copy of the slot cached per plane epoch (a
+    # pinned copy never changes under its reader). Every read and rebind
+    # site keeps its spelling.
+    # ------------------------------------------------------------------ #
+    @property
+    def _data(self) -> torch.Tensor:
+        p = self._plane
+        if p is not None:
+            return p.view(self)
+        return self._data_raw
+
+    @_data.setter
+    def _data(self, v: torch.Tensor) -> None:
+        self._data_raw = v
+
+    @property
+    def _ustate(self) -> Dict[str, torch.Tensor]:
+        p = self._plane
+        if p is not None:
+            return p.ustate_view(self)
+        return self._ustate_raw
+
+    @_ustate.setter
+    def _ustate(self, v: Dict[str, torch.Tensor]) -> None:
+        self._ustate_raw = v
+
+    def _plane_lock(self):
+        """The plane's lock as a context when grouped (nests INSIDE the
+        shard lock, the one global order), else a no-op. Reads that must
+        see (bytes, version) as one against grouped applies hold it
+        across both."""
+        p = self._plane
+        return p.lock if p is not None else contextlib.nullcontext()
+
+    def _plane_evict(self) -> None:
+        """Back to classic per-shard storage before an exotic mutation
+        (set_rows, a whole-table add, a state restore); row add and get
+        traffic never needs it."""
+        p = self._plane
+        if p is not None:
+            p.evict(self)
+
     def _place_rows(self, host: np.ndarray) -> torch.Tensor:
         return _host(host, self.dtype).to(self.device)
 
@@ -433,6 +494,14 @@ class RowShard:
         tm = self._tenants.to_dict()
         if tm:
             out["tenants"] = tm
+        # stacked group placement (ps/spmd.py): slot -> device and this
+        # shard's share of the plane's grouped applies, which mvtop's
+        # placement panel renders
+        p = self._plane
+        if p is not None:
+            sp = p.stats_for(self)
+            if sp is not None:
+                out["spmd"] = sp
         return out
 
     def queue_depth(self) -> int:
@@ -443,18 +512,31 @@ class RowShard:
         """Byte gauges: the data tensor, the updater state, the pinned
         read epochs and the apply queue's pending payload. Lock-free
         reads (each attribute read is atomic): the watchdog's verdict
-        sweep pulls this, and must not hang on the wedge it reports."""
-        data = self._data
-        data_nb = data.numel() * data.element_size()
-        ustate_nb = sum(v.numel() * v.element_size()
-                        for v in list(self._ustate.values()))
+        sweep pulls this, and must not hang on the wedge it reports.
+        A grouped shard (ps/spmd.py) reports its slab SHARE of the plane's
+        stack from static sizes: the pull never copies a slab nor waits on
+        the plane lock, and the stack has its own ``spmd[table]`` entry."""
+        # raw storage first: an admit clears it after setting _plane, an
+        # eviction sets it before clearing _plane
+        data, ustate = self._data_raw, self._ustate_raw
+        grouped = self._plane is not None or data is None or ustate is None
+        if grouped:
+            data_nb = self._padded[0] * self.num_col * self.dtype.itemsize
+            ustate_nb = self._mem_state_bytes
+        else:
+            data_nb = data.numel() * data.element_size()
+            ustate_nb = sum(v.numel() * v.element_size()
+                            for v in list(ustate.values()))
         pins = self._cur_pins
         queue = list(self._addq)
         qd = len(queue)
         qb = sum(e.local.nbytes + e.vals.nbytes for e in queue)
-        return {"table_bytes": int(data_nb), "ustate_bytes": int(ustate_nb),
-                "dtype": str(self.dtype), "pins": pins,
-                "queue_depth": qd, "queue_pending_bytes": int(qb)}
+        out = {"table_bytes": int(data_nb), "ustate_bytes": int(ustate_nb),
+               "dtype": str(self.dtype), "pins": pins,
+               "queue_depth": qd, "queue_pending_bytes": int(qb)}
+        if grouped:
+            out["spmd"] = True
+        return out
 
     @property
     def scratch(self) -> int:
@@ -605,7 +687,13 @@ class RowShard:
                     opt: AddOption) -> None:
         """One merged, deduped row-delta batch -> the updater (under
         ``self._lock``), on the shard's device. A pinned epoch is never
-        written: the apply copies it first."""
+        written: the apply copies it first. A grouped shard's apply runs
+        as one slot of its plane's stacked apply (ps/spmd.py), which bumps
+        the version, samples the apply histogram and marks the flight
+        recorder; the callers keep the wave and stat records."""
+        p = self._plane
+        if p is not None and p.apply_rows(self, local, vals, opt):
+            return
         t0 = time.perf_counter()
         data = self._writable_data()   # copy-on-write vs pinned reads
         if self._linear is not None:
@@ -844,17 +932,21 @@ class RowShard:
             # shard mutex via the service's locked handler. Apply at once:
             # the queue's drain hand-off runs on a pool thread that would
             # NOT hold the native mutex, racing C++ applies on the tensor
-            with self._lock:
-                self._apply_add_group([_PendingAdd(local, vals, opt)], opt)
-                self._stat_adds += 1
-                self._stat_applies += 1
+            self._apply_now(local, vals, opt)
         elif _config.get_flag("ps_coalesce"):
             self._enqueue_add(local, vals, opt)
         else:
-            with self._lock:
-                self._apply_add_group([_PendingAdd(local, vals, opt)], opt)
-                self._stat_adds += 1
-                self._stat_applies += 1
+            self._apply_now(local, vals, opt)
+
+    def _apply_now(self, local: np.ndarray, vals: np.ndarray,
+                   opt: AddOption) -> None:
+        """One validated add applied at once under the shard lock, with no
+        coalescing-queue round trip (a routed caller's thread is the one
+        server of its ops, so they apply in program order)."""
+        with self._lock:
+            self._apply_add_group([_PendingAdd(local, vals, opt)], opt)
+            self._stat_adds += 1
+            self._stat_applies += 1
 
     # ------------------------------------------------------------------ #
     # off-lock get serving (pin -> gather -> release -> encode)
@@ -865,6 +957,21 @@ class RowShard:
         self._note_rows(local)
         tr = meta.get(wire.TRACE_META_KEY) if _trace.enabled() else None
         t0 = time.time() if tr is not None else 0.0
+        p = self._plane
+        if p is not None:
+            # grouped (ps/spmd.py): the plane's one gather, which sees
+            # every grouped apply wholly or not at all; no slab copy
+            rows = p.gather_grouped([(self, local)])[0]
+            if rows is not None:
+                _flight.record(_flight.EV_GET_SERVE,
+                               nbytes=local.size * self.num_col
+                               * self.dtype.itemsize)
+                self._stat_gets += 1
+                if tr is not None:
+                    _trace.add_span("shard.get_gather", t0, time.time(),
+                                    trace=tr, args={"table": self.name,
+                                                    "rows": int(local.size)})
+                return self._encode_reply(rows, meta, tr)
         pin = self._pin_data()
         if tr is not None:
             _trace.add_span("shard.get_pin", t0, time.time(), trace=tr,
@@ -920,7 +1027,10 @@ class RowShard:
         since_gen = int(meta.get("since_gen", -1))
         tr = meta.get(wire.TRACE_META_KEY) if _trace.enabled() else None
         t0 = time.time() if tr is not None else 0.0
-        with self._lock:
+        # the plane lock too (grouped shards): a grouped apply bumps the
+        # version under the PLANE lock, so the version and the pinned rows
+        # are read under it to stay one epoch
+        with self._lock, self._plane_lock():
             version = self._version + self._native_stats()[1]
             if since >= 0 and version == since and since_gen == gen:
                 self._stat_snapshots += 1
@@ -1083,7 +1193,10 @@ class RowShard:
         applies would tear the rows otherwise), matching the punt path's
         order: the locked handler holds it around handle(), which then
         takes ``_stamp_lock``."""
-        with self._native_mutex(), self._stamp_lock, self._lock:
+        # a grouped shard holds the PLANE lock too: a grouped apply bumps
+        # the version under it without this shard's lock
+        with self._native_mutex(), self._stamp_lock, self._lock, \
+                self._plane_lock():
             chans = {k: v.to_dict() for k, v in self._replay_seq.items()}
             # the natively served applies count, as in stats()
             version = self._version + self._native_stats()[1]
@@ -1145,6 +1258,9 @@ class RowShard:
                 f"{int(meta['lo']) + int(meta['rows'])})x{meta['cols']} "
                 f"!= live [{self.lo}, {self.hi})x{self.num_col} — "
                 "partition changed since the save")
+        # a grouped shard restores into CLASSIC storage: the restore
+        # rebinds the rows wholesale, the mutation the plane evicts on
+        self._plane_evict()
         # native mutex FIRST (the order rule of checkpoint_state)
         with self._native_mutex(), self._stamp_lock, self._lock:
             self._set_leaves(list(arrays[1:]))
@@ -1167,9 +1283,16 @@ class RowShard:
         _flight.record(_flight.EV_FAILOVER_RESTORE,
                        note=f"{self.name} v{meta.get('version', 0)}")
 
+    # exotic mutations evict a grouped shard back to classic storage first
+    # (always safe; the stacked path is for row add and get traffic)
+    _EVICT_TYPES = frozenset(
+        (svc.MSG_SET_ROWS, svc.MSG_ADD_FULL, svc.MSG_SET_STATE))
+
     def _handle(self, msg_type: int, meta: Dict,
                 arrays: Sequence[np.ndarray]
                 ) -> Tuple[Dict, List[np.ndarray]]:
+        if self._plane is not None and msg_type in self._EVICT_TYPES:
+            self._plane_evict()
         if msg_type == svc.MSG_ADD_ROWS:
             local, vals, opt = self._prep_add(meta, arrays)
             tr = (meta.get(wire.TRACE_META_KEY)

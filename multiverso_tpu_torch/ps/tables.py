@@ -68,6 +68,7 @@ import numpy as np
 
 from multiverso_tpu_torch import updaters as updaters_lib
 from multiverso_tpu_torch.ps import service as svc
+from multiverso_tpu_torch.ps import spmd as _spmd
 from multiverso_tpu_torch.ps import wire as wire_mod
 from multiverso_tpu_torch.ps.shard import HashShard, KVShard, RowShard
 from multiverso_tpu_torch.serving import hotcache as _hotcache
@@ -720,18 +721,67 @@ class _SendWindow:
             return cls._flush_pool
 
     def _flush_owners(self, owners) -> None:
-        """One multi-owner flush sweep: owners flush concurrently on the
-        shared pool; the sweep returns only when every owner's batch is
-        on its conn (the fence contract), then raises the first failure."""
+        """One multi-owner flush sweep. Colocated owners' frames (flag
+        ps_fanout, replay off) coalesce into ONE multi-owner super-frame,
+        one dispatch for the process instead of one per shard; the other
+        owners flush concurrently on the shared pool. The sweep returns
+        only when every owner's batch is on its conn (the fence
+        contract), then raises the first failure."""
         owners = sorted(owners)
-        if len(owners) > 1:
+        if not owners:
+            return
+        t = self._table_ref()
+        routed: List[int] = []
+        if (t is not None and self._replay is None
+                and t._fanout and len(owners) > 1):
+            routed = [o for o in owners
+                      if o == t.ctx.rank or o in t._routed_set]
+            if len(routed) < 2:
+                routed = []
+        rest = [o for o in owners if o not in routed]
+        if routed:
+            self._flush_coalesced(t, routed)
+        if len(rest) > 1:
             pool = self._flush_executor()
-            futs = [pool.submit(self._flush_owner, o) for o in owners]
+            futs = [pool.submit(self._flush_owner, o) for o in rest]
             cf.wait(futs)
             for f in futs:
                 f.result()
-        elif owners:
-            self._flush_owner(owners[0])
+        elif rest:
+            self._flush_owner(rest[0])
+
+    def _flush_coalesced(self, t, owners: List[int]) -> None:
+        """Pop and merge every routed owner's queue under ALL their send
+        locks (sorted, so concurrent sweeps cannot deadlock) and ship the
+        collected frames as ONE multi-owner super-frame; the inner
+        replies fan back out to each frame's window futures. The locks
+        are held until the super-frame is dispatched, so a later frame to
+        any of these owners cannot overtake the batch (the ordering the
+        per-owner send lock buys the classic path)."""
+        collected: List[Tuple] = []
+        with contextlib.ExitStack() as st:
+            for o in owners:
+                st.enter_context(self._send_lock(o))
+            for o in owners:
+                with self._cv:
+                    entries = self._pending.pop(o, None)
+                    self._nbytes.pop(o, None)
+                if entries:
+                    self._send(o, entries, collect=collected.append)
+            if not collected:
+                return
+            subs = []
+            frames = []
+            for owner, msg_type, meta, arrays, gfuts in collected:
+                meta = dict(meta)
+                meta[wire_mod.OWNER_META_KEY] = owner
+                subs.append((msg_type, meta, arrays))
+                frames.append((owner, gfuts))
+            pfuts = t.ctx.service.multi_local(subs)
+        for (owner, gfuts), pf in zip(frames, pfuts):
+            pf.add_done_callback(
+                lambda bf, gf=gfuts, o=owner:
+                    _complete_window_futures(bf, gf, owner=o))
 
     def _flush_owner(self, owner: int) -> None:
         """Merge and ship one owner's queue as one frame. The send lock is
@@ -744,7 +794,14 @@ class _SendWindow:
             if entries:
                 self._send(owner, entries)
 
-    def _send(self, owner: int, entries: List[Tuple]) -> None:
+    def _send(self, owner: int, entries: List[Tuple],
+              collect=None) -> None:
+        """``collect`` (the coalesced multi-owner sweep): instead of
+        dispatching each frame, hand ``(owner, msg_type, meta, arrays,
+        gfuts)`` to the collector, which ships every owner's frames as ONE
+        super-frame and fans the inner replies back to ``gfuts``. Never
+        used with replay armed (stamped frames keep their per-owner
+        retained dispatch)."""
         t = self._table_ref()
         if t is None:
             # the table was dropped with adds queued: fail their futures
@@ -867,6 +924,12 @@ class _SendWindow:
                 # pruning and peer-death replay live in _frame_done
                 self._dispatch_retained(t, owner, msg_type, meta, arrays,
                                         gfuts)
+                continue
+            if collect is not None:
+                # coalesced sweep: the caller ships this frame inside one
+                # super-frame (no ack span: the fan-out future is not the
+                # wire request)
+                collect((owner, msg_type, meta, arrays, gfuts))
                 continue
             req = t.ctx.service.request(owner, msg_type, meta, arrays,
                                         meta_b=meta_b)
@@ -1408,6 +1471,14 @@ class _AsyncBase:
         # msg id -> open step-profiler span of an op whose futures take
         # no callbacks (native handles): closed at wait() or the sweep
         self._prof_spans: Dict[int, Any] = {}
+        # process-coalesced fan-out (ps/spmd.py, flag ps_fanout): the
+        # ranks whose service shares this process AND this world
+        # (_routed_set), whether in-process dispatch runs inline
+        # (_inline), and whether a multi-owner op may ride a super-frame
+        # (_fanout). Row-partitioned tables set them at construction
+        self._routed_set: frozenset = frozenset()
+        self._inline = False
+        self._fanout = False
 
     def _wire_for(self, rank: int) -> str:
         """Wire codec per destination rank (tables with a compressed wire
@@ -1620,6 +1691,25 @@ class AsyncMatrixTable(_AsyncBase):
                          min((r + 1) * self._rows_per, self.num_row))
                         for r in range(world)]
         self._ranges = [(r, a, b) for r, a, b in self._ranges if b > a]
+        # process-coalesced fan-out (ps/spmd.py, flag ps_fanout): owners
+        # whose PSService shares this process AND this world route
+        # in-process. Their wire is raw like the local rank's (no socket:
+        # compression buys nothing), multi-owner ops coalesce into ONE
+        # MSG_MULTI super-frame, and the native fast path stays off.
+        # Captured at construction: tables are built after the world's
+        # services, and a routed rank dying or respawning changes its
+        # liveness, not the membership. With the plane armed EVERY
+        # in-process dispatch (the local rank's too) runs inline, so the
+        # defensive copies for a deferred read are skipped. The service's
+        # one reading of the flag decides, so the copy decision and the
+        # dispatch mode cannot disagree
+        self._inline = bool(getattr(self.ctx.service, "_fanout", False))
+        if self._inline:
+            key = getattr(self.ctx.service, "_proc_key", None)
+            self._routed_set = frozenset(
+                r for r in _spmd.colocated_ranks(key)
+                if r < world and r != self.ctx.rank)
+        self._fanout = bool(self._routed_set)
         self._make_window(send_window_ms)
         # the client get coalescer (flag get_window_ms or the table's
         # get_window_ms=); None = every get is its own frame (the default)
@@ -1633,6 +1723,11 @@ class AsyncMatrixTable(_AsyncBase):
             # other op must share that per-conn FIFO for the fences to
             # mean read-your-writes, so the native fast path (its own
             # socket: no cross-plane ordering) stays off for this table
+            self._native_ok = False
+        if self._fanout:
+            # routed ops run in-process in program order; a native add
+            # racing them on its own socket would break the per-owner
+            # ordering the routing plane guarantees
             self._native_ok = False
         # hot-row TRAINING cache (flag train_cache_rows) on the client's
         # device: write-through is bit-exact only when the local push
@@ -1723,9 +1818,11 @@ class AsyncMatrixTable(_AsyncBase):
             yield r, m
 
     def _wire_for(self, rank: int) -> str:
-        """Wire codec per destination: the local rank short-circuits the
-        socket, so its payload stays uncompressed."""
-        return "none" if rank == self.ctx.rank else self._wire
+        """Wire codec per destination: the local rank, and any in-process
+        ROUTED rank (ps_fanout), short-circuit the socket, so their
+        payload stays uncompressed."""
+        return ("none" if rank == self.ctx.rank
+                or rank in self._routed_set else self._wire)
 
     def _owner_conns(self, uids: np.ndarray):
         """Native conns for the C-side fan-out, indexed by rank. ONLY the
@@ -1763,7 +1860,10 @@ class AsyncMatrixTable(_AsyncBase):
         return "bf16" if self._wire in ("1bit", "topk") else self._wire
 
     def _get_wire_for(self, rank: int) -> str:
-        return "none" if rank == self.ctx.rank else self._reply_wire()
+        """Reply wire per source rank (the local rank and routed
+        in-process ranks stay raw)."""
+        return ("none" if rank == self.ctx.rank
+                or rank in self._routed_set else self._reply_wire())
 
     # ------------------------------------------------------------------ #
     # row ops
@@ -1831,15 +1931,40 @@ class AsyncMatrixTable(_AsyncBase):
                     op="ps.add")
             t_send0 = time.time() if tid is not None else 0.0
             futs = []
-            for r, ix in self._owner_slices(uids):
+            parts = self._owner_slices(uids)
+            rest = parts
+            if self._fanout and len(parts) > 1:
+                # a multi-owner add to COLOCATED owners coalesces into ONE
+                # in-process super-frame (one dispatch, not one frame per
+                # shard); other owners keep their per-owner frames below
+                grp = [i for i, (r, _ix) in enumerate(parts)
+                       if r == self.ctx.rank or r in self._routed_set]
+                if len(grp) > 1:
+                    gset = set(grp)
+                    rest = [p for i, p in enumerate(parts)
+                            if i not in gset]
+                    subs = []
+                    for i in grp:
+                        r, ix = parts[i]
+                        meta = wire_mod.with_tenant(wire_mod.with_trace(
+                            {"table": self.name, "opt": opt._asdict(),
+                             wire_mod.OWNER_META_KEY: r}, tid), tn)
+                        # object sub-ops, consumed INLINE by multi_local:
+                        # views are safe
+                        subs.append((svc.MSG_ADD_ROWS, meta,
+                                     [uids[ix], vals[ix]]))
+                    futs.extend(self.ctx.service.multi_local(subs))
+            for r, ix in rest:
                 w = self._wire_for(r)
                 meta = wire_mod.with_tenant(wire_mod.with_trace(
                     {"table": self.name, "opt": opt._asdict()}, tid), tn)
                 if w != "none":
                     meta["wire"] = w
-                # the local rank's executor dispatch reads the arrays
-                # LATER: own the bytes
-                local = r == self.ctx.rank
+                # a deferred in-process dispatch (the executor path, plane
+                # off) reads the arrays LATER: own the bytes. With the
+                # plane armed the dispatch is inline and views are safe
+                local = not self._inline and (r == self.ctx.rank
+                                              or r in self._routed_set)
                 ids_part = _owned_part(uids, ix) if local else uids[ix]
                 vals_part = _owned_part(vals, ix) if local else vals[ix]
                 futs.append(self.ctx.service.request(
@@ -2000,22 +2125,47 @@ class AsyncMatrixTable(_AsyncBase):
             meta_b = wire_mod.pack_meta(wire_mod.with_tenant(
                 wire_mod.with_trace(
                     {"table": self.name, "wire": gw}, tid), tn))
-            # the local rank never chunk-streams: no network receive to
-            # overlap
+            # in-process destinations (the local rank, routed colocated
+            # ranks) never chunk-stream: there is no network receive to
+            # overlap, and routed multi-owner parts coalesce below
+            inproc = {r for r, _ix in parts
+                      if r == self.ctx.rank or r in self._routed_set}
             will_chunk = {r for r, ix in parts
                           if (chunk > 0 and _part_len(ix) > chunk
-                              and r != self.ctx.rank)}
+                              and r not in inproc)}
             # with chunking live the scatter target is PRIVATE even when
             # the caller passed out=: a stream failing mid-way must leave
             # the caller's buffer untouched
             buf = self._reply_buffer(
                 out if inv is None and not will_chunk else None,
                 uids.size)
-            futs = []
+            futs_by_part: Dict[int, Any] = {}
             chunked: Dict[int, bool] = {}
-            for r, ix in parts:
+            grp: List[Tuple[int, Tuple[int, Any]]] = []
+            if self._fanout and len(parts) > 1:
+                grp = [(i, p) for i, p in enumerate(parts)
+                       if p[0] in inproc]
+                if len(grp) < 2:
+                    grp = []
+            if grp:
+                # a multi-owner get from colocated owners: ONE in-process
+                # super-frame, one grouped gather at the other end
+                subs = []
+                for _i, (r, ix) in grp:
+                    subs.append((svc.MSG_GET_ROWS,
+                                 wire_mod.with_tenant(wire_mod.with_trace(
+                                     {"table": self.name, "wire": "none",
+                                      wire_mod.OWNER_META_KEY: r}, tid),
+                                     tn),
+                                 [uids[ix]]))
+                for (i, _p), f in zip(
+                        grp, self.ctx.service.multi_local(subs)):
+                    futs_by_part[i] = f
+            for i, (r, ix) in enumerate(parts):
+                if i in futs_by_part:
+                    continue
                 if r in will_chunk:
-                    futs.append(self.ctx.service.request(
+                    futs_by_part[i] = self.ctx.service.request(
                         r, svc.MSG_GET_ROWS,
                         wire_mod.with_tenant(wire_mod.with_trace(
                             {"table": self.name, "wire": gw,
@@ -2023,17 +2173,21 @@ class AsyncMatrixTable(_AsyncBase):
                         [uids[ix]],
                         chunk_sink=_chunk_scatter(
                             buf, _part_index(ix), self.num_col,
-                            self.dtype)))
+                            self.dtype))
                     chunked[r] = True
                 else:
+                    # the executor dispatch (plane off) reads the ids
+                    # later: own the bytes; inline, views are safe
                     ids_part = (_owned_part(uids, ix)
-                                if r == self.ctx.rank else uids[ix])
-                    futs.append(self.ctx.service.request(
+                                if r in inproc and not self._inline
+                                else uids[ix])
+                    futs_by_part[i] = self.ctx.service.request(
                         r, svc.MSG_GET_ROWS,
                         wire_mod.with_tenant(wire_mod.with_trace(
                             {"table": self.name, "wire": "none"}, tid),
                             tn),
-                        [ids_part], meta_b=meta_b))
+                        [ids_part], meta_b=meta_b)
+            futs = [futs_by_part[i] for i in range(len(parts))]
             if tid is not None:
                 _attach_reply_span(futs, "client.get_rows", t_send0, tid,
                                    self.name)
@@ -2042,7 +2196,7 @@ class AsyncMatrixTable(_AsyncBase):
                 for (r, ix), (rmeta, arrays) in zip(parts, results):
                     if chunked.get(r) and rmeta.get("chunks"):
                         continue   # the sinks already scattered this part
-                    w = "none" if r == self.ctx.rank else gw
+                    w = "none" if r in inproc else gw
                     buf[ix] = wire_mod.decode_payload(
                         arrays, w, (_part_len(ix), self.num_col),
                         self.dtype)
@@ -2351,7 +2505,7 @@ class _SparseGetMixin:
             # resolve peers BEFORE taking the cache lock: a down owner's
             # lookup + connect can take ps_connect_timeout
             for r, _ in parts:
-                if r != self.ctx.rank:
+                if r != self.ctx.rank and r not in self._routed_set:
                     try:
                         self.ctx.service._peer(r)
                     except svc.PSError:

@@ -67,10 +67,10 @@ _SHARD_SCALARS = ("kind", "lo", "rows", "adds", "applies", "gets",
                   "get_bytes", "add_bytes", "queue_depth",
                   "pending_bytes", "version", "keys", "dirty_rows",
                   "cow_applies",
-                  # mesh-stacked placement block (a JAX peer's
-                  # ps/spmd.py): slot -> device + grouped-apply share,
-                  # passed through whole when present. The port's shards
-                  # emit none until ROADMAP.md §A's mesh item
+                  # stacked-group placement block (ps/spmd.py of either
+                  # package): slot -> device + grouped-apply share,
+                  # passed through whole when present; the port's
+                  # grouped shards emit it as the JAX package's do
                   "spmd")
 # fields summed into the per-table cluster totals
 _TABLE_SUMS = ("adds", "applies", "gets", "get_bytes", "add_bytes",

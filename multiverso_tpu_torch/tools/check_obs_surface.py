@@ -19,7 +19,8 @@ tool asks it mechanically:
    of ``README.md`` (the port's own knobs) — a knob an operator cannot
    discover is a knob that does not exist.
 3. **Every top-level key** the stats surface emits — the shard
-   ``stats()`` methods, ``PSService.stats_payload``, the exporter's
+   ``stats()`` methods and their stacked-group block
+   (``MeshStack.stats_for``), ``PSService.stats_payload``, the exporter's
    ``default_stats_fn``, and the memstats ``"memory"`` block — must be
    RENDERED by at least one of the port's ``tools/mvtop.py`` /
    ``tools/dump_metrics.py`` (its quoted name appears in their
@@ -100,6 +101,8 @@ def defined_flags() -> List[str]:
 _STATS_SOURCES = (
     (f"{_PKG}/ps/shard.py", "stats"),
     (f"{_PKG}/ps/service.py", "stats_payload"),
+    # the stacked group's per-shard block, stats()["spmd"] (ps/spmd.py)
+    (f"{_PKG}/ps/spmd.py", "stats_for"),
     (f"{_PKG}/telemetry/exporter.py", "default_stats_fn"),
     (f"{_PKG}/telemetry/memstats.py", "stats_snapshot"),
 )

@@ -489,13 +489,18 @@ def render(rec: Dict, prev: Optional[Dict] = None,
                 dev = sp.get("device") or "classic"
                 slot = (f" slot{sp.get('slot')}"
                         if sp.get("slot") is not None else "")
-                cells.append(f"r{r}[{lo}-{hi}]@{dev}{slot} {share}")
+                # a stacked slot also shows its share of the group's
+                # grouped applies
+                grp = (f" (grouped {sp.get('apply_share', 0) * 100:.0f}%)"
+                       if sp else "")
+                cells.append(f"r{r}[{lo}-{hi}]@{dev}{slot} {share}{grp}")
             lines.append("  placement: " + "  ".join(cells))
             sp0 = next((s.get("spmd") for _r, s in srows
                         if s.get("spmd")), None)
             if sp0:
                 lines.append(
                     f"  spmd group: {sp0.get('members')} shards stacked"
+                    f" ({sp0.get('group')})"
                     f"  dispatches {sp0.get('dispatches')}"
                     f"  stack {(sp0.get('stack_bytes') or 0) / 1e6:.2f}"
                     " MB")

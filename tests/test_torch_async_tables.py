@@ -39,6 +39,7 @@ from multiverso_tpu_torch.ps import shard as tshard
 from multiverso_tpu_torch.ps import tables as ttables
 from multiverso_tpu_torch.ps import wire as twire
 from multiverso_tpu_torch.serving import hotcache as thc
+from multiverso_tpu_torch import updaters as tupdaters
 from multiverso_tpu_torch.updaters import AdaGradUpdater as TAdaGrad
 from multiverso_tpu_torch.updaters import AddOption as TAddOption
 from multiverso_tpu_torch.updaters import get_updater as tget_updater
@@ -566,12 +567,16 @@ def test_export_snapshot_matches_jax():
 
 
 @pytest.mark.parametrize("updater", ["default", "adagrad_per_worker",
-                                     "adam", "ftrl"])
+                                     "adam", "ftrl", "sgd", "momentum_sgd",
+                                     "adagrad"])
 def test_spmd_apply_matches_jax(updater):
     """ops/spmd_apply: one shard's update (gather the rows and the
     row-axis state leaves, apply, scatter; a row-free leaf replaced whole)
     against the JAX package's per-shard body, the slab slice and the
-    stacked AddOption leaves."""
+    stacked AddOption leaves; and, for every updater a stacked group takes
+    (all but Adam), the stacked apply and gather over a 3-shard stack with
+    per-shard options that differ against the JAX package's vmapped
+    program (the port splits the round by option, one call a part)."""
     import jax
     import jax.numpy as jnp
     from multiverso_tpu.ops import spmd_apply as jspmd
@@ -616,6 +621,62 @@ def test_spmd_apply_matches_jax(updater):
     for a, b in zip(tspmd.opt_leaves([TAddOption(*o) for o in opts]),
                     jspmd.opt_leaves(opts)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+    if updater == "adam":
+        return   # a row-free leaf: Adam never stacks
+    # the stacked forms: 3 shards of (9, 3), the last row each shard's
+    # scratch row (zero, as in a live shard)
+    n_slots, r = 3, shape[0]
+    stack = rng.normal(size=(n_slots,) + shape).astype(np.float32)
+    stack[:, r - 1] = 0.0
+    sids = [np.array([0, 3, 5]), np.array([1, 2, 6, 7]), np.array([4])]
+    sopts = [dict(worker_id=0, learning_rate=0.5, rho=0.2),
+             dict(worker_id=1, learning_rate=0.25, rho=0.3),
+             dict(worker_id=0, learning_rate=0.5, rho=0.2)]
+    bucket = 4
+    jfn_st = jspmd.build_apply(upd[J], jaxes, None)
+    jst = jax.tree.map(lambda l: jnp.stack([l] * n_slots),
+                       upd[J].init_state(shape, jnp.float32))
+    jstack = jnp.asarray(stack)
+    tstack = torch.from_numpy(stack.copy())
+    tst = {k: torch.zeros(tspmd.stacked_shape(v.shape, taxes[k], n_slots,
+                                              r))
+           for k, v in upd[T].init_state(shape, torch.float32,
+                                         torch.device("cpu")).items()}
+    tfn_st = tspmd.build_stacked_apply(
+        upd[T], taxes, tupdaters.STATELESS_LINEAR.get(type(upd[T])))
+    for _ in range(2):
+        svals = [rng.normal(size=(i.size, 3)).astype(np.float32)
+                 for i in sids]
+        jids = np.full((n_slots, bucket), r - 1, np.int32)
+        jvals = np.zeros((n_slots, bucket, 3), np.float32)
+        for k, (i, v) in enumerate(zip(sids, svals)):
+            jids[k, : i.size] = i
+            jvals[k, : i.size] = v
+        jstack, jst = jfn_st(jstack, jst, jids, jvals, jspmd.opt_leaves(
+            [JAddOption(**o) for o in sopts]))
+        parts = {}
+        for k, o in enumerate(sopts):
+            parts.setdefault(TAddOption(**o), []).append(k)
+        for o, slots in parts.items():
+            flat = np.concatenate([k * r + sids[k] for k in slots])
+            tfn_st(tstack, tst, torch.from_numpy(flat),
+                   torch.from_numpy(np.concatenate(
+                       [svals[k] for k in slots])), o)
+    exact = updater in ("default", "sgd")
+    _same([tstack.numpy()] + [tst[k].movedim(taxes[k], 0).numpy()
+                              for k in sorted(tst)],
+          [np.asarray(jstack)] + [np.asarray(x)
+                                  for x in jax.tree.leaves(jst)],
+          exact=exact)
+    flat = np.array([2 * r + 4, 0 * r + 5, 1 * r + 7])
+    got = tspmd.build_stacked_gather()(tstack, torch.from_numpy(flat))
+    assert np.array_equal(got.numpy(), tstack.numpy().reshape(-1, 3)[flat])
+    # a slice of a stacked leaf is a copy: a later apply never moves it
+    slab = tspmd.build_slice()(tstack, 1)
+    before = slab.clone()
+    tfn_st(tstack, tst, torch.from_numpy(np.array([1 * r + 2])),
+           torch.ones((1, 3)), TAddOption(**sopts[1]))
+    assert torch.equal(slab, before)
 
 
 # ---------------------------------------------------------------------- #

@@ -65,6 +65,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.ps\n"
         "import multiverso_tpu_torch.ps.service\n"
         "import multiverso_tpu_torch.ps.shard\n"
+        "import multiverso_tpu_torch.ps.spmd\n"
         "import multiverso_tpu_torch.ps.tables\n"
         "import multiverso_tpu_torch.ps.wire\n"
         "import multiverso_tpu_torch.ops.spmd_apply\n"

@@ -225,3 +225,90 @@ def test_collectives_on_cuda_tensors(cuda_device):
         assert g["staged"] == {"ppermute": {"calls": 3, "bytes": 192}}
         assert g["transfers"]["d2h"] == {"ops": 3, "bytes": 96}
         assert g["transfers"]["h2d"] == {"ops": 3, "bytes": 96}
+
+
+def _ps_world(tmp_path, n, sub, dev, updater, armed):
+    """``n`` ranks in this process with their shards on ``dev``, both
+    flags of the mesh data plane ``armed`` (or both off)."""
+    from multiverso_tpu_torch.ps.service import (FileRendezvous, PSContext,
+                                                 PSService)
+    from multiverso_tpu_torch.ps.tables import AsyncMatrixTable
+    from multiverso_tpu_torch.utils import config
+    config.set_flag("ps_fanout", armed)
+    config.set_flag("ps_spmd_stack", armed)
+    rdv = FileRendezvous(str(tmp_path / sub))
+    ctxs = [PSContext(r, n, PSService(r, n, rdv), device=dev)
+            for r in range(n)]
+    return ctxs, [AsyncMatrixTable(4096, 64, name=sub, updater=updater,
+                                   ctx=c) for c in ctxs]
+
+
+def _ps_close(*worlds):
+    from multiverso_tpu_torch.ps import spmd
+    from multiverso_tpu_torch.utils import config
+    for ctxs in worlds:
+        for c in ctxs:
+            c.close()
+    config.reset_flags()
+    spmd.reset_registry()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("updater", ["default", "adagrad", "momentum_sgd"])
+def test_stacked_shards_match_classic_on_the_card(cuda_device, tmp_path,
+                                                  updater):
+    """ps/spmd.py on cuda:0: four ranks' shards stack into one plane, and
+    multi-owner adds from every rank's client leave the table equal to a
+    1-shard classic world's on the card bit for bit, one dispatch an
+    add."""
+    from multiverso_tpu_torch.updaters import AddOption
+    octxs, otab = _ps_world(tmp_path, 1, "o", cuda_device, updater, False)
+    ctxs, tabs = _ps_world(tmp_path, 4, "g", cuda_device, updater, True)
+    try:
+        plane = tabs[0]._shard._plane
+        assert plane is not None and plane.active
+        assert len(plane.members) == 4
+        assert plane.stack.device.type == cuda_device.type
+        rng = np.random.default_rng(3)
+        for step in range(6):
+            ids = np.sort(rng.choice(4096, 512, replace=False))
+            vals = rng.normal(size=(512, 64)).astype(np.float32)
+            opt = AddOption(worker_id=step % 4, momentum=0.5,
+                            learning_rate=0.5)
+            tabs[step % 4].add_rows(ids, vals, opt)
+            otab[0].add_rows(ids, vals, opt)
+        assert plane._dispatches == 6
+        np.testing.assert_array_equal(tabs[1].get(), otab[0].get())
+        np.testing.assert_array_equal(tabs[2].get_rows(ids),
+                                      otab[0].get_rows(ids))
+    finally:
+        _ps_close(ctxs, octxs)
+
+
+@pytest.mark.cuda
+def test_pinned_stacked_slab_survives_grouped_apply(cuda_device, tmp_path):
+    """A reader's pinned slab of a grouped shard on the card is its own
+    tensor: a grouped apply leaves it as it was; set_rows then evicts that
+    member alone."""
+    ctxs, tabs = _ps_world(tmp_path, 4, "al", cuda_device, "default", True)
+    try:
+        sh = tabs[1]._shard
+        plane = sh._plane
+        ones = np.ones((4096, 64), np.float32)
+        tabs[0].add_rows(np.arange(4096), ones)
+        pin = sh._pin_data()
+        before = pin.data.clone()
+        tabs[2].add_rows(np.arange(4096), ones)
+        torch.cuda.synchronize()
+        assert torch.equal(pin.data, before)
+        assert not torch.equal(sh._data, before)
+        sh._release_data(pin)
+        tabs[0].set_rows(np.array([sh.lo]), np.zeros((1, 64), np.float32))
+        assert sh._plane is None
+        assert all(t._shard._plane is plane for i, t in enumerate(tabs)
+                   if i != 1)
+        want = np.full((4096, 64), 2.0, np.float32)
+        want[sh.lo] = 0.0
+        np.testing.assert_array_equal(tabs[3].get(), want)
+    finally:
+        _ps_close(ctxs)
