@@ -97,7 +97,7 @@ Phases, every one on every run, in this order:
             its own), launches counted apart: (a) two ranks in this
             process over a FileRendezvous and loopback TCP on a 100,000 x
             128 f32 AsyncMatrixTable (tools/bench_async_ps.py:57), 1,024-row
-            strided batches from both ranks' clients at once for 2 s, with
+            strided batches from both ranks' clients at once for 1 s, with
             the default updater and AdaGrad, over wire none and bf16
             (adds/s, gets/s, Get p50/p99 ms); each full Get from both
             ranks held against a numpy model of the same f32 operations,
@@ -205,7 +205,7 @@ Phases, every one on every run, in this order:
             no kernel of the card) against the Python wire plane on
             examples/ps_bench.py's cell (tools/bench_async_ps.py:57: a
             100,000 x 128 f32 table, 1,024-row strided batches from both
-            ranks' clients at once for 2 s): (a) both ranks in this
+            ranks' clients at once for 1 s): (a) both ranks in this
             process, shards on the card (the C++ server punts every op;
             the client is native); (b) the same with the shards on the
             CPU, registered with the C++ server, which serves every add
@@ -288,18 +288,32 @@ Phases, every one on every run, in this order:
             copies, counted), at the 472M LM's widths, each part against
             world-1 references built in this process first (the LM's
             seed-0 params, handed over as .npy files): (a) tp=2 with
-            attn="flash", 8 layers: the logits and the loss, two SGD
+            attn="flash", 4 layers: the logits and the loss, two SGD
             steps each with its gathered gradient, B1-B3 on each rank's 8
             heads, step ms and each collective's bytes and ms; (b) sp=2
             at seq 1024 (2 layers), ring, zigzag and Ulysses, one forward
             and backward each against world 1's local attention; (c)
-            pp=2, n_micro 2 (8 layers, 4 a stage) and (d) fsdp=2 (2
+            pp=2, n_micro 2 (4 layers, 2 a stage) and (d) fsdp=2 (2
             layers), one train step each; (e) ep=2 MoE (README.md:107-110: 64 experts, top-2; 2
             layers), a forward at the capacity where nothing drops
             against the dense every-expert oracle (f32), then two bf16
             train steps at capacity 2.0 (loss, aux); (f) ``worker_step``
             BSP at examples/cnn_worker_map.py's shape, the loss falling.
             Its launches are the ranks' own, summed
+21. world  the multi-process world (``net_init`` over a TCPStore,
+            ``Zoo``'s world, collective adds and unions, ``aggregate``,
+            ``StoreRendezvous``): two ranks on this card, started as a
+            launcher starts them (environment, LOCAL_RANK) and met over
+            gloo: (a) tests/multiprocess_worker.py's steps with the
+            tables on the card, held to its closed forms (the async
+            rows' sum 96, the store's publish/lookup round trip); (b)
+            the LM at its widths cut to 2 layers, each rank its own
+            seeded batch, 4 ``train_ps`` steps with a sync every 2, each
+            sync equal to numpy's last + both ranks' deltas bit for bit
+            and the replicas to each other, the loss falling, B1-B3
+            counted on each rank and held to their plain versions there;
+            (c) bench.py:419's aggregate cell, 16 MB, ``process_sum``
+            against allgather + sum at world 2 (not 4), equal, ms
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -4893,7 +4907,7 @@ def phase_chaos(dev) -> dict:
 # then a bf16-wire table (ps_async (a)'s check), which punts on the native
 # server. Each part asserts the plane it claims to measure, and every
 # full Get equals the numpy model of the same f32 adds bit for bit
-PSN_SECONDS = 2.0
+PSN_SECONDS = 1.0   # cut from 2 to keep the script in its time
 PSN_PLANES = ("native", "python")
 PSN_TIMEOUT = 180
 PSN_BUILD: dict = {}   # the library's first build and load (main)
@@ -5988,7 +6002,9 @@ def phase_telemetry(dev, we_world2: dict, later: dict) -> dict:
 # ---------------------------------------------------------------------- #
 MESH_WORLD = 2            # ranks, spawned, both on cuda:0 (gloo)
 MESH_DEVICE = "cuda"
-MESH_LAYERS = LAYERS      # (a) and (c) at the 472M LM's depth cut
+# (a) and (c) at a depth cut to 4 (cut from 8, the 472M LM's depth, to
+# keep the script in its time; their layers are the first 4 of its params)
+MESH_LAYERS = 4
 # (b) and (d) at a depth cut to 2 (their layers are the first 2 of the
 # same params): the phase's share of the script's time
 MESH_SHORT_LAYERS = 2
@@ -6119,7 +6135,9 @@ def mesh_references(dev, tmp: str) -> dict:
     t0 = time.perf_counter()
     cfg = lm_config(MESH_LAYERS)
     tree, n = {"layers": {}}, 0
-    for key, leaf in tfm.tp_lib.leaves(lm_init_params(MESH_LAYERS)):
+    for key, leaf in tfm.tp_lib.leaves(lm_init_params(LAYERS)):
+        if key[0] == "layers":
+            leaf = leaf[:MESH_LAYERS]
         path = os.path.join(tmp, "p_" + "_".join(key) + ".npy")
         np.save(path, leaf)
         node = tree["layers"] if key[0] == "layers" else tree
@@ -6939,6 +6957,376 @@ def phase_spmd(dev) -> dict:
     return out
 
 
+# world: the multi-process world (``net_init`` over a TCPStore, the Zoo's
+# world, the collective table adds and unions, ``aggregate``,
+# ``StoreRendezvous``): two ranks on this one card, started as a launcher
+# starts them (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK), meet
+# over gloo (NCCL refuses two ranks on one card); each keeps a replica of
+# every table. (a) tests/multiprocess_worker.py's steps with the tables on
+# the card; (b) the LM at its widths, cut to WORLD_LAYERS layers, trained
+# data-parallel through one shared table; (c) bench.py:419's aggregate
+# cell (16 MB, process_sum against allgather + sum) at world 2, not 4
+WORLD_RANKS = 2
+WORLD_LAYERS = 2          # the LM's depth cut (widths kept)
+WORLD_STEPS = 4           # train_ps steps a rank, each on its own batch
+WORLD_SYNC_EVERY = 2
+WORLD_AGG_MB = 16.0       # bench.py:419 bench_aggregate_path's payload
+WORLD_AGG_REPS = 5
+WORLD_TIMEOUT_S = 300
+
+
+def world_tree_save(tmp: str) -> int:
+    """The LM's seed-0 tree cut to WORLD_LAYERS layers, saved as .npy
+    files for the ranks; returns its parameter count."""
+    from multiverso_tpu_torch.models import transformer as tfm
+    n = 0
+    for key, leaf in tfm.tp_lib.leaves(lm_init_params(LAYERS)):
+        if key[0] == "layers":
+            leaf = leaf[:WORLD_LAYERS]
+        np.save(os.path.join(tmp, "w_" + "_".join(key) + ".npy"), leaf)
+        n += leaf.size
+    return n
+
+
+def world_tree_load(tmp: str) -> dict:
+    from multiverso_tpu_torch.models import transformer as tfm
+    tree = {"layers": {}}
+    for key, _ in tfm.tp_lib.leaves(tfm.param_shapes(lm_config(
+            WORLD_LAYERS))):
+        arr = np.load(os.path.join(tmp, "w_" + "_".join(key) + ".npy"),
+                      mmap_mode="r")
+        (tree["layers"] if key[0] == "layers" else tree)[key[-1]] = arr
+    return tree
+
+
+def world_digest(a: np.ndarray) -> list:
+    """A cheap fingerprint of a table's bytes (wrapping sum and xor of its
+    64-bit words), to hold the ranks' replicas to each other."""
+    w = np.ascontiguousarray(a).view(np.uint8)
+    w = w[: w.size // 8 * 8].view(np.uint64)
+    return [int(np.sum(w, dtype=np.uint64)),
+            int(np.bitwise_xor.reduce(w))]
+
+
+def ulps(a, ref, atol: float) -> float:
+    """The largest |a - ref| over each element's allowance: one bf16 ulp
+    of the element of ``ref``, or ``atol`` where that is larger (a value
+    of 1 or less passes). The kernel phase's absolute tolerances are one
+    ulp at the magnitudes its seed-0 inputs reach; other inputs reach
+    larger ones."""
+    import torch
+    r = ref.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(r.clamp_min(2.0 ** -126))) - 7)
+    return float(((a.float() - ref.float()).abs() / ulp.clamp_min(atol)
+                  ).max())
+
+
+def world_kernels(dev, rank: int) -> dict:
+    """B1-B3 against their plain versions on this rank, at the shape the
+    LM gives them (bf16, causal): each element within one bf16 ulp of the
+    plain version's, or the kernel phase's tolerance where that is larger
+    (ATOL_OUT, ATOL_LSE, ATOL_BWD). Returns the max abs errors and the
+    ulps."""
+    import torch
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    q, k, v, do = (torch.randn(SLICE_SHAPE, generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(4))
+    out, lse = ak.flash_attention_with_lse(q, k, v, True)
+    ref, ref_lse = ak.flash_forward_plain(q, k, v, True, True)
+    dq = ak._flash_bwd_dq_cuda(q, k, v, out, lse, do, True)
+    dk, dv = ak._flash_bwd_dkv_cuda(q, k, v, out, lse, do, True)
+    bwd = ak.flash_backward_plain(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    tol_b = ATOL_BWD["bfloat16"]
+    errs = {"flash_fwd": max_err(out, ref),
+            "flash_bwd_dq": max_err(dq, bwd[0]),
+            "flash_bwd_dkv": max(max_err(dk, bwd[1]), max_err(dv, bwd[2])),
+            "lse": max_err(lse, ref_lse)}
+    within = {"flash_fwd": ulps(out, ref, ATOL_OUT["bfloat16"]),
+              "flash_bwd_dq": ulps(dq, bwd[0], tol_b),
+              "flash_bwd_dkv": max(ulps(dk, bwd[1], tol_b),
+                                   ulps(dv, bwd[2], tol_b))}
+    if max(within.values()) > 1.0 or errs["lse"] > ATOL_LSE:
+        raise AssertionError(f"rank {rank}: a flash kernel disagrees with "
+                             f"its plain version: max abs {errs}, ulps "
+                             f"{within}")
+    return {"max_abs_err": errs, "ulps": within}
+
+
+class WorldSync:
+    """A SharedPytree whose collective ``sync`` is timed and checked:
+    before the sync each rank saves its delta in the phase's directory
+    (a path apart from the table's all_reduce); after it the table must
+    equal numpy's ``last + sum of the ranks' deltas`` bit for bit (two
+    f32 terms: their sum does not depend on the order). Every rank has
+    saved its delta before it enters the sync's all_reduce, so the files
+    are whole once the sync returns."""
+
+    def __init__(self, shared, tmp: str, rank: int, world: int):
+        self.shared, self.tmp = shared, tmp
+        self.rank, self.world = rank, world
+        self.ms, self.check_ms, self.digests = [], [], []
+
+    def sync(self, params):
+        import torch
+        from multiverso_tpu_torch.sharedvar import _flatten
+        last = self.shared._last
+        paths = [os.path.join(self.tmp, f"delta_{len(self.ms)}_{r}.npy")
+                 for r in range(self.world)]
+        t0 = time.perf_counter()
+        np.save(paths[self.rank], _flatten(params) - last)
+        check_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = self.shared.sync(params)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        total = np.load(paths[0])
+        for p in paths[1:]:
+            total += np.load(p, mmap_mode="r")
+        if not np.array_equal(self.shared._last, last + total):
+            raise AssertionError("world sync: the table is not last + the "
+                                 "sum of every rank's delta")
+        self.check_ms.append(check_ms + (time.perf_counter() - t0) * 1e3)
+        self.digests.append(world_digest(self.shared._last))
+        return merged
+
+
+def world_lm(tmp: str) -> dict:
+    """(b) on this rank: the LM's table shared across the world, the
+    model built from its Get, WORLD_STEPS SGD steps on this rank's own
+    batch with a checked collective sync every WORLD_SYNC_EVERY."""
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.examples.transformer_ps import train_ps
+    from multiverso_tpu_torch.models import transformer as tfm
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    from multiverso_tpu_torch.sharedvar import _flatten
+    dev, rank = mv.device(), mv.rank()
+    cfg = lm_config(WORLD_LAYERS)
+    errs = world_kernels(dev, rank)
+    tree = world_tree_load(tmp)
+    t0 = time.perf_counter()
+    shared = mv.SharedPytree(tree, name="world_lm")   # rank 0's values
+    share_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(shared._last, _flatten(tree)):
+        raise AssertionError("the shared table is not rank 0's parameters")
+    model = tfm.params_from_jax(shared.get(), cfg, dev)
+    rng = np.random.default_rng(1 + rank)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BATCH, cfg.max_seq + 1))).to(dev)
+    tok, tgt = toks[:, :-1], toks[:, 1:]
+    sgd = tfm.make_train_step(cfg, LR)
+    float(sgd(model, tok, tgt))   # warm-up, outside the counted run
+    checked = WorldSync(shared, tmp, rank, mv.size())
+    ak.reset_launch_counts()
+    losses = train_ps(model, checked, tok, tgt, WORLD_STEPS,
+                      WORLD_SYNC_EVERY, LR)
+    counts = ak.launch_counts()
+    want = WORLD_LAYERS * WORLD_STEPS
+    if counts != {k: want for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}:
+        raise AssertionError(f"rank {rank}: world launches {counts}, "
+                             f"expected {want} of each kernel")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"rank {rank}: the loss did not fall: {losses}")
+    n = shared.table.size
+    del model, shared
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": counts, "kernel_errs": errs,
+            "params": n, "share_ms": share_ms, "sync_ms": checked.ms,
+            "check_ms": checked.check_ms, "digests": checked.digests,
+            "sync_bytes": n * 4}
+
+
+def world_aggregate() -> dict:
+    """(c) on this rank: ``process_sum`` (one all_reduce, what
+    ``mv.aggregate`` runs) against allgather + numpy sum on a 16 MB f32
+    payload, in turns; equal results; ms per call."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel import collectives as coll
+    rank, world = mv.rank(), mv.size()
+    arr = np.full(int(WORLD_AGG_MB * 1e6 / 4), float(rank + 1), np.float32)
+    want = np.float32(world * (world + 1) / 2)
+
+    def gathered(a):
+        return coll.process_allgather(a).sum(axis=0, dtype=np.float32)
+
+    paths = {"process_sum": coll.process_sum, "allgather": gathered}
+    ms = {k: [] for k in paths}
+    for name, fn in paths.items():   # warm
+        if not np.all(fn(arr) == want):
+            raise AssertionError(f"aggregate {name} is not {want}")
+    for _ in range(WORLD_AGG_REPS):
+        for name, fn in paths.items():
+            t0 = time.perf_counter()
+            got = fn(arr)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if not np.all(got == want):
+                raise AssertionError(f"aggregate {name} is not {want}")
+    data = arr.copy()
+    if mv.aggregate(data) is not data or not np.all(data == want):
+        raise AssertionError("mv.aggregate is not the in-place sum")
+    return {"ms": ms, "bytes": arr.nbytes}
+
+
+def world_rank(tmp: str) -> None:
+    """One rank of the world phase, in its own process: join the world
+    from the environment (net_init), run (a), (b) and (c), print one
+    ``RESULT <json>`` line."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel.mesh import leave_world
+    from multiverso_tpu_torch.utils import config
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import torch_world_worker as tw
+    walls = {}
+    t0 = time.perf_counter()
+    config.set_flag("net_timeout_s", float(WORLD_TIMEOUT_S))
+    if mv.net_init() != 0:
+        raise RuntimeError("net_init failed")
+    walls["join"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = {"scenario": tw.scenario(None)}   # the card: no device argument
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mv.init()
+    out["backend"] = dist.get_backend()
+    out["device"] = str(mv.device())
+    out["lm"] = world_lm(tmp)
+    walls["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["agg"] = world_aggregate()
+    walls["c"] = time.perf_counter() - t0
+    mv.shutdown()
+    leave_world()
+    out["walls"] = {k: round(v, 2) for k, v in walls.items()}
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def world_launch(tmp: str) -> list:
+    """Start WORLD_RANKS rank processes by environment, as a launcher
+    does; their RESULT dicts in rank order. A world whose store lost its
+    free port before rank 0 bound it is started once more."""
+    import socket
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+            " chip_smoke.world_rank(sys.argv[2])")
+    for attempt in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = []
+        for r in range(WORLD_RANKS):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), RANK=str(r),
+                       WORLD_SIZE=str(WORLD_RANKS), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(WORLD_RANKS))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, root, tmp], env=env, cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = []
+        try:
+            for p in procs:
+                o, e = p.communicate(timeout=WORLD_TIMEOUT_S)
+                outs.append((p.returncode, o, e))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if all(rc == 0 for rc, _, _ in outs):
+            break
+        if attempt or not any("address already in use" in e.lower()
+                              for _, _, e in outs):
+            raise AssertionError("world: a rank failed:\n" + "\n".join(
+                f"rank {r} rc={rc}\n{e[-3000:]}"
+                for r, (rc, _, e) in enumerate(outs) if rc != 0))
+    res = []
+    for r, (rc, o, e) in enumerate(outs):
+        lines = [l for l in o.splitlines() if l.startswith("RESULT ")]
+        if not lines:
+            raise AssertionError(f"world: rank {r} printed no RESULT\n"
+                                 f"{e[-2000:]}")
+        res.append(json.loads(lines[-1][len("RESULT "):]))
+    return res
+
+
+def phase_world(dev) -> dict:
+    """Two ranks of a world on this card, started by environment: (a) the
+    JAX scenario's closed forms with the tables on the card, (b) the LM
+    trained data-parallel through one shared table, (c) the aggregate
+    cell. Returns the flash launches summed over the ranks."""
+    import shutil
+    import tempfile
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_world_worker as tw
+    tmp = tempfile.mkdtemp(prefix="mv_world_")
+    try:
+        t0 = time.perf_counter()
+        n = world_tree_save(tmp)
+        t1 = time.perf_counter()
+        ranks = world_launch(tmp)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"world: {WORLD_RANKS} ranks on this card (backend "
+        f"{ranks[0]['backend']}, {[rk['device'] for rk in ranks]}), the "
+        f"LM's {n} parameters saved for them in {t1 - t0:.1f} s, ranks "
+        f"{t2 - t1:.1f} s; rank walls (s) {[rk['walls'] for rk in ranks]}")
+    # (a)
+    want = tw.closed_forms(WORLD_RANKS)
+    for r, rk in enumerate(ranks):
+        got = rk["scenario"]
+        bad = {k: got.get(k) for k, v in want.items() if got.get(k) != v}
+        if got["rank"] != r or bad:
+            raise AssertionError(f"world (a) rank {r}: {bad}")
+        if not (got["devices"] == got["num_servers"] == WORLD_RANKS
+                and got["rendezvous"] == "StoreRendezvous"):
+            raise AssertionError(f"world (a) rank {r}: {got}")
+    log(f"world (a) the JAX multi-process scenario on the card, both ranks "
+        f"equal to its closed forms: {ranks[0]['scenario']}")
+    # (b)
+    b = [rk["lm"] for rk in ranks]
+    for r, lm in enumerate(b):
+        log(f"world (b) rank {r}: {WORLD_LAYERS} layers, {lm['params']} "
+            f"f32 parameters in the shared table, shared in "
+            f"{lm['share_ms']:.1f} ms; losses "
+            f"{[round(x, 5) for x in lm['losses']]}; sync ms "
+            f"{[round(x, 1) for x in lm['sync_ms']]} ({lm['sync_bytes']} B "
+            f"all-reduced through gloo a sync); the numpy check's ms "
+            f"(deltas through files) {[round(x, 1) for x in lm['check_ms']]}"
+            f"; B1-B3 "
+            f"{lm['launches']}; kernel vs plain "
+            f"{lm['kernel_errs']['max_abs_err']}, in allowances (one bf16 "
+            f"ulp or the kernel phase's tolerance) "
+            f"{lm['kernel_errs']['ulps']}")
+    if any(lm["digests"] != b[0]["digests"] for lm in b):
+        raise AssertionError("world (b): the ranks' tables differ")
+    log(f"world (b) every sync equal to numpy's last + the ranks' deltas "
+        f"bit for bit on each rank, the replicas equal ({len(b[0]['digests'])}"
+        f" syncs)")
+    # (c)
+    for r, rk in enumerate(ranks):
+        ms = rk["agg"]["ms"]
+        log(f"world (c) aggregate rank {r}, {rk['agg']['bytes']} B f32 at "
+            f"world {WORLD_RANKS}: process_sum p50 "
+            f"{float(np.median(ms['process_sum'])):.2f} ms "
+            f"{[round(x, 2) for x in ms['process_sum']]}, allgather + sum "
+            f"p50 {float(np.median(ms['allgather'])):.2f} ms "
+            f"{[round(x, 2) for x in ms['allgather']]}; equal results")
+    counts = {k: sum(rk["lm"]["launches"][k] for rk in ranks)
+              for k in ranks[0]["lm"]["launches"]}
+    log(f"world launches summed over the ranks {counts}")
+    return counts
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -7120,6 +7508,13 @@ def main(argv=None) -> int:
     mark("mesh")
     if not all(paths["mesh"].values()):
         raise AssertionError(f"the mesh path launched {paths['mesh']}: "
+                             "every flash kernel must run there")
+    # the multi-process world: two ranks started by environment on this
+    # card, each counting its own launches of the LM's train steps
+    paths["world"] = phase_world(dev)
+    mark("world")
+    if not all(paths["world"].values()):
+        raise AssertionError(f"the world path launched {paths['world']}: "
                              "every flash kernel must run there")
     mv.shutdown()
     for rec in records:

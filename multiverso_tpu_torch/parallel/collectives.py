@@ -14,6 +14,8 @@ on this rank.
   replicated sum, returns the same slice).
 * :func:`broadcast` — the ``root`` rank's chunk.
 * :func:`process_sum` — a host array summed over the whole world.
+* :func:`process_sum_tensor` — a tensor summed over the whole world.
+* :func:`process_allgather` — every process's host array, stacked.
 
 The differentiable collectives are ``torch.autograd.Function``s, each
 backward the pair of its forward:
@@ -492,21 +494,74 @@ def broadcast(x, root: int = 0, axis: Optional[str] = None, mesh=None
     return raw_broadcast(_tensor(x, mesh), mesh, ax, root)
 
 
+def _world_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A private copy of ``arr`` where the world's backend reduces: the
+    host for gloo, this rank's card for nccl."""
+    t = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    if dist.get_backend() == "nccl":
+        _devstats.note_transfer(arr.nbytes, "h2d")
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    return t
+
+
+def _host(t: torch.Tensor, nbytes: int) -> np.ndarray:
+    if t.is_cuda:
+        _devstats.note_transfer(nbytes, "d2h")
+    return t.cpu().numpy()
+
+
 def process_sum(arr: np.ndarray) -> np.ndarray:
     """Sum identical-shaped per-process host arrays over the whole world
     with one all_reduce (the reference reduce-scattered for this, ref
-    src/net/allreduce_engine.cpp:39-53). A world of one: identity.
-    Called collectively, every process with the same shape."""
+    src/net/allreduce_engine.cpp:39-53), in ``arr``'s dtype; ``arr`` is
+    not changed. A world of one: identity. Called collectively, every
+    process with the same shape and dtype."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return arr
     world = dist.get_world_size()
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if dist.get_backend() == "nccl":
-        t = t.to(torch.device("cuda", torch.cuda.current_device()))
-        _devstats.note_transfer(arr.nbytes, "h2d")
+    t = _world_tensor(arr)
     with _devstats.collective_span("process_sum", arr.nbytes,
                                    mesh={"proc": world}):
         dist.all_reduce(t)
-    if t.is_cuda:
-        _devstats.note_transfer(arr.nbytes, "d2h")
-    return t.cpu().numpy().astype(arr.dtype)
+    return _host(t, arr.nbytes).astype(arr.dtype, copy=False)
+
+
+def process_sum_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The sum of every process's ``t`` (same shape and dtype on each),
+    as a new tensor on ``t``'s device: one all_reduce, on the card where
+    the backend takes CUDA tensors (nccl, and gloo's all_reduce: C.19),
+    else through a host copy. ``t`` is not changed."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return t
+    world = dist.get_world_size()
+    out = t.detach().clone().contiguous()
+    with _devstats.collective_span("process_sum", _nbytes(out),
+                                   mesh={"proc": world}):
+        if out.is_cuda or dist.get_backend() != "nccl":
+            dist.all_reduce(out)
+        else:
+            dev = out.to(torch.device("cuda", torch.cuda.current_device()))
+            _devstats.note_transfer(_nbytes(out), "h2d")
+            dist.all_reduce(dev)
+            _devstats.note_transfer(_nbytes(out), "d2h")
+            out.copy_(dev)
+    return out
+
+
+def process_allgather(arr: np.ndarray) -> np.ndarray:
+    """Every process's ``arr`` stacked in rank order, ``(world,
+    *arr.shape)``, on every process (``multihost_utils.process_allgather(
+    arr, tiled=False)``). A world of one: ``arr[None]``. Called
+    collectively, every process with the same shape and dtype."""
+    arr = np.asarray(arr)
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return arr[None].copy()
+    world = dist.get_world_size()
+    t = _world_tensor(arr).reshape(-1)
+    out = torch.empty((world * t.numel(),), dtype=t.dtype, device=t.device)
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    with _devstats.collective_span("process_allgather",
+                                   arr.nbytes * world, mesh={"proc": world}):
+        gather(out, t)
+    return _host(out, arr.nbytes * world).reshape((world,) + arr.shape)

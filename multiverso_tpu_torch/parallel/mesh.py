@@ -29,15 +29,20 @@ and :func:`spawn` starts a world's ranks with ``torch.multiprocessing``'s
 spawn method (never fork: a parent that has touched CUDA cannot fork
 ranks that use it). They meet through a ``FileStore`` in a temporary
 directory, the store of the collectives' own process group.
+:func:`net_join` (behind ``api.net_init`` and a launcher's world joined
+by ``init()``) meets through a ``TCPStore`` that rank 0 hosts instead,
+needs no shared directory, and keeps the store for the async PS's
+rendezvous (:func:`world_store`).
 """
 
 from __future__ import annotations
 
+import datetime
 import itertools
 import os
 import tempfile
-from typing import Any, Callable, Dict, Iterable, List, Sequence, Tuple, \
-    Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, \
+    Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -206,22 +211,80 @@ def backend_for(device: Any, world: int) -> str:
     return "gloo"
 
 
-def init_world(rank: int, world: int, store_path: str,
-               device: Any = "cpu") -> torch.device:
-    """Join this process to a world of ``world`` ranks that meet in the
-    ``FileStore`` at ``store_path``; returns the rank's device."""
-    dev = rank_device(device, rank, world)
+def _join(store, rank: int, world: int, device: Any, local_rank: int,
+          local_world: int, timeout_s: Optional[float]) -> torch.device:
+    """``init_process_group`` over ``store`` with the backend
+    :func:`backend_for` picks for the ranks of this host; returns the
+    rank's device (made current when it is a card)."""
+    dev = rank_device(device, local_rank, local_world)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    store = dist.FileStore(store_path, world)
-    dist.init_process_group(backend_for(device, world), store=store,
-                            rank=rank, world_size=world)
+    kw = {} if timeout_s is None else {
+        "timeout": datetime.timedelta(seconds=timeout_s)}
+    dist.init_process_group(backend_for(device, local_world), store=store,
+                            rank=rank, world_size=world, **kw)
     return dev
 
 
+def init_world(rank: int, world: int, store_path: str,
+               device: Any = "cpu") -> torch.device:
+    """Join this process to a world of ``world`` ranks on one host that
+    meet in the ``FileStore`` at ``store_path``; returns the rank's
+    device."""
+    store = dist.FileStore(store_path, world)
+    return _join(store, rank, world, device, rank, world, None)
+
+
+_net_store: Optional[Any] = None   # the TCPStore of net_join's world
+
+
+def net_join(address: str, world: int, rank: int, device: Any,
+             local_rank: Optional[int] = None,
+             local_world: Optional[int] = None,
+             timeout_s: float = 600.0) -> torch.device:
+    """Join a world of ``world`` ranks that meet through a ``TCPStore``
+    at ``address`` (``host:port``; rank 0 hosts it there, the others
+    connect) and keep the store for :func:`world_store`. ``local_rank``
+    and ``local_world`` place the rank on its host's cards (a launcher's
+    ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``; default: one host). Every
+    collective of the world, the store's connect and the group's, gives
+    up after ``timeout_s``; returns the rank's device."""
+    global _net_store
+    host, _, port = address.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"coordinator address {address!r} is not "
+                         "host:port")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = dist.TCPStore(host, int(port), world, is_master=(rank == 0),
+                          timeout=timeout)
+    dev = _join(store, rank, world, device,
+                rank if local_rank is None else local_rank,
+                world if local_world is None else local_world, timeout_s)
+    _net_store = store
+    return dev
+
+
+def world_store():
+    """The key-value store of this process's world: the ``TCPStore`` of
+    :func:`net_join`, else the default process group's own store (a
+    world joined another way, e.g. ``init_method="env://"``), else
+    ``None`` (no world)."""
+    if _net_store is not None and dist.is_initialized():
+        return _net_store
+    if not dist.is_initialized():
+        return None
+    from torch.distributed import distributed_c10d as c10d
+    get = getattr(c10d, "_get_default_store", None)
+    return get() if get is not None else None
+
+
 def leave_world() -> None:
+    global _net_store
     if dist.is_initialized():
         dist.destroy_process_group()
+    _net_store = None
 
 
 def _rank_main(rank: int, world: int, store_path: str, device: Any,

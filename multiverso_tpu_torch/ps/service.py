@@ -12,7 +12,9 @@ one process):
 * rendezvous: ranks find each other through a shared directory (flag
   ``ps_rendezvous``, :class:`FileRendezvous`, the JAX package's file
   layout, so a JAX rank and a rank of this package meet in one
-  directory).
+  directory), or, with no directory, through the key-value store of the
+  ``torch.distributed`` world (:class:`StoreRendezvous`, the counterpart
+  of the JAX package's coordinator-store ``JaxRendezvous``).
 
 Local shards short-circuit the socket but still run on the service's
 one-thread executor, so ``add_async`` keeps fire-and-forget semantics and
@@ -108,9 +110,6 @@ from multiverso_tpu_torch.utils import config, log, retry as _retry
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 from multiverso_tpu_torch.zoo import default_device
 
-# ROADMAP.md §A title of the part of ps/ this plane refuses
-NO_FILE_RDV_ITEM = "a rendezvous without a file"
-
 # message types (request side; replies reuse the id space below 0x100)
 MSG_REPLY_OK = 1
 MSG_REPLY_ERR = 2
@@ -142,12 +141,15 @@ MSG_SNAPSHOT = 0x1D
 MSG_MULTI = 0x1E
 
 config.define_string("ps_rendezvous", "",
-                     "directory for async-PS rank rendezvous (required "
-                     "when ps_world > 1)")
-config.define_int("ps_rank", -1, "async-PS rank (-1 = rank 0 of a world "
-                  "of 1 when ps_world <= 0)")
+                     "directory for async-PS rank rendezvous; empty = the "
+                     "torch.distributed world's key-value store (net_init "
+                     "or a launcher) when ps_world > 1")
+config.define_int("ps_rank", -1, "async-PS rank (read when ps_world > 0; "
+                  "with ps_world <= 0 the rank comes from the "
+                  "torch.distributed world)")
 config.define_int("ps_world", 0,
-                  "async-PS world size (<= 0 = one process, world 1)")
+                  "async-PS world size (<= 0 = the torch.distributed "
+                  "world's rank and size, else rank 0 of 1)")
 config.define_int("ps_port", 0, "async-PS listen port (0 = ephemeral)")
 config.define_string("ps_host", "127.0.0.1",
                      "async-PS bind host. Single-host runs keep the "
@@ -279,6 +281,92 @@ class FileRendezvous:
                 pass
             time.sleep(0.02)
         return False
+
+
+class StoreRendezvous:
+    """Rendezvous over a ``torch.distributed`` key-value store (the port's
+    counterpart of the JAX package's ``JaxRendezvous`` over the
+    ``jax.distributed`` coordinator): ``<namespace>/<rank>`` holds a
+    rank's address, ``<namespace>/<tag>/<rank>`` a marker. ``store``
+    defaults to the store of this process's world
+    (``parallel/mesh.world_store``: ``net_init``'s ``TCPStore``, else the
+    default process group's own); any ``torch.distributed.Store`` serves,
+    e.g. a ``TCPStore`` client of a world's master."""
+
+    _POLL_S = 0.02
+
+    def __init__(self, store=None, namespace: str = "mv_ps"):
+        if store is None:
+            from multiverso_tpu_torch.parallel.mesh import world_store
+            store = world_store()
+            if store is None:
+                raise PSError("StoreRendezvous needs a torch.distributed "
+                              "world (net_init() or a launcher's) or a "
+                              "store")
+        self._store = store
+        self._ns = namespace
+        # one op at a time on the store's client connection
+        self._lock = threading.Lock()
+
+    @property
+    def identity(self) -> str:
+        """Equal for every StoreRendezvous of one world and namespace
+        (the colocation registry's key, ``ps/spmd.proc_key``): the
+        ``TCPStore``'s address when the store is one (or wraps one), else
+        the store object itself."""
+        st = self._store
+        while not hasattr(st, "port") and hasattr(st, "underlying_store"):
+            st = st.underlying_store
+        where = (f"{st.host}:{st.port}" if hasattr(st, "port")
+                 else f"obj{id(st)}")
+        return f"store://{where}/{self._ns}"
+
+    def _key(self, *parts) -> str:
+        return "/".join((self._ns,) + tuple(str(p) for p in parts))
+
+    def _read(self, key: str, timeout: float) -> Optional[str]:
+        """The key's value once it exists, or None at the deadline
+        (polled, so no call blocks the client past its deadline)."""
+        deadline = time.monotonic() + max(timeout, 0.0)
+        while True:
+            with self._lock:
+                if self._store.check([key]):
+                    return self._store.get(key).decode()
+            if time.monotonic() >= deadline:
+                return None
+            time.sleep(self._POLL_S)
+
+    def publish(self, rank: int, addr: str) -> None:
+        with self._lock:
+            self._store.set(self._key(rank), addr)
+
+    def lookup(self, rank: int, timeout: float) -> str:
+        addr = self._read(self._key(rank), timeout)
+        if not addr:
+            raise PSPeerError(f"rank {rank} never published an address "
+                              f"({self._key(rank)} not in the world's "
+                              f"store after {timeout}s)")
+        return addr
+
+    def mark(self, rank: int, tag: str, value: str = "1") -> None:
+        """Publish a marker (the shutdown quiesce handshake); ``value``
+        stamps it with this incarnation's identity (its address)."""
+        with self._lock:
+            self._store.set(self._key(tag, rank), value)
+
+    def wait_mark(self, rank: int, tag: str, timeout: float,
+                  expect: Optional[str] = None) -> bool:
+        """True once ``rank``'s marker exists (and equals ``expect`` when
+        given), False at the deadline."""
+        deadline = time.monotonic() + max(timeout, 0.0)
+        key = self._key(tag, rank)
+        while True:
+            got = self._read(key, deadline - time.monotonic())
+            if got is not None and (expect is None or got == expect):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(self._POLL_S)
 
 
 # ---------------------------------------------------------------------- #
@@ -1798,29 +1886,41 @@ _default_lock = threading.Lock()
 
 
 def default_context() -> PSContext:
-    """The process's context, from the flags: ``ps_world <= 0`` means a
-    world of 1 (rank 0); a larger world needs ``ps_rank`` and a
-    ``ps_rendezvous`` directory."""
+    """The process's context, from the flags: ``ps_world <= 0`` takes the
+    rank and world of the ``torch.distributed`` world (``net_init`` or a
+    launcher), else rank 0 of 1; a larger ``ps_world`` needs ``ps_rank``.
+    A world larger than 1 meets in the ``ps_rendezvous`` directory when
+    that flag is set, else in the world's key-value store
+    (:class:`StoreRendezvous`)."""
     global _default_ctx
     with _default_lock:
         if _default_ctx is None:
             world = config.get_flag("ps_world")
             rank = config.get_flag("ps_rank")
             if world <= 0:
-                rank, world = 0, 1
+                import torch.distributed as dist
+                if dist.is_available() and dist.is_initialized():
+                    rank, world = dist.get_rank(), dist.get_world_size()
+                else:
+                    rank, world = 0, 1
             elif rank < 0:
                 raise PSError("ps_world set but ps_rank is not")
             rdv = None
             if world > 1:
                 rdv_dir = config.get_flag("ps_rendezvous")
-                if not rdv_dir:
-                    raise NotImplementedError(
-                        f"ps_world={world} needs ps_rendezvous=<dir>: a "
-                        "rendezvous without a shared directory (the JAX "
-                        "package's coordinator key-value store) is not "
-                        "ported to multiverso_tpu_torch yet (ROADMAP.md "
-                        f"§A {NO_FILE_RDV_ITEM})")
-                rdv = FileRendezvous(rdv_dir)
+                if rdv_dir:
+                    rdv = FileRendezvous(rdv_dir)
+                else:
+                    from multiverso_tpu_torch.parallel.mesh import \
+                        world_store
+                    if world_store() is None:
+                        raise PSError(
+                            f"a PS world of {world} ranks needs a "
+                            "rendezvous: set ps_rendezvous=<dir> (a shared "
+                            "directory), or join a torch.distributed world "
+                            "first (net_init() or a launcher's "
+                            "environment) for its key-value store")
+                    rdv = StoreRendezvous()
             service = PSService(rank, world, rdv)
             try:
                 _default_ctx = PSContext(rank, world, service)

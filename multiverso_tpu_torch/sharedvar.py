@@ -5,6 +5,9 @@ All leaves of a nested dict of tensors or arrays (or of an ``nn.Module``'s
 parameters, nested by their dotted names) are flattened into one
 ``ArrayTable``; ``sync()`` pushes the local delta since the last sync and
 pulls the merged global state (ref theano_ext sharedvar.py ``mv_sync``).
+With N processes (``net_init``) every ``sync`` is a collective: the table's
+Add sums every worker's delta, so N processes train data-parallel ASGD
+with no other change to their loop.
 
 The flat layout equals the JAX package's: ``jax.tree.leaves`` of a dict
 visits keys in sorted order at every level, and so does ``_leaves`` here,
@@ -118,3 +121,8 @@ class SharedPytree:
         flat = self.table.get()
         self._last = flat.copy()
         return self.unflatten(flat)
+
+
+def mv_shared(value: Any, name: str = "mv_shared") -> SharedPytree:
+    """The reference's ``mv_shared(value=...)`` constructor."""
+    return SharedPytree(value, name=name)

@@ -16,6 +16,20 @@ Program order on one stream gives every Get the state after all previously
 issued Adds, the BSP guarantee of the reference's SyncServer. On the CPU
 every op completes before it returns.
 
+More than one process (``Zoo.size() > 1``): each process keeps a whole
+replica of the table, and a whole-table Add is a collective. Every process
+calls it, in the same order, with its own worker's delta, and the delta
+applied is the sum over the world (``collectives.process_sum`` of a numpy
+delta, before any wire encode; one all_reduce of the padded device delta
+for a tensor). A tensor delta of any shape is its rank's contribution:
+the port has no global arrays, so none counts as already summed. So every
+replica applies the same delta and stays equal to the others, and a Get
+is local. The functional plane (``state``, ``functional_add``, ``adopt``)
+stays local and pure, as in the JAX package: a caller that trains on it
+reduces across its mesh itself (``parallel/worker_map.worker_step``).
+Coalescing and the write-triggered prefetch stay off: each add's
+collective runs on the caller's thread, in the caller's order.
+
 Around that core, as in the JAX package:
 
 * **version stamp and get cache** (flag ``table_get_cache``): every
@@ -308,12 +322,14 @@ class Table:
     # mutation bookkeeping (get-cache version)
     # ------------------------------------------------------------------ #
     def _mark_mutated(self) -> None:
-        """Entry of every mutation path: bump the version early, so a
-        ``version`` poll already sees a queued but unapplied add. This
-        bump alone does not make the cache correct (it happens outside the
-        dispatch lock, so a concurrent Get could stamp old data with the
-        new version); :meth:`_version_applied`, at the point the mutation
-        is issued, does."""
+        """Entry of every mutation path: mark the table for the Zoo's
+        barrier fence, and bump the version early, so a ``version`` poll
+        already sees a queued but unapplied add. This bump alone does not
+        make the cache correct (it happens outside the dispatch lock, so a
+        concurrent Get could stamp old data with the new version);
+        :meth:`_version_applied`, at the point the mutation is issued,
+        does."""
+        self._zoo.mark_dirty(self.table_id)
         self._version += 1
 
     def _version_applied(self) -> None:
@@ -518,15 +534,33 @@ class Table:
     # ------------------------------------------------------------------ #
     # whole-table ops
     # ------------------------------------------------------------------ #
+    def _host_delta(self, delta: ArrayLike) -> np.ndarray:
+        """A numpy delta of the table's logical shape and dtype, summed
+        over the processes when there are several (every process calls
+        this, in the same order)."""
+        arr = np.asarray(delta, dtype=self.np_dtype).reshape(self.shape)
+        if self._zoo.size() > 1:
+            from multiverso_tpu_torch.parallel.collectives import \
+                process_sum
+            arr = process_sum(arr)
+        return arr
+
     def _device_delta(self, delta: ArrayLike) -> torch.Tensor:
-        """Padded delta on the table's device."""
+        """Padded delta on the table's device, summed over the processes
+        when there are several (see the module docstring)."""
         if isinstance(delta, torch.Tensor):
             if tuple(delta.shape) == self._padded_shape:
-                return delta.to(self.device, self.dtype)
-            src = delta.reshape(self.shape)
-        else:
-            src = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(delta, dtype=self.np_dtype)).reshape(self.shape))
+                padded = delta.to(self.device, self.dtype)
+            else:
+                padded = torch.zeros(self._padded_shape, dtype=self.dtype,
+                                     device=self.device)
+                padded[: self.shape[0]].copy_(delta.reshape(self.shape))
+            if self._zoo.size() > 1:
+                from multiverso_tpu_torch.parallel.collectives import \
+                    process_sum_tensor
+                padded = process_sum_tensor(padded)
+            return padded
+        src = torch.from_numpy(np.ascontiguousarray(self._host_delta(delta)))
         padded = torch.zeros(self._padded_shape, dtype=self.dtype,
                              device=self.device)
         padded[: self.shape[0]].copy_(src)
@@ -550,7 +584,9 @@ class Table:
         deltas equals the sequence of adds, and opt is never read), one
         process. Wire-filtered tables coalesce too: the applier encodes in
         order, and under a linear updater the error-feedback codecs do
-        not care whether N deltas are encoded one by one or as their sum."""
+        not care whether N deltas are encoded one by one or as their sum.
+        More than one process: never (each add's collective must run on
+        the caller's thread, in its order)."""
         return (self._zoo.size() == 1
                 and not isinstance(delta, torch.Tensor)
                 and type(self.updater) in updaters_lib.STATELESS_LINEAR)
@@ -669,10 +705,9 @@ class Table:
                 with self._dispatch_lock:
                     if (self._wire != "none"
                             and not isinstance(delta, torch.Tensor)):
-                        arr = np.asarray(delta, dtype=self.np_dtype
-                                         ).reshape(self.shape)
-                        return self._track(_Pending(
-                            self._dispatch_wire_add(arr, opt)))
+                        # the world's sum is encoded, as in the JAX package
+                        return self._track(_Pending(self._dispatch_wire_add(
+                            self._host_delta(delta), opt)))
                     ev = self._apply_full(self._device_delta(delta), opt)
             return self._track(_Pending(ev))
         finally:

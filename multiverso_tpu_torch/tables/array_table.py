@@ -1,6 +1,7 @@
 """ArrayTable: 1-D dense parameter vector (port of
-``multiverso_tpu/tables/array_table.py``). One device holds the whole
-vector; sharding across cards arrives with the multi-card slice."""
+``multiverso_tpu/tables/array_table.py``). One device of each process
+holds the whole vector (ROADMAP C.22: the JAX package shards it over every
+process's devices)."""
 
 from __future__ import annotations
 

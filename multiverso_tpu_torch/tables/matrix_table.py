@@ -1,8 +1,8 @@
 """MatrixTable: 2-D parameter matrix with row-batch Add/Get (port of
 ``multiverso_tpu/tables/matrix_table.py``).
 
-One device holds the whole matrix (row sharding across cards arrives with
-the multi-card slice). The host-side contract of a row op is the JAX
+One device of each process holds the whole matrix (ROADMAP C.22: the JAX
+package row-shards it over every process's devices). The host-side contract of a row op is the JAX
 package's, exactly:
 
 * row ids must be integers (``TypeError`` on floats, which would truncate
@@ -33,7 +33,18 @@ stays equal to the table's rows bit for bit); any other updater
 invalidates the pushed rows.
 A subclass sees each row add's deduplicated ids through
 :meth:`_rows_applied`, under the dispatch lock (the sparse table's dirty
-bits). Not ported yet (ROADMAP): the cross-process union of row adds.
+bits).
+
+More than one process: a row add is a collective, and each process may
+bring other ids (the WordEmbedding traffic pattern). Every process
+deduplicates its own batch as above, then the processes agree on the
+largest batch, pad theirs to it with the scratch row, gather every
+process's ids and values, and sum the union's values in float64
+(``np.unique`` over the ids, ``np.add.at``; the scratch row dropped), as
+the JAX package does. Every replica then applies the same union delta,
+and the train cache and :meth:`_rows_applied` see the union's ids. The
+JAX package pads each batch to a power-of-two bucket for XLA; the port's
+row ops apply just the unique rows.
 """
 
 from __future__ import annotations
@@ -122,13 +133,39 @@ class MatrixTable(Table):
             vals = acc.astype(self.np_dtype)
         return uids, vals, inv
 
+    def _union_across_processes(self, ids: np.ndarray, vals: np.ndarray
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+        """Every process's deduplicated (ids, vals) merged into the sorted
+        union with float64-summed values, the same on every process (a
+        collective: every process calls it, in the same order)."""
+        from multiverso_tpu_torch.parallel.collectives import \
+            process_allgather
+        n = int(process_allgather(np.array([ids.size], np.int64)).max())
+        if ids.size < n:
+            pad = n - ids.size
+            ids = np.concatenate(
+                [ids, np.full(pad, self.scratch_row, ids.dtype)])
+            vals = np.concatenate(
+                [vals, np.zeros((pad, self.num_col), self.np_dtype)])
+        flat_ids = process_allgather(ids).reshape(-1)
+        flat_vals = process_allgather(vals).reshape(-1, self.num_col)
+        keep = flat_ids != self.scratch_row
+        uids, inv = np.unique(flat_ids[keep], return_inverse=True)
+        acc = np.zeros((uids.size, self.num_col), np.float64)
+        np.add.at(acc, inv.reshape(-1), flat_vals[keep].astype(np.float64))
+        return uids, acc.astype(self.np_dtype)
+
     def add_rows_async(self, row_ids, values,
                        opt: Optional[AddOption] = None) -> int:
         """ref MatrixWorkerTable::AddAsync(row_ids, values): apply the
-        updater to the touched rows on the device's stream."""
+        updater to the touched rows on the device's stream; with more
+        than one process, to the union of every process's rows (a
+        collective)."""
         self._mark_mutated()
         with monitor(f"table[{self.name}].add_rows"), self._dispatch_lock:
             uids, vals, _ = self._prep_ids(row_ids, values)
+            if self._zoo.size() > 1:
+                uids, vals = self._union_across_processes(uids, vals)
             if self._train_cache is not None:
                 # the deduplicated, float64-summed and cast delta: exactly
                 # what the updater adds on the device
@@ -137,7 +174,8 @@ class MatrixTable(Table):
             self._apply_rows(self.state, dev_ids,
                              torch.from_numpy(vals).to(self.device), opt)
             # subclass hook (the sparse table's dirty bits), fed the ids
-            # the add applied
+            # the add applied: the union's, so rows only other workers
+            # brought are marked too
             self._rows_applied(uids, dev_ids)
             self._version_applied()
             return self._track(_Pending(self._event()))

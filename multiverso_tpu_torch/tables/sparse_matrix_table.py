@@ -17,8 +17,10 @@ Here the wire is the device -> host copy, and a sparse Get is two-phase:
 
 The dirty bits are a ``(num_workers, padded_rows)`` bool tensor on the
 table's device. Row adds mark their rows for every worker
-(``MatrixTable._rows_applied``); a whole-table ``add_async`` marks every
-row. ``load`` and ``adopt`` mark nothing, as in the JAX package (ROADMAP
+(``MatrixTable._rows_applied``): with more than one process, the union of
+every process's rows, so a row that only another worker added is stale
+here too (the reference's server sees the union by construction); a
+whole-table ``add_async`` marks every row. ``load`` and ``adopt`` mark nothing, as in the JAX package (ROADMAP
 C.8): a worker that pulled rows before them is served its cached rows.
 """
 
@@ -71,8 +73,8 @@ class SparseMatrixTable(MatrixTable):
         return self._worker_cache(worker_id).nbytes
 
     def _rows_applied(self, ids: np.ndarray, dev_ids: torch.Tensor) -> None:
-        """Mark the added rows stale for every worker (ref
-        matrix.cpp:516-540)."""
+        """Mark the added rows, the cross-process union, stale for every
+        worker (ref matrix.cpp:516-540)."""
         self._dirty.index_fill_(1, dev_ids, True)
 
     def add_async(self, delta, opt: Optional[AddOption] = None) -> int:

@@ -196,6 +196,12 @@ def parse_config_file(path: str) -> Dict[str, str]:
 define_string("updater_type", "default", "server-side updater: "
               "default|sgd|momentum_sgd|adagrad|adam|ftrl")
 define_int("num_workers", 0, "logical workers; 0 = one per process")
+define_int("num_servers", 0, "logical server shards; 0 = one per process "
+           "(the device its tables live on)")
+define_float("net_timeout_s", 600.0,
+             "seconds a multi-process world's store connect and each of "
+             "its collectives wait before they fail (net_init, and a "
+             "launcher's world joined by init())")
 define_string("log_level", "info", "debug|info|error|fatal")
 define_string("log_file", "", "optional log file path ('' = stdout only)")
 define_bool("log_jsonl", False,

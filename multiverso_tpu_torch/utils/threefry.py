@@ -7,7 +7,8 @@ A key is a pair of Python ints ``(k1, k2)``, each a uint32: the words of
 words per key: a chain of splits is cheap there and would be dozens of tiny
 launches on a device); ``random_bits`` and ``randint`` return int64 tensors
 on the device asked for, one row per key of a sequence of keys;
-``uniform`` and ``categorical`` draw with one key, as ``generate`` does.
+``uniform``, ``normal`` and ``categorical`` draw with one key, as
+``generate`` does.
 
 uint32 arithmetic runs on int64 tensors (or Python ints) masked with
 ``0xFFFFFFFF``: a sum of two masked words stays below 2^33, a left shift by
@@ -141,6 +142,18 @@ def uniform(k: Key, shape: Sequence[int], minval: float = 0.0,
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def normal(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.normal(k, shape, jnp.float32)``
+    (``jax._src.random._normal_real``): ``sqrt(2) * erfinv(u)`` with ``u``
+    uniform on [nextafter(-1, 0), 1). Within an ulp or two of jax's: the
+    uniform's range is 2 (see :func:`uniform`) and ``erfinv`` is each
+    library's own approximation."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(k, shape, minval=lo, maxval=1.0, device=device)
+    return torch.erfinv(u) * torch.tensor(2.0 ** 0.5, dtype=torch.float32,
+                                          device=device)
 
 
 def categorical(k: Key, logits: torch.Tensor) -> torch.Tensor:

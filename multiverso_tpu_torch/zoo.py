@@ -1,29 +1,41 @@
-"""Zoo: lifecycle, device and table registry (port of
+"""Zoo: lifecycle, topology, device and table registry (port of
 ``multiverso_tpu/zoo.py``).
 
-The JAX package builds a device mesh and shards every table over it. Here
-the Zoo resolves this process's ``torch.device`` and holds a mesh
-(``parallel/mesh.Mesh``) for the parallel layers: the one given to
-``start``/``init()`` (every rank of a ``torch.distributed`` world builds
-its own, one rank a process), else a one-rank mesh over the ``mesh_axis``
-flag on the Zoo's device, which needs no process group. The device is the
-card (``cuda``) unless the caller names another one; a missing card is an
-error, never a quiet switch to the CPU.
+The JAX package's topology is its multi-controller runtime: ranks are
+``jax.process_index()``/``process_count()``, every process is a worker,
+every device holds a server shard, and tables are global arrays sharded
+over one mesh of every process's devices. Here a world is a
+``torch.distributed`` default process group, one rank a process:
+``net_init()`` (``api.py``) joins one over a ``TCPStore``, and so does
+``start`` itself when a launcher's environment names a world of more than
+one rank (``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``) and
+no group exists yet. ``rank()``/``size()`` are the group's, or 0 and 1
+without one. Every process is a worker (``num_workers()`` = processes),
+and the server of a process is the one device its tables live on
+(``num_servers()`` = processes).
 
-Tables stay on the rank's own device: the JAX package row-shards them over
-its mesh's last axis, and their placement across processes comes with the
-multi-process table layer (ROADMAP §A). So ``rank()``/``size()`` keep their
-meaning (this process is rank 0 of one for the tables), ``num_servers()``
-is 1, and the mesh serves the model plane (``parallel/``,
-``models/transformer.py``).
+The Zoo resolves this process's ``torch.device``: the card (``cuda``)
+unless the caller names another one; a missing card is an error, never a
+quiet switch to the CPU. It holds a mesh (``parallel/mesh.Mesh``) for the
+parallel layers: the one given to ``start``/``init()``, else a one-rank
+mesh over the ``mesh_axis`` flag on the Zoo's device.
+
+Each process keeps a whole replica of every table on its device (ROADMAP
+C.22): a collective Add is reduced across the world before the updater
+runs, so every replica applies the same delta in the same order and a Get
+is local. The barrier drains this rank's card and then meets the world
+(``dist.barrier``); with one process it fences the tables written since
+the last barrier (``mark_dirty``).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from multiverso_tpu_torch.utils import config, log
 from multiverso_tpu_torch.utils.dashboard import Dashboard
@@ -61,6 +73,7 @@ class Zoo:
         self._tables: Dict[int, Any] = {}
         self._next_table_id = 0
         self._barrier_count = 0
+        self._dirty: set = set()   # table ids written since the barrier
 
     @classmethod
     def get(cls) -> "Zoo":
@@ -80,6 +93,15 @@ class Zoo:
         if mesh is not None and device is None:
             device = mesh.device
         self._device = resolve_device(device)
+        if not _world_up() and launcher_world() > 1:
+            # a launcher started this process as one rank of a world: join
+            # it, on the card LOCAL_RANK names unless a device was named
+            from multiverso_tpu_torch.parallel.mesh import net_join
+            self._device = net_join(
+                *launcher_args(),
+                device=device or config.get_flag("device") or "cuda",
+                **launcher_local(),
+                timeout_s=config.get_flag("net_timeout_s"))
         self._mesh = mesh if mesh is not None else self._default_mesh()
         # telemetry plane: adopt the trace_ids / step_profile / devstats
         # flags and start the flag-gated metrics exporter (no-ops unless
@@ -167,6 +189,10 @@ class Zoo:
         # the async PS plane's default context quiesces (each rank keeps
         # serving until its live peers are done) and closes
         _ps_service.reset_default_context()
+        if self.size() > 1:
+            # no rank leaves while a peer may still read its quiesce
+            # markers from the world's store
+            self.barrier()
         self._tables.clear()
         self._next_table_id = 0
         self._device = None
@@ -177,12 +203,12 @@ class Zoo:
     def started(self) -> bool:
         return self._started
 
-    # topology: one process, one device
+    # topology (the JAX package's jax.process_index()/process_count())
     def rank(self) -> int:
-        return 0
+        return dist.get_rank() if _world_up() else 0
 
     def size(self) -> int:
-        return 1
+        return dist.get_world_size() if _world_up() else 1
 
     def device(self) -> torch.device:
         if self._device is None:
@@ -207,8 +233,10 @@ class Zoo:
         return n if n > 0 else self.size()
 
     def num_servers(self) -> int:
-        # every table is one shard on the one device
-        return 1
+        """The flag, else the devices the tables live on: one a process
+        (the JAX package counts every device of its mesh)."""
+        n = config.get_flag("num_servers")
+        return n if n > 0 else self.size()
 
     def worker_id(self) -> int:
         return self.rank()
@@ -216,17 +244,41 @@ class Zoo:
     def server_id(self) -> int:
         return self.rank()
 
+    def worker_id_to_rank(self, worker_id: int) -> int:
+        return worker_id
+
+    def server_id_to_rank(self, server_id: int) -> int:
+        return server_id
+
+    def mark_dirty(self, table_id: int) -> None:
+        """Table writes call this; the next one-process barrier fences
+        only the tables written since the last one."""
+        self._dirty.add(table_id)
+
     def barrier(self) -> None:
-        """One process: every prior Add is visible once the device's queue
-        has drained. The flight recorder marks both edges: a rank that
-        dies inside the barrier leaves "enter without exit" last on its
-        tape."""
+        """Every prior Add is visible after it. More than one process:
+        drain this rank's card, then meet every rank (``dist.barrier``).
+        One process: apply the queued adds of the tables written since
+        the last barrier, then drain the card. The flight recorder marks
+        both edges: a rank that dies inside the barrier leaves "enter
+        without exit" last on its tape."""
         from multiverso_tpu_torch.telemetry import flightrec as _flightrec
         self._barrier_count += 1
         _flightrec.record(_flightrec.EV_BARRIER_ENTER,
                           msg_id=self._barrier_count, note="zoo.barrier")
+        dirty, self._dirty = self._dirty, set()
+        if self.size() == 1:
+            for table_id in dirty:
+                raw = getattr(self._tables.get(table_id), "raw", None)
+                if callable(raw):
+                    raw()   # flushes the table's queued host adds
         if self._device is not None and self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+        if self.size() > 1:
+            if dist.get_backend() == "nccl":
+                dist.barrier(device_ids=[torch.cuda.current_device()])
+            else:
+                dist.barrier()
         _flightrec.record(_flightrec.EV_BARRIER_EXIT,
                           msg_id=self._barrier_count, note="zoo.barrier")
 
@@ -243,6 +295,35 @@ class Zoo:
 
     def tables(self) -> Dict[int, Any]:
         return dict(self._tables)
+
+
+def _world_up() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def launcher_world() -> int:
+    """The world size a launcher's environment names (``WORLD_SIZE``;
+    1 when it names none)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def launcher_args() -> tuple:
+    """``(coordinator address, world, rank)`` from a launcher's
+    environment: ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``
+    (``KeyError`` naming the missing variable)."""
+    env = os.environ
+    return (f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+            int(env["WORLD_SIZE"]), int(env["RANK"]))
+
+
+def launcher_local() -> Dict[str, Optional[int]]:
+    """``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` (None where unset): which of
+    its host's cards a rank takes."""
+    env = os.environ
+    return {"local_rank": int(env["LOCAL_RANK"]) if "LOCAL_RANK" in env
+            else None,
+            "local_world": int(env["LOCAL_WORLD_SIZE"])
+            if "LOCAL_WORLD_SIZE" in env else None}
 
 
 def default_device(device: DeviceLike = None) -> torch.device:

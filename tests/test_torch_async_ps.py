@@ -13,9 +13,8 @@ multiverso_tpu_torch against multiverso_tpu's pure-Python plane
 * a mixed world: rank 0 a JAX ``PSContext``, rank 1 a port one, in one
   directory, summing exactly;
 * the pinned read: a Get racing Adds sees whole rows;
-* the refusals of the planes not ported (native, a world > 1 without a
-  rendezvous), each naming its ROADMAP item, and the replay plane that
-  was once refused.
+* a world > 1 with no rendezvous to take refused, naming both ways to
+  give it one, and the replay plane that was once refused.
 
 ``ps_timeout`` and ``ps_connect_timeout`` are a few seconds in both
 packages, so no test can wait out the 300 s default.
@@ -28,7 +27,6 @@ import sys
 import threading
 import time
 import types
-from pathlib import Path
 
 import ml_dtypes
 import numpy as np
@@ -47,8 +45,6 @@ from multiverso_tpu_torch.updaters import AddOption, get_updater
 from multiverso_tpu_torch.utils import config as tconfig
 from multiverso_tpu_torch.utils.dashboard import Dashboard as TDashboard
 from multiverso_tpu_torch.zoo import Zoo as TZoo
-
-ROADMAP = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
 
 
 @pytest.fixture(autouse=True)
@@ -771,13 +767,18 @@ def test_ps_replay_raises_naming_its_item(port_ranks):
     assert t2._shard.stats()["dup_frames"] == 1
 
 
-def test_world_without_rendezvous_raises_naming_its_item():
+def test_world_without_rendezvous_raises_naming_both_ways():
+    """A PS world > 1 with neither a ps_rendezvous directory nor a
+    torch.distributed world to take a store from raises PSError naming
+    both ways (the JAX package would take its coordinator's store)."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
     tconfig.set_flag("ps_world", 2)
     tconfig.set_flag("ps_rank", 0)
-    with pytest.raises(NotImplementedError, match="rendezvous without a "
-                                                  "file"):
+    with pytest.raises(tsvc.PSError, match="ps_rendezvous") as err:
         tsvc.default_context()
-    assert tsvc.NO_FILE_RDV_ITEM in ROADMAP
+    assert "net_init" in str(err.value)
+    assert "NotImplementedError" not in str(err.type)
     tconfig.set_flag("ps_rank", -1)
     with pytest.raises(tsvc.PSError, match="ps_rank"):
         tsvc.default_context()

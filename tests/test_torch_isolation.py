@@ -92,6 +92,12 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.tools.mvtop\n"
         "import multiverso_tpu_torch.tools.mvautoscale\n"
         "import multiverso_tpu_torch.tools.check_obs_surface\n"
+        "import multiverso_tpu_torch.utils.filesync\n"
+        "import multiverso_tpu_torch.sharedvar\n"
+        "import multiverso_tpu_torch.parallel.mesh\n"
+        "import multiverso_tpu_torch.examples.mlp_data_parallel\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_world_worker\n"
         "import chip_smoke\n"
         "multiverso_tpu_torch.native.available()   # builds and loads\n"
         "multiverso_tpu_torch.ps.native.available()\n"
@@ -106,7 +112,9 @@ def test_import_loads_no_jax_and_no_reference_module():
 
 def test_sources_import_no_jax_and_no_reference_module():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "chip_ab.py"]
+                                          REPO / "chip_ab.py",
+                                          REPO / "tests" /
+                                          "torch_world_worker.py"]
     assert len(files) > 10
     for f in files:
         text = f.read_text()
@@ -118,6 +126,22 @@ def test_sources_import_no_jax_and_no_reference_module():
     assert _IMPORT_REF.search("import multiverso_tpu as mv\n")
     assert not _IMPORT_REF.search("import multiverso_tpu_torch as mv\n")
     assert not _IMPORT_REF.search("from multiverso_tpu_torch.ops import x\n")
+
+
+def test_world_workers_import_no_jax_but_the_named_one():
+    """The port's rank workers import no jax and nothing of the JAX
+    package; ``tests/jax_world_worker.py`` runs the JAX side of the world
+    tests and is the one worker excluded, by name."""
+    workers = sorted((REPO / "tests").glob("*world_worker.py"))
+    assert [w.name for w in workers] == ["jax_world_worker.py",
+                                         "torch_world_worker.py"]
+    for w in workers:
+        text = w.read_text()
+        if w.name == "jax_world_worker.py":
+            assert _IMPORT_JAX.search(text) and _IMPORT_REF.search(text)
+            continue
+        assert not _IMPORT_JAX.search(text), f"{w} imports jax"
+        assert not _IMPORT_REF.search(text), f"{w} imports multiverso_tpu"
 
 
 def test_init_without_device_needs_the_card(monkeypatch):

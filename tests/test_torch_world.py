@@ -1,0 +1,509 @@
+"""Port parity, the multi-process world (``multiverso_tpu_torch``'s
+``net_init``, the Zoo's world, the collective table adds and unions,
+``aggregate``, ``StoreRendezvous``): N real processes of each package on
+this CPU, on the same inputs.
+
+* The JAX package's own ``tests/multiprocess_worker.py`` at worlds 2 and
+  4 beside the port's ``tests/torch_world_worker.py`` doing the same
+  steps, its ranks started as a launcher starts them (``MASTER_ADDR``,
+  ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``) and met through
+  ``net_init()`` over gloo: every ``RESULT`` key equal between the two
+  and to ``tests/test_multiprocess.py``'s closed forms, the keys that
+  differ by design held to their own rule.
+* Seeded inputs at world 2 (``tests/jax_world_worker.py`` for the JAX
+  package): overlapping and repeated row adds (default updater and
+  AdaGrad), whole-table adds (numpy and tensor deltas, SGD, the bf16
+  wire), KV adds with the global Get, the sparse table across a union
+  add, ``aggregate`` of a non-contiguous array, ``mv_shared``. Bit for
+  bit, AdaGrad within rtol 1e-5 / atol 1e-6 (ROADMAP C.4).
+* ``StoreRendezvous`` in one process, and a two-service async world over
+  it against the ``FileRendezvous`` world bit for bit.
+* ``examples/mlp_data_parallel.py`` at two ranks against the JAX
+  example's printed losses, and ``examples/transformer_ps.py`` unchanged
+  under a launcher.
+
+Every process has a timeout, and so has every gloo group
+(``net_timeout_s``), so a hang fails a test instead of the run.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import threading
+from datetime import timedelta
+
+import numpy as np
+import pytest
+import torch
+
+import torch_world_worker as tw
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(_DIR)
+_TIMEOUT = 150
+ADAGRAD_RTOL, ADAGRAD_ATOL = 1e-5, 1e-6
+SEED = 11
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _env(**kw):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update({k: str(v) for k, v in kw.items()})
+    return env
+
+
+def _start(cmds):
+    """Popen each (argv, env); stdout/stderr captured."""
+    return [subprocess.Popen(argv, env=env, cwd=_REPO, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for argv, env in cmds]
+
+
+def _collect(procs):
+    """[(rc, stdout, stderr)] in order; every process ends (killed at the
+    timeout)."""
+    out = [None] * len(procs)
+
+    def wait(i, p):
+        try:
+            o, e = p.communicate(timeout=_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            o, e = p.communicate()
+            e += f"\n(killed after {_TIMEOUT} s)"
+        out[i] = (p.returncode, o, e)
+
+    threads = [threading.Thread(target=wait, args=(i, p))
+               for i, p in enumerate(procs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _results(outs, what):
+    res = []
+    for r, (rc, o, e) in enumerate(outs):
+        assert rc == 0, f"{what} rank {r} rc={rc}\n{e[-3000:]}"
+        lines = [l for l in o.splitlines() if l.startswith("RESULT ")]
+        assert lines, f"{what} rank {r} printed no RESULT\n{e[-2000:]}"
+        res.append(json.loads(lines[-1][len("RESULT "):]))
+    return res
+
+
+def _port_world(world, argv):
+    """A port world started as a launcher starts one; its raw outputs. A
+    world whose store lost its free port to another process is started
+    once more (the bind-then-close pick is racy)."""
+    for attempt in range(2):
+        port = _free_port()
+        outs = _collect(_start([
+            (argv, _env(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=r,
+                        WORLD_SIZE=world, LOCAL_RANK=r))
+            for r in range(world)]))
+        if all(rc == 0 for rc, _, _ in outs) or not any(
+                "address already in use" in e.lower() for _, _, e in outs):
+            return outs
+    return outs
+
+
+def _both(world, port_argv, jax_script, jax_extra=()):
+    """Both packages' worlds at once (the JAX one unchanged, through
+    jax.distributed); their raw outputs (port, JAX)."""
+    port = _free_port()
+    jprocs = _start([([sys.executable, os.path.join(_DIR, jax_script),
+                       f"127.0.0.1:{port}", str(world), str(r), *jax_extra],
+                      _env()) for r in range(world)])
+    outs = _port_world(world, port_argv)
+    return outs, _collect(jprocs)
+
+
+_WORKER = [sys.executable, os.path.join(_DIR, "torch_world_worker.py")]
+_RUNS = {
+    "scenario2": lambda: _both(2, _WORKER + ["scenario"],
+                               "multiprocess_worker.py"),
+    "scenario4": lambda: _both(4, _WORKER + ["scenario"],
+                               "multiprocess_worker.py"),
+    "seeded": lambda: _both(2, _WORKER + ["seeded", "--seed", str(SEED)],
+                            "jax_world_worker.py",
+                            ("seeded", "--seed", str(SEED))),
+    "mlp": lambda: _both(
+        2, [sys.executable, "-m",
+            "multiverso_tpu_torch.examples.mlp_data_parallel", "--device",
+            "cpu"], "jax_world_worker.py", ("mlp",)),
+    "lm": lambda: _port_world(2, [
+        sys.executable, "-m", "multiverso_tpu_torch.examples.transformer_ps",
+        "--device", "cpu", "--steps", "4", "--sync-every", "2"]),
+}
+_CONCURRENT_RUNS = 3
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Every world of this file, started once, a few at a time; each
+    entry its raw outputs or the error that stopped it."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(_CONCURRENT_RUNS) as pool:
+        futs = {name: pool.submit(fn) for name, fn in _RUNS.items()}
+    out = {}
+    for name, fut in futs.items():
+        try:
+            out[name] = fut.result()
+        except Exception as e:   # noqa: BLE001 — raised in its tests
+            out[name] = e
+    return out
+
+
+def _run(runs, name):
+    got = runs[name]
+    if isinstance(got, Exception):
+        raise got
+    return got
+
+
+def _parsed(runs, name):
+    port, jax_ = _run(runs, name)
+    return _results(port, "port"), _results(jax_, f"JAX {name}")
+
+
+# ---------------------------------------------------------------------- #
+# (1) the JAX package's scenario, side by side
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("world", [2, 4])
+def test_scenario_matches_the_jax_world(runs, world):
+    port, jax_ = _parsed(runs, f"scenario{world}")
+    want = tw.closed_forms(world)
+    for r in range(world):
+        assert port[r]["rank"] == jax_[r]["rank"] == r
+        keys = set(jax_[r]) - set(tw.BY_DESIGN)
+        assert keys == set(port[r]) - set(tw.BY_DESIGN)
+        for k in sorted(keys):
+            assert port[r][k] == jax_[r][k], (r, k)
+        for k, v in want.items():
+            assert port[r][k] == v, (r, k)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_scenario_keys_that_differ_by_design(runs, world):
+    """The JAX worker runs 2 CPU devices a process and its tables shard
+    over all of them; each port process holds its tables on its one
+    device (C.22). The JAX async plane meets at the jax.distributed
+    coordinator's store, the port's at the torch.distributed world's."""
+    port, jax_ = _parsed(runs, f"scenario{world}")
+    for r in range(world):
+        assert jax_[r]["devices"] == jax_[r]["num_servers"] == 2 * world
+        assert port[r]["devices"] == port[r]["num_servers"] == world
+        assert jax_[r]["rendezvous"] == "JaxRendezvous"
+        assert port[r]["rendezvous"] == "StoreRendezvous"
+
+
+# ---------------------------------------------------------------------- #
+# (2) seeded inputs, world 2
+# ---------------------------------------------------------------------- #
+EXACT = ("rows_default", "array", "array_sgd", "array_bf16",
+         "sparse_before", "sparse_after", "aggregate")
+
+
+@pytest.mark.parametrize("key", EXACT)
+def test_seeded_tables_bit_for_bit(runs, key):
+    port, jax_ = _parsed(runs, "seeded")
+    for r in range(2):
+        np.testing.assert_array_equal(np.asarray(port[r][key], np.float32),
+                                      np.asarray(jax_[r][key], np.float32),
+                                      err_msg=f"rank {r} {key}")
+
+
+def test_seeded_adagrad_rows_within_tolerance(runs):
+    port, jax_ = _parsed(runs, "seeded")
+    for r in range(2):
+        np.testing.assert_allclose(port[r]["rows_adagrad"],
+                                   jax_[r]["rows_adagrad"],
+                                   rtol=ADAGRAD_RTOL, atol=ADAGRAD_ATOL)
+
+
+def test_a_tensor_delta_is_its_ranks_contribution(runs):
+    """A tensor delta is summed over the world like a numpy one: the
+    table equals the JAX package's after its numpy (host) deltas."""
+    port, jax_ = _parsed(runs, "seeded")
+    for r in range(2):
+        np.testing.assert_array_equal(np.asarray(port[r]["array_tensor"],
+                                                 np.float32),
+                                      np.asarray(jax_[r]["array"],
+                                                 np.float32))
+
+
+def test_seeded_replicas_stay_equal(runs):
+    """Every process applied the same deltas in the same order: the
+    replicas equal each other bit for bit (AdaGrad too)."""
+    port, _ = _parsed(runs, "seeded")
+    for key in EXACT[:-1] + ("rows_adagrad", "array_tensor"):
+        if key.startswith("sparse"):
+            continue
+        assert port[0][key] == port[1][key], key
+    assert port[0]["shared"] == port[1]["shared"]
+    assert port[0]["kv_global"] == port[1]["kv_global"]
+
+
+def test_seeded_kv_and_shared(runs):
+    port, jax_ = _parsed(runs, "seeded")
+    x = [tw.seeded_inputs(SEED, r) for r in range(2)]
+    want = {}
+    for xi in x:
+        for k, v in zip(xi["kv_keys"], xi["kv_vals"]):
+            want[str(k)] = want.get(str(k), 0.0) + float(v)
+    for r in range(2):
+        assert port[r]["kv_global"] == jax_[r]["kv_global"] == dict(
+            sorted(want.items()))
+        assert port[r]["kv_local"] == jax_[r]["kv_local"]
+        for k in port[r]["shared"]:
+            np.testing.assert_array_equal(
+                np.asarray(port[r]["shared"][k], np.float32),
+                np.asarray(jax_[r]["shared"][k], np.float32))
+
+
+def test_seeded_sparse_dirty_bits_cover_the_union(runs):
+    """After the union add every rank pulls the rows any rank added: the
+    stale share of its next full pull is the union's, not its own."""
+    port, jax_ = _parsed(runs, "seeded")
+    x = [tw.seeded_inputs(SEED, r) for r in range(2)]
+    union = set(x[0]["sparse_rows"]) | set(x[1]["sparse_rows"])
+    for r in range(2):
+        assert port[r]["sparse_stale"] == jax_[r]["sparse_stale"] == 0.0
+        moved = np.any(np.asarray(port[r]["sparse_after"])
+                       != np.asarray(port[r]["sparse_before"]), axis=1)
+        assert set(np.flatnonzero(moved).tolist()) == union
+
+
+def test_seeded_aggregate_in_place_on_a_view(runs):
+    port, jax_ = _parsed(runs, "seeded")
+    x = [tw.seeded_inputs(SEED, r)["agg"] for r in range(2)]
+    for r in range(2):
+        assert port[r]["aggregate_in_place"] and jax_[r]["aggregate_in_place"]
+        got = np.asarray(port[r]["aggregate"], np.float32)
+        np.testing.assert_array_equal(got[:, ::2], x[0][:, ::2] + x[1][:, ::2])
+        np.testing.assert_array_equal(got[:, 1::2], x[r][:, 1::2])
+
+
+# ---------------------------------------------------------------------- #
+# (3) StoreRendezvous in one process
+# ---------------------------------------------------------------------- #
+def _store_pair():
+    import torch.distributed as dist
+    port = _free_port()
+    master = dist.TCPStore("127.0.0.1", port, 2, True,
+                           timeout=timedelta(seconds=20),
+                           wait_for_workers=False)
+    client = dist.TCPStore("127.0.0.1", port, 2, False,
+                           timeout=timedelta(seconds=20))
+    return master, client
+
+
+def test_store_rendezvous_publish_lookup_and_marks():
+    from multiverso_tpu_torch.ps.service import PSPeerError, StoreRendezvous
+    master, client = _store_pair()
+    a, b = StoreRendezvous(master), StoreRendezvous(client)
+    assert a.identity == b.identity
+    assert StoreRendezvous(client, "other").identity != a.identity
+    a.publish(0, "127.0.0.1:1000")
+    b.publish(1, "127.0.0.1:1001")
+    assert b.lookup(0, 2.0) == "127.0.0.1:1000"
+    assert a.lookup(1, 2.0) == "127.0.0.1:1001"
+    with pytest.raises(PSPeerError, match="never published"):
+        a.lookup(7, 0.1)
+    b.mark(1, "done", "x1")
+    assert a.wait_mark(1, "done", 1.0)
+    assert a.wait_mark(1, "done", 1.0, expect="x1")
+    # a marker of another incarnation does not satisfy the wait
+    assert not a.wait_mark(1, "done", 0.2, expect="x2")
+    # nobody marked: False by the deadline
+    assert not a.wait_mark(0, "done", 0.1)
+    # a later mark is seen by a wait already waiting
+    t = threading.Timer(0.1, lambda: a.mark(0, "late", "v"))
+    t.start()
+    assert b.wait_mark(0, "late", 5.0, expect="v")
+    t.join()
+
+
+def _two_rank_world(rdv_of, dev="cpu"):
+    from multiverso_tpu_torch.ps.service import PSContext, PSService
+    return [PSContext(r, 2, PSService(r, 2, rdv_of(r)), device=dev)
+            for r in range(2)]
+
+
+@pytest.mark.parametrize("plane", ["native", "python"])
+def test_async_world_over_the_store_equals_the_file_world(plane, tmp_path):
+    from multiverso_tpu_torch.ps import tables as ttables
+    from multiverso_tpu_torch.ps.service import (FileRendezvous,
+                                                 StoreRendezvous)
+    from multiverso_tpu_torch.utils import config
+    config.set_flag("ps_timeout", 20.0)
+    config.set_flag("ps_connect_timeout", 10.0)
+    if plane == "python":
+        config.set_flag("ps_native", False)
+    rng = np.random.default_rng(3)
+    ops = [(rng.integers(0, 64, 16), rng.normal(size=(16, 8)).astype(
+        np.float32), int(rng.integers(0, 2))) for _ in range(12)]
+    stores = _store_pair()
+    fdir = str(tmp_path / "rdv")
+    got = {}
+    try:
+        for name, rdv_of in (
+                ("store", lambda r: StoreRendezvous(stores[r])),
+                ("file", lambda r: FileRendezvous(fdir))):
+            ctxs = _two_rank_world(rdv_of)
+            try:
+                tabs = [ttables.AsyncMatrixTable(64, 8, name=f"w_{name}",
+                                                 ctx=c) for c in ctxs]
+                for ids, vals, r in ops:
+                    tabs[r].add_rows(ids, vals)
+                for t in tabs:
+                    t.flush()
+                got[name] = [t.get_rows(np.arange(64)) for t in tabs]
+            finally:
+                for c in ctxs:
+                    c.close()
+    finally:
+        config.reset_flags()
+    for r in range(2):
+        np.testing.assert_array_equal(got["store"][r], got["file"][r])
+    np.testing.assert_array_equal(got["store"][0], got["store"][1])
+    assert np.abs(got["store"][0]).sum() > 0
+
+
+def test_default_context_takes_the_world_store():
+    """ps_world=2, no ps_rendezvous and an initialized world: the default
+    context meets at the world's store; ps_world <= 0 takes the world's
+    rank and size."""
+    import torch.distributed as dist
+    from multiverso_tpu_torch.parallel.mesh import (leave_world, net_join,
+                                                    world_store)
+    from multiverso_tpu_torch.ps import service as tsvc
+    from multiverso_tpu_torch.utils import config
+    assert world_store() is None
+    net_join(f"127.0.0.1:{_free_port()}", 1, 0, "cpu", timeout_s=20.0)
+    try:
+        assert dist.get_world_size() == 1 and world_store() is not None
+        config.set_flag("device", "cpu")
+        config.set_flag("ps_shutdown_grace", 0.2)
+        config.set_flag("ps_world", 2)
+        config.set_flag("ps_rank", 0)
+        ctx = tsvc.default_context()
+        rdv = ctx.service._rendezvous
+        assert isinstance(rdv, tsvc.StoreRendezvous)
+        assert rdv.lookup(0, 2.0) == ctx.service.addr
+        tsvc.reset_default_context()
+        config.set_flag("ps_world", 0)
+        ctx = tsvc.default_context()
+        assert (ctx.rank, ctx.world) == (0, 1)
+        assert ctx.service._rendezvous is None
+        tsvc.reset_default_context()
+    finally:
+        tsvc.reset_default_context()
+        config.reset_flags()
+        leave_world()
+    assert world_store() is None
+
+
+# ---------------------------------------------------------------------- #
+# one process: the API's identities and errors
+# ---------------------------------------------------------------------- #
+def test_aggregate_of_one_process_and_its_aliases():
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.utils import config
+    mv.init(device="cpu")
+    try:
+        base = np.arange(12, dtype=np.float32).reshape(3, 4)
+        view = base[:, ::2]
+        assert mv.aggregate(view) is view
+        assert mv.aggregate(base, size=5) is base
+        np.testing.assert_array_equal(base.reshape(-1),
+                                      np.arange(12, dtype=np.float32))
+        np.testing.assert_array_equal(mv.aggregate([1.0, 2.0]), [1.0, 2.0])
+        assert mv.MV_Aggregate is mv.aggregate
+        assert mv.workers_num() == mv.num_workers() == 1
+        assert mv.servers_num() == mv.num_servers() == 1
+        assert mv.worker_id_to_rank(0) == mv.MV_WorkerIdToRank(0) == 0
+        assert mv.server_id_to_rank(0) == mv.MV_ServerIdToRank(0) == 0
+        assert (mv.MV_Rank(), mv.MV_Size()) == (0, 1)
+        config.set_flag("num_servers", 3)
+        assert mv.num_servers() == 3
+    finally:
+        mv.shutdown()
+        config.reset_flags()
+
+
+def test_net_init_returns_minus_one_on_error():
+    import multiverso_tpu_torch as mv
+    assert mv.net_init("no-port-here", 1, 0, device="cpu") == -1
+    assert mv.net_init("127.0.0.1:1", 2, 5, device="cpu") == -1
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_process_collectives_of_a_world_of_one():
+    from multiverso_tpu_torch.parallel import collectives as coll
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    assert coll.process_sum(a) is a
+    np.testing.assert_array_equal(coll.process_allgather(a), a[None])
+    t = torch.ones(3)
+    assert coll.process_sum_tensor(t) is t
+
+
+def test_barrier_flushes_the_tables_written_since_the_last():
+    """One process: the barrier applies the queued (coalesced) adds of
+    the tables written since the last barrier."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.zoo import Zoo
+    mv.init(device="cpu")
+    try:
+        t = mv.ArrayTable(8, name="fenced")
+        with t._dispatch_lock:    # hold the applier off: the add queues
+            t.add_async(np.ones(8, np.float32))
+            assert t._addq_inflight == 1
+            assert t.table_id in Zoo.get()._dirty
+        mv.barrier()
+        assert t._addq_inflight == 0 and not Zoo.get()._dirty
+        np.testing.assert_array_equal(t.get(), np.ones(8, np.float32))
+    finally:
+        mv.shutdown()
+
+
+# ---------------------------------------------------------------------- #
+# (4) the examples
+# ---------------------------------------------------------------------- #
+def test_mlp_data_parallel_matches_the_jax_example(runs):
+    """Two ranks, each its own data (seed = worker id), deltas merged
+    every 8 batches and at each epoch's end: the port's printed losses
+    and accuracies are the JAX example's (printed to 4 decimals)."""
+    outs, jouts = _run(runs, "mlp")
+    jres = _results(jouts, "JAX mlp example")
+    for r, (rc, o, e) in enumerate(outs):
+        assert rc == 0, e[-3000:]
+        assert f"process {r}/2" in o
+        got = [l for l in o.splitlines() if l.startswith("epoch ")]
+        want = [f"epoch {i}: loss {l:.4f}  test acc {a:.4f}"
+                for i, (l, a) in enumerate(zip(jres[r]["loss"],
+                                               jres[r]["acc"]))]
+        assert len(want) == 6 and got == want
+
+
+def test_transformer_ps_runs_unchanged_under_a_launcher(runs):
+    """The LM example, started as two ranks of a launcher's world: both
+    join it in init() and train through the shared table; they start
+    from the same weights and batch, so every sync leaves them equal."""
+    finals = []
+    for r, (rc, o, e) in enumerate(_run(runs, "lm")):
+        assert rc == 0, e[-3000:]
+        assert f"process {r}/2" in o
+        finals.append([l for l in o.splitlines()
+                       if l.startswith("transformer-PS ok")])
+    assert finals[0] and finals[0] == finals[1]
