@@ -5,7 +5,9 @@ Phases, every one on every run, in this order:
 
 1. build    compile every CUDA kernel from ``multiverso_tpu_torch/csrc``
             into ``build/torch_kernels/`` (one nvcc per source, in
-            parallel), print ptxas's registers and spills, and check with
+            parallel; the 472M LM's numpy parameters are drawn on a
+            thread meanwhile), print ptxas's registers and spills, and
+            check with
             ``cuobjdump -sass`` that the bf16 B1 (forward), B2 (dQ) and B3
             (dK/dV) kernels hold wgmma (HGMMA) and TMA-load (UTMALDG)
             instructions, and in ptxas's report that they spill nothing
@@ -54,12 +56,14 @@ Phases, every one on every run, in this order:
             other branches on the real text at the same width (skip-gram
             with per-pair negatives, skip-gram HS, CBOW NS, CBOW HS), each
             with warm and timed epochs, its f32 epoch against the CPU's,
-            the run-to-run spread, for per-pair negatives the epoch's ids
-            drawn on the card against the CPU's bit for bit, and one
+            the run-to-run spread, for per-pair negatives the ids of the
+            epoch's first 32 batches drawn on the card against the CPU's
+            bit for bit, and one
             profiled epoch; and the app's command line (``python -m
             multiverso_tpu_torch.apps.word_embedding``, with the shared
-            pool and with ``-cbow 1 -hs 1``), each in its own process, its
-            vectors read back
+            pool, with ``-cbow 1 -hs 1`` and, for the we_ps phase's PS
+            block path, with ``-use_ps 1``), each in its own process, the
+            three side by side, their vectors read back
 7. we_ps    the PS block path (``train_ps_blocks``, ``-use_ps 1``; no
             kernel of its own either) at bench.py:158-159's widths (batch
             8,192, blocks of 50,000 tokens) on the real text: the four
@@ -72,9 +76,9 @@ Phases, every one on every run, in this order:
             skip-gram NS on the pipelined host plane with the hot-row train
             cache (hit rate, device blocks, words/s, its tables against the
             cache-off spread, its rows against the tables' bit for bit);
-            the 1M-token synthetic corpus (bench.py:178); and ``-use_ps
-            1`` on the command line, its vectors read back. Launches are
-            counted apart from the ``we`` phase's
+            and the 1M-token synthetic corpus (bench.py:178) (its
+            ``-use_ps 1`` command line runs beside the we phase's). Launches
+            are counted apart from the ``we`` phase's
 8. lr       LogisticRegression (``apps/logistic_regression.py``; no kernel
             of its own: matrix products and elementwise ops) at LR-MNIST's
             width (784 inputs, 10 classes, bench.py:194-199's softmax,
@@ -114,7 +118,8 @@ Phases, every one on every run, in this order:
             of itself on the real text and 30% on the synthetic corpus
             (half the least fall of either package), both ranks reading
             the same tables and counting every rank's words; host ms by
-            monitor; one more epoch profiled for the idle share),
+            monitor; on the real text one more epoch profiled for the
+            idle share),
             then at world 1 the pipelined path with the train cache
             against the unpipelined, uncached oracle on 125,000 tokens
             (bench.py:361-375) within 4x the oracle's run-to-run spread;
@@ -124,9 +129,10 @@ Phases, every one on every run, in this order:
 10. resnet  ResNet-CIFAR (``apps/resnet_cifar.py``: every parameter in one
             Adam ArrayTable; no kernel of its own: cuDNN's convolutions
             and elementwise ops) at bench_resnet's shape (depth 32, batch
-            128, 50,000 synthetic_cifar images uploaded once): the card's
-            first 2 steps against the CPU's from one start, a warm and 2
-            timed epochs (s/epoch, images/s, a full 50k epoch beside the
+            128) on 25,000 synthetic_cifar images uploaded once (half of
+            its 50,000): the card's first 2 steps against the CPU's from
+            one start, a warm and a timed epoch (s/epoch, images/s, a
+            full 50k epoch scaled from it beside the
             reference's GTX TITAN X times), the loss falling epoch over
             epoch, one profiled epoch (conv, BN and elementwise, Adam,
             other; the idle share), the eval accuracy on 512 images
@@ -314,11 +320,30 @@ Phases, every one on every run, in this order:
             counted on each rank and held to their plain versions there;
             (c) bench.py:419's aggregate cell, 16 MB, ``process_sum``
             against allgather + sum at world 2 (not 4), equal, ms
+22. harness the reference's Test/main.cpp battery
+            (``multiverso_tpu_torch/harness.py``) and the binding
+            surfaces (``handlers.py``, ``examples/xor_mlp.py``,
+            ``torch_ext.py``; host code and torch ops on the tables, no
+            kernel of the port), counted apart: (a) every entry of the
+            battery's ``_ALL`` and dense_perf and sparse_perf in one
+            process on the card, each entry's seconds and the perf
+            entries' timings; (b) beside it, kv, matrix, array and
+            allreduce as a world of two processes on this card
+            (``-nprocs=2``, gloo) in one relaunch; (c) the handlers and
+            TorchParamManager on the card equal to the same run on the
+            CPU bit for bit, XOR's
+            losses within 1e-4; (d) ``threefry.normal`` on the card
+            against the CPU within 3 ulps. Every process it starts has a
+            timeout that fails the run
 
-It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-line, and as its last line ``{"ok": true, "device": {...}}``. Any failed
-check raises and the script exits non-zero; it also exits non-zero when
-no CUDA device is present.
+It prints the card's name and power limit, each phase's wall seconds as
+the phase ends (``phase <name>: <s> s (total <s> s)``) and the walls of
+the large phases' parts (``part <phase>/<part>: <s> s``), one
+``{"kernels": [...]}`` JSON line, and as its last line ``{"ok": true,
+"device": {...}}``. Any failed check raises and the script exits
+non-zero; it also exits non-zero when no CUDA device is present, and
+through its watchdog (``WATCHDOG_S``), with every thread's stack, when a
+run passes 1100 s.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -326,6 +351,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import os
 import subprocess
@@ -333,6 +359,10 @@ import sys
 import time
 
 import numpy as np
+
+# the whole script's limit is 1200 s: past WATCHDOG_S the run dumps every
+# thread's stack and exits non-zero, so a cut run says where it was
+WATCHDOG_S = 1100
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16
 # tensor-core FLOP/s
@@ -399,6 +429,38 @@ OPTIM_UPDATE_RTOL = 0.02
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def walled(fn):
+    """Logs the wall seconds of each call of ``fn`` as it returns or
+    raises, with its label when its first argument is one."""
+    import functools
+
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            label = f" {args[0]}" if args and isinstance(args[0], str) else ""
+            log(f"part {fn.__name__}{label}: "
+                f"{time.perf_counter() - t0:.1f} s")
+    return inner
+
+
+class Laps:
+    """Logs the wall seconds of each sub-part of a phase as it ends (the
+    time since the previous lap, or since the Laps was made), so a run
+    cut by any clock still shows where its time went."""
+
+    def __init__(self, phase: str):
+        self.phase = phase
+        self.t = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        log(f"part {self.phase}/{label}: {now - self.t:.1f} s")
+        self.t = now
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -783,6 +845,7 @@ def phase_ps(dev, layers: int):
     from multiverso_tpu_torch.sharedvar import _flatten
     from multiverso_tpu_torch.utils import config
 
+    lap = Laps("ps")
     refs = WireReference()   # numpy, on a thread, beside the LM's checks
     cfg = lm_config(layers)
     t0 = time.perf_counter()
@@ -796,6 +859,7 @@ def phase_ps(dev, layers: int):
         f"({n * 4 / 2**30:.2f} GiB), {time.perf_counter() - t0:.1f} s")
     if shared.table.raw().device != dev:
         raise AssertionError(f"the table is on {shared.table.raw().device}")
+    lap("init_params and SharedPytree")
 
     t0 = time.perf_counter()
     got = shared.get()
@@ -852,6 +916,7 @@ def phase_ps(dev, layers: int):
     if not np.array_equal(fresh, again):
         raise AssertionError("the get cache disagrees with the card")
     del params, local, merged, expected, last, again, fresh
+    lap("syncs and cached get")
 
     size = 16 * 2**20
     opt = updaters.AddOption(momentum=0.9, learning_rate=0.1, rho=0.1)
@@ -882,9 +947,13 @@ def phase_ps(dev, layers: int):
             f"on the card, {times['cpu']:.2f} ms on the CPU; table.add "
             f"(device delta, blocking) {add_ms:.4f} ms")
         del table
+    lap("updaters")
     ps_coalesce()
+    lap("coalesce")
     ps_store_load()
+    lap("store/load")
     ps_wire(refs)
+    lap("wire filters")
     return shared
 
 
@@ -1472,6 +1541,10 @@ WE_REF_F32_ERR_FACTOR = 6
 # 2.5e-6 to 3.5e-6 from the fresh tables)
 WE_VARIANT_LOSS_RTOL = 2e-5
 WE_VARIANT_TABLE_RTOL = 1e-4
+# the per-pair negatives drawn on the card against the CPU's, bit for bit,
+# over the epoch's first batches (cut from the whole epoch's 222 to keep
+# the script in its time: the CPU's draw of 18M ids took ~6 s)
+WE_NEG_BATCHES = 32
 
 # the PS block path (the we_ps phase): bench_wordembedding_ps's
 # configuration, bench.py:158-159 (size 128, batch 8,192, 5 negatives,
@@ -1650,6 +1723,7 @@ def we_table_cache(dev) -> None:
         f"rows bit for bit")
 
 
+@walled
 def we_run(label: str, we, ids, trains: bool = True) -> dict:
     """One warm epoch, then WE_TIMED_EPOCHS timed ones of ``train_fused``:
     words/s by the host's clock (train_fused ends with the loss readback)
@@ -1695,7 +1769,7 @@ def phase_we(dev) -> dict:
     the MatrixTable checks, train_fused on real text with the shared pool
     (bf16 against f32, the card's f32 epoch against the CPU's, one
     profiled epoch), the four other branches on real text (we_variant),
-    the synthetic corpus, and the command line."""
+    the synthetic corpus, and the command lines (the we_ps phase's too)."""
     import torch
     import multiverso_tpu_torch as mv
     from multiverso_tpu_torch import native
@@ -1711,7 +1785,9 @@ def phase_we(dev) -> dict:
         raise AssertionError("the native data library did not build")
     log(f"we native library {native.library_path().name}: "
         f"{time.perf_counter() - t0:.1f} s (build and load)")
+    lap = Laps("we")
     phase_we_table(dev)
+    lap("table")
 
     t0 = time.perf_counter()
     tokens = realtext.load_tokens()
@@ -1727,6 +1803,7 @@ def phase_we(dev) -> dict:
     if we.compute_dtype() != torch.bfloat16:
         raise AssertionError("the card must compute in bf16")
     real = we_run("realtext", we, ids)
+    lap("realtext epochs")
     vocab_real = len(d)
     probe = next((w for w in WE_PROBES if w in d.word2id), None)
     log(f"we realtext nearest neighbours of {probe!r}: "
@@ -1776,6 +1853,7 @@ def phase_we(dev) -> dict:
         raise AssertionError(f"the bf16 epoch's loss {lb} is not finite and "
                              f"below the warm epoch's {real['losses'][0]}")
     del wb, wf, wf2
+    lap("bf16 vs f32")
 
     # the card's f32 epoch against the CPU's on the first batches
     n = WE_REF_BATCHES
@@ -1793,11 +1871,15 @@ def phase_we(dev) -> dict:
 
     we_card_vs_cpu("shared pool", shared_f32, dev, WE_REF_LOSS_RTOL,
                    f32_err_factor=WE_REF_F32_ERR_FACTOR)
+    lap("shared pool vs CPU")
     we_profile("realtext", lambda: we.train_fused(ids, epochs=1),
                real["span_ms"])
+    lap("realtext profile")
     del we
-    variants = {label: we_variant(dev, label, extra, d, ids)
-                for label, extra in WE_VARIANTS}
+    variants = {}
+    for label, extra in WE_VARIANTS:
+        variants[label] = we_variant(dev, label, extra, d, ids)
+        lap(label)
 
     t0 = time.perf_counter()
     tokens = synthetic_corpus(**WE_SYNTH_CORPUS)
@@ -1808,13 +1890,19 @@ def phase_we(dev) -> dict:
     log(f"we synthetic: {len(tokens)} tokens, vocab {len(d)}, {ids_s.size} "
         f"training tokens ({time.perf_counter() - t0:.1f} s on the host)")
     synth = we_run("synthetic", we_s, ids_s)
+    lap("synthetic")
     del we_s
     mv.barrier()
-    phase_we_cli(vocab_real, [{}, {"cbow": 1, "hs": 1, "batch_size":
-                                   variants["CBOW HS"]["trained"]["batch"]}])
+    # the three command lines side by side (the PS block path's, at
+    # WE_PS_CFG, is the we_ps phase's)
+    phase_we_cli("we", vocab_real, [
+        {}, {"cbow": 1, "hs": 1,
+             "batch_size": variants["CBOW HS"]["trained"]["batch"]},
+        WE_PS_CFG])
     return {"realtext": real, "synthetic": synth, **variants}
 
 
+@walled
 def we_card_vs_cpu(label: str, epoch, dev, loss_rtol: float,
                    table_rtol: float = None,
                    f32_err_factor: float = None) -> float:
@@ -1884,8 +1972,9 @@ def we_profile(label: str, fn, span_ms) -> dict:
 def we_variant(dev, label: str, extra: dict, d, ids) -> dict:
     """One more branch of ``train_fused`` on the real text at full width:
     warm and timed epochs, the card's f32 epoch against the CPU's on its
-    first WE_REF_BATCHES batches, for per-pair negatives the whole epoch's
-    negative ids drawn on the card against the CPU's (bit for bit), and
+    first WE_REF_BATCHES batches, for per-pair negatives the negative ids
+    of the epoch's first WE_NEG_BATCHES batches drawn on the card against
+    the CPU's (bit for bit), and
     one profiled epoch. An HS branch diverges at the full batch: there the
     check runs from the fresh tables, before the loss leaves the f32
     range, the full-batch epochs are timed and profiled without a check on
@@ -1925,11 +2014,12 @@ def we_variant(dev, label: str, extra: dict, d, ids) -> dict:
         table = torch.from_numpy(w2v.build_negative_table(we.unigram)
                                  .astype(np.int64))
         nb, b = batches[-1].shape
-        shape = (nb, b, cfg.negative)
+        shape = (min(nb, WE_NEG_BATCHES), b, cfg.negative)
         on_card = w2v.epoch_negatives(key, table.to(dev), *shape).cpu()
         on_cpu = w2v.epoch_negatives(key, table, *shape)
-        log(f"we {label}: the epoch's {on_cpu.numel()} negative ids "
-            f"{tuple(shape)} drawn on the card equal the CPU's bit for bit "
+        log(f"we {label}: the epoch's first {shape[0]} batches' "
+            f"{on_cpu.numel()} negative ids {tuple(shape)} drawn on the "
+            f"card equal the CPU's bit for bit "
             f"{torch.equal(on_card, on_cpu)}")
         if not torch.equal(on_card, on_cpu):
             raise AssertionError(f"the {label} negatives drawn on the card "
@@ -1946,6 +2036,7 @@ def we_variant(dev, label: str, extra: dict, d, ids) -> dict:
     return run
 
 
+@walled
 def we_hs_sweep(label: str, extra: dict, d, ids) -> dict:
     """The largest power of two below the bench batch at which an HS
     branch trains: halving from WE_CFG's batch, each batch gets we_run's
@@ -1975,13 +2066,14 @@ def we_hs_sweep(label: str, extra: dict, d, ids) -> dict:
                          f"{WE_HS_MIN_BATCH}")
 
 
-def phase_we_cli(vocab: int, runs) -> None:
-    """The app's command line on the card, each run in its own process:
-    one epoch of the real-text corpus at WE_CFG's config with each run's
-    keys over it (skip-gram with the shared pool; CBOW with HS at the
-    batch where we_hs_sweep found it trains; ``-use_ps 1``, the PS block
-    path, at WE_PS_CFG's), binary vectors out, read back and checked
-    (``vocab`` rows of finite values)."""
+def phase_we_cli(phase: str, vocab: int, runs) -> None:
+    """The app's command line on the card, each run in its own process,
+    the processes side by side: one epoch of the real-text corpus at
+    WE_CFG's config with each run's keys over it (skip-gram with the
+    shared pool; CBOW with HS at the batch where we_hs_sweep found it
+    trains; ``-use_ps 1``, the PS block path, at WE_PS_CFG's), binary
+    vectors out, read back and checked (``vocab`` rows of finite
+    values)."""
     import os
     import tempfile
     from multiverso_tpu_torch.apps.word_embedding import load_embeddings
@@ -1989,8 +2081,10 @@ def phase_we_cli(vocab: int, runs) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         corpus = realtext.materialize(os.path.join(tmp, "rt.txt"))
-        for keys in runs:
-            out = os.path.join(tmp, "vec.bin")
+        started = []
+        t0 = time.perf_counter()
+        for i, keys in enumerate(runs):
+            out = os.path.join(tmp, f"vec{i}.bin")
             argv = [sys.executable, "-m",
                     "multiverso_tpu_torch.apps.word_embedding",
                     "-train_file", corpus, "-output", out, "-binary", "1",
@@ -2000,21 +2094,29 @@ def phase_we_cli(vocab: int, runs) -> None:
             for key, value in WE_CFG.items():
                 argv += [f"-{key}", str(value)]
             argv += flags           # a later key overrides an earlier one
-            t0 = time.perf_counter()
-            res = subprocess.run(argv, capture_output=True, text=True,
-                                 timeout=300)
-            seconds = time.perf_counter() - t0
-            if res.returncode != 0:
+            started.append((flags, out, subprocess.Popen(
+                argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        try:
+            results = [(flags, out, p.communicate(timeout=300), p.returncode,
+                        time.perf_counter() - t0)
+                       for flags, out, p in started]
+        finally:
+            for _, _, p in started:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for flags, out, (so, se), rc, seconds in results:
+            if rc != 0:
                 raise AssertionError(
-                    f"the WordEmbedding CLI {flags} failed "
-                    f"({res.returncode}):\n{res.stdout[-2000:]}"
-                    f"\n{res.stderr[-2000:]}")
-            trained = [l for l in res.stdout.splitlines() if "trained:" in l]
+                    f"the WordEmbedding CLI {flags} failed ({rc}):\n"
+                    f"{so[-2000:]}\n{se[-2000:]}")
+            trained = [l for l in so.splitlines() if "trained:" in l]
             words, emb = load_embeddings(out)
-            os.remove(out)
-            log(f"we cli {' '.join(flags) or '(skip-gram, shared pool)'}: "
-                f"{seconds:.1f} s for the process (start, corpus, one "
-                f"epoch, binary output); "
+            what = " ".join(flags) or "(skip-gram, shared pool)"
+            log(f"part {phase}/cli {what}: {seconds:.1f} s for the process "
+                f"(start, corpus, one epoch, binary output; {len(runs)} "
+                f"processes side by side); "
                 f"{trained[-1].split('] ')[-1] if trained else ''}; "
                 f"{len(words)} x {emb.shape[1]} vectors read back")
             if (emb.shape != (vocab, WE_CFG["size"])
@@ -2023,6 +2125,7 @@ def phase_we_cli(vocab: int, runs) -> None:
                                      f"vectors, or non-finite ones")
 
 
+@walled
 def we_ps_run(label: str, we, ids, trains: bool = True) -> dict:
     """One warm epoch, then WE_TIMED_EPOCHS timed ones of
     ``train_ps_blocks``: words/s by the host's clock (the call ends with
@@ -2096,6 +2199,7 @@ def we_ps_blocks(keys: dict, d, ids, n_tokens: int):
     return [float(l) for l in losses], [we.table_in.get(), sec.get()]
 
 
+@walled
 def we_ps_card_vs_cpu(label: str, keys: dict, d, ids) -> dict:
     """The device plane's first 2 blocks (WE_PS_REF_TOKENS) from the seeded
     tables, twice on the card and once on the CPU (the Zoo restarted
@@ -2138,6 +2242,7 @@ def we_ps_card_vs_cpu(label: str, keys: dict, d, ids) -> dict:
     return out
 
 
+@walled
 def we_ps_planes(d, ids) -> dict:
     """Skip-gram NS on the card: the device plane against the host plane
     over their first block (the planes compute alike there; the host
@@ -2174,6 +2279,7 @@ def we_ps_planes(d, ids) -> dict:
     return out
 
 
+@walled
 def we_ps_cache(d, ids, off: dict) -> dict:
     """Skip-gram NS on the pipelined host plane with the hot-row train
     cache (write-through, WE_PS_CACHE_ROWS >= the vocabulary): the hit
@@ -2235,6 +2341,7 @@ def we_ps_cache(d, ids, off: dict) -> dict:
     return run
 
 
+@walled
 def we_ps_hs_sweep(label: str, extra: dict, d, ids) -> dict:
     """The largest power of two below WE_PS_CFG's batch at which an HS
     variant's block path trains: halving, each batch gets we_ps_run's warm
@@ -2267,8 +2374,9 @@ def phase_we_ps(dev) -> dict:
     (HS at the batch we_ps_hs_sweep finds, after its divergent epochs at
     8,192), each with warm and timed epochs, its first 2 blocks against
     the CPU's and one profiled epoch; skip-gram NS on the host plane,
-    pipelined and inline, with the planes held against each other; the
-    1M-token synthetic corpus; and ``-use_ps 1`` on the command line."""
+    pipelined and inline, with the planes held against each other; and
+    the 1M-token synthetic corpus (``-use_ps 1`` on the command line runs
+    beside the we phase's command lines, ``phase_we_cli``)."""
     from multiverso_tpu_torch.apps.word_embedding import (WEConfig,
                                                           WordEmbedding,
                                                           synthetic_corpus)
@@ -2278,6 +2386,7 @@ def phase_we_ps(dev) -> dict:
     tokens = realtext.load_tokens()
     d = Dictionary.build(tokens, WE_PS_CFG["min_count"])
     ids = WordEmbedding(WEConfig(**WE_PS_CFG), d).prepare_ids(tokens)
+    lap = Laps("we_ps")
     out = {}
     for label, extra in WE_PS_VARIANTS:
         keys = dict(extra)
@@ -2303,6 +2412,7 @@ def phase_we_ps(dev) -> dict:
         del we
         run["vs_cpu"] = we_ps_card_vs_cpu(label, keys, d, ids)
         out[label] = run
+        lap(label)
 
     for label, keys in (("host plane pipelined", {"ps_device_plane": "0"}),
                         ("host plane inline", {"ps_device_plane": "0",
@@ -2313,8 +2423,11 @@ def phase_we_ps(dev) -> dict:
             f"PS blocks skipgram NS {label}",
             lambda: we.train_ps_blocks(ids, epochs=1), out[label]["span_ms"])
         del we
+        lap(label)
     out["planes"] = we_ps_planes(d, ids)
+    lap("planes")
     out["train cache"] = we_ps_cache(d, ids, out["host plane pipelined"])
+    lap("train cache")
 
     t0 = time.perf_counter()
     tokens = synthetic_corpus(**WE_PS_SYNTH_CORPUS)
@@ -2325,8 +2438,8 @@ def phase_we_ps(dev) -> dict:
         f"{ids_s.size} training tokens ({time.perf_counter() - t0:.1f} s on "
         f"the host)")
     out["synthetic"] = we_ps_run("skipgram NS synthetic 1M", we, ids_s)
+    lap("synthetic")
     del we
-    phase_we_cli(len(d), [WE_PS_CFG])
     return out
 
 
@@ -2451,6 +2564,7 @@ def lr_write_rcv1(train: str, test: str) -> dict:
             "majority": max(test_pos, 1 - test_pos)}
 
 
+@walled
 def lr_fused(xy) -> dict:
     """``train_arrays`` at LR_KEYS on LR-MNIST's shape: a warm epoch (from
     zeros: its table and accuracy are held against the CPU's), 3 timed
@@ -2514,6 +2628,7 @@ def lr_fused(xy) -> dict:
             "accuracy": acc, "table_rel": rel, "profile": prof}
 
 
+@walled
 def lr_host(paths: dict, xy, tmp: str) -> dict:
     """The use_ps host loop (``train_file``) over the dense file: the four
     LR_HOST_RUNS, each a fresh table and one epoch (samples/s over the
@@ -2606,6 +2721,7 @@ def lr_count_pulls(table) -> dict:
     return counts
 
 
+@walled
 def lr_sparse(paths: dict, majority: float) -> dict:
     """The sparse path (``sparse=true``, a 47,237 x 2 SparseMatrixTable) on
     the rcv1.binary-shaped file, for each of LR_SPARSE_RUNS: epoch 1 (its
@@ -2674,34 +2790,47 @@ def lr_sparse(paths: dict, majority: float) -> dict:
     return out
 
 
-def lr_cli(paths: dict, xy, tmp: str) -> None:
-    """The app's command line in its own process on the card: one epoch of
-    the dense file with ``output_file``; the model read back with
-    ``load_model`` scores the test set."""
+def lr_cli_start(paths: dict, tmp: str) -> tuple:
+    """Start the app's command line in its own process on the card: one
+    epoch of the dense file with ``output_file``."""
     import os
-    from multiverso_tpu_torch.apps.logistic_regression import (LogReg,
-                                                               LogRegConfig)
-    _, _, xt, yt = xy
     model = os.path.join(tmp, "lr.model")
     pairs = lr_pairs(train_file=paths["dense"], reader_type="dense",
                      output_file=model)
     cfg = os.path.join(tmp, "lr.cfg")
     with open(cfg, "w") as f:
         f.write("".join(f"{k}={v}\n" for k, v in pairs.items()))
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m",
-                          "multiverso_tpu_torch.apps.logistic_regression",
-                          cfg], capture_output=True, text=True, timeout=300)
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "multiverso_tpu_torch.apps.logistic_regression",
+                             cfg], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter(), pairs, model
+
+
+def lr_cli_finish(started: tuple, xy) -> None:
+    """Wait for :func:`lr_cli_start`'s process; the model read back with
+    ``load_model`` scores the test set."""
+    from multiverso_tpu_torch.apps.logistic_regression import (LogReg,
+                                                               LogRegConfig)
+    proc, t0, pairs, model = started
+    _, _, xt, yt = xy
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"the LR CLI failed ({res.returncode}):\n"
-                             f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
-    done = [l for l in res.stdout.splitlines() if "train done" in l]
+    if proc.returncode != 0:
+        raise AssertionError(f"the LR CLI failed ({proc.returncode}):\n"
+                             f"{out[-2000:]}\n{err[-2000:]}")
+    done = [l for l in out.splitlines() if "train done" in l]
     lr = LogReg(LogRegConfig(pairs))
     lr.load_model(model)
     acc = lr.test_arrays(xt, yt)
     log(f"lr cli: {seconds:.1f} s for the process (start, one epoch, the "
-        f"model written); {done[-1].split('] ')[-1] if done else ''}; "
+        f"model written; beside the rcv1 files' writing); "
+        f"{done[-1].split('] ')[-1] if done else ''}; "
         f"read back: test accuracy {acc:.4f}")
     if not acc >= LR_MIN_ACC:
         raise AssertionError(f"the LR CLI's model scores {acc}")
@@ -2718,20 +2847,30 @@ def phase_lr(dev, tmp: str) -> dict:
     x, y = logreg.synthetic_dataset(LR_TRAIN[0], 784, 10, seed=LR_TRAIN[1])
     xt, yt = logreg.synthetic_dataset(LR_TEST[0], 784, 10, seed=LR_TEST[1])
     xy = (x, y, xt, yt)
+    lap = Laps("lr")
     out = {"fused": lr_fused(xy)}
+    lap("fused")
     paths = {"dense": f"{tmp}/host.dense", "rcv1": f"{tmp}/rcv1.svm",
              "rcv1_test": f"{tmp}/rcv1_test.svm"}
     t1 = time.perf_counter()
     xh, yh = logreg.synthetic_dataset(LR_HOST_SAMPLES[0], 784, 10,
                                       seed=LR_HOST_SAMPLES[1])
     lr_write_dense(paths["dense"], xh, yh)
-    rcv1 = lr_write_rcv1(paths["rcv1"], paths["rcv1_test"])
-    log(f"lr data: the dense and rcv1-shaped files written in "
-        f"{time.perf_counter() - t1:.1f} s on the host ({rcv1['nnz']:.1f} "
-        f"nonzeros a sparse sample)")
+    # the command line trains on the dense file while the rcv1 files are
+    # written (host code, nothing timed)
+    cli = lr_cli_start(paths, tmp)
+    try:
+        rcv1 = lr_write_rcv1(paths["rcv1"], paths["rcv1_test"])
+        log(f"lr data: the dense and rcv1-shaped files written in "
+            f"{time.perf_counter() - t1:.1f} s on the host "
+            f"({rcv1['nnz']:.1f} nonzeros a sparse sample)")
+    finally:
+        lr_cli_finish(cli, xy)
+    lap("data files and cli")
     out["host"] = lr_host(paths, xy, tmp)
+    lap("host loop")
     out["sparse"] = lr_sparse(paths, rcv1["majority"])
-    lr_cli(paths, xy, tmp)
+    lap("sparse")
     out["data"] = {"paths": paths, "xy": xy, "majority": rcv1["majority"]}
     log(f"lr phase: {time.perf_counter() - t0:.1f} s")
     return out
@@ -2779,6 +2918,10 @@ PSA_ADAGRAD_RTOL = 1e-5
 # max |x|
 PSA_WE_EPOCHS = 2
 PSA_WE_CORPORA = ("realtext", "synthetic")
+# the corpora whose ranks profile one more epoch (the idle share): the real
+# text, the bench's PS cell (cut from both corpora to keep the script in
+# its time: each rank's first profile took ~18 s, mostly CUPTI's start)
+PSA_WE_PROFILED = ("realtext",)
 # the least relative fall of the ranks' mean loss, warm epoch -> last
 # measured: half the smallest fall seen in this layout, rounded down, over
 # world-2 runs of the JAX package on the CPU
@@ -2968,7 +3111,8 @@ def psa_we_world2(dev) -> dict:
                    "multiverso_tpu_torch.examples.we_async", "--rdv", rdv,
                    "--world", "2", "--corpus", corpus, "--epochs",
                    str(PSA_WE_EPOCHS), "--tokens", str(PSA_WE_TOKENS),
-                   "--profile", "--step_profile",
+                   *(["--profile"] if corpus in PSA_WE_PROFILED else []),
+                   "--step_profile",
                    "--device", str(dev), "--timeout", str(PSA_WE_TIMEOUT)]
             t0 = time.perf_counter()
             procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=repo,
@@ -3001,7 +3145,9 @@ def psa_we_world2(dev) -> dict:
                 f"{res['device']}: {res['tokens']} tokens, vocab "
                 f"{res['vocab']}, rows [{res['shard_rows'][0]}, "
                 f"{res['shard_rows'][1]}) of each table here; setup "
-                f"{res['setup_s']:.1f} s; epochs: words/s "
+                f"{res['setup_s']:.1f} s; the process's walls (s) "
+                f"{ {k: round(v, 1) for k, v in res['walls'].items()} }; "
+                f"epochs: words/s "
                 f"{[round(e['words_per_sec']) for e in res['epochs']]}, "
                 f"seconds {[round(e['seconds'], 3) for e in res['epochs']]}"
                 f", loss {[round(l, 6) for l in losses]}")
@@ -3015,7 +3161,8 @@ def psa_we_world2(dev) -> dict:
                 + (f"; one more epoch profiled: {prof['seconds'] * 1e3:.3f} "
                    f"ms, device busy {prof['busy_ms']:.3f} ms, idle share "
                    f"{max(0.0, 1 - prof['busy_ms'] / (prof['seconds'] * 1e3)):.3f}"
-                   if prof["busy_ms"] else
+                   if prof and prof["busy_ms"] else
+                   "; not profiled" if prof is None else
                    "; device time not measured (the profiler saw no device "
                    "activity)"))
             if not (np.isfinite(losses).all() and res["emb_finite"]):
@@ -3042,7 +3189,8 @@ def psa_we_world2(dev) -> dict:
         r0, r1 = results
         # every rank sweeps every block of every epoch (the measured ones
         # and the profiled one): the word counter aggregates all of them
-        words = len(results) * (PSA_WE_EPOCHS + 1) * r0["tokens"]
+        words = (len(results) * r0["tokens"]
+                 * (PSA_WE_EPOCHS + (corpus in PSA_WE_PROFILED)))
         if not (r0["emb_sha"] == r1["emb_sha"]
                 and r0["total_word_count"] == r1["total_word_count"]
                 == words):
@@ -3153,25 +3301,24 @@ def phase_ps_async(dev, lr_data: dict) -> dict:
     """The async PS plane on the card: (a) the in-process two-rank plane
     against numpy, (b) WE in two processes and the world-1 parity, (c) LR
     with async_ps=true against the CPU."""
-    t0 = time.perf_counter()
+    lap = Laps("ps_async")
     out = {"plane": psa_plane(dev)}
-    t1 = time.perf_counter()
+    lap("psa_plane")
     out["we_world2"] = psa_we_world2(dev)
-    t2 = time.perf_counter()
+    lap("psa_we_world2")
     out["we_parity"] = psa_we_parity()
-    t3 = time.perf_counter()
+    lap("psa_we_parity")
     out["lr"] = psa_lr(lr_data)
-    log(f"ps_async phase: {time.perf_counter() - t0:.1f} s (plane "
-        f"{t1 - t0:.1f} s, WE world 2 {t2 - t1:.1f} s, WE parity "
-        f"{t3 - t2:.1f} s, LR {time.perf_counter() - t3:.1f} s)")
+    lap("psa_lr")
     return out
 
 
 # resnet: ResNet-CIFAR (``apps/resnet_cifar.py``; no kernel of its own:
 # cuDNN's convolutions, the BatchNorm and Adam elementwise ops) at
-# bench_resnet's shape (bench.py:965-997): depth 32, batch 128, the
-# 50,000 synthetic_cifar images of seed 1 uploaded once, the remainder of
-# 50,000 % 128 dropped as the JAX trainer drops it; a warm epoch, timed
+# bench_resnet's shape (bench.py:965-997): depth 32, batch 128, on
+# RES_IMAGES synthetic_cifar images of seed 1 uploaded once (half of its
+# 50,000), the remainder of the count % 128 dropped as the JAX trainer
+# drops it; a warm epoch, timed
 # epochs, RES_PROFILE_STEPS profiled steps (the profiler's bookkeeping
 # of a whole epoch's ~1.5M events took ~7 minutes on the card's host),
 # and the eval accuracy on 512 images of seed 2.
@@ -3195,7 +3342,10 @@ def phase_ps_async(dev, lr_data: dict) -> dict:
 # the card far past it
 RES_DEPTH = 32
 RES_BATCH = 128
-RES_IMAGES = (50_000, 1)      # synthetic_cifar count, seed
+# synthetic_cifar count, seed: half of CIFAR-10's 50,000 (cut from 50,000
+# to keep the script in its time; the s/epoch is scaled to RES_FULL)
+RES_IMAGES = (25_000, 1)
+RES_FULL = 50_000
 RES_EVAL = (512, 2)
 RES_TIMED_EPOCHS = 1   # cut from 3 to keep the script in its time
 RES_PROFILE_STEPS = 20
@@ -3274,6 +3424,7 @@ def res_worst_leaf(g: np.ndarray, ref: np.ndarray, meta) -> tuple:
     return l2, peak
 
 
+@walled
 def res_card_vs_cpu(x: np.ndarray, y: np.ndarray) -> dict:
     """The first RES_CPU_STEPS steps at depth 32 on the card and on the
     CPU from one start (the port's init of seed 0), through the trainer,
@@ -3351,7 +3502,9 @@ def phase_resnet(dev) -> dict:
         f"{time.perf_counter() - t0:.1f} s), Adam lr 1e-3 in one "
         f"ArrayTable, f32, TF32 "
         f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
+    lap = Laps("resnet")
     out = {"card_vs_cpu": res_card_vs_cpu(x, y)}
+    lap("card vs CPU")
 
     trainer = ResNetTrainer(depth=RES_DEPTH, batch_size=RES_BATCH, seed=0)
     t0 = time.perf_counter()
@@ -3369,7 +3522,7 @@ def phase_resnet(dev) -> dict:
     losses = [e["loss"] for e in epochs]
     secs = [e["seconds"] for e in epochs[1:]]
     sec = float(np.median(secs))
-    sec_50k = sec * RES_IMAGES[0] / images
+    sec_50k = sec * RES_FULL / images
     log(f"resnet epochs (warm + {RES_TIMED_EPOCHS} timed): mean losses "
         f"{[round(v, 5) for v in losses]}, seconds "
         f"{[round(s, 3) for s in secs]}")
@@ -3381,6 +3534,7 @@ def phase_resnet(dev) -> dict:
     if not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"the ResNet loss does not fall epoch over "
                              f"epoch: {losses}")
+    lap("epochs")
 
     # Adam's share: its apply alone, timed on a copy of the state
     state = trainer.table.state
@@ -3417,6 +3571,7 @@ def phase_resnet(dev) -> dict:
             f"the median unprofiled epoch: idle share "
             f"{prof['idle_share']:.3f}")
 
+    lap("profile")
     acc = trainer.evaluate(*resnet.synthetic_cifar(RES_EVAL[0],
                                                    seed=RES_EVAL[1]))
     log(f"resnet eval accuracy on {RES_EVAL[0]} images (seed {RES_EVAL[1]})"
@@ -4851,14 +5006,14 @@ def phase_chaos(dev) -> dict:
             "ps_reconnect_backoff", "ps_replay_backoff",
             "ps_replay_backoff_cap", "ps_health_timeout")
     saved = {k: config.get_flag(k) for k in keys}
-    t0 = time.perf_counter()
+    lap = Laps("chaos")
     out = {}
     try:
         for name, fn in chaos.SCENARIOS.items():
             out[name] = chaos_run(f"(a) {name}", dev, fn,
                                   seconds=CHAOS_INPROC_SECONDS,
                                   device=dev)
-        t1 = time.perf_counter()
+            lap(f"(a) {name}")
         # the worker processes resolve the card themselves
         wdev = None if dev.type == "cuda" else str(dev)
         rows, dim, threads = CHAOS_COMBINED
@@ -4866,7 +5021,7 @@ def phase_chaos(dev) -> dict:
             f"(b) combined {rows} x {dim}", dev, chaos.scenario_combined,
             seconds=CHAOS_SECONDS, rows=rows, dim=dim, threads=threads,
             device=wdev)
-        t2 = time.perf_counter()
+        lap("(b) combined")
         rows, dim, threads = CHAOS_DEPLOYED
         log(f"chaos (c): {rows:,} x {dim} f32, {rows // 2 * dim * 4 / 1e6:.1f}"
             f" MB a shard on the card, a replica refresh "
@@ -4875,14 +5030,12 @@ def phase_chaos(dev) -> dict:
             f"(c) combined {rows:,} x {dim}", dev, chaos.scenario_combined,
             seconds=CHAOS_SECONDS, rows=rows, dim=dim, threads=threads,
             device=wdev)
-        t3 = time.perf_counter()
+        lap("(c) combined")
         out["checkpoint"] = chaos_ckpt(dev)
+        lap("checkpoint")
     finally:
         for k, v in saved.items():
             config.set_flag(k, v)
-    log(f"chaos phase: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}"
-        f" s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, checkpoint "
-        f"{time.perf_counter() - t3:.1f} s)")
     return out
 
 
@@ -7327,6 +7480,206 @@ def phase_world(dev) -> dict:
     return counts
 
 
+# harness: the reference's Test/main.cpp battery
+# (``multiverso_tpu_torch/harness.py``, ``python -m
+# multiverso_tpu_torch.harness``), the binding handlers, the XOR example
+# trained on them, TorchParamManager and threefry.normal; host code and
+# torch ops on the tables, no kernel of the port. (a) every entry of the
+# battery's _ALL and the two perf entries (rows at the harness's default,
+# 100,000 x 50) in one process on the card; (b) kv, matrix, array and
+# allreduce as two processes of one world on this card (gloo), in one
+# relaunch; (c) the handlers, examples/xor_mlp.py and TorchParamManager on
+# the card against the same runs on the CPU; (d) threefry.normal on the
+# card against the CPU at tests/test_torch_threefry.py's bound
+HAR_ENTRIES = ("kv", "array", "net", "ip", "matrix", "checkpoint",
+               "restore", "allreduce", "async", "ftrl_sparse", "readers",
+               "dense_perf", "sparse_perf")
+HAR_WORLD_ENTRIES = ("kv", "matrix", "array", "allreduce")
+HAR_TIMEOUT_S = 120      # each battery process, and (b)'s world
+# XOR's losses: 1,000 f32 gradient steps whose tanh, sigmoid and log are
+# the card's and the CPU's own; the print's last digit (the CPU test holds
+# the port to the JAX example within it too)
+HAR_XOR_ATOL = 1e-4
+# threefry.normal, the card against the CPU: log1p is each device's own
+# (within an ulp of the exact value on each), the rest exact in f32 or
+# f64: tests/test_torch_threefry.py's bound against jax.random.normal
+HAR_NORMAL_MAX_ULPS = 3
+HAR_NORMAL_MAX_SHARE = 0.015
+HAR_NORMAL_SHAPES = ((7,), (3, 5), (64, 64), (256, 512))
+
+
+def har_start(args) -> tuple:
+    """Start one ``python -m multiverso_tpu_torch.harness`` run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return (subprocess.Popen(
+        [sys.executable, "-m", "multiverso_tpu_torch.harness", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=root), time.perf_counter())
+
+
+def har_finish(started: tuple, label: str) -> dict:
+    """Wait for a run of :func:`har_start` within HAR_TIMEOUT_S of its
+    start (killed and failed past it); its HARNESS PASS lines and entry
+    seconds."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(
+            timeout=max(HAR_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired as e:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"harness {label}: no end within "
+                             f"{HAR_TIMEOUT_S} s") from e
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"harness {label} failed (rc "
+                             f"{proc.returncode}; 77 is distributed "
+                             f"unavailable, a failure here too):\n"
+                             f"{out[-2000:]}\n{err[-3000:]}")
+    lines = out.splitlines()
+    passes = [l for l in lines if l.startswith("HARNESS PASS")]
+    times = {l.split()[2]: float(l.split()[3]) for l in lines
+             if l.startswith("HARNESS TIME")}
+    perf = [l.split("] ")[-1] for l in lines if "get all rows" in l]
+    return {"passes": passes, "times": times, "perf": perf, "wall": wall}
+
+
+def har_handlers() -> dict:
+    """The handlers and TorchParamManager on the Zoo's device: the tables
+    and the module's parameters after the same adds, syncs and pulls
+    (float32 adds and subtractions: exact on any device)."""
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.handlers import (ArrayTableHandler,
+                                               MatrixTableHandler)
+    from multiverso_tpu_torch.torch_ext import TorchParamManager
+
+    dev = mv.device()
+    rng = np.random.default_rng(21)
+    init = rng.normal(size=(64, 32)).astype(np.float32)
+    a = ArrayTableHandler(init.size, init_value=init.reshape(-1),
+                          name="har_array")
+    m = MatrixTableHandler(64, 32, init_value=init, name="har_matrix")
+    for k in range(4):
+        d = rng.normal(size=(64, 32)).astype(np.float32)
+        a.add(d.reshape(-1), sync=True)
+        m.add(torch.from_numpy(d).to(dev) if k % 2 else d, sync=True)
+        rows = rng.integers(0, 64, 16)
+        m.add(d[rows], row_ids=rows, sync=True)
+    out = {"array": a.get(), "matrix": m.get(), "rows": m.get([3, 5, 63])}
+    torch.manual_seed(5)
+    model = torch.nn.Sequential(torch.nn.Linear(32, 64), torch.nn.Tanh(),
+                                torch.nn.Linear(64, 8)).to(dev)
+    mgr = TorchParamManager(model, name="har_params")
+    if mgr.table.raw().device != dev or next(model.parameters()).device != dev:
+        raise AssertionError("TorchParamManager left the Zoo's device")
+    flats = []
+    for step in range(4):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(torch.from_numpy(rng.normal(
+                    0, 0.1, tuple(p.shape)).astype(np.float32)).to(dev))
+        mgr.pull() if step == 2 else mgr.sync()
+        flats.append(torch.cat([p.detach().reshape(-1).cpu()
+                                for p in model.parameters()]).numpy())
+    out["params"] = np.stack(flats)
+    out["table"] = mgr.table.get()
+    return out
+
+
+def har_normal(dev) -> dict:
+    """threefry.normal on ``dev`` against the CPU, seeds 0-7."""
+    from multiverso_tpu_torch.utils import threefry
+
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(
+            np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    worst, differ, total = 0, 0, 0
+    for seed in range(8):
+        for shape in HAR_NORMAL_SHAPES:
+            card = threefry.normal(threefry.key(seed), shape, device=dev)
+            cpu = threefry.normal(threefry.key(seed), shape)
+            if card.device != dev:
+                raise AssertionError(f"threefry.normal drew on {card.device}")
+            d = np.abs(ordered(card.cpu().numpy()) - ordered(cpu.numpy()))
+            worst = max(worst, int(d.max()))
+            differ += int((d > 0).sum())
+            total += d.size
+    return {"max_ulps": worst, "share": differ / total, "draws": total}
+
+
+def phase_harness(dev) -> dict:
+    """(a) the single-process battery on the card, (b) four entries as a
+    world of two processes on this card, (c) the handlers, XOR and
+    TorchParamManager on the card against the CPU, (d) threefry.normal on
+    the card against the CPU."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.examples import xor_mlp
+
+    lap = Laps("harness")
+    # the battery runs on the card by default; a rehearsal on the CPU
+    # names it
+    where = ["-device=cpu"] if dev.type == "cpu" else []
+    # (a) and (b) side by side: each process spends most of its wall
+    # starting torch and CUDA
+    b_run = har_start([*HAR_WORLD_ENTRIES, *where, "-nprocs=2",
+                       f"-timeout_s={HAR_TIMEOUT_S - 10}"])
+    try:
+        a = har_finish(har_start([*HAR_ENTRIES, *where]), "(a)")
+    finally:
+        b = har_finish(b_run, "(b)")
+    if a["passes"] != [f"HARNESS PASS {n}" for n in HAR_ENTRIES]:
+        raise AssertionError(f"harness (a): {a['passes']}")
+    log(f"harness (a) {len(HAR_ENTRIES)} entries in one process on the "
+        f"card, each passed; seconds by entry {a['times']}; "
+        f"{a['wall']:.1f} s for the process (beside (b)'s relaunch)")
+    for line in a["perf"]:
+        log(f"harness (a) perf: {line}")
+    want = [f"HARNESS PASS {n}" for n in HAR_WORLD_ENTRIES]
+    if b["passes"] != want + [f"{w} (nprocs=2)" for w in want]:
+        raise AssertionError(f"harness (b): {b['passes']}")
+    log(f"harness (b) {', '.join(HAR_WORLD_ENTRIES)} as a world of 2 "
+        f"processes on this card (gloo), each passed on both ranks; rank "
+        f"0's seconds by entry {b['times']}; {b['wall']:.1f} s for the "
+        f"relaunch")
+    lap("(a) battery and (b) world of 2, side by side")
+
+    # (c): the card's Zoo (this run's) first, then the CPU's, then back
+    card = har_handlers()
+    mv.shutdown()
+    card_xor = xor_mlp.train(device=dev)
+    cpu_xor = xor_mlp.train(device="cpu")
+    mv.init(device="cpu")
+    cpu = har_handlers()
+    mv.shutdown()
+    mv.init(device=dev)
+    for k in card:
+        if not np.array_equal(card[k], cpu[k]):
+            raise AssertionError(f"harness (c) {k}: the card's differs from "
+                                 f"the CPU's")
+    err = max(abs(x - y) for (_, x), (_, y) in zip(card_xor[0], cpu_xor[0]))
+    log(f"harness (c) the handlers' tables (sync adds, numpy and tensor "
+        f"deltas, row adds) and TorchParamManager's parameters over 4 "
+        f"syncs and pulls on the card equal the CPU's bit for bit; XOR on "
+        f"the card: losses {card_xor[0]}, predictions {card_xor[1]}; CPU "
+        f"{cpu_xor[0]}; max |diff| {err:.2e} (bound {HAR_XOR_ATOL})")
+    if not (err <= HAR_XOR_ATOL and card_xor[1] == [0, 1, 1, 0]):
+        raise AssertionError("harness (c): XOR on the card")
+    lap("(c) handlers, XOR, TorchParamManager")
+    n = har_normal(dev)
+    log(f"harness (d) threefry.normal, {n['draws']} draws (seeds 0-7), the "
+        f"card against the CPU: max {n['max_ulps']} ulps (bound "
+        f"{HAR_NORMAL_MAX_ULPS}), {n['share']:.4%} differ (bound "
+        f"{HAR_NORMAL_MAX_SHARE:.1%})")
+    if not (n["max_ulps"] <= HAR_NORMAL_MAX_ULPS
+            and n["share"] <= HAR_NORMAL_MAX_SHARE):
+        raise AssertionError("harness (d): threefry.normal on the card")
+    lap("(d) threefry.normal")
+    return {"battery": a, "world": b, "normal": n, "xor": card_xor}
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -7338,6 +7691,7 @@ def lm_group(name: str) -> str:
             "elementwise/reduce/copy")
 
 
+@walled
 def profile(label: str, fn, top: int = 8, group=lm_group) -> dict:
     """Where one call of ``fn`` spends its device time: torch.profiler over
     it (after the counted run), device time by kernel and by ``group`` of
@@ -7346,13 +7700,16 @@ def profile(label: str, fn, top: int = 8, group=lm_group) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile as trace
 
-    with trace(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: every number below is read from it, and
+    # recording each CPU op as well took the profiler's own bookkeeping to
+    # 12.6-33.0 s for one profiled WE epoch on the card's host
+    with trace(activities=[ProfilerActivity.CUDA
+                           if torch.cuda.is_available()
+                           else ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         fn()
         wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, memcpy); the CPU ops that launched
-    # them carry the same time again as their own device time
+    # device-side events only (kernels, memcpy)
     rows = [(e.key, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -7379,6 +7736,9 @@ def profile(label: str, fn, top: int = 8, group=lm_group) -> dict:
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
+    # a hang, or a run heading past its limit, dumps every thread's stack
+    # and exits non-zero here instead of dying silently at the limit
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
     # after a torch.profiler session kineto leaves CUPTI attached unless it
     # is told to tear it down, and every later launch pays for it on the
@@ -7409,8 +7769,18 @@ def main(argv=None) -> int:
     def mark(name: str) -> None:
         walls[name] = round(time.perf_counter() - t_start - sum(
             walls.values()), 1)
+        log(f"phase {name}: {walls[name]} s (total "
+            f"{time.perf_counter() - t_start:.1f} s)")
 
+    # the 472M LM's numpy parameters (ps, decode, telemetry, mesh and world
+    # start from them) are drawn on a thread while nvcc builds the kernels,
+    # and joined before anything is timed
+    import threading
+    draw = threading.Thread(target=lm_init_params, args=(LAYERS,),
+                            name="lm_init_params")
+    draw.start()
     phase_build()
+    draw.join()
     mark("build")
     records = phase_kernel(torch.device("cuda", 0))
     mark("kernel")
@@ -7516,6 +7886,16 @@ def main(argv=None) -> int:
     if not all(paths["world"].values()):
         raise AssertionError(f"the world path launched {paths['world']}: "
                              "every flash kernel must run there")
+    # the battery, the handlers and TorchParamManager: host code and torch
+    # ops on the tables, no kernel of the port (the battery's processes
+    # are its own: they run no LM)
+    ak.reset_launch_counts()
+    phase_harness(dev)
+    mark("harness")
+    paths["harness"] = ak.launch_counts()
+    log(f"harness launches {paths['harness']}")
+    if any(paths["harness"].values()):
+        raise AssertionError("the harness path launched a flash kernel")
     mv.shutdown()
     for rec in records:
         by_path = {p: c.get(rec["name"], 0) for p, c in paths.items()}

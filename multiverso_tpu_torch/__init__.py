@@ -30,17 +30,40 @@ from multiverso_tpu_torch.ps import (AsyncArrayTable, AsyncKVTable,
                                      AsyncMatrixTable, AsyncSparseKVTable,
                                      AsyncSparseMatrixTable)
 from multiverso_tpu_torch.sharedvar import SharedPytree
+from multiverso_tpu_torch.table import Table
 from multiverso_tpu_torch.tables import (ArrayTable, ArrayTableOption,
                                          KVTable, KVTableOption, MatrixTable,
                                          MatrixTableOption, SparseMatrixTable,
                                          SparseMatrixTableOption)
-from multiverso_tpu_torch.updaters import AddOption, get_updater, register_updater
-from multiverso_tpu_torch.utils import config, log
+from multiverso_tpu_torch.updaters import (AdaGradUpdater, AdamUpdater,
+                                           AddOption, MomentumUpdater,
+                                           SGDUpdater, Updater, get_updater,
+                                           register_updater)
+from multiverso_tpu_torch import serving, telemetry
+from multiverso_tpu_torch.utils import config, dashboard, log
 from multiverso_tpu_torch.utils.async_buffer import AsyncBuffer
 from multiverso_tpu_torch.utils.dashboard import Dashboard, monitor
 from multiverso_tpu_torch.zoo import Zoo
 
+__version__ = "0.1.0"
+
+# submodules reached as attributes and imported at first use, as the JAX
+# package's are (each imports this package itself)
+_LAZY = ("checkpoint", "parallel", "handlers", "sharedvar", "native",
+         "models", "apps", "io", "data", "ssp", "elastic", "torch_ext")
+
+
+def __getattr__(name):
+    import importlib
+    if name in _LAZY:
+        return importlib.import_module(f"multiverso_tpu_torch.{name}")
+    raise AttributeError(
+        f"module 'multiverso_tpu_torch' has no attribute {name!r}")
+
+
 __all__ = [
+    "__version__", "Table", "Updater", "SGDUpdater", "MomentumUpdater",
+    "AdaGradUpdater", "AdamUpdater", "serving", "telemetry", "dashboard",
     "MV_Aggregate", "MV_Barrier", "MV_CreateTable", "MV_Init",
     "MV_NumServers", "MV_NumWorkers", "MV_Rank", "MV_ServerId",
     "MV_ServerIdToRank", "MV_ShutDown", "MV_Size", "MV_WorkerId",

@@ -21,6 +21,7 @@ from multiverso_tpu_torch.zoo import (DeviceLike, Zoo, launcher_args,
 def init(argv: Optional[List[str]] = None,
          device: DeviceLike = None,
          mesh: Any = None,
+         sync: Optional[bool] = None,
          updater: Optional[str] = None) -> None:
     """ref MV_Init. ``device=None`` means the card (or ``mesh``'s device
     when a mesh is given): without CUDA this raises ``RuntimeError``
@@ -29,8 +30,12 @@ def init(argv: Optional[List[str]] = None,
     ``torch.distributed`` world; without one the Zoo makes a one-rank mesh.
     Under a launcher's environment naming a world of more than one rank
     (and no process group yet) it joins that world first, as
-    :func:`net_init` does. There is no ``sync`` option: the tables'
-    collective adds keep every process in step."""
+    :func:`net_init` does. ``sync`` and ``updater`` set the flags of
+    those names, as the reference binding's ``init(sync=...)`` injects
+    ``-sync=true`` (the tables' collective adds keep every process in
+    step either way)."""
+    if sync is not None:
+        config.set_flag("sync", sync)
     if updater is not None:
         config.set_flag("updater_type", updater)
     Zoo.get().start(argv, device=device, mesh=mesh)

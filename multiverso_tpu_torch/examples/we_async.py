@@ -144,6 +144,8 @@ def main(argv=None) -> int:
                     help="run the step profiler over the measured (last) "
                     "epoch and add its profile block to RESULT")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
+    walls = {}   # seconds of each part of this process, for RESULT
 
     import torch
 
@@ -162,6 +164,7 @@ def main(argv=None) -> int:
     config.set_flag("ps_timeout", args.timeout)
     config.set_flag("ps_shutdown_grace", args.timeout)
     mv.init(device=args.device)
+    walls["import_init"] = time.perf_counter() - t_main
     rdv = FileRendezvous(args.rdv)
 
     def barrier(tag: str) -> None:
@@ -179,6 +182,8 @@ def main(argv=None) -> int:
     ids = we.prepare_ids(tokens)
     setup_s = time.perf_counter() - t_start
     barrier("we_async_tables")
+    walls["setup"] = time.perf_counter() - t_start
+    t_part = time.perf_counter()
     epochs, profiled = [], None
     for e in range(args.epochs):
         if e:   # the warm epoch, then each measured one, start together
@@ -201,19 +206,24 @@ def main(argv=None) -> int:
     monitors = {name: {"count": snap.count, "total_ms": snap.total_ms,
                        "p50_ms": snap.p50_ms}
                 for name, snap in Dashboard.snapshot().items()}
+    walls["epochs"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
     if args.profile:
         barrier("we_async_profiled")
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if we.table_in.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        # the device's activity only (CPU ops too on the CPU): the busy
+        # time is read from it, and recording each CPU op as well on the
+        # card multiplies the profiler's own bookkeeping
+        acts = [torch.profiler.ProfilerActivity.CUDA
+                if we.table_in.device.type == "cuda"
+                else torch.profiler.ProfilerActivity.CPU]
         with torch.profiler.profile(activities=acts) as prof:
             stats = we.train_ps_blocks(ids, epochs=1)
-        # device-side events only: the CPU ops that launched them carry
-        # the same time again as their own device time
+        # device-side events only
         profiled = {"seconds": stats["seconds"], "busy_ms": sum(
             ev.self_device_time_total for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3}
     barrier("we_async_trained")
+    walls["profile"] = time.perf_counter() - t_part
     emb = we.embeddings()
     out = {"rank": args.rank, "world": args.world, "corpus": args.corpus,
            "tokens": int(ids.size), "vocab": len(we.dict),
@@ -225,8 +235,10 @@ def main(argv=None) -> int:
            "total_word_count": we.total_word_count(),
            "emb_sha": hashlib.sha256(emb.tobytes()).hexdigest(),
            "emb_finite": bool(np.isfinite(emb).all()),
-           "shard_rows": [we.table_in.lo, we.table_in.hi]}
+           "shard_rows": [we.table_in.lo, we.table_in.hi], "walls": walls}
+    t_part = time.perf_counter()
     mv.shutdown()
+    walls["shutdown"] = time.perf_counter() - t_part
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 

@@ -208,6 +208,32 @@ define_bool("log_jsonl", False,
             "write the log FILE as structured JSONL (ts/mono/level/rank/"
             "name/msg); console output stays text")
 define_bool("dashboard", True, "collect Monitor timings and display at shutdown")
+# The reference's command-line flags (names, types and defaults as in the
+# JAX package): a reference command line sets them, and this package takes
+# them. ``ma`` and ``sync`` are recorded for the code that reads them (the
+# harness's allreduce entry sets ``ma``); the others change nothing here.
+define_bool("ma", False, "model-average (allreduce) mode: no parameter "
+            "tables; recorded for the code that reads it (the harness's "
+            "allreduce entry sets it around MV_Aggregate)")
+define_bool("sync", False, "BSP semantics (reference SyncServer); "
+            "recorded only: every collective add already keeps the "
+            "processes in step, and the async plane (ps/) is the "
+            "uncoordinated mode")
+define_float("backup_worker_ratio", 0.0, "no-op: the reference declared "
+             "it and never read it; stragglers are elastic.stragglers()'s "
+             "step lag")
+define_int("omp_threads", 4, "no-op: shard updates are torch ops on the "
+           "table's device (reference OpenMP server loop); torch's CPU "
+           "threads follow torch.set_num_threads")
+define_string("allocator_type", "smart", "no-op: device memory is the "
+              "PyTorch caching allocator's (reference SmartAllocator)")
+define_int("allocator_alignment", 16, "no-op: the PyTorch caching "
+           "allocator controls buffer alignment")
+define_string("machine_file", "", "no-op: a world's ranks meet through "
+              "the TCPStore of net_init or a launcher's environment "
+              "(reference ZMQ membership file)")
+define_int("port", 55555, "no-op: see machine_file; the store's port "
+           "comes from net_init(coordinator_address) or MASTER_PORT")
 define_string("device", "",
               "torch device the tables and models live on: '' = cuda "
               "(the card), or an explicit device such as 'cpu' or 'cuda:1'")
