@@ -335,6 +335,27 @@ Phases, every one on every run, in this order:
             losses within 1e-4; (d) ``threefry.normal`` on the card
             against the CPU within 3 ulps. Every process it starts has a
             timeout that fails the run
+23. capi    the C ABI (``csrc/mv_capi.cpp``, ``libmultiverso.so``, built
+            with g++ beside nvcc by ``native/capi.py``; its Python side
+            ``c_api_support.py``), the asynchronous checkpoint save and
+            ``word2vec.sample_negatives`` (host code and torch ops on the
+            tables, no kernel of the port), counted apart: (a) the C
+            driver ``csrc/mv_capi_test.c`` (every ``MV_*`` symbol, with
+            assertions) in its own process, its tables on the card
+            (``MV_CAPI_PLATFORM`` unset), started first: ``MV_CAPI_TEST
+            PASS`` and exit 0; beside it in this process (b) a 100,000 x
+            50 f32 MatrixTable (the JAX harness's perf size) through the
+            C ABI by ctypes and its twin through the Python API, 8 seeded
+            row adds of 1,000 ids and a whole-table add, get-all and row
+            gets equal bit for bit, p50 ms of ``MV_GetMatrixTableAll``
+            against ``get()`` and of ``MV_AddMatrixTableByRows`` against
+            ``add_rows``; (c) an adam ArrayTable of 16M f32: the return ms
+            of ``save(block=False)`` against a blocking save's, an add
+            issued after the return absent from the checkpoint (its files
+            equal the blocking save's byte for byte), the restore equal
+            bit for bit, the staged bytes back to 0; (d)
+            ``sample_negatives`` at the we phase's batch and negative
+            count on the card against the CPU bit for bit
 
 It prints the card's name and power limit, each phase's wall seconds as
 the phase ends (``phase <name>: <s> s (total <s> s)``) and the walls of
@@ -7680,6 +7701,268 @@ def phase_harness(dev) -> dict:
     return {"battery": a, "world": b, "normal": n, "xor": card_xor}
 
 
+# ---------------------------------------------------------------------- #
+# capi: the C ABI (libmultiverso.so, csrc/mv_capi.cpp and its Python side
+# c_api_support.py), the asynchronous checkpoint save and
+# word2vec.sample_negatives on the card. Host code and torch ops on the
+# tables: no kernel of the port
+# ---------------------------------------------------------------------- #
+CAPI_TABLE = (100_000, 50)   # the JAX harness's perf tables (dense_perf)
+CAPI_ROW_ADDS = 8            # seeded row adds before the whole-table add
+CAPI_ROWS = 1_000            # ids a row add (duplicates drawn as they come)
+CAPI_TIMED = 20              # calls of each timed op, C ABI and twin in turns
+CAPI_TIMEOUT_S = 120         # the C driver's process
+CAPI_NEG_VOCAB = 71_290      # the we phase's real-text vocabulary
+
+
+def capi_build_start():
+    """Build the C ABI and its C driver (g++ and cc) on a thread, beside
+    nvcc; the capi phase takes the result (a failed build raises there)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from multiverso_tpu_torch.native import capi
+    pool = ThreadPoolExecutor(1, thread_name_prefix="capi_build")
+    fut = pool.submit(capi.build_driver)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def capi_lib(path):
+    """The port's libmultiverso.so through ctypes, its MV_* argument types
+    set (the JAX tests' setup)."""
+    import ctypes
+    lib = ctypes.CDLL(str(path))
+    fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.MV_NewMatrixTable.argtypes = [ci, ci, ctypes.POINTER(vp)]
+    for n in ("MV_GetMatrixTableAll", "MV_AddMatrixTableAll"):
+        getattr(lib, n).argtypes = [vp, fp, ci]
+    for n in ("MV_GetMatrixTableByRows", "MV_AddMatrixTableByRows"):
+        getattr(lib, n).argtypes = [vp, fp, ci, ip, ci]
+    return lib
+
+
+def capi_tables(lib_path) -> dict:
+    """(b) a CAPI_TABLE f32 MatrixTable made and fed through the C ABI in
+    this process (the shim attaches to this interpreter and its Zoo on the
+    card) and its twin fed the same calls through the Python API: get-all
+    and row gets equal bit for bit; p50 ms of MV_GetMatrixTableAll against
+    the twin's get() (the get cache off: each call pulls the card's rows)
+    and of MV_AddMatrixTableByRows against add_rows."""
+    import ctypes
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.utils import config
+
+    lib = capi_lib(lib_path)
+    rows, cols = CAPI_TABLE
+    lib.MV_Init(None, None)   # the running Zoo: the card
+    h = ctypes.c_void_p()
+    lib.MV_NewMatrixTable(rows, cols, ctypes.byref(h))
+    twin = mv.MatrixTable(rows, cols, dtype=np.float32, name="capi_twin")
+    F = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    I = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    rng = np.random.default_rng(22)
+
+    def row_add(timed=None):
+        ids = rng.integers(0, rows, CAPI_ROWS).astype(np.int32)
+        vals = rng.normal(size=(CAPI_ROWS, cols)).astype(np.float32)
+        t0 = time.perf_counter()
+        lib.MV_AddMatrixTableByRows(h, F(vals), vals.size, I(ids), ids.size)
+        t1 = time.perf_counter()
+        twin.add_rows(ids, vals)
+        t2 = time.perf_counter()
+        if timed is not None:
+            timed[0].append((t1 - t0) * 1e3)
+            timed[1].append((t2 - t1) * 1e3)
+
+    def check(label):
+        got = np.empty((rows, cols), np.float32)
+        lib.MV_GetMatrixTableAll(h, F(got), got.size)
+        if not np.array_equal(got, twin.get()):
+            raise AssertionError(f"capi (b) {label}: MV_GetMatrixTableAll "
+                                 "differs from the twin's get()")
+        ids = rng.integers(0, rows, CAPI_ROWS).astype(np.int32)
+        out = np.empty((CAPI_ROWS, cols), np.float32)
+        lib.MV_GetMatrixTableByRows(h, F(out), out.size, I(ids), ids.size)
+        if not np.array_equal(out, twin.get_rows(ids)):
+            raise AssertionError(f"capi (b) {label}: MV_GetMatrixTableByRows "
+                                 "differs from the twin's get_rows")
+        return got
+
+    for _ in range(CAPI_ROW_ADDS):
+        row_add()
+    whole = rng.normal(size=(rows, cols)).astype(np.float32)
+    lib.MV_AddMatrixTableAll(h, F(whole), whole.size)
+    twin.add(whole)
+    got = check("after 8 row adds and a whole-table add")
+    if not np.isfinite(got).all() or not got.any():
+        raise AssertionError("capi (b): the table is not finite or is 0")
+    adds = ([], [])
+    for _ in range(CAPI_TIMED):
+        row_add(adds)
+    check("after the timed row adds")
+    gets = ([], [])
+    was = config.get_flag("table_get_cache")
+    config.set_flag("table_get_cache", False)
+    try:
+        buf = np.empty((rows, cols), np.float32)
+        for _ in range(CAPI_TIMED):
+            t0 = time.perf_counter()
+            lib.MV_GetMatrixTableAll(h, F(buf), buf.size)
+            t1 = time.perf_counter()
+            twin.get()
+            gets[0].append((t1 - t0) * 1e3)
+            gets[1].append((time.perf_counter() - t1) * 1e3)
+    finally:
+        config.set_flag("table_get_cache", was)
+    out = {"get_all_ms": float(np.median(gets[0])),
+           "twin_get_ms": float(np.median(gets[1])),
+           "add_rows_ms": float(np.median(adds[0])),
+           "twin_add_rows_ms": float(np.median(adds[1]))}
+    log(f"capi (b) {rows:,} x {cols} f32 on the card through the C ABI "
+        f"(ctypes, this process) and its twin through the Python API: "
+        f"{CAPI_ROW_ADDS} seeded row adds of {CAPI_ROWS:,} ids and a "
+        f"whole-table add, get-all and row gets equal bit for bit; p50 of "
+        f"{CAPI_TIMED}: MV_GetMatrixTableAll {out['get_all_ms']:.3f} ms "
+        f"against get() {out['twin_get_ms']:.3f} ms (get cache off), "
+        f"MV_AddMatrixTableByRows {out['add_rows_ms']:.3f} ms against "
+        f"add_rows {out['twin_add_rows_ms']:.3f} ms")
+    return out
+
+
+def capi_async_save(tmp: str) -> dict:
+    """(c) an adam ArrayTable of PS_TABLE f32 on the card: a blocking save,
+    then save(block=False) at the same state with an add right after its
+    return, then a second (warm) one; the async files equal the blocking
+    save's byte for byte (the add is absent), the restore equals the state
+    saved bit for bit, and the staged bytes return to 0."""
+    import filecmp
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+
+    rng = np.random.default_rng(23)
+    t = mv.ArrayTable(PS_TABLE, updater="adam", name="capi_ckpt")
+    for _ in range(2):
+        t.add(rng.normal(size=PS_TABLE).astype(np.float32))
+    saved = t.get()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    blocking_ms = timed(lambda: checkpoint.save(tmp, "blocking"))
+    later = rng.normal(size=PS_TABLE).astype(np.float32)
+    cold_ms = timed(lambda: checkpoint.save(tmp, "async", block=False))
+    staged = checkpoint._GAUGES.memory_stats()["staging_bytes"]
+    t.add(later)   # after the return: must not reach the checkpoint
+    t0 = time.perf_counter()
+    if checkpoint.wait_pending() != 1:
+        raise AssertionError("capi (c): no save was pending")
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms = timed(lambda: checkpoint.save(tmp, "async2", block=False))
+    checkpoint.wait_pending()
+    left = checkpoint._GAUGES.memory_stats()["staging_bytes"]
+    if left != 0:
+        raise AssertionError(f"capi (c): {left} bytes still staged")
+    a, b = os.path.join(tmp, "async"), os.path.join(tmp, "blocking")
+    names = sorted(os.listdir(b))
+    _, bad, err = filecmp.cmpfiles(a, b, names, shallow=False)
+    if sorted(os.listdir(a)) != names or bad or err:
+        raise AssertionError(f"capi (c): the async files differ from the "
+                             f"blocking save's: {bad} {err}")
+    if np.array_equal(t.get(), saved):
+        raise AssertionError("capi (c): the add after the return is lost")
+    checkpoint.restore(tmp, "async")
+    if not np.array_equal(t.get(), saved):
+        raise AssertionError("capi (c): the restore differs from the state "
+                             "saved")
+    if checkpoint.latest(tmp) != "async2":
+        raise AssertionError(f"capi (c): latest {checkpoint.latest(tmp)}")
+    out = {"blocking_ms": blocking_ms, "return_ms": cold_ms,
+           "warm_return_ms": warm_ms, "wait_ms": wait_ms, "staged": staged}
+    n = len(mv.Zoo.get().tables())
+    log(f"capi (c) adam ArrayTable of {PS_TABLE:,} f32 on the card, in a "
+        f"checkpoint of the Zoo's {n} tables (with (b)'s two): "
+        f"save(block=False) returned in {cold_ms:.1f} ms (pinned buffers "
+        f"new; {warm_ms:.1f} ms the second time) against a blocking "
+        f"save's {blocking_ms:.1f} ms; {staged:,} bytes staged at the "
+        f"return, 0 after; wait_pending {wait_ms:.1f} ms; the async files "
+        f"equal the blocking save's byte for byte (an add issued after the "
+        f"return is absent), the restore equal bit for bit")
+    return out
+
+
+def capi_negatives(dev) -> dict:
+    """(d) word2vec.sample_negatives on the card against the CPU at the we
+    phase's batch and negative count."""
+    import torch
+    from multiverso_tpu_torch.models import word2vec
+    from multiverso_tpu_torch.utils import threefry
+
+    counts = np.random.default_rng(24).integers(1, 10_000, CAPI_NEG_VOCAB)
+    p = counts.astype(np.float64) ** 0.75
+    cdf = torch.from_numpy(np.cumsum(p / p.sum()).astype(np.float32))
+    batch, k = WE_CFG["batch_size"], WE_CFG["negative"]
+    for seed in range(4):
+        card = word2vec.sample_negatives(threefry.key(seed), cdf.to(dev),
+                                         batch, k)
+        cpu = word2vec.sample_negatives(threefry.key(seed), cdf, batch, k)
+        if card.device != dev or not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"capi (d) seed {seed}: sample_negatives "
+                                 "on the card differs from the CPU's")
+    log(f"capi (d) sample_negatives [{batch:,}, {k}] over a vocabulary of "
+        f"{CAPI_NEG_VOCAB:,}, seeds 0-3, on the card equal to the CPU's bit "
+        f"for bit")
+    return {"batch": batch, "k": k}
+
+
+def phase_capi(dev, built) -> dict:
+    """(a) the C driver in its own process on the card, started first;
+    beside it in this process (b) the C ABI against the Python API, (c)
+    the asynchronous save, (d) sample_negatives on the card."""
+    import tempfile
+    from multiverso_tpu_torch.native import capi
+
+    lap = Laps("capi")
+    driver = built.result()   # the build on its thread: raises if it failed
+    lib = capi.build()
+    t0 = time.perf_counter()
+    # MV_CAPI_PLATFORM unset: the driver's tables go on the card; a
+    # rehearsal on the CPU names it
+    proc = subprocess.Popen(
+        [str(driver)], env=capi.driver_env(None if dev.type == "cuda"
+                                           else "cpu"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        b = capi_tables(lib)
+        lap("(b) the C ABI against the Python API")
+        with tempfile.TemporaryDirectory(prefix="capi_ckpt_") as tmp:
+            c = capi_async_save(tmp)
+        lap("(c) the asynchronous save")
+        d = capi_negatives(dev)
+        lap("(d) sample_negatives")
+    finally:
+        try:
+            out, err = proc.communicate(
+                timeout=max(CAPI_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "MV_CAPI_TEST PASS" not in out:
+        raise AssertionError(f"capi (a): the C driver failed (rc "
+                             f"{proc.returncode}):\n{out[-1500:]}\n"
+                             f"{err[-3000:]}")
+    log(f"capi (a) the C driver (csrc/mv_capi_test.c, every MV_* symbol, "
+        f"MV_CAPI_PLATFORM unset: its tables on the card) in its own "
+        f"process: MV_CAPI_TEST PASS, exit 0, {wall:.1f} s from its start "
+        f"(beside (b)-(d))")
+    lap("(a) the C driver's process")
+    return {"tables": b, "save": c, "negatives": d, "driver_s": wall}
+
+
 def lm_group(name: str) -> str:
     """The LM's kernel groups: each flash kernel, the GEMMs, the rest."""
     low = name.lower()
@@ -7779,6 +8062,7 @@ def main(argv=None) -> int:
     draw = threading.Thread(target=lm_init_params, args=(LAYERS,),
                             name="lm_init_params")
     draw.start()
+    capi_built = capi_build_start()   # g++ and cc beside nvcc
     phase_build()
     draw.join()
     mark("build")
@@ -7896,6 +8180,16 @@ def main(argv=None) -> int:
     log(f"harness launches {paths['harness']}")
     if any(paths["harness"].values()):
         raise AssertionError("the harness path launched a flash kernel")
+    # the C ABI, its C driver's process, the asynchronous save and
+    # sample_negatives: host code and torch ops on the tables, no kernel of
+    # the port
+    ak.reset_launch_counts()
+    phase_capi(dev, capi_built)
+    mark("capi")
+    paths["capi"] = ak.launch_counts()
+    log(f"capi launches {paths['capi']}")
+    if any(paths["capi"].values()):
+        raise AssertionError("the capi path launched a flash kernel")
     mv.shutdown()
     for rec in records:
         by_path = {p: c.get(rec["name"], 0) for p, c in paths.items()}

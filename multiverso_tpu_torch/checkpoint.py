@@ -16,16 +16,26 @@ restarted incarnation restores exactly its own rows without touching its
 peers' newer live state. Its files are the JAX package's too (an
 ``np.save`` JSON header, then the arrays).
 
+``save(..., block=False)`` returns once every table's state is
+snapshotted (device state into pinned host buffers, ordered before any
+later op of the table; host state copied) and writes the same files on a
+thread. The checkpoint becomes visible (manifest, then the commit marker,
+so ``latest()`` sees it) only in :func:`wait_pending`, which the next
+save or restore calls itself: at most one such save is in flight. A
+failed background write is discarded, never made visible, and raised.
+
 The memory ledger (``telemetry/memstats.py``) carries the checkpoint
 plane's gauges under ``checkpoint``: host bytes staged by in-progress
-per-shard saves and the on-disk size of each rank's last committed tag.
+saves (a snapshot's buffers until its files are written, a per-shard
+save's copies) and the on-disk size of each rank's last committed tag.
 
-Not ported (ROADMAP.md §A): ``backend="orbax"`` and ``block=False`` (a
-JAX library's sharded, asynchronous format) raise ``ValueError``.
+Not ported, by design: ``backend="orbax"`` (a JAX library's sharded
+format) raises ``ValueError``.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -128,13 +138,13 @@ def is_committed(path: str) -> bool:
         return False
 
 
-def _check_backend(backend: str, block: bool) -> None:
-    if backend == "orbax" or not block:
+def _check_backend(backend: str) -> None:
+    if backend == "orbax":
         raise ValueError(
-            f"checkpoint backend={backend!r}, block={block}: the orbax "
-            "format and its asynchronous save are a JAX library's and are "
-            "not ported to multiverso_tpu_torch (ROADMAP.md §A \"The "
-            "rest\"); use backend='stream', block=True")
+            "checkpoint backend='orbax': the orbax format is a JAX "
+            "library's and is not ported to multiverso_tpu_torch "
+            "(ROADMAP.md, \"Not ported, by design\"); use "
+            "backend='stream' (block=False for an asynchronous save)")
     if backend != "stream":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
 
@@ -148,27 +158,125 @@ def _manifest_entry(table) -> Dict:
     return entry
 
 
+def _snapshot(table):
+    """``(write, nbytes)`` of a table's state now: the table's own
+    ``store_snapshot`` where it has one (device state into pinned host
+    buffers), else its ``store`` payload copied into host memory now."""
+    snap = getattr(table, "store_snapshot", None)
+    if callable(snap):
+        return snap()
+    buf = io.BytesIO()
+    table.store(buf)
+    data = buf.getvalue()
+    return (lambda stream: stream.write(data)), len(data)
+
+
+class _AsyncSave:
+    """One ``block=False`` save: the tables' snapshots, written by a
+    thread into ``path``; its manifest waits for :func:`wait_pending`."""
+
+    def __init__(self, path: str, manifest: Dict, jobs) -> None:
+        self.path, self.manifest = path, manifest
+        self.error: Optional[Exception] = None
+        self._written = False   # every file, to its end
+        self._staged = sum(n for _, _, n in jobs)
+        _GAUGES.stage(self._staged)
+        self._thread = threading.Thread(target=self._run, args=(jobs,),
+                                        name="mv-checkpoint-save",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, jobs) -> None:
+        try:
+            for fname, write, _ in jobs:
+                with open_stream(_join(self.path, fname), "wb") as s:
+                    write(s)
+            self._written = True
+        except Exception as e:   # noqa: BLE001 — raised by wait()
+            self.error = e
+        finally:
+            jobs.clear()   # the snapshots' buffers go now
+            _GAUGES.unstage(self._staged)
+
+    def wait(self) -> None:
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        if not self._written:
+            raise RuntimeError(f"checkpoint {self.path}: the background "
+                               "write ended before its last file")
+
+
+_pending: Optional[_AsyncSave] = None   # the save awaiting its manifest
+_pending_lock = threading.Lock()
+
+
+def _write_manifest(path: str, manifest: Dict) -> None:
+    with open_stream(_join(path, "manifest.json"), "wb") as s:
+        s.write(json.dumps(manifest, indent=2).encode())
+    _write_commit(path)
+
+
+def wait_pending() -> int:
+    """Finish the in-flight ``block=False`` save, if any: wait for its
+    files, then write its manifest and commit marker (it becomes visible
+    to ``restore`` and ``latest``) and meet every rank at the barrier.
+    Returns the number finalized (0 or 1). A failed background write is
+    discarded (no manifest, no marker: ``latest`` keeps the previous
+    committed tag) and its error raised."""
+    global _pending
+    with _pending_lock:
+        job, _pending = _pending, None
+    if job is None:
+        return 0
+    try:
+        job.wait()
+    except BaseException:
+        log.error("async checkpoint write failed; discarded the "
+                  "unfinalized checkpoint %s", job.path)
+        raise
+    _write_manifest(job.path, job.manifest)
+    log.info("checkpoint finalized (async): %s (%d tables)", job.path,
+             len(job.manifest["tables"]))
+    Zoo.get().barrier()
+    return 1
+
+
 def save(directory: str, tag: str = "checkpoint",
          backend: str = "stream", block: bool = True) -> str:
     """Write every registered table (data + updater state) under
     ``directory/tag/``; the commit marker lands last. Returns the
-    checkpoint path. The process is rank 0 of a world of one, which
-    writes everything (the JAX package's other ranks write nothing)."""
-    _check_backend(backend, block)
+    checkpoint path. Every process of a world keeps a replica of each
+    table and writes its own (give each rank its own directory); then
+    the ranks meet at the barrier.
+
+    ``block=False`` returns once every table's state is snapshotted and
+    writes the same files on a thread; the manifest and the marker wait
+    for :func:`wait_pending` (the next save or restore calls it). Each
+    save first finalizes the one in flight."""
+    _check_backend(backend)
+    wait_pending()
     zoo = Zoo.get()
     path = _join(directory, tag)
     manifest: Dict = {"tables": {}, "version": 1}
+    jobs = []
     for table_id, table in zoo.tables().items():
         if not hasattr(table, "store"):
             continue
         fname = f"{table.name}.{table_id}.mvt"
-        with open_stream(_join(path, fname), "wb") as s:
-            table.store(s)
+        if block:
+            with open_stream(_join(path, fname), "wb") as s:
+                table.store(s)
+        else:
+            jobs.append((fname, *_snapshot(table)))
         manifest["tables"][str(table_id)] = dict(
             _manifest_entry(table), file=fname)
-    with open_stream(_join(path, "manifest.json"), "wb") as s:
-        s.write(json.dumps(manifest, indent=2).encode())
-    _write_commit(path)
+    if not block:
+        global _pending
+        with _pending_lock:
+            _pending = _AsyncSave(path, manifest, jobs)
+        return path
+    _write_manifest(path, manifest)
     log.info("checkpoint saved: %s (%d tables)", path,
              len(manifest["tables"]))
     zoo.barrier()
@@ -178,8 +286,9 @@ def save(directory: str, tag: str = "checkpoint",
 def restore(directory: str, tag: str = "checkpoint") -> int:
     """Load every registered table from a checkpoint written by
     :func:`save` (of either package). Tables are matched by registration
-    id and name; mismatched shapes raise. Returns the number of tables
-    restored."""
+    id and name; mismatched shapes raise. An asynchronous save in flight
+    is finalized first. Returns the number of tables restored."""
+    wait_pending()
     zoo = Zoo.get()
     path = _join(directory, tag)
     if not is_committed(path):
@@ -190,7 +299,7 @@ def restore(directory: str, tag: str = "checkpoint") -> int:
     with open_stream(_join(path, "manifest.json"), "rb") as s:
         manifest = json.loads(s.read().decode())
     if manifest.get("backend", "stream") != "stream":
-        _check_backend(manifest["backend"], True)
+        _check_backend(manifest["backend"])
     restored = 0
     for table_id, table in zoo.tables().items():
         entry = manifest["tables"].get(str(table_id))

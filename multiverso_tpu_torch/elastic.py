@@ -259,7 +259,7 @@ class ElasticLoop:
     def __init__(self, directory: str, every: int = 100,
                  keep: int = 2, heartbeat_interval: float = 5.0,
                  backend: str = "stream", block: bool = True):
-        checkpoint._check_backend(backend, block)
+        checkpoint._check_backend(backend)
         self.directory = directory
         self.every = max(1, int(every))
         self.keep = max(1, int(keep))
@@ -272,6 +272,7 @@ class ElasticLoop:
     def resume(self) -> int:
         """Restore the newest committed checkpoint; return the step to
         resume FROM (one past the checkpointed step; 0 if none)."""
+        checkpoint.wait_pending()
         tag = checkpoint.latest(self.directory)
         if tag is None or not tag.startswith("step_"):
             return 0
@@ -301,4 +302,5 @@ class ElasticLoop:
             shutil.rmtree(os.path.join(self.directory, tag))
 
     def stop(self) -> None:
+        checkpoint.wait_pending()   # finalize an in-flight async save
         self.heartbeat.stop()

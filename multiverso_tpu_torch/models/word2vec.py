@@ -84,6 +84,20 @@ def build_negative_table(unigram: np.ndarray, size: int = 1 << 20
     return np.concatenate([table, pad])
 
 
+def sample_negatives(key: threefry.Key, cdf: torch.Tensor, batch: int,
+                     k: int) -> torch.Tensor:
+    """(batch, k) int32 ids drawn by inverse CDF from ``cdf`` (the
+    unigram^0.75 table's running sum), on ``cdf``'s device: the JAX
+    function's ``jax.random.uniform`` draw (``threefry.uniform``, bit for
+    bit) and the first index whose cdf is >= the draw (``searchsorted``'s
+    left side, as ``jnp.searchsorted``). A binary search per draw:
+    :func:`build_negative_table` + :func:`sample_negatives_table` cost one
+    gather instead."""
+    cdf = torch.as_tensor(cdf)
+    u = threefry.uniform(key, (batch, k), device=cdf.device)
+    return torch.searchsorted(cdf, u.to(cdf.dtype)).to(torch.int32)
+
+
 def sample_negatives_table(keys: Sequence[threefry.Key],
                            neg_table: torch.Tensor, batch: int,
                            k: int) -> torch.Tensor:

@@ -166,6 +166,14 @@ def bf16_cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16)
 
 
+def host_codec_device() -> torch.device:
+    """The device that encodes HOST payloads: the host's CPU, so the f32
+    input never crosses to the card just to be compressed. Where the JAX
+    package may find no CPU platform (and returns ``None``), the port
+    always has one."""
+    return torch.device("cpu")
+
+
 def onebit_compressed_nbytes(n: int, block: int = 1024) -> int:
     """Wire bytes of a 1-bit payload (bits + scales) for n f32 elements."""
     nb = -(-n // block)

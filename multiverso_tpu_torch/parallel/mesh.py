@@ -226,11 +226,24 @@ def _join(store, rank: int, world: int, device: Any, local_rank: int,
     return dev
 
 
+def world_device(device: Any = None) -> Any:
+    """``device`` for the ranks of a world: ``None`` means the card, as
+    ``init()`` resolves it (``RuntimeError`` without CUDA, unless the
+    ``device`` flag names the CPU); each rank's own card is then picked
+    by :func:`rank_device`."""
+    if device is not None:
+        return device
+    from multiverso_tpu_torch.zoo import resolve_device
+    dev = resolve_device(None)
+    return "cuda" if dev.type == "cuda" else dev
+
+
 def init_world(rank: int, world: int, store_path: str,
-               device: Any = "cpu") -> torch.device:
+               device: Any = None) -> torch.device:
     """Join this process to a world of ``world`` ranks on one host that
     meet in the ``FileStore`` at ``store_path``; returns the rank's
-    device."""
+    device (``device=None``: the card, see :func:`world_device`)."""
+    device = world_device(device)
     store = dist.FileStore(store_path, world)
     return _join(store, rank, world, device, rank, world, None)
 
@@ -305,14 +318,17 @@ def _rank_main(rank: int, world: int, store_path: str, device: Any,
         leave_world()
 
 
-def spawn(fn: Callable, world: int, device: Any = "cpu", args: tuple = (),
+def spawn(fn: Callable, world: int, device: Any = None, args: tuple = (),
           timeout: float = 600.0) -> List[Any]:
     """Run ``fn(rank, world, device, *args)`` on ``world`` spawned ranks
-    and return their results in rank order. ``fn`` must be importable by
-    name (a module-level function). A rank that raises fails the call
-    with its traceback; every rank is joined or killed before it
-    returns."""
+    and return their results in rank order (``device=None``: the card,
+    and ``RuntimeError`` here, before any rank starts, without one; pass
+    ``device="cpu"`` for the CPU). ``fn`` must be importable by name (a
+    module-level function). A rank that raises fails the call with its
+    traceback; every rank is joined or killed before it returns."""
     import queue as _queue
+
+    device = world_device(device)
 
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")

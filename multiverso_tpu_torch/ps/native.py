@@ -73,6 +73,8 @@ def _try_load() -> Optional[ctypes.CDLL]:
         lib.mvps_register_shard.restype = vp
         lib.mvps_register_shard.argtypes = [vp, cp, i64, i64, i64, i32,
                                             dbl, vp, vp, i64]
+        lib.mvps_unregister_shard.restype = i32
+        lib.mvps_unregister_shard.argtypes = [vp, cp]
         lib.mvps_shard_pin_lock.argtypes = [vp]
         lib.mvps_shard_pin_unlock.argtypes = [vp]
         lib.mvps_shard_pin_stats.argtypes = [vp, ctypes.POINTER(u64),
@@ -189,6 +191,14 @@ def register_shard(server: int, name: str, lo: int, n: int, ncol: int,
         server, name.encode(), lo, n, ncol, itemsize, float(sign),
         data.data_ptr(), dirty.ctypes.data if dirty is not None else None,
         nworkers) or None
+
+
+def unregister_shard(server: int, name: str) -> None:
+    """Drop the shard registered as ``name`` from the C++ server: from
+    then on its ops punt to Python (``PSService._punt``), as those of a
+    shard never registered do. Its pin stays valid until freed."""
+    lib = _try_load()
+    lib.mvps_unregister_shard(server, name.encode())
 
 
 def shard_pin_lock(pin: int) -> None:

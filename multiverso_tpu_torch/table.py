@@ -52,7 +52,9 @@ Around that core, as in the JAX package:
   there before the updater applies them; 1bit and topk keep an
   error-feedback residual on the host. Get then reads bf16. Row ops are
   unaffected;
-* **checkpoints**: ``store``/``load`` in the JAX package's format.
+* **checkpoints**: ``store``/``load`` in the JAX package's format, and
+  ``store_snapshot`` (pinned host copies on the table's stream, written
+  later) for an asynchronous save.
 
 The functional plane (``state``, ``functional_add``, ``adopt``) hands the
 live tensors to code that trains them in place (the fused WordEmbedding
@@ -802,6 +804,15 @@ class Table:
             elif self._wire != "none":
                 host = self._host_array(wire_codec.bf16_cast(
                     self._data[: self.shape[0]]).cpu())
+            elif (out is not None and out.dtype == self.np_dtype
+                  and out.size == int(np.prod(self.shape))
+                  and out.flags.c_contiguous and out.flags.writeable):
+                # one device -> host copy, straight into the caller's
+                # buffer (the C ABI's Get hands its own memory here)
+                torch.from_numpy(out.reshape(self.shape)).copy_(
+                    self._data[: self.shape[0]])
+                self._store_get_cache(version, out)
+                return out
             else:
                 host = self._data[: self.shape[0]].to(
                     "cpu", copy=True).numpy()
@@ -834,17 +845,54 @@ class Table:
         order: sorted keys."""
         return [(k, self._ustate[k]) for k in sorted(self._ustate)]
 
+    @staticmethod
+    def _write_stored(stream, data: np.ndarray, leaves) -> None:
+        """The stored format: the data, the leaf count, each leaf."""
+        np.save(stream, data, allow_pickle=False)
+        np.save(stream, np.asarray(len(leaves)), allow_pickle=False)
+        for leaf in leaves:
+            np.save(stream, leaf, allow_pickle=False)
+
     def store(self, stream) -> None:
         """Write the padded data and the updater state with ``np.save``:
         the data, the leaf count, then each leaf in sorted-key order, the
         JAX package's format (ref array_table.cpp:143-151)."""
         self._flush_host_adds()
         with self._dispatch_lock:
-            np.save(stream, self._data.cpu().numpy(), allow_pickle=False)
-            leaves = self._state_leaves()
-            np.save(stream, np.asarray(len(leaves)), allow_pickle=False)
-            for _, leaf in leaves:
-                np.save(stream, leaf.cpu().numpy(), allow_pickle=False)
+            self._write_stored(
+                stream, self._data.cpu().numpy(),
+                [leaf.cpu().numpy() for _, leaf in self._state_leaves()])
+
+    def store_snapshot(self) -> Tuple[Callable[[Any], None], int]:
+        """The table's state now, for a checkpoint written later:
+        ``(write, nbytes)``. ``write(stream)`` writes what :meth:`store`
+        would have written at this call, whatever the table did since;
+        ``nbytes`` is the host memory the snapshot holds until ``write``
+        returns. On the card the data and each updater-state leaf are
+        copied into pinned host buffers on the table's stream, where every
+        later op of the table runs after the copies (``write`` waits for
+        their event); on the CPU they are cloned."""
+        self._flush_host_adds()
+        with self._dispatch_lock:
+            srcs = [self._data] + [leaf for _, leaf in self._state_leaves()]
+            if self.device.type == "cuda":
+                with torch.cuda.stream(self._stream):
+                    hosts = [torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True) for t in srcs]
+                    for h, t in zip(hosts, srcs):
+                        h.copy_(t, non_blocking=True)
+                    done = self._event()
+            else:
+                hosts, done = [t.clone() for t in srcs], None
+        nbytes = sum(h.numel() * h.element_size() for h in hosts)
+
+        def write(stream) -> None:
+            if done is not None:
+                done.synchronize()
+            self._write_stored(stream, hosts[0].numpy(),
+                               [h.numpy() for h in hosts[1:]])
+
+        return write, nbytes
 
     def load(self, stream) -> None:
         """Read what :meth:`store` (of either package) wrote. A padded

@@ -39,3 +39,15 @@ def device_link_ms(device: torch.device, refresh: bool = False) -> float:
         times.append(time.perf_counter() - t0)
     _CACHED_MS[key] = float(np.median(times) * 1e3)
     return _CACHED_MS[key]
+
+
+def link_is_fast(device=None) -> bool:
+    """True when a 1 MB upload to ``device`` and back takes less than
+    ``FAST_LINK_MS`` (a wire filter then costs more than it saves).
+    ``device=None``: the Zoo's device once ``init()`` ran, else the card
+    (``RuntimeError`` without one)."""
+    if device is None:
+        from multiverso_tpu_torch.zoo import Zoo, resolve_device
+        zoo = Zoo.get()
+        device = zoo.device() if zoo.started else resolve_device(None)
+    return device_link_ms(torch.device(device)) < FAST_LINK_MS

@@ -14,8 +14,9 @@ either package and restored by the other.
   for every updater — the state leaves in sorted key order, the replay
   channels adopted (a re-sent stamped frame dedupes), the version kept;
 * commit markers: torn tags are invisible, ``latest`` skips uncommitted
-  tags, ``prune_shard_tags`` keeps ``keep``, and ``backend="orbax"`` /
-  ``block=False`` raise.
+  tags, ``prune_shard_tags`` keeps ``keep``, and ``backend="orbax"``
+  raises, with ``block=False`` too (the asynchronous stream save has
+  tests/test_torch_async_save.py).
 """
 
 import json
@@ -146,7 +147,7 @@ def test_zoo_restore_rejects_a_renamed_table(runtimes, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [dict(backend="orbax"),
-                                dict(block=False),
+                                dict(backend="orbax", block=False),
                                 dict(backend="nope")])
 def test_orbax_and_async_save_raise(runtimes, tmp_path, kw):
     tmv.ArrayTable(4, name="a")

@@ -184,7 +184,8 @@ def test_elastic_loop_resumes_from_a_jax_checkpoint(runtimes, tmp_path):
     np.testing.assert_array_equal(tt.get(), want)
 
 
-@pytest.mark.parametrize("kw", [dict(backend="orbax"), dict(block=False)])
+@pytest.mark.parametrize("kw", [dict(backend="orbax"),
+                                dict(backend="orbax", block=False)])
 def test_elastic_loop_refuses_the_orbax_format(tmp_path, kw):
     with pytest.raises(ValueError):
         tel.ElasticLoop(str(tmp_path), **kw)

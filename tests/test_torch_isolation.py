@@ -96,6 +96,9 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import multiverso_tpu_torch.sharedvar\n"
         "import multiverso_tpu_torch.parallel.mesh\n"
         "import multiverso_tpu_torch.examples.mlp_data_parallel\n"
+        "import multiverso_tpu_torch.c_api_support\n"
+        "import multiverso_tpu_torch.native.capi\n"
+        "import multiverso_tpu_torch.tools.gen_capi_surface\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_world_worker\n"
         "import chip_smoke\n"
@@ -126,6 +129,58 @@ def test_sources_import_no_jax_and_no_reference_module():
     assert _IMPORT_REF.search("import multiverso_tpu as mv\n")
     assert not _IMPORT_REF.search("import multiverso_tpu_torch as mv\n")
     assert not _IMPORT_REF.search("from multiverso_tpu_torch.ops import x\n")
+
+
+# a module of the JAX package named in a string (an embedded
+# interpreter's PyImport_ImportModule, an importlib call): "multiverso_tpu."
+# not part of "multiverso_tpu_torch."
+_NAMES_REF = re.compile(r"\bmultiverso_tpu\.")
+
+
+def test_sources_name_no_reference_module_in_strings():
+    """The port's C/C++/CUDA sources and chip_smoke.py name no module of
+    the JAX package: a C ABI that kept the JAX shim's
+    ``"multiverso_tpu.c_api_support"`` would build and then drive the JAX
+    package from the port's library, and the import scan above would not
+    see it."""
+    csrc = PORT / "csrc"
+    files = sorted(f for ext in ("cpp", "c", "cu", "cuh")
+                   for f in csrc.glob(f"*.{ext}"))
+    assert {f.name for f in files} >= {"mv_capi.cpp", "mv_capi_test.c",
+                                       "mv_data.cpp", "flash_fwd.cu",
+                                       "hopper.cuh"}
+    for f in files + [REPO / "chip_smoke.py"]:
+        hits = [m.group(0) for m in _NAMES_REF.finditer(f.read_text())]
+        assert not hits, f"{f} names a multiverso_tpu module"
+    assert _NAMES_REF.search('PyImport_ImportModule("multiverso_tpu.c_api_'
+                             'support")')
+    assert not _NAMES_REF.search('"multiverso_tpu_torch.c_api_support"')
+    assert not _NAMES_REF.search("multiverso_tpu/ops/attention_kernels.py")
+
+
+@pytest.mark.parametrize("entry", ["init_world", "spawn", "world_device"])
+def test_world_entry_points_default_to_the_card(monkeypatch, tmp_path,
+                                                entry):
+    """``init_world`` and ``spawn`` without a device take the card, as
+    ``init()`` does: with no CUDA they raise before any rank starts or
+    any store is made; ``device="cpu"`` is the caller's explicit choice."""
+    from multiverso_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = tmp_path / "store"
+    call = {"init_world": lambda: mesh.init_world(0, 1, str(store)),
+            "spawn": lambda: mesh.spawn(_never_called, 2),
+            "world_device": lambda: mesh.world_device()}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert not store.exists()
+    assert mesh.world_device("cpu") == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert mesh.world_device() == "cuda"   # each rank's card: rank_device
+
+
+def _never_called(rank, world, device):   # pragma: no cover
+    raise AssertionError("a rank started")
 
 
 def test_world_workers_import_no_jax_but_the_named_one():
