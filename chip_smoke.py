@@ -7135,11 +7135,16 @@ def phase_spmd(dev) -> dict:
 # world, the collective table adds and unions, ``aggregate``,
 # ``StoreRendezvous``): two ranks on this one card, started as a launcher
 # starts them (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK), meet
-# over gloo (NCCL refuses two ranks on one card); each keeps a replica of
-# every table. (a) tests/multiprocess_worker.py's steps with the tables on
-# the card; (b) the LM at its widths, cut to WORLD_LAYERS layers, trained
-# data-parallel through one shared table; (c) bench.py:419's aggregate
-# cell (16 MB, process_sum against allgather + sum) at world 2, not 4
+# over gloo (NCCL refuses two ranks on one card); the tables' rows are
+# sharded over the two ranks, as the JAX package's are over its mesh. (a)
+# tests/multiprocess_worker.py's steps with the tables on the card; (b)
+# the LM at its widths, cut to WORLD_LAYERS layers, trained data-parallel
+# through one shared table; (c) bench.py:419's aggregate cell (16 MB,
+# process_sum against allgather + sum) at world 2, not 4; (d) the sharded
+# layout: each rank's Table.sharding and its resident bytes of (b)'s
+# table, (b)'s sync times beside their prediction, an AdaGrad MatrixTable
+# against numpy's model and its checkpoint, which this process restores
+# into a one-process table on the card after the ranks end
 WORLD_RANKS = 2
 WORLD_LAYERS = 2          # the LM's depth cut (widths kept)
 WORLD_STEPS = 4           # train_ps steps a rank, each on its own batch
@@ -7147,6 +7152,15 @@ WORLD_SYNC_EVERY = 2
 WORLD_AGG_MB = 16.0       # bench.py:419 bench_aggregate_path's payload
 WORLD_AGG_REPS = 5
 WORLD_TIMEOUT_S = 300
+WORLD_RESIDENT_MAX = 0.55      # (d): a rank's share of (b)'s table at most
+WORLD_SYNC_PREDICTED_S = (3.0, 5.0)   # (d): a sharded 0.68 GB sync
+WORLD_ADA_TABLE = (100_000, 128)      # (d)'s AdaGrad MatrixTable
+WORLD_ADA_STEPS = 3
+WORLD_ADA_IDS = 4096      # ids a rank a step, repeats as they are drawn
+WORLD_ADA_OPT = dict(learning_rate=0.5, rho=0.1)
+WORLD_ADA_RTOL, WORLD_ADA_ATOL = 1e-5, 1e-6   # ROADMAP C.4's bound
+WORLD_COLL_MB = 64.0      # (d): the host collectives' payload
+WORLD_COLL_REPS = 3
 
 
 def world_tree_save(tmp: str) -> int:
@@ -7175,7 +7189,7 @@ def world_tree_load(tmp: str) -> dict:
 
 def world_digest(a: np.ndarray) -> list:
     """A cheap fingerprint of a table's bytes (wrapping sum and xor of its
-    64-bit words), to hold the ranks' replicas to each other."""
+    64-bit words), to hold the ranks' Gets to each other."""
     w = np.ascontiguousarray(a).view(np.uint8)
     w = w[: w.size // 8 * 8].view(np.uint64)
     return [int(np.sum(w, dtype=np.uint64)),
@@ -7241,6 +7255,7 @@ class WorldSync:
         self.shared, self.tmp = shared, tmp
         self.rank, self.world = rank, world
         self.ms, self.check_ms, self.digests = [], [], []
+        self.coll_ms = []   # a sync's reduce-scatter and all-gather ms
 
     def sync(self, params):
         import torch
@@ -7252,9 +7267,13 @@ class WorldSync:
         np.save(paths[self.rank], _flatten(params) - last)
         check_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
+        c0 = world_colls()
         t0 = time.perf_counter()
         merged = self.shared.sync(params)
         self.ms.append((time.perf_counter() - t0) * 1e3)
+        c1 = world_colls()
+        self.coll_ms.append({op: round(c1[op]["ms"] - c0.get(op, {}).get(
+            "ms", 0.0), 1) for op in c1})
         t0 = time.perf_counter()
         total = np.load(paths[0])
         for p in paths[1:]:
@@ -7281,9 +7300,17 @@ def world_lm(tmp: str) -> dict:
     cfg = lm_config(WORLD_LAYERS)
     errs = world_kernels(dev, rank)
     tree = world_tree_load(tmp)
+    before = torch.cuda.memory_allocated(dev)   # this process's own
     t0 = time.perf_counter()
     shared = mv.SharedPytree(tree, name="world_lm")   # rank 0's values
     share_ms = (time.perf_counter() - t0) * 1e3
+    resident = torch.cuda.memory_allocated(dev) - before
+    table = shared.table
+    layout = {"sharding": world_sharding(table),
+              "resident_bytes": int(resident),
+              "block_bytes": table.memory_stats()["table_bytes"],
+              "whole_bytes": int(table.padded_shape[0]) * 4,
+              "device": str(table.state["data"].device)}
     if not np.array_equal(shared._last, _flatten(tree)):
         raise AssertionError("the shared table is not rank 0's parameters")
     model = tfm.params_from_jax(shared.get(), cfg, dev)
@@ -7311,7 +7338,183 @@ def world_lm(tmp: str) -> dict:
     return {"losses": losses, "launches": counts, "kernel_errs": errs,
             "params": n, "share_ms": share_ms, "sync_ms": checked.ms,
             "check_ms": checked.check_ms, "digests": checked.digests,
-            "sync_bytes": n * 4}
+            "sync_bytes": n * 4, "layout": layout,
+            "sync_coll_ms": checked.coll_ms}
+
+
+def world_sharding(table) -> dict:
+    sh = table.sharding
+    return {"axis": sh.axis, "num_shards": sh.num_shards,
+            "rows": list(sh.rows), "padded_rows": table.padded_shape[0]}
+
+
+def world_colls() -> dict:
+    """The whole-table collectives of this rank so far (devstats'
+    tally: calls, bytes, ms)."""
+    from multiverso_tpu_torch.telemetry import devstats
+    return {op: d for op, d in devstats.collectives().items()
+            if op in ("process_reduce_scatter", "process_all_gather")}
+
+
+def world_rs_vs_ar() -> dict:
+    """(d): the host collectives of a whole-table Add and Get on a
+    WORLD_COLL_MB f32 payload over the world, in turns: process_sum (the
+    all-reduce the replicas used), process_reduce_scatter (the sharded
+    Add's) and process_all_gather of the half (the sharded Get's); ms of
+    each, WORLD_COLL_REPS turns after a warm one; the results checked."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel import collectives as coll
+    from multiverso_tpu_torch.zoo import Zoo
+    rank, world = mv.rank(), mv.size()
+    mesh, axis = Zoo.get().mesh(), Zoo.get().shard_axis()
+    arr = np.full(int(WORLD_COLL_MB * 1e6 / 4) // world * world,
+                  float(rank + 1), np.float32)
+    want = np.float32(world * (world + 1) / 2)
+    half = arr[: arr.size // world]
+    ops = {"all_reduce": lambda: coll.process_sum(arr),
+           "reduce_scatter": lambda: coll.process_reduce_scatter(
+               arr, mesh, axis),
+           "all_gather": lambda: coll.process_all_gather(half, mesh, axis)}
+    ms = {k: [] for k in ops}
+    for i in range(WORLD_COLL_REPS + 1):
+        for name, fn in ops.items():
+            t0 = time.perf_counter()
+            got = fn()
+            if i:
+                ms[name].append(round((time.perf_counter() - t0) * 1e3, 2))
+            ok = (got.size == half.size * world and np.all(
+                got.reshape(world, -1) == np.arange(1, world + 1)[:, None])
+                if name == "all_gather" else np.all(got == want))
+            if not ok:
+                raise AssertionError(f"world (d) {name} is wrong")
+    return {"bytes": arr.nbytes, "ms": ms}
+
+
+def world_ada_inputs(rank: int, step: int):
+    """Rank ``rank``'s ids (repeats as drawn) and deltas at ``step``."""
+    rows, cols = WORLD_ADA_TABLE
+    rng = np.random.default_rng([41, rank, step])
+    ids = rng.integers(0, rows, WORLD_ADA_IDS)
+    return ids, rng.normal(size=(ids.size, cols)).astype(np.float32)
+
+
+def world_ada_model(world: int) -> tuple:
+    """numpy's model of (d)'s table after WORLD_ADA_STEPS collective row
+    adds: each rank's batch deduplicated (float64 sums, cast), the union
+    summed in float64 and cast, AdaGrad on the union's rows in f32.
+    Returns (table, g_sqr), logical rows."""
+    rows, cols = WORLD_ADA_TABLE
+    padded = rows + 1 + (-(rows + 1)) % world
+    data = np.random.default_rng(43).uniform(
+        -0.5, 0.5, (padded, cols)).astype(np.float32)[:rows]
+    hist = np.zeros((rows, cols), np.float32)
+    lr = np.float32(WORLD_ADA_OPT["learning_rate"])
+    rho = np.float32(WORLD_ADA_OPT["rho"])
+    for step in range(WORLD_ADA_STEPS):
+        ids_all, vals_all = [], []
+        for r in range(world):
+            ids, vals = world_ada_inputs(r, step)
+            u, inv = np.unique(ids, return_inverse=True)
+            acc = np.zeros((u.size, cols), np.float64)
+            np.add.at(acc, inv.reshape(-1), vals.astype(np.float64))
+            ids_all.append(u)
+            vals_all.append(acc.astype(np.float32))
+        u, inv = np.unique(np.concatenate(ids_all), return_inverse=True)
+        acc = np.zeros((u.size, cols), np.float64)
+        np.add.at(acc, inv.reshape(-1),
+                  np.concatenate(vals_all).astype(np.float64))
+        delta = acc.astype(np.float32)
+        h = hist[u] + np.square(delta) / np.square(lr)
+        hist[u] = h
+        data[u] = data[u] - delta * rho / (np.sqrt(h) + np.float32(1e-10))
+    return data, hist
+
+
+def world_shard(tmp: str) -> dict:
+    """(d) on this rank, in a fresh Zoo: an AdaGrad MatrixTable of
+    WORLD_ADA_TABLE, its state blocks on the card, WORLD_ADA_STEPS
+    collective row adds of each rank's own ids, its Get and a get_rows of
+    this rank's ids against numpy's model (WORLD_ADA_RTOL/ATOL), then a
+    checkpoint saved by the world (rank 0 writes) beside the Get and the
+    gathered g_sqr as .npy files, for this script's own process."""
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+    from multiverso_tpu_torch.updaters import AddOption
+    rank, world = mv.rank(), mv.size()
+    rows, cols = WORLD_ADA_TABLE
+    t = mv.MatrixTable(rows, cols, updater="adagrad", seed=43,
+                       init_scale=0.5, name="world_ada")
+    g = t.state["ustate"]["g_sqr"]
+    blocks = {"data": list(t.state["data"].shape), "g_sqr": list(g.shape),
+              "devices": sorted({str(t.state["data"].device),
+                                 str(g.device)})}
+    opt = AddOption(**WORLD_ADA_OPT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(WORLD_ADA_STEPS):
+        t.add_rows(*world_ada_inputs(rank, step), opt)
+    torch.cuda.synchronize()
+    add_ms = (time.perf_counter() - t0) * 1e3 / WORLD_ADA_STEPS
+    got = t.get()
+    mine = world_ada_inputs(rank, 0)[0][:512]
+    rows_got = t.get_rows(mine)
+    want, want_g = world_ada_model(world)
+    err = float(np.max(np.abs(got - want)))
+    np.testing.assert_allclose(got, want, rtol=WORLD_ADA_RTOL,
+                               atol=WORLD_ADA_ATOL)
+    np.testing.assert_array_equal(rows_got, got[mine])
+    with t._dispatch_lock:
+        _, leaves = t._stored_arrays()   # a collective: the gathered g_sqr
+    np.testing.assert_allclose(leaves[0][:rows], want_g,
+                               rtol=WORLD_ADA_RTOL, atol=WORLD_ADA_ATOL)
+    ckdir = os.path.join(tmp, "ckpt")
+    t0 = time.perf_counter()
+    checkpoint.save(ckdir, tag="world_d")
+    save_ms = (time.perf_counter() - t0) * 1e3
+    if rank == 0:
+        np.save(os.path.join(tmp, "d_get.npy"), got)
+        np.save(os.path.join(tmp, "d_gsqr.npy"), leaves[0])
+    mv.barrier()
+    return {"sharding": world_sharding(t), "blocks": blocks,
+            "add_ms": add_ms, "save_ms": save_ms, "max_abs_err": err,
+            "colls": world_rs_vs_ar()}
+
+
+def world_restore_check(tmp: str) -> dict:
+    """After the ranks end: (d)'s checkpoint restored in this process
+    into a one-process AdaGrad MatrixTable on the card; its Get and
+    g_sqr equal the world's bit for bit. The table leaves the Zoo's
+    registry after (later phases save the registry)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.zoo import Zoo
+    ckdir = os.path.join(tmp, "ckpt", "world_d")
+    with open(os.path.join(ckdir, "manifest.json")) as f:
+        entry = next(e for e in json.load(f)["tables"].values()
+                     if e["name"] == "world_ada")
+    t = mv.MatrixTable(*WORLD_ADA_TABLE, updater="adagrad",
+                       name="world_ada")
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(ckdir, entry["file"]), "rb") as f:
+            t.load(f, rows=int(entry["shape"][0]))
+        load_ms = (time.perf_counter() - t0) * 1e3
+        get_equal = bool(np.array_equal(
+            t.get(), np.load(os.path.join(tmp, "d_get.npy"))))
+        g = t.state["ustate"]["g_sqr"].cpu().numpy()
+        g_equal = bool(np.array_equal(
+            g, np.load(os.path.join(tmp, "d_gsqr.npy"))))
+        on_card = t.state["data"].device == mv.device()
+    finally:
+        Zoo.get()._tables.pop(t.table_id, None)
+        del t
+    if not (get_equal and g_equal and on_card):
+        raise AssertionError(f"world (d): the world's checkpoint restored "
+                             f"into one process differs (Get equal "
+                             f"{get_equal}, g_sqr equal {g_equal}, on the "
+                             f"card {on_card})")
+    return {"load_ms": load_ms, "file_bytes": os.path.getsize(
+        os.path.join(ckdir, entry["file"]))}
 
 
 def world_aggregate() -> dict:
@@ -7347,7 +7550,7 @@ def world_aggregate() -> dict:
 
 def world_rank(tmp: str) -> None:
     """One rank of the world phase, in its own process: join the world
-    from the environment (net_init), run (a), (b) and (c), print one
+    from the environment (net_init), run (a), (b), (c) and (d), print one
     ``RESULT <json>`` line."""
     import torch
     import torch.distributed as dist
@@ -7377,6 +7580,11 @@ def world_rank(tmp: str) -> None:
     t0 = time.perf_counter()
     out["agg"] = world_aggregate()
     walls["c"] = time.perf_counter() - t0
+    mv.shutdown()
+    t0 = time.perf_counter()
+    mv.init()   # a fresh Zoo: (d)'s checkpoint holds (d)'s table only
+    out["shard"] = world_shard(tmp)
+    walls["d"] = time.perf_counter() - t0
     mv.shutdown()
     leave_world()
     out["walls"] = {k: round(v, 2) for k, v in walls.items()}
@@ -7435,7 +7643,8 @@ def phase_world(dev) -> dict:
     """Two ranks of a world on this card, started by environment: (a) the
     JAX scenario's closed forms with the tables on the card, (b) the LM
     trained data-parallel through one shared table, (c) the aggregate
-    cell. Returns the flash launches summed over the ranks."""
+    cell, (d) the sharded layout and its checkpoint, restored here after
+    the ranks end. Returns the flash launches summed over the ranks."""
     import shutil
     import tempfile
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -7448,6 +7657,7 @@ def phase_world(dev) -> dict:
         t1 = time.perf_counter()
         ranks = world_launch(tmp)
         t2 = time.perf_counter()
+        restored = world_restore_check(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"world: {WORLD_RANKS} ranks on this card (backend "
@@ -7474,7 +7684,8 @@ def phase_world(dev) -> dict:
             f"{lm['share_ms']:.1f} ms; losses "
             f"{[round(x, 5) for x in lm['losses']]}; sync ms "
             f"{[round(x, 1) for x in lm['sync_ms']]} ({lm['sync_bytes']} B "
-            f"all-reduced through gloo a sync); the numpy check's ms "
+            f"a sync through gloo's reduce-scatter and all-gather of the "
+            f"table's blocks); the numpy check's ms "
             f"(deltas through files) {[round(x, 1) for x in lm['check_ms']]}"
             f"; B1-B3 "
             f"{lm['launches']}; kernel vs plain "
@@ -7482,10 +7693,10 @@ def phase_world(dev) -> dict:
             f"ulp or the kernel phase's tolerance) "
             f"{lm['kernel_errs']['ulps']}")
     if any(lm["digests"] != b[0]["digests"] for lm in b):
-        raise AssertionError("world (b): the ranks' tables differ")
+        raise AssertionError("world (b): the ranks' Gets differ")
     log(f"world (b) every sync equal to numpy's last + the ranks' deltas "
-        f"bit for bit on each rank, the replicas equal ({len(b[0]['digests'])}"
-        f" syncs)")
+        f"bit for bit on each rank, the ranks' Gets equal "
+        f"({len(b[0]['digests'])} syncs)")
     # (c)
     for r, rk in enumerate(ranks):
         ms = rk["agg"]["ms"]
@@ -7495,6 +7706,43 @@ def phase_world(dev) -> dict:
             f"{[round(x, 2) for x in ms['process_sum']]}, allgather + sum "
             f"p50 {float(np.median(ms['allgather'])):.2f} ms "
             f"{[round(x, 2) for x in ms['allgather']]}; equal results")
+    # (d)
+    for r, rk in enumerate(ranks):
+        lay, d = rk["lm"]["layout"], rk["shard"]
+        share = lay["resident_bytes"] / lay["whole_bytes"]
+        sync_s = [x / 1e3 for x in rk["lm"]["sync_ms"]]
+        lo, hi = WORLD_SYNC_PREDICTED_S
+        log(f"world (d) rank {r}: (b)'s table {lay['sharding']}, resident "
+            f"on the card {lay['resident_bytes']} B (memory_allocated "
+            f"across its creation; its block {lay['block_bytes']} B) of "
+            f"the whole table's {lay['whole_bytes']} B: {share:.4f}; (b)'s "
+            f"sharded syncs {[round(x, 3) for x in sync_s]} s (predicted "
+            f"{lo}-{hi} s: "
+            f"{'inside' if all(lo <= x <= hi for x in sync_s) else 'OUTSIDE'}"
+            f"), of which the collectives' ms {rk['lm']['sync_coll_ms']}")
+        if not (lay["device"] == rk["device"]
+                and share <= WORLD_RESIDENT_MAX):
+            raise AssertionError(f"world (d) rank {r}: resident share "
+                                 f"{share:.4f} of (b)'s table (at most "
+                                 f"{WORLD_RESIDENT_MAX}), on "
+                                 f"{lay['device']}, the rank's device "
+                                 f"{rk['device']}")
+        log(f"world (d) rank {r}: AdaGrad {WORLD_ADA_TABLE} "
+            f"{d['sharding']}, blocks {d['blocks']}, {WORLD_ADA_STEPS} "
+            f"row adds of {WORLD_ADA_IDS} ids a rank, {d['add_ms']:.1f} ms "
+            f"each; Get and g_sqr within rtol {WORLD_ADA_RTOL} / atol "
+            f"{WORLD_ADA_ATOL} of numpy's model (max abs "
+            f"{d['max_abs_err']:.3g}), get_rows of its own ids equal the "
+            f"Get's rows; checkpoint saved by the world in "
+            f"{d['save_ms']:.1f} ms; host collectives of "
+            f"{d['colls']['bytes']} B f32 in turns, ms: {d['colls']['ms']}")
+        if d["blocks"]["devices"] != [rk["device"]] or d["blocks"][
+                "data"][0] != d["sharding"]["padded_rows"] // WORLD_RANKS:
+            raise AssertionError(f"world (d) rank {r}: blocks {d}")
+    log(f"world (d) the world's checkpoint ({restored['file_bytes']} B) "
+        f"restored into a one-process AdaGrad table on this card in "
+        f"{restored['load_ms']:.1f} ms: Get and g_sqr equal the world's "
+        f"bit for bit")
     counts = {k: sum(rk["lm"]["launches"][k] for rk in ranks)
               for k in ranks[0]["lm"]["launches"]}
     log(f"world launches summed over the ranks {counts}")

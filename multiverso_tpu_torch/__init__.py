@@ -11,8 +11,9 @@ and int8 weights (``models/transformer.generate``,
 (``apps/resnet_cifar.py``), the LDA topic model (``models/lda.py``), and
 the async parameter-server plane (``ps/``: uncoordinated Add/Get against
 tables sharded over processes). ``net_init()`` (or a launcher's
-environment) makes N processes one world: each keeps a replica of every
-table, and the collective adds keep the replicas equal.
+environment) makes N processes one world: the synchronous tables shard
+their rows over its ranks (``Table.sharding``), and every add, Get and
+row read is a collective.
 
 Entry points run on the card: ``init()`` resolves the device to ``cuda``
 and raises if there is none, unless the caller passes ``device="cpu"``.

@@ -401,6 +401,7 @@ class LogReg:
             cfg.regular_type, cfg.regular_coef, cfg.learning_rate)
 
         t0 = time.perf_counter()
+        self.table.require_whole("LogisticRegression's fused epoch")
         state = self.table.state
         losses = torch.empty(xb.shape[0], dtype=torch.float32,
                              device=self.device)

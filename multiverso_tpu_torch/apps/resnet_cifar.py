@@ -93,6 +93,7 @@ class ResNetTrainer:
         device)."""
         xb, yb = self._batches(x, y)
         opt = AddOption(learning_rate=self.learning_rate)
+        self.table.require_whole("ResNetTrainer.train")
         state = self.table.state
         t0 = time.perf_counter()
         losses = []
@@ -110,6 +111,7 @@ class ResNetTrainer:
 
     @torch.no_grad()
     def evaluate(self, x: np.ndarray, y: np.ndarray) -> float:
+        self.table.require_whole("ResNetTrainer.evaluate")
         params = resnet_lib.unflatten_params(
             self.table.state["data"][: self.n_params], self._meta)
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)

@@ -423,6 +423,8 @@ class WordEmbedding:
         # does: two calls of one epoch each draw the same negatives
         key = threefry.key(cfg.seed)
         out_table = self.table_hs if cfg.hs else self.table_out
+        for t in (self.table_in, out_table):
+            t.require_whole("WordEmbedding.train_fused")
         state_in, state_out = self.table_in.state, out_table.state
         # train copies, so the live tables survive a failure mid-epoch
         win, wout = state_in["data"].clone(), state_out["data"].clone()
@@ -941,6 +943,8 @@ class WordEmbedding:
         loss as a device scalar (read back at the end of the run)."""
         cfg = self.cfg
         t_in, t_sec = self.table_in, self._sec_table()
+        for t in (t_in, t_sec):
+            t.require_whole("WordEmbedding's PS block device plane")
         p = {key: self._upload(a) for key, a in prep.items()
              if key != "valid"}
         ids_in = p["ids_in"]

@@ -171,12 +171,25 @@ def _snapshot(table):
     return (lambda stream: stream.write(data)), len(data)
 
 
+class _DevNull:
+    """A discarding sink: a rank other than 0 still runs a sharded
+    table's ``store`` (its gather is a collective), and nothing is
+    written."""
+
+    def write(self, b):
+        return len(b)
+
+
 class _AsyncSave:
     """One ``block=False`` save: the tables' snapshots, written by a
-    thread into ``path``; its manifest waits for :func:`wait_pending`."""
+    thread into ``path``; its manifest waits for :func:`wait_pending`.
+    Only rank 0 writes (``writer``); the other ranks' saves hold no job
+    and meet rank 0 at the barrier of :func:`wait_pending`."""
 
-    def __init__(self, path: str, manifest: Dict, jobs) -> None:
+    def __init__(self, path: str, manifest: Dict, jobs,
+                 writer: bool = True) -> None:
         self.path, self.manifest = path, manifest
+        self.writer = writer
         self.error: Optional[Exception] = None
         self._written = False   # every file, to its end
         self._staged = sum(n for _, _, n in jobs)
@@ -235,9 +248,10 @@ def wait_pending() -> int:
         log.error("async checkpoint write failed; discarded the "
                   "unfinalized checkpoint %s", job.path)
         raise
-    _write_manifest(job.path, job.manifest)
-    log.info("checkpoint finalized (async): %s (%d tables)", job.path,
-             len(job.manifest["tables"]))
+    if job.writer:
+        _write_manifest(job.path, job.manifest)
+        log.info("checkpoint finalized (async): %s (%d tables)", job.path,
+                 len(job.manifest["tables"]))
     Zoo.get().barrier()
     return 1
 
@@ -246,17 +260,22 @@ def save(directory: str, tag: str = "checkpoint",
          backend: str = "stream", block: bool = True) -> str:
     """Write every registered table (data + updater state) under
     ``directory/tag/``; the commit marker lands last. Returns the
-    checkpoint path. Every process of a world keeps a replica of each
-    table and writes its own (give each rank its own directory); then
-    the ranks meet at the barrier.
+    checkpoint path. A collective in a world of several processes, as in
+    the JAX package: rank 0 writes the whole of each table, and the other
+    ranks take part in the gathers of the sharded tables' blocks (every
+    rank passes the same ``directory``, which every rank's ``restore``
+    reads); then the ranks meet at the barrier. An async PS table's
+    ``store`` is no collective: the other ranks skip it.
 
-    ``block=False`` returns once every table's state is snapshotted and
-    writes the same files on a thread; the manifest and the marker wait
-    for :func:`wait_pending` (the next save or restore calls it). Each
-    save first finalizes the one in flight."""
+    ``block=False`` returns once every table's state is snapshotted (a
+    sharded table's blocks gathered now) and writes the same files on a
+    thread; the manifest and the marker wait for :func:`wait_pending`
+    (the next save or restore calls it). Each save first finalizes the
+    one in flight."""
     _check_backend(backend)
     wait_pending()
     zoo = Zoo.get()
+    writer = zoo.rank() == 0
     path = _join(directory, tag)
     manifest: Dict = {"tables": {}, "version": 1}
     jobs = []
@@ -264,21 +283,28 @@ def save(directory: str, tag: str = "checkpoint",
         if not hasattr(table, "store"):
             continue
         fname = f"{table.name}.{table_id}.mvt"
-        if block:
+        manifest["tables"][str(table_id)] = dict(
+            _manifest_entry(table), file=fname)
+        if not writer and not getattr(table, "collective_store", True):
+            continue
+        if not block:
+            job = _snapshot(table)
+            if writer:
+                jobs.append((fname, *job))
+        elif writer:
             with open_stream(_join(path, fname), "wb") as s:
                 table.store(s)
         else:
-            jobs.append((fname, *_snapshot(table)))
-        manifest["tables"][str(table_id)] = dict(
-            _manifest_entry(table), file=fname)
+            table.store(_DevNull())
     if not block:
         global _pending
         with _pending_lock:
-            _pending = _AsyncSave(path, manifest, jobs)
+            _pending = _AsyncSave(path, manifest, jobs, writer=writer)
         return path
-    _write_manifest(path, manifest)
-    log.info("checkpoint saved: %s (%d tables)", path,
-             len(manifest["tables"]))
+    if writer:
+        _write_manifest(path, manifest)
+        log.info("checkpoint saved: %s (%d tables)", path,
+                 len(manifest["tables"]))
     zoo.barrier()
     return path
 
@@ -286,8 +312,13 @@ def save(directory: str, tag: str = "checkpoint",
 def restore(directory: str, tag: str = "checkpoint") -> int:
     """Load every registered table from a checkpoint written by
     :func:`save` (of either package). Tables are matched by registration
-    id and name; mismatched shapes raise. An asynchronous save in flight
-    is finalized first. Returns the number of tables restored."""
+    id and name; mismatched shapes raise. Every rank reads the whole of
+    each table and a sharded table keeps this rank's block; a table
+    saved at another block count (its padding differs) loads when its
+    logical shape is this table's. An
+    asynchronous save in flight is finalized first. Returns the number
+    of tables restored."""
+    from multiverso_tpu_torch.table import Table
     wait_pending()
     zoo = Zoo.get()
     path = _join(directory, tag)
@@ -311,7 +342,11 @@ def restore(directory: str, tag: str = "checkpoint") -> int:
                 f"registry has {table.name!r} — create tables in the same "
                 "order before restoring")
         with open_stream(_join(path, entry["file"]), "rb") as s:
-            table.load(s)
+            if isinstance(table, Table) and "shape" in entry:
+                # the logical rows: a table of another block count loads
+                table.load(s, rows=int(entry["shape"][0]))
+            else:
+                table.load(s)
         restored += 1
     zoo.barrier()
     log.info("checkpoint restored: %s (%d tables)", path, restored)

@@ -5,11 +5,12 @@ Every categorical field lives in one MatrixTable and the dot-interaction
 MLP in one ArrayTable (``models/dlrm.py``), and one fused step does
 gather -> grad -> duplicate-accumulating scatter -> server-side AdaGrad.
 Each rank is one process of a ``torch.distributed`` world that this
-script spawns: it holds the tables on its own device (a table's placement
-across processes comes with the multi-process table layer), takes its
-shard of every batch, and ``models.dlrm.make_train_step(mesh=, axis=)``
-averages the ranks' deltas in one all-reduce before the updaters, so
-every rank applies the global batch's step and keeps the same tables.
+script spawns: the tables' rows are sharded over the ``dp`` axis, the
+Zoo mesh's table axis (each rank holds a block on its own device), each
+rank takes its shard of every batch, and
+``models.dlrm.make_train_step(mesh=, axis=)`` gathers the blocks for the
+forward pass and averages the ranks' deltas in one all-reduce before the
+updaters, so every rank applies its block of the global batch's step.
 
 Run: python -m multiverso_tpu_torch.examples.dlrm_ctr
          [--device cpu] [--world 2] [--epochs N] [--samples N]

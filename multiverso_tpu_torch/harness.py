@@ -199,11 +199,11 @@ def test_matrix() -> None:
     mv.shutdown()
 
 
-def _checkpoint_dir(rank: int, size: int) -> str:
-    d = config.get_flag("checkpoint_dir") or os.path.join(
+def _checkpoint_dir() -> str:
+    # one directory for every rank: rank 0 writes the whole of each
+    # (sharded) table, and every rank restores from it
+    return config.get_flag("checkpoint_dir") or os.path.join(
         tempfile.gettempdir(), "mv_harness_ckpt")
-    # every process keeps a replica of each table: each saves its own
-    return d if size == 1 else os.path.join(d, f"rank{rank}")
 
 
 def test_checkpoint(restore: bool = False) -> None:
@@ -218,7 +218,7 @@ def test_checkpoint(restore: bool = False) -> None:
     t = mv.MatrixTable(num_row, num_col, name="harness_ckpt")
     mv.barrier()
     delta = np.arange(size, dtype=np.float32).reshape(num_row, num_col)
-    ckpt_dir = _checkpoint_dir(mv.rank(), mv.size())
+    ckpt_dir = _checkpoint_dir()
     w = mv.num_workers()
     if not restore:
         for _ in range(50):

@@ -212,9 +212,13 @@ def make_train_step(cfg: DLRMConfig, emb_table, mlp_table, mlp_meta,
     returns new ones); on a table's live ``state`` that commits the step.
 
     With ``mesh`` and a data axis ``axis`` each rank passes its batch
-    shard and holds the same tables: the deltas and the loss are averaged
-    over the axis in one all-reduce before the updaters (the global
-    batch's step, as the JAX step takes it on its mesh-sharded tables).
+    shard: the deltas and the loss are averaged over the axis in one
+    all-reduce before the updaters (the global batch's step, as the JAX
+    step takes it on its mesh-sharded tables). A table sharded over the
+    Zoo mesh's table axis (``table.py``; a ``{"dp": N}`` mesh shards
+    over ``dp``) holds its block in its state: the step gathers the
+    embedding and MLP blocks for its forward pass (``Table.unshard``)
+    and each rank applies its block of the merged delta.
     """
     offsets = torch.as_tensor(field_offsets(cfg), dtype=torch.int64)
     n_mlp = int(sum(mlp_meta[2]))
@@ -222,13 +226,14 @@ def make_train_step(cfg: DLRMConfig, emb_table, mlp_table, mlp_meta,
     mlp_opt = mlp_opt or AddOption(learning_rate=0.05, rho=0.1)
 
     def step(emb_state, mlp_state, cat_ids, dense, labels):
-        data = emb_state["data"]
+        data = emb_table.unshard(emb_state["data"])
         dev = data.device
         cat = torch.as_tensor(cat_ids, device=dev).long()
         b, f = cat.shape
         ids = (cat + offsets.to(dev)[None, :]).reshape(-1)   # [B*F] global
         rows = data.index_select(0, ids).reshape(b, f, cfg.embed_dim)
-        flat = mlp_state["data"][:n_mlp].detach().requires_grad_()
+        flat = mlp_table.unshard(mlp_state["data"])[:n_mlp]
+        flat = flat.detach().requires_grad_()
         mlp = unflatten_mlp(flat, mlp_meta)
         rows = rows.detach().requires_grad_()
         loss = loss_fn(mlp, rows, torch.as_tensor(dense, device=dev),

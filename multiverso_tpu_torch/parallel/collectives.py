@@ -16,6 +16,10 @@ on this rank.
 * :func:`process_sum` — a host array summed over the whole world.
 * :func:`process_sum_tensor` — a tensor summed over the whole world.
 * :func:`process_allgather` — every process's host array, stacked.
+* :func:`process_reduce_scatter` — host arrays summed over a mesh axis,
+  this rank's slice of dim 0 (a sharded table's whole-table Add).
+* :func:`process_all_gather` — host arrays over a mesh axis,
+  concatenated on dim 0 (a sharded table's whole-table Get).
 
 The differentiable collectives are ``torch.autograd.Function``s, each
 backward the pair of its forward:
@@ -494,11 +498,11 @@ def broadcast(x, root: int = 0, axis: Optional[str] = None, mesh=None
     return raw_broadcast(_tensor(x, mesh), mesh, ax, root)
 
 
-def _world_tensor(arr: np.ndarray) -> torch.Tensor:
-    """A private copy of ``arr`` where the world's backend reduces: the
-    host for gloo, this rank's card for nccl."""
+def _group_tensor(arr: np.ndarray, group=None) -> torch.Tensor:
+    """A private copy of ``arr`` where ``group``'s backend (the world's
+    for None) reduces: the host for gloo, this rank's card for nccl."""
     t = torch.from_numpy(np.array(arr, copy=True, order="C"))
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(group) == "nccl":
         _devstats.note_transfer(arr.nbytes, "h2d")
         t = t.to(torch.device("cuda", torch.cuda.current_device()))
     return t
@@ -519,7 +523,7 @@ def process_sum(arr: np.ndarray) -> np.ndarray:
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return arr
     world = dist.get_world_size()
-    t = _world_tensor(arr)
+    t = _group_tensor(arr)
     with _devstats.collective_span("process_sum", arr.nbytes,
                                    mesh={"proc": world}):
         dist.all_reduce(t)
@@ -548,6 +552,51 @@ def process_sum_tensor(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def process_reduce_scatter(arr: np.ndarray, mesh, axis: str) -> np.ndarray:
+    """The sum of the host arrays of the ranks of ``axis``'s group (same
+    shape and dtype on each), this rank's slice of dim 0 by its index
+    along ``axis``: one reduce_scatter (the reference's ReduceScatter,
+    src/net/allreduce_engine.cpp:39-53), on the host for gloo, through
+    the card for nccl. A group of one: a copy. Called collectively."""
+    arr = np.asarray(arr)
+    group = mesh.group(axis)
+    n = mesh.axis_size(axis)
+    if group is None:
+        return arr.copy()
+    if arr.shape[0] % n:
+        raise ValueError(f"dim 0 of {arr.shape} not divisible by {n} ranks")
+    t = _group_tensor(arr, group).reshape(-1)
+    out = torch.empty((t.numel() // n,), dtype=t.dtype, device=t.device)
+    scatter = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    with _devstats.collective_span("process_reduce_scatter", arr.nbytes,
+                                   mesh=mesh):
+        scatter(out, t, group=group)
+    return _host(out, arr.nbytes // n).reshape(
+        (arr.shape[0] // n,) + arr.shape[1:])
+
+
+def process_all_gather(arr: np.ndarray, mesh, axis: str) -> np.ndarray:
+    """The host arrays of the ranks of ``axis``'s group (same shape and
+    dtype on each) concatenated on dim 0 in their index order along
+    ``axis``: one all_gather, on the host for gloo, through the card for
+    nccl. A group of one: a copy. Called collectively."""
+    arr = np.asarray(arr)
+    group = mesh.group(axis)
+    n = mesh.axis_size(axis)
+    if group is None:
+        return arr.copy()
+    t = _group_tensor(arr, group).reshape(-1)
+    out = torch.empty((n * t.numel(),), dtype=t.dtype, device=t.device)
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    with _devstats.collective_span("process_all_gather", arr.nbytes * n,
+                                   mesh=mesh):
+        gather(out, t, group=group)
+    return _host(out, arr.nbytes * n).reshape(
+        (n * arr.shape[0],) + arr.shape[1:])
+
+
 def process_allgather(arr: np.ndarray) -> np.ndarray:
     """Every process's ``arr`` stacked in rank order, ``(world,
     *arr.shape)``, on every process (``multihost_utils.process_allgather(
@@ -557,7 +606,7 @@ def process_allgather(arr: np.ndarray) -> np.ndarray:
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return arr[None].copy()
     world = dist.get_world_size()
-    t = _world_tensor(arr).reshape(-1)
+    t = _group_tensor(arr).reshape(-1)
     out = torch.empty((world * t.numel(),), dtype=t.dtype, device=t.device)
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor

@@ -188,6 +188,17 @@ def one_rank_mesh(axes, device: Any) -> Mesh:
     return m
 
 
+def world_mesh(axis: str, device: Any) -> Mesh:
+    """One axis named ``axis`` over every rank of the world, in rank
+    order (the JAX package's default mesh over every device of every
+    process); the one-rank mesh for a world of one. Collective: every
+    rank builds it."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1:
+        return one_rank_mesh(axis, device)
+    return Mesh({axis: world}, device=device)
+
+
 # ---------------------------------------------------------------------- #
 # worlds
 # ---------------------------------------------------------------------- #

@@ -7,9 +7,12 @@ all of them (ref: src/server.cpp:68-222, flag -sync=true). Here each
 worker is one rank of the world: it computes its gradient on its batch
 shard, the gradients and losses meet in one all-reduce mean over the
 worker axis (the BSP merge), and the merged step goes through the
-table's updater with ``functional_add``. Every rank holds the same table
-state (the SyncServer guarantee) because every rank applies the same
-merged delta.
+table's updater with ``functional_add``. The table's rows are sharded
+over the mesh's table axis (``table.py``): the step gathers the
+parameters over that axis before ``grad_fn`` (the JAX ``in_specs=P()``),
+the ranks of one worker group compute the same merged gradient, and each
+applies its own block of it. Every worker sees the same table state (the
+SyncServer guarantee) because every rank applies the same merged delta.
 """
 
 from __future__ import annotations
@@ -44,10 +47,11 @@ def worker_step(table, grad_fn: Callable, learning_rate: float = 0.1,
                 opt: Optional[AddOption] = None) -> Callable:
     """Build ``step(state, batch) -> (state, loss)``, ``batch`` this
     worker's shard: ``grad_fn(params_flat, batch) -> (loss, grad_flat)``
-    runs on it, the gradient and the loss are averaged over ``axis``, the
-    learning rate multiplies the merged gradient and the table's updater
-    applies it (``functional_add``: ``state``'s tensors update in
-    place)."""
+    runs on it with the whole padded parameters (gathered over the
+    table axis), the gradient and the loss are averaged over ``axis``,
+    the learning rate multiplies the merged gradient and the table's
+    updater applies this rank's block of it (``functional_add``:
+    ``state``'s tensors update in place)."""
     mesh = Zoo.get().mesh()
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh has no {axis!r} axis: {mesh.axis_names}")
@@ -55,7 +59,7 @@ def worker_step(table, grad_fn: Callable, learning_rate: float = 0.1,
     n = mesh.axis_size(axis)
 
     def step(state, batch):
-        loss, grad = grad_fn(state["data"], batch)
+        loss, grad = grad_fn(table.unshard(state["data"]), batch)
         # BSP merge: one all-reduce for the gradient and the loss together
         flat = torch.cat([grad.reshape(-1).float(),
                           torch.as_tensor(loss, dtype=torch.float32,

@@ -276,6 +276,14 @@ class MeshStack:
     def active(self) -> bool:
         return self.stack is not None
 
+    def slot_of(self, shard) -> Optional[int]:
+        """The slot ``shard`` holds in the stack, or None (not a
+        member)."""
+        for i, m in enumerate(self.members):
+            if m is shard:
+                return i
+        return None
+
     def admit(self, shard, service) -> None:
         """Admit one shard; activates (builds the stack) at 2+ live
         members. The shard must match the group (dtype, columns, updater

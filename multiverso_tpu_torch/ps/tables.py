@@ -1454,6 +1454,11 @@ def _maybe_register_in_zoo(table) -> Optional[int]:
 class _AsyncBase:
     """msg-id -> futures bookkeeping shared by the async tables."""
 
+    # store() asks the owners over the wire, no collective:
+    # checkpoint.save runs it on rank 0 only (a sync table's gather of
+    # its blocks is a collective, so every rank runs its store())
+    collective_store = False
+
     def __init__(self, ctx: Optional[svc.PSContext], name: str):
         self.ctx = ctx if ctx is not None else svc.default_context()
         self.name = name

@@ -393,7 +393,7 @@ class TrainRowCache(HotRowCache):
         if misses:
             self._mon_miss().incr(misses)
 
-    def device_block_counted(self, row_ids, bucket: int):
+    def device_block_counted(self, row_ids, bucket: int, agree=None):
         """The table-facing device serve policy, shared by BOTH planes
         (MatrixTable here; the async plane's table later): a
         fully-covered block serves
@@ -403,8 +403,13 @@ class TrainRowCache(HotRowCache):
         hit/cold accounting (counting here too would double-count the
         block). Clock after serve, deliberately: a refresh falling due
         on this get must not clear the cache mid-decision and then
-        double-advance the clock in the fallback path."""
+        double-advance the clock in the fallback path. ``agree(ok) ->
+        bool``, when given, makes the serve a decision of every rank of a
+        sharded table (its fallback is a collective): a block serves only
+        where every rank has one."""
         blk = self.device_block(row_ids, bucket)
+        if agree is not None and not agree(blk is not None):
+            blk = None
         if blk is not None:
             self.count(int(np.asarray(row_ids).size), 0)
             self.on_get()

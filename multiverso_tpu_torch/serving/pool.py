@@ -400,6 +400,12 @@ class ReplicaPool:
         self._demote(m, "killed")
 
     # ------------------------------------------------------------------ #
+    def min_age_s(self) -> float:
+        """The freshest active member's age in seconds (inf with none
+        active)."""
+        ages = [m.replica.age_s() for m in self._members if m.active]
+        return min(ages) if ages else float("inf")
+
     def spares_left(self) -> int:
         """Warm spares this pool could still promote."""
         with self._lock:

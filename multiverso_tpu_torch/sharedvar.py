@@ -7,7 +7,10 @@ parameters, nested by their dotted names) are flattened into one
 pulls the merged global state (ref theano_ext sharedvar.py ``mv_sync``).
 With N processes (``net_init``) every ``sync`` is a collective: the table's
 Add sums every worker's delta, so N processes train data-parallel ASGD
-with no other change to their loop.
+with no other change to their loop. The table's rows are sharded over the
+world (``table.py``): the Add is a reduce-scatter, each rank applies its
+block, and the Get gathers the blocks, so every rank's merged values are
+the same bytes.
 
 The flat layout equals the JAX package's: ``jax.tree.leaves`` of a dict
 visits keys in sorted order at every level, and so does ``_leaves`` here,

@@ -16,19 +16,34 @@ Program order on one stream gives every Get the state after all previously
 issued Adds, the BSP guarantee of the reference's SyncServer. On the CPU
 every op completes before it returns.
 
-More than one process (``Zoo.size() > 1``): each process keeps a whole
-replica of the table, and a whole-table Add is a collective. Every process
+More than one process (``Zoo.size() > 1``): the rows are sharded over the
+Zoo mesh's table axis (``Zoo.shard_axis()``, the mesh's last axis), as
+the JAX package's global array is (``P(axis)``): the rank at index i of
+that axis holds rows ``[i*B, (i+1)*B)`` of the padded table, ``B =
+padded_rows / num_shards``, and the same block of every updater-state
+leaf whose trailing shape is the table's (Adam's step count is held
+whole on every rank). The mesh's other axes replicate the blocks. A
+world of one, or a table axis of one rank, keeps the whole table
+(:attr:`sharding`). A whole-table Add is a collective: every process
 calls it, in the same order, with its own worker's delta, and the delta
-applied is the sum over the world (``collectives.process_sum`` of a numpy
-delta, before any wire encode; one all_reduce of the padded device delta
-for a tensor). A tensor delta of any shape is its rank's contribution:
-the port has no global arrays, so none counts as already summed. So every
-replica applies the same delta and stays equal to the others, and a Get
-is local. The functional plane (``state``, ``functional_add``, ``adopt``)
-stays local and pure, as in the JAX package: a caller that trains on it
-reduces across its mesh itself (``parallel/worker_map.worker_step``).
-Coalescing and the write-triggered prefetch stay off: each add's
-collective runs on the caller's thread, in the caller's order.
+applied is the world's sum: one reduce-scatter where the table axis spans
+the world (``collectives.process_reduce_scatter`` of a numpy delta,
+``raw_reduce_scatter`` of a padded tensor), else a sum over the world
+whose block each rank keeps. Each rank applies its block only. A tensor
+delta of any shape is its rank's contribution: the port has no global
+arrays, so none counts as already summed. A wire filter encodes the
+world's sum, and each rank decodes it and applies its block. A
+whole-table Get is an all-gather of the blocks over the table axis (the
+JAX ``process_allgather(tiled=True)``), so every rank receives the whole
+table; versions advance in lockstep, so the get cache stays exact. The
+functional plane (``state``, ``functional_add``, ``adopt``) holds this
+rank's block, the addressable shard of the JAX global array:
+``functional_add`` takes the block's shape or the whole padded shape,
+whose rows outside the block it ignores, and a caller that needs the
+whole table gathers it (:meth:`unshard`). ``store`` gathers the table
+(a collective), ``load`` keeps the block. Coalescing and the
+write-triggered prefetch stay off: each add's collective runs on the
+caller's thread, in the caller's order.
 
 Around that core, as in the JAX package:
 
@@ -67,7 +82,8 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -113,6 +129,18 @@ def _dtypes(dtype) -> Tuple[np.dtype, torch.dtype]:
     else:
         np_dtype = np.dtype(dtype)
     return np_dtype, torch.from_numpy(np.empty(0, np_dtype)).dtype
+
+
+class TableSharding(NamedTuple):
+    """Where a table's rows live (the JAX ``Table.sharding``'s
+    counterpart): the Zoo's ``mesh``, its table ``axis``, the number of
+    blocks ``num_shards`` (the axis's size) and this rank's padded row
+    range ``rows = (lo, hi)``."""
+
+    mesh: Any
+    axis: str
+    num_shards: int
+    rows: Tuple[int, int]
 
 
 class _Pending:
@@ -191,12 +219,20 @@ class Table:
         self.np_dtype, self.dtype = _dtypes(dtype)
         self.shape = tuple(int(s) for s in shape)
         self.device = zoo.device()
-        self._num_shards = 1
+        mesh = zoo.mesh()
+        self._mesh = mesh
+        self._axis = zoo.shard_axis()
+        self._num_shards = int(mesh.shape[self._axis])
 
         # at least one spare row, as in the JAX package, so padded shapes
-        # (and a seeded init's draws) match its layout
+        # (and a seeded init's draws) match its layout; the padded rows
+        # split evenly over the table axis, and this rank keeps its block
         self._padded_rows = _ceil_to(self.shape[0] + 1, self._num_shards)
         self._padded_shape = (self._padded_rows,) + self.shape[1:]
+        block = self._padded_rows // self._num_shards
+        lo = (mesh.index(self._axis) if self._num_shards > 1 else 0) * block
+        self._rows = (lo, lo + block)
+        self._local_shape = (block,) + self.shape[1:]
 
         if updater is None:
             updater = config.get_flag("updater_type")
@@ -206,7 +242,9 @@ class Table:
         self.updater = updater
 
         self._data = self._build_init(init, seed, init_scale)
-        self._ustate = updater.init_state(self._padded_shape, self.dtype,
+        # the updater state of the block: its row-shaped leaves take the
+        # block's shape, the others (Adam's step count) are whole
+        self._ustate = updater.init_state(self._local_shape, self.dtype,
                                           self.device)
         # every op of the table runs on this stream, whichever thread
         # issues it (the coalescing applier has a thread of its own)
@@ -274,7 +312,8 @@ class Table:
         """Byte gauges: the cached Get's host copy and the prefetch's
         pinned host buffer (the JAX package's two), plus the table's own
         device tensor (``table_bytes``, padded rows included) and its
-        updater state (``ustate_bytes``). Lock-free reads of the
+        updater state (``ustate_bytes``): this rank's block of a sharded
+        table, the bytes resident here. Lock-free reads of the
         attribute references: the ledger tolerates a one-sample-stale
         figure."""
         cache = self._get_cache
@@ -293,14 +332,22 @@ class Table:
         }
 
     def _build_init(self, init, seed, init_scale) -> torch.Tensor:
-        data = torch.zeros(self._padded_shape, dtype=self.dtype,
+        """This rank's block of the initial padded table: ``init``'s rows,
+        or a seeded draw of the WHOLE padded table (the same numbers as
+        the JAX package for the same seed, whatever the layout), or
+        zeros."""
+        lo, hi = self._rows
+        data = torch.zeros(self._local_shape, dtype=self.dtype,
                            device=self.device)
         if init is not None:
             arr = np.asarray(init, dtype=self.np_dtype)
             if arr.shape != self.shape:
                 raise ValueError(
                     f"init shape {arr.shape} != table shape {self.shape}")
-            data[: self.shape[0]].copy_(torch.from_numpy(arr))
+            mine = arr[lo:min(hi, self.shape[0])]
+            if mine.shape[0]:
+                data[: mine.shape[0]].copy_(torch.from_numpy(
+                    np.ascontiguousarray(mine)))
         elif seed is not None and init_scale != 0.0:
             # Uniform(-scale, scale) from numpy, the same numbers as the
             # JAX package for the same seed
@@ -308,17 +355,63 @@ class Table:
             out = rng.uniform(-init_scale, init_scale,
                               self._padded_shape).astype(self.np_dtype)
             out[self.shape[0]:] = 0
-            data.copy_(torch.from_numpy(out))
+            data.copy_(torch.from_numpy(out[lo:hi]))
         return data
 
     @property
     def padded_shape(self) -> Tuple[int, ...]:
         return self._padded_shape
 
+    @property
+    def sharding(self) -> TableSharding:
+        """The mesh, the table axis, the number of blocks and this rank's
+        padded row range (the JAX ``Table.sharding``: ``NamedSharding(
+        mesh, P(axis))``)."""
+        return TableSharding(self._mesh, self._axis, self._num_shards,
+                             self._rows)
+
     def raw(self) -> torch.Tensor:
-        """The live padded data tensor (reads see every prior async add)."""
+        """The live data tensor, this rank's block of the padded table
+        (reads see every prior async add)."""
         self._flush_host_adds()
         return self._data
+
+    def _state_row_axis(self, leaf) -> Optional[int]:
+        """Axis of an updater-state leaf that is the table's row axis (its
+        trailing shape is the block's), or None (a leaf shared by all
+        rows, such as Adam's step count)."""
+        shape = tuple(leaf.shape)
+        nd, pd = len(shape), len(self._local_shape)
+        if nd >= pd and shape[nd - pd:] == self._local_shape:
+            return nd - pd
+        return None
+
+    def _own(self, delta: torch.Tensor) -> torch.Tensor:
+        """A delta of the block's shape as it is; one of the whole padded
+        shape cut to this rank's block."""
+        if self._num_shards > 1 and delta.shape[0] == self._padded_rows:
+            return delta[self._rows[0]:self._rows[1]]
+        return delta
+
+    def unshard(self, block: torch.Tensor) -> torch.Tensor:
+        """The whole padded tensor of which ``block`` is this rank's block
+        (``state["data"]`` or a row-shaped leaf): an all-gather over the
+        table axis (the JAX ``in_specs=P()`` of a sharded table), a
+        collective; the tensor itself when the table is not sharded."""
+        if self._num_shards == 1:
+            return block
+        from multiverso_tpu_torch.parallel.collectives import raw_all_gather
+        return raw_all_gather(block, self._mesh, self._axis)
+
+    def require_whole(self, what: str) -> None:
+        """Raise ``NotImplementedError`` for a caller that reads
+        :attr:`state` as the whole table when this rank holds a block."""
+        if self._num_shards > 1:
+            raise NotImplementedError(
+                f"{what} reads table[{self.name}]'s state as the whole "
+                f"table, but its rows are sharded over the mesh's "
+                f"{self._axis!r} axis ({self._num_shards} blocks); this "
+                "path is not ported at a table axis > 1 (ROADMAP.md §A)")
 
     # ------------------------------------------------------------------ #
     # mutation bookkeeping (get-cache version)
@@ -449,25 +542,28 @@ class Table:
     # ------------------------------------------------------------------ #
     @property
     def state(self) -> Dict[str, Any]:
-        """The live table state ``{"data", "ustate"}``: the padded data
-        tensor and the updater's state tensors, not copies. A caller that
-        writes them in place commits with :meth:`adopt` or through
-        :meth:`functional_add` on this state."""
+        """The live table state ``{"data", "ustate"}``: the data tensor
+        (this rank's block of the padded table) and the updater's state
+        tensors, not copies. A caller that writes them in place commits
+        with :meth:`adopt` or through :meth:`functional_add` on this
+        state."""
         self._flush_host_adds()
         return {"data": self._data, "ustate": self._ustate}
 
     def functional_add(self, state: Dict[str, Any], delta: torch.Tensor,
                        opt: Optional[AddOption] = None) -> Dict[str, Any]:
-        """Apply the updater to ``state`` with the padded-shape ``delta``
-        (:meth:`pad_delta`). The JAX function returns new arrays; this one
-        updates ``state``'s tensors in place and returns ``state``. On the
-        table's live state it is a mutation of the table: the version
-        bumps and the train cache clears."""
+        """Apply the updater to ``state`` with ``delta``: the block's
+        shape, or the whole padded shape (:meth:`pad_delta`), whose rows
+        outside this rank's block are ignored. The JAX function returns
+        new arrays; this one updates ``state``'s tensors in place and
+        returns ``state``. On the table's live state it is a mutation of
+        the table: the version bumps and the train cache clears."""
         opt = opt or AddOption()
         live = state["data"] is self._data
         if live:
             self._mark_mutated()
-        self.updater.apply(state["data"], state["ustate"], delta, opt)
+        self.updater.apply(state["data"], state["ustate"], self._own(delta),
+                           opt)
         if live:
             self._wrote_in_place()
         return state
@@ -482,14 +578,14 @@ class Table:
 
     def adopt(self, state: Dict[str, Any]) -> None:
         """Commit a table state advanced outside the table (the end of an
-        in-place training loop). The data keeps the table's padded shape,
-        dtype and device."""
+        in-place training loop). The data keeps the block's shape, the
+        table's dtype and device."""
         data = state["data"]
-        if (tuple(data.shape) != self._padded_shape
+        if (tuple(data.shape) != self._local_shape
                 or data.dtype != self.dtype or data.device != self.device):
             raise ValueError(
                 f"adopt: data {tuple(data.shape)} {data.dtype} {data.device}"
-                f" does not match the table's {self._padded_shape} "
+                f" does not match the table's {self._local_shape} "
                 f"{self.dtype} {self.device}")
         self._mark_mutated()
         self._flush_host_adds()   # a late-applying add must not overwrite
@@ -547,9 +643,14 @@ class Table:
             arr = process_sum(arr)
         return arr
 
+    def _axis_spans_world(self) -> bool:
+        return self._num_shards == self._zoo.size()
+
     def _device_delta(self, delta: ArrayLike) -> torch.Tensor:
-        """Padded delta on the table's device, summed over the processes
-        when there are several (see the module docstring)."""
+        """This rank's block of the delta summed over the processes, on
+        the table's device (see the module docstring)."""
+        from multiverso_tpu_torch.parallel import collectives as coll
+        lo, hi = self._rows
         if isinstance(delta, torch.Tensor):
             if tuple(delta.shape) == self._padded_shape:
                 padded = delta.to(self.device, self.dtype)
@@ -557,23 +658,35 @@ class Table:
                 padded = torch.zeros(self._padded_shape, dtype=self.dtype,
                                      device=self.device)
                 padded[: self.shape[0]].copy_(delta.reshape(self.shape))
+            if self._num_shards > 1 and self._axis_spans_world():
+                return coll.raw_reduce_scatter(padded, self._mesh,
+                                               self._axis)
             if self._zoo.size() > 1:
-                from multiverso_tpu_torch.parallel.collectives import \
-                    process_sum_tensor
-                padded = process_sum_tensor(padded)
-            return padded
-        src = torch.from_numpy(np.ascontiguousarray(self._host_delta(delta)))
-        padded = torch.zeros(self._padded_shape, dtype=self.dtype,
-                             device=self.device)
-        padded[: self.shape[0]].copy_(src)
-        return padded
+                padded = coll.process_sum_tensor(padded)
+            return self._own(padded)
+        arr = np.asarray(delta, dtype=self.np_dtype).reshape(self.shape)
+        if self._num_shards > 1 and self._axis_spans_world():
+            padded = np.zeros(self._padded_shape, self.np_dtype)
+            padded[: self.shape[0]] = arr
+            block = coll.process_reduce_scatter(padded, self._mesh,
+                                                self._axis)
+            return torch.from_numpy(block).to(self.device)
+        arr = self._host_delta(arr)
+        out = torch.zeros(self._local_shape, dtype=self.dtype,
+                          device=self.device)
+        mine = arr[lo:min(hi, self.shape[0])]
+        if mine.shape[0]:
+            out[: mine.shape[0]].copy_(torch.from_numpy(
+                np.ascontiguousarray(mine)))
+        return out
 
     def _apply_full(self, delta: torch.Tensor,
                     opt: AddOption) -> Optional[torch.cuda.Event]:
-        """The updater over the whole table (caller holds the dispatch
-        lock); returns the add's event, recorded before the prefetch so a
-        wait on the add does not wait for the prefetch's copy."""
-        self.updater.apply(self._data, self._ustate, delta, opt)
+        """The updater over this rank's block (caller holds the dispatch
+        lock; ``delta`` the block's shape or the whole padded shape);
+        returns the add's event, recorded before the prefetch so a wait on
+        the add does not wait for the prefetch's copy."""
+        self.updater.apply(self._data, self._ustate, self._own(delta), opt)
         self._version_applied()
         ev = self._event()
         self._maybe_prefetch()
@@ -777,6 +890,12 @@ class Table:
             if cached is not None:
                 return self._track(_Pending(None, cached, lambda h: h))
             version = self._version
+            if self._num_shards > 1:
+                # the blocks' all-gather is a collective: it runs here, on
+                # the caller's thread, in the caller's order
+                host = self._gathered_rows()
+                self._store_get_cache(version, host)
+                return self._track(_Pending(None, host, lambda h: h))
             op = self._take_prefetch() or self._snapshot()
 
             def _finalize(h, _v=version):
@@ -801,6 +920,8 @@ class Table:
             if op is not None:
                 # its copy has been streaming since the add issued it
                 host = self._host_array(op.host_ready())
+            elif self._num_shards > 1:
+                host = self._gathered_rows()
             elif self._wire != "none":
                 host = self._host_array(wire_codec.bf16_cast(
                     self._data[: self.shape[0]]).cpu())
@@ -821,6 +942,18 @@ class Table:
             np.copyto(out.reshape(self.shape), host)
             return out
         return host
+
+    def _gathered_rows(self) -> np.ndarray:
+        """The whole logical table on the host from every rank's block
+        (bf16-rounded with a wire filter): one all-gather over the table
+        axis, a collective."""
+        from multiverso_tpu_torch.parallel.collectives import \
+            process_all_gather
+        blk = self._data
+        if self._wire != "none":
+            blk = wire_codec.bf16_cast(blk).to(self.dtype)
+        whole = process_all_gather(blk.cpu().numpy(), self._mesh, self._axis)
+        return whole[: self.shape[0]]
 
     def read(self, msg_id: int, out: Optional[np.ndarray] = None) -> np.ndarray:
         """Materialize the result of a previous :meth:`get_async`."""
@@ -853,15 +986,47 @@ class Table:
         for leaf in leaves:
             np.save(stream, leaf, allow_pickle=False)
 
+    def _gather_rows_of(self, arr: np.ndarray, axis: int) -> np.ndarray:
+        """The whole padded host array of a block (``arr``'s ``axis`` the
+        row axis): an all-gather over the table axis, a collective."""
+        from multiverso_tpu_torch.parallel.collectives import \
+            process_all_gather
+        whole = process_all_gather(np.moveaxis(arr, axis, 0), self._mesh,
+                                   self._axis)
+        return np.moveaxis(whole, 0, axis)
+
+    def _stored_arrays(self) -> Tuple[np.ndarray, list]:
+        """The padded data and the updater-state leaves in sorted-key
+        order, whole, on the host. A sharded table gathers its blocks (a
+        collective; every rank calls it, in one order) and keeps the
+        logical rows and one spare row, the padding of a table of one
+        block: the layout a one-process table of either package loads.
+        Caller holds the dispatch lock."""
+        data = self._data.cpu().numpy()
+        leaves = [leaf.cpu().numpy() for _, leaf in self._state_leaves()]
+        if self._num_shards == 1:
+            return data, leaves
+        keep = self.shape[0] + 1
+
+        def whole(arr, axis):
+            arr = self._gather_rows_of(arr, axis)
+            return arr[(slice(None),) * axis + (slice(0, keep),)]
+
+        return (whole(data, 0),
+                [leaf if self._state_row_axis(leaf) is None
+                 else whole(leaf, self._state_row_axis(leaf))
+                 for leaf in leaves])
+
     def store(self, stream) -> None:
         """Write the padded data and the updater state with ``np.save``:
         the data, the leaf count, then each leaf in sorted-key order, the
-        JAX package's format (ref array_table.cpp:143-151)."""
+        JAX package's format (ref array_table.cpp:143-151). A sharded
+        table writes the whole table, gathered from every rank's block,
+        at the padding of one block (``rows + 1``): a collective
+        (``checkpoint.save`` has rank 0 write it)."""
         self._flush_host_adds()
         with self._dispatch_lock:
-            self._write_stored(
-                stream, self._data.cpu().numpy(),
-                [leaf.cpu().numpy() for _, leaf in self._state_leaves()])
+            self._write_stored(stream, *self._stored_arrays())
 
     def store_snapshot(self) -> Tuple[Callable[[Any], None], int]:
         """The table's state now, for a checkpoint written later:
@@ -871,19 +1036,27 @@ class Table:
         returns. On the card the data and each updater-state leaf are
         copied into pinned host buffers on the table's stream, where every
         later op of the table runs after the copies (``write`` waits for
-        their event); on the CPU they are cloned."""
+        their event); on the CPU they are cloned. A sharded table gathers
+        its blocks into host arrays now (a collective, on the caller's
+        thread)."""
         self._flush_host_adds()
         with self._dispatch_lock:
-            srcs = [self._data] + [leaf for _, leaf in self._state_leaves()]
-            if self.device.type == "cuda":
-                with torch.cuda.stream(self._stream):
-                    hosts = [torch.empty(t.shape, dtype=t.dtype,
-                                         pin_memory=True) for t in srcs]
-                    for h, t in zip(hosts, srcs):
-                        h.copy_(t, non_blocking=True)
-                    done = self._event()
+            if self._num_shards > 1:
+                data, leaves = self._stored_arrays()
+                hosts, done = [torch.from_numpy(a) for a in
+                               [data] + leaves], None
             else:
-                hosts, done = [t.clone() for t in srcs], None
+                srcs = [self._data] + [leaf for _, leaf in
+                                       self._state_leaves()]
+                if self.device.type == "cuda":
+                    with torch.cuda.stream(self._stream):
+                        hosts = [torch.empty(t.shape, dtype=t.dtype,
+                                             pin_memory=True) for t in srcs]
+                        for h, t in zip(hosts, srcs):
+                            h.copy_(t, non_blocking=True)
+                        done = self._event()
+                else:
+                    hosts, done = [t.clone() for t in srcs], None
         nbytes = sum(h.numel() * h.element_size() for h in hosts)
 
         def write(stream) -> None:
@@ -894,13 +1067,22 @@ class Table:
 
         return write, nbytes
 
-    def load(self, stream) -> None:
-        """Read what :meth:`store` (of either package) wrote. A padded
-        shape or an updater state that differs raises ``ValueError``."""
+    def load(self, stream, rows: Optional[int] = None) -> None:
+        """Read what :meth:`store` (of either package) wrote: the whole
+        padded table, of which this rank keeps its block. A padded shape
+        or an updater state that differs raises ``ValueError``, unless
+        ``rows``, the stored table's logical row count (a checkpoint's
+        manifest has it), is this table's: then any padding loads (the
+        logical rows are kept and this table's own padding rows are
+        zero), so a checkpoint crosses between layouts of different
+        block counts."""
         self._mark_mutated()
         self._flush_host_adds()   # a late-applying add must not overwrite
         data = np.load(stream)
-        if data.shape != self._padded_shape:
+        n_file = data.shape[0] if data.ndim else 0
+        if data.shape != self._padded_shape and not (
+                rows == self.shape[0] and n_file > rows
+                and data.shape[1:] == self._padded_shape[1:]):
             raise ValueError(
                 f"checkpoint shape {data.shape} != table {self._padded_shape}")
         n = int(np.load(stream))
@@ -908,16 +1090,36 @@ class Table:
         if n != len(keys):
             raise ValueError("checkpoint updater state mismatch")
         leaves = [np.load(stream) for _ in range(n)]
+        lo, hi = self._rows
+
+        def block(arr, axis):
+            """This rank's block of a whole stored array (row axis
+            ``axis``, ``n_file`` rows), repadded to this table's."""
+            if n_file != self._padded_rows:
+                shape = list(arr.shape)
+                shape[axis] = self._padded_rows
+                out = np.zeros(shape, arr.dtype)
+                idx = (slice(None),) * axis + (slice(0, self.shape[0]),)
+                out[idx] = arr[idx]
+                arr = out
+            return np.ascontiguousarray(
+                arr[(slice(None),) * axis + (slice(lo, hi),)])
+
+        mine = []
         for k, leaf in zip(keys, leaves):
-            if leaf.shape != tuple(self._ustate[k].shape):
+            want = list(self._ustate[k].shape)
+            axis = self._state_row_axis(self._ustate[k])
+            if axis is not None:
+                want[axis] = n_file
+            if leaf.shape != tuple(want):
                 raise ValueError(f"checkpoint updater state {k!r}: shape "
-                                 f"{leaf.shape} != "
-                                 f"{tuple(self._ustate[k].shape)}")
+                                 f"{leaf.shape} != {tuple(want)}")
+            mine.append(leaf if axis is None else block(leaf, axis))
         with self._dispatch_lock:
             self._data = torch.from_numpy(
-                data.astype(self.np_dtype)).to(self.device)
+                block(data, 0).astype(self.np_dtype)).to(self.device)
             self._ustate = {
                 k: torch.as_tensor(leaf).to(self.device,
                                             self._ustate[k].dtype)
-                for k, leaf in zip(keys, leaves)}
+                for k, leaf in zip(keys, mine)}
             self._wrote_in_place()

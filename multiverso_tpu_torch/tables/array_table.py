@@ -1,7 +1,7 @@
 """ArrayTable: 1-D dense parameter vector (port of
-``multiverso_tpu/tables/array_table.py``). One device of each process
-holds the whole vector (ROADMAP C.22: the JAX package shards it over every
-process's devices)."""
+``multiverso_tpu/tables/array_table.py``). Its elements are sharded over
+the Zoo mesh's table axis in contiguous blocks, as the JAX package's are
+(``table.py``); a world of one holds the whole vector."""
 
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """MatrixTable: 2-D parameter matrix with row-batch Add/Get (port of
 ``multiverso_tpu/tables/matrix_table.py``).
 
-One device of each process holds the whole matrix (ROADMAP C.22: the JAX
-package row-shards it over every process's devices). The host-side contract of a row op is the JAX
-package's, exactly:
+The rows are sharded over the Zoo mesh's table axis in contiguous blocks,
+as the JAX package's are (``table.py``; the reference routed row ids to
+servers by ``row_id / rows_per_server``, src/table/matrix_table.cpp:
+266-313); a world of one holds the whole matrix. The host-side contract
+of a row op is the JAX package's, exactly:
 
 * row ids must be integers (``TypeError`` on floats, which would truncate
   onto arbitrary rows) inside ``[0, num_row)`` (``IndexError``), and not
@@ -41,10 +43,19 @@ deduplicates its own batch as above, then the processes agree on the
 largest batch, pad theirs to it with the scratch row, gather every
 process's ids and values, and sum the union's values in float64
 (``np.unique`` over the ids, ``np.add.at``; the scratch row dropped), as
-the JAX package does. Every replica then applies the same union delta,
-and the train cache and :meth:`_rows_applied` see the union's ids. The
-JAX package pads each batch to a power-of-two bucket for XLA; the port's
-row ops apply just the unique rows.
+the JAX package does. Each rank then applies the union's rows that lie
+in its block, and the train cache sees the union's ids. The JAX package
+pads each batch to a power-of-two bucket for XLA; the port's row ops
+apply just the unique rows.
+
+A row read of a sharded table is a collective over the table axis: every
+rank calls it, in one order, and may ask for its own ids (a superset of
+the JAX contract, where the ids must be the same on every process). The
+ranks gather each other's ids, each owner gathers the asked rows of its
+block, and one all_to_all brings every rank its rows
+(:meth:`MatrixTable._exchange`). With the train cache, a read is served
+from the cache only where every rank of the axis hits. On a sharded
+table ``functional_add_rows`` takes indices into this rank's block.
 """
 
 from __future__ import annotations
@@ -99,14 +110,6 @@ class MatrixTable(Table):
         one): padded id slots gather and update it, and no Get sees it."""
         return self._padded_rows - 1
 
-    def _state_row_axis(self, leaf: torch.Tensor) -> Optional[int]:
-        """Axis of ``leaf`` that is the table's row axis, or None (a leaf
-        shared by all rows, such as Adam's step count)."""
-        nd, pd = leaf.dim(), len(self._padded_shape)
-        if nd >= pd and tuple(leaf.shape[nd - pd:]) == self._padded_shape:
-            return nd - pd
-        return None
-
     def _prep_ids(self, row_ids, values=None
                   ) -> Tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
         """Validate and dedupe a row-id batch: (sorted unique ids, their
@@ -160,7 +163,7 @@ class MatrixTable(Table):
         """ref MatrixWorkerTable::AddAsync(row_ids, values): apply the
         updater to the touched rows on the device's stream; with more
         than one process, to the union of every process's rows (a
-        collective)."""
+        collective). A sharded table applies the rows of its block."""
         self._mark_mutated()
         with monitor(f"table[{self.name}].add_rows"), self._dispatch_lock:
             uids, vals, _ = self._prep_ids(row_ids, values)
@@ -170,28 +173,100 @@ class MatrixTable(Table):
                 # the deduplicated, float64-summed and cast delta: exactly
                 # what the updater adds on the device
                 self._train_cache.on_push(uids, vals)
-            dev_ids = torch.from_numpy(uids).to(self.device)
-            self._apply_rows(self.state, dev_ids,
-                             torch.from_numpy(vals).to(self.device), opt)
-            # subclass hook (the sparse table's dirty bits), fed the ids
-            # the add applied: the union's, so rows only other workers
-            # brought are marked too
-            self._rows_applied(uids, dev_ids)
+            lo, hi = self._rows
+            if self._num_shards > 1:
+                mine = (uids >= lo) & (uids < hi)
+                uids, vals = uids[mine], vals[mine]
+            local = uids - lo
+            dev_ids = torch.from_numpy(local).to(self.device)
+            if local.size:
+                self._apply_rows(self.state, dev_ids,
+                                 torch.from_numpy(vals).to(self.device), opt)
+            # subclass hook (the sparse table's dirty bits), fed the rows
+            # the add applied here: the union's, so rows only other
+            # workers brought are marked too
+            self._rows_applied(local, dev_ids)
             self._version_applied()
             return self._track(_Pending(self._event()))
 
     def _rows_applied(self, ids: np.ndarray, dev_ids: torch.Tensor) -> None:
-        """Called under the dispatch lock with the deduplicated row ids of
-        each row add, on the host and on the table's device. Default:
-        nothing."""
+        """Called under the dispatch lock with the deduplicated rows each
+        row add applied, as indices into this rank's block (the global
+        ids less the block's first row), on the host and on the table's
+        device. Default: nothing."""
+
+    def _exchange(self, ids: np.ndarray, tag: int, answer,
+                  tail: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        """A collective over the table axis that asks the rows' owners:
+        every rank brings its row ids (any count, none included) and an
+        int ``tag`` (a worker id); each owner answers the ids of its block
+        for every rank at once, ``answer(tags, local) -> outs``, where
+        ``tags[j]`` is rank j's tag and ``local[j]`` the indices into the
+        block of rank j's ids that it holds (a device tensor, maybe
+        empty), and ``outs[j]`` one ``tail``-shaped answer per index. One
+        all_to_all brings each rank its answers: ``(ids.size, *tail)`` on
+        the table's device, in ``ids``' order. Never ``send``/``recv``
+        (gloo cannot send from CUDA memory, ROADMAP C.19)."""
+        from multiverso_tpu_torch.parallel import collectives as coll
+        mesh, axis, n = self._mesh, self._axis, self._num_shards
+        dev = self.device
+        k = int(ids.size)
+        meta = coll.raw_all_gather(torch.tensor(
+            [k, int(tag)], dtype=torch.int64, device=dev), mesh,
+            axis).cpu().numpy().reshape(n, 2)
+        width = int(meta[:, 0].max())
+        if width == 0:
+            return torch.empty((0,) + tail, dtype=dtype, device=dev)
+        pad = np.full(width, -1, np.int64)
+        pad[:k] = ids
+        asked = coll.raw_all_gather(torch.from_numpy(pad).to(dev), mesh,
+                                    axis).reshape(n, width)
+        lo, hi = self._rows
+        held = (asked >= lo) & (asked < hi)
+        slots = [held[j].nonzero().squeeze(1) for j in range(n)]
+        outs = answer([int(t) for t in meta[:, 1]],
+                      [asked[j, slots[j]] - lo for j in range(n)])
+        send = torch.zeros((n, width) + tail, dtype=dtype, device=dev)
+        for j in range(n):
+            if slots[j].numel():
+                send[j, slots[j]] = outs[j].to(dtype)
+        recv = coll.raw_all_to_all(send, mesh, axis, 0, 0).reshape(
+            (n, width) + tail)
+        block = self._padded_rows // n
+        owner = torch.from_numpy(ids // block).to(dev)
+        return recv[owner, torch.arange(k, device=dev)]
+
+    def _owned_rows(self, uids: np.ndarray) -> torch.Tensor:
+        """The rows ``uids`` (global ids, any count) on the table's
+        device: a local gather, or on a sharded table an
+        :meth:`_exchange` with their owners (a collective)."""
+        if self._num_shards == 1:
+            return self._data.index_select(
+                0, torch.from_numpy(uids).to(self.device))
+        return self._exchange(
+            uids, 0, lambda tags, local: [self._data.index_select(0, ids)
+                                          for ids in local],
+            tuple(self.shape[1:]), self.dtype)
+
+    def _agreed(self, ok: bool) -> bool:
+        """``ok`` on every rank of the table axis (a collective when the
+        table is sharded): the ranks of a collective row read take one
+        path."""
+        if self._num_shards == 1:
+            return ok
+        from multiverso_tpu_torch.parallel.collectives import raw_all_reduce
+        miss = torch.tensor([0 if ok else 1], dtype=torch.int64,
+                            device=self.device)
+        return int(raw_all_reduce(miss, self._mesh, self._axis)) == 0
 
     def functional_add_rows(self, state: Dict[str, Any], ids: torch.Tensor,
                             vals: torch.Tensor,
                             opt: Optional[AddOption] = None
                             ) -> Dict[str, Any]:
         """Apply the updater to rows ``ids`` of ``state`` (``{"data",
-        "ustate"}``, the table's padded layout) with deltas ``vals`` (one
-        row per id), all on the state's device: gather the rows and their
+        "ustate"}``, this rank's block of the table's padded layout, which
+        ``ids`` index) with deltas ``vals`` (one row per id), all on the
+        state's device: gather the rows and their
         row-shaped updater state, apply, scatter both back. Rows not in
         ``ids`` keep their updater state. The ids may repeat only where
         their deltas leave equal rows (the scratch row with zero deltas,
@@ -241,15 +316,15 @@ class MatrixTable(Table):
             if tc is not None:
                 tc.on_get()
                 # token, membership and gather in one cache lock hold;
-                # all or nothing (a partial hit refetches every row)
+                # all or nothing (a partial hit refetches every row); on
+                # a sharded table every rank of the axis must hit
                 token, buf = tc.serve_full(uids)
-                if buf is not None:
+                if self._agreed(buf is not None):
                     tc.count(uids.size, 0)
                     return self._track(_Pending(None, buf,
                                                 lambda b: b[inv]))
                 tc.count(0, uids.size)
-            rows = self._data.index_select(
-                0, torch.from_numpy(uids).to(self.device))
+            rows = self._owned_rows(uids)
             if self.device.type == "cuda":
                 host = torch.empty(rows.shape, dtype=self.dtype,
                                    pin_memory=True)
@@ -303,7 +378,11 @@ class MatrixTable(Table):
         tc = self._train_cache
         if tc is None:
             return None
-        return tc.device_block_counted(row_ids, bucket)
+        # on a sharded table the fallback, get_rows_async, is a
+        # collective: every rank of the axis takes it or none does
+        return tc.device_block_counted(
+            row_ids, bucket,
+            agree=self._agreed if self._num_shards > 1 else None)
 
 
 class MatrixTableOption:

@@ -16,11 +16,21 @@ Here the wire is the device -> host copy, and a sparse Get is two-phase:
    worker's host :class:`_RowCache`, which serves every requested row.
 
 The dirty bits are a ``(num_workers, padded_rows)`` bool tensor on the
-table's device. Row adds mark their rows for every worker
+table's device, sharded with the rows: each rank holds the columns of its
+block. Row adds mark their rows for every worker
 (``MatrixTable._rows_applied``): with more than one process, the union of
 every process's rows, so a row that only another worker added is stale
 here too (the reference's server sees the union by construction); a
-whole-table ``add_async`` marks every row. ``load`` and ``adopt`` mark nothing, as in the JAX package (ROADMAP
+whole-table ``add_async`` marks every row.
+
+On a sharded table ``get_rows_sparse`` and ``stale_fraction`` are
+collectives over the table axis (every rank calls them, in one order,
+each with its own ids and worker id): the owners of the asked rows read
+every asker's bits first and then clear them (two ranks that ask with
+one worker id both see the bits as they were), and the stale rows come
+from their owners (``MatrixTable._exchange``). A row missing from this
+process's cache is fetched whatever its bit says, so a worker id shared
+by several processes still serves every row. ``load`` and ``adopt`` mark nothing, as in the JAX package (ROADMAP
 C.8): a worker that pulled rows before them is served its cached rows.
 """
 
@@ -52,7 +62,7 @@ class SparseMatrixTable(MatrixTable):
         # dirty[worker, row]: True = the row changed since this worker
         # last pulled it. All True at first, so the first Get pulls
         # everything (ref matrix.cpp: up_to_date_ starts false)
-        self._dirty = torch.ones((self._n_workers, self._padded_rows),
+        self._dirty = torch.ones((self._n_workers, self._local_shape[0]),
                                  dtype=torch.bool, device=self.device)
         # worker-side row caches, made per worker at its first Get and
         # keyed by row: O(rows pulled), not O(table)
@@ -73,9 +83,34 @@ class SparseMatrixTable(MatrixTable):
         return self._worker_cache(worker_id).nbytes
 
     def _rows_applied(self, ids: np.ndarray, dev_ids: torch.Tensor) -> None:
-        """Mark the added rows, the cross-process union, stale for every
-        worker (ref matrix.cpp:516-540)."""
+        """Mark the added rows of this block, the cross-process union,
+        stale for every worker (ref matrix.cpp:516-540)."""
         self._dirty.index_fill_(1, dev_ids, True)
+
+    def _stale_bits(self, uids: np.ndarray, worker_id: int,
+                    clear: bool) -> np.ndarray:
+        """The dirty bits of rows ``uids`` for ``worker_id`` (cleared
+        after the read when ``clear``), on the host: local, or from the
+        rows' owners on a sharded table (a collective)."""
+        if self._num_shards == 1:
+            dev_ids = torch.from_numpy(uids).to(self.device)
+            bits = self._dirty[worker_id]
+            mask = bits.index_select(0, dev_ids).cpu().numpy()
+            if clear:
+                bits.index_fill_(0, dev_ids, False)
+            return mask
+
+        def answer(tags, local):
+            # every asker's bits first, then the clears
+            out = [self._dirty[w].index_select(0, ids).to(torch.uint8)
+                   for w, ids in zip(tags, local)]
+            if clear:
+                for w, ids in zip(tags, local):
+                    self._dirty[w].index_fill_(0, ids, False)
+            return out
+
+        return self._exchange(uids, worker_id, answer, (), torch.uint8
+                              ).cpu().numpy().astype(bool)
 
     def add_async(self, delta, opt: Optional[AddOption] = None) -> int:
         msg_id = super().add_async(delta, opt)
@@ -96,12 +131,12 @@ class SparseMatrixTable(MatrixTable):
             cache = self._worker_cache(worker_id)
             ids = np.asarray(row_ids, dtype=np.int64).reshape(-1)
             uids, _, _ = self._prep_ids(row_ids)
-            dev_ids = torch.from_numpy(uids).to(self.device)
-            bits = self._dirty[worker_id]
-            mask = bits.index_select(0, dev_ids)
-            bits.index_fill_(0, dev_ids, False)
-            stale = uids[mask.cpu().numpy()]
-            if stale.size:
+            stale = uids[self._stale_bits(uids, worker_id, clear=True)
+                         | ~cache.holds(uids)]
+            if self._num_shards > 1:
+                # a collective even where this rank has no stale row
+                cache.put(stale, self._owned_rows(stale).cpu().numpy())
+            elif stale.size:
                 cache.put(stale, super().get_rows(stale))
             return cache.take(ids)
 
@@ -112,9 +147,7 @@ class SparseMatrixTable(MatrixTable):
         if np.asarray(row_ids).size == 0:
             return 0.0
         uids, _, _ = self._prep_ids(row_ids)
-        mask = self._dirty[worker_id].index_select(
-            0, torch.from_numpy(uids).to(self.device)).cpu().numpy()
-        return float(mask.mean())
+        return float(self._stale_bits(uids, worker_id, clear=False).mean())
 
 
 class _RowCache:
@@ -176,6 +209,10 @@ class _RowCache:
             self._slots = np.insert(self._slots, at, ns)
             self._n += n_new
         self._buf[slots] = rows
+
+    def holds(self, ids: np.ndarray) -> np.ndarray:
+        """Which of ``ids`` are cached (a bool mask)."""
+        return self._locate(np.asarray(ids, np.int64))[1]
 
     def take(self, ids: np.ndarray) -> np.ndarray:
         """Rows for ``ids``; every id must be cached (dirty bits start all

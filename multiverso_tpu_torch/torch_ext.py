@@ -72,8 +72,9 @@ class TorchParamManager:
     def _pull(self) -> torch.Tensor:
         """The table's whole value, a copy on the module's device (the
         table applies in dispatch order, so its live tensor reflects every
-        add made before)."""
-        return self.table.raw()[: self._width].to(
+        add made before; a sharded table's blocks are gathered, a
+        collective as every caller is)."""
+        return self.table.unshard(self.table.raw())[: self._width].to(
             self._device, torch.float32, copy=True)
 
     def _write_back(self, flat: torch.Tensor) -> None:

@@ -11,21 +11,25 @@ over one mesh of every process's devices. Here a world is a
 one rank (``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``) and
 no group exists yet. ``rank()``/``size()`` are the group's, or 0 and 1
 without one. Every process is a worker (``num_workers()`` = processes),
-and the server of a process is the one device its tables live on
-(``num_servers()`` = processes).
+and every rank of the mesh holds a server shard (``num_servers()`` = the
+mesh's size, as in the JAX package).
 
 The Zoo resolves this process's ``torch.device``: the card (``cuda``)
 unless the caller names another one; a missing card is an error, never a
 quiet switch to the CPU. It holds a mesh (``parallel/mesh.Mesh``) for the
-parallel layers: the one given to ``start``/``init()``, else a one-rank
-mesh over the ``mesh_axis`` flag on the Zoo's device.
+parallel layers and the tables: the one given to ``start``/``init()``,
+else one axis named by the ``mesh_axis`` flag over every rank of the
+world (a one-rank mesh for a world of one), as the JAX package's default
+mesh spans every device of every process.
 
-Each process keeps a whole replica of every table on its device (ROADMAP
-C.22): a collective Add is reduced across the world before the updater
-runs, so every replica applies the same delta in the same order and a Get
-is local. The barrier drains this rank's card and then meets the world
-(``dist.barrier``); with one process it fences the tables written since
-the last barrier (``mark_dirty``).
+The synchronous tables shard their rows over the mesh's last axis
+(:meth:`Zoo.shard_axis`, the table axis): the rank at index i of that
+axis holds the i-th block of the padded rows and of the row-shaped
+updater state, and the other axes replicate it (``table.py``). A
+whole-table Add is a reduce-scatter of the world's deltas, a whole-table
+Get an all-gather of the blocks. The barrier drains this rank's card and
+then meets the world (``dist.barrier``); with one process it fences the
+tables written since the last barrier (``mark_dirty``).
 """
 
 from __future__ import annotations
@@ -132,8 +136,10 @@ class Zoo:
         self.barrier()
 
     def _default_mesh(self):
-        from multiverso_tpu_torch.parallel.mesh import one_rank_mesh
-        return one_rank_mesh(config.get_flag("mesh_axis"), self._device)
+        """One axis (the ``mesh_axis`` flag) over every rank of the world
+        (the JAX package's ``zoo.py:103-106``): the tables shard over it."""
+        from multiverso_tpu_torch.parallel.mesh import world_mesh
+        return world_mesh(config.get_flag("mesh_axis"), self._device)
 
     def stop(self, finalize: bool = True) -> None:
         """Drain, display the dashboard, forget the tables."""
@@ -233,10 +239,12 @@ class Zoo:
         return n if n > 0 else self.size()
 
     def num_servers(self) -> int:
-        """The flag, else the devices the tables live on: one a process
-        (the JAX package counts every device of its mesh)."""
+        """The flag, else the mesh's size: every rank of the mesh holds a
+        server shard (the JAX package counts every device of its mesh)."""
         n = config.get_flag("num_servers")
-        return n if n > 0 else self.size()
+        if n > 0:
+            return n
+        return self._mesh.size if self._mesh is not None else self.size()
 
     def worker_id(self) -> int:
         return self.rank()

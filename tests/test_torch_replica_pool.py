@@ -318,3 +318,56 @@ def test_pool_script_matches_jax(tmp_path):
     assert t[2] == j[2]
     assert _counts(t[3]) == _counts(j[3])
     assert t[3]["pool"]["members"][2]["active"]
+
+
+def _pool_min_ages(svc, tables, pool_cls, rdv):
+    """``min_age_s`` of a pool of one package as its members go: the
+    members' ages set by hand (the spare the freshest, unread while it
+    stands by), then every replica killed in turn."""
+    ctxs = [svc.PSContext(r, 2, svc.PSService(r, 2, svc.FileRendezvous(rdv)),
+                          **({"device": "cpu"} if svc is tsvc else {}))
+            for r in range(2)]
+    pool = None
+    try:
+        t0, _ = [tables.AsyncMatrixTable(16, 4, name="pma", ctx=c)
+                 for c in ctxs]
+        pool = pool_cls(t0, replicas=2, spares=1, refresh_s=0.1,
+                        staleness_s=30.0, probe_s=999.0, start=False)
+        for m, age in zip(pool._members, (7.5, 2.25, 0.5)):
+            m.replica.age_s = lambda age=age: age
+        out = [pool.min_age_s()]
+        pool.kill_replica(1)          # the spare (0.5) takes its place
+        out.append(pool.min_age_s())
+        pool.kill_replica(2)
+        out.append(pool.min_age_s())
+        pool.kill_replica(0)
+        out.append(pool.min_age_s())
+        return out
+    finally:
+        if pool is not None:
+            pool.close()
+        for c in ctxs:
+            c.close()
+
+
+def test_min_age_s_matches_jax(tmp_path):
+    """ReplicaPool.min_age_s in both packages on the same members' ages:
+    the freshest active member's age (a standing-by spare is not read),
+    the same values in both as the replicas are killed."""
+    from multiverso_tpu.ps import service as jsvc
+    from multiverso_tpu.ps import tables as jtables
+    from multiverso_tpu.serving.pool import ReplicaPool as JReplicaPool
+    from multiverso_tpu.utils import config as jconfig
+    for cfg in (tconfig, jconfig):
+        cfg.set_flag("ps_timeout", 10.0)
+        cfg.set_flag("ps_connect_timeout", 3.0)
+    jconfig.set_flag("ps_native", False)
+    try:
+        j = _pool_min_ages(jsvc, jtables, JReplicaPool, str(tmp_path / "j"))
+        t = _pool_min_ages(tsvc, ttables, ReplicaPool, str(tmp_path / "t"))
+    finally:
+        jconfig.reset_flags()
+        tconfig.reset_flags()
+        TDashboard.reset()
+    assert t == j
+    assert t[:2] == [2.25, 0.5]

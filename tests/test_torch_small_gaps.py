@@ -93,9 +93,21 @@ def test_link_is_fast_defaults_to_the_zoo_then_the_card(monkeypatch):
 
 
 def test_link_is_fast_on_this_host_cpu():
-    # no link at all: the probe's copy is a memcpy of 1 MB
-    linkprobe._CACHED_MS.pop("cpu", None)
-    assert linkprobe.link_is_fast("cpu")
+    """The real probe on the CPU, where there is no link and its copy is
+    a memcpy of 1 MB: one of up to three fresh readings (each the probe's
+    own median of 3) is under FAST_LINK_MS. A single reading can pass the
+    bound on a host whose cores other test processes hold; the decision
+    on a given reading is the monkeypatched tests' above."""
+    readings = []
+    for _ in range(3):
+        readings.append(linkprobe.device_link_ms(torch.device("cpu"),
+                                                 refresh=True))
+        if readings[-1] < linkprobe.FAST_LINK_MS:
+            break
+    assert min(readings) < linkprobe.FAST_LINK_MS, readings
+    assert linkprobe.link_is_fast("cpu") is (
+        linkprobe.device_link_ms(torch.device("cpu"))
+        < linkprobe.FAST_LINK_MS)
 
 
 def test_host_codec_device_is_the_cpu():

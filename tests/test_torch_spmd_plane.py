@@ -1067,3 +1067,36 @@ class TestObsLint:
             assert config.get_flag(name) is False
             assert (config._registry[name].help
                     == jconfig._registry[name].help)
+
+
+def test_slot_of_matches_jax(tmp_path):
+    """MeshStack.slot_of on a 4-shard stacked AdaGrad world of each
+    package: each member's slot (its ``_plane_slot``), None for an object
+    outside the group and for a member once evicted; the same in both."""
+    rows, dim, n = 72, 5, 4
+    for cfg in (config, jconfig):
+        cfg.set_flag("ps_fanout", True)
+        cfg.set_flag("ps_spmd_stack", True)
+    jrdv = jsvc.FileRendezvous(str(tmp_path / "jx"))
+    jctx = [jsvc.PSContext(r, n, jsvc.PSService(r, n, jrdv))
+            for r in range(n)]
+    tctx = _world(tmp_path, n, sub="tx")
+    got = {}
+    try:
+        for pkg, cls, ctxs in (("jax", jtables.AsyncMatrixTable, jctx),
+                               ("port", AsyncMatrixTable, tctx)):
+            tabs = [cls(rows, dim, name=f"so_{pkg}", updater="adagrad",
+                        ctx=c) for c in ctxs]
+            plane = tabs[0]._shard._plane
+            assert plane is not None and plane.active
+            slots = [plane.slot_of(t._shard) for t in tabs]
+            assert slots == [t._shard._plane_slot for t in tabs]
+            outsider = plane.slot_of(object())
+            plane.evict(tabs[2]._shard)
+            got[pkg] = (slots, outsider,
+                        [plane.slot_of(t._shard) for t in tabs])
+    finally:
+        _close(tctx)
+        _close(jctx)
+    assert got["port"] == got["jax"]
+    assert got["port"] == ([0, 1, 2, 3], None, [0, 1, None, 3])

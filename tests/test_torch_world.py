@@ -16,6 +16,12 @@ this CPU, on the same inputs.
   wire), KV adds with the global Get, the sparse table across a union
   add, ``aggregate`` of a non-contiguous array, ``mv_shared``. Bit for
   bit, AdaGrad within rtol 1e-5 / atol 1e-6 (ROADMAP C.4).
+* The sharded layout: at worlds 2 and 4 each rank holds its block of
+  every table and of its row-shaped updater state, and ``sharding``
+  says which; row reads with each rank's own ids; the sparse protocol
+  with one worker id on every rank; a checkpoint of the sharded world
+  of 2 loaded into one-process tables of both packages, and a
+  one-process checkpoint restored into the sharded world, bit for bit.
 * ``StoreRendezvous`` in one process, and a two-service async world over
   it against the ``FileRendezvous`` world bit for bit.
 * ``examples/mlp_data_parallel.py`` at two ranks against the JAX
@@ -28,9 +34,11 @@ Every process has a timeout, and so has every gloo group
 
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 from datetime import timedelta
 
@@ -128,12 +136,14 @@ def _both(world, port_argv, jax_script, jax_extra=()):
 
 
 _WORKER = [sys.executable, os.path.join(_DIR, "torch_world_worker.py")]
+_CKPT = tempfile.mkdtemp(prefix="mv_world_ckpt_")
 _RUNS = {
     "scenario2": lambda: _both(2, _WORKER + ["scenario"],
                                "multiprocess_worker.py"),
     "scenario4": lambda: _both(4, _WORKER + ["scenario"],
                                "multiprocess_worker.py"),
-    "seeded": lambda: _both(2, _WORKER + ["seeded", "--seed", str(SEED)],
+    "seeded": lambda: _both(2, _WORKER + ["seeded", "--seed", str(SEED),
+                                          "--ckpt", _CKPT],
                             "jax_world_worker.py",
                             ("seeded", "--seed", str(SEED))),
     "mlp": lambda: _both(
@@ -150,17 +160,20 @@ _CONCURRENT_RUNS = 3
 @pytest.fixture(scope="module")
 def runs():
     """Every world of this file, started once, a few at a time; each
-    entry its raw outputs or the error that stopped it."""
+    entry its raw outputs or the error that stopped it. The one-process
+    checkpoint the seeded world restores is saved here first (its state
+    under ``"one"``); the checkpoints' directory goes with the module."""
     from concurrent.futures import ThreadPoolExecutor
+    out = {"one": tw.one_process_checkpoint(_CKPT, SEED)}
     with ThreadPoolExecutor(_CONCURRENT_RUNS) as pool:
         futs = {name: pool.submit(fn) for name, fn in _RUNS.items()}
-    out = {}
     for name, fut in futs.items():
         try:
             out[name] = fut.result()
         except Exception as e:   # noqa: BLE001 — raised in its tests
             out[name] = e
-    return out
+    yield out
+    shutil.rmtree(_CKPT, ignore_errors=True)
 
 
 def _run(runs, name):
@@ -185,7 +198,7 @@ def test_scenario_matches_the_jax_world(runs, world):
     for r in range(world):
         assert port[r]["rank"] == jax_[r]["rank"] == r
         keys = set(jax_[r]) - set(tw.BY_DESIGN)
-        assert keys == set(port[r]) - set(tw.BY_DESIGN)
+        assert keys == set(port[r]) - set(tw.BY_DESIGN) - set(tw.PORT_ONLY)
         for k in sorted(keys):
             assert port[r][k] == jax_[r][k], (r, k)
         for k, v in want.items():
@@ -195,9 +208,10 @@ def test_scenario_matches_the_jax_world(runs, world):
 @pytest.mark.parametrize("world", [2, 4])
 def test_scenario_keys_that_differ_by_design(runs, world):
     """The JAX worker runs 2 CPU devices a process and its tables shard
-    over all of them; each port process holds its tables on its one
-    device (C.22). The JAX async plane meets at the jax.distributed
-    coordinator's store, the port's at the torch.distributed world's."""
+    over all of them; each port process is one rank of the mesh, one
+    device, and its tables shard over the ranks. The JAX async plane
+    meets at the jax.distributed coordinator's store, the port's at the
+    torch.distributed world's."""
     port, jax_ = _parsed(runs, f"scenario{world}")
     for r in range(world):
         assert jax_[r]["devices"] == jax_[r]["num_servers"] == 2 * world
@@ -242,15 +256,20 @@ def test_a_tensor_delta_is_its_ranks_contribution(runs):
 
 
 def test_seeded_replicas_stay_equal(runs):
-    """Every process applied the same deltas in the same order: the
-    replicas equal each other bit for bit (AdaGrad too)."""
+    """Every rank's whole-table Get gathers the same blocks: the ranks'
+    Gets equal each other bit for bit (AdaGrad too)."""
     port, _ = _parsed(runs, "seeded")
-    for key in EXACT[:-1] + ("rows_adagrad", "array_tensor"):
-        if key.startswith("sparse"):
+    for key in EXACT[:-1] + ("rows_adagrad", "array_tensor",
+                             "rows_mine_get", "sparse_w0_get"):
+        if key.startswith("sparse_"):
             continue
-        assert port[0][key] == port[1][key], key
+        np.testing.assert_array_equal(
+            np.asarray(port[0][key], np.float32).view(np.uint32),
+            np.asarray(port[1][key], np.float32).view(np.uint32),
+            err_msg=key)
     assert port[0]["shared"] == port[1]["shared"]
     assert port[0]["kv_global"] == port[1]["kv_global"]
+    assert port[0]["sparse_w0_get"] == port[1]["sparse_w0_get"]
 
 
 def test_seeded_kv_and_shared(runs):
@@ -291,6 +310,187 @@ def test_seeded_aggregate_in_place_on_a_view(runs):
         got = np.asarray(port[r]["aggregate"], np.float32)
         np.testing.assert_array_equal(got[:, ::2], x[0][:, ::2] + x[1][:, ::2])
         np.testing.assert_array_equal(got[:, 1::2], x[r][:, 1::2])
+
+
+# ---------------------------------------------------------------------- #
+# (2b) the sharded layout
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("world", [2, 4])
+def test_each_rank_holds_its_block(runs, world):
+    """Every table of the scenario (two MatrixTables, a SparseMatrixTable
+    and an AdaGrad ArrayTable) keeps padded_rows / world rows on each
+    rank, in its data, its row-shaped updater state and the sparse
+    table's dirty bits, and ``sharding`` reports rank r's range."""
+    port, _ = _parsed(runs, f"scenario{world}")
+    for r in range(world):
+        lay = port[r]["layout"]
+        assert len(lay) == 4
+        for name, t in lay.items():
+            block = t["padded_rows"] // world
+            assert t["padded_rows"] % world == 0, name
+            assert t["num_shards"] == world and t["axis"] == "mv", name
+            assert t["data_rows"] == block, name
+            assert t["rows"] == [r * block, (r + 1) * block], name
+            assert all(n == block for n in t["ustate_rows"].values()), name
+            if "dirty_shape" in t:
+                assert t["dirty_shape"] == [world, block], name
+        assert lay["mp_layout_adagrad"]["ustate_rows"] == {
+            "g_sqr": lay["mp_layout_adagrad"]["data_rows"]}
+
+
+def test_get_rows_with_each_ranks_own_ids(runs):
+    """Each rank reads its own ids (rank 0's all in the other rank's
+    block, repeated; rank 1's across both blocks, out of order): each
+    gets exactly those rows of the table's Get."""
+    port, _ = _parsed(runs, "seeded")
+    for r in range(2):
+        ids = port[r]["rows_mine_ids"]
+        assert ids == tw.own_ids(r)
+        whole = np.asarray(port[r]["rows_mine_get"], np.float32)
+        np.testing.assert_array_equal(
+            np.asarray(port[r]["rows_mine"], np.float32), whole[ids])
+    np.testing.assert_array_equal(np.asarray(port[0]["rows_mine_get"]),
+                                  np.asarray(port[0]["rows_default"]))
+
+
+def test_sparse_protocol_with_one_worker_id_on_every_rank(runs):
+    """Both ranks pull as worker 0 (the harness's matrix entry): each is
+    served every row, the first pull the seeded init and the second the
+    table after the union add, and the stale share after the add is the
+    union's."""
+    port, _ = _parsed(runs, "seeded")
+    x = [tw.seeded_inputs(SEED, r) for r in range(2)]
+    union = set(x[0]["sparse_rows"]) | set(x[1]["sparse_rows"])
+    for r in range(2):
+        first, second = (np.asarray(a, np.float32)
+                         for a in port[r]["sparse_w0"])
+        np.testing.assert_array_equal(
+            first, np.asarray(port[r]["sparse_before"], np.float32))
+        np.testing.assert_array_equal(
+            second, np.asarray(port[r]["sparse_w0_get"], np.float32))
+        np.testing.assert_array_equal(
+            second, np.asarray(port[r]["sparse_after"], np.float32))
+        assert port[r]["sparse_w0_stale"] == len(union) / tw.SEEDED_ROWS
+
+
+def test_whole_state_paths_refuse_a_block_and_params_gather(runs):
+    """At a table axis of 2 ``require_whole`` (the apps' fused epochs)
+    raises, and TorchParamManager's pull gathers the blocks: both ranks
+    start from rank 0's module and, after one sync in which rank r added
+    r + 1 to every parameter, hold that init + 3."""
+    port, _ = _parsed(runs, "seeded")
+    assert all(port[r]["require_whole_raises"] for r in range(2))
+    init = port[0]["tpm_init"]
+    assert port[1]["tpm_init"] == init
+    for r in range(2):
+        for got, p0 in zip(port[r]["tpm_synced"], init):
+            np.testing.assert_array_equal(
+                np.asarray(got, np.float32),
+                np.asarray(p0, np.float32) + np.float32(3.0))
+
+
+def _leaves_equal(got, want, what):
+    assert len(got) == len(want), what
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.shape == w.shape, what
+        np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+def _one_process_loads(pkg, tag):
+    """``tag`` of the checkpoints' directory restored into one-process
+    tables of ``pkg`` (``"port"`` or ``"jax"``, the JAX package on one
+    CPU device): each table's Get and stored updater-state leaves."""
+    import io
+    if pkg == "port":
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch import checkpoint
+        mv.init(device="cpu")
+        try:
+            tables = tw.ckpt_tables(mv)
+            checkpoint.restore(_CKPT, tag=tag)
+            return {t.name: {"get": t.get(),
+                             "leaves": [np.asarray(leaf) for leaf in
+                                        t._stored_arrays()[1]]}
+                    for t in tables}
+        finally:
+            mv.shutdown()
+    import jax
+    import multiverso_tpu as jmv
+    from multiverso_tpu import checkpoint as jcheckpoint
+    jmv.init(mesh=jax.sharding.Mesh(np.array(jax.devices()[:1]), ("mv",)))
+    try:
+        # the JAX load takes its own padding only: the odd tables
+        tables = tw.ckpt_tables(jmv, even=False)
+        jcheckpoint.restore(_CKPT, tag=tag)
+        out = {}
+        for t in tables:
+            buf = io.BytesIO()
+            t.store(buf)
+            buf.seek(0)
+            np.load(buf)
+            leaves = [np.load(buf) for _ in range(int(np.load(buf)))]
+            out[t.name] = {"get": np.asarray(t.get()), "leaves": leaves}
+        return out
+    finally:
+        jmv.shutdown()
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_sharded_checkpoint_loads_into_one_process_tables(runs, pkg):
+    """The world of 2 saved its sharded tables (rank 0 wrote the whole
+    of each, at the padding of one block): one-process tables of either
+    package restore it, and their Gets and updater-state leaves equal the
+    world's bit for bit (the port's even-row table too, whose padding at
+    two blocks differs); the ``block=False`` save wrote the same
+    bytes."""
+    port, _ = _parsed(runs, "seeded")
+    saved = port[0]["ckpt"]["saved"]
+    assert saved == port[1]["ckpt"]["saved"]
+    got = _one_process_loads(pkg, "world")
+    assert sorted(got) == (["ck_array", "ck_even", "ck_rows"]
+                           if pkg == "port" else ["ck_array", "ck_rows"])
+    assert set(got) <= set(saved)
+    for name, want in saved.items():
+        if name not in got:
+            continue
+        np.testing.assert_array_equal(
+            got[name]["get"], np.asarray(want["get"], np.float32))
+        _leaves_equal(got[name]["leaves"],
+                      [np.asarray(leaf, np.asarray(g).dtype) for leaf, g
+                       in zip(want["leaves"], got[name]["leaves"])],
+                      f"{pkg} {name}")
+    for f in sorted(os.listdir(os.path.join(_CKPT, "world"))):
+        if f.endswith(".mvt"):
+            with open(os.path.join(_CKPT, "world", f), "rb") as a, \
+                    open(os.path.join(_CKPT, "world_async", f), "rb") as b:
+                assert a.read() == b.read(), f
+
+
+def test_one_process_checkpoint_restores_into_the_sharded_world(runs):
+    """A one-process checkpoint restored into the world of 2: each
+    rank's Gets and gathered updater state equal the one-process
+    tables' bit for bit, and each rank holds its block of them."""
+    port, _ = _parsed(runs, "seeded")
+    one = runs["one"]
+    for r in range(2):
+        ck = port[r]["ckpt"]
+        for name, want in one.items():
+            got = ck["restored"][name]
+            np.testing.assert_array_equal(np.asarray(got["get"], np.float32),
+                                          np.asarray(want["get"],
+                                                     np.float32))
+            _leaves_equal([np.asarray(l, np.float32) for l in got["leaves"]],
+                          [np.asarray(l, np.float32) for l in want["leaves"]],
+                          f"rank {r} {name}")
+            blk = ck["blocks"][name]
+            lo, hi = blk["rows"]
+            assert hi - lo == len(blk["data"])
+            whole = np.zeros((2 * (hi - lo),) + np.shape(want["get"])[1:],
+                             np.float32)
+            whole[: len(want["get"])] = np.asarray(want["get"], np.float32)
+            np.testing.assert_array_equal(
+                np.asarray(blk["data"], np.float32), whole[lo:hi])
 
 
 # ---------------------------------------------------------------------- #

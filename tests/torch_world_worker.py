@@ -7,11 +7,16 @@ joins its world with ``net_init()``, which reads them.
 
     python tests/torch_world_worker.py scenario [--device cpu]
     python tests/torch_world_worker.py seeded --seed S [--device cpu]
+        [--ckpt DIR]
 
 ``scenario`` runs ``tests/multiprocess_worker.py``'s steps; ``seeded``
 runs the seeded cases that ``tests/jax_world_worker.py`` runs in the JAX
-package (inputs from :func:`seeded_inputs`, shared by both). Each prints
-one ``RESULT <json>`` line.
+package (inputs from :func:`seeded_inputs`, shared by both), then the
+port's own: row reads with each rank's own ids, the sparse protocol with
+one worker id on every rank and, with ``--ckpt``, a checkpoint saved by
+the sharded world and the restore of a one-process one
+(:func:`one_process_checkpoint`). Each prints one ``RESULT <json>``
+line.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ if _REPO not in sys.path:
 # runs 2 CPU devices a process and meets its PS peers through the
 # jax.distributed coordinator's store
 BY_DESIGN = ("devices", "num_servers", "rendezvous")
+# the port's scenario keys that the JAX worker does not print
+PORT_ONLY = ("layout",)
 
 
 def closed_forms(nprocs: int) -> Dict:
@@ -51,6 +58,25 @@ def closed_forms(nprocs: int) -> Dict:
         "async_row_sum": 8 * 4 * tri,
         "sharedvar": [float(nprocs)] * 4,
     }
+
+
+def layout(table) -> Dict:
+    """Where this rank's part of ``table`` lives: the rows of its data
+    tensor and of each row-shaped updater-state leaf (and of a sparse
+    table's dirty bits), the padded rows, the block count and the range
+    ``Table.sharding`` reports."""
+    sh = table.sharding
+    out = {"data_rows": int(table.state["data"].shape[0]),
+           "padded_rows": int(table.padded_shape[0]),
+           "num_shards": sh.num_shards, "axis": sh.axis,
+           "rows": list(sh.rows),
+           "ustate_rows": {k: int(v.shape[0]) for k, v in
+                           sorted(table.state["ustate"].items())
+                           if v.dim() > 0}}
+    dirty = getattr(table, "_dirty", None)
+    if dirty is not None:
+        out["dirty_shape"] = list(dirty.shape)
+    return out
 
 
 def scenario(device) -> Dict:
@@ -97,6 +123,9 @@ def scenario(device) -> Dict:
     # the sparse protocol's dirty bits cover the union
     smt = mv.SparseMatrixTable(nprocs + 1, 4, name="mp_sparse_union",
                                num_workers=nprocs)
+    ada = mv.ArrayTable(4 * nprocs + 3, updater="adagrad",
+                        name="mp_layout_adagrad")
+    out["layout"] = {t.name: layout(t) for t in (mt, mt2, smt, ada)}
     all_rows = list(range(nprocs + 1))
     smt.get_rows_sparse(all_rows, worker_id=pid)       # warm the cache
     smt.add_rows([pid], np.ones((1, 4), np.float32))   # union ids
@@ -167,7 +196,7 @@ def seeded_inputs(seed: int, rank: int) -> Dict:
     }
 
 
-def seeded(seed: int, device) -> Dict:
+def seeded(seed: int, device, ckpt: str = "") -> Dict:
     """The seeded cases on a world of 2 already joined; returns every
     table's state as lists."""
     import torch
@@ -221,8 +250,152 @@ def seeded(seed: int, device) -> Dict:
                           for k in local})
     out["shared"] = {k: np.asarray(v).tolist()
                      for k, v in sorted(merged.items())}
+    # the port's own: row reads with each rank's own ids (repeated, out
+    # of order, one rank's all in one block)
+    t = mv.MatrixTable(SEEDED_ROWS, SEEDED_COLS, seed=7, init_scale=0.5,
+                       name="seeded_rows_mine")
+    for ids, vals in zip(x["rows"], x["row_vals"]):
+        t.add_rows(ids, vals)
+    out["rows_mine_ids"] = mine_ids = own_ids(rank)
+    out["rows_mine"] = t.get_rows(mine_ids).tolist()
+    out["rows_mine_get"] = t.get().tolist()
+    # the sparse protocol with worker id 0 on every rank (the harness's
+    # matrix entry): every rank is served every row
+    smt = mv.SparseMatrixTable(SEEDED_ROWS, SEEDED_COLS, seed=3,
+                               init_scale=0.5, name="seeded_sparse_w0",
+                               num_workers=2)
+    first = smt.get_rows_sparse(every, worker_id=0)
+    smt.add_rows(x["sparse_rows"], x["sparse_vals"][:len(x["sparse_rows"])])
+    out["sparse_w0_stale"] = smt.stale_fraction(every, worker_id=0)
+    out["sparse_w0"] = [first.tolist(),
+                        smt.get_rows_sparse(every, worker_id=0).tolist()]
+    out["sparse_w0_get"] = smt.get().tolist()
+    # a path that reads the state as the whole table refuses a block
+    try:
+        smt.require_whole("this test")
+        out["require_whole_raises"] = False
+    except NotImplementedError:
+        out["require_whole_raises"] = True
+    # TorchParamManager pulls the whole (gathered) table: every rank's
+    # module after a sync is rank 0's init + the sum of the deltas
+    from multiverso_tpu_torch.torch_ext import TorchParamManager
+    torch.manual_seed(rank)   # each rank its own init; rank 0's wins
+    lin = torch.nn.Linear(SEEDED_COLS, 3)
+    pm = TorchParamManager(lin, name="seeded_tpm")
+    out["tpm_init"] = [p.detach().numpy().tolist()
+                       for p in lin.parameters()]
+    with torch.no_grad():
+        for p in lin.parameters():
+            p.add_(float(rank + 1))
+    pm.sync()
+    out["tpm_synced"] = [p.detach().numpy().tolist()
+                         for p in lin.parameters()]
     mv.shutdown()
+    if ckpt:
+        out["ckpt"] = world_checkpoint(ckpt, device)
     return out
+
+
+def own_ids(rank: int) -> list:
+    """Rank 0 asks rows of the last block only, rank 1 rows of both
+    blocks, repeated and out of order."""
+    if rank == 0:
+        return [SEEDED_ROWS - 1, SEEDED_ROWS - 3, SEEDED_ROWS - 1]
+    return [5, 0, SEEDED_ROWS - 2, 5, 13, 1]
+
+
+# ---------------------------------------------------------------------- #
+# checkpoints: a one-process save restored into the sharded world, and
+# the sharded world's save restored into one-process tables
+# ---------------------------------------------------------------------- #
+CKPT_ADAGRAD = dict(learning_rate=0.5, rho=0.1)
+
+
+def ckpt_tables(mv, even: bool = True):
+    """The checkpoint's tables, in one registration order: an AdaGrad
+    MatrixTable (a row-shaped state leaf) and an Adam ArrayTable (row
+    leaves and the whole step count), their row counts odd, so that the
+    padding of one block and of two agree; with ``even`` an AdaGrad
+    MatrixTable of SEEDED_ROWS rows too, whose padding differs at two
+    blocks (25 rows at one, 26 at two)."""
+    out = (mv.MatrixTable(SEEDED_ROWS - 1, SEEDED_COLS, updater="adagrad",
+                          seed=5, init_scale=0.5, name="ck_rows"),
+           mv.ArrayTable(SEEDED_ARRAY + 1, updater="adam", name="ck_array"))
+    if even:
+        out += (mv.MatrixTable(SEEDED_ROWS, SEEDED_COLS, updater="adagrad",
+                               seed=6, init_scale=0.5, name="ck_even"),)
+    return out
+
+
+def ckpt_train(tables, seed: int, rank: int) -> None:
+    """Seeded adds through the tables (each rank its own)."""
+    from multiverso_tpu_torch.updaters import AddOption
+    rng = np.random.default_rng([seed, 99, rank])
+    opt = AddOption(**CKPT_ADAGRAD)
+    for _ in range(2):
+        for t in tables:
+            if t.name == "ck_array":
+                t.add(rng.normal(size=t.shape).astype(np.float32),
+                      AddOption(learning_rate=0.01))
+                continue
+            ids = rng.integers(0, t.shape[0], 7)
+            t.add_rows(ids, rng.normal(size=(7, SEEDED_COLS)).astype(
+                np.float32), opt)
+
+
+def ckpt_state(tables) -> Dict:
+    """Each table's Get and its gathered updater-state leaves (a
+    collective at a world > 1)."""
+    out = {}
+    for t in tables:
+        with t._dispatch_lock:
+            _, leaves = t._stored_arrays()
+        out[t.name] = {"get": t.get().tolist(),
+                       "leaves": [np.asarray(l).tolist() for l in leaves]}
+    return out
+
+
+def one_process_checkpoint(directory: str, seed: int) -> Dict:
+    """In a process with no world: the checkpoint tables trained on one
+    process and saved under ``directory/one``; their state."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+    mv.init(device="cpu")
+    try:
+        tables = ckpt_tables(mv)
+        ckpt_train(tables, seed, 0)
+        checkpoint.save(directory, tag="one")
+        return ckpt_state(tables)
+    finally:
+        mv.shutdown()
+
+
+def world_checkpoint(directory: str, device) -> Dict:
+    """The checkpoint tables in a fresh Zoo of this world: trained, saved
+    under ``directory/world`` (a collective; rank 0 writes) and again
+    with ``block=False`` under ``world_async``; then the one-process
+    checkpoint ``one`` restored, each rank keeping its block."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+    mv.init(device=device)
+    try:
+        tables = ckpt_tables(mv)
+        ckpt_train(tables, 11, mv.rank())
+        checkpoint.save(directory, tag="world")
+        checkpoint.save(directory, tag="world_async", block=False)
+        checkpoint.wait_pending()
+        saved = ckpt_state(tables)
+        checkpoint.restore(directory, tag="one")
+        restored = ckpt_state(tables)
+        blocks = {t.name: {"rows": list(t.sharding.rows),
+                           "data": t.state["data"].cpu().numpy().tolist(),
+                           "ustate": {k: v.cpu().numpy().tolist()
+                                      for k, v in t.state["ustate"].items()
+                                      if v.dim() > 0}}
+                  for t in tables}
+    finally:
+        mv.shutdown()
+    return {"saved": saved, "restored": restored, "blocks": blocks}
 
 
 def main() -> None:
@@ -230,6 +403,7 @@ def main() -> None:
     ap.add_argument("mode", choices=("scenario", "seeded"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--ckpt", default="")
     args = ap.parse_args()
     import torch
     torch.set_num_threads(1)
@@ -243,7 +417,7 @@ def main() -> None:
         sys.exit(f"rank {os.environ.get('RANK')}: net_init failed")
     try:
         out = (scenario(args.device) if args.mode == "scenario"
-               else seeded(args.seed, args.device))
+               else seeded(args.seed, args.device, args.ckpt))
     finally:
         leave_world()
     print("RESULT " + json.dumps(out), flush=True)
