@@ -87,7 +87,7 @@ Phases, every one on every run, in this order:
             (a warm and 3 timed epochs, samples/s, device span, one
             profiled epoch, its first epoch's table and test accuracy
             against the CPU's); the ``use_ps`` host loop over a dense file
-            of 8,192 samples with sync_frequency 1 and 3, each with and
+            of 4,096 samples with sync_frequency 1 and 3, each with and
             without the pipelined pull, and with the SSP clock (the
             deterministic run against the CPU's); the sparse path on a
             SparseMatrixTable at rcv1.binary's shape (47,236 features,
@@ -319,7 +319,15 @@ Phases, every one on every run, in this order:
             and the replicas to each other, the loss falling, B1-B3
             counted on each rank and held to their plain versions there;
             (c) bench.py:419's aggregate cell, 16 MB, ``process_sum``
-            against allgather + sum at world 2 (not 4), equal, ms
+            against allgather + sum at world 2 (not 4), equal, ms; (d)
+            the tables sharded over the ranks: each rank's block of (b)'s
+            table, an AdaGrad table against numpy's model and the world's
+            checkpoint restored into one process; (e) the apps'
+            whole-state paths on the sharded tables at full widths (WE
+            ``train_fused`` shared pool and per-pair, LR
+            ``train_arrays``, ResNet-32 data-parallel ``train`` and
+            ``evaluate``, one PS block on the device plane) against the
+            same calls in this process, made while the ranks run
 22. harness the reference's Test/main.cpp battery
             (``multiverso_tpu_torch/harness.py``) and the binding
             surfaces (``handlers.py``, ``examples/xor_mlp.py``,
@@ -355,7 +363,8 @@ Phases, every one on every run, in this order:
             equal the blocking save's byte for byte), the restore equal
             bit for bit, the staged bytes back to 0; (d)
             ``sample_negatives`` at the we phase's batch and negative
-            count on the card against the CPU bit for bit
+            count on the card against the CPU bit for bit, and the link
+            probe's 1 MB round trip to the card under ``FAST_LINK_MS``
 
 It prints the card's name and power limit, each phase's wall seconds as
 the phase ends (``phase <name>: <s> s (total <s> s)``) and the walls of
@@ -2482,10 +2491,12 @@ LR_TIMED_EPOCHS = 3
 LR_TABLE_RTOL = 1e-4
 LR_ACC_TOL = 2e-4
 LR_MIN_ACC = 0.9             # the blobs are separable at this noise
-# the host loop (use_ps): 8,192 MNIST-shaped samples written as ``dense``
+# the host loop (use_ps): 4,096 MNIST-shaped samples written as ``dense``
 # text (libsvm would be too slow to parse at 784 features), one epoch per
 # run, sync_frequency 1 or 3, each with and without the pipelined pull
-LR_HOST_SAMPLES = (8_192, 2)
+# (cut from 8,192 to pay for world (e): every run still reaches test
+# accuracy 1.0 on the CPU at 4,096)
+LR_HOST_SAMPLES = (4_096, 2)
 LR_HOST_RUNS = ((1, False), (1, True), (3, False), (3, True))
 # the sparse path at the shape of LIBSVM's rcv1.binary (47,236 features,
 # 20,242 training samples, ~74 nonzeros a sample, values of unit L2 norm
@@ -7161,6 +7172,34 @@ WORLD_ADA_OPT = dict(learning_rate=0.5, rho=0.1)
 WORLD_ADA_RTOL, WORLD_ADA_ATOL = 1e-5, 1e-6   # ROADMAP C.4's bound
 WORLD_COLL_MB = 64.0      # (d): the host collectives' payload
 WORLD_COLL_REPS = 3
+# (e) the apps' whole-state paths on tables sharded over the two ranks, in
+# a fresh Zoo after (d), at full widths (tests/torch_world_apps_worker.py
+# holds the calls, which this process makes too, in one process on the
+# card, while the ranks start): WordEmbedding train_fused at WE_CFG on
+# WE_SYNTH_CORPUS (one shared-pool epoch, one per-pair epoch), LogReg
+# train_arrays at LR_KEYS on LR_TRAIN (one epoch), ResNet-32 data-parallel
+# (RES_DEPTH, RES_BATCH split over the ranks) for WORLD_RES_STEPS steps,
+# then evaluate on RES_EVAL, and one PS block at WE_PS_CFG on the device
+# plane (one worker) over the same corpus. Each rank writes its gathered
+# results; this process holds them to its own (index_add_'s atomics sum
+# in another order in every run, C.4): WE per-pair within the we phase's
+# WE_VARIANT_* bounds, its negative ids bit for bit; the shared pool (bf16
+# products) by loss within WE_BF16_LOSS_RTOL and its tables within
+# WORLD_E_BF16_TABLE_RTOL; LR within LR_TABLE_RTOL; ResNet's first
+# RES_CPU_STEPS steps' loss within RES_LOSS_RTOL (the resnet phase's
+# card-vs-CPU bound over those steps; a first run's 8-step loss differed
+# by 9.2e-4 relative: Adam turns f32's noise at depth 32 into weights that
+# move apart by up to 2 lr a step) and its table within 2 lr a step; the
+# block within the we_ps phase's WE_PS_REF_* bounds; the words counted
+# once; the ranks' BN stats and accuracies equal
+WORLD_RES_STEPS = 8
+WORLD_E_BUDGET_S = 10.0   # (e)'s wall a rank, a finding, not a gate
+# the shared pool's tables, world against one process, of max |x|: two
+# first runs on an H100 read 3.0e-6 and 1.6e-5 (an f32 sum that the
+# atomics order otherwise moves a bf16 operand by an ulp now and then);
+# a rank that lost its block or trained other batches moves the tables
+# by the epoch's whole update, ~1 of max |x|
+WORLD_E_BF16_TABLE_RTOL = 1e-3
 
 
 def world_tree_save(tmp: str) -> int:
@@ -7548,6 +7587,168 @@ def world_aggregate() -> dict:
     return {"ms": ms, "bytes": arr.nbytes}
 
 
+def world_apps_run() -> dict:
+    """(e)'s calls, in a world (every rank) or in one process: each
+    path's results (``tests/torch_world_apps_worker.py``)."""
+    import torch_world_apps_worker as aw
+    from multiverso_tpu_torch.apps.word_embedding import (Dictionary,
+                                                          WEConfig,
+                                                          WordEmbedding,
+                                                          synthetic_corpus)
+    from multiverso_tpu_torch.models import logreg, resnet
+    tokens = synthetic_corpus(**WE_SYNTH_CORPUS)
+    out = {"we_shared": aw.we_fused(WEConfig(**WE_CFG), tokens),
+           "we_pair": aw.we_fused(WEConfig(**{**WE_CFG,
+                                              "shared_negatives": 0}),
+                                  tokens, neg_batches=WE_NEG_BATCHES)}
+    x, y = logreg.synthetic_dataset(LR_TRAIN[0], 784, 10, seed=LR_TRAIN[1])
+    out["lr"] = aw.lr_fused(lr_pairs(), x, y)
+    train = resnet.synthetic_cifar(RES_BATCH * WORLD_RES_STEPS,
+                                   seed=RES_IMAGES[1])
+    out["res"] = aw.resnet(dict(depth=RES_DEPTH, batch_size=RES_BATCH),
+                           train, resnet.synthetic_cifar(RES_EVAL[0],
+                                                         seed=RES_EVAL[1]),
+                           first_steps=RES_CPU_STEPS)
+    cfg = WEConfig(**WE_PS_CFG)
+    ids = WordEmbedding(cfg, Dictionary.build(tokens, cfg.min_count)
+                        ).prepare_ids(tokens)[: cfg.data_block_size]
+    out["ps"] = aw.we_blocks(cfg, ids, tokens)
+    return out
+
+
+def world_apps(tmp: str) -> dict:
+    """(e) on this rank, in a fresh Zoo: :func:`world_apps_run`, its
+    arrays written to ``tmp/e_rank<r>.npz`` for this script's own
+    process; the scalars, each app's seconds, the wall and the flash
+    launches (none)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = world_apps_run()
+    wall = time.perf_counter() - t0
+    arrays = {f"{app}/{k}": v for app, res in got.items()
+              for k, v in res.items() if isinstance(v, np.ndarray)}
+    np.savez(os.path.join(tmp, f"e_rank{mv.rank()}.npz"), **arrays)
+    return {"wall": wall, "launches": ak.launch_counts(),
+            **{f"{app}/{k}": v for app, res in got.items()
+               for k, v in res.items() if not isinstance(v, np.ndarray)}}
+
+
+def world_apps_reference() -> dict:
+    """(e)'s calls in this process on the card, while the ranks run; the
+    tables leave the Zoo's registry after (later phases save the
+    registry)."""
+    from multiverso_tpu_torch.zoo import Zoo
+    before = set(Zoo.get()._tables)
+    t0 = time.perf_counter()
+    try:
+        ref = world_apps_run()
+    finally:
+        for tid in set(Zoo.get()._tables) - before:
+            Zoo.get()._tables.pop(tid, None)
+    ref["seconds"] = time.perf_counter() - t0
+    return ref
+
+
+def world_apps_check(ranks: list, arrays: list, ref: dict) -> None:
+    """(e): each rank's gathered results (its RESULT's ``apps`` and
+    ``arrays``, what it wrote) against this process's, the ranks against
+    each other; logs each path's numbers."""
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    bad = []
+    for r, rk in enumerate(ranks):
+        e, got = rk["apps"], arrays[r]
+        log(f"world (e) rank {r}: wall {e['wall']:.2f} s (budget "
+            f"{WORLD_E_BUDGET_S} s: "
+            f"{'in' if e['wall'] <= WORLD_E_BUDGET_S else 'OUT'}); seconds "
+            f"a call: WE shared pool {e['we_shared/seconds']:.2f}, per-pair "
+            f"{e['we_pair/seconds']:.2f}, LR {e['lr/seconds']:.2f}, ResNet "
+            f"{e['res/seconds_first'] + e['res/seconds']:.2f}, PS block "
+            f"{e['ps/seconds']:.2f}; flash "
+            f"launches {e['launches']}")
+        if any(e["launches"].values()):
+            bad.append(f"rank {r} launched {e['launches']}")
+        # WE, the shared pool: bf16 products, so the loss by the we
+        # phase's bf16 bound and the tables by WORLD_E_BF16_TABLE_RTOL
+        w, o = e["we_shared/loss"], ref["we_shared"]["loss"]
+        err = max(rel(got[f"we_shared/{k}"], ref["we_shared"][k])
+                  for k in ("in", "out"))
+        log(f"world (e) rank {r} WE shared pool, 1 epoch of "
+            f"{e['we_shared/tokens']} tokens: loss {w:.7f} vs one process "
+            f"{o:.7f} (bound {WE_BF16_LOSS_RTOL:.0e} relative); tables max "
+            f"|diff| / max |x| {err:.3e} (bound "
+            f"{WORLD_E_BF16_TABLE_RTOL:.0e}); words {e['we_shared/words']} "
+            f"(one process {ref['we_shared']['words']})")
+        if not (abs(w - o) <= WE_BF16_LOSS_RTOL * abs(o)
+                and err <= WORLD_E_BF16_TABLE_RTOL
+                and e["we_shared/words"] == ref["we_shared"]["words"]):
+            bad.append(f"rank {r} WE shared pool")
+        w, o = e["we_pair/loss"], ref["we_pair"]["loss"]
+        err = max(rel(got[f"we_pair/{k}"], ref["we_pair"][k])
+                  for k in ("in", "out"))
+        negs = bool(np.array_equal(got["we_pair/negs"],
+                                   ref["we_pair"]["negs"]))
+        log(f"world (e) rank {r} WE per-pair: loss {w:.7f} vs {o:.7f} "
+            f"(bound {WE_VARIANT_LOSS_RTOL:.0e}); tables {err:.3e} of max "
+            f"|x| (bound {WE_VARIANT_TABLE_RTOL:.0e}); the first "
+            f"{got['we_pair/negs'].shape[0]} batches' negative ids equal "
+            f"bit for bit {negs}")
+        if not (abs(w - o) <= WE_VARIANT_LOSS_RTOL * abs(o)
+                and err <= WE_VARIANT_TABLE_RTOL and negs
+                and e["we_pair/words"] == ref["we_pair"]["words"]):
+            bad.append(f"rank {r} WE per-pair")
+        err = rel(got["lr/table"], ref["lr"]["table"])
+        log(f"world (e) rank {r} LR fused epoch: table {err:.3e} of max "
+            f"|x| (bound {LR_TABLE_RTOL:.0e}); loss {e['lr/loss']:.7f} vs "
+            f"{ref['lr']['loss']:.7f}")
+        if err > LR_TABLE_RTOL:
+            bad.append(f"rank {r} LR")
+        # ResNet: the first RES_CPU_STEPS steps' loss by the resnet
+        # phase's card-vs-CPU bound over those steps; later Adam turns
+        # f32's noise into weights that differ by up to 2 lr a step
+        # (tests/test_torch_resnet.py), so the table by that
+        lr_step = 1e-3   # ResNetTrainer's default learning rate
+        w, o = e["res/loss_first"], ref["res"]["loss_first"]
+        diff = float(np.abs(got["res/table"] - ref["res"]["table"]).max())
+        log(f"world (e) rank {r} ResNet-{RES_DEPTH}, {WORLD_RES_STEPS} steps "
+            f"of {RES_BATCH // WORLD_RANKS} images a rank: the first "
+            f"{RES_CPU_STEPS} steps' loss {w:.7f} vs {o:.7f} (bound "
+            f"{RES_LOSS_RTOL:.0e} relative), the other "
+            f"{WORLD_RES_STEPS - RES_CPU_STEPS}'s {e['res/loss']:.7f} vs "
+            f"{ref['res']['loss']:.7f}; table max |diff| {diff:.3e} (bound "
+            f"{2 * lr_step * WORLD_RES_STEPS:.0e}), "
+            f"{float((np.abs(got['res/table'] - ref['res']['table']) <= 1e-6).mean()):.4f}"
+            f" of it within 1e-6; eval {e['res/eval']:.4f} (one process "
+            f"{ref['res']['eval']:.4f})")
+        if not (abs(w - o) <= RES_LOSS_RTOL * abs(o)
+                and diff <= 2 * lr_step * WORLD_RES_STEPS):
+            bad.append(f"rank {r} ResNet")
+        err = max(rel(got[f"ps/{k}"], ref["ps"][k]) for k in ("in", "out"))
+        w, o = got["ps/block_losses"], ref["ps"]["block_losses"]
+        log(f"world (e) rank {r} WE PS block on the device plane: loss "
+            f"{w.tolist()} vs {o.tolist()} (bound {WE_PS_REF_LOSS_RTOL:.0e});"
+            f" tables {err:.3e} of max |x| (bound "
+            f"{WE_PS_REF_TABLE_RTOL:.0e})")
+        if not (w.shape == o.shape and np.allclose(
+                w, o, rtol=WE_PS_REF_LOSS_RTOL, atol=0)
+                and err <= WE_PS_REF_TABLE_RTOL
+                and e["ps/words"] == ref["ps"]["words"]):
+            bad.append(f"rank {r} PS block")
+    bn_equal = all(np.array_equal(a["res/bn"], arrays[0]["res/bn"])
+                   for a in arrays)
+    evals = [rk["apps"]["res/eval"] for rk in ranks]
+    log(f"world (e) the ranks' BN running stats equal bit for bit "
+        f"{bn_equal}, accuracies {evals}; this process's references "
+        f"{ref['seconds']:.1f} s")
+    if not bn_equal or len(set(evals)) != 1:
+        bad.append("the ranks' BN stats or accuracies differ")
+    if bad:
+        raise AssertionError(f"world (e): {bad}")
+
+
 def world_rank(tmp: str) -> None:
     """One rank of the world phase, in its own process: join the world
     from the environment (net_init), run (a), (b), (c) and (d), print one
@@ -7586,15 +7787,21 @@ def world_rank(tmp: str) -> None:
     out["shard"] = world_shard(tmp)
     walls["d"] = time.perf_counter() - t0
     mv.shutdown()
+    t0 = time.perf_counter()
+    mv.init()   # a fresh Zoo for (e)
+    out["apps"] = world_apps(tmp)
+    walls["e"] = time.perf_counter() - t0
+    mv.shutdown()
     leave_world()
     out["walls"] = {k: round(v, 2) for k, v in walls.items()}
     print("RESULT " + json.dumps(out), flush=True)
 
 
-def world_launch(tmp: str) -> list:
+def world_launch(tmp: str, meanwhile=None) -> tuple:
     """Start WORLD_RANKS rank processes by environment, as a launcher
-    does; their RESULT dicts in rank order. A world whose store lost its
-    free port before rank 0 bound it is started once more."""
+    does, call ``meanwhile()`` (once) while they run; their RESULT dicts
+    in rank order and what ``meanwhile`` returned. A world whose store
+    lost its free port before rank 0 bound it is started once more."""
     import socket
     root = os.path.dirname(os.path.abspath(__file__))
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
@@ -7614,6 +7821,8 @@ def world_launch(tmp: str) -> list:
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         outs = []
         try:
+            if meanwhile is not None and not attempt:
+                beside = meanwhile()
             for p in procs:
                 o, e = p.communicate(timeout=WORLD_TIMEOUT_S)
                 outs.append((p.returncode, o, e))
@@ -7636,7 +7845,7 @@ def world_launch(tmp: str) -> list:
             raise AssertionError(f"world: rank {r} printed no RESULT\n"
                                  f"{e[-2000:]}")
         res.append(json.loads(lines[-1][len("RESULT "):]))
-    return res
+    return res, (beside if meanwhile is not None else None)
 
 
 def phase_world(dev) -> dict:
@@ -7644,7 +7853,9 @@ def phase_world(dev) -> dict:
     JAX scenario's closed forms with the tables on the card, (b) the LM
     trained data-parallel through one shared table, (c) the aggregate
     cell, (d) the sharded layout and its checkpoint, restored here after
-    the ranks end. Returns the flash launches summed over the ranks."""
+    the ranks end, (e) the apps' whole-state paths on the sharded tables
+    against this process's results, made while the ranks run. Returns
+    the flash launches summed over the ranks."""
     import shutil
     import tempfile
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -7655,9 +7866,13 @@ def phase_world(dev) -> dict:
         t0 = time.perf_counter()
         n = world_tree_save(tmp)
         t1 = time.perf_counter()
-        ranks = world_launch(tmp)
+        ranks, apps_ref = world_launch(tmp, world_apps_reference)
         t2 = time.perf_counter()
         restored = world_restore_check(tmp)
+        apps_got = []
+        for r in range(WORLD_RANKS):
+            with np.load(os.path.join(tmp, f"e_rank{r}.npz")) as f:
+                apps_got.append({k: f[k] for k in f.files})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"world: {WORLD_RANKS} ranks on this card (backend "
@@ -7743,6 +7958,7 @@ def phase_world(dev) -> dict:
         f"restored into a one-process AdaGrad table on this card in "
         f"{restored['load_ms']:.1f} ms: Get and g_sqr equal the world's "
         f"bit for bit")
+    world_apps_check(ranks, apps_got, apps_ref)
     counts = {k: sum(rk["lm"]["launches"][k] for rk in ranks)
               for k in ranks[0]["lm"]["launches"]}
     log(f"world launches summed over the ranks {counts}")
@@ -8144,7 +8360,8 @@ def capi_async_save(tmp: str) -> dict:
 
 def capi_negatives(dev) -> dict:
     """(d) word2vec.sample_negatives on the card against the CPU at the we
-    phase's batch and negative count."""
+    phase's batch and negative count, and the link probe's bound on the
+    card's link."""
     import torch
     from multiverso_tpu_torch.models import word2vec
     from multiverso_tpu_torch.utils import threefry
@@ -8163,7 +8380,18 @@ def capi_negatives(dev) -> dict:
     log(f"capi (d) sample_negatives [{batch:,}, {k}] over a vocabulary of "
         f"{CAPI_NEG_VOCAB:,}, seeds 0-3, on the card equal to the CPU's bit "
         f"for bit")
-    return {"batch": batch, "k": k}
+    # the link probe on a real link (the CPU tests hold its logic only: a
+    # memcpy's time there is the host's load)
+    from multiverso_tpu_torch.utils import linkprobe
+    link_ms = linkprobe.device_link_ms(dev, refresh=True)
+    fast = linkprobe.link_is_fast(dev)
+    log(f"capi (d) linkprobe: a 1 MB upload and readback to {dev} "
+        f"{link_ms:.3f} ms (median of 3), under FAST_LINK_MS "
+        f"{linkprobe.FAST_LINK_MS} ms: link_is_fast {fast}")
+    if not (0 < link_ms < linkprobe.FAST_LINK_MS and fast):
+        raise AssertionError(f"capi (d): the card's link probe read "
+                             f"{link_ms} ms, link_is_fast {fast}")
+    return {"batch": batch, "k": k, "link_ms": link_ms}
 
 
 def phase_capi(dev, built) -> dict:

@@ -27,7 +27,9 @@ Execution paths:
   the delta is pushed as a numpy add (coalesced by the table's applier).
 * ``train_arrays`` — the fused path: minibatches already on the device,
   each step ``table.functional_add`` on the table's live state, the
-  losses kept on the device and read back once.
+  losses kept on the device and read back once. On a table sharded over
+  the world's ranks, on the whole gathered state (``Table.whole_state``)
+  on every rank, each keeping its block.
 
 Entry points run on the card: ``LogReg`` starts the Zoo when it is not
 started, which resolves to ``cuda`` or raises; ``-device=cpu`` on the
@@ -384,7 +386,12 @@ class LogReg:
     def train_arrays(self, x: np.ndarray, y: np.ndarray,
                      epochs: Optional[int] = None) -> Dict[str, float]:
         """Fused path: every minibatch on the device, one in-place
-        ``functional_add`` step each (the JAX app's ``lax.scan`` epoch)."""
+        ``functional_add`` step each (the JAX app's ``lax.scan`` epoch).
+        On a table sharded over the world's ranks every rank passes the
+        same ``x`` and ``y`` (``ValueError`` otherwise, on every rank),
+        trains the gathered table over the same minibatches, as the JAX
+        app trains its global arrays, and keeps its block
+        (``Table.whole_state``): the one-process result."""
         cfg = self.cfg
         if cfg.async_ps:
             raise ValueError("async_ps trains through the use_ps host loop "
@@ -400,18 +407,17 @@ class LogReg:
             self.table, cfg.input_size, cfg.output_size, cfg.objective_type,
             cfg.regular_type, cfg.regular_coef, cfg.learning_rate)
 
+        self.table.require_same_inputs("LogReg.train_arrays", x, y)
         t0 = time.perf_counter()
-        self.table.require_whole("LogisticRegression's fused epoch")
-        state = self.table.state
         losses = torch.empty(xb.shape[0], dtype=torch.float32,
                              device=self.device)
-        for _ in range(epochs):
-            for i in range(xb.shape[0]):
-                state, losses[i] = step(state, (xb[i], yb[i]))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
-        self.table.adopt(state)
+        with self.table.whole_state() as state:
+            for _ in range(epochs):
+                for i in range(xb.shape[0]):
+                    state, losses[i] = step(state, (xb[i], yb[i]))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0
         self._sync_model()
         return {"loss": float(torch.mean(losses[-10:])),
                 "samples_per_sec": epochs * n / dt if dt > 0 else 0.0,

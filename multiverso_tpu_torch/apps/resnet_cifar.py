@@ -13,7 +13,14 @@ binding/lua/docs/BENCHMARK.md, binding/python/docs/BENCHMARK.md). Here:
   the whole flat gradient, and ``functional_add`` applies Adam in place;
   ``adopt`` commits at the end, and the losses stay on the device until
   one readback per :meth:`ResNetTrainer.train` call;
-* BatchNorm running stats stay with the worker, as in the reference.
+* BatchNorm running stats stay with the worker, as in the reference;
+* on a table sharded over the world's ranks the trainer is data-parallel,
+  as the JAX app splits each batch over its mesh axis (``P(None,
+  axis)``): every rank passes the same images, trains its rows of each
+  batch with BatchNorm's moments summed over the ranks
+  (``collectives.sum_over``), reduce-scatters the flat gradient to the
+  blocks, applies Adam to its block and gathers the flat vector for the
+  next step; the BN running stats come out equal on every rank.
 
 Usage: ``python -m multiverso_tpu_torch.apps.resnet_cifar -depth 20
 -epochs 2 [-device=cpu]`` (synthetic CIFAR).
@@ -30,6 +37,8 @@ import torch
 
 import multiverso_tpu_torch as mv
 from multiverso_tpu_torch.models import resnet as resnet_lib
+from multiverso_tpu_torch.parallel.collectives import (raw_all_reduce,
+                                                       raw_reduce_scatter)
 from multiverso_tpu_torch.updaters import AddOption
 from multiverso_tpu_torch.utils import config as config_lib
 from multiverso_tpu_torch.utils import log
@@ -61,6 +70,9 @@ class ResNetTrainer:
         self.table = mv.ArrayTable(flat.size, updater="adam", init=flat,
                                    name=f"resnet{depth}_params")
         self.bn = resnet_lib.bn_to_device(bn, self.device)
+        mesh, axis, n, _ = self.table.sharding
+        # the (mesh, axis) whose ranks split each batch, or None
+        self._shards = (mesh, axis) if n > 1 else None
 
     def _batches(self, x, y):
         """The epoch's batches on the device: [nb, B, H, W, C] and [nb, B];
@@ -78,22 +90,46 @@ class ResNetTrainer:
              opt: AddOption) -> torch.Tensor:
         """One step on the table state: loss and flat gradient at the
         state's weights, then the Adam apply in place. Returns the loss
-        (on the device)."""
-        flat = state["data"][: self.n_params].detach().requires_grad_()
+        (on the device). On a sharded table ``x`` and ``y`` are this
+        rank's rows of the batch and ``state`` its block: the flat vector
+        is gathered, the loss is the rows' mean, and the gradient of the
+        ranks' mean loss reaches the block through the Add's
+        reduce-scatter."""
+        whole = self.table.unshard(state["data"])
+        flat = whole[: self.n_params].detach().requires_grad_()
         params = resnet_lib.unflatten_params(flat, self._meta)
-        loss, self.bn = resnet_lib.loss_fn(params, self.bn, x, y, train=True)
-        loss.backward()
+        loss, self.bn = resnet_lib.loss_fn(params, self.bn, x, y, train=True,
+                                           shards=self._shards)
+        if self._shards is None:
+            loss.backward()
+        else:
+            (loss / self.table.sharding.num_shards).backward()
         with torch.no_grad():
-            self.table.functional_add(state, self.table.pad_delta(flat.grad),
-                                      opt)
+            delta = self.table.pad_delta(flat.grad)
+            if self._shards is not None:
+                delta = raw_reduce_scatter(delta, *self._shards)
+            self.table.functional_add(state, delta, opt)
         return loss.detach()
 
     def train(self, x, y, epochs: int = 1) -> Dict[str, float]:
         """``epochs`` passes over (x, y) (numpy, or tensors on the
-        device)."""
+        device). On a sharded table every rank passes the same (x, y)
+        (``ValueError`` otherwise, on every rank) and trains rows ``[r B
+        / N, (r + 1) B / N)`` of each batch of B, r its index on the
+        table axis of N ranks (B % N != 0: ``ValueError``); the loss is
+        the whole batches' mean."""
+        n_shards = self.table.sharding.num_shards
+        if self.batch_size % n_shards:
+            raise ValueError(f"batch {self.batch_size} does not split over "
+                             f"the table axis's {n_shards} ranks")
+        self.table.require_same_inputs("ResNetTrainer.train", x, y)
         xb, yb = self._batches(x, y)
+        images = yb.numel() * epochs
+        if self._shards is not None:
+            part = self.batch_size // n_shards
+            lo = self._shards[0].index(self._shards[1]) * part
+            xb, yb = xb[:, lo:lo + part], yb[:, lo:lo + part]
         opt = AddOption(learning_rate=self.learning_rate)
-        self.table.require_whole("ResNetTrainer.train")
         state = self.table.state
         t0 = time.perf_counter()
         losses = []
@@ -102,18 +138,23 @@ class ResNetTrainer:
                 losses.append(self.step(state, xb[i], yb[i], opt))
         # the losses of the last epoch, read back once (the device drains)
         last = torch.stack(losses[-xb.shape[0]:])
+        if self._shards is not None:
+            last = raw_all_reduce(last, *self._shards) / n_shards
         loss = float(torch.mean(last))
         dt = time.perf_counter() - t0
         self.table.adopt(state)
-        n = yb.numel() * epochs
-        return {"loss": loss, "images_per_sec": n / dt, "seconds": dt,
+        return {"loss": loss, "images_per_sec": images / dt, "seconds": dt,
                 "sec_per_epoch": dt / epochs}
 
     @torch.no_grad()
     def evaluate(self, x: np.ndarray, y: np.ndarray) -> float:
-        self.table.require_whole("ResNetTrainer.evaluate")
+        """Accuracy on (x, y) with the running stats. On a sharded table
+        every rank passes the same (x, y) and reads the gathered flat
+        vector: the same accuracy on every rank."""
+        self.table.require_same_inputs("ResNetTrainer.evaluate", x, y)
         params = resnet_lib.unflatten_params(
-            self.table.state["data"][: self.n_params], self._meta)
+            self.table.unshard(self.table.state["data"])[: self.n_params],
+            self._meta)
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         logits, _ = resnet_lib.apply_resnet(params, self.bn, xt, train=False)
         yt = torch.from_numpy(np.asarray(y, np.int64)).to(self.device)

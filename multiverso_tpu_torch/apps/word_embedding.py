@@ -23,7 +23,9 @@ sampling and hierarchical softmax, the fused path and the PS block path).
   skip-gram HS (``-hs 1``), CBOW NS (``-cbow 1``) and CBOW HS (``-cbow 1
   -hs 1``). The last four compute in f32 everywhere, as the JAX epochs
   do, and the per-pair negatives follow jax.random's threefry stream from
-  ``seed`` bit for bit
+  ``seed`` bit for bit. On tables sharded over the world's ranks every
+  rank gathers both tables for the call and trains the same epochs (the
+  one-process result; each rank holds the whole tables meanwhile)
 * ``train_ps_blocks`` (``-use_ps 1``): the reference's block flow
   (distributed_wordembedding.cpp:147-252). Per data block the worker pulls
   the block's rows, trains them locally minibatch after minibatch (the
@@ -33,8 +35,10 @@ sampling and hierarchical softmax, the fused path and the PS block path).
   ``we_prepare_depth`` and ``we_prepare_threads``). One worker on the
   sync tables takes the device plane: the pull is a gather on the card,
   the push ``functional_add_rows``, and the negatives are derived on the
-  card from the block's 4-byte seed. Otherwise (``-ps_device_plane 0``, or
-  several workers) the host plane pulls with ``get_rows_async`` and pushes
+  card from the block's 4-byte seed; on sharded tables every rank trains
+  every block, its rows pulled from and pushed to their owners.
+  Otherwise (``-ps_device_plane 0``, or several workers) the host plane
+  pulls with ``get_rows_async`` and pushes
   ``(new - old) / num_workers`` with ``add_rows_async``, each pull
   dispatched before the previous block's push (the reference's one-block
   staleness), pipelined or inline (``-pipeline 0``), with the same results.
@@ -228,6 +232,36 @@ class WEConfig:
         return cls(**kw)
 
 
+def _pull_rows(table, state: Dict, ids: torch.Tensor) -> torch.Tensor:
+    """The rows ``ids`` (padded-layout ids on the device, the same on
+    every rank) of ``table``, whose ``state`` is this rank's: a gather,
+    or on a sharded table a gather of the ids this rank's block holds,
+    one all-gather over the table axis, and each id's row from its
+    owner (a collective)."""
+    mesh, axis, n, (lo, hi) = table.sharding
+    if n == 1:
+        return state["data"].index_select(0, ids)
+    from multiverso_tpu_torch.parallel.collectives import raw_all_gather
+    rows = state["data"].index_select(0, (ids - lo).clamp(0, hi - lo - 1))
+    every = raw_all_gather(rows, mesh, axis).reshape(
+        (n,) + tuple(rows.shape))
+    return every[ids // (hi - lo), torch.arange(ids.numel(),
+                                                device=ids.device)]
+
+
+def _push_rows(table, state: Dict, ids: torch.Tensor,
+               deltas: torch.Tensor) -> None:
+    """``functional_add_rows`` of ``deltas`` at ``ids`` (as
+    :func:`_pull_rows` takes them) on this rank's ``state``: the rows its
+    block holds, shifted by the block's first row (the padding's zero
+    deltas at the scratch row go to its owner)."""
+    _, _, n, (lo, hi) = table.sharding
+    if n > 1:
+        mine = ((ids >= lo) & (ids < hi)).nonzero().squeeze(1)
+        ids, deltas = ids[mine] - lo, deltas[mine]
+    table.functional_add_rows(state, ids, deltas)
+
+
 class WordEmbedding:
     def __init__(self, cfg: WEConfig, dictionary: Dictionary):
         if not mv.Zoo.get().started:
@@ -404,7 +438,15 @@ class WordEmbedding:
         the epoch cfg selects (skip-gram or CBOW, shared-pool or per-pair
         negatives or HS). Returns the last epoch's mean loss and the run's
         words/sec (corpus tokens per second, the word2vec convention),
-        seconds, pairs (CBOW: targets) and pairs/sec."""
+        seconds, pairs (CBOW: targets) and pairs/sec.
+
+        On tables sharded over the world's ranks every rank passes the
+        same ``ids`` (``ValueError`` otherwise, on every rank), gathers
+        both tables for the call (``Table.whole_state``: each rank holds
+        the whole tables until the call ends), trains the same epochs,
+        as the JAX app trains its global arrays, and keeps its blocks;
+        the trained words are counted once. The result is the one-process
+        run's."""
         cfg = self.cfg
         if cfg.async_ps:
             # the fused epochs train the tables' state in place, which the
@@ -415,6 +457,8 @@ class WordEmbedding:
                 "epochs need the sync tables' in-place state")
         epochs = epochs or cfg.epoch
         branch = self._branch()
+        out_table = self.table_hs if cfg.hs else self.table_out
+        self.table_in.require_same_inputs("WordEmbedding.train_fused", ids)
         t0 = time.perf_counter()
         *batches, pairs = (self._device_cbow(ids) if cfg.cbow
                            else self._device_pairs(ids))
@@ -422,26 +466,23 @@ class WordEmbedding:
         # a fresh key at every call, split once per epoch, as the JAX app
         # does: two calls of one epoch each draw the same negatives
         key = threefry.key(cfg.seed)
-        out_table = self.table_hs if cfg.hs else self.table_out
-        for t in (self.table_in, out_table):
-            t.require_whole("WordEmbedding.train_fused")
-        state_in, state_out = self.table_in.state, out_table.state
-        # train copies, so the live tables survive a failure mid-epoch
-        win, wout = state_in["data"].clone(), state_out["data"].clone()
-        for _ in range(epochs):
-            if branch == "sg_shared":
-                win, wout, loss, self._lcg = epoch_fn(win, wout, *batches,
-                                                      self._lcg)
-            else:
-                key, sub = threefry.split(key)
-                win, wout, loss = epoch_fn(win, wout, *batches, sub)
-        self.table_in.adopt({"data": win, "ustate": state_in["ustate"]})
-        out_table.adopt({"data": wout, "ustate": state_out["ustate"]})
+        with self.table_in.whole_state() as state_in, \
+                out_table.whole_state() as state_out:
+            # train copies, so the live tables survive a failure mid-epoch
+            win, wout = state_in["data"].clone(), state_out["data"].clone()
+            for _ in range(epochs):
+                if branch == "sg_shared":
+                    win, wout, loss, self._lcg = epoch_fn(
+                        win, wout, *batches, self._lcg)
+                else:
+                    key, sub = threefry.split(key)
+                    win, wout, loss = epoch_fn(win, wout, *batches, sub)
+            state_in["data"], state_out["data"] = win, wout
         # the loss readback is the end of the device's work
         loss_f = float(loss)
         dt = time.perf_counter() - t0
         words = epochs * int(ids.size)
-        self.word_count.add([0], [words])
+        self._count_words(words)
         return {"loss": loss_f, "words_per_sec": words / dt,
                 "seconds": dt, "pairs": int(pairs),
                 "pairs_per_sec": epochs * pairs / dt}
@@ -486,6 +527,11 @@ class WordEmbedding:
         rng = np.random.default_rng(cfg.seed)
         nw, wid = self._ps_topology()
         device_plane = self._use_device_plane(nw)
+        if device_plane:
+            # on sharded tables every rank trains every block as the one
+            # worker
+            self.table_in.require_same_inputs(
+                "WordEmbedding.train_ps_blocks", ids)
         t0, losses, words = time.perf_counter(), [], 0
         dev_losses: List[torch.Tensor] = []
         blocks = [ids[lo: lo + cfg.data_block_size]
@@ -563,7 +609,7 @@ class WordEmbedding:
         if self.table_in.device.type == "cuda":
             torch.cuda.synchronize(self.table_in.device)
         dt = time.perf_counter() - t0
-        self.word_count.add([0], [words])
+        self._count_words(words, one_worker=device_plane)
         return {"loss": float(np.mean(losses)) if losses else 0.0,
                 "words_per_sec": words / dt, "seconds": dt}
 
@@ -908,7 +954,9 @@ class WordEmbedding:
             nbb = -(-(n // b) // 8) * 8
             vocab = prep["vocab"]
             k = vocab.size
-            vbb = _bucket_size(k, self.table_in.padded_shape[0])
+            # capped at one process's padded rows (rows + 1), whatever the
+            # world's padding, so a sharded world packs the same buckets
+            vbb = _bucket_size(k, self.table_in.shape[0] + 1)
             # padded ids gather the scratch row, and its zero delta
             # scatters back into it
             ids_in = np.full(vbb, self.table_in.scratch_row, np.int64)
@@ -920,7 +968,7 @@ class WordEmbedding:
             if cfg.hs:
                 hs_rows = prep["hs_rows"]
                 hk = hs_rows.size
-                hsb = _bucket_size(hk, self.table_hs.padded_shape[0])
+                hsb = _bucket_size(hk, self.table_hs.shape[0] + 1)
                 ids_sec = np.full(hsb, self.table_hs.scratch_row, np.int64)
                 ids_sec[:hk] = hs_rows
                 remap_hs = np.full(self.table_hs.shape[0] + 1, hsb, np.int64)
@@ -940,11 +988,12 @@ class WordEmbedding:
         """One block on the device: pull (a gather of the block's rows),
         local train (:meth:`_run_block_scan`), push (the deltas through
         each table's updater, ``functional_add_rows``). Returns the block's
-        loss as a device scalar (read back at the end of the run)."""
+        loss as a device scalar (read back at the end of the run). On
+        tables sharded over the world's ranks every rank trains the same
+        block: the pull asks the rows' owners (:func:`_pull_rows`) and
+        each owner pushes the rows of its block (:func:`_push_rows`)."""
         cfg = self.cfg
         t_in, t_sec = self.table_in, self._sec_table()
-        for t in (t_in, t_sec):
-            t.require_whole("WordEmbedding's PS block device plane")
         p = {key: self._upload(a) for key, a in prep.items()
              if key != "valid"}
         ids_in = p["ids_in"]
@@ -966,11 +1015,11 @@ class WordEmbedding:
         with monitor("we.block"), t_in._dispatch_lock, t_sec._dispatch_lock:
             s_in, s_sec = t_in.state, t_sec.state
             d_in, d_sec, loss = self._run_block_scan(
-                self._step_fn_raw(), s_in["data"].index_select(0, ids_in),
-                s_sec["data"].index_select(0, ids_sec), prep["valid"],
+                self._step_fn_raw(), _pull_rows(t_in, s_in, ids_in),
+                _pull_rows(t_sec, s_sec, ids_sec), prep["valid"],
                 p["batch"], negs)
-            t_in.functional_add_rows(s_in, ids_in, d_in)
-            t_sec.functional_add_rows(s_sec, ids_sec, d_sec)
+            _push_rows(t_in, s_in, ids_in, d_in)
+            _push_rows(t_sec, s_sec, ids_sec, d_sec)
         return loss
 
     def _ps_topology(self) -> Tuple[int, int]:
@@ -982,6 +1031,16 @@ class WordEmbedding:
             ctx = self.table_in.ctx
             return max(ctx.world, 1), ctx.rank
         return max(mv.num_workers(), 1), mv.rank()
+
+    def _count_words(self, words: int, one_worker: bool = True) -> None:
+        """Add a run's trained words to the count. Where the ranks of
+        sharded tables trained the same corpus as one worker (the fused
+        epochs, the device plane: ``one_worker``), rank 0 counts it
+        alone; otherwise each rank counts its own."""
+        if (one_worker and self.table_in.sharding.num_shards > 1
+                and mv.rank() != 0):
+            words = 0
+        self.word_count.add([0], [words])
 
     def total_word_count(self) -> int:
         """Trained-word count across all workers (ref communicator.cpp:

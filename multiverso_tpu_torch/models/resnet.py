@@ -61,10 +61,21 @@ def _bn_apply(x, scale, bias, mean, var, eps=1e-5):
             + _per_channel(bias))
 
 
-def _bn_train(x, scale, bias, mean, var, momentum=0.9):
+def _bn_train(x, scale, bias, mean, var, momentum=0.9, shards=None):
     axes = (0, 2, 3)
-    m = torch.mean(x, axes)
-    v = torch.mean(torch.square(x - _per_channel(m)), axes)  # biased
+    if shards is None:
+        m = torch.mean(x, axes)
+        v = torch.mean(torch.square(x - _per_channel(m)), axes)  # biased
+    else:
+        # the moments of the whole batch, whose rows the ranks of the
+        # mesh axis split: partial sums summed over the axis, forward and
+        # backward (collectives.sum_over)
+        from multiverso_tpu_torch.parallel.collectives import sum_over
+        mesh, axis = shards
+        count = x.numel() // x.shape[1] * mesh.axis_size(axis)
+        m = sum_over(torch.sum(x, axes), mesh, axis) / count
+        v = sum_over(torch.sum(torch.square(x - _per_channel(m)), axes),
+                     mesh, axis) / count
     out = _bn_apply(x, scale, bias, m, v)
     new_mean = momentum * mean + (1 - momentum) * m
     new_var = momentum * var + (1 - momentum) * v
@@ -120,15 +131,18 @@ def init_resnet(seed: int = 0, depth: int = 20, num_classes: int = 10,
     return params, bn
 
 
-def apply_resnet(params: Tree, bn: Tree, x: torch.Tensor, train: bool = True
-                 ) -> Tuple[torch.Tensor, Tree]:
-    """Forward pass of NHWC images ``x``; returns (logits, new_bn_state)."""
+def apply_resnet(params: Tree, bn: Tree, x: torch.Tensor, train: bool = True,
+                 shards=None) -> Tuple[torch.Tensor, Tree]:
+    """Forward pass of NHWC images ``x``; returns (logits, new_bn_state).
+    ``shards``: a ``(mesh, axis)`` whose ranks each pass their rows of one
+    batch (the JAX batch's ``P(axis)`` shards): training BatchNorm then
+    normalizes by the whole batch's moments, summed over the axis."""
     new_bn: Tree = {"stem": {}, "blocks": []}
 
     def run_bn(h, st, store: Tree):
         if train:
             out, m, v = _bn_train(h, st["scale"], st["bias"], st["mean"],
-                                  st["var"])
+                                  st["var"], shards=shards)
             store.update({"scale": st["scale"], "bias": st["bias"],
                           "mean": m.detach(), "var": v.detach()})
             return out
@@ -158,9 +172,10 @@ def apply_resnet(params: Tree, bn: Tree, x: torch.Tensor, train: bool = True
 
 
 def loss_fn(params: Tree, bn: Tree, x: torch.Tensor, y: torch.Tensor,
-            train: bool = True) -> Tuple[torch.Tensor, Tree]:
-    """Mean softmax cross-entropy; returns (loss, new_bn_state)."""
-    logits, new_bn = apply_resnet(params, bn, x, train)
+            train: bool = True, shards=None) -> Tuple[torch.Tensor, Tree]:
+    """Mean softmax cross-entropy over ``x``'s rows; returns (loss,
+    new_bn_state). ``shards`` as :func:`apply_resnet` takes it."""
+    logits, new_bn = apply_resnet(params, bn, x, train, shards)
     logp = torch.log_softmax(logits, -1)
     loss = -torch.mean(torch.gather(logp, -1, y.long()[:, None])[:, 0])
     return loss, new_bn

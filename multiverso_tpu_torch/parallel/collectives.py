@@ -37,6 +37,10 @@ forward                 backward
                         entering rank-specific compute)
 ``reduce_from``         identity (Megatron's g: partial sums become one
                         replicated value)
+``sum_over``            all_reduce (a sum over the ranks' shards of one
+                        batch that each rank's own loss reads, such as
+                        BatchNorm's moments: every rank's inputs feed
+                        every rank's loss)
 ``gather_from``         this rank's slice (a sharded value gathered into
                         replicated compute)
 ``scatter_to``          all_gather (a replicated value split into
@@ -372,6 +376,18 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return raw_all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return raw_all_reduce(g, mesh, axes), None, None
+
+
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -435,6 +451,16 @@ def copy_to(x, mesh, axes):
 def reduce_from(x, mesh, axes):
     """all_reduce (sum); backward identity."""
     return _ReduceFrom.apply(x, mesh, axes) if _live(mesh, axes) else x
+
+
+def sum_over(x, mesh, axes):
+    """all_reduce (sum); backward all_reduce. For a sum of partial sums
+    over the shards of one batch (each rank its rows) that feeds every
+    rank's own loss: the gradient of the objective, the sum of the ranks'
+    losses, at this rank's partial sum is the sum of the ranks' gradients
+    at the total (``reduce_from``'s identity backward would keep only this
+    rank's)."""
+    return _SumOver.apply(x, mesh, axes) if _live(mesh, axes) else x
 
 
 def gather_from(x, mesh, axes, dim: int):

@@ -40,7 +40,11 @@ functional plane (``state``, ``functional_add``, ``adopt``) holds this
 rank's block, the addressable shard of the JAX global array:
 ``functional_add`` takes the block's shape or the whole padded shape,
 whose rows outside the block it ignores, and a caller that needs the
-whole table gathers it (:meth:`unshard`). ``store`` gathers the table
+whole table gathers it (:meth:`unshard`). A caller that trains the whole
+table in one call (the apps' fused epochs) takes :meth:`whole_state`:
+the gathered state for the call, of which each rank adopts its block at
+the end; every rank runs the call's steps on the same inputs, which
+:meth:`require_same_inputs` checks. ``store`` gathers the table
 (a collective), ``load`` keeps the block. Coalescing and the
 write-triggered prefetch stay off: each add's collective runs on the
 caller's thread, in the caller's order.
@@ -81,9 +85,10 @@ so a cached Get never serves the state from before the write.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import threading
-from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -403,15 +408,71 @@ class Table:
         from multiverso_tpu_torch.parallel.collectives import raw_all_gather
         return raw_all_gather(block, self._mesh, self._axis)
 
-    def require_whole(self, what: str) -> None:
-        """Raise ``NotImplementedError`` for a caller that reads
-        :attr:`state` as the whole table when this rank holds a block."""
-        if self._num_shards > 1:
-            raise NotImplementedError(
-                f"{what} reads table[{self.name}]'s state as the whole "
-                f"table, but its rows are sharded over the mesh's "
-                f"{self._axis!r} axis ({self._num_shards} blocks); this "
-                "path is not ported at a table axis > 1 (ROADMAP.md §A)")
+    @contextlib.contextmanager
+    def whole_state(self) -> Iterator[Dict[str, Any]]:
+        """The whole padded state ``{"data", "ustate"}`` for a call that
+        trains the whole table (the apps' fused epochs), as the JAX
+        package's ``state`` is the global array. On a table that is not
+        sharded it is the live :attr:`state`. On a table axis > 1 it is
+        an all-gather of the data and of each row-shaped updater-state
+        leaf over the axis (a collective: every rank of the axis enters,
+        in one order), at the world's padding: ``padded_shape``, whose
+        real rows and scratch row keep their indices. The caller trains
+        it in place (:meth:`functional_add` applies a whole delta to it
+        whole) or puts new tensors under its keys. On a normal exit the
+        table adopts this rank's block of each leaf; a leaf shared by all
+        rows (Adam's step count) is adopted whole, the same on every rank
+        that ran the same steps. On an exception nothing is adopted."""
+        state = self.state
+        if self._num_shards == 1:
+            yield state
+            self.adopt(state)
+            return
+        from multiverso_tpu_torch.parallel.collectives import raw_all_gather
+        axes = {k: self._state_row_axis(v)
+                for k, v in state["ustate"].items()}
+        whole = {"data": self.unshard(state["data"]),
+                 "ustate": {k: v if axes[k] is None else raw_all_gather(
+                     v, self._mesh, self._axis, axes[k])
+                            for k, v in state["ustate"].items()}}
+        yield whole
+        lo, hi = self._rows
+        # clones: the block must not keep the whole tensor's memory alive
+        self.adopt({"data": whole["data"][lo:hi].clone(),
+                    "ustate": {k: v if axes[k] is None else
+                               v.narrow(axes[k], lo, hi - lo).clone()
+                               for k, v in whole["ustate"].items()}})
+
+    def require_same_inputs(self, what: str, *arrays) -> None:
+        """On a table axis > 1, raise ``ValueError`` on every rank of the
+        axis unless every rank passed the same ``arrays`` (numpy arrays or
+        tensors, compared by dtype, shape and bytes): one all-gather of an
+        8-byte digest a rank, a collective. The JAX package's inputs are
+        global arrays, the same on every device; a rank that brought
+        other data would train another run. Nothing on a table that is
+        not sharded."""
+        if self._num_shards == 1:
+            return
+        from multiverso_tpu_torch.parallel.collectives import \
+            process_all_gather
+        h = hashlib.sha1()
+        for a in arrays:
+            if isinstance(a, torch.Tensor):
+                t = a.detach().contiguous().cpu()
+                h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+                h.update(t.reshape(-1).view(torch.uint8).numpy())
+            else:
+                arr = np.ascontiguousarray(a)
+                h.update(f"{arr.dtype}{arr.shape}".encode())
+                h.update(memoryview(arr.reshape(-1)).cast("B"))
+        mine = np.frombuffer(h.digest()[:8], np.int64).copy()
+        every = process_all_gather(mine, self._mesh, self._axis)
+        if np.any(every != mine[0]):
+            raise ValueError(
+                f"{what}: the ranks of the {self._axis!r} axis passed "
+                f"different inputs (digests {every.tolist()}); every rank "
+                "of a sharded table trains the same arrays, as the JAX "
+                "package's global arrays are")
 
     # ------------------------------------------------------------------ #
     # mutation bookkeeping (get-cache version)
@@ -552,18 +613,21 @@ class Table:
 
     def functional_add(self, state: Dict[str, Any], delta: torch.Tensor,
                        opt: Optional[AddOption] = None) -> Dict[str, Any]:
-        """Apply the updater to ``state`` with ``delta``: the block's
-        shape, or the whole padded shape (:meth:`pad_delta`), whose rows
-        outside this rank's block are ignored. The JAX function returns
-        new arrays; this one updates ``state``'s tensors in place and
-        returns ``state``. On the table's live state it is a mutation of
-        the table: the version bumps and the train cache clears."""
+        """Apply the updater to ``state`` with ``delta``. On this rank's
+        block (:attr:`state`) the delta has the block's shape, or the
+        whole padded shape (:meth:`pad_delta`), whose rows outside the
+        block are ignored; on a whole state (:meth:`whole_state`) it has
+        the whole padded shape and applies whole. The JAX function
+        returns new arrays; this one updates ``state``'s tensors in place
+        and returns ``state``. On the table's live state it is a mutation
+        of the table: the version bumps and the train cache clears."""
         opt = opt or AddOption()
         live = state["data"] is self._data
         if live:
             self._mark_mutated()
-        self.updater.apply(state["data"], state["ustate"], self._own(delta),
-                           opt)
+        if delta.shape[0] != state["data"].shape[0]:
+            delta = self._own(delta)
+        self.updater.apply(state["data"], state["ustate"], delta, opt)
         if live:
             self._wrote_in_place()
         return state

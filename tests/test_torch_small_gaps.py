@@ -92,22 +92,37 @@ def test_link_is_fast_defaults_to_the_zoo_then_the_card(monkeypatch):
         tconfig.reset_flags()
 
 
-def test_link_is_fast_on_this_host_cpu():
+def test_link_is_fast_on_this_host_cpu(monkeypatch):
     """The real probe on the CPU, where there is no link and its copy is
-    a memcpy of 1 MB: one of up to three fresh readings (each the probe's
-    own median of 3) is under FAST_LINK_MS. A single reading can pass the
-    bound on a host whose cores other test processes hold; the decision
-    on a given reading is the monkeypatched tests' above."""
-    readings = []
-    for _ in range(3):
-        readings.append(linkprobe.device_link_ms(torch.device("cpu"),
-                                                 refresh=True))
-        if readings[-1] < linkprobe.FAST_LINK_MS:
-            break
-    assert min(readings) < linkprobe.FAST_LINK_MS, readings
-    assert linkprobe.link_is_fast("cpu") is (
-        linkprobe.device_link_ms(torch.device("cpu"))
-        < linkprobe.FAST_LINK_MS)
+    a memcpy of 1 MB: a positive finite reading, cached (a second call
+    reads no clock), ``refresh=True`` measuring again (the probe's three
+    timed copies read the clock), and the decision agreeing with the
+    cached reading. No bound on the reading's size: on this host it is
+    the load other test processes put on its cores; the 20 ms bound on a
+    real link is chip_smoke.py's, on the card."""
+    import threading
+    cpu = torch.device("cpu")
+    clock = linkprobe.time.perf_counter
+    me, reads = threading.get_ident(), []
+
+    def counted():
+        # the time module is the process's: count this thread's reads only
+        if threading.get_ident() == me:
+            reads.append(1)
+        return clock()
+
+    monkeypatch.setattr(linkprobe.time, "perf_counter", counted)
+    first = linkprobe.device_link_ms(cpu, refresh=True)
+    assert np.isfinite(first) and first > 0, first
+    assert len(reads) == 6                # three timed copies, two reads each
+    assert linkprobe.device_link_ms(cpu) == first
+    assert len(reads) == 6                # the cache: no copy, no clock
+    again = linkprobe.device_link_ms(cpu, refresh=True)
+    assert np.isfinite(again) and again > 0, again
+    assert len(reads) == 12
+    assert linkprobe.device_link_ms(cpu) == again
+    assert linkprobe.link_is_fast("cpu") is (again < linkprobe.FAST_LINK_MS)
+    assert linkprobe.link_is_fast(cpu) is linkprobe.link_is_fast("cpu")
 
 
 def test_host_codec_device_is_the_cpu():

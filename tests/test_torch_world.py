@@ -374,12 +374,26 @@ def test_sparse_protocol_with_one_worker_id_on_every_rank(runs):
 
 
 def test_whole_state_paths_refuse_a_block_and_params_gather(runs):
-    """At a table axis of 2 ``require_whole`` (the apps' fused epochs)
-    raises, and TorchParamManager's pull gathers the blocks: both ranks
-    start from rank 0's module and, after one sync in which rank r added
-    r + 1 to every parameter, hold that init + 3."""
+    """At a table axis of 2 a fused path runs on the whole gathered table
+    (LogReg's ``train_arrays``, the same blobs on both ranks): both
+    ranks' Gets equal the one-process port's bit for bit. And
+    TorchParamManager's pull gathers the blocks: both ranks start from
+    rank 0's module and, after one sync in which rank r added r + 1 to
+    every parameter, hold that init + 3."""
     port, _ = _parsed(runs, "seeded")
-    assert all(port[r]["require_whole_raises"] for r in range(2))
+    import multiverso_tpu_torch as mv
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # as the ranks run
+    mv.init(device="cpu")
+    try:
+        want = tw.fused_lr()
+    finally:
+        mv.shutdown()
+        torch.set_num_threads(threads)
+    for r in range(2):
+        np.testing.assert_array_equal(
+            np.asarray(port[r]["fused_lr"], np.float32), want)
+    assert np.abs(want).max() > 1e-2          # trained
     init = port[0]["tpm_init"]
     assert port[1]["tpm_init"] == init
     for r in range(2):

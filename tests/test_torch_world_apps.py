@@ -1,0 +1,351 @@
+"""Port parity, the apps' whole-state paths on tables sharded over a
+world's ranks: ``multiverso_tpu_torch``'s WordEmbedding ``train_fused``
+(all five branches) and its PS block device plane, LogReg's fused
+``train_arrays`` and ``ResNetTrainer.train``/``evaluate`` at a table axis
+of 2 (two gloo ranks on this CPU, ``tests/torch_world_apps_worker.py``),
+against the same calls of the port in one process and of the JAX package
+on its 8-device test mesh, whose tables split eight ways (the JAX ResNet
+trainer splits each batch over that axis too).
+
+The world and the one-process port run the same CPU operations in the
+same order on the same inputs, one intra-op thread each: every rank
+gathers the whole table for the call, trains the same batches, and keeps
+its block (the device plane asks each row's owner and pushes each block's
+rows to its owner). So WordEmbedding, the device plane and LogReg equal
+the one-process run bit for bit, and match the JAX app within the
+tolerances of ``tests/test_torch_word_embedding.py``,
+``tests/test_torch_ps_blocks.py`` and ``tests/test_torch_logreg.py``.
+The ResNet trainer is data-parallel (each rank its half of each batch,
+BatchNorm's moments summed over the ranks, the gradient reduce-scattered
+to the blocks), so its sums run in another order: it is held to
+``tests/test_torch_resnet.py``'s tolerances against both, its first
+step's gradient within 1e-5 of max |g| of the one-process one.
+
+One world of 2 ranks starts once for the module, each rank with a
+timeout; the references run in this process meanwhile.
+"""
+
+import os
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import multiverso_tpu as jmv
+import multiverso_tpu_torch as tmv
+import torch_world_apps_worker as aw
+from multiverso_tpu.apps import logistic_regression as jlr
+from multiverso_tpu.apps import resnet_cifar as jres_app
+from multiverso_tpu.apps import word_embedding as jwe
+from multiverso_tpu.models import resnet as jres
+from multiverso_tpu.utils import config as jconfig
+from multiverso_tpu_torch.apps import word_embedding as twe
+from multiverso_tpu_torch.models import resnet as tres
+from multiverso_tpu_torch.utils import config as tconfig
+from multiverso_tpu_torch.utils.dashboard import Dashboard as TDashboard
+from multiverso_tpu_torch.zoo import Zoo as TZoo
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(_DIR)
+_TIMEOUT = 240
+WORLD = 2
+# tests/test_torch_word_embedding.py: the shared pool after its epochs to
+# atol 2e-6, the other branches 4e-6; losses rtol 1e-5
+WE_ATOL = {"sg_shared": 2e-6}
+WE_ATOL_OTHER, WE_LOSS_RTOL = 4e-6, 1e-5
+# tests/test_torch_ps_blocks.py: block losses rtol 1e-6, tables atol 1e-5
+PS_LOSS_RTOL, PS_ATOL = 1e-6, 1e-5
+# tests/test_torch_logreg.py: the table within 1e-5 of its max |x|, the
+# loss rtol 1e-4
+LR_TABLE_RTOL, LR_LOSS_RTOL = 1e-5, 1e-4
+# tests/test_torch_resnet.py's trainer bounds
+RES_LOSS_RTOL, RES_FWD_ATOL = 1e-4, 1e-4
+RES_CLOSE_ATOL, RES_CLOSE_SHARE = 1e-6, 0.999
+RES_GRAD_RTOL = 1e-5
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_world(out_dir):
+    port = _free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(_DIR, "torch_world_apps_worker.py"),
+         out_dir],
+        env={**env, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+             "RANK": str(r), "WORLD_SIZE": str(WORLD),
+             "LOCAL_RANK": str(r)},
+        cwd=_REPO, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for r in range(WORLD)]
+
+
+def _collect(procs):
+    """[(rc, stdout, stderr)] in rank order; a rank past the timeout is
+    killed."""
+    out = [None] * len(procs)
+
+    def wait(i, p):
+        try:
+            o, e = p.communicate(timeout=_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            o, e = p.communicate()
+            e += f"\n(killed after {_TIMEOUT} s)"
+        out[i] = (p.returncode, o, e)
+
+    threads = [threading.Thread(target=wait, args=(i, p))
+               for i, p in enumerate(procs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _port_reference(out_dir):
+    """The same calls in one process of the port (one intra-op thread, as
+    the ranks)."""
+    tmv.init(device="cpu")
+    try:
+        ref = {}
+        tokens = aw.we_tokens()
+        for name, extra in aw.WE_BRANCHES.items():
+            ref[f"we_{name}"] = aw.we_fused(
+                twe.WEConfig.from_argv(aw.WE_ARGV + extra), tokens)
+        ptoks = aw.ps_tokens()
+        for name, extra in aw.PS_VARIANTS.items():
+            cfg = twe.WEConfig(**aw.PS_SMALL, **extra)
+            ids = twe.WordEmbedding(cfg, twe.Dictionary.build(
+                ptoks, cfg.min_count)).prepare_ids(ptoks)
+            ref[f"ps_{name}"] = aw.we_blocks(
+                cfg, ids[: aw.PS_BLOCKS * cfg.data_block_size], ptoks)
+        ref["lr"] = aw.lr_fused(aw.LR_PAIRS, *aw.lr_data())
+        train, evaluate = aw.res_data()
+        ref["res"] = aw.resnet(aw.RES_KW, train, evaluate, aw.res_init(
+            os.path.join(out_dir, "res_init.npz")))
+        return ref
+    finally:
+        TZoo.get().stop()
+        tconfig.reset_flags()
+        TDashboard.reset()
+
+
+def _jax_reference():
+    """The JAX apps on the 8-device test mesh, on the same inputs."""
+    jmv.init()
+    try:
+        ref = {}
+        tokens = aw.we_tokens()
+        for name, extra in aw.WE_BRANCHES.items():
+            cfg = jwe.WEConfig.from_argv(aw.WE_ARGV + extra)
+            app = jwe.WordEmbedding(cfg, jwe.Dictionary.build(
+                tokens, cfg.min_count))
+            stats = app.train_fused(app.prepare_ids(tokens), epochs=1)
+            ref[f"we_{name}"] = {
+                "loss": stats["loss"], "in": np.asarray(app.embeddings()),
+                "out": np.asarray((app.table_hs if cfg.hs
+                                   else app.table_out).get())}
+        ptoks = aw.ps_tokens()
+        for name, extra in aw.PS_VARIANTS.items():
+            cfg = jwe.WEConfig(**aw.PS_SMALL, **extra)
+            app = jwe.WordEmbedding(cfg, jwe.Dictionary.build(
+                ptoks, cfg.min_count))
+            ids = app.prepare_ids(ptoks)
+            losses, inner = [], app._train_block_device
+
+            def record(prep, _inner=inner, _out=losses):
+                loss = _inner(prep)
+                _out.append(loss)
+                return loss
+
+            app._train_block_device = record
+            stats = app.train_ps_blocks(
+                ids[: aw.PS_BLOCKS * cfg.data_block_size], epochs=1)
+            ref[f"ps_{name}"] = {
+                "loss": stats["loss"],
+                "block_losses": np.array([float(x) for x in losses]),
+                "in": np.asarray(app.table_in.get()),
+                "out": np.asarray((app.table_hs if cfg.hs
+                                   else app.table_out).get())}
+        lr = jlr.LogReg(jlr.LogRegConfig(aw.LR_PAIRS))
+        stats = lr.train_arrays(*aw.lr_data(), epochs=1)
+        ref["lr"] = {"loss": stats["loss"],
+                     "table": np.asarray(lr.table.get())}
+        (x, y), (xe, ye) = aw.res_data()
+        trainer = jres_app.ResNetTrainer(seed=0, **aw.RES_KW)
+        with jax.default_matmul_precision("float32"):
+            stats = trainer.train(x, y, epochs=1)
+            acc = trainer.evaluate(xe, ye)
+        bn, _ = tres.flatten_params(jax.tree.map(np.asarray, trainer.bn))
+        ref["res"] = {"loss": stats["loss"], "eval": acc, "bn": bn,
+                      "table": np.asarray(trainer.table.get())[
+                          : trainer.n_params]}
+        return ref
+    finally:
+        jmv.shutdown()
+        jconfig.reset_flags()
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """The world's ranks (their RESULT dicts and arrays), the one-process
+    port's and the JAX package's results."""
+    import json
+    out_dir = tempfile.mkdtemp(prefix="mv_world_apps_")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        params, bn = jres.init_resnet(jax.random.key(0), depth=8,
+                                      num_classes=4)
+        flat, bn_np = tres.resnet_from_jax(jax.tree.map(np.asarray, params),
+                                           jax.tree.map(np.asarray, bn))
+        aw.save_res_init(os.path.join(out_dir, "res_init.npz"), flat,
+                         tres.flatten_params(bn_np)[0])
+        for attempt in range(2):
+            procs = _start_world(out_dir)
+            port_ref = _port_reference(out_dir) if attempt == 0 else port_ref
+            jax_ref = _jax_reference() if attempt == 0 else jax_ref
+            outs = _collect(procs)
+            # a world whose store lost its free port is started once more
+            if all(rc == 0 for rc, _, _ in outs) or not any(
+                    "address already in use" in e.lower()
+                    for _, _, e in outs):
+                break
+        ranks = []
+        for r, (rc, o, e) in enumerate(outs):
+            assert rc == 0, f"rank {r} rc={rc}\n{e[-3000:]}"
+            lines = [l for l in o.splitlines() if l.startswith("RESULT ")]
+            assert lines, f"rank {r} printed no RESULT\n{e[-2000:]}"
+            got = json.loads(lines[-1][len("RESULT "):])
+            with np.load(os.path.join(out_dir, f"rank{r}.npz")) as f:
+                got.update({k: f[k] for k in f.files})
+            ranks.append(got)
+        yield {"ranks": ranks, "port": port_ref, "jax": jax_ref}
+    finally:
+        torch.set_num_threads(threads)
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _rank(got, prefix):
+    return {k.split("/", 1)[1]: v for k, v in got.items()
+            if k.startswith(prefix + "/")}
+
+
+@pytest.mark.parametrize("branch", list(aw.WE_BRANCHES))
+def test_train_fused_at_a_table_axis_of_two(runs, branch):
+    """One epoch of each branch: both ranks' gathered tables, loss and
+    LCG state equal the one-process port's bit for bit, the words are
+    counted once, and the tables and loss match the JAX app."""
+    one, jx = runs["port"][f"we_{branch}"], runs["jax"][f"we_{branch}"]
+    atol = WE_ATOL.get(branch, WE_ATOL_OTHER)
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], f"we_{branch}")
+        assert runs["ranks"][r]["size"] == WORLD
+        assert got["loss"] == one["loss"]
+        for k in ("in", "out"):
+            np.testing.assert_array_equal(got[k], one[k], err_msg=k)
+            assert np.abs(jx[k]).max() > 1e-2                 # trained
+            np.testing.assert_allclose(got[k], jx[k], rtol=0, atol=atol,
+                                       err_msg=k)
+        np.testing.assert_allclose(got["loss"], jx["loss"],
+                                   rtol=WE_LOSS_RTOL)
+        if branch == "sg_shared":
+            np.testing.assert_array_equal(got["lcg"], one["lcg"])
+        assert got["words"] == one["words"] == one["tokens"]
+
+
+@pytest.mark.parametrize("variant", list(aw.PS_VARIANTS))
+def test_device_plane_at_a_table_axis_of_two(runs, variant):
+    """Two blocks on the device plane, one worker: each block's loss and
+    both gathered tables equal the one-process port's bit for bit, and
+    match the JAX app's device plane."""
+    one, jx = runs["port"][f"ps_{variant}"], runs["jax"][f"ps_{variant}"]
+    assert len(one["block_losses"]) == aw.PS_BLOCKS
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], f"ps_{variant}")
+        np.testing.assert_array_equal(got["block_losses"],
+                                      one["block_losses"])
+        assert got["loss"] == one["loss"]
+        for k in ("in", "out"):
+            np.testing.assert_array_equal(got[k], one[k], err_msg=k)
+            assert np.abs(jx[k]).max() > 1e-2                 # trained
+            np.testing.assert_allclose(got[k], jx[k], rtol=0, atol=PS_ATOL,
+                                       err_msg=k)
+        np.testing.assert_allclose(got["block_losses"], jx["block_losses"],
+                                   rtol=PS_LOSS_RTOL)
+        assert got["words"] == one["words"] == aw.PS_BLOCKS * 4000
+
+
+def test_lr_train_arrays_at_a_table_axis_of_two(runs):
+    one, jx = runs["port"]["lr"], runs["jax"]["lr"]
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], "lr")
+        np.testing.assert_array_equal(got["table"], one["table"])
+        assert got["loss"] == one["loss"]
+        scale = float(np.abs(jx["table"]).max())
+        assert float(np.abs(got["table"] - jx["table"]).max()) <= \
+            LR_TABLE_RTOL * scale
+        np.testing.assert_allclose(got["loss"], jx["loss"],
+                                   rtol=LR_LOSS_RTOL)
+
+
+@pytest.mark.parametrize("against", ["port", "jax"])
+def test_resnet_train_at_a_table_axis_of_two(runs, against):
+    """Three data-parallel steps (8 images a rank a step): the loss within
+    1e-4 relative, the flat table within ``2 * lr * steps`` with 99.9% of
+    it within 1e-6, and the BN running stats within 1e-4 of each
+    reference's."""
+    want = runs[against]["res"]
+    lr, steps = aw.RES_KW["learning_rate"], aw.RES_STEPS
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], "res")
+        np.testing.assert_allclose(got["loss"], want["loss"],
+                                   rtol=RES_LOSS_RTOL)
+        err = np.abs(got["table"] - want["table"])
+        assert err.max() <= 2 * lr * steps, err.max()
+        assert (err <= RES_CLOSE_ATOL).mean() >= RES_CLOSE_SHARE
+        np.testing.assert_allclose(got["bn"], want["bn"], rtol=0,
+                                   atol=RES_FWD_ATOL)
+
+
+def test_resnet_ranks_agree_and_evaluate(runs):
+    """The BN running stats equal on both ranks bit for bit, and
+    ``evaluate`` gives one accuracy on both ranks, the one-process port's
+    (the JAX app's within one image of 64)."""
+    a, b = (_rank(runs["ranks"][r], "res") for r in range(WORLD))
+    np.testing.assert_array_equal(a["bn"], b["bn"])
+    np.testing.assert_array_equal(a["table"], b["table"])
+    assert a["eval"] == b["eval"] == runs["port"]["res"]["eval"]
+    assert abs(a["eval"] - runs["jax"]["res"]["eval"]) <= 1 / 64
+
+
+def test_resnet_first_step_gradient(runs):
+    """The first step's flat gradient, reduce-scattered to the blocks and
+    gathered, within 1e-5 of max |g| of the one-process gradient: a
+    backward that dropped the other rank's share of BatchNorm's moments
+    misses by far more."""
+    want = runs["port"]["res"]["grad"]
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], "res")["grad"]
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= RES_GRAD_RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("path", ["we_fused", "we_blocks", "lr", "resnet"])
+def test_mismatched_inputs_raise_on_every_rank(runs, path):
+    """Rank 1 passes other inputs than rank 0: every rank raises
+    ``ValueError`` (and the world goes on: the ranks ended with a
+    RESULT)."""
+    assert all(runs["ranks"][r]["mismatch"][path] for r in range(WORLD))

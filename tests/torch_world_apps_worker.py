@@ -1,0 +1,289 @@
+"""The apps' whole-state paths of ``multiverso_tpu_torch`` on tables
+sharded over a world's ranks, and the same calls in one process: the
+functions here run either way, so the world's result and the one-process
+result come from one code (``tests/test_torch_world_apps.py`` on the CPU,
+``chip_smoke.py``'s world part (e) on the card). Imports no jax.
+
+One rank of a world of the CPU test, started as a launcher starts it
+(``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``; see
+``tests/torch_world_worker.py``):
+
+    python tests/torch_world_apps_worker.py OUT_DIR
+
+It joins by ``net_init(device="cpu")``, trains every path below at the
+test's small widths, writes its results to ``OUT_DIR/rank<r>.npz`` and
+prints one ``RESULT <json>`` line. ``OUT_DIR/res_init.npz`` holds the
+ResNet's start (the JAX package's tree, flattened by the test).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if _REPO not in sys.path:
+    sys.path.insert(0, _REPO)
+
+# the CPU test's widths: tests/test_torch_word_embedding.py's ARGV and
+# corpus, tests/test_torch_ps_blocks.py's SMALL on two blocks,
+# tests/test_torch_logreg.py's blobs, tests/test_torch_resnet.py's trainer
+WE_ARGV = ["-size", "16", "-batch_size", "256", "-shared_negatives", "32",
+           "-negative", "5", "-window", "3", "-min_count", "3",
+           "-sample", "1e-3", "-seed", "4"]
+WE_BRANCHES = {"sg_shared": [], "sg": ["-shared_negatives", "0"],
+               "hs": ["-hs", "1"], "cbow": ["-cbow", "1"],
+               "cbow_hs": ["-cbow", "1", "-hs", "1"]}
+PS_SMALL = dict(size=16, min_count=5, batch_size=128, negative=3,
+                data_block_size=4000, seed=9, ps_device_plane="1")
+PS_VARIANTS = {"sg": {}, "cbow_hs": {"cbow": 1, "hs": 1}}
+PS_BLOCKS = 2
+LR_PAIRS = dict(input_size="784", output_size="10",
+                objective_type="softmax", updater_type="sgd",
+                minibatch_size="64", learning_rate="0.05", train_epoch="1",
+                sync_frequency="1")
+RES_KW = dict(depth=8, num_classes=4, image_size=16, batch_size=16,
+              learning_rate=3e-3)
+RES_STEPS = 3
+
+
+def we_tokens():
+    from multiverso_tpu_torch.apps import word_embedding as we
+    return we.synthetic_corpus(12_000, vocab=300, seed=3)
+
+
+def ps_tokens():
+    from multiverso_tpu_torch.apps import word_embedding as we
+    return we.synthetic_corpus(50_000, vocab=300, seed=5)
+
+
+def lr_data():
+    from multiverso_tpu_torch.models import logreg
+    return logreg.synthetic_dataset(1024, 784, 10, seed=0)
+
+
+def res_data():
+    """(train x, y), (eval x, y): tests/test_torch_resnet.py's images."""
+    from multiverso_tpu_torch.models import resnet
+    return (resnet.synthetic_cifar(RES_KW["batch_size"] * RES_STEPS,
+                                   size=16, classes=4, seed=1),
+            resnet.synthetic_cifar(64, size=16, classes=4, seed=2))
+
+
+def we_fused(cfg, tokens, neg_batches: int = 0) -> Dict[str, np.ndarray]:
+    """One ``train_fused`` epoch of ``cfg``'s branch over ``tokens`` from
+    the seeded tables: the gathered tables (``in``, ``out``: embed_out or
+    embed_hs), the loss, the word count, the shared pool's LCG state and,
+    with ``neg_batches``, the per-pair negative ids of the epoch's first
+    batches (the draw the epoch makes from its first key)."""
+    import torch
+    from multiverso_tpu_torch.apps import word_embedding as we
+    from multiverso_tpu_torch.models import word2vec as w2v
+    from multiverso_tpu_torch.utils import threefry
+    app = we.WordEmbedding(cfg, we.Dictionary.build(tokens, cfg.min_count))
+    ids = app.prepare_ids(tokens)
+    t0 = time.perf_counter()
+    stats = app.train_fused(ids, epochs=1)
+    out = {"seconds": time.perf_counter() - t0, "loss": stats["loss"],
+           "in": app.embeddings(),
+           "out": (app.table_hs if cfg.hs else app.table_out).get(),
+           "words": app.total_word_count(), "tokens": ids.size}
+    if app._lcg is not None:
+        out["lcg"] = app._lcg.cpu().numpy()
+    if neg_batches and not cfg.hs and cfg.shared_negatives <= 0:
+        *batches, _ = (app._device_cbow(ids) if cfg.cbow
+                       else app._device_pairs(ids))
+        key = threefry.split(threefry.key(cfg.seed))[1]
+        table = torch.from_numpy(w2v.build_negative_table(
+            app.unigram).astype(np.int64)).to(app.table_in.device)
+        nb, b = batches[-1].shape
+        out["negs"] = w2v.epoch_negatives(
+            key, table, min(nb, neg_batches), b, cfg.negative).cpu().numpy()
+    return out
+
+
+def we_blocks(cfg, ids: np.ndarray, tokens) -> Dict[str, np.ndarray]:
+    """One ``train_ps_blocks`` epoch over ``ids`` on the device plane, as
+    one worker (the ``num_workers`` flag 1): the gathered tables, each
+    block's loss, the run's loss and the word count."""
+    from multiverso_tpu_torch.apps import word_embedding as we
+    from multiverso_tpu_torch.utils import config
+    before = config.get_flag("num_workers")
+    config.set_flag("num_workers", 1)
+    try:
+        app = we.WordEmbedding(cfg, we.Dictionary.build(tokens,
+                                                         cfg.min_count))
+        losses, inner = [], app._train_block_device
+
+        def record(prep):
+            loss = inner(prep)
+            losses.append(loss)
+            return loss
+
+        app._train_block_device = record
+        t0 = time.perf_counter()
+        stats = app.train_ps_blocks(ids, epochs=1)
+        sec = app.table_hs if cfg.hs else app.table_out
+        return {"seconds": time.perf_counter() - t0, "loss": stats["loss"],
+                "block_losses": np.array([float(x) for x in losses]),
+                "in": app.table_in.get(), "out": sec.get(),
+                "words": app.total_word_count()}
+    finally:
+        config.set_flag("num_workers", before)
+
+
+def lr_fused(pairs: Dict[str, str], x: np.ndarray,
+             y: np.ndarray) -> Dict[str, np.ndarray]:
+    """One ``LogReg.train_arrays`` epoch: the table's Get and the loss."""
+    from multiverso_tpu_torch.apps import logistic_regression as lr
+    app = lr.LogReg(lr.LogRegConfig(pairs))
+    stats = app.train_arrays(x, y, epochs=1)
+    return {"seconds": stats["seconds"], "loss": stats["loss"],
+            "table": app.table.get()}
+
+
+def resnet(kw: Dict, train, evaluate, init: Optional[tuple] = None,
+           first_steps: int = 0) -> Dict[str, np.ndarray]:
+    """``ResNetTrainer.train`` for one epoch over ``train`` (x, y), then
+    ``evaluate`` on ``evaluate``: the flat table, the loss, the first
+    step's flat gradient as Adam received it (gathered), the BN running
+    stats (flattened in the tree's order) and the accuracy. With
+    ``first_steps`` the epoch is two calls, the first over that many
+    batches (its loss ``loss_first``), the second over the rest."""
+    from multiverso_tpu_torch.apps import resnet_cifar
+    from multiverso_tpu_torch.models import resnet as res
+    trainer = resnet_cifar.ResNetTrainer(init=init, **kw)
+    deltas, inner = [], trainer.table.functional_add
+
+    def record(state, delta, opt=None):
+        if not deltas:
+            deltas.append(delta.clone())
+        return inner(state, delta, opt)
+
+    trainer.table.functional_add = record
+    out = {}
+    x, y = train
+    n = first_steps * kw["batch_size"]
+    if n:
+        first = trainer.train(x[:n], y[:n], epochs=1)
+        out.update(loss_first=first["loss"], seconds_first=first["seconds"])
+    stats = trainer.train(x[n:], y[n:], epochs=1)
+    grad = trainer.table.unshard(deltas[0])[: trainer.n_params]
+    bn, _ = res.flatten_params(trainer.bn)
+    out.update(seconds=stats["seconds"], loss=stats["loss"],
+               table=trainer.table.get()[: trainer.n_params],
+               grad=grad.cpu().numpy(), bn=bn,
+               eval=trainer.evaluate(*evaluate))
+    return out
+
+
+def res_init(path: str) -> tuple:
+    """The (flat vector, BN tree) a test saved with :func:`save_res_init`,
+    as ``ResNetTrainer(init=...)`` takes it."""
+    import torch
+    from multiverso_tpu_torch.models import resnet as res
+    got = np.load(path)
+    _, bn = res.init_resnet(0, depth=RES_KW["depth"],
+                            num_classes=RES_KW["num_classes"])
+    _, meta = res.flatten_params(bn)
+    return got["flat"], res.unflatten_params(
+        torch.from_numpy(got["bn"].copy()), meta)
+
+
+def save_res_init(path: str, flat: np.ndarray, bn_flat: np.ndarray) -> None:
+    np.savez(path, flat=flat, bn=bn_flat)
+
+
+def mismatches(rank: int) -> Dict[str, bool]:
+    """Each path given other inputs on rank 1 than on rank 0: whether it
+    raised ``ValueError`` on this rank (every rank must)."""
+    from multiverso_tpu_torch.apps import logistic_regression as lr
+    from multiverso_tpu_torch.apps import resnet_cifar
+    from multiverso_tpu_torch.apps import word_embedding as we
+    tokens = we_tokens()
+    cfg = we.WEConfig.from_argv(WE_ARGV)
+    app = we.WordEmbedding(cfg, we.Dictionary.build(tokens, cfg.min_count))
+    ids = app.prepare_ids(tokens)
+    x, y = lr_data()
+    (rx, ry), _ = res_data()
+    trainer = resnet_cifar.ResNetTrainer(**RES_KW)
+    cases = {
+        "we_fused": lambda: app.train_fused(ids[: ids.size - rank],
+                                            epochs=1),
+        "we_blocks": lambda: we_blocks(
+            we.WEConfig(**PS_SMALL), ids[rank:], tokens),
+        "lr": lambda: lr.LogReg(lr.LogRegConfig(LR_PAIRS)).train_arrays(
+            x + np.float32(rank), y, epochs=1),
+        "resnet": lambda: trainer.train(rx, (ry + rank) % 4, epochs=1),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = False
+        except ValueError:
+            out[name] = True
+    return out
+
+
+def run_world(out_dir: str) -> Dict:
+    """Every path on this rank at the CPU test's widths; the arrays go to
+    ``out_dir/rank<r>.npz``, the scalars into the returned dict."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.apps import word_embedding as we
+    rank = mv.rank()
+    arrays, scalars = {}, {"rank": rank, "size": mv.size()}
+
+    def keep(prefix, got):
+        for k, v in got.items():
+            if isinstance(v, np.ndarray):
+                arrays[f"{prefix}/{k}"] = v
+            else:
+                scalars[f"{prefix}/{k}"] = v
+
+    tokens = we_tokens()
+    for name, extra in WE_BRANCHES.items():
+        keep(f"we_{name}", we_fused(we.WEConfig.from_argv(WE_ARGV + extra),
+                                    tokens))
+    ptoks = ps_tokens()
+    for name, extra in PS_VARIANTS.items():
+        cfg = we.WEConfig(**PS_SMALL, **extra)
+        ids = we.WordEmbedding(cfg, we.Dictionary.build(
+            ptoks, cfg.min_count)).prepare_ids(ptoks)
+        keep(f"ps_{name}", we_blocks(cfg, ids[: PS_BLOCKS
+                                              * cfg.data_block_size], ptoks))
+    keep("lr", lr_fused(LR_PAIRS, *lr_data()))
+    train, evaluate = res_data()
+    keep("res", resnet(RES_KW, train, evaluate,
+                       res_init(os.path.join(out_dir, "res_init.npz"))))
+    scalars["mismatch"] = mismatches(rank)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    return scalars
+
+
+def main() -> None:
+    out_dir = sys.argv[1]
+    import torch
+    torch.set_num_threads(1)
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel.mesh import leave_world
+    from multiverso_tpu_torch.utils import config
+    config.set_flag("net_timeout_s", 90.0)
+    if mv.net_init(device="cpu") != 0:
+        sys.exit(f"rank {os.environ.get('RANK')}: net_init failed")
+    try:
+        mv.init(device="cpu")
+        out = run_world(out_dir)
+        mv.shutdown()
+    finally:
+        leave_world()
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -167,6 +167,7 @@ def scenario(device) -> Dict:
 SEEDED_ROWS, SEEDED_COLS = 24, 6
 SEEDED_ARRAY = 40
 SEEDED_ADAGRAD = dict(learning_rate=0.5, rho=0.1)
+SEEDED_LR_SEED = 5   # the fused LogReg epoch's blobs
 
 
 def seeded_inputs(seed: int, rank: int) -> Dict:
@@ -270,12 +271,9 @@ def seeded(seed: int, device, ckpt: str = "") -> Dict:
     out["sparse_w0"] = [first.tolist(),
                         smt.get_rows_sparse(every, worker_id=0).tolist()]
     out["sparse_w0_get"] = smt.get().tolist()
-    # a path that reads the state as the whole table refuses a block
-    try:
-        smt.require_whole("this test")
-        out["require_whole_raises"] = False
-    except NotImplementedError:
-        out["require_whole_raises"] = True
+    # a fused path at the table axis of 2: LogReg's epoch over the whole
+    # gathered table, the same arrays on every rank
+    out["fused_lr"] = fused_lr().tolist()
     # TorchParamManager pulls the whole (gathered) table: every rank's
     # module after a sync is rank 0's init + the sum of the deltas
     from multiverso_tpu_torch.torch_ext import TorchParamManager
@@ -294,6 +292,19 @@ def seeded(seed: int, device, ckpt: str = "") -> Dict:
     if ckpt:
         out["ckpt"] = world_checkpoint(ckpt, device)
     return out
+
+
+def fused_lr():
+    """One fused LogReg epoch (``train_arrays``) on seeded blobs, the
+    same on every rank; the table's Get."""
+    from multiverso_tpu_torch.apps import logistic_regression as lr
+    from multiverso_tpu_torch.models import logreg
+    x, y = logreg.synthetic_dataset(256, 20, 4, seed=SEEDED_LR_SEED)
+    app = lr.LogReg(lr.LogRegConfig(dict(
+        input_size="20", output_size="4", minibatch_size="32",
+        learning_rate="0.5", updater_type="sgd")))
+    app.train_arrays(x, y, epochs=1)
+    return app.table.get()
 
 
 def own_ids(rank: int) -> list:
