@@ -7200,6 +7200,37 @@ WORLD_E_BUDGET_S = 10.0   # (e)'s wall a rank, a finding, not a gate
 # a rank that lost its block or trained other batches moves the tables
 # by the epoch's whole update, ~1 of max |x|
 WORLD_E_BF16_TABLE_RTOL = 1e-3
+# (f) the DLRM step on SERVE_B's tables (facebookresearch/dlrm's Criteo
+# Kaggle widths, 5,569,296 x 16 f32) sharded over the two ranks, in a
+# fresh Zoo after (e): models/dlrm.make_train_step with the data axis on
+# the table axis, AdaGrad (SERVE_LR), WORLD_F_STEPS steps of a
+# WORLD_F_BATCH-sample global batch (half a rank; serving (b)'s train
+# batch), each rank reading its batch's rows from their owners and
+# pushing their gradients back (tests/torch_world_apps_worker.py holds
+# the calls), in f32 and again in f64. This process runs the same global
+# batches in one process on the card while the ranks run, and holds each
+# rank to it: the losses within SERVE_CPU_RTOL relative, in both runs;
+# in f64 the embedding table (this rank's block) and the MLP within
+# SERVE_CPU_RTOL of max |x|; in f32 the rows no batch touched equal bit
+# for bit, and the touched rows and the MLP printed (not gated: the world
+# averages two half-batch means where one process takes one mean, and
+# AdaGrad's first update of an element is lr rho times its gradient's
+# sign, so an element whose gradient cancels to rounding flips: the first
+# card run put 0.08% of the touched elements 0.143 of max |x| off and the
+# MLP's share within 1e-5 at 0.90, with the losses within 8.8e-8).
+# Gates besides: the embedding table never gathered (no Table.unshard
+# call on it, no collective larger than the batch's ids and rows to and
+# from every owner or the MLP's gather); a step's collective bytes, the
+# MLP's gather and all-reduce aside, under WORLD_F_BYTES_SHARE of the
+# table's bytes; no flash launch. Printed: ms and bytes a step (f32),
+# each rank's max_memory_allocated rise across a step beside the table's
+# bytes. (tests/test_torch_world_apps.py checks in every step on the CPU
+# that no tensor of the table's size is made, under a TorchDispatchMode,
+# whose first use in a rank on the card cost 9.7 s)
+WORLD_F_STEPS = 8
+WORLD_F_BATCH = 128
+WORLD_F_DATA_SEED = 5
+WORLD_F_BYTES_SHARE = 0.01
 
 
 def world_tree_save(tmp: str) -> int:
@@ -7749,10 +7780,167 @@ def world_apps_check(ranks: list, arrays: list, ref: dict) -> None:
         raise AssertionError(f"world (e): {bad}")
 
 
+def world_dlrm_run(axis=None, dtype=np.float32) -> dict:
+    """(f)'s steps on the Zoo's tables in ``dtype``, in a world (``axis``:
+    each rank its shard of each global batch, every step's collectives
+    watched, this rank's blocks kept) or in one process (the tables
+    gathered) (``tests/torch_world_apps_worker.dlrm_steps``)."""
+    import torch_world_apps_worker as aw
+    return aw.dlrm_steps(
+        "adagrad", dict(learning_rate=SERVE_LR, rho=0.1),
+        aw.dlrm_data(SERVE_B, WORLD_F_STEPS, WORLD_F_BATCH,
+                     WORLD_F_DATA_SEED),
+        WORLD_F_STEPS, WORLD_F_BATCH, cfg_kw=SERVE_B, axis=axis,
+        table_kw=dict(seed=0, init_scale=0.05),
+        watch=range(WORLD_F_STEPS) if axis else (), watch_tensors=False,
+        gather=axis is None, first=False, dtype=dtype)
+
+
+def world_dlrm(tmp: str) -> dict:
+    """(f) on this rank, in a fresh Zoo: :func:`world_dlrm_run` by owner
+    over the table axis in f32, then in f64 (its own tables); this
+    rank's blocks of the embedding tables, the MLPs and the losses
+    written to ``tmp/f_rank<r>.npz`` for this script's own process; the
+    f32 run's scalars, the f64 run's first row, and the flash launches
+    (none)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.ops import attention_kernels as ak
+    from multiverso_tpu_torch.zoo import Zoo
+    ak.reset_launch_counts()
+    axis = Zoo.get().shard_axis()
+    got, arrays = {}, {}
+    for tag, dtype in (("", np.float32), ("64", np.float64)):
+        run = world_dlrm_run(axis, dtype)
+        arrays.update({f"emb{tag}": run.pop("emb_block"),
+                       f"mlp{tag}": run.pop("mlp"),
+                       f"losses{tag}": run.pop("losses")})
+        got = got or run
+    np.savez(os.path.join(tmp, f"f_rank{mv.rank()}.npz"), **arrays)
+    got["launches"] = ak.launch_counts()
+    return got
+
+
+def world_dlrm_reference() -> dict:
+    """(f)'s steps in this process on the card, with the global batches,
+    in f32 and in f64 (keys ``f32``, ``f64``), while the ranks run; the
+    tables leave the Zoo's registry after."""
+    from multiverso_tpu_torch.zoo import Zoo
+    before = set(Zoo.get()._tables)
+    t0 = time.perf_counter()
+    try:
+        ref = {"f32": world_dlrm_run(dtype=np.float32),
+               "f64": world_dlrm_run(dtype=np.float64)}
+    finally:
+        for tid in set(Zoo.get()._tables) - before:
+            Zoo.get()._tables.pop(tid, None)
+    ref["seconds"] = time.perf_counter() - t0
+    return ref
+
+
+def world_dlrm_check(ranks: list, arrays: list, ref: dict, dev) -> None:
+    """(f): each rank's losses, block of the embedding table and MLP
+    against this process's runs, compared on ``dev``; the gates of the
+    header; logs each rank's ms, bytes and memory a step."""
+    import torch
+    import torch_world_apps_worker as aw
+    from multiverso_tpu_torch.models import dlrm
+    cfg = dlrm.DLRMConfig(**SERVE_B)
+    rows = dlrm.total_rows(cfg)
+    table_bytes = rows * cfg.embed_dim * 4
+    n_mlp = ref["f32"]["mlp"].size
+    cat = aw.dlrm_data(SERVE_B, WORLD_F_STEPS, WORLD_F_BATCH,
+                       WORLD_F_DATA_SEED)[0]
+    touched = torch.zeros(rows, dtype=torch.bool, device=dev)
+    touched[torch.from_numpy((cat + dlrm.field_offsets(cfg)[None, :])
+                             .reshape(-1).astype(np.int64)).to(dev)] = True
+    want_emb = {k: torch.from_numpy(ref[k]["emb"]).to(dev)
+                for k in ("f32", "f64")}
+    # the largest collective the step may make: a rank's ids and rows to
+    # and from every owner (n ranks' B/n samples), or the MLP's gather or
+    # its all-reduce
+    bound = max(WORLD_F_BATCH * len(cfg.vocab_sizes)
+                * (cfg.embed_dim * 4 + 8), 4 * (n_mlp + 1))
+
+    def rel(a, b):
+        return np.abs(a - b) / np.abs(b).max()
+
+    bad = []
+    for r, rk in enumerate(ranks):
+        f, got = rk["dlrm"], arrays[r]
+        lo = f["emb_lo"]
+        n = max(0, min(rows - lo, got["emb"].shape[0]))
+        hit = touched[lo:lo + n]
+        err, mlp, loss = {}, {}, {}
+        for k, tag in (("f32", ""), ("f64", "64")):
+            want = want_emb[k]
+            err[k] = ((torch.from_numpy(got["emb" + tag][:n]).to(dev)
+                       - want[lo:lo + n]).abs() / want.abs().max())
+            mlp[k] = rel(got["mlp" + tag], ref[k]["mlp"])
+            loss[k] = float(np.max(np.abs(got["losses" + tag]
+                                          - ref[k]["losses"])
+                                   / np.abs(ref[k]["losses"])))
+        idle = err["f32"][~hit]
+        idle_equal = not bool(idle.any())
+        near = err["f32"][hit]
+        # the MLP's two collectives a step: the gather of its padded
+        # blocks and the all-reduce of its gradient with the loss
+        mlp_bytes = 4 * f["mlp_padded"] + 4 * (n_mlp + 1)
+        emb_bytes = [b - mlp_bytes for b in f["bytes"]]
+        biggest = max(b for step in f["payloads"] for _, b in step)
+        ms = f["ms"][1:]    # the first warms up
+        log(f"world (f) rank {r} DLRM by owner on {card_label()}: "
+            f"{WORLD_F_STEPS} AdaGrad steps of {WORLD_F_BATCH // WORLD_RANKS}"
+            f" samples a rank on a {rows} x {cfg.embed_dim} f32 table "
+            f"({table_bytes / 1e6:.1f} MB), its rows {lo}.. on this rank: "
+            f"ms a step {[round(x, 2) for x in f['ms']]} (median of steps "
+            f"2-{WORLD_F_STEPS} {float(np.median(ms)):.2f}); collective "
+            f"bytes a step {f['bytes']} ({max(f['bytes']) / table_bytes:.4%}"
+            f" of the table), of which the embedding's {max(emb_bytes)} at "
+            f"most ({max(emb_bytes) / table_bytes:.4%}; gate "
+            f"{WORLD_F_BYTES_SHARE:.0%}) and the MLP's {mlp_bytes}; the "
+            f"largest collective {biggest} B (bound {bound}); "
+            f"max_memory_allocated rise a step "
+            f"{[round(x / 1e6, 1) for x in f['mem_rise']]} MB beside the "
+            f"table's {table_bytes / 1e6:.1f} MB; unshard calls "
+            f"{f['unshard_calls']}; flash launches {f['launches']}")
+        log(f"world (f) rank {r} against one process on the card: f32 "
+            f"losses {[round(x, 6) for x in got['losses'].tolist()]} vs "
+            f"{[round(x, 6) for x in ref['f32']['losses'].tolist()]}, max "
+            f"relative {loss['f32']:.3e}; f64 {loss['f64']:.3e} (bound "
+            f"{SERVE_CPU_RTOL:.0e}); f64 tables max |diff| of max |x|: "
+            f"its block {float(err['f64'].max()):.3e}, the MLP "
+            f"{float(mlp['f64'].max()):.3e} (bound {SERVE_CPU_RTOL:.0e}); "
+            f"f32: its {int((~hit).sum())} untouched rows equal bit for "
+            f"bit {idle_equal}, its {int(hit.sum())} touched rows "
+            f"{float(near.max()):.3e} of max |x| with "
+            f"{float((near <= SERVE_CPU_RTOL).float().mean()):.6f} of "
+            f"their elements within {SERVE_CPU_RTOL:.0e}, the MLP "
+            f"{float(mlp['f32'].max()):.3e} with "
+            f"{float((mlp['f32'] <= SERVE_CPU_RTOL).mean()):.6f}")
+        if not (max(loss.values()) <= SERVE_CPU_RTOL and idle_equal
+                and float(err["f64"].max()) <= SERVE_CPU_RTOL
+                and float(mlp["f64"].max()) <= SERVE_CPU_RTOL):
+            bad.append(f"rank {r} disagrees with one process")
+        if f["unshard_calls"] or biggest > bound:
+            bad.append(f"rank {r} gathered the embedding table")
+        if max(emb_bytes) >= WORLD_F_BYTES_SHARE * table_bytes:
+            bad.append(f"rank {r} moved {max(emb_bytes)} B a step")
+        if any(f["launches"].values()):
+            bad.append(f"rank {r} launched {f['launches']}")
+    one = ref["f32"]
+    log(f"world (f) this process's {WORLD_F_STEPS} f32 steps of "
+        f"{WORLD_F_BATCH} samples: ms {[round(x, 2) for x in one['ms']]}, "
+        f"max_memory_allocated rise "
+        f"{[round(x / 1e6, 1) for x in one['mem_rise']]} MB; both runs "
+        f"{ref['seconds']:.1f} s with the tables' making")
+    if bad:
+        raise AssertionError(f"world (f): {bad}")
+
+
 def world_rank(tmp: str) -> None:
     """One rank of the world phase, in its own process: join the world
-    from the environment (net_init), run (a), (b), (c) and (d), print one
-    ``RESULT <json>`` line."""
+    from the environment (net_init), run (a) to (f), print one ``RESULT
+    <json>`` line."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7791,6 +7979,11 @@ def world_rank(tmp: str) -> None:
     mv.init()   # a fresh Zoo for (e)
     out["apps"] = world_apps(tmp)
     walls["e"] = time.perf_counter() - t0
+    mv.shutdown()
+    t0 = time.perf_counter()
+    mv.init()   # a fresh Zoo for (f)
+    out["dlrm"] = world_dlrm(tmp)
+    walls["f"] = time.perf_counter() - t0
     mv.shutdown()
     leave_world()
     out["walls"] = {k: round(v, 2) for k, v in walls.items()}
@@ -7854,8 +8047,9 @@ def phase_world(dev) -> dict:
     trained data-parallel through one shared table, (c) the aggregate
     cell, (d) the sharded layout and its checkpoint, restored here after
     the ranks end, (e) the apps' whole-state paths on the sharded tables
-    against this process's results, made while the ranks run. Returns
-    the flash launches summed over the ranks."""
+    and (f) the DLRM step by owner, each against this process's results,
+    made while the ranks run. Returns the flash launches summed over the
+    ranks."""
     import shutil
     import tempfile
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -7866,13 +8060,16 @@ def phase_world(dev) -> dict:
         t0 = time.perf_counter()
         n = world_tree_save(tmp)
         t1 = time.perf_counter()
-        ranks, apps_ref = world_launch(tmp, world_apps_reference)
+        ranks, (apps_ref, dlrm_ref) = world_launch(
+            tmp, lambda: (world_apps_reference(), world_dlrm_reference()))
         t2 = time.perf_counter()
         restored = world_restore_check(tmp)
-        apps_got = []
+        apps_got, dlrm_got = [], []
         for r in range(WORLD_RANKS):
             with np.load(os.path.join(tmp, f"e_rank{r}.npz")) as f:
                 apps_got.append({k: f[k] for k in f.files})
+            with np.load(os.path.join(tmp, f"f_rank{r}.npz")) as f:
+                dlrm_got.append({k: f[k] for k in f.files})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"world: {WORLD_RANKS} ranks on this card (backend "
@@ -7959,6 +8156,7 @@ def phase_world(dev) -> dict:
         f"{restored['load_ms']:.1f} ms: Get and g_sqr equal the world's "
         f"bit for bit")
     world_apps_check(ranks, apps_got, apps_ref)
+    world_dlrm_check(ranks, dlrm_got, dlrm_ref, dev)
     counts = {k: sum(rk["lm"]["launches"][k] for rk in ranks)
               for k in ranks[0]["lm"]["launches"]}
     log(f"world launches summed over the ranks {counts}")

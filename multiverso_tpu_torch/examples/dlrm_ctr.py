@@ -6,11 +6,14 @@ MLP in one ArrayTable (``models/dlrm.py``), and one fused step does
 gather -> grad -> duplicate-accumulating scatter -> server-side AdaGrad.
 Each rank is one process of a ``torch.distributed`` world that this
 script spawns: the tables' rows are sharded over the ``dp`` axis, the
-Zoo mesh's table axis (each rank holds a block on its own device), each
-rank takes its shard of every batch, and
-``models.dlrm.make_train_step(mesh=, axis=)`` gathers the blocks for the
-forward pass and averages the ranks' deltas in one all-reduce before the
-updaters, so every rank applies its block of the global batch's step.
+Zoo mesh's table axis (each rank holds a block on its own device), and
+each rank takes its shard of every batch. In
+``models.dlrm.make_train_step(mesh=, axis=)`` each rank reads its
+batch's unique rows from their owners and pushes their gradients back to
+the owners (an all_to_all each way), so no rank holds the whole
+embedding table; the small MLP is gathered and its gradient averaged in
+one all-reduce. Each owner applies the updater to its block with the
+global batch's averaged delta.
 
 Run: python -m multiverso_tpu_torch.examples.dlrm_ctr
          [--device cpu] [--world 2] [--epochs N] [--samples N]

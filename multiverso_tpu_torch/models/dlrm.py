@@ -10,12 +10,15 @@ into one vector in the JAX tree's leaf order (``flatten_mlp``), so the
 MLP side lives in one ``ArrayTable`` and the JAX package's parameters
 carry across (``mlp_from_jax``).
 
-Training shape (``make_train_step``): gather the rows, forward and
-backward through autograd, scatter the row gradients into a table-shaped
-delta with ``index_add_`` (duplicate ids accumulate), then apply each
-table's server-side updater through ``functional_add`` — gradient
-aggregation followed by one updater application per step, as the JAX
-step does in one jitted program.
+Training shape (``make_train_step``): read the batch's rows, forward
+and backward through autograd, sum the row gradients into a delta with
+``index_add_`` (duplicate ids accumulate), then apply each table's
+server-side updater through ``functional_add`` — gradient aggregation
+followed by one updater application per step, as the JAX step does in
+one jitted program. On an embedding table sharded over the world's ranks
+the rows are read from their owners and the gradients pushed to them, so
+no rank holds the whole table (the JAX step's partitioned gather and
+scatter); the delta has the rank's block's shape.
 """
 
 from __future__ import annotations
@@ -201,37 +204,75 @@ def loss_and_grads(mlp: Dict[str, Any], rows: torch.Tensor,
 def make_train_step(cfg: DLRMConfig, emb_table, mlp_table, mlp_meta,
                     emb_opt: Optional[AddOption] = None,
                     mlp_opt: Optional[AddOption] = None,
-                    mesh=None, axis: Optional[str] = None):
+                    mesh=None, axis=None):
     """One PS step over the tables' states.
 
     ``step(emb_state, mlp_state, cat_ids [B, F], dense, labels) ->
-    (emb_state, mlp_state, loss)``: gather the rows, autograd, scatter the
-    row gradients into a table-shaped delta (duplicate ids accumulate,
-    ``index_add_``), apply each table's server-side updater with
+    (emb_state, mlp_state, loss)``: read the batch's rows, autograd, sum
+    the row gradients into the embedding delta (duplicate ids
+    accumulate), apply each table's server-side updater with
     ``functional_add``. The states' tensors update in place (the JAX step
     returns new ones); on a table's live ``state`` that commits the step.
 
-    With ``mesh`` and a data axis ``axis`` each rank passes its batch
-    shard: the deltas and the loss are averaged over the axis in one
-    all-reduce before the updaters (the global batch's step, as the JAX
-    step takes it on its mesh-sharded tables). A table sharded over the
-    Zoo mesh's table axis (``table.py``; a ``{"dp": N}`` mesh shards
-    over ``dp``) holds its block in its state: the step gathers the
-    embedding and MLP blocks for its forward pass (``Table.unshard``)
-    and each rank applies its block of the merged delta.
+    With ``mesh`` and a data axis ``axis`` (a name or a tuple of names)
+    each rank passes its batch shard, and the gradients and the loss are
+    averaged over the axis before the updaters: the global batch's step.
+    Without one every rank passes the same global batch.
+
+    On an embedding table sharded over the Zoo mesh's table axis
+    (``table.py``; a ``{"dp": N}`` mesh shards over ``dp``) no rank holds
+    the whole table, as on the JAX package's mesh, where the step's
+    gather and scatter are partitioned. The step deduplicates its ids,
+    reads the rows from their owners (:meth:`MatrixTable.owner_route`,
+    :meth:`MatrixTable.rows_from_owners` on ``emb_state``) and makes a
+    delta of its block's shape: where the table axis is a data axis each
+    rank sends its row gradients to their owners
+    (:meth:`MatrixTable.sum_at_owners`); otherwise the ranks of the table
+    axis hold the same batch and each sums the gradients of its own
+    rows, all-reduced over the data axis when there is one. The updater
+    then applies to the whole block, as the JAX step's applies to every
+    row of its sharded delta (a momentum moves rows the batch did not
+    touch). The small MLP table is gathered (``Table.unshard``), as the
+    JAX step pins it replicated, and its gradient and the loss share one
+    all-reduce over the data axis. A table that is not sharded is read
+    and updated whole, its delta all-reduced with the MLP's.
     """
-    offsets = torch.as_tensor(field_offsets(cfg), dtype=torch.int64)
+    offsets = field_offsets(cfg).astype(np.int64)
     n_mlp = int(sum(mlp_meta[2]))
     emb_opt = emb_opt or AddOption(learning_rate=0.05, rho=0.1)
     mlp_opt = mlp_opt or AddOption(learning_rate=0.05, rho=0.1)
+    from multiverso_tpu_torch.parallel.mesh import iter_axes
+    # the data axes (every axis of ``mesh`` when ``axis`` is None)
+    data_axes = () if mesh is None else (
+        tuple(mesh.axis_names) if axis is None else tuple(iter_axes(axis)))
+    n = mesh.axis_size(data_axes) if data_axes else 1
+    _, table_axis, num_shards, (lo, hi) = emb_table.sharding
+    sharded = num_shards > 1
+    # where the table axis is a data axis, the ranks along it bring other
+    # batches: their gradients meet at the owners, and any other data
+    # axis all-reduces the owners' block
+    by_owner = sharded and n > 1 and table_axis in data_axes
+    rest = tuple(a for a in data_axes if a != table_axis)
+    rest = rest if by_owner and rest and mesh.axis_size(rest) > 1 else ()
 
     def step(emb_state, mlp_state, cat_ids, dense, labels):
-        data = emb_table.unshard(emb_state["data"])
-        dev = data.device
-        cat = torch.as_tensor(cat_ids, device=dev).long()
+        from multiverso_tpu_torch.parallel import collectives
+        block = emb_state["data"]
+        dev = block.device
+        cat = (cat_ids.cpu().numpy() if isinstance(cat_ids, torch.Tensor)
+               else np.asarray(cat_ids))
         b, f = cat.shape
-        ids = (cat + offsets.to(dev)[None, :]).reshape(-1)   # [B*F] global
-        rows = data.index_select(0, ids).reshape(b, f, cfg.embed_dim)
+        ids = (cat.astype(np.int64) + offsets[None, :]).reshape(-1)
+        if sharded:
+            # the batch's unique rows from their owners, indexed back
+            uids, inv = np.unique(ids, return_inverse=True)
+            route = emb_table.owner_route(uids)
+            slot = torch.from_numpy(inv.reshape(-1)).to(dev)
+            rows = emb_table.rows_from_owners(uids, block, route)[slot]
+        else:
+            slot = torch.from_numpy(ids).to(dev)
+            rows = block.index_select(0, slot)
+        rows = rows.reshape(b, f, cfg.embed_dim)
         flat = mlp_table.unshard(mlp_state["data"])[:n_mlp]
         flat = flat.detach().requires_grad_()
         mlp = unflatten_mlp(flat, mlp_meta)
@@ -240,21 +281,41 @@ def make_train_step(cfg: DLRMConfig, emb_table, mlp_table, mlp_meta,
                        torch.as_tensor(labels, device=dev), cfg)
         loss.backward()
         with torch.no_grad():
-            # PS push: the row grads summed into a table-shaped delta
-            # (duplicate ids accumulate), then ONE updater application
-            emb_delta = torch.zeros_like(data).index_add_(
-                0, ids, rows.grad.reshape(b * f, cfg.embed_dim))
+            # PS push: the row grads summed per row (duplicate ids
+            # accumulate), then ONE updater application
+            g = rows.grad.reshape(b * f, cfg.embed_dim)
+            if sharded:
+                g = torch.zeros((uids.size, cfg.embed_dim), dtype=g.dtype,
+                                device=dev).index_add_(0, slot, g)
+                if by_owner:
+                    emb_delta = emb_table.sum_at_owners(uids, g, route)
+                else:
+                    mine = np.flatnonzero((uids >= lo) & (uids < hi))
+                    emb_delta = torch.zeros_like(block).index_add_(
+                        0, torch.from_numpy(uids[mine] - lo).to(dev),
+                        g[torch.from_numpy(mine).to(dev)])
+            else:
+                emb_delta = torch.zeros_like(block).index_add_(0, slot, g)
             mlp_grad = flat.grad
             loss = loss.detach()
-            if mesh is not None and mesh.axis_size(axis) > 1:
-                from multiverso_tpu_torch.parallel import collectives
-                n = mesh.axis_size(axis)
-                merged = collectives.raw_all_reduce(torch.cat([
-                    emb_delta.reshape(-1), mlp_grad.reshape(-1),
-                    loss.reshape(1)]), mesh, axis) / n
-                k = emb_delta.numel()
-                emb_delta = merged[:k].view_as(emb_delta)
-                mlp_grad = merged[k:k + mlp_grad.numel()].view_as(mlp_grad)
+            if by_owner:
+                if rest:
+                    emb_delta = collectives.raw_all_reduce(emb_delta, mesh,
+                                                           rest)
+                emb_delta.div_(n)
+            if n > 1:
+                # one all-reduce: the MLP's gradient and the loss, and
+                # the embedding delta unless it met at its owners
+                parts = [mlp_grad.reshape(-1), loss.reshape(1)]
+                if not by_owner:
+                    parts.insert(0, emb_delta.reshape(-1))
+                merged = collectives.raw_all_reduce(
+                    torch.cat(parts), mesh, data_axes) / n
+                if not by_owner:
+                    emb_delta = merged[:emb_delta.numel()].view_as(
+                        emb_delta)
+                mlp_grad = merged[-1 - mlp_grad.numel():-1].view_as(
+                    mlp_grad)
                 loss = merged[-1]
             emb_state = emb_table.functional_add(emb_state, emb_delta,
                                                  emb_opt)

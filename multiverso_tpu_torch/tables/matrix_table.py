@@ -56,11 +56,18 @@ block, and one all_to_all brings every rank its rows
 (:meth:`MatrixTable._exchange`). With the train cache, a read is served
 from the cache only where every rank of the axis hits. On a sharded
 table ``functional_add_rows`` takes indices into this rank's block.
+
+A functional step reads its own state's rows the same way
+(:meth:`MatrixTable.rows_from_owners` with ``data``), and pushes the
+reverse way: every rank brings row ids and values, and each owner sums
+every rank's values for its block into a block-shaped delta, through
+one all_to_all (:meth:`MatrixTable.sum_at_owners`). One
+:meth:`MatrixTable.owner_route` serves both directions on the same ids.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -77,6 +84,21 @@ def _bucket_size(k: int, cap: int) -> int:
     """The row bucket of a k-row batch, capped at ``cap`` rows: the one
     bucketing rule (``ops/row_assemble.bucket_rows``)."""
     return min(_rowasm.bucket_rows(k), cap)
+
+
+class OwnerRoute(NamedTuple):
+    """Where the ranks' row ids live on a sharded table
+    (:meth:`MatrixTable.owner_route`): the largest count a rank brought
+    (``width``), every rank's tag, and for each rank j the positions in
+    its ids that this rank's block holds (``slots[j]``) and those ids as
+    indices into the block (``local[j]``); ``owner`` is the owner's index
+    of each of this rank's own ids."""
+
+    width: int
+    tags: List[int]
+    slots: List[torch.Tensor]
+    local: List[torch.Tensor]
+    owner: torch.Tensor
 
 
 class MatrixTable(Table):
@@ -195,18 +217,16 @@ class MatrixTable(Table):
         ids less the block's first row), on the host and on the table's
         device. Default: nothing."""
 
-    def _exchange(self, ids: np.ndarray, tag: int, answer,
-                  tail: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
-        """A collective over the table axis that asks the rows' owners:
-        every rank brings its row ids (any count, none included) and an
-        int ``tag`` (a worker id); each owner answers the ids of its block
-        for every rank at once, ``answer(tags, local) -> outs``, where
-        ``tags[j]`` is rank j's tag and ``local[j]`` the indices into the
-        block of rank j's ids that it holds (a device tensor, maybe
-        empty), and ``outs[j]`` one ``tail``-shaped answer per index. One
-        all_to_all brings each rank its answers: ``(ids.size, *tail)`` on
-        the table's device, in ``ids``' order. Never ``send``/``recv``
-        (gloo cannot send from CUDA memory, ROADMAP C.19)."""
+    def owner_route(self, ids: np.ndarray, tag: int = 0
+                    ) -> Optional[OwnerRoute]:
+        """Where every rank's row ids live, on a sharded table: a
+        collective over the table axis in which every rank brings its
+        global row ids (any count, none included) and an int ``tag`` (a
+        worker id), and learns which of every rank's ids its block holds.
+        Two all-gathers: each rank's count and tag, then the ids padded to
+        the largest count. None when no rank brought an id. One route
+        serves any number of :meth:`_exchange` and :meth:`sum_at_owners`
+        calls on the same ids."""
         from multiverso_tpu_torch.parallel import collectives as coll
         mesh, axis, n = self._mesh, self._axis, self._num_shards
         dev = self.device
@@ -216,7 +236,7 @@ class MatrixTable(Table):
             axis).cpu().numpy().reshape(n, 2)
         width = int(meta[:, 0].max())
         if width == 0:
-            return torch.empty((0,) + tail, dtype=dtype, device=dev)
+            return None
         pad = np.full(width, -1, np.int64)
         pad[:k] = ids
         asked = coll.raw_all_gather(torch.from_numpy(pad).to(dev), mesh,
@@ -224,29 +244,90 @@ class MatrixTable(Table):
         lo, hi = self._rows
         held = (asked >= lo) & (asked < hi)
         slots = [held[j].nonzero().squeeze(1) for j in range(n)]
-        outs = answer([int(t) for t in meta[:, 1]],
-                      [asked[j, slots[j]] - lo for j in range(n)])
-        send = torch.zeros((n, width) + tail, dtype=dtype, device=dev)
-        for j in range(n):
-            if slots[j].numel():
-                send[j, slots[j]] = outs[j].to(dtype)
-        recv = coll.raw_all_to_all(send, mesh, axis, 0, 0).reshape(
-            (n, width) + tail)
-        block = self._padded_rows // n
-        owner = torch.from_numpy(ids // block).to(dev)
-        return recv[owner, torch.arange(k, device=dev)]
+        return OwnerRoute(
+            width, [int(t) for t in meta[:, 1]], slots,
+            [asked[j, slots[j]] - lo for j in range(n)],
+            torch.from_numpy(ids // (self._padded_rows // n)).to(dev))
 
-    def _owned_rows(self, uids: np.ndarray) -> torch.Tensor:
+    def _exchange(self, ids: np.ndarray, tag: int, answer,
+                  tail: Tuple[int, ...], dtype: torch.dtype,
+                  route: Optional[OwnerRoute] = None) -> torch.Tensor:
+        """A collective over the table axis that asks the rows' owners:
+        every rank brings its row ids (any count, none included) and an
+        int ``tag`` (a worker id); each owner answers the ids of its block
+        for every rank at once, ``answer(tags, local) -> outs``, where
+        ``tags[j]`` is rank j's tag and ``local[j]`` the indices into the
+        block of rank j's ids that it holds (a device tensor, maybe
+        empty), and ``outs[j]`` one ``tail``-shaped answer per index. One
+        all_to_all brings each rank its answers: ``(ids.size, *tail)`` on
+        the table's device, in ``ids``' order. ``route``: these ids'
+        :meth:`owner_route`, made here when not given. Never
+        ``send``/``recv`` (gloo cannot send from CUDA memory, ROADMAP
+        C.19)."""
+        from multiverso_tpu_torch.parallel import collectives as coll
+        n, dev = self._num_shards, self.device
+        if route is None:
+            route = self.owner_route(ids, tag)
+        if route is None:
+            return torch.empty((0,) + tail, dtype=dtype, device=dev)
+        outs = answer(route.tags, route.local)
+        send = torch.zeros((n, route.width) + tail, dtype=dtype, device=dev)
+        for j in range(n):
+            if route.slots[j].numel():
+                send[j, route.slots[j]] = outs[j].to(dtype)
+        recv = coll.raw_all_to_all(send, self._mesh, self._axis, 0,
+                                   0).reshape((n, route.width) + tail)
+        return recv[route.owner, torch.arange(ids.size, device=dev)]
+
+    def rows_from_owners(self, uids: np.ndarray,
+                         data: Optional[torch.Tensor] = None,
+                         route: Optional[OwnerRoute] = None
+                         ) -> torch.Tensor:
         """The rows ``uids`` (global ids, any count) on the table's
-        device: a local gather, or on a sharded table an
-        :meth:`_exchange` with their owners (a collective)."""
+        device, read from ``data`` (this rank's block of a state, such as
+        a functional step's ``state["data"]``; the table's own by
+        default): a local gather, or on a sharded table an
+        :meth:`_exchange` with their owners (a collective; ``route`` as
+        there)."""
+        data = self._data if data is None else data
         if self._num_shards == 1:
-            return self._data.index_select(
+            return data.index_select(
                 0, torch.from_numpy(uids).to(self.device))
         return self._exchange(
-            uids, 0, lambda tags, local: [self._data.index_select(0, ids)
+            uids, 0, lambda tags, local: [data.index_select(0, ids)
                                           for ids in local],
-            tuple(self.shape[1:]), self.dtype)
+            tuple(self.shape[1:]), data.dtype, route)
+
+    def sum_at_owners(self, ids: np.ndarray, values: torch.Tensor,
+                      route: Optional[OwnerRoute] = None) -> torch.Tensor:
+        """The reverse of :meth:`rows_from_owners`, on a sharded table: a
+        collective over the table axis in which every rank brings global
+        row ids (any count) and one row of ``values`` per id, and each
+        owner receives every rank's values for the ids of its block,
+        summed into a tensor of the block's shape (zero where no rank
+        brought a row). One all_to_all carries the values; ``route`` as
+        in :meth:`_exchange`. Each source rank's values are added in turn,
+        in rank order, so where every rank brings each id at most once a
+        row's sum is its ranks' values added in rank order: for two ranks
+        the all-reduce's sum of two whole-table deltas, bit for bit."""
+        from multiverso_tpu_torch.parallel import collectives as coll
+        n, dev = self._num_shards, self.device
+        tail = tuple(values.shape[1:])
+        out = torch.zeros((self._rows[1] - self._rows[0],) + tail,
+                          dtype=values.dtype, device=dev)
+        if route is None:
+            route = self.owner_route(ids)
+        if route is None:
+            return out
+        send = torch.zeros((n, route.width) + tail, dtype=values.dtype,
+                           device=dev)
+        send[route.owner, torch.arange(ids.size, device=dev)] = values
+        recv = coll.raw_all_to_all(send, self._mesh, self._axis, 0,
+                                   0).reshape((n, route.width) + tail)
+        for j in range(n):
+            if route.slots[j].numel():
+                out.index_add_(0, route.local[j], recv[j, route.slots[j]])
+        return out
 
     def _agreed(self, ok: bool) -> bool:
         """``ok`` on every rank of the table axis (a collective when the
@@ -324,7 +405,7 @@ class MatrixTable(Table):
                     return self._track(_Pending(None, buf,
                                                 lambda b: b[inv]))
                 tc.count(0, uids.size)
-            rows = self._owned_rows(uids)
+            rows = self.rows_from_owners(uids)
             if self.device.type == "cuda":
                 host = torch.empty(rows.shape, dtype=self.dtype,
                                    pin_memory=True)

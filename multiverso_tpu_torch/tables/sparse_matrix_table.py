@@ -135,7 +135,7 @@ class SparseMatrixTable(MatrixTable):
                          | ~cache.holds(uids)]
             if self._num_shards > 1:
                 # a collective even where this rank has no stale row
-                cache.put(stale, self._owned_rows(stale).cpu().numpy())
+                cache.put(stale, self.rows_from_owners(stale).cpu().numpy())
             elif stale.size:
                 cache.put(stale, super().get_rows(stale))
             return cache.take(ids)

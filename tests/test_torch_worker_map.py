@@ -89,8 +89,9 @@ def test_cnn_example_runs_on_cpu_ranks(capsys):
 
 
 def test_dlrm_example_keeps_the_ranks_tables_equal():
-    """examples/dlrm_ctr.py with two ranks: the deltas meet in one
-    all-reduce, so both ranks hold the same tables, and the loss falls."""
+    """examples/dlrm_ctr.py with two ranks: the gradients meet at their
+    rows' owners and the MLP's in one all-reduce, so both ranks read the
+    same tables, and the loss falls."""
     from multiverso_tpu_torch.examples import dlrm_ctr
     from multiverso_tpu_torch.parallel.mesh import spawn
     out = spawn(dlrm_ctr.rank_main, 2, "cpu", (2, 4096))

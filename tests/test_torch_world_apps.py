@@ -21,6 +21,16 @@ to the blocks), so its sums run in another order: it is held to
 ``tests/test_torch_resnet.py``'s tolerances against both, its first
 step's gradient within 1e-5 of max |g| of the one-process one.
 
+The DLRM step (``models/dlrm.make_train_step``) on the sharded
+embedding table reads and pushes its rows by owner: with each rank on
+its half of each global batch it is held within 1e-5 to the one-process
+port and to the JAX step on the 8-device mesh (AdaGrad, default,
+momentum_sgd), without a data axis to the one-process port bit for bit,
+and in every step the table is never gathered (no ``unshard``, no
+tensor of its size, no collective past the batch's rows or the MLP). A
+world of 4 (``parallel/mesh.spawn``) runs it on three layouts in
+float64.
+
 One world of 2 ranks starts once for the module, each rank with a
 timeout; the references run in this process meanwhile.
 """
@@ -34,6 +44,7 @@ import tempfile
 import threading
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,7 +55,9 @@ import torch_world_apps_worker as aw
 from multiverso_tpu.apps import logistic_regression as jlr
 from multiverso_tpu.apps import resnet_cifar as jres_app
 from multiverso_tpu.apps import word_embedding as jwe
+from multiverso_tpu.models import dlrm as jdlrm
 from multiverso_tpu.models import resnet as jres
+from multiverso_tpu.updaters import AddOption as JAddOption
 from multiverso_tpu.utils import config as jconfig
 from multiverso_tpu_torch.apps import word_embedding as twe
 from multiverso_tpu_torch.models import resnet as tres
@@ -69,6 +82,10 @@ LR_TABLE_RTOL, LR_LOSS_RTOL = 1e-5, 1e-4
 RES_LOSS_RTOL, RES_FWD_ATOL = 1e-4, 1e-4
 RES_CLOSE_ATOL, RES_CLOSE_SHARE = 1e-6, 0.999
 RES_GRAD_RTOL = 1e-5
+# tests/test_torch_dlrm.py's make_train_step bounds: the loss relative,
+# each table as max |diff| over max |x| (AdaGrad's first step divides a
+# row's delta by its own size, so a tighter bound catches rounding)
+DLRM_RTOL = 1e-5
 
 
 def _free_port() -> int:
@@ -135,11 +152,49 @@ def _port_reference(out_dir):
         train, evaluate = aw.res_data()
         ref["res"] = aw.resnet(aw.RES_KW, train, evaluate, aw.res_init(
             os.path.join(out_dir, "res_init.npz")))
+        data = aw.dlrm_data()
+        for u in aw.DLRM_UPDATERS:
+            ref[f"dlrm_{u}"] = aw.dlrm_steps(u, aw.DLRM_OPT, data,
+                                             aw.DLRM_STEPS, aw.DLRM_BATCH)
         return ref
     finally:
         TZoo.get().stop()
         tconfig.reset_flags()
         TDashboard.reset()
+
+
+def _jax_dlrm(updater):
+    """``aw.DLRM_STEPS`` steps of the JAX ``make_train_step`` (jitted) on
+    the 8-device mesh's sharded tables with the global batches, from the
+    port's start: the losses and both tables, and the embedding table
+    after the first step."""
+    cfg = jdlrm.DLRMConfig(**aw.DLRM_CFG)
+    rows = jdlrm.total_rows(cfg)
+    emb = jmv.MatrixTable(rows, cfg.embed_dim, updater=updater,
+                          init=aw.dlrm_init(), name=f"dlrm_emb_{updater}")
+    flat, meta = jdlrm.flatten_mlp(jdlrm.init_mlp_params(cfg, 0))
+    mlp = jmv.ArrayTable(flat.size, updater=updater, init=flat,
+                         name=f"dlrm_mlp_{updater}")
+    opt = JAddOption(**aw.DLRM_OPT)
+    cat, dense, labels = aw.dlrm_data()
+    b = aw.DLRM_BATCH
+    out = {"losses": []}
+    with jax.default_matmul_precision("float32"):
+        step = jax.jit(jdlrm.make_train_step(cfg, emb, mlp, meta,
+                                             emb_opt=opt, mlp_opt=opt))
+        es, ms = emb.state, mlp.state
+        for i in range(aw.DLRM_STEPS):
+            sl = slice(i * b, (i + 1) * b)
+            es, ms, loss = step(es, ms, jnp.asarray(cat[sl]),
+                                jnp.asarray(dense[sl]),
+                                jnp.asarray(labels[sl]))
+            out["losses"].append(float(loss))
+            if i == 0:
+                out["emb_first"] = np.asarray(es["data"])[:rows]
+    out["losses"] = np.array(out["losses"])
+    out["emb"] = np.asarray(es["data"])[:rows]
+    out["mlp"] = np.asarray(ms["data"])[: flat.size]
+    return out
 
 
 def _jax_reference():
@@ -192,6 +247,8 @@ def _jax_reference():
         ref["res"] = {"loss": stats["loss"], "eval": acc, "bn": bn,
                       "table": np.asarray(trainer.table.get())[
                           : trainer.n_params]}
+        for u in aw.DLRM_UPDATERS:
+            ref[f"dlrm_{u}"] = _jax_dlrm(u)
         return ref
     finally:
         jmv.shutdown()
@@ -349,3 +406,165 @@ def test_mismatched_inputs_raise_on_every_rank(runs, path):
     ``ValueError`` (and the world goes on: the ranks ended with a
     RESULT)."""
     assert all(runs["ranks"][r]["mismatch"][path] for r in range(WORLD))
+
+
+def _close(got, want, rtol=DLRM_RTOL):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= rtol * float(np.abs(want).max()), err
+
+
+def _dlrm_close(got, want):
+    """The loss within 1e-5 relative, both tables within 1e-5 of max |x|
+    (test_torch_dlrm.py::test_make_train_step_matches_jax's bounds)."""
+    np.testing.assert_allclose(got["losses"], want["losses"],
+                               rtol=DLRM_RTOL)
+    for k in ("emb", "mlp"):
+        _close(got[k], want[k])
+
+
+def _dlrm_payload_bound(shards: int, batch_rows: int, mlp_padded: int,
+                        itemsize: int = 4) -> int:
+    """The most a collective of the step may carry: a rank's ids (8
+    bytes each) and rows (D values) to and from every owner, or the
+    MLP's gather."""
+    d = aw.DLRM_CFG["embed_dim"]
+    return max(shards * batch_rows * (d * itemsize + 8),
+               itemsize * mlp_padded)
+
+
+@pytest.mark.parametrize("updater", aw.DLRM_UPDATERS)
+@pytest.mark.parametrize("against", ["port", "jax"])
+def test_dlrm_step_by_owner_at_a_table_axis_of_two(runs, updater, against):
+    """Four steps of ``make_train_step`` with the data axis on the table
+    axis, each rank on its half of each global batch, its rows read from
+    and pushed to their owners: both ranks' losses and gathered tables
+    within 1e-5 of the one-process port's and of the JAX step's on the
+    8-device mesh with the global batch."""
+    want = runs[against][f"dlrm_{updater}"]
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], f"dlrm_{updater}")
+        assert np.abs(got["emb"] - got["emb_first"]).max() > 1e-3  # trained
+        _dlrm_close(got, want)
+        if against == "jax":
+            _close(got["emb_first"], want["emb_first"])
+
+
+def test_dlrm_step_without_a_data_axis_equals_one_process(runs):
+    """Every rank brings the global batch and sums the gradients of its
+    own rows into its block, with nothing exchanged: the same operations
+    as one process, so the same losses and tables bit for bit."""
+    one = runs["port"]["dlrm_adagrad"]
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], "dlrm_global")
+        np.testing.assert_array_equal(got["losses"], one["losses"])
+        for k in ("emb", "mlp"):
+            np.testing.assert_array_equal(got[k], one[k])
+
+
+def test_dlrm_momentum_moves_rows_the_batch_did_not_touch(runs):
+    """momentum_sgd applies to every row of the block, as the JAX step
+    applies its updater to the whole sharded delta: the rows of the first
+    batch that no later batch touched go on moving, as the JAX step's
+    do."""
+    cat, _, _ = aw.dlrm_data()
+    offsets = np.concatenate([[0], np.cumsum(aw.DLRM_CFG["vocab_sizes"])[
+        :-1]])
+    ids = (cat + offsets[None, :]).reshape(aw.DLRM_STEPS, -1)
+    idle = np.setdiff1d(ids[0], ids[1:])
+    assert idle.size > 100
+    jx = runs["jax"]["dlrm_momentum_sgd"]
+    moved = np.abs(jx["emb"] - jx["emb_first"])[idle]
+    assert moved.min(axis=1).max() > 0 and moved.max() > 1e-3
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], "dlrm_momentum_sgd")
+        _close((got["emb"] - got["emb_first"])[idle],
+               (jx["emb"] - jx["emb_first"])[idle])
+
+
+@pytest.mark.parametrize("variant", list(aw.DLRM_UPDATERS) + ["global"])
+def test_dlrm_step_never_gathers_the_embedding_table(runs, variant):
+    """In every step no rank calls the embedding table's ``unshard`` or
+    makes a tensor of as many elements as the whole table, and no
+    collective carries more than the batch's ids and rows to and from
+    every owner, or the MLP's gather."""
+    d = aw.DLRM_CFG["embed_dim"]
+    bound_rows = aw.DLRM_BATCH // WORLD * len(aw.DLRM_CFG["vocab_sizes"])
+    if variant == "global":
+        bound_rows *= WORLD
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], f"dlrm_{variant}")
+        assert got["unshard_calls"] == 0
+        assert len(got["largest"]) == aw.DLRM_STEPS
+        assert max(got["largest"]) < got["whole_numel"]
+        bound = _dlrm_payload_bound(WORLD, bound_rows, got["mlp_padded"])
+        assert bound < 4 * got["whole_numel"]   # a gather would show
+        for step, moved in zip(got["payloads"], got["bytes"]):
+            assert max(b for _, b in step) <= bound, step
+            # devstats' tally of the step, less than the table's bytes
+            assert sum(b for _, b in step) == moved < 4 * got["whole_numel"]
+        # the rows come from their owners in one all_to_all; by owner
+        # the gradients go back in one more, and nothing else is
+        # exchanged without a data axis
+        want = 1 if variant == "global" else 2
+        assert all(sum(op == "all_to_all" for op, _ in s) == want
+                   for s in got["payloads"])
+        assert got["emb"].shape == (sum(aw.DLRM_CFG["vocab_sizes"]), d)
+
+
+@pytest.fixture(scope="module")
+def world4():
+    """The DLRM step on a world of 4 CPU ranks (``mesh.spawn``), each
+    layout of ``aw.DLRM_WORLD4`` in turn, and in one process of the port;
+    in float64, where the sums' order moves the tables by ~1e-14 of max
+    |x| (in float32 AdaGrad turned the 4 ranks' order into 1.4e-5 of max
+    |x|, past the 1e-5 bound: rounding, not a fault)."""
+    from multiverso_tpu_torch.parallel.mesh import spawn
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ranks = spawn(aw.dlrm_world4, 4, "cpu", timeout=_TIMEOUT)
+        tmv.init(device="cpu")
+        try:
+            one = aw.dlrm_steps("adagrad", aw.DLRM_OPT, aw.dlrm_data(),
+                                aw.DLRM_STEPS, aw.DLRM_BATCH,
+                                dtype=np.float64)
+        finally:
+            TZoo.get().stop()
+            tconfig.reset_flags()
+            TDashboard.reset()
+    finally:
+        torch.set_num_threads(threads)
+    return ranks, one
+
+
+@pytest.mark.parametrize("layout", list(aw.DLRM_WORLD4))
+def test_dlrm_step_at_a_world_of_four(world4, layout):
+    """A world of 4 in float64: the table split 4 ways with the rows
+    exchanged by owner, split 2 ways with the block all-reduced over the
+    other axis, and split 2 ways with both. Every rank's losses (f32, as
+    ``loss_fn`` makes them) within 1e-5 relative and its tables within
+    1e-12 of max |x| of the one-process port's; the table never gathered
+    (the block's all-reduce carries one block, the MLP's gradient and the
+    loss)."""
+    ranks, one = world4
+    shape, axis = aw.DLRM_WORLD4[layout]
+    shards = shape["mv"]
+    parts = int(np.prod([shape[a] for a in ((axis,) if isinstance(
+        axis, str) else axis)]))
+    bound_rows = aw.DLRM_BATCH // parts * len(aw.DLRM_CFG["vocab_sizes"])
+    for r, rank in enumerate(ranks):
+        got = rank[layout]
+        np.testing.assert_allclose(got["losses"], one["losses"],
+                                   rtol=DLRM_RTOL)
+        for k in ("emb", "mlp"):
+            _close(got[k], one[k], rtol=1e-12)
+        assert got["unshard_calls"] == 0
+        assert max(got["largest"]) < got["whole_numel"]
+        bound = max(_dlrm_payload_bound(shards, bound_rows,
+                                        got["mlp_padded"], 8),
+                    8 * (got["whole_numel"] // shards + got["mlp_padded"]
+                         + 1))
+        for step in got["payloads"]:
+            assert max(b for _, b in step) <= bound, (r, step)

@@ -50,6 +50,20 @@ LR_PAIRS = dict(input_size="784", output_size="10",
 RES_KW = dict(depth=8, num_classes=4, image_size=16, batch_size=16,
               learning_rate=3e-3)
 RES_STEPS = 3
+# the DLRM step: tests/test_torch_dlrm.py's "serving" config (the serving
+# bench's widths), whose table outgrows a batch's rows, so a gather of it
+# would show in the payloads; 4 steps of a 64-sample global batch, each
+# rank its shard of it where the step has a data axis
+DLRM_CFG = dict(vocab_sizes=(4096, 1024, 256, 64), embed_dim=16,
+                dense_dim=8, bottom_mlp=(32, 16), top_mlp=(16, 1))
+DLRM_UPDATERS = ("adagrad", "default", "momentum_sgd")
+DLRM_OPT = dict(learning_rate=0.2, rho=0.1, momentum=0.5)
+DLRM_STEPS, DLRM_BATCH = 4, 64
+# the world of 4 (tests/test_torch_world_apps.py through mesh.spawn):
+# mesh, data axis; the table axis is the mesh's last
+DLRM_WORLD4 = {"by_owner": ({"mv": 4}, "mv"),
+               "block_reduce": ({"dp": 2, "mv": 2}, "dp"),
+               "by_owner_and_reduce": ({"dp": 2, "mv": 2}, ("dp", "mv"))}
 
 
 def we_tokens():
@@ -199,6 +213,173 @@ def save_res_init(path: str, flat: np.ndarray, bn_flat: np.ndarray) -> None:
     np.savez(path, flat=flat, bn=bn_flat)
 
 
+def dlrm_data(cfg_kw: Dict = DLRM_CFG, steps: int = DLRM_STEPS,
+              batch: int = DLRM_BATCH, seed: int = 1):
+    """(cat, dense, labels) of ``steps`` global batches, the JAX
+    package's draws (``synthetic_ctr``)."""
+    from multiverso_tpu_torch.models import dlrm
+    return dlrm.synthetic_ctr(dlrm.DLRMConfig(**cfg_kw), steps * batch,
+                              seed=seed)
+
+
+def dlrm_init(cfg_kw: Dict = DLRM_CFG) -> np.ndarray:
+    """The embedding table's start, the same in both packages."""
+    rows = int(sum(cfg_kw["vocab_sizes"]))
+    return np.random.default_rng(7).uniform(
+        -0.05, 0.05, (rows, cfg_kw["embed_dim"])).astype(np.float32)
+
+
+class StepWatch:
+    """What a block of code asks of the world: each collective's op and
+    payload as ``telemetry/devstats`` records it (``payloads``), and with
+    ``tensors`` the most elements of any tensor an operator made
+    (``largest``, through a ``TorchDispatchMode``: its first use in a
+    process costs seconds of imports, 9.7 s in a rank on the card)."""
+
+    def __init__(self, tensors: bool = True):
+        self.tensors = tensors
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+        from multiverso_tpu_torch.telemetry import devstats
+        import torch
+        self.payloads, self.largest = [], 0
+        ds, watch = devstats.DEVSTATS, self
+        inner = ds.collective_span
+
+        def span(op, nbytes, mesh=None):
+            watch.payloads.append((op, int(nbytes)))
+            return inner(op, nbytes, mesh=mesh)
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor):
+                        watch.largest = max(watch.largest, t.numel())
+                return out
+
+        ds.collective_span = span
+        self._ds, self._mode = ds, Mode() if self.tensors else None
+        if self._mode is not None:
+            self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._mode is not None:
+            self._mode.__exit__(*exc)
+        del self._ds.collective_span
+        return False
+
+
+def dlrm_steps(updater: str, opt: Dict, data, steps: int, batch: int,
+               cfg_kw: Dict = DLRM_CFG, axis=None, table_kw=None,
+               watch=(), watch_tensors: bool = True, gather: bool = True,
+               first: bool = True, dtype=np.float32) -> Dict:
+    """``steps`` steps of ``models/dlrm.make_train_step`` on a fresh
+    MatrixTable and ArrayTable of the Zoo in ``dtype`` (the embedding
+    table from ``table_kw``, by default :func:`dlrm_init`; the MLP from
+    seed 0). With
+    ``axis`` the step averages over that data axis of the Zoo's mesh and
+    this rank takes its shard of each global batch of ``data``; without,
+    every rank takes the whole batch. Returns each step's loss and ms,
+    ``Table.unshard`` calls on the embedding table, for the steps in
+    ``watch`` a :class:`StepWatch`'s payloads and (``watch_tensors``)
+    largest tensor, each
+    step's collective bytes (``telemetry/devstats``' tally), on the card
+    each step's ``max_memory_allocated`` rise, and the tables: their
+    ``get()`` with ``gather``, else this rank's blocks (``emb_block``,
+    its first row ``emb_lo``) and the MLP's ``get()``. ``emb_first`` is the
+    embedding table after the first step (with ``gather`` and
+    ``first``)."""
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import dlrm
+    from multiverso_tpu_torch.telemetry import devstats
+    from multiverso_tpu_torch.updaters import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    cfg = dlrm.DLRMConfig(**cfg_kw, dtype=torch.from_numpy(
+        np.zeros(0, dtype)).dtype)
+    mesh = Zoo.get().mesh()
+    rows = dlrm.total_rows(cfg)
+    emb = mv.MatrixTable(rows, cfg.embed_dim, dtype=dtype, updater=updater,
+                         name=f"dlrm_emb_{updater}",
+                         **(table_kw or {"init": dlrm_init(cfg_kw)}))
+    flat, meta = dlrm.flatten_mlp(dlrm.init_mlp_params(cfg, 0))
+    mlp = mv.ArrayTable(flat.size, dtype=dtype, updater=updater, init=flat,
+                        name=f"dlrm_mlp_{updater}")
+    gathers, unshard = [], emb.unshard
+    emb.unshard = lambda block: (gathers.append(1), unshard(block))[1]
+    o = AddOption(**opt)
+    step = dlrm.make_train_step(cfg, emb, mlp, meta, o, o,
+                                mesh=mesh if axis else None, axis=axis)
+    part = mesh.index(axis) if axis else 0
+    per = batch // (mesh.axis_size(axis) if axis else 1)
+    cuda = emb.device.type == "cuda"
+    cat, dense, labels = data
+    dense, labels = dense.astype(dtype), labels.astype(dtype)
+    es, ms = emb.state, mlp.state
+    out = {"losses": [], "ms": [], "mem_rise": [], "payloads": [],
+           "largest": [], "bytes": []}
+
+    def moved() -> int:
+        return sum(d["bytes"] for d in devstats.collectives().values())
+
+    for i in range(steps):
+        sl = slice(i * batch + part * per, i * batch + (part + 1) * per)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        b0, t0 = moved(), time.perf_counter()
+        if i in watch:
+            with StepWatch(watch_tensors) as w:
+                es, ms, loss = step(es, ms, cat[sl], dense[sl], labels[sl])
+            out["payloads"].append(w.payloads)
+            out["largest"].append(w.largest)
+        else:
+            es, ms, loss = step(es, ms, cat[sl], dense[sl], labels[sl])
+        out["losses"].append(loss.item())
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["bytes"].append(moved() - b0)
+        if cuda:
+            out["mem_rise"].append(torch.cuda.max_memory_allocated()
+                                   - before)
+        if i == 0 and gather and first:
+            out["emb_first"] = emb.get()
+    out["losses"] = np.array(out["losses"])
+    out["unshard_calls"] = len(gathers)
+    out["whole_numel"] = int(np.prod(emb.padded_shape))
+    out["mlp_padded"] = int(mlp.padded_shape[0])
+    if gather:
+        out["emb"] = emb.get()
+    else:
+        out["emb_block"] = es["data"].cpu().numpy()
+        out["emb_lo"] = emb.sharding.rows[0]
+    out["mlp"] = mlp.get()
+    return out
+
+
+def dlrm_world4(rank: int, world: int, device) -> Dict:
+    """A rank of the world of 4 (``mesh.spawn``): the DLRM step with
+    AdaGrad in float64 on each layout of ``DLRM_WORLD4``, each in a fresh
+    Zoo over its mesh; the tables gathered, every step watched."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel.mesh import Mesh
+    out = {}
+    for name, (shape, axis) in DLRM_WORLD4.items():
+        mv.init(device=device, mesh=Mesh(shape, device=device))
+        try:
+            out[name] = dlrm_steps("adagrad", DLRM_OPT, dlrm_data(),
+                                   DLRM_STEPS, DLRM_BATCH, axis=axis,
+                                   watch=range(DLRM_STEPS),
+                                   dtype=np.float64)
+        finally:
+            mv.shutdown()
+    return out
+
+
 def mismatches(rank: int) -> Dict[str, bool]:
     """Each path given other inputs on rank 1 than on rank 0: whether it
     raised ``ValueError`` on this rank (every rank must)."""
@@ -261,6 +442,13 @@ def run_world(out_dir: str) -> Dict:
     train, evaluate = res_data()
     keep("res", resnet(RES_KW, train, evaluate,
                        res_init(os.path.join(out_dir, "res_init.npz"))))
+    data, axis = dlrm_data(), mv.Zoo.get().shard_axis()
+    for u in DLRM_UPDATERS:
+        keep(f"dlrm_{u}", dlrm_steps(u, DLRM_OPT, data, DLRM_STEPS,
+                                     DLRM_BATCH, axis=axis,
+                                     watch=range(DLRM_STEPS)))
+    keep("dlrm_global", dlrm_steps("adagrad", DLRM_OPT, data, DLRM_STEPS,
+                                   DLRM_BATCH, watch=range(DLRM_STEPS)))
     scalars["mismatch"] = mismatches(rank)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     return scalars
