@@ -322,9 +322,10 @@ Phases, every one on every run, in this order:
             against allgather + sum at world 2 (not 4), equal, ms; (d)
             the tables sharded over the ranks: each rank's block of (b)'s
             table, an AdaGrad table against numpy's model and the world's
-            checkpoint restored into one process; (e) the apps'
-            whole-state paths on the sharded tables at full widths (WE
-            ``train_fused`` shared pool and per-pair, LR
+            checkpoint restored into one process; (e) the apps on the
+            sharded tables at full widths (WE ``train_fused`` shared
+            pool and per-pair by owner over WORLD_E_WE_BATCHES batches,
+            never gathered, LR
             ``train_arrays``, ResNet-32 data-parallel ``train`` and
             ``evaluate``, one PS block on the device plane) against the
             same calls in this process, made while the ranks run
@@ -7172,11 +7173,16 @@ WORLD_ADA_OPT = dict(learning_rate=0.5, rho=0.1)
 WORLD_ADA_RTOL, WORLD_ADA_ATOL = 1e-5, 1e-6   # ROADMAP C.4's bound
 WORLD_COLL_MB = 64.0      # (d): the host collectives' payload
 WORLD_COLL_REPS = 3
-# (e) the apps' whole-state paths on tables sharded over the two ranks, in
-# a fresh Zoo after (d), at full widths (tests/torch_world_apps_worker.py
-# holds the calls, which this process makes too, in one process on the
-# card, while the ranks start): WordEmbedding train_fused at WE_CFG on
-# WE_SYNTH_CORPUS (one shared-pool epoch, one per-pair epoch), LogReg
+# (e) the apps on tables sharded over the two ranks, in a fresh Zoo after
+# (d), at full widths (tests/torch_world_apps_worker.py holds the calls,
+# which this process makes too, in one process on the card, while the
+# ranks start): WordEmbedding train_fused by owner at WE_CFG on the
+# prefix of WE_SYNTH_CORPUS's ids that makes WORLD_E_WE_BATCHES batches
+# (one shared-pool call, one per-pair call; each step reads its rows from
+# their owners, one all-reduce a table read, watched: no unshard or
+# whole_state, each step the designed all-reduces, none past the world
+# times the step's rows; ms and bytes a step, the memory rise and the
+# resident shares printed), LogReg
 # train_arrays at LR_KEYS on LR_TRAIN (one epoch), ResNet-32 data-parallel
 # (RES_DEPTH, RES_BATCH split over the ranks) for WORLD_RES_STEPS steps,
 # then evaluate on RES_EVAL, and one PS block at WE_PS_CFG on the device
@@ -7193,6 +7199,11 @@ WORLD_COLL_REPS = 3
 # block within the we_ps phase's WE_PS_REF_* bounds; the words counted
 # once; the ranks' BN stats and accuracies equal
 WORLD_RES_STEPS = 8
+# (e)'s WE calls train this many batches by owner: every step crosses
+# gloo, staged through the host (16.9 MB a rank a shared-pool step, 58.7
+# MB a per-pair step), and the tables agree element by element over the
+# first ~16 batches only (ROADMAP C.1)
+WORLD_E_WE_BATCHES = 16
 WORLD_E_BUDGET_S = 10.0   # (e)'s wall a rank, a finding, not a gate
 # the shared pool's tables, world against one process, of max |x|: two
 # first runs on an H100 read 3.0e-6 and 1.6e-5 (an f32 sum that the
@@ -7628,10 +7639,13 @@ def world_apps_run() -> dict:
                                                           synthetic_corpus)
     from multiverso_tpu_torch.models import logreg, resnet
     tokens = synthetic_corpus(**WE_SYNTH_CORPUS)
-    out = {"we_shared": aw.we_fused(WEConfig(**WE_CFG), tokens),
+    owner = dict(batches=WORLD_E_WE_BATCHES, watch=True,
+                 watch_tensors=False)
+    out = {"we_shared": aw.we_fused(WEConfig(**WE_CFG), tokens, **owner),
            "we_pair": aw.we_fused(WEConfig(**{**WE_CFG,
                                               "shared_negatives": 0}),
-                                  tokens, neg_batches=WE_NEG_BATCHES)}
+                                  tokens, neg_batches=WE_NEG_BATCHES,
+                                  **owner)}
     x, y = logreg.synthetic_dataset(LR_TRAIN[0], 784, 10, seed=LR_TRAIN[1])
     out["lr"] = aw.lr_fused(lr_pairs(), x, y)
     train = resnet.synthetic_cifar(RES_BATCH * WORLD_RES_STEPS,
@@ -7682,6 +7696,47 @@ def world_apps_reference() -> dict:
     return ref
 
 
+def world_e_owner(r: int, call: str, e: dict, got: dict,
+                  one_ms: np.ndarray) -> list:
+    """(e)'s by-owner record of rank ``r``'s WE ``call`` (its RESULT
+    scalars ``e`` and arrays ``got``; ``aw.WEWatch``): logs ms and
+    collective bytes a step (beside ``one_ms``, this process's steps of
+    the same call, run while the ranks run), the
+    ``max_memory_allocated`` rise over the call against the two whole
+    tables' bytes and the resident share of each table; returns what
+    failed of its gates: WORLD_E_WE_BATCHES steps, no unshard or
+    whole_state, each step one all-reduce a table read, none past
+    WORLD_RANKS x the step's rows."""
+    def w(k):
+        return e.get(f"{call}/watch/{k}", got.get(f"{call}/watch/{k}"))
+
+    size, reads = WE_CFG["size"], w("reads")
+    colls, pays, ms = w("step_colls"), w("step_payloads"), w("step_ms")
+    bound = WORLD_RANKS * sum(reads) * size * 4
+    whole = {k: w(f"whole_numel_{k}") for k in ("in", "out")}
+    whole_b = 4 * sum(whole.values())
+    share = {k: w(f"block_numel_{k}") / whole[k] for k in whole}
+    per_step = pays.sum(axis=1) if pays.size else np.zeros(1)
+    rise = w("mem_rise") or 0   # none off the card
+    log(f"world (e) rank {r} WE {call} by owner: {len(ms)} steps, ms a "
+        f"step p50 {float(np.median(ms)):.2f} (min {float(ms.min()):.2f}, "
+        f"max {float(ms.max()):.2f}; one process "
+        f"{float(np.median(one_ms)):.2f}); collective bytes a step "
+        f"{int(np.median(per_step))} ({len(reads)} all-reduces of "
+        f"{reads} rows x {size} f32); largest collective "
+        f"{int(pays.max()) if pays.size else 0} B (bound {bound} B); "
+        f"before the first step {w('pre')}; unshard/whole_state entries "
+        f"{w('gathers')}; max_memory_allocated rise {rise} B against "
+        f"the two whole tables' {whole_b} B ({rise / whole_b:.2f}x); "
+        f"resident share embed_in {share['in']:.4f}, embed_out "
+        f"{share['out']:.4f}")
+    ok = (e[f"{call}/batches"] == WORLD_E_WE_BATCHES == len(ms)
+          and w("gathers") == 0 and w("step_ops") == ["all_reduce"]
+          and colls.tolist() == [len(reads)] * len(ms)
+          and int(pays.max()) <= bound)
+    return [] if ok else [f"rank {r} WE {call} by owner"]
+
+
 def world_apps_check(ranks: list, arrays: list, ref: dict) -> None:
     """(e): each rank's gathered results (its RESULT's ``apps`` and
     ``arrays``, what it wrote) against this process's, the ranks against
@@ -7707,8 +7762,9 @@ def world_apps_check(ranks: list, arrays: list, ref: dict) -> None:
         w, o = e["we_shared/loss"], ref["we_shared"]["loss"]
         err = max(rel(got[f"we_shared/{k}"], ref["we_shared"][k])
                   for k in ("in", "out"))
-        log(f"world (e) rank {r} WE shared pool, 1 epoch of "
-            f"{e['we_shared/tokens']} tokens: loss {w:.7f} vs one process "
+        log(f"world (e) rank {r} WE shared pool by owner, "
+            f"{e['we_shared/batches']} batches ({e['we_shared/tokens']} "
+            f"ids): loss {w:.7f} vs one process "
             f"{o:.7f} (bound {WE_BF16_LOSS_RTOL:.0e} relative); tables max "
             f"|diff| / max |x| {err:.3e} (bound "
             f"{WORLD_E_BF16_TABLE_RTOL:.0e}); words {e['we_shared/words']} "
@@ -7731,6 +7787,9 @@ def world_apps_check(ranks: list, arrays: list, ref: dict) -> None:
                 and err <= WE_VARIANT_TABLE_RTOL and negs
                 and e["we_pair/words"] == ref["we_pair"]["words"]):
             bad.append(f"rank {r} WE per-pair")
+        for call in ("we_shared", "we_pair"):
+            bad += world_e_owner(r, call, e, got,
+                                 ref[call]["watch/step_ms"])
         err = rel(got["lr/table"], ref["lr"]["table"])
         log(f"world (e) rank {r} LR fused epoch: table {err:.3e} of max "
             f"|x| (bound {LR_TABLE_RTOL:.0e}); loss {e['lr/loss']:.7f} vs "
@@ -8046,8 +8105,8 @@ def phase_world(dev) -> dict:
     JAX scenario's closed forms with the tables on the card, (b) the LM
     trained data-parallel through one shared table, (c) the aggregate
     cell, (d) the sharded layout and its checkpoint, restored here after
-    the ranks end, (e) the apps' whole-state paths on the sharded tables
-    and (f) the DLRM step by owner, each against this process's results,
+    the ranks end, (e) the apps on the sharded tables (WE by owner) and
+    (f) the DLRM step by owner, each against this process's results,
     made while the ranks run. Returns the flash launches summed over the
     ranks."""
     import shutil

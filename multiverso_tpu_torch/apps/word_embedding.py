@@ -24,8 +24,9 @@ sampling and hierarchical softmax, the fused path and the PS block path).
   -hs 1``). The last four compute in f32 everywhere, as the JAX epochs
   do, and the per-pair negatives follow jax.random's threefry stream from
   ``seed`` bit for bit. On tables sharded over the world's ranks every
-  rank gathers both tables for the call and trains the same epochs (the
-  one-process result; each rank holds the whole tables meanwhile)
+  rank trains the same epochs by owner (the one-process result): each
+  keeps its blocks, and each batch reads its rows from their owners and
+  adds its deltas into the rows it owns (``table.OwnedRows``)
 * ``train_ps_blocks`` (``-use_ps 1``): the reference's block flow
   (distributed_wordembedding.cpp:147-252). Per data block the worker pulls
   the block's rows, trains them locally minibatch after minibatch (the
@@ -36,7 +37,8 @@ sampling and hierarchical softmax, the fused path and the PS block path).
   sync tables takes the device plane: the pull is a gather on the card,
   the push ``functional_add_rows``, and the negatives are derived on the
   card from the block's 4-byte seed; on sharded tables every rank trains
-  every block, its rows pulled from and pushed to their owners.
+  every block, its rows pulled from (``OwnedRows``) and pushed to their
+  owners.
   Otherwise (``-ps_device_plane 0``, or several workers) the host plane
   pulls with ``get_rows_async`` and pushes
   ``(new - old) / num_workers`` with ``add_rows_async``, each pull
@@ -89,6 +91,7 @@ from multiverso_tpu_torch.data.dictionary import Dictionary, build_huffman
 from multiverso_tpu_torch.io.sample_reader import BlockPrepareQueue
 from multiverso_tpu_torch.models import word2vec as w2v
 from multiverso_tpu_torch.ops import row_assemble as _rowasm
+from multiverso_tpu_torch.table import OwnedRows
 from multiverso_tpu_torch.tables.matrix_table import _bucket_size
 from multiverso_tpu_torch.telemetry import devstats as _devstats
 from multiverso_tpu_torch.telemetry import memstats as _memstats
@@ -232,29 +235,12 @@ class WEConfig:
         return cls(**kw)
 
 
-def _pull_rows(table, state: Dict, ids: torch.Tensor) -> torch.Tensor:
-    """The rows ``ids`` (padded-layout ids on the device, the same on
-    every rank) of ``table``, whose ``state`` is this rank's: a gather,
-    or on a sharded table a gather of the ids this rank's block holds,
-    one all-gather over the table axis, and each id's row from its
-    owner (a collective)."""
-    mesh, axis, n, (lo, hi) = table.sharding
-    if n == 1:
-        return state["data"].index_select(0, ids)
-    from multiverso_tpu_torch.parallel.collectives import raw_all_gather
-    rows = state["data"].index_select(0, (ids - lo).clamp(0, hi - lo - 1))
-    every = raw_all_gather(rows, mesh, axis).reshape(
-        (n,) + tuple(rows.shape))
-    return every[ids // (hi - lo), torch.arange(ids.numel(),
-                                                device=ids.device)]
-
-
 def _push_rows(table, state: Dict, ids: torch.Tensor,
                deltas: torch.Tensor) -> None:
-    """``functional_add_rows`` of ``deltas`` at ``ids`` (as
-    :func:`_pull_rows` takes them) on this rank's ``state``: the rows its
-    block holds, shifted by the block's first row (the padding's zero
-    deltas at the scratch row go to its owner)."""
+    """``functional_add_rows`` of ``deltas`` at ``ids`` (padded-layout
+    ids on the device, the same on every rank) on this rank's ``state``:
+    the rows its block holds, shifted by the block's first row (the
+    padding's zero deltas at the scratch row go to its owner)."""
     _, _, n, (lo, hi) = table.sharding
     if n > 1:
         mine = ((ids >= lo) & (ids < hi)).nonzero().squeeze(1)
@@ -441,12 +427,14 @@ class WordEmbedding:
         seconds, pairs (CBOW: targets) and pairs/sec.
 
         On tables sharded over the world's ranks every rank passes the
-        same ``ids`` (``ValueError`` otherwise, on every rank), gathers
-        both tables for the call (``Table.whole_state``: each rank holds
-        the whole tables until the call ends), trains the same epochs,
-        as the JAX app trains its global arrays, and keeps its blocks;
-        the trained words are counted once. The result is the one-process
-        run's."""
+        same ``ids`` (``ValueError`` otherwise, on every rank) and trains
+        the same epochs by owner, as the JAX epoch trains its ``P(axis)``
+        arrays: each rank trains a copy of its block of each table, every
+        batch reads its rows from their owners (:class:`OwnedRows`: one
+        all-reduce over the table axis a table read, two a step, three
+        with the shared pool) and adds its deltas into the rows of the
+        rank's block. No rank holds a whole table. The trained words are
+        counted once. The result is the one-process run's."""
         cfg = self.cfg
         if cfg.async_ps:
             # the fused epochs train the tables' state in place, which the
@@ -466,18 +454,22 @@ class WordEmbedding:
         # a fresh key at every call, split once per epoch, as the JAX app
         # does: two calls of one epoch each draw the same negatives
         key = threefry.key(cfg.seed)
-        with self.table_in.whole_state() as state_in, \
-                out_table.whole_state() as state_out:
-            # train copies, so the live tables survive a failure mid-epoch
-            win, wout = state_in["data"].clone(), state_out["data"].clone()
-            for _ in range(epochs):
-                if branch == "sg_shared":
-                    win, wout, loss, self._lcg = epoch_fn(
-                        win, wout, *batches, self._lcg)
-                else:
-                    key, sub = threefry.split(key)
-                    win, wout, loss = epoch_fn(win, wout, *batches, sub)
-            state_in["data"], state_out["data"] = win, wout
+        tables = (self.table_in, out_table)
+        states = [t.state for t in tables]
+        # train copies of the blocks, so the live tables survive a failure
+        # mid-epoch; the epochs train them in place
+        blocks = [s["data"].clone() for s in states]
+        win, wout = (OwnedRows(t, b) if t.sharding.num_shards > 1 else b
+                     for t, b in zip(tables, blocks))
+        for _ in range(epochs):
+            if branch == "sg_shared":
+                win, wout, loss, self._lcg = epoch_fn(
+                    win, wout, *batches, self._lcg)
+            else:
+                key, sub = threefry.split(key)
+                win, wout, loss = epoch_fn(win, wout, *batches, sub)
+        for t, s, b in zip(tables, states, blocks):
+            t.adopt({"data": b, "ustate": s["ustate"]})
         # the loss readback is the end of the device's work
         loss_f = float(loss)
         dt = time.perf_counter() - t0
@@ -990,8 +982,9 @@ class WordEmbedding:
         each table's updater, ``functional_add_rows``). Returns the block's
         loss as a device scalar (read back at the end of the run). On
         tables sharded over the world's ranks every rank trains the same
-        block: the pull asks the rows' owners (:func:`_pull_rows`) and
-        each owner pushes the rows of its block (:func:`_push_rows`)."""
+        block: the pull asks the rows' owners (:class:`OwnedRows`: one
+        all-reduce over the table axis a table) and each owner pushes the
+        rows of its block (:func:`_push_rows`)."""
         cfg = self.cfg
         t_in, t_sec = self.table_in, self._sec_table()
         p = {key: self._upload(a) for key, a in prep.items()
@@ -1015,8 +1008,10 @@ class WordEmbedding:
         with monitor("we.block"), t_in._dispatch_lock, t_sec._dispatch_lock:
             s_in, s_sec = t_in.state, t_sec.state
             d_in, d_sec, loss = self._run_block_scan(
-                self._step_fn_raw(), _pull_rows(t_in, s_in, ids_in),
-                _pull_rows(t_sec, s_sec, ids_sec), prep["valid"],
+                self._step_fn_raw(),
+                OwnedRows(t_in, s_in["data"]).index_select(0, ids_in),
+                OwnedRows(t_sec, s_sec["data"]).index_select(0, ids_sec),
+                prep["valid"],
                 p["batch"], negs)
             _push_rows(t_in, s_in, ids_in, d_in)
             _push_rows(t_sec, s_sec, ids_sec, d_sec)

@@ -12,6 +12,12 @@ PyTorch launches and the tables never leave the device. Only the
 shared-pool epoch has a compute dtype; the others compute in the tables'
 dtype (f32), as the JAX epochs do on every platform.
 
+A table may also be a rank's block of a table sharded over the world's
+ranks, behind ``table.OwnedRows``: the steps and epochs touch a table
+only through ``index_select(0, ids)``, ``index_add_(0, ids, src)``,
+``dtype`` and ``device``, so they run unchanged on it, each read one
+all-reduce over the table axis, as the JAX epoch's partitioned gather.
+
 Random streams are the JAX package's own, so a seed gives the same
 negative ids bit for bit:
 
@@ -324,8 +330,8 @@ class _OnDevice:
 def _scan(step, win: torch.Tensor, wout: torch.Tensor, *xs: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The JAX epochs' ``lax.scan``: ``step(win, wout, *batch) -> (win,
-    wout, loss)`` over the leading axis of ``xs``; returns the tables and
-    the mean loss, left on the device."""
+    wout, loss)`` over the leading axis of ``xs``; returns the tables (or
+    their ``OwnedRows`` views) and the mean loss, left on the device."""
     losses = []
     for batch in zip(*xs):
         win, wout, loss = step(win, wout, *batch)

@@ -41,11 +41,13 @@ rank's block, the addressable shard of the JAX global array:
 ``functional_add`` takes the block's shape or the whole padded shape,
 whose rows outside the block it ignores, and a caller that needs the
 whole table gathers it (:meth:`unshard`). A caller that trains the whole
-table in one call (the apps' fused epochs) takes :meth:`whole_state`:
-the gathered state for the call, of which each rank adopts its block at
-the end; every rank runs the call's steps on the same inputs, which
-:meth:`require_same_inputs` checks. ``store`` gathers the table
-(a collective), ``load`` keeps the block. Coalescing and the
+table in one call (LR's fused epoch) takes :meth:`whole_state`: the
+gathered state for the call, of which each rank adopts its block at the
+end; a caller that reads and adds rows by id (the WordEmbedding epochs,
+the PS block device plane) trains its block through :class:`OwnedRows`,
+the rows read from their owners. Every rank runs the call's steps on the
+same inputs, which :meth:`require_same_inputs` checks. ``store`` gathers
+the table (a collective), ``load`` keeps the block. Coalescing and the
 write-triggered prefetch stay off: each add's collective runs on the
 caller's thread, in the caller's order.
 
@@ -146,6 +148,66 @@ class TableSharding(NamedTuple):
     axis: str
     num_shards: int
     rows: Tuple[int, int]
+
+
+class OwnedRows:
+    """This rank's ``block`` of ``table``'s padded rows ``[lo, hi)``, read
+    and trained by row id as code reads and trains the whole padded table
+    (``index_select(0, ids)``, ``index_add_(0, ids, src)``): the
+    counterpart of XLA's partitioned gather and scatter on a ``P(axis)``
+    array. No rank holds the whole table.
+
+    * ``index_select``: the rows ``ids`` on every rank of the table axis.
+      Each rank reads the ids its block holds and puts -0.0 in the others'
+      places (``torch.where``, so a NaN or inf elsewhere cannot leak), then
+      one all-reduce sum over the axis (a collective: every rank of the
+      axis calls it with the same ids, in one order). An owner's value
+      plus -0.0s is that value bit for bit, signed zeros included.
+    * ``index_add_``: ``index_add_`` into the block of the ids it holds,
+      shifted by ``lo``, in their order, so each row sums the same deltas
+      in the same order as the whole table's ``index_add_``; returns the
+      view. No collective.
+
+    On a table that is not sharded both are the block's own ops."""
+
+    def __init__(self, table: "Table", block: torch.Tensor):
+        self.block = block
+        self._mesh, self._axis, self._n, (self._lo, self._hi) = \
+            table.sharding
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.block.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.block.device
+
+    def _mine(self, ids: torch.Tensor) -> torch.Tensor:
+        return (ids >= self._lo) & (ids < self._hi)
+
+    def index_select(self, dim: int, ids: torch.Tensor) -> torch.Tensor:
+        if dim != 0:
+            raise ValueError("OwnedRows reads rows (dim 0)")
+        if self._n == 1:
+            return self.block.index_select(0, ids)
+        from multiverso_tpu_torch.parallel.collectives import raw_all_reduce
+        rows = self.block.index_select(
+            0, (ids - self._lo).clamp(0, self._hi - self._lo - 1))
+        rows = torch.where(self._mine(ids).unsqueeze(1), rows,
+                           rows.new_full((), -0.0))
+        return raw_all_reduce(rows, self._mesh, self._axis)
+
+    def index_add_(self, dim: int, ids: torch.Tensor,
+                   src: torch.Tensor) -> "OwnedRows":
+        if dim != 0:
+            raise ValueError("OwnedRows adds rows (dim 0)")
+        if self._n == 1:
+            self.block.index_add_(0, ids, src)
+        else:
+            mine = self._mine(ids).nonzero().squeeze(1)
+            self.block.index_add_(0, ids[mine] - self._lo, src[mine])
+        return self
 
 
 class _Pending:
@@ -411,7 +473,7 @@ class Table:
     @contextlib.contextmanager
     def whole_state(self) -> Iterator[Dict[str, Any]]:
         """The whole padded state ``{"data", "ustate"}`` for a call that
-        trains the whole table (the apps' fused epochs), as the JAX
+        trains the whole table (LR's fused epoch), as the JAX
         package's ``state`` is the global array. On a table that is not
         sharded it is the live :attr:`state`. On a table axis > 1 it is
         an all-gather of the data and of each row-shaped updater-state

@@ -9,12 +9,19 @@ trainer splits each batch over that axis too).
 
 The world and the one-process port run the same CPU operations in the
 same order on the same inputs, one intra-op thread each: every rank
-gathers the whole table for the call, trains the same batches, and keeps
-its block (the device plane asks each row's owner and pushes each block's
-rows to its owner). So WordEmbedding, the device plane and LogReg equal
+trains the same batches and keeps its block. WordEmbedding trains by
+owner (each step reads its rows from their owners, an owner's value
+plus the others' -0.0, and adds its deltas into the rows its block
+holds, in their order), the device plane asks each row's owner and
+pushes each block's rows to its owner, and LogReg gathers the whole
+table for the call. So WordEmbedding, the device plane and LogReg equal
 the one-process run bit for bit, and match the JAX app within the
 tolerances of ``tests/test_torch_word_embedding.py``,
 ``tests/test_torch_ps_blocks.py`` and ``tests/test_torch_logreg.py``.
+WordEmbedding never gathers a table (``aw.WEWatch``: no ``unshard`` or
+``whole_state``, no f32 tensor of a table's size, each step the
+designed all-reduces of its rows), at a table axis of 2 and, for two
+branches, of 4 (``parallel/mesh.spawn``).
 The ResNet trainer is data-parallel (each rank its half of each batch,
 BatchNorm's moments summed over the ranks, the gradient reduce-scattered
 to the blocks), so its sums run in another order: it is held to
@@ -137,10 +144,13 @@ def _port_reference(out_dir):
     tmv.init(device="cpu")
     try:
         ref = {}
-        tokens = aw.we_tokens()
+        tokens, owner_tokens = aw.we_tokens(), aw.we_owner_tokens()
         for name, extra in aw.WE_BRANCHES.items():
             ref[f"we_{name}"] = aw.we_fused(
                 twe.WEConfig.from_argv(aw.WE_ARGV + extra), tokens)
+            ref[f"we_owner_{name}"] = aw.we_fused(
+                twe.WEConfig.from_argv(aw.WE_OWNER_ARGV + extra),
+                owner_tokens)
         ptoks = aw.ps_tokens()
         for name, extra in aw.PS_VARIANTS.items():
             cfg = twe.WEConfig(**aw.PS_SMALL, **extra)
@@ -318,6 +328,56 @@ def test_train_fused_at_a_table_axis_of_two(runs, branch):
                                        err_msg=k)
         np.testing.assert_allclose(got["loss"], jx["loss"],
                                    rtol=WE_LOSS_RTOL)
+        if branch == "sg_shared":
+            np.testing.assert_array_equal(got["lcg"], one["lcg"])
+        assert got["words"] == one["words"] == one["tokens"]
+
+
+def _assert_by_owner(got, world, size):
+    """A watched ``train_fused`` call on a table axis of ``world``
+    (``aw.WEWatch``): no ``unshard``/``whole_state``; before the first
+    step only ``require_same_inputs``' digest (8 bytes a rank); each step
+    one all-reduce a table read, of exactly the rows it reads
+    (``aw.we_step_reads``), none past ``world`` x the step's rows; each
+    rank's blocks 1/world of the padded tables."""
+    reads = got["watch/reads"]
+    assert got["watch/gathers"] == 0
+    assert got["watch/pre"] == [["process_all_gather", 8 * world]]
+    assert got["watch/step_ops"] == ["all_reduce"]
+    n = got["batches"]
+    assert n > 0 and got["watch/step_colls"].tolist() == [len(reads)] * n
+    want = [r * size * 4 for r in reads]
+    assert got["watch/step_payloads"].tolist() == [want] * n
+    assert max(want) <= world * sum(reads) * size * 4
+    assert len(got["watch/step_ms"]) == n
+    for k in ("in", "out"):
+        assert got[f"watch/block_numel_{k}"] * world == \
+            got[f"watch/whole_numel_{k}"]
+
+
+@pytest.mark.parametrize("branch", list(aw.WE_BRANCHES))
+def test_train_fused_never_gathers_the_tables(runs, branch):
+    """``train_fused`` by owner at ``aw.WE_OWNER_ARGV``, whose tables hold
+    at least 8x the rows a step reads: no rank enters ``unshard`` or
+    ``whole_state`` or makes an f32 tensor of a whole table's elements;
+    each step's collectives are the designed all-reduces of its rows
+    (:func:`_assert_by_owner`), their bytes a step far below a table's;
+    the tables, loss and LCG state equal the one-process port's bit for
+    bit, and the words are counted once."""
+    one = runs["port"][f"we_owner_{branch}"]
+    size = int(aw.WE_OWNER_ARGV[aw.WE_OWNER_ARGV.index("-size") + 1])
+    for r in range(WORLD):
+        got = _rank(runs["ranks"][r], f"we_owner_{branch}")
+        _assert_by_owner(got, WORLD, size)
+        whole = min(got["watch/whole_numel_in"],
+                    got["watch/whole_numel_out"])
+        assert whole >= 8 * sum(got["watch/reads"]) * size
+        assert got["watch/largest"] < whole
+        assert got["batches"] == one["batches"]
+        assert got["loss"] == one["loss"]
+        for k in ("in", "out"):
+            np.testing.assert_array_equal(got[k], one[k], err_msg=k)
+        assert np.abs(got["out"]).max() > 1e-3     # trained from zeros
         if branch == "sg_shared":
             np.testing.assert_array_equal(got["lcg"], one["lcg"])
         assert got["words"] == one["words"] == one["tokens"]
@@ -515,21 +575,27 @@ def test_dlrm_step_never_gathers_the_embedding_table(runs, variant):
 
 @pytest.fixture(scope="module")
 def world4():
-    """The DLRM step on a world of 4 CPU ranks (``mesh.spawn``), each
-    layout of ``aw.DLRM_WORLD4`` in turn, and in one process of the port;
-    in float64, where the sums' order moves the tables by ~1e-14 of max
-    |x| (in float32 AdaGrad turned the 4 ranks' order into 1.4e-5 of max
-    |x|, past the 1e-5 bound: rounding, not a fault)."""
+    """A world of 4 CPU ranks (``mesh.spawn``, ``aw.world4``) and the same
+    calls in one process of the port: the DLRM step on each layout of
+    ``aw.DLRM_WORLD4`` in turn, in float64, where the sums' order moves
+    the tables by ~1e-14 of max |x| (in float32 AdaGrad turned the 4
+    ranks' order into 1.4e-5 of max |x|, past the 1e-5 bound: rounding,
+    not a fault); ``train_fused`` of the branches of ``aw.WE_WORLD4`` in
+    f32."""
     from multiverso_tpu_torch.parallel.mesh import spawn
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        ranks = spawn(aw.dlrm_world4, 4, "cpu", timeout=_TIMEOUT)
+        ranks = spawn(aw.world4, 4, "cpu", timeout=_TIMEOUT)
         tmv.init(device="cpu")
         try:
             one = aw.dlrm_steps("adagrad", aw.DLRM_OPT, aw.dlrm_data(),
                                 aw.DLRM_STEPS, aw.DLRM_BATCH,
                                 dtype=np.float64)
+            tokens = aw.we_tokens()
+            one.update({f"we_{b}": aw.we_fused(twe.WEConfig.from_argv(
+                aw.WE_ARGV + aw.WE_BRANCHES[b]), tokens)
+                        for b in aw.WE_WORLD4})
         finally:
             TZoo.get().stop()
             tconfig.reset_flags()
@@ -568,3 +634,24 @@ def test_dlrm_step_at_a_world_of_four(world4, layout):
                          + 1))
         for step in got["payloads"]:
             assert max(b for _, b in step) <= bound, (r, step)
+
+
+@pytest.mark.parametrize("branch", aw.WE_WORLD4)
+def test_train_fused_at_a_world_of_four(world4, branch):
+    """``train_fused`` by owner on a table axis of 4 in f32: every rank's
+    gathered tables, loss and LCG state equal the one-process port's bit
+    for bit (each row read from its one owner plus three ranks' -0.0,
+    each row's deltas added at its owner in the one-process order), the
+    words counted once, and the tables never gathered."""
+    ranks, one = world4
+    want = one[f"we_{branch}"]
+    size = int(aw.WE_ARGV[aw.WE_ARGV.index("-size") + 1])
+    for rank in ranks:
+        got = rank[f"we_{branch}"]
+        _assert_by_owner(got, 4, size)
+        assert got["loss"] == want["loss"]
+        for k in ("in", "out"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        if branch == "sg_shared":
+            np.testing.assert_array_equal(got["lcg"], want["lcg"])
+        assert got["words"] == want["words"] == want["tokens"]

@@ -64,11 +64,24 @@ DLRM_STEPS, DLRM_BATCH = 4, 64
 DLRM_WORLD4 = {"by_owner": ({"mv": 4}, "mv"),
                "block_reduce": ({"dp": 2, "mv": 2}, "dp"),
                "by_owner_and_reduce": ({"dp": 2, "mv": 2}, ("dp", "mv"))}
+# train_fused by owner, watched: a vocabulary (2,636 rows) 9.7-66x the
+# rows a step reads (40 with the shared pool, 272 with CBOW HS), so a
+# gather of a table would show beside a step's reads
+WE_OWNER_ARGV = ["-size", "16", "-batch_size", "16", "-shared_negatives",
+                 "8", "-negative", "5", "-window", "2", "-min_count", "1",
+                 "-sample", "1e-3", "-seed", "4"]
+# the branches a world of 4 trains (at WE_ARGV, on we_tokens)
+WE_WORLD4 = ("sg_shared", "cbow_hs")
 
 
 def we_tokens():
     from multiverso_tpu_torch.apps import word_embedding as we
     return we.synthetic_corpus(12_000, vocab=300, seed=3)
+
+
+def we_owner_tokens():
+    from multiverso_tpu_torch.apps import word_embedding as we
+    return we.synthetic_corpus(8_000, vocab=4_000, seed=11)
 
 
 def ps_tokens():
@@ -89,24 +102,163 @@ def res_data():
             resnet.synthetic_cifar(64, size=16, classes=4, seed=2))
 
 
-def we_fused(cfg, tokens, neg_batches: int = 0) -> Dict[str, np.ndarray]:
-    """One ``train_fused`` epoch of ``cfg``'s branch over ``tokens`` from
-    the seeded tables: the gathered tables (``in``, ``out``: embed_out or
-    embed_hs), the loss, the word count, the shared pool's LCG state and,
-    with ``neg_batches``, the per-pair negative ids of the epoch's first
-    batches (the draw the epoch makes from its first key)."""
+def we_prefix(app, ids: np.ndarray, batches: int) -> np.ndarray:
+    """The shortest prefix of ``ids`` from which ``app``'s fused epoch
+    makes ``batches`` batches: CBOW's targets are the ids themselves;
+    skip-gram's pairs grow with the prefix (a position adds at most
+    2 * window pairs), so the shortest prefix with enough pairs makes
+    exactly that many batches."""
+    from multiverso_tpu_torch.apps import word_embedding as we
+    cfg = app.cfg
+    if cfg.cbow:
+        return ids[: batches * cfg.batch_size]
+
+    def enough(m: int) -> bool:
+        pairs = we._gen_pairs(ids[:m], cfg.window, cfg.seed)[0].size
+        return pairs // cfg.batch_size >= batches
+
+    lo, hi = 1, ids.size
+    if not enough(hi):
+        raise ValueError(f"the ids make fewer than {batches} batches")
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if enough(mid) else (mid + 1, hi)
+    return ids[:lo]
+
+
+def we_step_reads(app) -> list:
+    """The rows each step of ``app``'s fused epoch reads, table read by
+    table read, in the step's order (``models/word2vec.py``): by owner,
+    each is one all-reduce of that many rows of ``size`` values."""
+    cfg = app.cfg
+    b = cfg.batch_size
+    first = b * 2 * cfg.window if cfg.cbow else b
+    if cfg.hs:
+        return [first, b * app._hs[0].shape[1]]
+    if not cfg.cbow and cfg.shared_negatives > 0:
+        return [b, b, cfg.shared_negatives]
+    return [first, b * (cfg.negative + 1)]
+
+
+class WEWatch:
+    """What one ``train_fused`` call of ``app`` asks of the world:
+    entries to any table's ``unshard``/``whole_state``, the collectives
+    before its first step (``pre``) and of each step (``StepWatch``'s
+    payloads, split where ``models/word2vec._scan`` starts a step), each
+    step's ms on the host clock (a step's first read waits for the
+    step before it), with ``tensors`` the largest tensor of the tables'
+    dtype made (the negatives' 2^20-slot table and the batches are
+    int64), each table's whole padded elements and this rank's block of
+    them, and on the card the rise of ``max_memory_allocated`` over the
+    call."""
+
+    def __init__(self, app, tensors: bool = True):
+        self.app, self.tensors = app, tensors
+
+    def __enter__(self):
+        import torch
+        from multiverso_tpu_torch.models import word2vec as w2v
+        from multiverso_tpu_torch.table import Table
+        self.entries, self.marks = [], []
+        self._saved = (Table.unshard, Table.whole_state, w2v._scan)
+        unshard, whole_state, scan = self._saved
+        watch = self
+
+        def count(fn, name):
+            def entered(*a, **k):
+                watch.entries.append(name)
+                return fn(*a, **k)
+            return entered
+
+        def marked_scan(step, win, wout, *xs):
+            def marked(*a):
+                watch.marks.append((len(watch.steps.payloads),
+                                    time.perf_counter()))
+                return step(*a)
+            return scan(marked, win, wout, *xs)
+
+        Table.unshard = count(unshard, "unshard")
+        Table.whole_state = count(whole_state, "whole_state")
+        w2v._scan = marked_scan
+        self.cuda = self.app.table_in.device.type == "cuda"
+        if self.cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self._mem0 = torch.cuda.memory_allocated()
+        self.steps = StepWatch(self.tensors,
+                               self.app.table_in.dtype).__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        from multiverso_tpu_torch.models import word2vec as w2v
+        from multiverso_tpu_torch.table import Table
+        self.end = time.perf_counter()
+        self.steps.__exit__(*exc)
+        if self.cuda:
+            self.mem_rise = torch.cuda.max_memory_allocated() - self._mem0
+        Table.unshard, Table.whole_state, w2v._scan = self._saved
+        return False
+
+    def result(self) -> Dict:
+        pays = self.steps.payloads
+        cuts = [i for i, _ in self.marks] + [len(pays)]
+        steps = [pays[a:b] for a, b in zip(cuts, cuts[1:])]
+        k = max((len(s) for s in steps), default=0)
+        times = [t for _, t in self.marks] + [self.end]
+        app = self.app
+        sec = app.table_hs if app.cfg.hs else app.table_out
+        out = {"gathers": len(self.entries),
+               "pre": [list(p) for p in pays[: cuts[0]]],
+               "step_ops": sorted({op for s in steps for op, _ in s}),
+               "step_colls": np.array([len(s) for s in steps]),
+               "step_payloads": np.array(
+                   [[b for _, b in s] + [0] * (k - len(s)) for s in steps],
+                   dtype=np.int64).reshape(len(steps), k),
+               "step_ms": np.diff(times) * 1e3,
+               "reads": we_step_reads(app)}
+        for name, t in (("in", app.table_in), ("out", sec)):
+            out[f"whole_numel_{name}"] = int(np.prod(t.padded_shape))
+            out[f"block_numel_{name}"] = int(t.state["data"].numel())
+        if self.tensors:
+            out["largest"] = self.steps.largest
+        if self.cuda:
+            out["mem_rise"] = int(self.mem_rise)
+        return out
+
+
+def we_fused(cfg, tokens, neg_batches: int = 0, batches: int = 0,
+             watch: bool = False,
+             watch_tensors: bool = True) -> Dict[str, np.ndarray]:
+    """One ``train_fused`` epoch of ``cfg``'s branch over ``tokens`` (with
+    ``batches``, over the prefix of the ids that makes that many,
+    :func:`we_prefix`) from the seeded tables: the gathered tables
+    (``in``, ``out``: embed_out or embed_hs), the loss, the word count,
+    the shared pool's LCG state and, with ``neg_batches``, the per-pair
+    negative ids of the epoch's first batches (the draw the epoch makes
+    from its first key). With ``watch``, a :class:`WEWatch`'s record of
+    the call, its keys prefixed ``watch/``."""
     import torch
     from multiverso_tpu_torch.apps import word_embedding as we
     from multiverso_tpu_torch.models import word2vec as w2v
     from multiverso_tpu_torch.utils import threefry
     app = we.WordEmbedding(cfg, we.Dictionary.build(tokens, cfg.min_count))
     ids = app.prepare_ids(tokens)
+    if batches:
+        ids = we_prefix(app, ids, batches)
     t0 = time.perf_counter()
-    stats = app.train_fused(ids, epochs=1)
+    if watch:
+        with WEWatch(app, watch_tensors) as w:
+            stats = app.train_fused(ids, epochs=1)
+    else:
+        stats = app.train_fused(ids, epochs=1)
     out = {"seconds": time.perf_counter() - t0, "loss": stats["loss"],
-           "in": app.embeddings(),
-           "out": (app.table_hs if cfg.hs else app.table_out).get(),
-           "words": app.total_word_count(), "tokens": ids.size}
+           "batches": stats["pairs"] // cfg.batch_size}
+    if watch:
+        out.update({f"watch/{k}": v for k, v in w.result().items()})
+    out.update({"in": app.embeddings(),
+                "out": (app.table_hs if cfg.hs else app.table_out).get(),
+                "words": app.total_word_count(), "tokens": ids.size})
     if app._lcg is not None:
         out["lcg"] = app._lcg.cpu().numpy()
     if neg_batches and not cfg.hs and cfg.shared_negatives <= 0:
@@ -234,10 +386,11 @@ class StepWatch:
     payload as ``telemetry/devstats`` records it (``payloads``), and with
     ``tensors`` the most elements of any tensor an operator made
     (``largest``, through a ``TorchDispatchMode``: its first use in a
-    process costs seconds of imports, 9.7 s in a rank on the card)."""
+    process costs seconds of imports, 9.7 s in a rank on the card), with
+    ``dtype`` only of tensors of that dtype."""
 
-    def __init__(self, tensors: bool = True):
-        self.tensors = tensors
+    def __init__(self, tensors: bool = True, dtype=None):
+        self.tensors, self.dtype = tensors, dtype
 
     def __enter__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -256,7 +409,8 @@ class StepWatch:
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 out = func(*args, **(kwargs or {}))
                 for t in tree_leaves(out):
-                    if isinstance(t, torch.Tensor):
+                    if isinstance(t, torch.Tensor) and watch.dtype in (
+                            None, t.dtype):
                         watch.largest = max(watch.largest, t.numel())
                 return out
 
@@ -361,13 +515,24 @@ def dlrm_steps(updater: str, opt: Dict, data, steps: int, batch: int,
     return out
 
 
-def dlrm_world4(rank: int, world: int, device) -> Dict:
+def world4(rank: int, world: int, device) -> Dict:
     """A rank of the world of 4 (``mesh.spawn``): the DLRM step with
     AdaGrad in float64 on each layout of ``DLRM_WORLD4``, each in a fresh
-    Zoo over its mesh; the tables gathered, every step watched."""
+    Zoo over its mesh, the tables gathered, every step watched; then
+    ``train_fused`` of each branch of ``WE_WORLD4`` in f32 on a table axis
+    of 4, watched."""
     import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.apps import word_embedding as we
     from multiverso_tpu_torch.parallel.mesh import Mesh
     out = {}
+    mv.init(device=device, mesh=Mesh({"mv": world}, device=device))
+    try:
+        tokens = we_tokens()
+        for name in WE_WORLD4:
+            out[f"we_{name}"] = we_fused(we.WEConfig.from_argv(
+                WE_ARGV + WE_BRANCHES[name]), tokens, watch=True)
+    finally:
+        mv.shutdown()
     for name, (shape, axis) in DLRM_WORLD4.items():
         mv.init(device=device, mesh=Mesh(shape, device=device))
         try:
@@ -427,10 +592,13 @@ def run_world(out_dir: str) -> Dict:
             else:
                 scalars[f"{prefix}/{k}"] = v
 
-    tokens = we_tokens()
+    tokens, owner_tokens = we_tokens(), we_owner_tokens()
     for name, extra in WE_BRANCHES.items():
         keep(f"we_{name}", we_fused(we.WEConfig.from_argv(WE_ARGV + extra),
                                     tokens))
+        keep(f"we_owner_{name}", we_fused(
+            we.WEConfig.from_argv(WE_OWNER_ARGV + extra), owner_tokens,
+            watch=True))
     ptoks = ps_tokens()
     for name, extra in PS_VARIANTS.items():
         cfg = we.WEConfig(**PS_SMALL, **extra)
