@@ -7155,8 +7155,10 @@ def phase_spmd(dev) -> dict:
 # process_sum against allgather + sum) at world 2, not 4; (d) the sharded
 # layout: each rank's Table.sharding and its resident bytes of (b)'s
 # table, (b)'s sync times beside their prediction, an AdaGrad MatrixTable
-# against numpy's model and its checkpoint, which this process restores
-# into a one-process table on the card after the ranks end
+# against numpy's model and its checkpoints, stream and sharded
+# (backend="orbax": each rank writes its own block, blocking and not,
+# restored in the world), which this process restores into a one-process
+# table on the card after the ranks end
 WORLD_RANKS = 2
 WORLD_LAYERS = 2          # the LM's depth cut (widths kept)
 WORLD_STEPS = 4           # train_ps steps a rank, each on its own batch
@@ -7173,6 +7175,16 @@ WORLD_ADA_OPT = dict(learning_rate=0.5, rho=0.1)
 WORLD_ADA_RTOL, WORLD_ADA_ATOL = 1e-5, 1e-6   # ROADMAP C.4's bound
 WORLD_COLL_MB = 64.0      # (d): the host collectives' payload
 WORLD_COLL_REPS = 3
+# (d): the sharded checkpoint (backend="orbax") of the AdaGrad table: a
+# rank's bytes written and staged at most this share of the table's
+# state (data and g_sqr), as WORLD_RESIDENT_MAX bounds its resident share
+WORLD_CKPT_SHARE_MAX = WORLD_RESIDENT_MAX
+# predicted before the first run on the card (PERF.md §6):
+# findings, not gates
+WORLD_CKPT_PREDICTED = {"share": (0.49, 0.51),
+                        "sharded_async_ms": (1.0, 30.0),
+                        "stream_async_ms": (100.0, 600.0),
+                        "sharded_block_ms": (30.0, 300.0)}
 # (e) the apps on tables sharded over the two ranks, in a fresh Zoo after
 # (d), at full widths (tests/torch_world_apps_worker.py holds the calls,
 # which this process makes too, in one process on the card, while the
@@ -7517,11 +7529,15 @@ def world_shard(tmp: str) -> dict:
     collective row adds of each rank's own ids, its Get and a get_rows of
     this rank's ids against numpy's model (WORLD_ADA_RTOL/ATOL), then a
     checkpoint saved by the world (rank 0 writes) beside the Get and the
-    gathered g_sqr as .npy files, for this script's own process."""
+    gathered g_sqr as .npy files, for this script's own process, and the
+    sharded checkpoint (:func:`world_sharded_ckpt`); the flash launches
+    (none)."""
     import torch
     import multiverso_tpu_torch as mv
     from multiverso_tpu_torch import checkpoint
+    from multiverso_tpu_torch.ops import attention_kernels as ak
     from multiverso_tpu_torch.updaters import AddOption
+    ak.reset_launch_counts()
     rank, world = mv.rank(), mv.size()
     rows, cols = WORLD_ADA_TABLE
     t = mv.MatrixTable(rows, cols, updater="adagrad", seed=43,
@@ -7557,45 +7573,177 @@ def world_shard(tmp: str) -> dict:
         np.save(os.path.join(tmp, "d_get.npy"), got)
         np.save(os.path.join(tmp, "d_gsqr.npy"), leaves[0])
     mv.barrier()
+    sharded = world_sharded_ckpt(t, ckdir, got, leaves[0], opt)
     return {"sharding": world_sharding(t), "blocks": blocks,
             "add_ms": add_ms, "save_ms": save_ms, "max_abs_err": err,
-            "colls": world_rs_vs_ar()}
+            "colls": world_rs_vs_ar(), "sharded": sharded,
+            "launches": ak.launch_counts()}
+
+
+def world_sharded_ckpt(t, ckdir: str, got, gsqr, opt) -> dict:
+    """(d)'s sharded checkpoint (backend="orbax") of the AdaGrad table
+    ``t`` on this rank, after the stream save: a blocking save (ms), a
+    ``block=False`` save (return ms, staged bytes, ``wait_pending`` ms),
+    both watched for gathers and the files this rank writes (their
+    bytes); a stream ``block=False`` save at this world (return ms,
+    staged bytes, wait ms); then a row add and the blocking tag restored
+    (ms, watched), its Get and gathered g_sqr against ``got`` and
+    ``gsqr`` (the state saved) bit for bit."""
+    import shutil
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+    import torch_world_worker as tw
+    rank = mv.rank()
+    state_bytes = sum(x.nbytes for x in (got, gsqr[: got.shape[0]]))
+    out = {"state_bytes": int(state_bytes)}
+    with tw.GatherWatch() as w:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(ckdir, tag="world_d_sharded", backend="orbax")
+        out["block_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        checkpoint.save(ckdir, tag="world_d_sharded_async", backend="orbax",
+                        block=False)
+        out["async_ms"] = (time.perf_counter() - t0) * 1e3
+        out["async_staged"] = checkpoint._pending.staged
+        t0 = time.perf_counter()
+        checkpoint.wait_pending()
+        out["async_wait_ms"] = (time.perf_counter() - t0) * 1e3
+    out["save_gathers"] = sum(w.calls.values())
+    tag_dir = os.path.join(ckdir, "world_d_sharded") + os.sep
+    out["written"] = sum(os.path.getsize(p) for p in w.written
+                         if p.startswith(tag_dir))
+    t0 = time.perf_counter()
+    checkpoint.save(ckdir, tag="world_d_stream_async", block=False)
+    out["stream_async_ms"] = (time.perf_counter() - t0) * 1e3
+    out["stream_async_staged"] = checkpoint._pending.staged
+    t0 = time.perf_counter()
+    checkpoint.wait_pending()
+    out["stream_async_wait_ms"] = (time.perf_counter() - t0) * 1e3
+    out["staged_after"] = checkpoint._GAUGES.memory_stats()["staging_bytes"]
+    t.add_rows(*world_ada_inputs(rank, WORLD_ADA_STEPS), opt)   # move away
+    with tw.GatherWatch() as w:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.restore(ckdir, tag="world_d_sharded")
+        torch.cuda.synchronize()
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    out["restore_gathers"] = sum(w.calls.values())
+    with t._dispatch_lock:
+        _, leaves = t._stored_arrays()   # a collective: the gathered g_sqr
+    out["restored_equal"] = bool(np.array_equal(t.get(), got)
+                                 and np.array_equal(leaves[0], gsqr))
+    if rank == 0:
+        for tag in ("world_d_sharded_async", "world_d_stream_async"):
+            shutil.rmtree(os.path.join(ckdir, tag), ignore_errors=True)
+    mv.barrier()
+    return out
 
 
 def world_restore_check(tmp: str) -> dict:
-    """After the ranks end: (d)'s checkpoint restored in this process
-    into a one-process AdaGrad MatrixTable on the card; its Get and
-    g_sqr equal the world's bit for bit. The table leaves the Zoo's
-    registry after (later phases save the registry)."""
+    """After the ranks end: (d)'s checkpoints restored in this process
+    into a one-process AdaGrad MatrixTable on the card, the stream one
+    and the sharded one (into another layout: one block, not two); each
+    Get and g_sqr equal the world's bit for bit. Each table leaves the
+    Zoo's registry after (later phases save the registry)."""
     import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
     from multiverso_tpu_torch.zoo import Zoo
-    ckdir = os.path.join(tmp, "ckpt", "world_d")
-    with open(os.path.join(ckdir, "manifest.json")) as f:
-        entry = next(e for e in json.load(f)["tables"].values()
-                     if e["name"] == "world_ada")
-    t = mv.MatrixTable(*WORLD_ADA_TABLE, updater="adagrad",
-                       name="world_ada")
-    try:
-        t0 = time.perf_counter()
-        with open(os.path.join(ckdir, entry["file"]), "rb") as f:
-            t.load(f, rows=int(entry["shape"][0]))
-        load_ms = (time.perf_counter() - t0) * 1e3
-        get_equal = bool(np.array_equal(
-            t.get(), np.load(os.path.join(tmp, "d_get.npy"))))
-        g = t.state["ustate"]["g_sqr"].cpu().numpy()
-        g_equal = bool(np.array_equal(
-            g, np.load(os.path.join(tmp, "d_gsqr.npy"))))
-        on_card = t.state["data"].device == mv.device()
-    finally:
-        Zoo.get()._tables.pop(t.table_id, None)
-        del t
-    if not (get_equal and g_equal and on_card):
-        raise AssertionError(f"world (d): the world's checkpoint restored "
-                             f"into one process differs (Get equal "
-                             f"{get_equal}, g_sqr equal {g_equal}, on the "
-                             f"card {on_card})")
-    return {"load_ms": load_ms, "file_bytes": os.path.getsize(
-        os.path.join(ckdir, entry["file"]))}
+    out = {}
+    for fmt, tag in (("stream", "world_d"), ("sharded", "world_d_sharded")):
+        ckdir = os.path.join(tmp, "ckpt", tag)
+        with open(os.path.join(ckdir, "manifest.json")) as f:
+            tid, entry = next((k, e) for k, e in json.load(f)[
+                "tables"].items() if e["name"] == "world_ada")
+        t = mv.MatrixTable(*WORLD_ADA_TABLE, updater="adagrad",
+                           name="world_ada")
+        try:
+            t0 = time.perf_counter()
+            if fmt == "stream":
+                with open(os.path.join(ckdir, entry["file"]), "rb") as f:
+                    t.load(f, rows=int(entry["shape"][0]))
+                nbytes = os.path.getsize(os.path.join(ckdir, entry["file"]))
+            else:
+                tdir = os.path.join(ckdir, "arrays", f"table_{tid}")
+                with open(os.path.join(tdir, "index.json")) as f:
+                    index = json.load(f)
+                t.load_blocks(index, lambda n, d=tdir:
+                              checkpoint._read_array(os.path.join(d, n)))
+                nbytes = sum(os.path.getsize(os.path.join(tdir, n))
+                             for n in os.listdir(tdir))
+            load_ms = (time.perf_counter() - t0) * 1e3
+            get_equal = bool(np.array_equal(
+                t.get(), np.load(os.path.join(tmp, "d_get.npy"))))
+            g = t.state["ustate"]["g_sqr"].cpu().numpy()
+            g_equal = bool(np.array_equal(
+                g, np.load(os.path.join(tmp, "d_gsqr.npy"))))
+            on_card = t.state["data"].device == mv.device()
+        finally:
+            Zoo.get()._tables.pop(t.table_id, None)
+            del t
+        if not (get_equal and g_equal and on_card):
+            raise AssertionError(
+                f"world (d): the world's {fmt} checkpoint restored into "
+                f"one process differs (Get equal {get_equal}, g_sqr equal "
+                f"{g_equal}, on the card {on_card})")
+        out[fmt] = {"load_ms": load_ms, "file_bytes": nbytes}
+    return out
+
+
+def world_sharded_check(ranks: list, one: dict) -> None:
+    """(d)'s sharded checkpoint: each rank's figures beside their
+    predictions (WORLD_CKPT_PREDICTED, findings), and its gates: a
+    rank's bytes written and staged at most WORLD_CKPT_SHARE_MAX of the
+    table's state, no gather in the sharded save or restore, the restore
+    at world 2 bit for bit, the staged bytes back to 0; ``one`` is the
+    one-process restore of the tag (checked bit for bit by
+    :func:`world_restore_check`)."""
+    pred = WORLD_CKPT_PREDICTED
+
+    def verdict(key, x):
+        lo, hi = pred[key]
+        return (f"predicted {lo}-{hi}: "
+                f"{'inside' if lo <= x <= hi else 'OUTSIDE'}")
+
+    for r, rk in enumerate(ranks):
+        c = rk["shard"]["sharded"]
+        whole = c["state_bytes"]
+        wrote, staged = c["written"] / whole, c["async_staged"] / whole
+        log(f"world (d) rank {r} sharded checkpoint of AdaGrad "
+            f"{WORLD_ADA_TABLE} ({whole} B of data and g_sqr): wrote "
+            f"{c['written']} B, share {wrote:.5f} "
+            f"({verdict('share', wrote)}); staged by block=False "
+            f"{c['async_staged']} B, share "
+            f"{staged:.5f}; blocking save {c['block_ms']:.1f} ms "
+            f"({verdict('sharded_block_ms', c['block_ms'])}); block=False "
+            f"returns in {c['async_ms']:.2f} ms "
+            f"({verdict('sharded_async_ms', c['async_ms'])}), wait_pending "
+            f"{c['async_wait_ms']:.1f} ms; the stream block=False at world "
+            f"{WORLD_RANKS} returns in {c['stream_async_ms']:.1f} ms "
+            f"({verdict('stream_async_ms', c['stream_async_ms'])}), staged "
+            f"{c['stream_async_staged']} B, wait_pending "
+            f"{c['stream_async_wait_ms']:.1f} ms; restore at world "
+            f"{WORLD_RANKS} {c['restore_ms']:.1f} ms; gathers: save "
+            f"{c['save_gathers']}, restore {c['restore_gathers']}")
+        bad = []
+        if not (wrote <= WORLD_CKPT_SHARE_MAX
+                and staged <= WORLD_CKPT_SHARE_MAX):
+            bad.append(f"shares {wrote:.5f} written, {staged:.5f} staged "
+                       f"(at most {WORLD_CKPT_SHARE_MAX})")
+        if c["save_gathers"] or c["restore_gathers"]:
+            bad.append("a gather in the sharded save or restore")
+        if not c["restored_equal"]:
+            bad.append("the restore at world 2 differs from the save")
+        if c["staged_after"]:
+            bad.append(f"{c['staged_after']} B still staged")
+        if bad:
+            raise AssertionError(f"world (d) rank {r} sharded: {bad}")
+    log(f"world (d) the sharded tag restored at world {WORLD_RANKS} bit "
+        f"for bit on both ranks, and into a one-process AdaGrad table on "
+        f"this card (one block, not two; {one['file_bytes']} B of files) "
+        f"in {one['load_ms']:.1f} ms: Get and g_sqr equal the world's bit "
+        f"for bit")
 
 
 def world_aggregate() -> dict:
@@ -8210,10 +8358,15 @@ def phase_world(dev) -> dict:
         if d["blocks"]["devices"] != [rk["device"]] or d["blocks"][
                 "data"][0] != d["sharding"]["padded_rows"] // WORLD_RANKS:
             raise AssertionError(f"world (d) rank {r}: blocks {d}")
-    log(f"world (d) the world's checkpoint ({restored['file_bytes']} B) "
-        f"restored into a one-process AdaGrad table on this card in "
-        f"{restored['load_ms']:.1f} ms: Get and g_sqr equal the world's "
-        f"bit for bit")
+        if any(d["launches"].values()):
+            raise AssertionError(f"world (d) rank {r}: flash launches "
+                                 f"{d['launches']}")
+    log(f"world (d) the world's checkpoint "
+        f"({restored['stream']['file_bytes']} B) restored into a "
+        f"one-process AdaGrad table on this card in "
+        f"{restored['stream']['load_ms']:.1f} ms: Get and g_sqr equal the "
+        f"world's bit for bit")
+    world_sharded_check(ranks, restored["sharded"])
     world_apps_check(ranks, apps_got, apps_ref)
     world_dlrm_check(ranks, dlrm_got, dlrm_ref, dev)
     counts = {k: sum(rk["lm"]["launches"][k] for rk in ranks)

@@ -29,8 +29,28 @@ plane's gauges under ``checkpoint``: host bytes staged by in-progress
 saves (a snapshot's buffers until its files are written, a per-shard
 save's copies) and the on-disk size of each rank's last committed tag.
 
-Not ported, by design: ``backend="orbax"`` (a JAX library's sharded
-format) raises ``ValueError``.
+``save(..., backend="orbax")`` is the sharded checkpoint, under the JAX
+package's backend name, so that a caller's code and
+``ElasticLoop(backend="orbax")`` run unchanged; its files are the port's
+own, not orbax's (orbax is a JAX library). Each rank writes only its own
+block of every table's data and row-shaped updater state, with
+``np.save``, under ``<tag>/arrays/table_<id>/`` (``data.<k>.npy``,
+``ustate.<key>.<k>.npy`` for block ``k``); rank 0 writes the leaves shared
+by all rows (``ustate.<key>.npy``), a JSON index a table
+(``index.json``: :meth:`Table.block_index`) and the tables without a
+device state (KV, async) in the stream format, as the JAX package does.
+Nothing is gathered. The ranks then vote, and rank 0 writes the manifest
+(``"backend": "orbax"``, ``"layout"``: :data:`LAYOUT`) and the commit
+marker only if every rank's files are whole; a failure on any rank
+raises on every rank and nothing becomes visible. ``block=False``
+snapshots each rank's block into pinned host buffers and writes on a
+thread; the vote and the manifest wait for :func:`wait_pending`. A
+restore reads, on each rank, only the saved rows that overlap its block
+(memory-mapped where local), so a checkpoint saved at any world size
+restores at any other. Neither package reads the other's sharded tags: a
+JAX-written orbax tag (no ``"layout"``) raises ``ValueError`` here, and
+the JAX restore fails inside orbax on the port's (ROADMAP C.27); the
+stream format crosses both ways.
 """
 
 from __future__ import annotations
@@ -119,6 +139,11 @@ def is_local(path: str) -> bool:
     return "://" not in path or path.startswith("file://")
 
 
+def _local(path: str) -> str:
+    """A local path or ``file://`` URI as a filesystem path."""
+    return path[len("file://"):] if path.startswith("file://") else path
+
+
 def _write_commit(path: str) -> None:
     with open_stream(_join(path, COMMIT_MARKER), "wb") as s:
         s.write(b"1")
@@ -128,8 +153,7 @@ def is_committed(path: str) -> bool:
     """True when ``path`` holds a COMPLETE checkpoint (the commit marker
     was written after everything else)."""
     if is_local(path):
-        local = path[len("file://"):] if path.startswith("file://") else path
-        return os.path.exists(os.path.join(local, COMMIT_MARKER))
+        return os.path.exists(os.path.join(_local(path), COMMIT_MARKER))
     try:
         with open_stream(_join(path, COMMIT_MARKER), "rb") as s:
             s.read(1)
@@ -138,15 +162,16 @@ def is_committed(path: str) -> bool:
         return False
 
 
+BACKENDS = ("stream", "orbax")
+# names the port's per-rank layout of backend="orbax" in the manifest: a
+# tag without it is orbax's own format, written by the JAX package
+LAYOUT = "multiverso_tpu_torch/rank-blocks/1"
+
+
 def _check_backend(backend: str) -> None:
-    if backend == "orbax":
-        raise ValueError(
-            "checkpoint backend='orbax': the orbax format is a JAX "
-            "library's and is not ported to multiverso_tpu_torch "
-            "(ROADMAP.md, \"Not ported, by design\"); use "
-            "backend='stream' (block=False for an asynchronous save)")
-    if backend != "stream":
-        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown checkpoint backend {backend!r}; choose "
+                         f"from {BACKENDS}")
 
 
 def _manifest_entry(table) -> Dict:
@@ -180,11 +205,13 @@ class _DevNull:
         return len(b)
 
 
-class _AsyncSave:
-    """One ``block=False`` save: the tables' snapshots, written by a
-    thread into ``path``; its manifest waits for :func:`wait_pending`.
-    Only rank 0 writes (``writer``); the other ranks' saves hold no job
-    and meet rank 0 at the barrier of :func:`wait_pending`."""
+class _SaveJob:
+    """One save's files, written by a thread (``block=False``) or inline:
+    ``jobs`` of ``(name under path, write(stream), nbytes)``, this rank's
+    own. It becomes visible only through :func:`_commit`, which every
+    rank calls: the ranks vote on their files, and rank 0 (``writer``)
+    writes the manifest only if every rank's are whole. ``staged`` is
+    the host memory the jobs hold until they are written."""
 
     def __init__(self, path: str, manifest: Dict, jobs,
                  writer: bool = True) -> None:
@@ -192,35 +219,56 @@ class _AsyncSave:
         self.writer = writer
         self.error: Optional[Exception] = None
         self._written = False   # every file, to its end
-        self._staged = sum(n for _, _, n in jobs)
-        _GAUGES.stage(self._staged)
-        self._thread = threading.Thread(target=self._run, args=(jobs,),
+        self._jobs = jobs
+        self._thread: Optional[threading.Thread] = None
+        self.staged = sum(n for _, _, n in jobs)
+        _GAUGES.stage(self.staged)
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self.run,
                                         name="mv-checkpoint-save",
                                         daemon=True)
         self._thread.start()
 
-    def _run(self, jobs) -> None:
+    def run(self) -> None:
+        jobs, self._jobs = self._jobs, []
         try:
             for fname, write, _ in jobs:
                 with open_stream(_join(self.path, fname), "wb") as s:
                     write(s)
             self._written = True
-        except Exception as e:   # noqa: BLE001 — raised by wait()
+        except Exception as e:   # noqa: BLE001 — raised by finish()
             self.error = e
         finally:
             jobs.clear()   # the snapshots' buffers go now
-            _GAUGES.unstage(self._staged)
+            _GAUGES.unstage(self.staged)
 
-    def wait(self) -> None:
-        self._thread.join()
+    def finish(self) -> None:
+        """Wait for the files, then vote (a collective): raise on every
+        rank unless every rank's files are whole, this rank's own error
+        where its write failed."""
+        if self._thread is not None:
+            self._thread.join()
+        if self.error is None and not self._written:
+            self.error = RuntimeError(f"checkpoint {self.path}: the write "
+                                      "ended before its last file")
+        failed = _failed_ranks(self.error is None)
         if self.error is not None:
             raise self.error
-        if not self._written:
-            raise RuntimeError(f"checkpoint {self.path}: the background "
-                               "write ended before its last file")
+        if failed:
+            raise RuntimeError(f"checkpoint {self.path}: rank(s) {failed} "
+                               "failed to write their files")
 
 
-_pending: Optional[_AsyncSave] = None   # the save awaiting its manifest
+def _failed_ranks(ok: bool) -> list:
+    """The ranks whose ``ok`` is False: an all-gather of one flag a rank
+    over the world (a collective); ``[]`` or ``[0]`` in one process."""
+    from multiverso_tpu_torch.parallel.collectives import process_allgather
+    flags = process_allgather(np.array([int(bool(ok))], np.int32))
+    return [r for r, f in enumerate(flags.reshape(-1)) if not f]
+
+
+_pending: Optional[_SaveJob] = None   # the save awaiting its manifest
 _pending_lock = threading.Lock()
 
 
@@ -230,30 +278,82 @@ def _write_manifest(path: str, manifest: Dict) -> None:
     _write_commit(path)
 
 
+def _commit(job: _SaveJob) -> None:
+    """Finish ``job`` (its vote), then have rank 0 write its manifest and
+    commit marker, and meet every rank at the barrier. A failed write on
+    any rank is discarded on every rank (no manifest, no marker:
+    ``latest`` keeps the previous committed tag) and raised on every
+    rank."""
+    try:
+        job.finish()
+    except BaseException:
+        log.error("checkpoint write failed; discarded the unfinalized "
+                  "checkpoint %s", job.path)
+        raise
+    if job.writer:
+        _write_manifest(job.path, job.manifest)
+        log.info("checkpoint finalized: %s (%d tables)", job.path,
+                 len(job.manifest["tables"]))
+    Zoo.get().barrier()
+
+
 def wait_pending() -> int:
     """Finish the in-flight ``block=False`` save, if any: wait for its
-    files, then write its manifest and commit marker (it becomes visible
-    to ``restore`` and ``latest``) and meet every rank at the barrier.
-    Returns the number finalized (0 or 1). A failed background write is
-    discarded (no manifest, no marker: ``latest`` keeps the previous
-    committed tag) and its error raised."""
+    files, vote, then write its manifest and commit marker (it becomes
+    visible to ``restore`` and ``latest``) and meet every rank at the
+    barrier. Returns the number finalized (0 or 1). A failed background
+    write on any rank is discarded and raised on every rank."""
     global _pending
     with _pending_lock:
         job, _pending = _pending, None
     if job is None:
         return 0
-    try:
-        job.wait()
-    except BaseException:
-        log.error("async checkpoint write failed; discarded the "
-                  "unfinalized checkpoint %s", job.path)
-        raise
-    if job.writer:
-        _write_manifest(job.path, job.manifest)
-        log.info("checkpoint finalized (async): %s (%d tables)", job.path,
-                 len(job.manifest["tables"]))
-    Zoo.get().barrier()
+    _commit(job)
     return 1
+
+
+def _array_writer(host, done):
+    """A job's ``write``: ``host`` (a snapshot's tensor) with ``np.save``
+    once the copy's event ``done`` has fired."""
+    def write(stream) -> None:
+        if done is not None:
+            done.synchronize()
+        np.save(stream, host.numpy(), allow_pickle=False)
+    return write
+
+
+def _sharded_jobs(zoo, writer: bool):
+    """The manifest of a sharded save and this rank's jobs, every table's
+    state snapshotted now: this rank's block files of each table with a
+    device state; on rank 0 (``writer``) also the leaves shared by all
+    rows, each table's index, and the other tables' stream files. No
+    collective."""
+    manifest: Dict = {"version": 1, "backend": "orbax", "layout": LAYOUT,
+                      "tables": {}}
+    jobs = []
+    for table_id, table in zoo.tables().items():
+        if hasattr(table, "block_snapshot"):
+            manifest["tables"][str(table_id)] = dict(
+                _manifest_entry(table), kind="orbax")
+            tdir = f"arrays/table_{table_id}"
+            files, done = table.block_snapshot(shared=writer)
+            for name, host in files:
+                jobs.append((f"{tdir}/{name}", _array_writer(host, done),
+                             host.numel() * host.element_size()))
+            if writer:
+                index = json.dumps(dict(table.block_index(),
+                                        name=table.name)).encode()
+                jobs.append((f"{tdir}/index.json",
+                             lambda s, b=index: s.write(b), len(index)))
+        elif hasattr(table, "store"):
+            # tables without a device state ride the stream format in the
+            # same tag, written by rank 0, as the JAX package does
+            fname = f"{table.name}.{table_id}.mvt"
+            manifest["tables"][str(table_id)] = dict(
+                _manifest_entry(table), kind="stream", file=fname)
+            if writer:
+                jobs.append((fname, *_snapshot(table)))
+    return manifest, jobs
 
 
 def save(directory: str, tag: str = "checkpoint",
@@ -261,63 +361,77 @@ def save(directory: str, tag: str = "checkpoint",
     """Write every registered table (data + updater state) under
     ``directory/tag/``; the commit marker lands last. Returns the
     checkpoint path. A collective in a world of several processes, as in
-    the JAX package: rank 0 writes the whole of each table, and the other
-    ranks take part in the gathers of the sharded tables' blocks (every
-    rank passes the same ``directory``, which every rank's ``restore``
-    reads); then the ranks meet at the barrier. An async PS table's
-    ``store`` is no collective: the other ranks skip it.
+    the JAX package (every rank passes the same ``directory``, which
+    every rank's ``restore`` reads); the ranks meet at the barrier.
 
-    ``block=False`` returns once every table's state is snapshotted (a
-    sharded table's blocks gathered now) and writes the same files on a
-    thread; the manifest and the marker wait for :func:`wait_pending`
-    (the next save or restore calls it). Each save first finalizes the
-    one in flight."""
+    ``backend="stream"``: rank 0 writes the whole of each table, and the
+    other ranks take part in the gathers of the sharded tables' blocks.
+    An async PS table's ``store`` is no collective: the other ranks skip
+    it. ``backend="orbax"``: each rank writes its own blocks (the module
+    docstring), and nothing is gathered.
+
+    ``block=False`` returns once every table's state is snapshotted (with
+    the stream format a sharded table's blocks are gathered now) and
+    writes the files on a thread; the vote, the manifest and the marker
+    wait for :func:`wait_pending` (the next save or restore calls it).
+    Each save first finalizes the one in flight."""
     _check_backend(backend)
     wait_pending()
     zoo = Zoo.get()
     writer = zoo.rank() == 0
     path = _join(directory, tag)
-    manifest: Dict = {"tables": {}, "version": 1}
-    jobs = []
-    for table_id, table in zoo.tables().items():
-        if not hasattr(table, "store"):
-            continue
-        fname = f"{table.name}.{table_id}.mvt"
-        manifest["tables"][str(table_id)] = dict(
-            _manifest_entry(table), file=fname)
-        if not writer and not getattr(table, "collective_store", True):
-            continue
-        if not block:
-            job = _snapshot(table)
+    if backend == "orbax":
+        manifest, jobs = _sharded_jobs(zoo, writer)
+    else:
+        manifest = {"tables": {}, "version": 1}
+        jobs = []
+        for table_id, table in zoo.tables().items():
+            if not hasattr(table, "store"):
+                continue
+            fname = f"{table.name}.{table_id}.mvt"
+            manifest["tables"][str(table_id)] = dict(
+                _manifest_entry(table), file=fname)
+            if not writer and not getattr(table, "collective_store", True):
+                continue
+            if not block:
+                job = _snapshot(table)
+                if writer:
+                    jobs.append((fname, *job))
+            elif writer:
+                with open_stream(_join(path, fname), "wb") as s:
+                    table.store(s)
+            else:
+                table.store(_DevNull())
+        if block:
             if writer:
-                jobs.append((fname, *job))
-        elif writer:
-            with open_stream(_join(path, fname), "wb") as s:
-                table.store(s)
-        else:
-            table.store(_DevNull())
-    if not block:
-        global _pending
-        with _pending_lock:
-            _pending = _AsyncSave(path, manifest, jobs, writer=writer)
+                _write_manifest(path, manifest)
+                log.info("checkpoint saved: %s (%d tables)", path,
+                         len(manifest["tables"]))
+            zoo.barrier()
+            return path
+    job = _SaveJob(path, manifest, jobs, writer=writer)
+    if block:
+        job.run()
+        _commit(job)
         return path
-    if writer:
-        _write_manifest(path, manifest)
-        log.info("checkpoint saved: %s (%d tables)", path,
-                 len(manifest["tables"]))
-    zoo.barrier()
+    global _pending
+    job.start()
+    with _pending_lock:
+        _pending = job
     return path
 
 
 def restore(directory: str, tag: str = "checkpoint") -> int:
     """Load every registered table from a checkpoint written by
-    :func:`save` (of either package). Tables are matched by registration
-    id and name; mismatched shapes raise. Every rank reads the whole of
-    each table and a sharded table keeps this rank's block; a table
-    saved at another block count (its padding differs) loads when its
-    logical shape is this table's. An
-    asynchronous save in flight is finalized first. Returns the number
-    of tables restored."""
+    :func:`save` (the stream format of either package, or the port's
+    sharded one). Tables are matched by registration id and name;
+    mismatched shapes raise; tables added since the save are left as
+    they are. Stream format: every rank reads the whole of each table
+    and a sharded table keeps this rank's block; a table saved at
+    another block count (its padding differs) loads when its logical
+    shape is this table's. Sharded format: each rank reads only the
+    saved rows of its own block. An asynchronous save in flight is
+    finalized first. Returns the number of tables restored."""
     from multiverso_tpu_torch.table import Table
     wait_pending()
     zoo = Zoo.get()
@@ -329,8 +443,10 @@ def restore(directory: str, tag: str = "checkpoint") -> int:
             "previous committed tag instead")
     with open_stream(_join(path, "manifest.json"), "rb") as s:
         manifest = json.loads(s.read().decode())
-    if manifest.get("backend", "stream") != "stream":
-        _check_backend(manifest["backend"])
+    backend = manifest.get("backend", "stream")
+    if backend == "orbax":
+        return _restore_sharded(path, manifest)
+    _check_backend(backend)
     restored = 0
     for table_id, table in zoo.tables().items():
         entry = manifest["tables"].get(str(table_id))
@@ -350,6 +466,61 @@ def restore(directory: str, tag: str = "checkpoint") -> int:
         restored += 1
     zoo.barrier()
     log.info("checkpoint restored: %s (%d tables)", path, restored)
+    return restored
+
+
+def _read_array(path: str) -> np.ndarray:
+    """A saved array: memory-mapped where the file is local (only the
+    bytes indexed are read), else read whole."""
+    if is_local(path):
+        return np.load(_local(path), mmap_mode="r", allow_pickle=False)
+    with open_stream(path, "rb") as s:
+        return np.load(io.BytesIO(s.read()), allow_pickle=False)
+
+
+def _restore_sharded(path: str, manifest: Dict) -> int:
+    """:func:`restore` of a sharded tag: each table with a device state
+    loads its rank's block (``Table.load_blocks``), the others their
+    stream files."""
+    if manifest.get("layout") != LAYOUT:
+        raise ValueError(
+            f"checkpoint {path} is backend 'orbax' in layout "
+            f"{manifest.get('layout')!r}, not the port's {LAYOUT!r}: a tag "
+            "without a layout is orbax's own format, which the JAX package "
+            "writes and the port does not read (orbax is a JAX library); "
+            "save it with backend='stream', which both packages read")
+    zoo = Zoo.get()
+    tables = zoo.tables()
+    for table_id, entry in manifest["tables"].items():
+        table = tables.get(int(table_id))
+        if table is not None and entry["name"] != table.name:
+            raise ValueError(
+                f"checkpoint table {table_id} is {entry['name']!r}, "
+                f"registry has {table.name!r} — create tables in the same "
+                "order before restoring")
+    restored = 0
+    for table_id, table in tables.items():
+        entry = manifest["tables"].get(str(table_id))
+        if entry is None:
+            continue
+        if entry.get("kind") == "orbax":
+            if not hasattr(table, "load_blocks"):
+                raise ValueError(f"checkpoint table {table_id} holds a "
+                                 f"device state; {table.name!r} has none")
+            tdir = _join(path, "arrays", f"table_{table_id}")
+            with open_stream(_join(tdir, "index.json"), "rb") as s:
+                index = json.loads(s.read().decode())
+            table.load_blocks(index, lambda name, d=tdir: _read_array(
+                _join(d, name)))
+        elif hasattr(table, "load"):
+            with open_stream(_join(path, entry["file"]), "rb") as s:
+                table.load(s)
+        else:
+            continue
+        restored += 1
+    zoo.barrier()
+    log.info("checkpoint restored (sharded): %s (%d tables)", path,
+             restored)
     return restored
 
 

@@ -294,6 +294,11 @@ class ElasticLoop:
         return True
 
     def _prune(self) -> None:
+        """Remove all but the newest ``keep`` committed tags, on rank 0
+        only (the other ranks would race it over the same tags), each
+        tag's nested directories with it."""
+        if Zoo.get().rank() != 0:
+            return
         tags = sorted(t for t in os.listdir(self.directory)
                       if t.startswith("step_") and
                       os.path.exists(os.path.join(self.directory, t,

@@ -1159,12 +1159,9 @@ class Table:
         ``(write, nbytes)``. ``write(stream)`` writes what :meth:`store`
         would have written at this call, whatever the table did since;
         ``nbytes`` is the host memory the snapshot holds until ``write``
-        returns. On the card the data and each updater-state leaf are
-        copied into pinned host buffers on the table's stream, where every
-        later op of the table runs after the copies (``write`` waits for
-        their event); on the CPU they are cloned. A sharded table gathers
-        its blocks into host arrays now (a collective, on the caller's
-        thread)."""
+        returns. The data and each updater-state leaf are copied by
+        :meth:`_host_copies`. A sharded table gathers its blocks into
+        host arrays now (a collective, on the caller's thread)."""
         self._flush_host_adds()
         with self._dispatch_lock:
             if self._num_shards > 1:
@@ -1172,17 +1169,9 @@ class Table:
                 hosts, done = [torch.from_numpy(a) for a in
                                [data] + leaves], None
             else:
-                srcs = [self._data] + [leaf for _, leaf in
-                                       self._state_leaves()]
-                if self.device.type == "cuda":
-                    with torch.cuda.stream(self._stream):
-                        hosts = [torch.empty(t.shape, dtype=t.dtype,
-                                             pin_memory=True) for t in srcs]
-                        for h, t in zip(hosts, srcs):
-                            h.copy_(t, non_blocking=True)
-                        done = self._event()
-                else:
-                    hosts, done = [t.clone() for t in srcs], None
+                hosts, done = self._host_copies(
+                    [self._data] + [leaf for _, leaf in
+                                    self._state_leaves()])
         nbytes = sum(h.numel() * h.element_size() for h in hosts)
 
         def write(stream) -> None:
@@ -1192,6 +1181,142 @@ class Table:
                                [h.numpy() for h in hosts[1:]])
 
         return write, nbytes
+
+    def _host_copies(self, srcs) -> Tuple[list, Optional[torch.cuda.Event]]:
+        """Host copies of the tensors ``srcs`` as they are now, and the
+        event to wait for before reading them (None on the CPU). On the
+        card they are pinned buffers filled on the table's stream, where
+        every later op of the table runs after the copies; on the CPU
+        they are clones. Caller holds the dispatch lock."""
+        if self.device.type != "cuda":
+            return [t.clone() for t in srcs], None
+        with torch.cuda.stream(self._stream):
+            hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in srcs]
+            for h, t in zip(hosts, srcs):
+                h.copy_(t, non_blocking=True)
+            return hosts, self._event()
+
+    # ------------------------------------------------------------------ #
+    # the sharded checkpoint (checkpoint.save(backend="orbax")): each rank
+    # writes and reads its own block, nothing is gathered
+    # ------------------------------------------------------------------ #
+    def block_index(self) -> Dict[str, Any]:
+        """The JSON index of this table in a sharded checkpoint: the
+        logical shape, the padded row count, the dtype, each block's
+        padded row range ``[lo, hi)`` in block order, and each leaf's row
+        axis, or ``"shared"`` for a leaf shared by all rows (Adam's step
+        count). The leaves are ``data`` and ``ustate.<key>``; a row leaf's
+        block ``k`` is the file ``<leaf>.<k>.npy``, a shared leaf's the
+        file ``<leaf>.npy``."""
+        n = self._padded_rows // self._num_shards
+        leaves: Dict[str, Any] = {"data": 0}
+        for key, leaf in self._state_leaves():
+            axis = self._state_row_axis(leaf)
+            leaves[f"ustate.{key}"] = "shared" if axis is None else axis
+        return {"shape": list(self.shape), "padded_rows": self._padded_rows,
+                "dtype": str(self.np_dtype),
+                "blocks": [[k * n, (k + 1) * n]
+                           for k in range(self._num_shards)],
+                "leaves": leaves}
+
+    def _block_writer(self) -> bool:
+        """True on the one rank that writes this rank's block: the first
+        of the ranks that hold it (index 0 on every mesh axis but the
+        table's)."""
+        others = tuple(a for a in self._mesh.axis_names if a != self._axis)
+        return not others or self._mesh.index(others) == 0
+
+    def block_snapshot(self, shared: bool
+                       ) -> Tuple[list, Optional[torch.cuda.Event]]:
+        """The files this rank writes to a sharded checkpoint, as the
+        state is now: ``([(file name, host tensor)], event)``, copied by
+        :meth:`_host_copies` (wait for the event before reading them).
+        They are this rank's block of the data and of each row-shaped
+        updater-state leaf, when this rank is its block's writer, and,
+        with ``shared`` (rank 0), the leaves shared by all rows. No
+        collective: every rank copies only what it holds."""
+        self._flush_host_adds()
+        with self._dispatch_lock:
+            k = self._rows[0] // (self._padded_rows // self._num_shards)
+            mine = self._block_writer()
+            files, srcs = [], []
+            if mine:
+                files.append(f"data.{k}.npy")
+                srcs.append(self._data)
+            for key, leaf in self._state_leaves():
+                if self._state_row_axis(leaf) is None:
+                    if not shared:
+                        continue
+                    files.append(f"ustate.{key}.npy")
+                elif mine:
+                    files.append(f"ustate.{key}.{k}.npy")
+                else:
+                    continue
+                srcs.append(leaf)
+            hosts, done = self._host_copies(srcs)
+        return list(zip(files, hosts)), done
+
+    def load_blocks(self, index: Dict[str, Any],
+                    read: Callable[[str], np.ndarray]) -> None:
+        """Load this rank's block from a table of a sharded checkpoint:
+        ``index`` is its :meth:`block_index`, ``read(name)`` a file's
+        array (memory-mapped where the file is local, so that only the
+        rows taken are read). Only the saved blocks that overlap this
+        rank's rows are read, so a checkpoint of any block count loads.
+        At the saved padding every row loads; at another padding the
+        logical rows load and this table's own padding rows are zero, as
+        :meth:`load` with ``rows``. A leaf shared by all rows loads whole.
+        The state lands on the table's device. A logical shape or an
+        updater state that differs raises ``ValueError``."""
+        if list(index["shape"]) != list(self.shape):
+            raise ValueError(f"checkpoint shape {tuple(index['shape'])} != "
+                             f"table {self.shape}")
+        want = self.block_index()["leaves"]
+        if index["leaves"] != want:
+            raise ValueError(f"checkpoint updater state mismatch: "
+                             f"{index['leaves']} != {want}")
+        self._mark_mutated()
+        self._flush_host_adds()   # a late-applying add must not overwrite
+        n_file = int(index["padded_rows"])
+        keep = n_file if n_file == self._padded_rows else self.shape[0]
+        lo, hi = self._rows
+
+        def block(name: str, axis: int, like: torch.Tensor) -> torch.Tensor:
+            out = torch.zeros(like.shape, dtype=like.dtype)
+            for k, (slo, shi) in enumerate(index["blocks"]):
+                a, b = max(lo, slo), min(hi, shi, keep)
+                if a >= b:
+                    continue
+                src = read(f"{name}.{k}.npy")
+                shape = list(like.shape)
+                shape[axis] = shi - slo
+                if list(src.shape) != shape:
+                    raise ValueError(f"checkpoint {name} block {k}: shape "
+                                     f"{src.shape} != {tuple(shape)}")
+                part = np.array(   # a copy: the file's rows, read now
+                    src[(slice(None),) * axis + (slice(a - slo, b - slo),)])
+                out.narrow(axis, a - lo, b - a).copy_(
+                    torch.from_numpy(part))
+            return out
+
+        def shared(name: str, like: torch.Tensor) -> torch.Tensor:
+            arr = np.array(read(f"{name}.npy"))
+            if tuple(arr.shape) != tuple(like.shape):
+                raise ValueError(f"checkpoint {name}: shape {arr.shape} != "
+                                 f"{tuple(like.shape)}")
+            return torch.as_tensor(arr).to(like.dtype)
+
+        data = block("data", 0, self._data)
+        ustate = {}
+        for key, leaf in self._state_leaves():
+            axis = want[f"ustate.{key}"]
+            ustate[key] = (shared(f"ustate.{key}", leaf) if axis == "shared"
+                           else block(f"ustate.{key}", axis, leaf))
+        with self._dispatch_lock:
+            self._data = data.to(self.device)
+            self._ustate = {k: v.to(self.device) for k, v in ustate.items()}
+            self._wrote_in_place()
 
     def load(self, stream, rows: Optional[int] = None) -> None:
         """Read what :meth:`store` (of either package) wrote: the whole

@@ -12,7 +12,8 @@ tests/test_bindings.py:146-175 and :247-256 ported):
   and KV tables' included; the JAX package's ``restore`` reads it into
   tables equal to the port's bit for bit;
 * the checkpoint gauge counts the snapshot's bytes while it is written
-  and returns to 0; ``backend="orbax"`` still raises.
+  and returns to 0; ``backend="orbax"`` (the sharded backend,
+  tests/test_torch_sharded_checkpoint.py) round-trips, blocking and not.
 """
 
 import filecmp
@@ -131,13 +132,22 @@ def test_failed_write_is_discarded_and_raised(port, tmp_path, monkeypatch):
     np.testing.assert_array_equal(t.get(), np.ones(16, np.float32))
 
 
-def test_orbax_still_raises(port, tmp_path):
-    tmv.ArrayTable(8, name="async_v")
-    for block in (True, False):
-        with pytest.raises(ValueError, match="orbax"):
-            tck.save(str(tmp_path), tag="x", backend="orbax", block=block)
-    assert not os.path.exists(tmp_path / "x")
-    assert tck.wait_pending() == 0
+@pytest.mark.parametrize("block", [True, False])
+def test_orbax_round_trips(port, tmp_path, block):
+    """``backend="orbax"``, blocking and not, on the arguments that
+    raised before the sharded backend was ported: the tag is visible
+    once the save is finalized (at once, or in ``wait_pending``), its
+    staged bytes return to 0, and the table comes back bit for bit."""
+    t = tmv.ArrayTable(8, updater="adam", name="async_v")
+    t.add(np.arange(8, dtype=np.float32))
+    snap = t.get().copy()
+    tck.save(str(tmp_path), tag="x", backend="orbax", block=block)
+    assert tck.is_committed(str(tmp_path / "x")) == block
+    assert tck.wait_pending() == (0 if block else 1)
+    assert tck.latest(str(tmp_path)) == "x" and _staged() == 0
+    t.add(np.ones(8, np.float32))
+    assert tck.restore(str(tmp_path), tag="x") == 1
+    np.testing.assert_array_equal(t.get(), snap)
 
 
 def _tables(pkg, updater):

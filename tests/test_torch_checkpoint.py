@@ -14,9 +14,10 @@ either package and restored by the other.
   for every updater — the state leaves in sorted key order, the replay
   channels adopted (a re-sent stamped frame dedupes), the version kept;
 * commit markers: torn tags are invisible, ``latest`` skips uncommitted
-  tags, ``prune_shard_tags`` keeps ``keep``, and ``backend="orbax"``
-  raises, with ``block=False`` too (the asynchronous stream save has
-  tests/test_torch_async_save.py).
+  tags, ``prune_shard_tags`` keeps ``keep``; an unknown backend raises,
+  and ``backend="orbax"``, blocking and not, round-trips the Zoo (the
+  asynchronous stream save has tests/test_torch_async_save.py, the
+  sharded backend tests/test_torch_sharded_checkpoint.py).
 """
 
 import json
@@ -146,14 +147,44 @@ def test_zoo_restore_rejects_a_renamed_table(runtimes, tmp_path):
         tck.restore(str(tmp_path), "t")
 
 
-@pytest.mark.parametrize("kw", [dict(backend="orbax"),
-                                dict(backend="orbax", block=False),
-                                dict(backend="nope")])
-def test_orbax_and_async_save_raise(runtimes, tmp_path, kw):
+def test_unknown_backend_raises(runtimes, tmp_path):
     tmv.ArrayTable(4, name="a")
-    with pytest.raises(ValueError):
-        tck.save(str(tmp_path), "t", **kw)
+    with pytest.raises(ValueError, match="backend"):
+        tck.save(str(tmp_path), "t", backend="nope")
     assert not os.path.exists(tmp_path / "t")
+
+
+@pytest.mark.parametrize("kw", [dict(backend="orbax"),
+                                dict(backend="orbax", block=False)])
+def test_orbax_backend_round_trips(runtimes, tmp_path, kw):
+    """The sharded backend, blocking and not, in the port's layout: the
+    whole Zoo (the KV table in the stream format inside the tag) comes
+    back bit for bit after later adds, updater state included (the next
+    add lands where it landed from the saved state)."""
+    tables = _zoo_tables(tmv, "adagrad")
+    _train(tables, AddOption, 0)
+    saved = _reads(tables)
+    tck.save(str(tmp_path), "t", **kw)
+    tck.wait_pending()
+    with open(tmp_path / "t" / "manifest.json") as f:
+        manifest = json.load(f)
+    assert manifest["backend"] == "orbax" and manifest["layout"] == tck.LAYOUT
+    assert [e["kind"] for e in manifest["tables"].values()] == [
+        "orbax", "orbax", "stream", "orbax"]
+    _train(tables, AddOption, 1)
+    after = _reads(tables)
+    assert tck.restore(str(tmp_path), "t") == 4
+    for a, b in zip(_reads(tables), saved):
+        if isinstance(a, dict):
+            assert a == b
+        else:
+            np.testing.assert_array_equal(a, b)
+    _train(tables, AddOption, 1)
+    for a, b in zip(_reads(tables), after):
+        if isinstance(a, dict):
+            assert a == b
+        else:
+            np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------- #

@@ -184,8 +184,75 @@ def test_elastic_loop_resumes_from_a_jax_checkpoint(runtimes, tmp_path):
     np.testing.assert_array_equal(tt.get(), want)
 
 
+def _orbax_steps(t, start, stop, directory, **kw):
+    loop = tel.ElasticLoop(directory, every=3, keep=2,
+                           heartbeat_interval=0.05, **kw)
+    try:
+        assert loop.resume() == start
+        for step in range(start, stop):
+            t.add(np.full(6, step + 1, np.float32))
+            loop.completed(step)
+    finally:
+        loop.stop()
+
+
 @pytest.mark.parametrize("kw", [dict(backend="orbax"),
                                 dict(backend="orbax", block=False)])
-def test_elastic_loop_refuses_the_orbax_format(tmp_path, kw):
-    with pytest.raises(ValueError):
-        tel.ElasticLoop(str(tmp_path), **kw)
+def test_elastic_loop_resumes_on_the_orbax_format(runtimes, tmp_path, kw):
+    """The sharded checkpoint under ``ElasticLoop`` (the JAX package's
+    ``tests/test_elastic.py`` TestElasticLoop cases): checkpoints after
+    steps 2 and 5 in the sharded layout; a restarted Zoo resumes at 6
+    and, redoing step 6 from the restored AdaGrad state, lands on the
+    first run's table bit for bit."""
+    d = str(tmp_path / "run")
+    t = tmv.ArrayTable(6, updater="adagrad", name="w")
+    _orbax_steps(t, 0, 7, d, **kw)
+    want = t.get().copy()
+    tags = sorted(p.name for p in (tmp_path / "run").iterdir()
+                  if p.name.startswith("step_"))
+    assert tags == ["step_000000002", "step_000000005"]
+    with open(tmp_path / "run" / tags[-1] / "manifest.json") as f:
+        assert json.load(f)["backend"] == "orbax"
+    assert (tmp_path / "run" / tags[-1] / "arrays" / "table_0").is_dir()
+    t.add(np.full(6, 100.0, np.float32))   # lost work past the save
+    TZoo.get().stop()
+    tmv.init(device="cpu")
+    t2 = tmv.ArrayTable(6, updater="adagrad", name="w")
+    loop = tel.ElasticLoop(d, every=3, heartbeat_interval=0.05, **kw)
+    try:
+        assert loop.resume() == 6
+    finally:
+        loop.stop()
+    assert not np.array_equal(t2.get(), want)
+    t2.add(np.full(6, 7.0, np.float32))
+    np.testing.assert_array_equal(t2.get(), want)
+
+
+def test_prune_removes_nothing_on_a_rank_other_than_0(runtimes, tmp_path,
+                                                      monkeypatch):
+    """Only rank 0 prunes, as in the JAX package
+    (``multiverso_tpu/elastic.py:319-321``): every rank of a world
+    passes the same directory, and ranks that all removed the same tags
+    raced ``rmtree`` over them (the loser raised ``FileNotFoundError``).
+    A rank other than 0 leaves every tag in place; rank 0 prunes."""
+    d = str(tmp_path / "run")
+    tmv.ArrayTable(4, name="p")
+    loop = tel.ElasticLoop(d, every=1, keep=3, heartbeat_interval=60)
+
+    def tags():
+        return sorted(p.name for p in (tmp_path / "run").iterdir()
+                      if p.name.startswith("step_"))
+
+    try:
+        for step in range(3):
+            loop.completed(step)
+        assert tags() == [f"step_00000000{i}" for i in range(3)]
+        loop.keep = 1
+        monkeypatch.setattr(TZoo, "rank", lambda self: 1)
+        loop._prune()
+        assert tags() == [f"step_00000000{i}" for i in range(3)]
+        monkeypatch.setattr(TZoo, "rank", lambda self: 0)
+        loop._prune()
+        assert tags() == ["step_000000002"]
+    finally:
+        loop.stop()

@@ -22,6 +22,14 @@ this CPU, on the same inputs.
   with one worker id on every rank; a checkpoint of the sharded world
   of 2 loaded into one-process tables of both packages, and a
   one-process checkpoint restored into the sharded world, bit for bit.
+* The sharded checkpoint (``backend="orbax"``): the world of 2 (the
+  seeded run) and the world of 4 (the scenario run) each save their
+  blocks, blocking and not, and restore their own tag, a one-process
+  tag and the other world's (each waits for the other's commit marker);
+  every file holds exactly its rank's block, no rank gathers, and each
+  restore is bit for bit, as is a one-process restore of the world of
+  2's tag and the JAX package's orbax round trip of the same state on
+  its 8-device mesh; ``ElasticLoop`` resumes on it at both worlds.
 * ``StoreRendezvous`` in one process, and a two-service async world over
   it against the ``FileRendezvous`` world bit for bit.
 * ``examples/mlp_data_parallel.py`` at two ranks against the JAX
@@ -140,7 +148,7 @@ _CKPT = tempfile.mkdtemp(prefix="mv_world_ckpt_")
 _RUNS = {
     "scenario2": lambda: _both(2, _WORKER + ["scenario"],
                                "multiprocess_worker.py"),
-    "scenario4": lambda: _both(4, _WORKER + ["scenario"],
+    "scenario4": lambda: _both(4, _WORKER + ["scenario", "--ckpt", _CKPT],
                                "multiprocess_worker.py"),
     "seeded": lambda: _both(2, _WORKER + ["seeded", "--seed", str(SEED),
                                           "--ckpt", _CKPT],
@@ -505,6 +513,245 @@ def test_one_process_checkpoint_restores_into_the_sharded_world(runs):
             whole[: len(want["get"])] = np.asarray(want["get"], np.float32)
             np.testing.assert_array_equal(
                 np.asarray(blk["data"], np.float32), whole[lo:hi])
+
+
+# ---------------------------------------------------------------------- #
+# (2c) the sharded checkpoint (backend="orbax")
+# ---------------------------------------------------------------------- #
+SHARDED = {2: ("seeded", 0), 4: ("scenario4", 0)}   # the run, port side
+
+
+def _sharded(runs, world):
+    port, _ = _parsed(runs, SHARDED[world][0])
+    out = [r["sharded"] for r in port]
+    assert [o["rank"] for o in out] == list(range(world))
+    assert all(o["world"] == world for o in out)
+    return out
+
+
+def _state_equal(got, want, what):
+    assert sorted(got) == sorted(want), what
+    for name in want:
+        np.testing.assert_array_equal(
+            np.asarray(got[name]["get"], np.float32),
+            np.asarray(want[name]["get"], np.float32),
+            err_msg=f"{what} {name}")
+        _leaves_equal([np.asarray(l, np.float32)
+                       for l in got[name]["leaves"]],
+                      [np.asarray(l, np.float32)
+                       for l in want[name]["leaves"]], f"{what} {name}")
+
+
+def _table_ids():
+    with open(os.path.join(_CKPT, "orbax_w2", "manifest.json")) as f:
+        tables = json.load(f)["tables"]
+    return {e["name"]: int(tid) for tid, e in tables.items()}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("tag", ["", "_async"])
+def test_sharded_save_files_hold_each_ranks_block(runs, world, tag):
+    """Blocking and ``block=False``: block ``r`` of every table's data
+    and row-shaped updater state is the file ``<leaf>.<r>.npy``, equal to
+    rank r's block bit for bit; each rank opened for writing only its
+    own block's files (rank 0 also the indexes, the shared leaves and the
+    manifest and marker), and staged only its own block (rank 0 also the
+    indexes and the shared leaves), back to 0 after."""
+    out = _sharded(runs, world)
+    ids = _table_ids()
+    root = os.path.join(_CKPT, f"orbax_w{world}{tag}")
+    extra = 0
+    for name, tid in ids.items():
+        tdir = os.path.join(root, "arrays", f"table_{tid}")
+        with open(os.path.join(tdir, "index.json")) as f:
+            index = json.load(f)
+        assert len(index["blocks"]) == world
+        extra += os.path.getsize(os.path.join(tdir, "index.json"))
+        for leaf, axis in index["leaves"].items():
+            if axis == "shared":
+                extra += np.load(os.path.join(tdir, f"{leaf}.npy")).nbytes
+                continue
+            for r, o in enumerate(out):
+                blk = o["blocks"][name]
+                assert blk["rows"] == index["blocks"][r]
+                want = (blk["data"] if leaf == "data" else
+                        blk["ustate"][leaf.split(".", 1)[1]])
+                got = np.load(os.path.join(tdir, f"{leaf}.{r}.npy"))
+                np.testing.assert_array_equal(
+                    got, np.asarray(want, got.dtype),
+                    err_msg=f"{name} {leaf} block {r}")
+    for r, o in enumerate(out):
+        mine = [os.path.relpath(p, root) for p in o["written"]
+                if p.startswith(root + os.sep)]
+        arrays = sorted(p for p in mine if p.endswith(".npy")
+                        and p.rsplit(".", 2)[-2].isdigit())
+        assert arrays and all(p.endswith(f".{r}.npy") for p in arrays), r
+        others = sorted(set(mine) - set(arrays))
+        if r:
+            assert others == [], others
+        else:
+            assert {"manifest.json", "COMMIT"} <= set(others)
+        assert o["staged"] == o["block_bytes"] + (extra if r == 0 else 0)
+        assert o["staged_after"] == 0
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_save_and_restore_gather_nothing(runs, world):
+    """No call of ``unshard``, ``whole_state``, ``_stored_arrays``,
+    ``raw_all_gather`` or the host gathers of a table's rows during the
+    sharded saves or any sharded restore, on every rank."""
+    for o in _sharded(runs, world):
+        assert set(o["save_calls"].values()) == {0}, o["save_calls"]
+        assert o["restores"], o
+        for tag, got in o["restores"].items():
+            assert set(got["calls"].values()) == {0}, (tag, got["calls"])
+            assert got["written"] == [], (tag, got["written"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("mode", ["block", "async"])
+def test_a_failed_write_on_one_rank_raises_on_every_rank(runs, world, mode):
+    """The last rank's array files fail to open: that rank raises its
+    own error, every other rank a RuntimeError naming it, and no manifest
+    or commit marker is written."""
+    last = world - 1
+    root = os.path.join(_CKPT, f"orbax_w{world}_broken_{mode}")
+    for o in _sharded(runs, world):
+        got = o["failures"]
+        assert got[f"{mode}_committed"] is False
+        if o["rank"] == last:
+            assert got[mode] == "OSError: disk full", got
+        else:
+            assert got[mode].startswith("RuntimeError") and (
+                f"rank(s) [{last}] failed" in got[mode]), got
+    assert not os.path.exists(os.path.join(root, "manifest.json"))
+    assert not os.path.exists(os.path.join(root, "COMMIT"))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_restore_at_the_same_world(runs, world):
+    for o in _sharded(runs, world):
+        got = o["restores"][f"orbax_w{world}"]
+        assert got["n"] == 3
+        _state_equal(got["state"], o["saved"], f"rank {o['rank']}")
+
+
+@pytest.mark.parametrize("src,dst", [(1, 2), (1, 4), (2, 4), (4, 2)])
+def test_sharded_restore_across_layouts(runs, src, dst):
+    """A tag saved at one block count restores at another bit for bit:
+    the one-process tag into the worlds of 2 and 4, and each world's tag
+    into the other."""
+    want = (runs["one"] if src == 1 else _sharded(runs, src)[0]["saved"])
+    tag = "one_orbax" if src == 1 else f"orbax_w{src}"
+    for o in _sharded(runs, dst):
+        assert tag in o["restores"], (tag, sorted(o["restores"]))
+        _state_equal(o["restores"][tag]["state"], want,
+                     f"{src}->{dst} rank {o['rank']}")
+
+
+def _port_one_process_restore(tag):
+    """``tag`` restored into one-process port tables: each table's Get
+    and stored leaves."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+    mv.init(device="cpu")
+    try:
+        tables = tw.ckpt_tables(mv)
+        assert checkpoint.restore(_CKPT, tag=tag) == 3
+        return tw.ckpt_state(tables)
+    finally:
+        mv.shutdown()
+
+
+def test_sharded_restore_of_the_world_in_one_process(runs):
+    """2 -> 1: the world of 2's tag restored into one-process tables."""
+    _state_equal(_port_one_process_restore("orbax_w2"),
+                 _sharded(runs, 2)[0]["saved"], "2->1")
+
+
+def _jax_orbax_round_trip(state, directory):
+    """The JAX package's orbax round trip of ``state`` (a
+    :func:`tw.ckpt_state`) in the same tables on its 8-device mesh: each
+    table's logical rows loaded (its own padding rows zero), saved with
+    orbax, moved by an add, restored; each table's Get and stored leaves,
+    logical rows."""
+    import io
+    import multiverso_tpu as jmv
+    from multiverso_tpu import checkpoint as jcheckpoint
+    jmv.init()
+    try:
+        tables = tw.ckpt_tables(jmv)
+        for t in tables:
+            rows = t.shape[0]
+            buf = io.BytesIO()
+
+            def padded(a):
+                a = np.asarray(a, np.float32)
+                if a.ndim == 0:
+                    return a
+                out = np.zeros((t.padded_shape[0],) + a.shape[1:],
+                               np.float32)
+                out[:rows] = a[:rows]
+                return out
+
+            np.save(buf, padded(state[t.name]["get"]))
+            leaves = state[t.name]["leaves"]
+            np.save(buf, np.asarray(len(leaves)))
+            for leaf in leaves:
+                np.save(buf, padded(leaf))
+            buf.seek(0)
+            t.load(buf)
+        jcheckpoint.save(directory, tag="jax", backend="orbax")
+        for t in tables:
+            t.add(np.ones(t.shape, np.float32))
+        assert jcheckpoint.restore(directory, tag="jax") == 3
+        out = {}
+        for t in tables:
+            buf = io.BytesIO()
+            t.store(buf)
+            buf.seek(0)
+            np.load(buf)
+            leaves = [np.load(buf) for _ in range(int(np.load(buf)))]
+            out[t.name] = {
+                "get": np.asarray(t.get()),
+                "leaves": [l if l.ndim == 0 else l[: t.shape[0]]
+                           for l in leaves]}
+        return out
+    finally:
+        jmv.shutdown()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_restore_equals_the_jax_orbax_round_trip(runs, world,
+                                                         tmp_path):
+    """The world's restored state (its own tag) equals the JAX package's
+    orbax round trip of the same state on its mesh, bit for bit (logical
+    rows: the packages pad alike only where the row count allows)."""
+    o = _sharded(runs, world)[0]
+    got = o["restores"][f"orbax_w{world}"]["state"]
+    want = _jax_orbax_round_trip(o["saved"], str(tmp_path))
+    logical = {name: {"get": got[name]["get"],
+                      "leaves": [np.asarray(l) if np.ndim(l) == 0 else
+                                 np.asarray(l)[: len(got[name]["get"])]
+                                 for l in got[name]["leaves"]]}
+               for name in got}
+    _state_equal(logical, want, f"world {world} against JAX")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("mode", ["block", "async"])
+def test_elastic_loop_resumes_on_the_sharded_format(runs, world, mode):
+    """``ElasticLoop(backend="orbax", keep=1)``: every rank of the world
+    checkpoints after steps 2 and 5, rank 0 alone prunes, and a fresh Zoo
+    resumes at 6 and lands, redoing step 6, on the first run's table bit
+    for bit. The prune counts committed tags: blocking, step 5's save
+    prunes step 2's; asynchronous, step 5's is not yet committed when
+    the loop prunes, so step 2's stays (as in the JAX package)."""
+    tags = (["step_000000005"] if mode == "block" else
+            ["step_000000002", "step_000000005"])
+    for o in _sharded(runs, world):
+        e = o["elastic"][mode]
+        assert e == {"start": 6, "same": True, "tags": tags}, (o["rank"], e)
 
 
 # ---------------------------------------------------------------------- #

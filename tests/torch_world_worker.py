@@ -6,6 +6,7 @@ Started the way a launcher starts a rank: ``MASTER_ADDR``,
 joins its world with ``net_init()``, which reads them.
 
     python tests/torch_world_worker.py scenario [--device cpu]
+        [--ckpt DIR]
     python tests/torch_world_worker.py seeded --seed S [--device cpu]
         [--ckpt DIR]
 
@@ -15,8 +16,9 @@ package (inputs from :func:`seeded_inputs`, shared by both), then the
 port's own: row reads with each rank's own ids, the sparse protocol with
 one worker id on every rank and, with ``--ckpt``, a checkpoint saved by
 the sharded world and the restore of a one-process one
-(:func:`one_process_checkpoint`). Each prints one ``RESULT <json>``
-line.
+(:func:`one_process_checkpoint`). With ``--ckpt`` both modes then run
+:func:`sharded_checkpoint` (``backend="orbax"``; a world of 2 and one of
+4 each restore the other's tag). Each prints one ``RESULT <json>`` line.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ if _REPO not in sys.path:
 # runs 2 CPU devices a process and meets its PS peers through the
 # jax.distributed coordinator's store
 BY_DESIGN = ("devices", "num_servers", "rendezvous")
-# the port's scenario keys that the JAX worker does not print
-PORT_ONLY = ("layout",)
+# the port's scenario keys that the JAX worker does not print (the
+# sharded checkpoint's only with --ckpt)
+PORT_ONLY = ("layout", "sharded")
 
 
 def closed_forms(nprocs: int) -> Dict:
@@ -291,6 +294,7 @@ def seeded(seed: int, device, ckpt: str = "") -> Dict:
     mv.shutdown()
     if ckpt:
         out["ckpt"] = world_checkpoint(ckpt, device)
+        out["sharded"] = sharded_checkpoint(ckpt, device)
     return out
 
 
@@ -368,7 +372,8 @@ def ckpt_state(tables) -> Dict:
 
 def one_process_checkpoint(directory: str, seed: int) -> Dict:
     """In a process with no world: the checkpoint tables trained on one
-    process and saved under ``directory/one``; their state."""
+    process and saved under ``directory/one`` (stream) and
+    ``directory/one_orbax`` (sharded); their state."""
     import multiverso_tpu_torch as mv
     from multiverso_tpu_torch import checkpoint
     mv.init(device="cpu")
@@ -376,6 +381,7 @@ def one_process_checkpoint(directory: str, seed: int) -> Dict:
         tables = ckpt_tables(mv)
         ckpt_train(tables, seed, 0)
         checkpoint.save(directory, tag="one")
+        checkpoint.save(directory, tag="one_orbax", backend="orbax")
         return ckpt_state(tables)
     finally:
         mv.shutdown()
@@ -409,6 +415,229 @@ def world_checkpoint(directory: str, device) -> Dict:
     return {"saved": saved, "restored": restored, "blocks": blocks}
 
 
+# ---------------------------------------------------------------------- #
+# the sharded checkpoint (backend="orbax"): each rank its own block
+# ---------------------------------------------------------------------- #
+# what a sharded save or restore must never call: each gathers a whole
+# table (or a whole leaf) onto a rank
+GATHERS = ("Table.unshard", "Table.whole_state", "Table._stored_arrays",
+           "Table._gather_rows_of", "Table._gathered_rows",
+           "collectives.raw_all_gather", "collectives.process_all_gather")
+PEER_WAIT_S = 100.0   # a world waits this long for the other's tag
+
+
+class GatherWatch:
+    """Inside ``with``: the calls of :data:`GATHERS` and the paths this
+    process opened through the checkpoint module for writing."""
+
+    def __init__(self):
+        from multiverso_tpu_torch import checkpoint, table
+        from multiverso_tpu_torch.parallel import collectives
+        self._mods = {"Table": table.Table, "collectives": collectives}
+        self._ck = checkpoint
+        self.calls = {name: 0 for name in GATHERS}
+        self.written = []
+
+    def __enter__(self):
+        self._saved = []
+        for name in GATHERS:
+            owner, attr = name.split(".")
+            obj = self._mods[owner]
+            real = obj.__dict__[attr]
+
+            def counted(*a, _real=real, _name=name, **kw):
+                self.calls[_name] += 1
+                return _real(*a, **kw)
+
+            self._saved.append((obj, attr, real))
+            setattr(obj, attr, counted)
+        real_open = self._ck.open_stream
+
+        def opened(path, mode="rb"):
+            if "w" in mode:
+                self.written.append(path)
+            return real_open(path, mode)
+
+        self._saved.append((self._ck, "open_stream", real_open))
+        self._ck.open_stream = opened
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, real in reversed(self._saved):
+            setattr(obj, attr, real)
+        return False
+
+
+def _blocks(tables) -> Dict:
+    """This rank's block of each table: its rows and its data and
+    row-leaf tensors, as lists."""
+    return {t.name: {"rows": list(t.sharding.rows),
+                     "data": t.state["data"].cpu().numpy().tolist(),
+                     "ustate": {k: v.cpu().numpy().tolist()
+                                for k, v in t.state["ustate"].items()
+                                if t._state_row_axis(v) is not None}}
+            for t in tables}
+
+
+def _peer_committed(directory: str, tag: str) -> bool:
+    """Rank 0 waits up to PEER_WAIT_S for ``tag``'s commit marker and
+    tells every rank whether it came (one collective), so that the world
+    restores it together or not at all."""
+    import time
+
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+    from multiverso_tpu_torch.parallel.collectives import process_sum
+    found = 0
+    if mv.rank() == 0:
+        deadline = time.monotonic() + PEER_WAIT_S
+        path = os.path.join(directory, tag)
+        while not checkpoint.is_committed(path):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        found = int(checkpoint.is_committed(path))
+    return bool(process_sum(np.array([found], np.int64))[0])
+
+
+def _elastic(directory: str, device, block: bool) -> Dict:
+    """``ElasticLoop(backend="orbax", block=block, keep=1)`` over 7 steps
+    of collective adds (checkpoints after steps 2 and 5, each pruning the
+    one before on rank 0), then a fresh Zoo resumed from it: the step it
+    resumes at and whether redoing step 6 lands on the first run's table
+    bit for bit."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import elastic
+    from multiverso_tpu_torch.updaters import AddOption
+    opt = AddOption(**CKPT_ADAGRAD)
+
+    def loop():
+        return elastic.ElasticLoop(directory, every=3, keep=1,
+                                   heartbeat_interval=60, backend="orbax",
+                                   block=block)
+
+    def table():
+        return mv.MatrixTable(SEEDED_ROWS - 1, SEEDED_COLS,
+                              updater="adagrad", name="ck_elastic")
+
+    def step(t, i):
+        t.add_rows(np.arange(i, i + 5), np.full((5, SEEDED_COLS),
+                                                 i + 1.0, np.float32), opt)
+
+    mv.init(device=device)
+    try:
+        t, lp = table(), loop()
+        try:
+            for i in range(lp.resume(), 7):
+                step(t, i)
+                lp.completed(i)
+        finally:
+            lp.stop()
+        want = t.get()
+    finally:
+        mv.shutdown()
+    mv.init(device=device)
+    try:
+        t, lp = table(), loop()
+        try:
+            start = lp.resume()
+        finally:
+            lp.stop()
+        step(t, 6)
+        same = bool(np.array_equal(t.get(), want))
+    finally:
+        mv.shutdown()
+    tags = sorted(n for n in os.listdir(directory) if n.startswith("step_"))
+    return {"start": start, "same": same, "tags": tags}
+
+
+def _failed_saves(directory: str, own: str, rank: int, world: int) -> Dict:
+    """A sharded save, blocking and not, whose array files fail to open
+    on the last rank alone: what each rank raised, and whether the tag
+    was committed."""
+    from multiverso_tpu_torch import checkpoint
+    out = {}
+    real = checkpoint.open_stream
+    for name, block in (("block", True), ("async", False)):
+        tag = f"{own}_broken_{name}"
+
+        def failing(path, mode="rb", _tag=tag):
+            if (rank == world - 1 and f"{_tag}{os.sep}" in path
+                    and path.endswith(".npy")):
+                raise OSError("disk full")
+            return real(path, mode)
+
+        checkpoint.open_stream = failing
+        try:
+            checkpoint.save(directory, tag=tag, backend="orbax", block=block)
+            checkpoint.wait_pending()
+            out[name] = "no error"
+        except (OSError, RuntimeError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+        finally:
+            checkpoint.open_stream = real
+        out[f"{name}_committed"] = checkpoint.is_committed(
+            os.path.join(directory, tag))
+    return out
+
+
+def sharded_checkpoint(directory: str, device, seed: int = 11) -> Dict:
+    """The checkpoint tables of :func:`ckpt_tables` in a fresh Zoo of this
+    world, trained, then saved sharded under ``directory/orbax_w<N>``
+    (blocking) and ``orbax_w<N>_async`` (``block=False``), watched
+    (:class:`GatherWatch`). Then, each watched: restored after more adds (the
+    same world), ``one_orbax`` restored (saved by one process), and the
+    other world's tag (worlds 2 and 4: ``orbax_w4``, ``orbax_w2``)
+    restored once it is committed; each state gathered after its
+    restore. Then a save that fails on the last rank only
+    (:func:`_failed_saves`), and last ``ElasticLoop`` on the backend,
+    blocking and not."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+    mv.init(device=device)
+    world, rank = mv.size(), mv.rank()
+    own, peer = f"orbax_w{world}", f"orbax_w{6 - world}"
+    out: Dict = {"rank": rank, "world": world}
+    try:
+        tables = ckpt_tables(mv)
+        ckpt_train(tables, seed, rank)
+        with GatherWatch() as w:
+            checkpoint.save(directory, tag=own, backend="orbax")
+            checkpoint.save(directory, tag=own + "_async",
+                            backend="orbax", block=False)
+            out["staged"] = checkpoint._pending.staged
+            checkpoint.wait_pending()
+        out["save_calls"], out["written"] = w.calls, w.written
+        out["staged_after"] = checkpoint._GAUGES.memory_stats()[
+            "staging_bytes"]
+        out["saved"] = ckpt_state(tables)
+        out["blocks"] = _blocks(tables)
+        out["block_bytes"] = sum(
+            t.state["data"].numel() * t.state["data"].element_size()
+            + sum(v.numel() * v.element_size()
+                  for v in t.state["ustate"].values()
+                  if t._state_row_axis(v) is not None) for t in tables)
+        restores = {}
+        for tag in (own, "one_orbax", peer):
+            if tag == peer and not _peer_committed(directory, peer):
+                continue
+            ckpt_train(tables, seed + 1, rank)   # move away from it
+            with GatherWatch() as w:
+                n = checkpoint.restore(directory, tag=tag)
+            restores[tag] = {"n": n, "calls": w.calls,
+                             "written": w.written,
+                             "state": ckpt_state(tables)}
+        out["restores"] = restores
+        out["failures"] = _failed_saves(directory, own, rank, world)
+    finally:
+        mv.shutdown()
+    out["elastic"] = {
+        name: _elastic(os.path.join(directory, f"elastic_w{world}_{name}"),
+                       device, block)
+        for name, block in (("block", True), ("async", False))}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("scenario", "seeded"))
@@ -427,8 +656,12 @@ def main() -> None:
     if mv.net_init(device=args.device) != 0:
         sys.exit(f"rank {os.environ.get('RANK')}: net_init failed")
     try:
-        out = (scenario(args.device) if args.mode == "scenario"
-               else seeded(args.seed, args.device, args.ckpt))
+        if args.mode == "scenario":
+            out = scenario(args.device)
+            if args.ckpt:
+                out["sharded"] = sharded_checkpoint(args.ckpt, args.device)
+        else:
+            out = seeded(args.seed, args.device, args.ckpt)
     finally:
         leave_world()
     print("RESULT " + json.dumps(out), flush=True)
