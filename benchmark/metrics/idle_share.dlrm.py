@@ -1,0 +1,9 @@
+"""idle_share.dlrm: the share of the traced window in which no kernel,
+copy or set runs on the device, in percent."""
+
+
+def read(rec):
+    tr = rec.get("trace")
+    if rec["driver"] != "dlrm" or tr is None or tr.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
